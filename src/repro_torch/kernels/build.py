@@ -1,0 +1,120 @@
+"""Build the CUDA kernels with ``nvcc`` and bind them with ``ctypes``.
+
+Every ``csrc/*.cu`` is compiled for ``sm_90a`` into an object, all at once
+(one ``nvcc`` per source, started together), and the objects are linked into
+one shared library with a plain C interface. The library lands in
+``build/kernels/`` at the repository root under a name that carries a hash
+of the sources and flags, so a changed source rebuilds and an unchanged one
+is loaded as it is. Nothing is built when this module is imported: the first
+``load()`` builds, which needs ``nvcc`` (``$CUDA_HOME/bin``, ``PATH`` or
+``/usr/local/cuda/bin``) and is only ever called for tensors on the card.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+import time
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+# C entry points: name -> argtypes (every one returns a cudaError_t as int)
+SIGNATURES = {
+    "repro_flash_attention": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
+                              _I, _F, _P),
+    "repro_decode_attention": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                               _I, _I, _I, _F, _I, _P),
+    "repro_decode_attention_warps": (),
+}
+
+
+def nvcc_path() -> str:
+    cands = [os.path.join(os.environ["CUDA_HOME"], "bin", "nvcc")
+             if os.environ.get("CUDA_HOME") else None,
+             shutil.which("nvcc"), "/usr/local/cuda/bin/nvcc"]
+    for c in cands:
+        if c and os.path.exists(c):
+            return c
+    raise RuntimeError("repro_torch: nvcc not found (set CUDA_HOME or PATH); "
+                       "the CUDA kernels are built on the machine with the card")
+
+
+def sources() -> list[Path]:
+    return sorted(CSRC.glob("*.cu"))
+
+
+def library_path() -> Path:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for f in sorted(CSRC.glob("*.cu*")):
+        h.update(f.name.encode())
+        h.update(f.read_bytes())
+    return BUILD_DIR / f"librepro_torch_kernels-{h.hexdigest()[:16]}.so"
+
+
+def build() -> tuple[Path, float]:
+    """Compile and link the library if it is not there yet.
+
+    Returns (path, seconds spent building; 0.0 when it was already built).
+    The compiler's ``-Xptxas -v`` report (registers, shared memory, spills)
+    is kept beside the library as ``<name>.log``.
+    """
+    out = library_path()
+    if out.exists():
+        return out, 0.0
+    t0 = time.perf_counter()
+    nvcc = nvcc_path()
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        objs, procs = [], []
+        for src in sources():
+            obj = Path(tmp) / (src.stem + ".o")
+            objs.append(obj)
+            procs.append((src, subprocess.Popen(
+                [nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-c", str(src),
+                 "-o", str(obj)],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+        log = []
+        failed = []
+        for src, p in procs:
+            text, _ = p.communicate()
+            log.append(f"== {src.name}\n{text}")
+            if p.returncode != 0:
+                failed.append(src.name)
+        if failed:
+            raise RuntimeError(f"nvcc failed for {failed}:\n" + "\n".join(log))
+        tmp_so = Path(tmp) / out.name
+        link = subprocess.run(
+            [nvcc, "-gencode", "arch=compute_90a,code=sm_90a", "-shared",
+             "-o", str(tmp_so), *map(str, objs)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        if link.returncode != 0:
+            raise RuntimeError(f"nvcc link failed:\n{link.stdout}")
+        out.with_suffix(".log").write_text("\n".join(log))
+        os.replace(tmp_so, out)   # atomic: a concurrent build loses nothing
+    return out, time.perf_counter() - t0
+
+
+def build_log() -> str:
+    p = library_path().with_suffix(".log")
+    return p.read_text() if p.exists() else ""
+
+
+@functools.cache
+def load() -> ctypes.CDLL:
+    """Build if needed, load the library once and declare every entry point."""
+    path, _ = build()
+    lib = ctypes.CDLL(str(path))
+    for name, argtypes in SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = list(argtypes)
+        fn.restype = ctypes.c_int
+    return lib
