@@ -3,22 +3,33 @@
 
     python3 chip_smoke.py
 
-Model: internlm2-1.8b at full width (24 layers, d=2048, 16 heads, 8 kv
-heads, dh=128, d_ff=8192, V=92544), random weights from a seed. Phases:
+Models, at full width with random weights from a seed, depth not cut:
+internlm2-1.8b (24 layers, d=2048, 16 heads, 8 kv heads, dh=128, d_ff=8192,
+V=92544) and falcon-mamba-7b (64 Mamba layers, d=4096, d_inner=8192,
+d_state=16, d_conv=4, dt_rank=256, V=65024). Phases:
 
 1. device: name, power limit, kernel build (nvcc, sm_90a) and its seconds;
 2. each CUDA kernel, launched directly, against its plain PyTorch version
-   on the card (tolerance 2e-5 for f32, 2e-2 for bf16, as the JAX package's
-   kernel tests use);
-3. ``forward`` in bf16 on tokens [2, 2048] with the flash kernel against the
-   plain path, and the flash launch count (one per layer);
-4. ``SlotServer`` with f32 weights and its f32 cache (4 slots, max_len 4096,
-   8 requests x 64 tokens) through the decode kernel: every request gets its
-   tokens, a lockstep kernel/plain ``serve_step`` run holds the logits, the
-   greedy streams agree, and the decode launch count is n_layers x steps;
-5. timings (CUDA-event medians) of each kernel, its plain version and one
-   PyTorch library call at the shapes of phases 3-4, with the kernel's bound.
+   on the card (tolerance 2e-5 for f32, 2e-2 for bf16, 1e-5 for the scan,
+   as the JAX package's kernel tests use);
+3. internlm2 ``forward`` in bf16 on tokens [2, 2048] with the flash kernel
+   against the plain path, and the flash launch count (one per layer);
+   3b. falcon-mamba ``forward`` the same way through the scan kernel (one
+   launch per layer);
+4. internlm2 ``SlotServer`` with f32 weights and its f32 cache (4 slots,
+   max_len 4096, 8 requests x 64 tokens) through the decode kernel: every
+   request gets its tokens, a lockstep kernel/plain ``serve_step`` run holds
+   the logits, the greedy streams agree, and the decode launch count is
+   n_layers x steps;
+   4b. falcon-mamba ``SlotServer`` the same way through the scan kernel
+   (f32 conv and SSM caches; n_layers x steps scan launches);
+5. timings (CUDA-event medians and profiler device time) of each kernel,
+   its plain version and, where one exists, one PyTorch library call at the
+   shapes of phases 3-4, with the kernel's bound.
 
+Every breakdown prints the port's kernel launches the profiler recorded
+beside those the wrappers counted, and reads its device busy time as a lower
+bound when records are missing. Peak device memory is printed per phase.
 f32 products run in full f32 (``allow_tf32`` off for matmul and cuDNN).
 Any failure raises and exits non-zero; nothing is turned into success. The
 last line is ``{"ok": true, "device": {...}}``. Needs one card; exits
@@ -52,6 +63,7 @@ TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
 SEED = 0
 DEVICE = "cuda"   # the phases take their device from here
 ARCH = "internlm2-1.8b"
+MAMBA_ARCH = "falcon-mamba-7b"
 FWD_B, FWD_S = 2, 2048
 SLOTS, MAX_LEN, REQUESTS, TOKENS = 4, 4096, 8, 64
 
@@ -62,6 +74,15 @@ KERNELS = {
     "decode_attention": dict(
         route="cuda", source="src/repro_torch/kernels/csrc/decode_attention.cu",
         replaces="src/repro/kernels/decode_attention.py:79"),
+    "selective_scan": dict(
+        route="cuda", source="src/repro_torch/kernels/csrc/selective_scan.cu",
+        replaces="src/repro/kernels/selective_scan.py:49"),
+}
+# device kernels each wrapper launches once per counted launch
+DEVICE_KERNELS = {
+    "flash_attention": ("flash_fwd_kernel",),
+    "decode_attention": ("decode_split_kernel", "decode_combine_kernel"),
+    "selective_scan": ("selective_scan_kernel",),
 }
 
 
@@ -119,44 +140,81 @@ def _dev_time_us(ev) -> float:
 
 def profile_kernels(fn, iters: int = 10) -> dict:
     """Device time of fn() by kernel name, from torch.profiler (CUPTI):
-    {name: (launches recorded / iters, ms recorded / iters)}. Empty when the
-    profiler saw no device activity."""
+    {"kernels": {name: (launches recorded / iters, ms recorded / iters)},
+    "counted": {wrapper: launches ``ops.LAUNCHES`` counted / iters}}.
+    "kernels" is empty when the profiler saw no device activity."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     sync()
+    before = dict(ops.LAUNCHES)
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         for _ in range(iters):
             fn()
         sync()
+    counted = {k: (ops.LAUNCHES[k] - before[k]) / iters for k in before
+               if ops.LAUNCHES[k] != before[k]}
     out = {}
     for ev in prof.key_averages():
         if str(getattr(ev, "device_type", "")).endswith("CUDA"):
             t = _dev_time_us(ev)
             if t > 0:
                 out[ev.key] = (ev.count / iters, t / iters / 1e3)
-    return out
+    return {"kernels": out, "counted": counted}
 
 
 def kernel_ms(prof: dict, *names: str):
     """Device ms per launch, summed over the kernels whose names contain one
     of names (each launched once per call); per launch recorded, so a launch
     the profiler dropped does not dilute it."""
-    hits = [ms / n for key, (n, ms) in prof.items()
+    hits = [ms / n for key, (n, ms) in prof["kernels"].items()
             if n and any(x in key for x in names)]
     return sum(hits) if hits else None
 
 
 def log_breakdown(tag: str, prof: dict, wall_ms: float, top: int = 6) -> None:
-    """Device busy time against host wall time per call, and the top kernels."""
-    if not prof:
+    """Device busy time against host wall time per call, and the top kernels.
+
+    Busy time is the sum of the milliseconds the profiler recorded, per call.
+    Beside it stand the port's kernel launches the profiler recorded and
+    those the wrappers counted for the same calls: when fewer were recorded,
+    records were dropped and the busy total is a lower bound (drops among
+    library kernels cannot be seen this way)."""
+    kernels = prof["kernels"]
+    if not kernels:
         log(f"breakdown {tag}: profiler saw no device time (not measured)")
         return
-    busy = sum(ms for _, ms in prof.values())
+    busy = sum(ms for _, ms in kernels.values())
+    short = []
+    for name, per_call in sorted(prof["counted"].items()):
+        names = DEVICE_KERNELS[name]
+        seen = sum(n for key, (n, _) in kernels.items()
+                   if any(x in key for x in names))
+        want = per_call * len(names)
+        log(f"breakdown {tag}: {name} launches recorded {seen:g} / counted "
+            f"{want:g} per call")
+        if seen < want:
+            short.append(name)
+    bound = ">= " if short else ""
+    note = (f" (lower bound: launch records of {', '.join(short)} missing)"
+            if short else "")
     log(f"breakdown {tag}: wall {wall_ms:.3f} ms/call, device busy "
-        f"{busy:.3f} ms/call ({100 * busy / wall_ms:.1f}%, idle "
-        f"{100 * (1 - busy / wall_ms):.1f}%)")
-    for key, (n, ms) in sorted(prof.items(), key=lambda kv: -kv[1][1])[:top]:
+        f"{bound}{busy:.3f} ms/call ({bound}{100 * busy / wall_ms:.1f}%, idle "
+        f"{'<= ' if short else ''}{100 * (1 - busy / wall_ms):.1f}%){note}")
+    for key, (n, ms) in sorted(kernels.items(), key=lambda kv: -kv[1][1])[:top]:
         log(f"  {100 * ms / busy:5.1f}% {ms:8.4f} ms x{n:g} {key[:90]}")
+
+
+def log_memory(tag: str) -> None:
+    """Peak device memory since the last reset, then reset it."""
+    if torch.device(DEVICE).type == "cuda":
+        log(f"memory {tag}: peak {torch.cuda.max_memory_allocated() / 2**30:.2f}"
+            f" GiB allocated")
+        torch.cuda.reset_peak_memory_stats()
+
+
+def runtime(impl: str) -> M.Runtime:
+    """The kernel path or the plain path, for attention and scan alike."""
+    return M.Runtime(attn_impl=impl, scan_impl=impl)
 
 
 def host_ms(fn, iters: int) -> float:
@@ -224,10 +282,41 @@ FLASH_CASES = [
     (1, 1000, 8, 2, 64, torch.bfloat16, True, 128, 30.0),
 ]
 
+SCAN_CASES = [
+    # (B, S, DI, DS, with h0): falcon-mamba's forward shape, its decode step,
+    # a ragged F (8240 * 16 = 515 blocks of 256 and a half), a small odd F
+    (2, 2048, 8192, 16, False),
+    (4, 1, 8192, 16, True),
+    (3, 1000, 8192 + 48, 16, False),
+    (2, 300, 7, 3, True),
+]
+SCAN_TOL = 1e-5
+
+
+def _scan_operands(g, B, S, DI, DS, with_h0):
+    """a in [0.499, 0.999) (a decay, as exp(dt * A) is), b and h0 normal."""
+    a = torch.rand((B, S, DI, DS), generator=g, device=DEVICE) * 0.5 + 0.499
+    b = torch.randn((B, S, DI, DS), generator=g, device=DEVICE)
+    h0 = (torch.randn((B, DI, DS), generator=g, device=DEVICE)
+          if with_h0 else None)
+    return a, b, h0
+
 
 def phase_kernels() -> dict:
     g = torch.Generator(device=DEVICE).manual_seed(SEED)
-    errs = {"flash_attention": 0.0, "decode_attention": 0.0}
+    errs = {"flash_attention": 0.0, "decode_attention": 0.0,
+            "selective_scan": 0.0}
+    for B, S, DI, DS, with_h0 in SCAN_CASES:
+        a, b, h0 = _scan_operands(g, B, S, DI, DS, with_h0)
+        out = ops.selective_scan(a, b, h0)
+        sync()
+        want = ref.selective_scan_ref(a, b, h0)
+        err = assert_close(out, want, SCAN_TOL, f"scan {B, S, DI, DS, with_h0}")
+        errs["selective_scan"] = max(errs["selective_scan"], err)
+        log(f"scan B={B} S={S} DI={DI} DS={DS} h0={with_h0}: max_abs_err "
+            f"{err:.3e} (tol {SCAN_TOL}), bit-identical "
+            f"{bool(torch.equal(out, want))}")
+        del a, b, h0, out, want
     for B, S, H, KV, D, dt, window, softcap, lens in DECODE_CASES:
         q = _randn(g, (B, H, D), dt)
         k = _randn(g, (B, S, KV, D), dt)
@@ -265,69 +354,83 @@ def phase_kernels() -> dict:
 
 
 # ---------------------------------------------------------------------------
-# phase 3: forward at full width, bf16
+# phase 3 / 3b: forward at full width, bf16
 # ---------------------------------------------------------------------------
 
 
-def phase_forward(cfg) -> dict:
+def as_f32(params, cfg):
+    """An f32 copy of ``params`` made leaf by leaf (no second bf16 copy)."""
+    p32 = M.DecoderParams(cfg, torch.float32, params.embed.device)
+    with torch.no_grad():
+        for dst, src in zip(p32.parameters(), params.parameters()):
+            dst.copy_(src)
+    return p32
+
+
+def phase_forward(cfg, kernel: str) -> dict:
+    """``forward`` in bf16 on tokens [FWD_B, FWD_S] through ``kernel`` (one
+    launch per layer), held against the plain path and an f32 forward."""
     g = torch.Generator(device=DEVICE).manual_seed(SEED)
     params = M.init_params(g, cfg, torch.bfloat16, DEVICE)
     tokens = torch.randint(0, cfg.vocab, (FWD_B, FWD_S), generator=g,
                            device=DEVICE)
     batch = {"tokens": tokens}
+    tag = f"forward {cfg.name} bf16 [{FWD_B},{FWD_S}]"
     with torch.inference_mode():
         ops.reset_launches()
-        logits_k, _ = M.forward(params, batch, cfg, M.Runtime("kernel"))
+        logits_k, _ = M.forward(params, batch, cfg, runtime("kernel"))
         sync()
-        launches = ops.LAUNCHES["flash_attention"]
-        logits_p, _ = M.forward(params, batch, cfg, M.Runtime("plain"))
+        launches = ops.LAUNCHES[kernel]
+        logits_p, _ = M.forward(params, batch, cfg, runtime("plain"))
         sync()
     check(launches == cfg.n_layers,
-          f"flash launches {launches} != n_layers {cfg.n_layers}")
+          f"{kernel} launches {launches} != n_layers {cfg.n_layers}")
     check(tuple(logits_k.shape) == (FWD_B, FWD_S, cfg.vocab), "logits shape")
     check(bool(torch.isfinite(logits_k).all()), "non-finite logits")
-    # bf16 activations round at every one of the 24 layers, so two bf16 paths
-    # that differ only in attention's summation order drift apart by about
-    # what bf16 itself costs. The stated tolerance is relative to that cost:
-    # against an f32 forward of the same weights (the plain path in full f32),
-    # the kernel path's max and mean errors may be at most 2x and 1.25x the
+    # bf16 activations round at every layer, so two bf16 paths that differ
+    # only in a kernel's summation order drift apart by about what bf16
+    # itself costs. The stated tolerance is relative to that cost: against
+    # an f32 forward of the same weights (the plain path in full f32), the
+    # kernel path's max and mean errors may be at most 2x and 1.25x the
     # plain bf16 path's.
     with torch.inference_mode():
-        p32 = copy.deepcopy(params).float()
-        logits_r, _ = M.forward(p32, batch, cfg, M.Runtime("plain"))
+        p32 = as_f32(params, cfg)
+        logits_r, _ = M.forward(p32, batch, cfg, runtime("plain"))
         del p32
     e_k, e_p = max_err(logits_k, logits_r), max_err(logits_p, logits_r)
     m_k = (logits_k - logits_r).abs().mean().item()
     m_p = (logits_p - logits_r).abs().mean().item()
     top1 = (logits_k.argmax(-1) == logits_p.argmax(-1)).float().mean().item()
-    log(f"forward bf16 [{FWD_B},{FWD_S}]: flash launches {launches}; vs f32 "
-        f"forward: kernel max {e_k:.3e} mean {m_k:.3e}, plain max {e_p:.3e} "
-        f"mean {m_p:.3e}; kernel vs plain max {max_err(logits_k, logits_p):.3e}"
-        f", max|logit| {logits_r.abs().max().item():.3f}, top-1 agreement "
+    log(f"{tag}: {kernel} launches {launches}; vs f32 forward: kernel max "
+        f"{e_k:.3e} mean {m_k:.3e}, plain max {e_p:.3e} mean {m_p:.3e}; "
+        f"kernel vs plain max {max_err(logits_k, logits_p):.3e}, "
+        f"max|logit| {logits_r.abs().max().item():.3f}, top-1 agreement "
         f"{top1:.4f}")
     check(e_k <= 2 * e_p and m_k <= 1.25 * m_p,
           "forward logits: the kernel path is less accurate than the plain "
           "path beyond the stated tolerance")
+    del logits_k, logits_p, logits_r
     with torch.inference_mode():
         fwd_ms = cuda_ms(lambda: M.forward(params, batch, cfg,
-                                           M.Runtime("kernel")), iters=5,
+                                           runtime("kernel")), iters=5,
                          warmup=1)
         fwd_plain_ms = cuda_ms(lambda: M.forward(params, batch, cfg,
-                                                 M.Runtime("plain")), iters=3,
+                                                 runtime("plain")), iters=3,
                                warmup=1)
-        log_breakdown("forward kernel", profile_kernels(
-            lambda: M.forward(params, batch, cfg, M.Runtime("kernel")), 2),
+        log_breakdown(f"{tag} kernel", profile_kernels(
+            lambda: M.forward(params, batch, cfg, runtime("kernel")), 2),
             fwd_ms)
-    log(f"forward bf16 [{FWD_B},{FWD_S}]: kernel {fwd_ms:.2f} ms "
+    log(f"{tag}: kernel {fwd_ms:.2f} ms "
         f"({FWD_B * FWD_S / fwd_ms * 1e3:.0f} tok/s), plain path "
         f"{fwd_plain_ms:.2f} ms ({FWD_B * FWD_S / fwd_plain_ms * 1e3:.0f} tok/s)")
-    del params, logits_k, logits_p, logits_r
+    del params
+    log_memory(tag)
     torch.cuda.empty_cache()
     return {"launches": launches}
 
 
 # ---------------------------------------------------------------------------
-# phase 4: serving at full width, f32
+# phase 4 / 4b: serving at full width, f32
 # ---------------------------------------------------------------------------
 
 
@@ -362,10 +465,15 @@ def _serve(server: SlotServer, gaps: list) -> tuple[dict, int, float]:
     return done, steps, time.perf_counter() - t0
 
 
-def phase_serve(cfg) -> dict:
+def phase_serve(cfg, kernel: str) -> dict:
+    """``SlotServer`` with f32 weights and cache through ``kernel`` (one
+    launch per layer per step): lockstep logits, greedy streams, launches.
+    Returns the kernel path's lockstep cache and last positions, which
+    phase 5 times the kernel on."""
     g = torch.Generator(device=DEVICE).manual_seed(SEED + 1)
     params = M.init_params(g, cfg, torch.float32, DEVICE)
     tol = TOL[torch.float32]
+    tag = f"serve {cfg.name} f32"
     with torch.inference_mode():
         # (a) lockstep: the same tokens into both paths at every step
         caches = {impl: M.init_cache(cfg, SLOTS, MAX_LEN, torch.float32, DEVICE)
@@ -375,41 +483,38 @@ def phase_serve(cfg) -> dict:
         for t in range(TOKENS):
             pos = torch.full((SLOTS,), t, device=DEVICE, dtype=torch.int32)
             nk, lk, _ = serve_step(params, caches["kernel"], tokens, pos,
-                                   cfg=cfg, rt=M.Runtime("kernel"))
+                                   cfg=cfg, rt=runtime("kernel"))
             _, lp, _ = serve_step(params, caches["plain"], tokens, pos,
-                                  cfg=cfg, rt=M.Runtime("plain"))
+                                  cfg=cfg, rt=runtime("plain"))
             worst = max(worst, assert_close(lk, lp, tol, f"lockstep step {t}"))
             tokens = nk
-        log(f"serve lockstep {TOKENS} steps x {SLOTS} slots: "
+        log(f"{tag} lockstep {TOKENS} steps x {SLOTS} slots: "
             f"max|dlogit| {worst:.3e} (tol {tol})")
-        lock_q = torch.randn((SLOTS, cfg.n_heads, cfg.d_head), device=DEVICE)
-        lock_lengths = (pos + 1).to(torch.int32)
-        decode_shape = (lock_q, caches["kernel"][0]["k"][0],
-                        caches["kernel"][0]["v"][0], lock_lengths)
         # one decode step of each path, timed in turns (plain, kernel,
         # kernel, plain) at the last lockstep position, then profiled
         step = {impl: (lambda impl=impl: serve_step(
-            params, caches[impl], tokens, pos, cfg=cfg, rt=M.Runtime(impl)))
+            params, caches[impl], tokens, pos, cfg=cfg, rt=runtime(impl)))
             for impl in ("kernel", "plain")}
         step_ms = {"kernel": [], "plain": []}
         for impl in ("plain", "kernel", "kernel", "plain"):
             step_ms[impl].append(host_ms(step[impl], 10))
         for impl in ("kernel", "plain"):
             ms = statistics.mean(step_ms[impl])
-            log(f"serve_step {impl} B={SLOTS} pos={TOKENS - 1}: "
+            log(f"{tag} serve_step {impl} B={SLOTS} pos={TOKENS - 1}: "
                 f"{'/'.join(f'{x:.3f}' for x in step_ms[impl])} ms "
                 f"({SLOTS / ms * 1e3:.1f} tok/s)")
-            log_breakdown(f"serve_step {impl}", profile_kernels(step[impl], 5), ms)
+            log_breakdown(f"{tag} serve_step {impl}",
+                          profile_kernels(step[impl], 5), ms)
         # (b) the servers: kernel (counted) and plain
         gaps_k, gaps_p = [], []
         ops.reset_launches()
         out_k, steps, secs_k = _serve(
-            SlotServer(params, cfg, M.Runtime("kernel"), SLOTS, MAX_LEN), gaps_k)
-        launches = ops.LAUNCHES["decode_attention"]
+            SlotServer(params, cfg, runtime("kernel"), SLOTS, MAX_LEN), gaps_k)
+        launches = ops.LAUNCHES[kernel]
         out_p, steps_p, secs_p = _serve(
-            SlotServer(params, cfg, M.Runtime("plain"), SLOTS, MAX_LEN), gaps_p)
+            SlotServer(params, cfg, runtime("plain"), SLOTS, MAX_LEN), gaps_p)
     check(launches == cfg.n_layers * steps,
-          f"decode launches {launches} != n_layers x steps "
+          f"{kernel} launches {launches} != n_layers x steps "
           f"{cfg.n_layers} x {steps}")
     check(sorted(out_k) == list(range(REQUESTS)), "missing requests")
     check(all(len(o) == TOKENS for o in out_k.values()), "short requests")
@@ -422,17 +527,19 @@ def phase_serve(cfg) -> dict:
             seen = [s for s in gaps_p if req in s]
             gap = seen[t][req]
             diverged.append((req, t, gap))
-            log(f"serve: request {req} diverges at token {t}; plain top-2 "
+            log(f"{tag}: request {req} diverges at token {t}; plain top-2 "
                 f"gap there {gap:.3e} (tol {tol})")
             check(gap < tol, f"request {req}: streams diverge at a clear "
                              f"top-2 gap {gap:.3e}")
     tok = REQUESTS * TOKENS
-    log(f"serve f32 {REQUESTS} req x {TOKENS} tok, {SLOTS} slots, max_len "
-        f"{MAX_LEN}: {steps} steps, decode launches {launches}; kernel "
+    log(f"{tag} {REQUESTS} req x {TOKENS} tok, {SLOTS} slots, max_len "
+        f"{MAX_LEN}: {steps} steps, {kernel} launches {launches}; kernel "
         f"{secs_k:.2f} s ({tok / secs_k:.1f} tok/s), plain path {secs_p:.2f} s "
         f"({tok / secs_p:.1f} tok/s); diverged requests: {len(diverged)}")
     check(steps == steps_p, "plain server took another number of steps")
-    return {"launches": launches, "decode_shape": decode_shape}
+    del params
+    log_memory(tag)
+    return {"launches": launches, "cache": caches["kernel"], "pos": pos}
 
 
 # ---------------------------------------------------------------------------
@@ -477,17 +584,20 @@ def time_flash(cfg) -> dict:
                 bound_ms=bound_ms, bound_by=by, device_ms=dev_ms)
 
 
+def make_flush():
+    """A call that writes 256 MB through the 50 MB L2, so that the next
+    kernel's reads start cold."""
+    scratch = torch.empty(256 * 2**20, dtype=torch.uint8, device=DEVICE)
+    return scratch.zero_
+
+
 def time_decode(q, k, v, lengths, tag: str) -> dict:
     B, H, D = q.shape
     S, KV = k.shape[1], k.shape[2]
     mask = (torch.arange(S, device=DEVICE)[None, :] < lengths[:, None].long()
             )[:, None, None, :]                                   # [B,1,1,S]
     qs, ks, vs = q[:, :, None], k.transpose(1, 2), v.transpose(1, 2)
-    scratch = torch.empty(256 * 2**20, dtype=torch.uint8, device=DEVICE)
-
-    def flush():
-        scratch.zero_()   # 256 MB through the 50 MB L2: the cache reads start cold
-
+    flush = make_flush()
     err = max_err(ops.decode_attention(q, k, v, lengths),
                   ref.decode_attention_ref(q, k, v, lengths))
     ms = cuda_ms(lambda: ops.decode_attention(q, k, v, lengths), flush=flush)
@@ -515,6 +625,39 @@ def time_decode(q, k, v, lengths, tag: str) -> dict:
                 bound_ms=bound_ms, bound_by=by, device_ms=dev_ms)
 
 
+def time_scan(a, b, h0, tag: str, cold: bool) -> dict:
+    """The scan kernel at one shape, its plain loop and its bound (bytes:
+    a and b read, h written, h0 read; 2 flops an element). No single PyTorch
+    call computes a linear recurrence, so there is no library time."""
+    flush = make_flush() if cold else None
+    B, S, DI, DS = a.shape
+    err = max_err(ops.selective_scan(a, b, h0), ref.selective_scan_ref(a, b, h0))
+    ms = cuda_ms(lambda: ops.selective_scan(a, b, h0), flush=flush)
+    plain_ms = cuda_ms(lambda: ref.selective_scan_ref(a, b, h0), iters=5,
+                       flush=flush)
+    prof = profile_kernels(lambda: (flush and flush(),
+                                    ops.selective_scan(a, b, h0)), iters=20)
+    dev_ms = kernel_ms(prof, "selective_scan_kernel")
+    if dev_ms is None:
+        log(f"time scan {tag}: the profiler recorded no scan launch; it saw "
+            f"{sorted(k[:60] for k in prof['kernels'])[:6]}")
+    n = a.numel()
+    nbytes = (3 * n + (0 if h0 is None else h0.numel())) * 4
+    flops = 2 * n
+    t_ops = flops / PEAK_FLOPS[torch.float32]
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    bound_ms = max(t_ops, t_bytes) * 1e3
+    by = "operations" if t_ops >= t_bytes else "bytes"
+    log(f"time scan {tag} f32 [{B},{S},{DI},{DS}] h0={h0 is not None}"
+        f"{' cold L2' if cold else ''}: kernel {ms:.4f} ms, plain {plain_ms:.4f}"
+        f" ms, library none, bound {bound_ms * 1e3:.2f} us ({by}: "
+        f"{nbytes / 1e6:.2f} MB), {nbytes / ms / 1e6:.1f} GB/s achieved; "
+        f"kernel device time {_fmt(dev_ms)} ms "
+        f"({_fmt(dev_ms and nbytes / dev_ms / 1e6)} GB/s)")
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=None,
+                bound_ms=bound_ms, bound_by=by, device_ms=dev_ms)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -522,21 +665,43 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False   # full f32 products
     torch.backends.cudnn.allow_tf32 = False
     t_start = time.perf_counter()
-    cfg = get_config(ARCH)
+    cfg, mcfg = get_config(ARCH), get_config(MAMBA_ARCH)
     dev = phase_device()
     errs = phase_kernels()
-    fwd = phase_forward(cfg)
-    serve = phase_serve(cfg)
+    log_memory("kernels")
+    # internlm2: flash (forward) and decode attention
+    fwd = phase_forward(cfg, "flash_attention")
+    serve = phase_serve(cfg, "decode_attention")
     with torch.inference_mode():
         flash_t = time_flash(cfg)
-        decode_t = time_decode(*serve["decode_shape"], tag="serve shape")
-        q, k, v, _ = serve["decode_shape"]
+        q = torch.randn((SLOTS, cfg.n_heads, cfg.d_head), device=DEVICE)
+        k, v = serve["cache"][0]["k"][0], serve["cache"][0]["v"][0]
+        decode_t = time_decode(q, k, v, (serve["pos"] + 1).to(torch.int32),
+                               tag="serve shape")
         full = torch.full((SLOTS,), MAX_LEN, device=DEVICE, dtype=torch.int32)
         time_decode(q, torch.randn_like(k), torch.randn_like(v), full,
                     tag="full cache")
+        del q, k, v, serve["cache"]
+    log_memory("attention timings")
+    torch.cuda.empty_cache()
+    # falcon-mamba: the selective scan, in forward and in each decode step
+    fwd_m = phase_forward(mcfg, "selective_scan")
+    serve_m = phase_serve(mcfg, "selective_scan")
+    with torch.inference_mode():
+        g = torch.Generator(device=DEVICE).manual_seed(SEED + 3)
+        di, ds = mcfg.d_inner, mcfg.mamba.d_state
+        a, b, _ = _scan_operands(g, FWD_B, FWD_S, di, ds, False)
+        scan_t = time_scan(a, b, None, "forward shape", cold=False)
+        a, b, _ = _scan_operands(g, SLOTS, 1, di, ds, False)
+        scan_dec = time_scan(a, b, serve_m["cache"][0]["ssm"][0],
+                             "decode shape", cold=True)
+        del a, b, serve_m["cache"]
+    log_memory("scan timings")
     launches = {"flash_attention": fwd["launches"],
-                "decode_attention": serve["launches"]}
-    timed = {"flash_attention": flash_t, "decode_attention": decode_t}
+                "decode_attention": serve["launches"],
+                "selective_scan": fwd_m["launches"] + serve_m["launches"]}
+    timed = {"flash_attention": flash_t, "decode_attention": decode_t,
+             "selective_scan": scan_t}
     rows = []
     for name, meta in KERNELS.items():
         t = timed[name]
@@ -546,6 +711,15 @@ def main() -> int:
                      "bound_ms": t["bound_ms"], "bound_us": t["bound_ms"] * 1e3,
                      "bound_by": t["bound_by"], "library_ms": t["library_ms"],
                      "device_ms": t["device_ms"]})
+    # the scan runs on both paths: its forward-shape numbers above, the
+    # decode step's and the launches of each path here
+    scan_row = next(r for r in rows if r["name"] == "selective_scan")
+    scan_row.update(
+        launches_forward=fwd_m["launches"], launches_serve=serve_m["launches"],
+        max_abs_err=max(scan_row["max_abs_err"], scan_dec["max_abs_err"]),
+        decode_ms=scan_dec["ms"], decode_plain_ms=scan_dec["plain_ms"],
+        decode_bound_ms=scan_dec["bound_ms"],
+        decode_device_ms=scan_dec["device_ms"])
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": rows}))
     print(f"card: {dev['smi']}")

@@ -5,8 +5,12 @@ numpy (``jax.tree.map(np.asarray, ...)``) and this module never imports JAX.
 Leaf shapes stay as they are. The JAX params stack every block position's
 leaves over ``n_blocks`` on axis 0 (``params["blocks"][i][...][n]``); the
 port holds them as ``layers[n * len(cfg.block) + i]``. The cache keeps the
-same stacked layout on both sides, so its leaves copy one to one. bf16
-leaves travel as ``ml_dtypes.bfloat16`` numpy arrays, the type JAX hands out.
+same stacked layout on both sides, so its leaves copy one to one (``k``/``v``
+for attention, ``conv``/``ssm`` for Mamba). bf16 leaves travel as
+``ml_dtypes.bfloat16`` numpy arrays, the type JAX hands out. Leaves keep
+their dtype: a Mamba model's ``A_log``, ``D`` and ``dt_bias`` are f32 in a
+bf16 model on both sides, and a leaf whose dtype differs from the port's
+parameter is refused, never cast.
 """
 from __future__ import annotations
 
@@ -56,7 +60,11 @@ def _get(module: torch.nn.Module, path) -> torch.Tensor:
 
 def params_from_jax(np_params: Dict[str, Any], cfg: ArchConfig,
                     device=None) -> DecoderParams:
-    """A numpy copy of ``repro.models.model.init_params``'s pytree -> port."""
+    """A numpy copy of ``repro.models.model.init_params``'s pytree -> port.
+
+    The model dtype is the embedding's. Raises ``ValueError`` when a leaf's
+    shape or dtype differs from the port's parameter, or a leaf is missing
+    or unexpected."""
     dev = resolve_device(device)
     dtype = _TORCH_DTYPES[np.asarray(np_params["embed"]).dtype.name]
     out = DecoderParams(cfg, dtype, dev)
@@ -70,6 +78,9 @@ def params_from_jax(np_params: Dict[str, Any], cfg: ArchConfig,
             raise ValueError(f"bridge: {'.'.join(path)} has shape "
                              f"{tuple(src.shape)}, the port wants "
                              f"{tuple(dst.shape)}")
+        if dst.dtype != src.dtype:
+            raise ValueError(f"bridge: {'.'.join(path)} has dtype "
+                             f"{src.dtype}, the port wants {dst.dtype}")
         with torch.no_grad():
             dst.copy_(src)
         seen.add(".".join(path))

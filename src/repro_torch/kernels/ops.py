@@ -18,7 +18,7 @@ import torch
 
 from repro_torch.kernels import build, ref
 
-LAUNCHES = {"flash_attention": 0, "decode_attention": 0}
+LAUNCHES = {"flash_attention": 0, "decode_attention": 0, "selective_scan": 0}
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _HEAD_DIMS = (32, 64, 128, 256)
 _MAX_GROUP = 16
@@ -35,21 +35,24 @@ def _check_heads(H: int, KV: int) -> None:
         raise ValueError(f"q heads {H} must be a multiple of kv heads {KV}")
 
 
-def _check_cuda_operands(name: str, H: int, KV: int, D: int,
-                         *ts: torch.Tensor) -> None:
-    """What the kernels take beyond the plain versions: head dims, head
-    groups, one CUDA device, contiguous 16-byte aligned operands, no grad."""
+def _check_attention_limits(name: str, H: int, KV: int, D: int) -> None:
+    """Head dims and head groups the attention kernels are built for."""
     if H // KV > _MAX_GROUP:
         raise ValueError(f"{name}: head group {H // KV} > {_MAX_GROUP}")
     if D not in _HEAD_DIMS:
         raise ValueError(f"{name}: head dim {D} not in {_HEAD_DIMS}")
+
+
+def _check_cuda_operands(name: str, *ts: torch.Tensor, align: int = 16) -> None:
+    """What the kernels take beyond the plain versions: one CUDA device,
+    contiguous operands aligned to ``align`` bytes, no grad."""
     for t in ts:
         if t.device.type != "cuda" or t.device != ts[0].device:
             raise ValueError(f"{name}: all operands must be on one CUDA device")
         if not t.is_contiguous():
             raise ValueError(f"{name}: operands must be contiguous")
-        if t.data_ptr() % 16:
-            raise ValueError(f"{name}: operands must be 16-byte aligned")
+        if t.data_ptr() % align:
+            raise ValueError(f"{name}: operands must be {align}-byte aligned")
     if torch.is_grad_enabled() and any(t.requires_grad for t in ts):
         raise NotImplementedError(
             f"{name}: the CUDA kernel is forward only; its backward arrives "
@@ -91,7 +94,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if q.device.type == "cpu":
         return ref.flash_attention_ref(q, k, v, causal=causal, window=window,
                                        softcap=softcap)
-    _check_cuda_operands("flash_attention", H, k.shape[2], D, q, k, v)
+    _check_attention_limits("flash_attention", H, k.shape[2], D)
+    _check_cuda_operands("flash_attention", q, k, v)
     out = torch.empty_like(q)
     _launch_flash_attention(q, k, v, out, causal, window, softcap)
     LAUNCHES["flash_attention"] += 1
@@ -139,8 +143,8 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if q.device.type == "cpu":
         return ref.decode_attention_ref(q, k, v, lengths, softcap=softcap,
                                         window=window)
-    _check_cuda_operands("decode_attention", H, k.shape[2], D, q, k, v,
-                         lengths)
+    _check_attention_limits("decode_attention", H, k.shape[2], D)
+    _check_cuda_operands("decode_attention", q, k, v, lengths)
     out = torch.empty_like(q)
     _launch_decode_attention(q, k, v, lengths, out, window, softcap)
     LAUNCHES["decode_attention"] += 1
@@ -162,3 +166,38 @@ def _launch_decode_attention(q, k, v, lengths, out, window, softcap) -> None:
         _ptr(part_ml), B, S, H, KV, D, _DTYPES[q.dtype], int(window or 0),
         float(softcap or 0.0), n_split, _stream())
     _raise_on(code, "decode_attention")
+
+
+# ---------------------------------------------------------------------------
+# selective scan
+# ---------------------------------------------------------------------------
+
+
+def selective_scan(a: torch.Tensor, b: torch.Tensor,
+                   h0: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """``h_t = a_t * h_{t-1} + b_t`` over axis 1. a, b: [B,S,DI,DS] f32;
+    h0: [B,DI,DS] f32 (zeros when None) -> h [B,S,DI,DS] f32."""
+    if a.dim() != 4 or a.shape != b.shape:
+        raise ValueError(f"selective_scan: bad shapes a{tuple(a.shape)} "
+                         f"b{tuple(b.shape)}")
+    ts = (a, b) if h0 is None else (a, b, h0)
+    if h0 is not None and h0.shape != (a.shape[0],) + a.shape[2:]:
+        raise ValueError(f"selective_scan: h0{tuple(h0.shape)} must be "
+                         f"{(a.shape[0],) + tuple(a.shape[2:])}")
+    if any(t.dtype != torch.float32 for t in ts):
+        raise ValueError("selective_scan: a, b and h0 must be float32")
+    if a.device.type == "cpu":
+        return ref.selective_scan_ref(a, b, h0)
+    _check_cuda_operands("selective_scan", *ts, align=4)
+    out = torch.empty_like(a)
+    _launch_selective_scan(a, b, h0, out)
+    LAUNCHES["selective_scan"] += 1
+    return out
+
+
+def _launch_selective_scan(a, b, h0, out) -> None:
+    B, S, DI, DS = a.shape
+    code = build.load().repro_selective_scan(
+        _ptr(a), _ptr(b), ctypes.c_void_p(None) if h0 is None else _ptr(h0),
+        _ptr(out), B, S, DI * DS, _stream())
+    _raise_on(code, "selective_scan")

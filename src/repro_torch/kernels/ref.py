@@ -2,9 +2,10 @@
 
 Same signatures as the wrappers in ``ops``: K/V at kv heads (q head ``h``
 reads kv head ``h // (H // KV)``) and any sequence length. Scores are f32
-and the full score matrix is built, as in ``repro.kernels.ref``. The tests
-use these, and ``ops`` uses them for tensors on the CPU; on the card the
-model only reaches them when ``Runtime(attn_impl="plain")`` asks for them.
+and the full score matrix is built, as in ``repro.kernels.ref``. The scan is
+a loop over the sequence. The tests use these, and ``ops`` uses them for
+tensors on the CPU; on the card the model only reaches them when
+``Runtime(attn_impl="plain")`` or ``Runtime(scan_impl="plain")`` asks.
 """
 from __future__ import annotations
 
@@ -65,3 +66,19 @@ def decode_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     pr = torch.softmax(sc, dim=-1)
     out = torch.einsum("bkgs,bskd->bkgd", pr, v.float())
     return out.reshape(B, H, D).to(q.dtype)
+
+
+def selective_scan_ref(a: torch.Tensor, b: torch.Tensor,
+                       h0: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The linear recurrence ``h_t = a_t * h_{t-1} + b_t`` over axis 1.
+
+    a, b: [B,S,DI,DS] f32; h0: [B,DI,DS] f32, zeros when None -> h
+    [B,S,DI,DS] f32. One rounded product and one rounded sum per step, in
+    order over t (no fused multiply-add).
+    """
+    h = torch.zeros_like(a[:, 0]) if h0 is None else h0
+    out = torch.empty_like(a)
+    for t in range(a.shape[1]):
+        h = a[:, t] * h + b[:, t]
+        out[:, t] = h
+    return out

@@ -1,13 +1,14 @@
-"""Serving driver: batched decode over a dense decoder architecture.
+"""Serving driver: batched decode over a dense decoder or Mamba architecture.
 
 Same flags as ``repro.launch.serve`` plus ``--device`` (default ``cuda``;
 ``cpu`` runs the plain versions of the kernels):
     PYTHONPATH=src python -m repro_torch.launch.serve --arch internlm2-1.8b \
         --requests 8 --tokens 16
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch falcon-mamba-7b
     PYTHONPATH=src python -m repro_torch.launch.serve --device cpu
 The model is the reduced same-family config of ``--arch`` at ``--d-model``,
-with seeded random f32 weights. Mamba, MoE and encoder-decoder archs raise
-``NotImplementedError`` until their slices land.
+with seeded random f32 weights. MoE and encoder-decoder archs (grok, arctic,
+jamba, seamless) raise ``NotImplementedError`` until their slices land.
 """
 from __future__ import annotations
 

@@ -1,20 +1,20 @@
-"""Model layers of the dense decoder families, in PyTorch.
+"""Model layers of the dense decoder and Mamba families, in PyTorch.
 
 Counterpart of ``repro.models.layers`` (``rms_norm``, ``_act``, ``rope``,
-attention, decode attention and the gated MLP). Parameter leaves keep the
-JAX package's shapes (``wq [d,h,dh]``, ``wo [h,dh,d]``, ``w1 [d,f]`` ...), so
-the einsum formulas carry over and ``repro_torch.bridge`` copies leaves as
-they are. Attention goes through the hand-written kernels
-(``attn_impl="kernel"``, the default) or their plain versions
-(``attn_impl="plain"``); on the CPU the kernel wrappers take the plain
-versions themselves.
+attention, decode attention, the gated MLP and the Mamba-1 mixer). Parameter
+leaves keep the JAX package's shapes (``wq [d,h,dh]``, ``wo [h,dh,d]``,
+``w1 [d,f]``, ``in_proj [d,2*di]`` ...), so the einsum formulas carry over
+and ``repro_torch.bridge`` copies leaves as they are. Attention and the scan
+go through the hand-written kernels (``attn_impl`` / ``scan_impl`` "kernel",
+the default) or their plain versions ("plain"); on the CPU the kernel
+wrappers take the plain versions themselves.
 
-The MoE and Mamba layers of ``repro.models.layers`` belong to later slices.
+The MoE layers of ``repro.models.layers`` belong to a later slice.
 """
 from __future__ import annotations
 
 import math
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -24,6 +24,7 @@ from repro_torch.configs.base import ArchConfig, AttnSpec
 from repro_torch.kernels import ops, ref
 
 ATTN_IMPLS = ("kernel", "plain")
+SCAN_IMPLS = ("kernel", "plain")
 
 # ---------------------------------------------------------------------------
 # basics
@@ -213,6 +214,139 @@ def apply_mlp(p: MLPParams, x: torch.Tensor, act: str) -> torch.Tensor:
     return torch.einsum("bsf,fd->bsd", g * u, p.w2)
 
 
+# ---------------------------------------------------------------------------
+# Mamba-1 mixer (conv + selective scan)
+# ---------------------------------------------------------------------------
+
+
+class MambaParams(nn.Module):
+    """Leaves of one Mamba mixer, in the JAX package's shapes. ``dt_bias``,
+    ``A_log`` and ``D`` are f32 whatever the model's dtype, as in JAX."""
+
+    def __init__(self, cfg: ArchConfig, dtype, device):
+        super().__init__()
+        d, di, ds = cfg.d_model, cfg.d_inner, cfg.mamba.d_state
+        dc, dr = cfg.mamba.d_conv, cfg.dt_rank
+        self.in_proj = leaf((d, 2 * di), dtype, device)
+        self.conv_w = leaf((dc, di), dtype, device)
+        self.x_proj = leaf((di, dr + 2 * ds), dtype, device)
+        self.dt_proj = leaf((dr, di), dtype, device)
+        self.dt_bias = leaf((di,), torch.float32, device)
+        self.A_log = leaf((di, ds), torch.float32, device)
+        self.D = leaf((di,), torch.float32, device)
+        self.out_proj = leaf((di, d), dtype, device)
+
+
+def init_mamba(p: MambaParams, generator: torch.Generator,
+               cfg: ArchConfig) -> None:
+    """Fill ``p`` in place as ``repro.models.layers.init_mamba`` does: normal
+    projections (scales 1/sqrt of their fan-in), ``dt_bias = log(expm1(0.01))``,
+    ``A_log = log(1..d_state)`` on every row, ``D = 1``."""
+    di, ds, dc, dr = (cfg.d_inner, cfg.mamba.d_state, cfg.mamba.d_conv,
+                      cfg.dt_rank)
+    for name, fan_in in (("in_proj", cfg.d_model), ("conv_w", dc),
+                         ("x_proj", di), ("dt_proj", dr), ("out_proj", di)):
+        normal_(getattr(p, name), generator, 1.0 / math.sqrt(fan_in))
+    with torch.no_grad():
+        p.dt_bias.fill_(torch.log(torch.expm1(torch.tensor(0.01))))   # in f32
+        p.A_log.copy_(torch.log(torch.arange(1, ds + 1, dtype=torch.float32,
+                                             device=p.A_log.device)
+                                ).expand(di, ds))
+        p.D.fill_(1.0)
+
+
+def _mamba_pre(p: MambaParams, x: torch.Tensor, cfg: ArchConfig,
+               conv_state: Optional[torch.Tensor] = None):
+    """In-projection, causal depthwise conv, silu, x/dt projections. x: [B,S,d].
+
+    Returns (u [B,S,di] after conv and silu, z gate [B,S,di], dt [B,S,di]
+    f32, Bc [B,S,ds], Cc [B,S,ds], new conv tail [B,dc-1,di] in u's dtype).
+    The conv is the JAX code's shifted adds in order i = 0..dc-1 (no
+    ``conv1d``: cuDNN would sum in another order, in TF32 by default).
+    """
+    di, ds, dc, dr = (cfg.d_inner, cfg.mamba.d_state, cfg.mamba.d_conv,
+                      cfg.dt_rank)
+    S = x.shape[1]
+    u, z = torch.einsum("bsd,de->bse", x, p.in_proj).split(di, dim=-1)
+    if conv_state is None:
+        pad = u.new_zeros((u.shape[0], dc - 1, di))
+    else:
+        pad = conv_state.to(u.dtype)
+    up = torch.cat([pad, u], dim=1)                          # [B,S+dc-1,di]
+    conv = up[:, 0:S] * p.conv_w[0]
+    for i in range(1, dc):
+        conv = conv + up[:, i:i + S] * p.conv_w[i]
+    new_tail = up[:, up.shape[1] - (dc - 1):]
+    u = F.silu(conv)
+    dt, Bc, Cc = torch.einsum("bsi,ie->bse", u, p.x_proj).split([dr, ds, ds],
+                                                               dim=-1)
+    dt = torch.einsum("bsr,ri->bsi", dt, p.dt_proj).float() + p.dt_bias
+    dt = torch.logaddexp(dt, dt.new_zeros(()))   # softplus, as jax.nn.softplus
+    return u, z, dt, Bc, Cc, new_tail
+
+
+def _scan_inputs(p: MambaParams, u, dt, Bc):
+    """a = exp(dt * A) and b = dt * u * B, both [B,S,di,ds] f32."""
+    A = -torch.exp(p.A_log)                                  # [di,ds]
+    a = (dt[..., None] * A).exp_()
+    b = (dt * u.float())[..., None] * Bc.float()[:, :, None, :]
+    return a, b
+
+
+def _scan(a, b, h0, scan_impl: str):
+    if scan_impl == "kernel":
+        return ops.selective_scan(a, b, h0)
+    if scan_impl == "plain":
+        return ref.selective_scan_ref(a, b, h0)
+    raise ValueError(f"scan_impl {scan_impl!r} not in {SCAN_IMPLS}")
+
+
+def _mamba_out(p: MambaParams, x, y, u, z) -> torch.Tensor:
+    """y + u * D, gated by silu(z) in f32, cast to x's dtype, out-projected."""
+    y = y + u.float() * p.D
+    y = (y * F.silu(z.float())).to(x.dtype)
+    return torch.einsum("...i,id->...d", y, p.out_proj)
+
+
+def apply_mamba(p: MambaParams, x: torch.Tensor, cfg: ArchConfig, *,
+                scan_impl: str = "kernel") -> torch.Tensor:
+    """Full-sequence Mamba mixer. x: [B,S,d] -> [B,S,d].
+
+    The ``scan_impl="pallas"`` branch of the JAX code: a and b are built at
+    [B,S,di,ds] in f32 and the recurrence runs in one scan-kernel launch
+    (``scan_impl="kernel"``) or the plain loop (``"plain"``).
+    """
+    u, z, dt, Bc, Cc, _ = _mamba_pre(p, x, cfg)
+    a, b = _scan_inputs(p, u, dt, Bc)
+    h = _scan(a, b, None, scan_impl)
+    del a, b
+    y = torch.einsum("bsin,bsn->bsi", h, Cc.float())
+    return _mamba_out(p, x, y, u, z)
+
+
+def apply_mamba_decode(p: MambaParams, x: torch.Tensor, cfg: ArchConfig,
+                       conv_state: torch.Tensor, ssm_state: torch.Tensor, *,
+                       scan_impl: str = "kernel"
+                       ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """One-token step. x: [B,1,d]; conv_state [B,dc-1,di]; ssm_state
+    [B,di,ds] f32.
+
+    Returns (out [B,1,d], conv_state, ssm_state). The new conv tail and the
+    new SSM state are written IN PLACE into the tensors passed in (the JAX
+    code returns new arrays with the same values), so the returned states
+    are those tensors. The state update ``h = a * ssm_state + b`` is one
+    step of the scan kernel with ``h0 = ssm_state``.
+    """
+    u, z, dt, Bc, Cc, new_tail = _mamba_pre(p, x, cfg, conv_state=conv_state)
+    a, b = _scan_inputs(p, u, dt, Bc)                        # [B,1,di,ds]
+    h = _scan(a, b, ssm_state, scan_impl)[:, 0]              # [B,di,ds]
+    conv_state.copy_(new_tail)
+    ssm_state.copy_(h)
+    y = torch.einsum("bin,bn->bi", h, Cc[:, 0].float())
+    out = _mamba_out(p, x, y, u[:, 0], z[:, 0])[:, None, :]
+    return out, conv_state, ssm_state
+
+
 def unsupported(what: str, slice_name: str) -> NotImplementedError:
     return NotImplementedError(
         f"repro_torch: {what} is not ported yet; it arrives with the "
@@ -225,8 +359,8 @@ def check_supported(cfg: ArchConfig) -> None:
     if cfg.enc_dec:
         raise unsupported(f"{cfg.name}: encoder-decoder", "encoder-decoder")
     for spec in cfg.block:
-        if spec.mixer != "attn":
-            raise unsupported(f"{cfg.name}: the {spec.mixer} mixer", "Mamba")
+        if spec.mixer not in ("attn", "mamba"):
+            raise ValueError(f"{cfg.name}: unknown mixer {spec.mixer!r}")
         if spec.ffn in ("moe", "moe_dense"):
             raise unsupported(f"{cfg.name}: the {spec.ffn} FFN", "MoE")
         if spec.ffn not in ("dense", "none"):

@@ -1,4 +1,4 @@
-"""Model assembly for the dense decoder families, in PyTorch.
+"""Model assembly for the dense decoder and Mamba families, in PyTorch.
 
 Counterpart of ``repro.models.model``. The JAX package stacks the layers of a
 block position over ``n_blocks`` and scans; here the layers are a
@@ -8,10 +8,11 @@ block position over ``n_blocks`` and scans; here the layers are a
 Public API (the JAX signatures and layouts):
     init_params(generator, cfg, dtype, device)   -> DecoderParams
     forward(params, batch, cfg, rt)              -> (logits [B,S,V], aux)
-    init_cache(cfg, B, S, dtype, device)         -> [{"k","v"} per block pos]
+    init_cache(cfg, B, S, dtype, device)         -> [{"k","v"} or
+                                                     {"conv","ssm"} per block pos]
     decode_step(params, cache, tokens, pos, cfg, rt) -> (logits [B,V], cache)
 
-Mamba, MoE and encoder-decoder configs raise ``NotImplementedError``.
+MoE and encoder-decoder configs raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -31,15 +32,20 @@ Cache = List[Dict[str, torch.Tensor]]
 
 @dataclasses.dataclass(frozen=True)
 class Runtime:
-    """Runtime knobs. ``attn_impl``: "kernel" (the hand-written CUDA kernels
-    on the card, their plain versions on the CPU) or "plain" (the plain
-    PyTorch versions everywhere; an explicit request for references)."""
+    """Runtime knobs. ``attn_impl`` (attention) and ``scan_impl`` (the Mamba
+    recurrence): "kernel" (the hand-written CUDA kernels on the card, their
+    plain versions on the CPU) or "plain" (the plain PyTorch versions
+    everywhere; an explicit request for references)."""
     attn_impl: str = "kernel"
+    scan_impl: str = "kernel"
 
     def __post_init__(self):
         if self.attn_impl not in L.ATTN_IMPLS:
             raise ValueError(f"attn_impl {self.attn_impl!r} not in "
                              f"{L.ATTN_IMPLS}")
+        if self.scan_impl not in L.SCAN_IMPLS:
+            raise ValueError(f"scan_impl {self.scan_impl!r} not in "
+                             f"{L.SCAN_IMPLS}")
 
 
 # ---------------------------------------------------------------------------
@@ -51,7 +57,10 @@ class LayerParams(nn.Module):
     def __init__(self, cfg: ArchConfig, spec: LayerSpec, dtype, device):
         super().__init__()
         self.norm1 = L.leaf((cfg.d_model,), dtype, device)
-        self.attn = L.AttentionParams(cfg, spec.attn, dtype, device)
+        if spec.mixer == "attn":
+            self.attn = L.AttentionParams(cfg, spec.attn, dtype, device)
+        else:
+            self.mamba = L.MambaParams(cfg, dtype, device)
         if spec.ffn != "none":
             self.norm2 = L.leaf((cfg.d_model,), dtype, device)
         if spec.ffn == "dense":
@@ -59,7 +68,7 @@ class LayerParams(nn.Module):
 
 
 class DecoderParams(nn.Module):
-    """All weights of a dense decoder, leaves in the JAX package's shapes."""
+    """All weights of a decoder, leaves in the JAX package's shapes."""
 
     def __init__(self, cfg: ArchConfig, dtype, device):
         super().__init__()
@@ -86,7 +95,10 @@ def init_params(generator: torch.Generator, cfg: ArchConfig,
         L.normal_(p.unembed, generator, 1.0 / math.sqrt(cfg.d_model))
     for layer in p.layers:
         layer.norm1.zero_()
-        L.init_attention(layer.attn, generator, cfg)
+        if hasattr(layer, "attn"):
+            L.init_attention(layer.attn, generator, cfg)
+        else:
+            L.init_mamba(layer.mamba, generator, cfg)
         if hasattr(layer, "norm2"):
             layer.norm2.zero_()
         if hasattr(layer, "mlp"):
@@ -146,7 +158,8 @@ def forward(params: DecoderParams, batch: Dict[str, torch.Tensor],
     """Returns (logits [B,S,V] f32, moe_aux scalar; 0 for dense configs).
 
     batch: {"tokens": [B,S] integer}. Attention runs through the flash
-    kernel (``rt.attn_impl="kernel"``) once per layer.
+    kernel (``rt.attn_impl="kernel"``) and the Mamba recurrence through the
+    scan kernel (``rt.scan_impl="kernel"``), once per layer each.
     """
     L.check_supported(cfg)
     dev = params.embed.device
@@ -157,9 +170,12 @@ def forward(params: DecoderParams, batch: Dict[str, torch.Tensor],
     x = _embed(params, tokens, cfg)
     for layer, spec in zip(params.layers, cfg.layer_kinds()):
         h = L.rms_norm(x, layer.norm1, cfg.norm_eps)
-        x = x + L.apply_attention(layer.attn, h, spec.attn, cfg, positions,
-                                  attn_impl=rt.attn_impl)
-        x = _ffn(layer, spec, x, cfg)
+        if spec.mixer == "attn":
+            mix = L.apply_attention(layer.attn, h, spec.attn, cfg, positions,
+                                    attn_impl=rt.attn_impl)
+        else:
+            mix = L.apply_mamba(layer.mamba, h, cfg, scan_impl=rt.scan_impl)
+        x = _ffn(layer, spec, x + mix, cfg)
     return _logits(params, x, cfg), torch.zeros((), device=dev)
 
 
@@ -170,14 +186,27 @@ def forward(params: DecoderParams, batch: Dict[str, torch.Tensor],
 
 def init_cache(cfg: ArchConfig, B: int, S: int, dtype=torch.bfloat16,
                device=None) -> Cache:
-    """Decode cache: per in-block position ``{"k","v"}`` of
-    ``[n_blocks, B, S, kv, dh]`` zeros, as in the JAX package."""
+    """Decode cache of zeros, as in the JAX package: per in-block position
+    ``{"k","v"}`` of ``[n_blocks, B, S, kv, dh]`` for attention, or
+    ``{"conv": [n_blocks, B, d_conv-1, d_inner]`` in ``dtype``, ``"ssm":
+    [n_blocks, B, d_inner, d_state]`` in f32 whatever ``dtype``} for Mamba."""
     L.check_supported(cfg)
     dev = resolve_device(device)
-    shape = (cfg.n_blocks, B, S, cfg.n_kv_heads, cfg.d_head)
-    return [{"k": torch.zeros(shape, dtype=dtype, device=dev),
-             "v": torch.zeros(shape, dtype=dtype, device=dev)}
-            for _ in cfg.block]
+    n = cfg.n_blocks
+    cache = []
+    for spec in cfg.block:
+        if spec.mixer == "attn":
+            shape = (n, B, S, cfg.n_kv_heads, cfg.d_head)
+            cache.append({"k": torch.zeros(shape, dtype=dtype, device=dev),
+                          "v": torch.zeros(shape, dtype=dtype, device=dev)})
+        else:
+            ms = cfg.mamba
+            cache.append({
+                "conv": torch.zeros((n, B, ms.d_conv - 1, cfg.d_inner),
+                                    dtype=dtype, device=dev),
+                "ssm": torch.zeros((n, B, cfg.d_inner, ms.d_state),
+                                   dtype=torch.float32, device=dev)})
+    return cache
 
 
 def decode_step(params: DecoderParams, cache: Cache, tokens: torch.Tensor,
@@ -186,8 +215,9 @@ def decode_step(params: DecoderParams, cache: Cache, tokens: torch.Tensor,
     """One decode step. tokens: [B] integer; pos: [B] current positions.
 
     Returns (logits [B,V] f32, cache). The cache is updated IN PLACE (see
-    ``layers.apply_attention_decode``) and returned. Attention runs through
-    the decode kernel once per layer.
+    ``layers.apply_attention_decode`` and ``layers.apply_mamba_decode``) and
+    returned. Attention runs through the decode kernel and the Mamba state
+    update through the scan kernel, once per layer each.
     """
     L.check_supported(cfg)
     dev = params.embed.device
@@ -199,8 +229,13 @@ def decode_step(params: DecoderParams, cache: Cache, tokens: torch.Tensor,
         c = cache[idx % nb]
         n = idx // nb
         h = L.rms_norm(x, layer.norm1, cfg.norm_eps)
-        mix, _, _ = L.apply_attention_decode(
-            layer.attn, h, spec.attn, cfg, c["k"][n], c["v"][n], pos,
-            attn_impl=rt.attn_impl)
+        if spec.mixer == "attn":
+            mix, _, _ = L.apply_attention_decode(
+                layer.attn, h, spec.attn, cfg, c["k"][n], c["v"][n], pos,
+                attn_impl=rt.attn_impl)
+        else:
+            mix, _, _ = L.apply_mamba_decode(
+                layer.mamba, h, cfg, c["conv"][n], c["ssm"][n],
+                scan_impl=rt.scan_impl)
         x = _ffn(layer, spec, x + mix, cfg)
     return _logits(params, x, cfg)[:, 0, :], cache

@@ -56,6 +56,10 @@ class SlotServer:
         self._next_req = 0
 
     def submit(self, prompt_token: int) -> int:
+        """Put a request into a free slot. Resets the slot's token and
+        position but not its cache, as the JAX server does: stale K/V rows
+        lie past the new position, but a Mamba slot starts from the previous
+        request's conv and SSM state."""
         rid = self._next_req
         self._next_req += 1
         for s in range(self.n_slots):

@@ -3,7 +3,8 @@
 * it imports neither JAX nor anything of the ``repro`` package;
 * its entry points run on ``cuda`` and raise without a card unless the
   caller asks for ``device="cpu"``;
-* families outside this slice raise ``NotImplementedError``;
+* families outside the ported slices (MoE, encoder-decoder) raise
+  ``NotImplementedError``;
 * the kernel wrappers pick the plain version by the tensors' device alone:
   a tensor on the card gets the kernel or an error, never the plain version.
 """
@@ -104,8 +105,7 @@ def test_entry_points_raise_without_a_card(no_card):
 
 
 UNSUPPORTED = {
-    "falcon-mamba-7b": "Mamba",
-    "jamba-1.5-large-398b": "Mamba",
+    "jamba-1.5-large-398b": "MoE",     # Mamba layers pass; its MoE FFN raises
     "grok-1-314b": "MoE",
     "arctic-480b": "MoE",
     "seamless-m4t-large-v2": "encoder-decoder",
@@ -128,9 +128,22 @@ def test_unsupported_families_raise(name):
         M.forward(dense, {"tokens": torch.zeros(1, 4, dtype=torch.long)}, cfg)
 
 
+def test_falcon_mamba_serves_through_the_driver():
+    done = serve_driver.main(["--arch", "falcon-mamba-7b", "--device", "cpu",
+                              "--requests", "3", "--tokens", "4", "--slots",
+                              "2", "--d-model", "64"])
+    assert sorted(done) == [0, 1, 2]
+    assert all(len(toks) == 4 for toks in done.values())
+
+
 def test_runtime_rejects_unknown_attn_impl():
     with pytest.raises(ValueError):
         M.Runtime(attn_impl="xla")
+
+
+def test_runtime_rejects_unknown_scan_impl():
+    with pytest.raises(ValueError):
+        M.Runtime(scan_impl="pallas")
 
 
 class _ClaimsCuda(torch.Tensor):
@@ -153,12 +166,16 @@ def _refuse(*args, **kwargs):
     raise _Launched("launcher reached")
 
 
-@pytest.mark.parametrize("which", ["flash_attention", "decode_attention"])
+@pytest.mark.parametrize("which", ["flash_attention", "decode_attention",
+                                   "selective_scan"])
 def test_wrappers_choose_the_plain_version_only_by_device(monkeypatch, which):
     monkeypatch.setattr(ops, f"_launch_{which}", _refuse)
     q4, k4 = torch.randn(1, 8, 4, 32), torch.randn(1, 8, 2, 32)
     q3, lengths = torch.randn(1, 4, 32), torch.tensor([5], dtype=torch.int32)
-    args = (q4, k4, k4) if which == "flash_attention" else (q3, k4, k4, lengths)
+    args = {"flash_attention": (q4, k4, k4),
+            "decode_attention": (q3, k4, k4, lengths),
+            "selective_scan": (torch.rand(2, 8, 4, 3), torch.randn(2, 8, 4, 3),
+                               torch.randn(2, 4, 3))}[which]
     wrapper = getattr(ops, which)
     before = dict(ops.LAUNCHES)
     # CPU tensors: the plain version, no launch
@@ -199,6 +216,19 @@ def test_kernel_limits_are_checked_before_launch(monkeypatch, bad):
         ops.decode_attention(*(_claims_cuda(t) for t in (q, k, k, lengths)))
     with pytest.raises(err):
         ops.flash_attention(*(_claims_cuda(t) for t in (q4, k, k)))
+
+
+@pytest.mark.parametrize("bad", ["noncontiguous", "grad"])
+def test_scan_limits_are_checked_before_launch(monkeypatch, bad):
+    monkeypatch.setattr(ops, "_launch_selective_scan", _refuse)
+    a, b = torch.rand(2, 8, 4, 3), torch.randn(2, 8, 4, 3)
+    if bad == "noncontiguous":
+        b = torch.randn(2, 8, 3, 4).transpose(2, 3)
+    else:
+        a.requires_grad_(True)
+    err = NotImplementedError if bad == "grad" else ValueError
+    with pytest.raises(err):
+        ops.selective_scan(_claims_cuda(a), _claims_cuda(b))
 
 
 def test_kernels_are_not_built_on_import():

@@ -1,6 +1,7 @@
-"""The port's plain attention versions (``repro_torch.kernels.ref``, which the
+"""The port's plain kernel versions (``repro_torch.kernels.ref``, which the
 ``ops`` wrappers use for CPU tensors) against the JAX package's Pallas
 kernels in interpret mode and its pure-jnp oracles, on the same numpy inputs.
+The scan is held at 1e-5, as in ``tests/test_kernels.py``.
 
 The JAX kernels take K/V expanded to the q heads (``np.repeat`` over the head
 axis, as the JAX model does); the port takes them at kv heads. Tolerances are
@@ -13,6 +14,7 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
 from repro.kernels import ops as jops, ref as jref  # noqa: E402
@@ -127,6 +129,81 @@ def test_decode_attention_no_valid_key_is_uniform():
         window=8)
     np.testing.assert_allclose(got.numpy(), np.asarray(jwant), rtol=2e-5,
                                atol=2e-5)
+
+
+SCAN_CASES = [
+    # (B, S, DI, DS, chunk, block_f): tests/test_kernels.py's four, then a
+    # ragged one (S = 100, F = 120 is no multiple of 1024; one JAX block)
+    (2, 64, 32, 8, 16, 64),
+    (1, 256, 16, 16, 32, 128),
+    (3, 128, 8, 4, 128, 32),
+    (1, 32, 64, 16, 32, 1024),
+    (2, 100, 24, 5, 100, 120),
+]
+
+
+def _scan_inputs(rng, B, S, DI, DS):
+    a = rng.uniform(0.5, 0.999, (B, S, DI, DS)).astype(np.float32)
+    return a, _np(rng, (B, S, DI, DS))
+
+
+def _jax_recurrence(a, b, h0):
+    """h_t = a_t * h_{t-1} + b_t from h0, unrolled with lax.scan over S."""
+    def step(h, ab):
+        h = ab[0] * h + ab[1]
+        return h, h
+    _, h = jax.lax.scan(step, jnp.asarray(h0),
+                        (jnp.moveaxis(jnp.asarray(a), 1, 0),
+                         jnp.moveaxis(jnp.asarray(b), 1, 0)))
+    return jnp.moveaxis(h, 0, 1)
+
+
+@pytest.mark.parametrize("case", SCAN_CASES)
+def test_selective_scan_ref_matches_jax(case):
+    B, S, DI, DS, chunk, bf = case
+    a, b = _scan_inputs(np.random.default_rng(4), B, S, DI, DS)
+    got = ref.selective_scan_ref(torch.from_numpy(a), torch.from_numpy(b))
+    assert got.dtype == torch.float32 and got.shape == (B, S, DI, DS)
+    got = got.numpy()
+    ja, jb = jnp.asarray(a), jnp.asarray(b)
+    np.testing.assert_allclose(got, jops.selective_scan(ja, jb, chunk=chunk,
+                                                        block_f=bf),
+                               rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(got, jref.selective_scan_ref(ja, jb),
+                               rtol=1e-5, atol=1e-5)
+    np.testing.assert_array_equal(
+        ops.selective_scan(torch.from_numpy(a), torch.from_numpy(b)).numpy(), got)
+
+
+@pytest.mark.parametrize("B,S,DI,DS", [(2, 1, 32, 16), (3, 37, 24, 5),
+                                       (1, 256, 16, 16)])
+def test_selective_scan_ref_from_a_state_matches_jax(B, S, DI, DS):
+    """With h0 the plain scan is JAX's recurrence from h0; at S = 1 it is the
+    decode update ``a * ssm_state + b`` of ``apply_mamba_decode``."""
+    rng = np.random.default_rng(5)
+    a, b = _scan_inputs(rng, B, S, DI, DS)
+    h0 = _np(rng, (B, DI, DS))
+    got = ops.selective_scan(torch.from_numpy(a), torch.from_numpy(b),
+                             torch.from_numpy(h0)).numpy()
+    np.testing.assert_allclose(got, _jax_recurrence(a, b, h0), rtol=1e-5,
+                               atol=1e-5)
+    if S == 1:
+        want = jnp.asarray(a[:, 0]) * jnp.asarray(h0) + jnp.asarray(b[:, 0])
+        np.testing.assert_allclose(got[:, 0], want, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("bad", ["shape", "h0", "dtype"])
+def test_selective_scan_rejects_bad_operands_on_any_device(bad):
+    a = b = torch.zeros(2, 4, 8, 4)
+    h0 = None
+    if bad == "shape":
+        b = torch.zeros(2, 4, 8, 2)
+    elif bad == "h0":
+        h0 = torch.zeros(2, 4, 8)
+    else:
+        a = b = a.double()
+    with pytest.raises(ValueError):
+        ops.selective_scan(a, b, h0)
 
 
 @pytest.mark.parametrize("bad", ["heads", "dtype", "lengths", "shape"])

@@ -5,7 +5,8 @@ so it runs on a machine that has only PyTorch built for CUDA and nvcc:
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_kernels_cuda.py
 
-Tolerances as in ``tests/test_kernels.py``: 2e-5 for f32, 2e-2 for bf16.
+Tolerances as in ``tests/test_kernels.py``: 2e-5 for f32, 2e-2 for bf16,
+1e-5 for the scan.
 """
 import pytest
 
@@ -35,6 +36,16 @@ DECODE_CASES = [
     (2, 128, 4, 2, 32, None, None, "bf16", [5, 128]),
     (3, 64, 4, 2, 256, None, None, "f32", [65, 100, 200]),
     (2, 64, 36, 4, 128, 16, None, "f32", [64, 200]),   # group 9, no valid key
+]
+
+
+SCAN_CASES = [
+    # (B, S, DI, DS, with h0)
+    (2, 64, 32, 8, False),
+    (1, 256, 16, 16, True),
+    (3, 100, 24, 5, False),       # F = 120: one ragged block
+    (4, 1, 8192, 16, True),       # the decode step at full width
+    (2, 13, 8, 3, True),          # S below the unroll, odd F
 ]
 
 
@@ -96,6 +107,49 @@ def test_decode_attention_is_deterministic(card):
     first = ops.decode_attention(q, k, v, lengths)
     for _ in range(3):
         assert torch.equal(ops.decode_attention(q, k, v, lengths), first)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", SCAN_CASES)
+def test_selective_scan_kernel_matches_plain(card, case):
+    B, S, DI, DS, with_h0 = case
+    g = torch.Generator(device=card).manual_seed(0)
+    a = torch.rand((B, S, DI, DS), generator=g, device=card) * 0.5 + 0.499
+    b = torch.randn((B, S, DI, DS), generator=g, device=card)
+    h0 = torch.randn((B, DI, DS), generator=g, device=card) if with_h0 else None
+    n = ops.LAUNCHES["selective_scan"]
+    got = ops.selective_scan(a, b, h0)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["selective_scan"] == n + 1
+    assert got.dtype == torch.float32 and got.shape == a.shape
+    torch.testing.assert_close(got, ref.selective_scan_ref(a, b, h0),
+                               rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.cuda
+def test_mamba_paths_agree_on_card(card):
+    """Reduced falcon-mamba: forward and decode steps through the scan kernel
+    against the plain path, on the card, in f32."""
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.models import model as M
+    cfg = reduced(get_config("falcon-mamba-7b"), n_layers=2)
+    p = M.init_params(torch.Generator(device=card).manual_seed(0), cfg,
+                      torch.float32, card)
+    tokens = torch.randint(0, cfg.vocab, (2, 40), device=card)
+    rt = {impl: M.Runtime(scan_impl=impl) for impl in ("kernel", "plain")}
+    with torch.inference_mode():
+        a, _ = M.forward(p, {"tokens": tokens}, cfg, rt["kernel"])
+        b, _ = M.forward(p, {"tokens": tokens}, cfg, rt["plain"])
+        torch.testing.assert_close(a, b, rtol=2e-5, atol=2e-5)
+        caches = {impl: M.init_cache(cfg, 2, 16, torch.float32, card)
+                  for impl in rt}
+        for step in range(12):
+            pos = torch.full((2,), step, device=card, dtype=torch.int32)
+            la, _ = M.decode_step(p, caches["kernel"], tokens[:, step], pos,
+                                  cfg, rt["kernel"])
+            lb, _ = M.decode_step(p, caches["plain"], tokens[:, step], pos,
+                                  cfg, rt["plain"])
+            torch.testing.assert_close(la, lb, rtol=2e-5, atol=2e-5)
 
 
 @pytest.mark.cuda

@@ -61,6 +61,26 @@ def test_slot_server_greedy_tokens_equal_jax(arch):
     assert int(server.pos.max()) >= 12                    # pos is unbounded
 
 
+def test_mamba_slot_server_carries_slot_state_as_jax():
+    """falcon-mamba, 6 requests x 5 tokens on 2 slots: slots are reused, and
+    a request in a reused slot starts from the previous request's conv and
+    SSM state (``submit`` resets only the token and position) in both
+    servers; their greedy token lists are equal."""
+    cfg = reduced(get_config("falcon-mamba-7b"), d_model=64, n_layers=2)
+    tcfg = t_reduced(t_get_config("falcon-mamba-7b"), d_model=64, n_layers=2)
+    params = JM.init_params(jax.random.PRNGKey(2), cfg, jnp.float32)
+    tp = bridge.params_from_jax(jax.tree.map(np.asarray, params), tcfg, "cpu")
+    want = _drive(JSlotServer(params, cfg, JM.Runtime(), n_slots=2,
+                              max_len=8), requests=6, tokens=5)
+    server = SlotServer(tp, tcfg, TM.Runtime(), n_slots=2, max_len=8)
+    got = _drive(server, requests=6, tokens=5)
+    assert sorted(got) == list(range(6))
+    assert got == want
+    assert sorted(server.cache[0]) == ["conv", "ssm"]
+    assert server.cache[0]["ssm"].dtype == torch.float32
+    assert server.cache[0]["ssm"].abs().sum() > 0      # never reset
+
+
 def test_serve_step_sampling_uses_the_generator():
     tcfg = t_reduced(t_get_config("internlm2-1.8b"), d_model=64, n_layers=1)
     tp = TM.init_params(torch.Generator().manual_seed(0), tcfg, torch.float32,
