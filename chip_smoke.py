@@ -11,9 +11,11 @@ d_state=16, d_conv=4, dt_rank=256, V=65024). Phases:
 1. device: name, power limit, kernel build (nvcc, sm_90a) and its seconds;
 2. each CUDA kernel, launched directly, against its plain PyTorch version
    on the card (tolerance 2e-5 for f32, 2e-2 for bf16, 1e-5 for the scan,
-   as the JAX package's kernel tests use);
+   as the JAX package's kernel tests use; bf16 flash also row by row
+   against the f32 result of its inputs, ``ref.BF16_ROW_TOL``);
 3. internlm2 ``forward`` in bf16 on tokens [2, 2048] with the flash kernel
-   against the plain path, and the flash launch count (one per layer);
+   (its tensor-core variant) against the plain path, and the flash launch
+   count (one per layer, none of them the f32 CUDA-core variant);
    3b. falcon-mamba ``forward`` the same way through the scan kernel (one
    launch per layer);
 4. internlm2 ``SlotServer`` with f32 weights and its f32 cache (4 slots,
@@ -25,7 +27,9 @@ d_state=16, d_conv=4, dt_rank=256, V=65024). Phases:
    (f32 conv and SSM caches; n_layers x steps scan launches);
 5. timings (CUDA-event medians and profiler device time) of each kernel,
    its plain version and, where one exists, one PyTorch library call at the
-   shapes of phases 3-4, with the kernel's bound.
+   shapes of phases 3-4, with the kernel's bound; flash in both variants
+   (bf16 on the tensor cores, f32 on the CUDA cores), each against the peak
+   of its type.
 
 Every breakdown prints the port's kernel launches the profiler recorded
 beside those the wrappers counted, and reads its device busy time as a lower
@@ -68,8 +72,10 @@ FWD_B, FWD_S = 2, 2048
 SLOTS, MAX_LEN, REQUESTS, TOKENS = 4, 4096, 8, 64
 
 KERNELS = {
+    # bf16 (the main path) runs on the tensor cores; f32 on the CUDA cores
+    # (``ops.flash_variant``), timed beside it in phase 5
     "flash_attention": dict(
-        route="cuda", source="src/repro_torch/kernels/csrc/flash_attention.cu",
+        route="cuda", source="src/repro_torch/kernels/csrc/flash_attention_tc.cu",
         replaces="src/repro/kernels/flash_attention.py:93"),
     "decode_attention": dict(
         route="cuda", source="src/repro_torch/kernels/csrc/decode_attention.cu",
@@ -78,12 +84,16 @@ KERNELS = {
         route="cuda", source="src/repro_torch/kernels/csrc/selective_scan.cu",
         replaces="src/repro/kernels/selective_scan.py:49"),
 }
-# device kernels each wrapper launches once per counted launch
+# per wrapper: the names of its device kernels (matched as substrings) and
+# how many of them one counted launch runs. flash runs one of its two
+# variants: the tensor-core kernel for bf16, the CUDA-core one for f32 (as
+# substrings neither name contains the other).
 DEVICE_KERNELS = {
-    "flash_attention": ("flash_fwd_kernel",),
-    "decode_attention": ("decode_split_kernel", "decode_combine_kernel"),
-    "selective_scan": ("selective_scan_kernel",),
+    "flash_attention": (("flash_fwd_tc_kernel", "flash_fwd_kernel"), 1),
+    "decode_attention": (("decode_split_kernel", "decode_combine_kernel"), 2),
+    "selective_scan": (("selective_scan_kernel",), 1),
 }
+FLASH_TC, FLASH_CC = "flash_fwd_tc_kernel", "flash_fwd_kernel"
 
 
 def sync() -> None:
@@ -108,6 +118,16 @@ def assert_close(got, want, tol, what) -> float:
     err = max_err(got, want)
     torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol,
                                msg=lambda m: f"{what}: {m}")
+    return err
+
+
+def check_flash_rows(got, q, k, v, kw, what) -> float:
+    """The bf16 flash output against the f32 result of its own inputs,
+    row by row (``ref.BF16_ROW_TOL``)."""
+    exact = ref.flash_attention_ref(q.float(), k.float(), v.float(), **kw)
+    err = ref.row_error(got, exact)
+    check(err <= ref.BF16_ROW_TOL,
+          f"{what}: row error {err:.3e} > {ref.BF16_ROW_TOL}")
     return err
 
 
@@ -171,6 +191,11 @@ def kernel_ms(prof: dict, *names: str):
     return sum(hits) if hits else None
 
 
+def recorded(prof: dict, name: str) -> float:
+    """Launches per call the profiler recorded of the device kernel ``name``."""
+    return sum(n for key, (n, _) in prof["kernels"].items() if name in key)
+
+
 def log_breakdown(tag: str, prof: dict, wall_ms: float, top: int = 6) -> None:
     """Device busy time against host wall time per call, and the top kernels.
 
@@ -186,12 +211,13 @@ def log_breakdown(tag: str, prof: dict, wall_ms: float, top: int = 6) -> None:
     busy = sum(ms for _, ms in kernels.values())
     short = []
     for name, per_call in sorted(prof["counted"].items()):
-        names = DEVICE_KERNELS[name]
-        seen = sum(n for key, (n, _) in kernels.items()
-                   if any(x in key for x in names))
-        want = per_call * len(names)
+        names, per_launch = DEVICE_KERNELS[name]
+        by_name = {x: recorded(prof, x) for x in names}
+        seen = sum(by_name.values())
+        want = per_call * per_launch
         log(f"breakdown {tag}: {name} launches recorded {seen:g} / counted "
-            f"{want:g} per call")
+            f"{want:g} per call ("
+            + ", ".join(f"{x} {n:g}" for x, n in by_name.items()) + ")")
         if seen < want:
             short.append(name)
     bound = ">= " if short else ""
@@ -246,9 +272,10 @@ def phase_device() -> dict:
     text = build.build_log()
     regs = [int(m) for m in re.findall(r"Used (\d+) registers", text)]
     spills = [int(m) for m in re.findall(r"(\d+) bytes spill stores", text)]
+    serial = len(re.findall(r"wgmma.mma_async instructions are serialized", text))
     log(f"ptxas: {len(regs)} kernels, max {max(regs, default=0)} registers, "
         f"{sum(1 for x in spills if x)} with spills (max {max(spills, default=0)}"
-        f" bytes)")
+        f" bytes), {serial} with wgmma serialized")
     return {"name": name, "smi": smi.splitlines()[0]}
 
 
@@ -280,6 +307,9 @@ FLASH_CASES = [
     (2, 1024, 16, 8, 128, torch.bfloat16, False, None, None),
     (2, 1000, 16, 8, 128, torch.float32, True, None, None),
     (1, 1000, 8, 2, 64, torch.bfloat16, True, 128, 30.0),
+    (2, 2048, 16, 8, 32, torch.bfloat16, True, None, None),
+    (2, 1024, 8, 2, 64, torch.bfloat16, True, None, None),
+    (2, 1000, 16, 8, 128, torch.bfloat16, False, None, None),   # ragged, no mask
 ]
 
 SCAN_CASES = [
@@ -345,11 +375,14 @@ def phase_kernels() -> dict:
         out = ops.flash_attention(q, k, v, **kw)
         sync()
         want = ref.flash_attention_ref(q, k, v, **kw)
-        err = assert_close(out, want, TOL[dt], f"flash {B,S,H,KV,D,dt,causal}")
+        what = f"flash {B,S,H,KV,D,dt,causal}"
+        err = assert_close(out, want, TOL[dt], what)
+        rows = (f", row error {check_flash_rows(out, q, k, v, kw, what):.3e} "
+                f"(tol {ref.BF16_ROW_TOL})" if dt == torch.bfloat16 else "")
         errs["flash_attention"] = max(errs["flash_attention"], err)
         log(f"flash B={B} S={S} H={H} KV={KV} D={D} {str(dt)[6:]} causal={causal} "
             f"window={window} softcap={softcap}: max_abs_err {err:.3e} "
-            f"(tol {TOL[dt]})")
+            f"(tol {TOL[dt]}){rows}")
     return errs
 
 
@@ -417,9 +450,14 @@ def phase_forward(cfg, kernel: str) -> dict:
         fwd_plain_ms = cuda_ms(lambda: M.forward(params, batch, cfg,
                                                  runtime("plain")), iters=3,
                                warmup=1)
-        log_breakdown(f"{tag} kernel", profile_kernels(
-            lambda: M.forward(params, batch, cfg, runtime("kernel")), 2),
-            fwd_ms)
+        prof = profile_kernels(
+            lambda: M.forward(params, batch, cfg, runtime("kernel")), 2)
+        log_breakdown(f"{tag} kernel", prof, fwd_ms)
+    if kernel == "flash_attention" and prof["kernels"]:
+        # bf16 goes to the tensor-core variant; a dropped record cannot make
+        # a CUDA-core launch appear
+        check(recorded(prof, FLASH_CC) == 0,
+              "the bf16 forward launched the CUDA-core flash kernel")
     log(f"{tag}: kernel {fwd_ms:.2f} ms "
         f"({FWD_B * FWD_S / fwd_ms * 1e3:.0f} tok/s), plain path "
         f"{fwd_plain_ms:.2f} ms ({FWD_B * FWD_S / fwd_plain_ms * 1e3:.0f} tok/s)")
@@ -557,31 +595,57 @@ def _sdpa_flash(q, k, v):
 
 
 def time_flash(cfg) -> dict:
+    """The tensor-core variant (bf16, the main path's) and the CUDA-core one
+    (f32) at the forward's shape, each against its own bound; SDPA beside
+    the bf16 one."""
     g = torch.Generator(device=DEVICE).manual_seed(SEED + 2)
-    B, S, H, KV, D, dt = FWD_B, FWD_S, cfg.n_heads, cfg.n_kv_heads, cfg.d_head, torch.bfloat16
-    q = _randn(g, (B, S, H, D), dt)
-    k = _randn(g, (B, S, KV, D), dt)
-    v = _randn(g, (B, S, KV, D), dt)
-    qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
-    err = max_err(ops.flash_attention(q, k, v), ref.flash_attention_ref(q, k, v))
-    ms = cuda_ms(lambda: ops.flash_attention(q, k, v))
-    plain_ms = cuda_ms(lambda: ref.flash_attention_ref(q, k, v), iters=5)
-    lib_ms = cuda_ms(lambda: _sdpa_flash(qt, kt, vt))
-    dev_ms = kernel_ms(profile_kernels(lambda: ops.flash_attention(q, k, v)),
-                       "flash_fwd_kernel")
-    pairs = S * (S + 1) // 2                     # kept (q, k) pairs, causal
-    flops = 4 * B * H * pairs * D
-    nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
-    t_ops, t_bytes = flops / PEAK_FLOPS[dt], nbytes / HBM_BYTES_PER_S
-    bound_ms = max(t_ops, t_bytes) * 1e3
-    by = "operations" if t_ops >= t_bytes else "bytes"
-    log(f"time flash bf16 [{B},{S},{H},{D}] kv {KV} causal: kernel {ms:.4f} ms, "
-        f"plain {plain_ms:.4f} ms, sdpa(enable_gqa) {lib_ms:.4f} ms, bound "
-        f"{bound_ms * 1e3:.2f} us ({by}: {flops / 1e9:.2f} GFLOP, "
-        f"{nbytes / 1e6:.2f} MB), {flops / ms / 1e9:.1f} TFLOP/s achieved; "
-        f"kernel device time {_fmt(dev_ms)} ms")
-    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-                bound_ms=bound_ms, bound_by=by, device_ms=dev_ms)
+    B, S, H, KV, D = FWD_B, FWD_S, cfg.n_heads, cfg.n_kv_heads, cfg.d_head
+    res = {}
+    for dt, name in ((torch.bfloat16, FLASH_TC), (torch.float32, FLASH_CC)):
+        q = _randn(g, (B, S, H, D), dt)
+        k = _randn(g, (B, S, KV, D), dt)
+        v = _randn(g, (B, S, KV, D), dt)
+        got = ops.flash_attention(q, k, v)
+        err = assert_close(got, ref.flash_attention_ref(q, k, v), TOL[dt],
+                           f"time flash {dt}")
+        if dt == torch.bfloat16:
+            check_flash_rows(got, q, k, v, {}, f"time flash {dt}")
+        del got
+        ms = cuda_ms(lambda: ops.flash_attention(q, k, v))
+        plain_ms = cuda_ms(lambda: ref.flash_attention_ref(q, k, v), iters=5)
+        dev_ms = kernel_ms(profile_kernels(lambda: ops.flash_attention(q, k, v)),
+                           name)
+        flops = 4 * B * H * (S * (S + 1) // 2) * D   # kept (q, k) pairs, causal
+        nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
+        t_ops, t_bytes = flops / PEAK_FLOPS[dt], nbytes / HBM_BYTES_PER_S
+        bound_ms = max(t_ops, t_bytes) * 1e3
+        by = "operations" if t_ops >= t_bytes else "bytes"
+        lib_ms = None
+        if dt == torch.bfloat16:
+            qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+            lib_ms = cuda_ms(lambda: _sdpa_flash(qt, kt, vt))
+            del qt, kt, vt
+        log(f"time flash {str(dt)[6:]} ({ops.flash_variant(dt)}, {name}) "
+            f"[{B},{S},{H},{D}] kv {KV} causal: kernel {ms:.4f} ms "
+            f"({flops / ms / 1e9:.1f} TFLOP/s, {100 * bound_ms / ms:.1f}% of "
+            f"the bound), plain {plain_ms:.4f} ms"
+            + (f", sdpa(enable_gqa) {lib_ms:.4f} ms (kernel/sdpa "
+               f"{ms / lib_ms:.2f})" if lib_ms else "")
+            + f", bound {bound_ms * 1e3:.2f} us ({by}: {flops / 1e9:.2f} GFLOP "
+            f"at {PEAK_FLOPS[dt] / 1e12:.0f} TFLOP/s, {nbytes / 1e6:.2f} MB); "
+            f"kernel device time {_fmt(dev_ms)} ms"
+            + (f" ({flops / dev_ms / 1e9:.1f} TFLOP/s)" if dev_ms else ""))
+        res[dt] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                       library_ms=lib_ms, bound_ms=bound_ms, bound_by=by,
+                       device_ms=dev_ms)
+        del q, k, v
+    out = res[torch.bfloat16]
+    f32 = res[torch.float32]
+    out.update(f32_source="src/repro_torch/kernels/csrc/flash_attention.cu",
+               f32_ms=f32["ms"], f32_device_ms=f32["device_ms"],
+               f32_bound_ms=f32["bound_ms"], f32_plain_ms=f32["plain_ms"],
+               max_abs_err=max(out["max_abs_err"], f32["max_abs_err"]))
+    return out
 
 
 def make_flush():
@@ -711,6 +775,11 @@ def main() -> int:
                      "bound_ms": t["bound_ms"], "bound_us": t["bound_ms"] * 1e3,
                      "bound_by": t["bound_by"], "library_ms": t["library_ms"],
                      "device_ms": t["device_ms"]})
+    # flash: the bf16 tensor-core variant above; the f32 CUDA-core one
+    # beside it (off the main path: no f32 forward runs)
+    flash_row = next(r for r in rows if r["name"] == "flash_attention")
+    flash_row.update({key: flash_t[key] for key in (
+        "f32_source", "f32_ms", "f32_device_ms", "f32_bound_ms", "f32_plain_ms")})
     # the scan runs on both paths: its forward-shape numbers above, the
     # decode step's and the launches of each path here
     scan_row = next(r for r in rows if r["name"] == "selective_scan")

@@ -30,7 +30,9 @@ _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_floa
 # C entry points: name -> argtypes (every one returns a cudaError_t as int)
 SIGNATURES = {
     "repro_flash_attention": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
-                              _I, _F, _P),
+                              _F, _P),
+    "repro_flash_attention_tc": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                                 _I, _F, _P),
     "repro_decode_attention": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                                _I, _I, _I, _F, _I, _P),
     "repro_decode_attention_warps": (),

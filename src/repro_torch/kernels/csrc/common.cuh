@@ -1,12 +1,15 @@
-// Helpers shared by the attention kernels: element conversion to and from
-// f32, vectorised row loads and warp reductions. Only f32 and bf16 elements
-// are used; dtype code 0 is f32 and 1 is bf16 in every C entry point.
+// Helpers shared by the kernels: element conversion to and from f32,
+// vectorised row loads, warp reductions and the one-time shared-memory
+// attribute. Only f32 and bf16 elements are used; dtype code 0 is f32 and 1
+// is bf16 in the C entry points that take one.
 #pragma once
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include <atomic>
 
 namespace repro {
 
@@ -49,6 +52,23 @@ __device__ __forceinline__ float warp_sum(float x) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
   return x;
+}
+
+// Raise `kernel`'s dynamic shared memory limit to `bytes` on the current
+// device, once per device: the attribute belongs to the device, so a process
+// that launches on a second card sets it again there. `done` is the caller's
+// per-kernel record of the devices already set (bit d for device d < 64;
+// higher devices are set on every call).
+template <typename Kernel>
+cudaError_t set_smem_once(std::atomic<uint64_t>& done, Kernel* kernel, int bytes) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  const uint64_t bit = dev < 64 ? uint64_t{1} << dev : 0;
+  if (done.load(std::memory_order_acquire) & bit) return cudaSuccess;
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err == cudaSuccess) done.fetch_or(bit, std::memory_order_release);
+  return err;
 }
 
 }  // namespace repro

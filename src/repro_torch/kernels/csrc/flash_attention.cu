@@ -5,7 +5,7 @@
 // reached from the model through `_pallas_attn` in src/repro/models/layers.py).
 // Forward only: the backward comes with the training slice.
 //
-// Function: q [B,Sq,H,D], k/v [B,Sk,KV,D] -> out [B,Sq,H,D] in q's dtype.
+// Function: q [B,Sq,H,D], k/v [B,Sk,KV,D] f32 -> out [B,Sq,H,D] f32.
 //   q head h reads kv head h / (H/KV): the GQA repeat of the JAX caller is
 //   never materialised. Scores (q.k)/sqrt(D) in f32, optional tanh softcap,
 //   causal mask kpos <= qpos with an optional window kpos > qpos - window
@@ -14,20 +14,22 @@
 //   Sk: the ragged last tile is masked here (the TPU kernel asserted S % block).
 //
 // What bounds it on the card: operations. At S = 2048 and D = 128 a (b, h)
-// pair does ~4*S*S*D/2 causal flops on 4*S*D*sizeof(T) bytes, hundreds of
-// flops per byte, above the H100's ridge. The floor is the causal flops over
-// the tensor cores' peak (989 TFLOP/s bf16).
+// pair does ~4*S*S*D/2 causal flops on 4*S*D*4 bytes, hundreds of flops per
+// byte, above the H100's ridge. The floor is the causal flops over the f32
+// peak off the tensor cores (67 TFLOP/s).
 //
-// What the design does about it (simple first; wgmma, TMA and warp
-// specialisation are for a later change):
+// f32 only: bf16 goes to the tensor-core kernel of flash_attention_tc.cu,
+// and TF32 products could not meet the f32 tolerance.
+//
+// What the design does about it (simple first):
 //   * One block per (q tile of 64 rows, head, batch); the loop over k tiles
 //     inside the block takes the place of the TPU's sequential grid axis.
 //   * Q, K, V and score tiles sit in shared memory as f32 (rows padded by one
 //     word so column walks hit distinct banks); each of the 256 threads keeps
 //     a 4-row slice of the f32 output accumulator in registers.
 //   * K tiles that causality or the window mask entirely are never loaded.
-//   * The products run on the CUDA cores in f32 FMAs: correct for f32 and
-//     bf16 inputs alike, and far from the tensor-core peak (see PERF.md).
+//   * The products run on the CUDA cores in f32 FMAs (PERF.md has its time
+//     against that peak).
 #include "common.cuh"
 
 namespace repro {
@@ -49,10 +51,10 @@ constexpr int smem_floats() {
   return kBQ * (D + 1) + 2 * BK * (D + 1) + kBQ * (BK + 1) + 3 * kBQ;
 }
 
-template <typename T, int D, int BK>
+template <int D, int BK>
 __global__ void __launch_bounds__(kThreads)
-flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                 const T* __restrict__ v, T* __restrict__ o, int Sq, int Sk,
+flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                 const float* __restrict__ v, float* __restrict__ o, int Sq, int Sk,
                  int H, int KV, int causal, int window, float softcap,
                  float scale) {
   constexpr int LD = D + 1, LDS = BK + 1;
@@ -75,7 +77,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
   for (int e = tid; e < kBQ * D; e += kThreads) {
     const int r = e / D, d = e % D, qpos = q0 + r;
-    sQ[r * LD + d] = qpos < Sq ? to_float(q[(((size_t)b * Sq + qpos) * H + h) * D + d]) : 0.f;
+    sQ[r * LD + d] = qpos < Sq ? q[(((size_t)b * Sq + qpos) * H + h) * D + d] : 0.f;
   }
   if (tid < kBQ) { sM[tid] = kNegInf; sL[tid] = 0.f; }
 
@@ -98,8 +100,8 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
       const int r = e / D, d = e % D, kpos = k0 + r;
       const bool in = kpos < Sk;
       const size_t g = (((size_t)b * Sk + kpos) * KV + kvh) * D + d;
-      sK[r * LD + d] = in ? to_float(k[g]) : 0.f;
-      sV[r * LD + d] = in ? to_float(v[g]) : 0.f;
+      sK[r * LD + d] = in ? k[g] : 0.f;
+      sV[r * LD + d] = in ? v[g] : 0.f;
     }
     __syncthreads();
 
@@ -184,65 +186,48 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const int r = ty + 16 * i, qpos = q0 + r;
     if (qpos >= Sq) continue;
     const float l = sL[r];
-    T* dst = o + (((size_t)b * Sq + qpos) * H + h) * D;
+    float* dst = o + (((size_t)b * Sq + qpos) * H + h) * D;
 #pragma unroll
-    for (int j = 0; j < DJ; ++j)
-      dst[tx + 16 * j] = from_float<T>(l == 0.f ? 0.f : acc[i][j] / l);
+    for (int j = 0; j < DJ; ++j) dst[tx + 16 * j] = l == 0.f ? 0.f : acc[i][j] / l;
   }
 }
 
-template <typename T, int D, int BK>
-cudaError_t launch(const void* q, const void* k, const void* v, void* o, int B,
+template <int D, int BK>
+cudaError_t launch(const float* q, const float* k, const float* v, float* o, int B,
                    int Sq, int Sk, int H, int KV, int causal, int window,
                    float softcap, cudaStream_t stream) {
   constexpr int bytes = smem_floats<D, BK>() * static_cast<int>(sizeof(float));
-  cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_kernel<T, D, BK>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-  if (err != cudaSuccess) return err;
+  static std::atomic<uint64_t> smem_set{0};
+  const cudaError_t attr = set_smem_once(smem_set, flash_fwd_kernel<D, BK>, bytes);
+  if (attr != cudaSuccess) return attr;
   dim3 grid((Sq + kBQ - 1) / kBQ, H, B);
-  flash_fwd_kernel<T, D, BK><<<grid, kThreads, bytes, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(o), Sq, Sk, H, KV, causal, window, softcap,
+  flash_fwd_kernel<D, BK><<<grid, kThreads, bytes, stream>>>(
+      q, k, v, o, Sq, Sk, H, KV, causal, window, softcap,
       1.0f / sqrtf(static_cast<float>(D)));
   return cudaGetLastError();
-}
-
-template <typename T>
-cudaError_t dispatch(int D, const void* q, const void* k, const void* v, void* o,
-                     int B, int Sq, int Sk, int H, int KV, int causal, int window,
-                     float softcap, cudaStream_t stream) {
-  switch (D) {
-    case 32:
-      return launch<T, 32, 64>(q, k, v, o, B, Sq, Sk, H, KV, causal, window, softcap, stream);
-    case 64:
-      return launch<T, 64, 64>(q, k, v, o, B, Sq, Sk, H, KV, causal, window, softcap, stream);
-    case 128:
-      return launch<T, 128, 64>(q, k, v, o, B, Sq, Sk, H, KV, causal, window, softcap, stream);
-    case 256:
-      return launch<T, 256, 32>(q, k, v, o, B, Sq, Sk, H, KV, causal, window, softcap, stream);
-    default:
-      return cudaErrorInvalidValue;
-  }
 }
 
 }  // namespace
 }  // namespace repro
 
-// C entry point. dtype: 0 = f32, 1 = bf16 (q, k, v and out share it).
-// causal is 0 or 1; window <= 0 means no window; softcap <= 0 means none.
-// Returns cudaGetLastError() after the launch (0 on success).
-extern "C" int repro_flash_attention(const void* q, const void* k, const void* v,
-                                     void* out, int B, int Sq, int Sk, int H,
-                                     int KV, int D, int dtype, int causal,
-                                     int window, float softcap, void* stream) {
+// C entry point, f32 only (q, k, v and out). causal is 0 or 1; window <= 0
+// means no window; softcap <= 0 means none. Returns cudaGetLastError() after
+// the launch (0 on success).
+extern "C" int repro_flash_attention(const float* q, const float* k, const float* v,
+                                     float* out, int B, int Sq, int Sk, int H,
+                                     int KV, int D, int causal, int window,
+                                     float softcap, void* stream) {
   using namespace repro;
-  if (B <= 0 || Sq <= 0 || Sk <= 0 || KV <= 0 || H % KV != 0 ||
-      (dtype != 0 && dtype != 1))
+  if (B <= 0 || Sq <= 0 || Sk <= 0 || KV <= 0 || H % KV != 0)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const cudaError_t err = dtype == 0
-      ? dispatch<float>(D, q, k, v, out, B, Sq, Sk, H, KV, causal, window, softcap, st)
-      : dispatch<__nv_bfloat16>(D, q, k, v, out, B, Sq, Sk, H, KV, causal, window,
-                                softcap, st);
+  cudaError_t err;
+  switch (D) {
+    case 32: err = launch<32, 64>(q, k, v, out, B, Sq, Sk, H, KV, causal, window, softcap, st); break;
+    case 64: err = launch<64, 64>(q, k, v, out, B, Sq, Sk, H, KV, causal, window, softcap, st); break;
+    case 128: err = launch<128, 64>(q, k, v, out, B, Sq, Sk, H, KV, causal, window, softcap, st); break;
+    case 256: err = launch<256, 32>(q, k, v, out, B, Sq, Sk, H, KV, causal, window, softcap, st); break;
+    default: err = cudaErrorInvalidValue;
+  }
   return static_cast<int>(err);
 }

@@ -1,0 +1,464 @@
+// Flash attention forward on Hopper's tensor cores (sm_90a), for bf16.
+//
+// Replaces: src/repro/kernels/flash_attention.py, `_kernel` / `flash_attention`
+// (the Pallas TPU kernel, grid (B, H, S/bq, S/bk) with the k axis sequential,
+// reached from the model through `_pallas_attn` in src/repro/models/layers.py)
+// for bf16 operands. f32 operands keep the CUDA-core kernel of
+// flash_attention.cu: TF32 products keep about three decimal digits and
+// cannot meet the f32 tolerance (2e-5). Forward only.
+//
+// Function: as flash_attention.cu and ref.flash_attention_ref. q [B,Sq,H,D],
+//   k/v [B,Sk,KV,D] bf16 -> out [B,Sq,H,D] bf16; q head h reads kv head
+//   h / (H/KV), the GQA repeat is never materialised. Scores (q.k)/sqrt(D) in
+//   f32, then the optional tanh softcap, then the causal mask kpos <= qpos
+//   with an optional window kpos > qpos - window (only when causal). Masked
+//   scores get no weight; running max, sum and output are f32; a row whose sum
+//   is 0 outputs 0. Any Sq and Sk; D in {32, 64, 128, 256}.
+//
+// What bounds it on the card: operations. At S = 2048 and D = 128 a (b, h)
+// pair does ~4*S*S*D/2 causal flops on 4*S*D*2 bytes, hundreds of flops per
+// byte, above the H100's ridge. The floor is the causal flops over the bf16
+// tensor-core peak (989 TFLOP/s), which only wgmma reaches.
+//
+// What the design does about it:
+//   * Both products run on the tensor cores with wgmma. S = Q K^T takes Q and
+//     K from shared memory (both K-major). P = exp2(S - m) is rounded to bf16
+//     in registers: the f32 fragment of S is, pair by pair, the A-register
+//     fragment of O += P V, whose B operand V is read from shared memory
+//     MN-major (the transpose bit). O, the running max and the running sum
+//     stay f32 in registers; scores never touch shared memory. The sum is
+//     taken over the bf16-rounded P that the product uses.
+//   * One block per (128 q rows, head, batch): two consumer warpgroups own 64
+//     rows each; a producer warpgroup gives its registers to them
+//     (setmaxnreg 24 / 240) and one of its threads loads by TMA: Q once, then
+//     K/V tiles through a ring of stages, each with a full and an empty
+//     mbarrier, so the next tiles arrive while this one is multiplied. Tiles
+//     land in the 128-byte swizzle (64-byte for D = 32) that wgmma reads
+//     without bank conflicts; a 4-D tensor map (D, heads, S, batch) reads one
+//     head's rows in place and fills rows past S with zeros.
+//   * The two consumer warpgroups run unsynchronised, so one's softmax
+//     overlaps the other's products on the tensor cores.
+//   * Tiles that causality or the window rule out entirely are never loaded;
+//     only tiles that cross the diagonal, the window edge or the ragged end
+//     test each score against the mask (two bounds per row).
+//   * exp2 of (s - m) * scale * log2(e) in one FMA, the max taken on the raw
+//     scores; the softcap, which must come before that, is a template
+//     argument, so the kernel without one carries no tanh.
+//   * The q tile is the slowest grid axis, taken in reverse, so the heaviest
+//     causal tiles start first and the light ones fill the tail.
+//   * Tiles: BK = 128 keys and 3 stages for D <= 128 (Q 32 KB + 3 x (K + V)
+//     192 KB at D = 128), BK = 64 and 2 stages for D = 256 (Q 64 KB +
+//     2 x (K + V) 128 KB).
+#include "common.cuh"
+#include "hopper.cuh"
+
+namespace repro {
+namespace {
+
+using bf16 = __nv_bfloat16;
+
+constexpr int kBQ = 128;                        // q rows per block
+constexpr int kConsumers = 256;                 // two warpgroups of 64 rows each
+constexpr int kThreadsTC = 128 + kConsumers;    // after one producer warpgroup
+constexpr int kProducerRegs = 24, kConsumerRegs = 240;   // setmaxnreg split
+constexpr float kLog2e = 1.4426950408889634f;
+
+template <int D>
+struct Tile {
+  static constexpr int BK = D <= 128 ? 128 : 64;   // keys per k tile
+  static constexpr int STAGES = D <= 128 ? 3 : 2;  // K/V ring depth
+  static constexpr int SW = D >= 64 ? 128 : 64;    // swizzle span (bytes of a row)
+  static constexpr int E = SW / 2;                 // bf16 columns per swizzled box
+  static constexpr int NC = D / E;                 // boxes across D
+  static constexpr int Q_BYTES = kBQ * D * 2;
+  static constexpr int KV_BYTES = BK * D * 2;      // one K or V tile
+  static constexpr int BAR_BYTES = 64;
+  static constexpr int SMEM = 1024 + Q_BYTES + STAGES * 2 * KV_BYTES + BAR_BYTES;
+  static_assert(SMEM <= 232448, "tiles exceed a block's shared memory");
+  static_assert(D % E == 0 && BK % 16 == 0 && 2 * STAGES + 1 <= BAR_BYTES / 8, "bad tile");
+};
+
+__device__ __forceinline__ float fast_exp2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+__device__ __forceinline__ uint32_t bits(__nv_bfloat162 x) {
+  return *reinterpret_cast<uint32_t*>(&x);
+}
+
+// TMA copies of rows [row0, row0 + R) of one head: NC boxes of E columns, box
+// c at dst + c * R * SW, each row SW bytes in the swizzled layout.
+template <int D, int R>
+__device__ __forceinline__ void load_rows(char* dst, const CUtensorMap* map, uint64_t* bar,
+                                          int head, int row0, int b) {
+  using T = Tile<D>;
+#pragma unroll
+  for (int c = 0; c < T::NC; ++c)
+    sm90::tma_load_4d(dst + c * R * T::SW, map, bar, c * T::E, head, row0, b);
+}
+
+// Descriptors of a tile loaded by load_rows. K-major (Q, K): 8-row groups
+// 8 SW bytes apart. MN-major (V): boxes of E columns BK SW bytes apart
+// (leading), groups of 8 keys 8 SW bytes apart (stride). Offsets within a
+// tile are added to the start-address field in 16-byte units.
+template <int D>
+__device__ __forceinline__ uint64_t kmajor_desc(const char* tile) {
+  return sm90::smem_desc(tile, 16, 8 * Tile<D>::SW, Tile<D>::SW);
+}
+
+template <int D>
+__device__ __forceinline__ uint64_t mnmajor_desc(const char* tile) {
+  return sm90::smem_desc(tile, Tile<D>::BK * Tile<D>::SW, 8 * Tile<D>::SW, Tile<D>::SW);
+}
+
+// s = Q K^T for one warpgroup: 64 rows of the Q tile (q: their descriptor)
+// against the BK rows of the K tile (k), as one commit group (the caller waits).
+template <int D>
+__device__ __forceinline__ void qk_product(float (&s)[Tile<D>::BK / 2], uint64_t q, uint64_t k) {
+  using T = Tile<D>;
+  sm90::wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+    // depth kk * 16: box c, byte `inner` into each swizzled row
+    const int c = kk * 16 / T::E, inner = (kk * 16 % T::E) * 2;
+    sm90::wgmma_ss<T::BK>(s, q + ((c * kBQ * T::SW + inner) >> 4),
+                          k + ((c * T::BK * T::SW + inner) >> 4), kk > 0);
+  }
+  sm90::wgmma_commit();
+}
+
+// o += P V for one warpgroup: p holds P's bf16 A fragments, one set of four
+// registers per 16 keys; v is the V tile's MN-major descriptor. One commit
+// group (the caller waits).
+template <int D>
+__device__ __forceinline__ void pv_product(float (&o)[D / 2],
+                                           const uint32_t (&p)[Tile<D>::BK / 16][4], uint64_t v) {
+  using T = Tile<D>;
+  sm90::wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < T::BK / 16; ++kk)
+    sm90::wgmma_rs<D>(o, p[kk], v + ((kk * 16 * T::SW) >> 4), 1);
+  sm90::wgmma_commit();
+}
+
+// The keys one row keeps, relative to a tile: key k0 + 8 j + col + e (e in
+// {0, 1}) is kept when lo <= 8 j + e <= hi.
+struct RowKeys {
+  int lo, hi;
+  __device__ __forceinline__ RowKeys(int qpos, int k0, int col, int Sk, int causal,
+                                     int window) {
+    const int first = (causal && window > 0) ? qpos - window + 1 : 0;
+    const int last = causal ? min(qpos, Sk - 1) : Sk - 1;
+    lo = first - k0 - col;
+    hi = last - k0 - col;
+  }
+};
+
+// Online softmax over one k tile, in the registers of the S fragment.
+// This thread holds rows qpos0 and qpos1 (index e < 2 and e >= 2 of each
+// group of four) at columns k0 + 8 j + col + (e & 1). m is the running max of
+// the raw scores, in raw units; on return s holds P = exp2((s - m) * c) with
+// c = scale * log2(e), and alpha the factors the older sums are scaled by.
+template <int BK, bool kCap>
+struct RowSoftmax {
+  float m0 = kNegInf, m1 = kNegInf;   // running max of rows qpos0, qpos1
+  float l0 = 0.f, l1 = 0.f;           // this thread's share of the running sums
+
+  __device__ __forceinline__ void step(float (&s)[BK / 2], float& alpha0, float& alpha1,
+                                       bool edge, RowKeys r0, RowKeys r1, float cap_in,
+                                       float cap_out, float c) {
+    float mx0 = m0, mx1 = m1;
+#pragma unroll
+    for (int j = 0; j < BK / 8; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float x = s[4 * j + e];
+        // softcap * tanh(x * scale / softcap), kept in raw units
+        if constexpr (kCap) x = cap_out * tanhf(x * cap_in);
+        const RowKeys& r = e < 2 ? r0 : r1;
+        const int rel = 8 * j + (e & 1);
+        if (edge && (rel < r.lo || rel > r.hi)) x = -INFINITY;
+        s[4 * j + e] = x;
+        if (e < 2) mx0 = fmaxf(mx0, x); else mx1 = fmaxf(mx1, x);
+      }
+    }
+    // the four lanes of a row hold all its columns
+    mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 1));
+    mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 2));
+    mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 1));
+    mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 2));
+    alpha0 = fast_exp2((m0 - mx0) * c);
+    alpha1 = fast_exp2((m1 - mx1) * c);
+    m0 = mx0;
+    m1 = mx1;
+    const float b0 = m0 * c, b1 = m1 * c;
+#pragma unroll
+    for (int j = 0; j < BK / 8; ++j) {
+      s[4 * j] = fast_exp2(fmaf(s[4 * j], c, -b0));
+      s[4 * j + 1] = fast_exp2(fmaf(s[4 * j + 1], c, -b0));
+      s[4 * j + 2] = fast_exp2(fmaf(s[4 * j + 2], c, -b1));
+      s[4 * j + 3] = fast_exp2(fmaf(s[4 * j + 3], c, -b1));
+    }
+  }
+
+  // Round P to bf16 A fragments and add the rounded values to the sums
+  // (scaled by alpha first).
+  __device__ __forceinline__ void to_fragments(const float (&s)[BK / 2],
+                                               uint32_t (&pf)[BK / 16][4], float alpha0,
+                                               float alpha1) {
+    float sum0 = 0.f, sum1 = 0.f;
+#pragma unroll
+    for (int j = 0; j < BK / 8; ++j) {
+      const __nv_bfloat162 r0 = __floats2bfloat162_rn(s[4 * j], s[4 * j + 1]);
+      const __nv_bfloat162 r1 = __floats2bfloat162_rn(s[4 * j + 2], s[4 * j + 3]);
+      sum0 += __low2float(r0) + __high2float(r0);
+      sum1 += __low2float(r1) + __high2float(r1);
+      pf[j / 2][(j % 2) * 2] = bits(r0);
+      pf[j / 2][(j % 2) * 2 + 1] = bits(r1);
+    }
+    l0 = l0 * alpha0 + sum0;
+    l1 = l1 * alpha1 + sum1;
+  }
+};
+
+template <int R>
+__device__ __forceinline__ void rescale(float (&o)[R], float alpha0, float alpha1) {
+#pragma unroll
+  for (int j = 0; j < R / 4; ++j) {
+    o[4 * j] *= alpha0;
+    o[4 * j + 1] *= alpha0;
+    o[4 * j + 2] *= alpha1;
+    o[4 * j + 3] *= alpha1;
+  }
+}
+
+template <int D, bool kCap>
+__global__ void __launch_bounds__(kThreadsTC, 1)
+flash_fwd_tc_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
+                    const __grid_constant__ CUtensorMap tv, bf16* __restrict__ o, int Sq,
+                    int Sk, int H, int KV, int causal, int window, float softcap,
+                    float scale) {
+  using T = Tile<D>;
+  constexpr int BK = T::BK, NS = T::STAGES;
+  extern __shared__ uint8_t smem_raw[];
+  // the swizzle pattern follows address bits: tiles start 1024-byte aligned
+  char* sQ = reinterpret_cast<char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~static_cast<uintptr_t>(1023));
+  char* sKV = sQ + T::Q_BYTES;   // stage s: K at sKV + 2 s KV_BYTES, V after it
+  uint64_t* full = reinterpret_cast<uint64_t*>(sKV + NS * 2 * T::KV_BYTES);
+  uint64_t* empty = full + NS;
+  uint64_t* qbar = empty + NS;
+
+  const int h = blockIdx.x, b = blockIdx.y;
+  const int q0 = (gridDim.z - 1 - blockIdx.z) * kBQ;   // heaviest q tile first
+  const int kvh = h / (H / KV);
+  // k tiles that hold a kept key for some row of this block
+  const int q_last = min(q0 + kBQ, Sq) - 1;
+  const int k_end = causal ? min(Sk, q_last + 1) : Sk;
+  const int k_begin = (causal && window > 0) ? max(0, q0 - window + 1) : 0;
+  const int t_begin = k_begin / BK, n_tiles = (k_end + BK - 1) / BK - t_begin;
+  const int tid = threadIdx.x;
+  // the warpgroup index, read from lane 0 so the compiler sees it is the same
+  // across the warp: the role branch below then gets its own register budget
+  const int role = __shfl_sync(0xffffffffu, tid / 128, 0);
+
+  if (tid == 0) {
+#pragma unroll
+    for (int s = 0; s < NS; ++s) {
+      sm90::mbar_init(&full[s], 1);
+      sm90::mbar_init(&empty[s], kConsumers / 32);   // one arrival per consumer warp
+    }
+    sm90::mbar_init(qbar, 1);
+    sm90::fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (role == 0) {
+    // the producer warpgroup: one lane starts every copy
+    sm90::setmaxnreg_dec<kProducerRegs>();
+    if (tid == 0) {
+      sm90::mbar_arrive_expect_tx(qbar, T::Q_BYTES);
+      load_rows<D, kBQ>(sQ, &tq, qbar, h, q0, b);
+      for (int i = 0; i < n_tiles; ++i) {
+        const int s = i % NS, k0 = (t_begin + i) * BK;
+        // the stage's previous tile (i - NS) must be released first
+        if (i >= NS) sm90::mbar_wait(&empty[s], (i / NS - 1) & 1);
+        sm90::mbar_arrive_expect_tx(&full[s], 2 * T::KV_BYTES);
+        char* stage = sKV + s * 2 * T::KV_BYTES;
+        load_rows<D, BK>(stage, &tk, &full[s], kvh, k0, b);
+        load_rows<D, BK>(stage + T::KV_BYTES, &tv, &full[s], kvh, k0, b);
+      }
+    }
+  } else {
+    // consumers: warpgroup wg owns rows qw0 .. qw0 + 63 of the block
+    sm90::setmaxnreg_inc<kConsumerRegs>();
+    const int wg = role - 1, warp = (tid % 128) / 32, lane = tid % 32;
+    const int qw0 = q0 + wg * 64;
+    const int qpos0 = qw0 + warp * 16 + lane / 4, qpos1 = qpos0 + 8;   // this thread's rows
+    const int col = 2 * (lane % 4);   // its first column in each group of 8
+    const int w_last = min(qw0 + 64, Sq) - 1;
+    const float c = scale * kLog2e;
+    const float cap_in = softcap > 0.f ? scale / softcap : 0.f;
+    const float cap_out = softcap > 0.f ? softcap / scale : 0.f;
+    // descriptors of this warpgroup's Q rows and of stage 0's K and V tiles;
+    // stage s is 2 s KV_BYTES further
+    const uint64_t q_desc = kmajor_desc<D>(sQ + wg * 64 * T::SW);
+    const uint64_t k_desc0 = kmajor_desc<D>(sKV), v_desc0 = mnmajor_desc<D>(sKV + T::KV_BYTES);
+
+    float acc[D / 2];
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+    RowSoftmax<BK, kCap> sm;
+    float sc[BK / 2];
+    uint32_t pf[BK / 16][4];
+    float alpha0, alpha1;
+
+    sm90::mbar_wait(qbar, 0);
+    for (int i = 0; i < n_tiles; ++i) {
+      const int s = i % NS, k0 = (t_begin + i) * BK;
+      const uint64_t stage = (s * 2 * T::KV_BYTES) >> 4;
+      sm90::mbar_wait(&full[s], (i / NS) & 1);
+      qk_product<D>(sc, q_desc, k_desc0 + stage);
+      sm90::wgmma_wait<0>();
+      sm90::fence_regs(sc);
+      // only tiles where some score of this warpgroup is masked test each one
+      const bool edge = k0 + BK > Sk ||
+                        (causal && (k0 + BK - 1 > qw0 || (window > 0 && k0 <= w_last - window)));
+      sm.step(sc, alpha0, alpha1, edge, RowKeys(qpos0, k0, col, Sk, causal, window),
+              RowKeys(qpos1, k0, col, Sk, causal, window), cap_in, cap_out, c);
+      rescale(acc, alpha0, alpha1);
+      sm.to_fragments(sc, pf, alpha0, alpha1);
+      pv_product<D>(acc, pf, v_desc0 + stage);
+      sm90::wgmma_wait<0>();
+      sm90::fence_regs(acc);
+      if (lane == 0) sm90::mbar_arrive(&empty[s]);   // the stage may be refilled
+    }
+    float l0 = sm.l0, l1 = sm.l1;
+    l0 += __shfl_xor_sync(0xffffffffu, l0, 1);
+    l0 += __shfl_xor_sync(0xffffffffu, l0, 2);
+    l1 += __shfl_xor_sync(0xffffffffu, l1, 1);
+    l1 += __shfl_xor_sync(0xffffffffu, l1, 2);
+    const float inv0 = l0 == 0.f ? 0.f : 1.f / l0;
+    const float inv1 = l1 == 0.f ? 0.f : 1.f / l1;
+    if (qpos0 < Sq) {
+      bf16* dst = o + ((static_cast<size_t>(b) * Sq + qpos0) * H + h) * D + col;
+#pragma unroll
+      for (int j = 0; j < D / 8; ++j)
+        *reinterpret_cast<__nv_bfloat162*>(dst + 8 * j) =
+            __floats2bfloat162_rn(acc[4 * j] * inv0, acc[4 * j + 1] * inv0);
+    }
+    if (qpos1 < Sq) {
+      bf16* dst = o + ((static_cast<size_t>(b) * Sq + qpos1) * H + h) * D + col;
+#pragma unroll
+      for (int j = 0; j < D / 8; ++j)
+        *reinterpret_cast<__nv_bfloat162*>(dst + 8 * j) =
+            __floats2bfloat162_rn(acc[4 * j + 2] * inv1, acc[4 * j + 3] * inv1);
+    }
+  }
+}
+
+// ---- host side --------------------------------------------------------------
+
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// libcuda's cuTensorMapEncodeTiled, found once through the runtime (so the
+// library does not link libcuda); nullptr when libcuda lacks it.
+EncodeTiled encode_tiled() {
+  static const EncodeTiled fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found = cudaDriverEntryPointSymbolNotFound;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t err =
+        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    return (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
+               ? reinterpret_cast<EncodeTiled>(p) : nullptr;
+  }();
+  return fn;
+}
+
+// A tensor map over x [B, S, heads, D] bf16 whose box is `rows` rows of one
+// head, swizzle_bytes / 2 columns wide.
+bool make_map(CUtensorMap* map, const void* x, int B, int S, int heads, int D, int rows,
+              int swizzle_bytes) {
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return false;
+  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(D), static_cast<cuuint64_t>(heads),
+                              static_cast<cuuint64_t>(S), static_cast<cuuint64_t>(B)};
+  const cuuint64_t row = static_cast<cuuint64_t>(heads) * D * 2;
+  const cuuint64_t strides[3] = {static_cast<cuuint64_t>(D) * 2, row, row * S};
+  const cuuint32_t box[4] = {static_cast<cuuint32_t>(swizzle_bytes / 2), 1,
+                             static_cast<cuuint32_t>(rows), 1};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(x), dims, strides,
+                box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                swizzle_bytes == 128 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <int D, bool kCap>
+cudaError_t launch_kernel(const CUtensorMap& tq, const CUtensorMap& tk, const CUtensorMap& tv,
+                      void* o, int B, int Sq, int Sk, int H, int KV, int causal, int window,
+                      float softcap, cudaStream_t stream) {
+  using T = Tile<D>;
+  static std::atomic<uint64_t> smem_set{0};
+  const cudaError_t attr = set_smem_once(smem_set, flash_fwd_tc_kernel<D, kCap>, T::SMEM);
+  if (attr != cudaSuccess) return attr;
+  const dim3 grid(H, B, (Sq + kBQ - 1) / kBQ);
+  flash_fwd_tc_kernel<D, kCap><<<grid, kThreadsTC, T::SMEM, stream>>>(
+      tq, tk, tv, static_cast<bf16*>(o), Sq, Sk, H, KV, causal, window, softcap,
+      1.0f / sqrtf(static_cast<float>(D)));
+  return cudaGetLastError();
+}
+
+// Tensor maps for q, k, v, then the kernel for D with or without a softcap.
+template <int D>
+cudaError_t launch_tc(const void* q, const void* k, const void* v, void* o, int B, int Sq,
+                      int Sk, int H, int KV, int causal, int window, float softcap,
+                      cudaStream_t stream) {
+  using T = Tile<D>;
+  CUtensorMap tq, tk, tv;
+  if (!make_map(&tq, q, B, Sq, H, D, kBQ, T::SW) || !make_map(&tk, k, B, Sk, KV, D, T::BK, T::SW) ||
+      !make_map(&tv, v, B, Sk, KV, D, T::BK, T::SW))
+    return cudaErrorInvalidValue;
+  return softcap > 0.f
+             ? launch_kernel<D, true>(tq, tk, tv, o, B, Sq, Sk, H, KV, causal, window,
+                                      softcap, stream)
+             : launch_kernel<D, false>(tq, tk, tv, o, B, Sq, Sk, H, KV, causal, window,
+                                       softcap, stream);
+}
+
+}  // namespace
+}  // namespace repro
+
+// C entry point, bf16 only (q, k, v and out). causal is 0 or 1; window <= 0
+// means no window; softcap <= 0 means none. Returns cudaGetLastError() after
+// the launch (0 on success), or cudaErrorInvalidValue for a shape it does not
+// take or a tensor map cuTensorMapEncodeTiled refuses.
+extern "C" int repro_flash_attention_tc(const void* q, const void* k, const void* v, void* out,
+                                        int B, int Sq, int Sk, int H, int KV, int D, int causal,
+                                        int window, float softcap, void* stream) {
+  using namespace repro;
+  if (B <= 0 || Sq <= 0 || Sk <= 0 || KV <= 0 || H % KV != 0 || B > 65535 ||
+      (Sq + kBQ - 1) / kBQ > 65535)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  cudaError_t err;
+  switch (D) {
+    case 32: err = launch_tc<32>(q, k, v, out, B, Sq, Sk, H, KV, causal, window, softcap, st); break;
+    case 64: err = launch_tc<64>(q, k, v, out, B, Sq, Sk, H, KV, causal, window, softcap, st); break;
+    case 128: err = launch_tc<128>(q, k, v, out, B, Sq, Sk, H, KV, causal, window, softcap, st); break;
+    case 256: err = launch_tc<256>(q, k, v, out, B, Sq, Sk, H, KV, causal, window, softcap, st); break;
+    default: err = cudaErrorInvalidValue;
+  }
+  return static_cast<int>(err);
+}

@@ -2,9 +2,11 @@
 
 Each wrapper checks what it is given and picks its path by the tensors'
 device alone: a CPU tensor gets the plain version from ``ref``; a CUDA
-tensor gets the kernel or an exception. Nothing falls back from the card to
-the plain version. Outputs and scratch are allocated here with
-``torch.empty`` and the kernel runs on ``torch.cuda.current_stream()``.
+tensor gets the kernel (for flash attention, the variant of its dtype:
+``flash_variant``) or an exception. Nothing falls back from the card to the
+plain version, nor from one kernel to another. Outputs and scratch are
+allocated here with ``torch.empty`` and the kernel runs on
+``torch.cuda.current_stream()``.
 
 ``LAUNCHES`` counts kernel launches per wrapper (one per call that reaches
 the card); ``reset_launches()`` sets every count to 0.
@@ -102,13 +104,26 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     return out
 
 
+def flash_variant(dtype: torch.dtype) -> str:
+    """The CUDA kernel that takes flash attention in ``dtype``: bf16 runs on
+    the tensor cores (``csrc/flash_attention_tc.cu``, wgmma + TMA); f32 stays
+    on the CUDA cores (``csrc/flash_attention.cu``), since TF32 products
+    cannot meet the f32 tolerance."""
+    if dtype == torch.bfloat16:
+        return "tensor_core"
+    if dtype == torch.float32:
+        return "cuda_core"
+    raise ValueError(f"flash_attention: no kernel for {dtype}")
+
+
 def _launch_flash_attention(q, k, v, out, causal, window, softcap) -> None:
     B, Sq, H, D = q.shape
     Sk, KV = k.shape[1], k.shape[2]
-    code = build.load().repro_flash_attention(
-        _ptr(q), _ptr(k), _ptr(v), _ptr(out), B, Sq, Sk, H, KV, D,
-        _DTYPES[q.dtype], int(causal), int(window or 0), float(softcap or 0.0),
-        _stream())
+    lib = build.load()
+    entry = (lib.repro_flash_attention_tc if flash_variant(q.dtype) == "tensor_core"
+             else lib.repro_flash_attention)
+    code = entry(_ptr(q), _ptr(k), _ptr(v), _ptr(out), B, Sq, Sk, H, KV, D,
+                 int(causal), int(window or 0), float(softcap or 0.0), _stream())
     _raise_on(code, "flash_attention")
 
 

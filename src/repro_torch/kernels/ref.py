@@ -42,6 +42,21 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     return out.reshape(B, Sq, H, D).to(q.dtype)
 
 
+# The most a bf16 attention output row may be off: bf16's unit roundoff is
+# 2^-8 = 3.9e-3 (the output's rounding plus that of P before P.V), while a
+# key tile of 128 dropped from 2048 moves a row by ~25%.
+BF16_ROW_TOL = 1e-2
+
+
+def row_error(got: torch.Tensor, exact: torch.Tensor) -> float:
+    """Largest error of a row of ``got`` (over the last axis) relative to
+    that row of ``exact``: the measure a bf16 attention output is held to
+    against the f32 result (``BF16_ROW_TOL``), since late causal rows, whose
+    values are ~1/sqrt(keys), sit below any useful absolute tolerance."""
+    diff = (got.float() - exact.float()).norm(dim=-1)
+    return (diff / exact.float().norm(dim=-1).clamp_min(1e-30)).max().item()
+
+
 def decode_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          lengths: torch.Tensor, *,
                          softcap: Optional[float] = None,

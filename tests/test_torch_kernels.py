@@ -235,3 +235,31 @@ def test_plain_versions_take_any_head_dim():
     assert out.shape == q.shape
     out = ops.decode_attention(q[:, 0], k, k, torch.tensor([3], dtype=torch.int32))
     assert out.shape == (1, 6, 16)
+
+
+@pytest.mark.parametrize("dtype, variant", [(torch.bfloat16, "tensor_core"),
+                                            (torch.float32, "cuda_core")])
+def test_flash_variant_follows_dtype(dtype, variant):
+    """bf16 goes to the tensor-core kernel (flash_attention_tc.cu), f32 to
+    the CUDA-core one (flash_attention.cu); the choice is by dtype alone."""
+    assert ops.flash_variant(dtype) == variant
+
+
+def test_flash_variant_refuses_other_dtypes():
+    with pytest.raises(ValueError):
+        ops.flash_variant(torch.float16)
+
+
+def test_row_error_sees_a_dropped_key_tile():
+    """The bf16 plain output is within ``ref.BF16_ROW_TOL`` of the f32 result
+    row by row, and one with a middle tile of 128 keys dropped is not."""
+    rng = np.random.default_rng(5)
+    q, k, v = (torch.from_numpy(_np(rng, s)).bfloat16()
+               for s in ((1, 16, 4, 64), (1, 2048, 2, 64), (1, 2048, 2, 64)))
+    kw = dict(causal=False)
+    exact = ref.flash_attention_ref(q.float(), k.float(), v.float(), **kw)
+    assert ref.row_error(ref.flash_attention_ref(q, k, v, **kw), exact) \
+        <= ref.BF16_ROW_TOL
+    keep = torch.cat([torch.arange(0, 960), torch.arange(1088, 2048)])
+    dropped = ref.flash_attention_ref(q, k[:, keep], v[:, keep], **kw)
+    assert ref.row_error(dropped, exact) > 5 * ref.BF16_ROW_TOL
