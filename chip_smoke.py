@@ -10,9 +10,10 @@ d_state=16, d_conv=4, dt_rank=256, V=65024). Phases:
 
 1. device: name, power limit, kernel build (nvcc, sm_90a) and its seconds;
 2. each CUDA kernel, launched directly, against its plain PyTorch version
-   on the card (tolerance 2e-5 for f32, 2e-2 for bf16, 1e-5 for the scan,
-   as the JAX package's kernel tests use; bf16 flash also row by row
-   against the f32 result of its inputs, ``ref.BF16_ROW_TOL``);
+   on the card (tolerance 2e-5 for f32, 2e-2 for bf16, as the JAX package's
+   kernel tests use; bf16 flash also row by row against the f32 result of
+   its inputs, ``ref.BF16_ROW_TOL``; the scan, in both its variants,
+   bit-identical to the plain loop);
 3. internlm2 ``forward`` in bf16 on tokens [2, 2048] with the flash kernel
    (its tensor-core variant) against the plain path, and the flash launch
    count (one per layer, none of them the f32 CUDA-core variant);
@@ -22,14 +23,18 @@ d_state=16, d_conv=4, dt_rank=256, V=65024). Phases:
    max_len 4096, 8 requests x 64 tokens) through the decode kernel: every
    request gets its tokens, a lockstep kernel/plain ``serve_step`` run holds
    the logits, the greedy streams agree, and the decode launch count is
-   n_layers x steps;
+   n_layers x steps (each one launch of the cluster kernel);
    4b. falcon-mamba ``SlotServer`` the same way through the scan kernel
-   (f32 conv and SSM caches; n_layers x steps scan launches);
+   (f32 conv and SSM caches; n_layers x steps scan launches, every one of
+   them the decode-step variant), and the scan's device time per launch
+   inside the serve step beside the sequential kernel's and that of
+   ``torch.addcmul`` in its place;
 5. timings (CUDA-event medians and profiler device time) of each kernel,
    its plain version and, where one exists, one PyTorch library call at the
    shapes of phases 3-4, with the kernel's bound; flash in both variants
    (bf16 on the tensor cores, f32 on the CUDA cores), each against the peak
-   of its type.
+   of its type; decode attention at the serve shape and at a full cache;
+   the scan at the forward shape and at the decode step.
 
 Every breakdown prints the port's kernel launches the profiler recorded
 beside those the wrappers counted, and reads its device busy time as a lower
@@ -41,6 +46,7 @@ non-zero without one, or without the repository's ``src/`` beside it.
 """
 from __future__ import annotations
 
+import contextlib
 import copy
 import json
 import re
@@ -49,6 +55,7 @@ import subprocess
 import sys
 import time
 from pathlib import Path
+from unittest import mock
 
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
@@ -84,16 +91,18 @@ KERNELS = {
         route="cuda", source="src/repro_torch/kernels/csrc/selective_scan.cu",
         replaces="src/repro/kernels/selective_scan.py:49"),
 }
-# per wrapper: the names of its device kernels (matched as substrings) and
-# how many of them one counted launch runs. flash runs one of its two
-# variants: the tensor-core kernel for bf16, the CUDA-core one for f32 (as
-# substrings neither name contains the other).
-DEVICE_KERNELS = {
-    "flash_attention": (("flash_fwd_tc_kernel", "flash_fwd_kernel"), 1),
-    "decode_attention": (("decode_split_kernel", "decode_combine_kernel"), 2),
-    "selective_scan": (("selective_scan_kernel",), 1),
-}
+# flash's device kernel by dtype (``ops.flash_variant``), the scan's by
+# ``ops.scan_variant``; as substrings, neither name of a pair contains the other
 FLASH_TC, FLASH_CC = "flash_fwd_tc_kernel", "flash_fwd_kernel"
+SCAN_KERNEL = {"sequential": "selective_scan_kernel",
+               "step": "selective_scan_step_kernel"}
+# per wrapper: the names of its device kernels (matched as substrings) and
+# how many of them one counted launch runs (one of its variants' kernels)
+DEVICE_KERNELS = {
+    "flash_attention": ((FLASH_TC, FLASH_CC), 1),
+    "decode_attention": (("decode_attention_kernel",), 1),
+    "selective_scan": (tuple(SCAN_KERNEL.values()), 1),
+}
 
 
 def sync() -> None:
@@ -217,7 +226,8 @@ def log_breakdown(tag: str, prof: dict, wall_ms: float, top: int = 6) -> None:
         want = per_call * per_launch
         log(f"breakdown {tag}: {name} launches recorded {seen:g} / counted "
             f"{want:g} per call ("
-            + ", ".join(f"{x} {n:g}" for x, n in by_name.items()) + ")")
+            + ", ".join(f"{x} {n:g}" for x, n in by_name.items())
+            + f"), {_fmt(kernel_ms(prof, *names))} ms per launch")
         if seen < want:
             short.append(name)
     bound = ">= " if short else ""
@@ -296,6 +306,15 @@ DECODE_CASES = [
     (4, 1024, 16, 8, 128, torch.float32, None, None, [1025, 2048, 1500, 3072]),
     # with a window, lengths > S + window leave no valid key (uniform softmax)
     (4, 1024, 16, 8, 128, torch.float32, 512, None, [1100, 1535, 1536, 2048]),
+    # the serve path's lengths (64 keys a slot: most splits of each cluster
+    # get none), most splits empty, S a multiple of neither the split count
+    # nor the ring tile, head group 16 at D = 256, bf16 with window and
+    # softcap
+    (4, 4096, 16, 8, 128, torch.float32, None, None, [64, 64, 64, 64]),
+    (4, 4096, 16, 8, 128, torch.float32, None, None, [1, 64, 1, 4096]),
+    (2, 2047, 16, 8, 128, torch.float32, None, None, [2047, 1999]),
+    (2, 4096, 32, 2, 256, torch.float32, None, None, [4096, 3000]),
+    (4, 4096, 16, 8, 128, torch.bfloat16, 1000, 30.0, None),
 ]
 
 FLASH_CASES = [
@@ -313,22 +332,29 @@ FLASH_CASES = [
 ]
 
 SCAN_CASES = [
-    # (B, S, DI, DS, with h0): falcon-mamba's forward shape, its decode step,
-    # a ragged F (8240 * 16 = 515 blocks of 256 and a half), a small odd F
-    (2, 2048, 8192, 16, False),
-    (4, 1, 8192, 16, True),
-    (3, 1000, 8192 + 48, 16, False),
-    (2, 300, 7, 3, True),
+    # (B, S, DI, DS, h0, variant); h0 None, "fresh" or "offset" (a view 4
+    # bytes into its buffer, not 16-byte aligned): falcon-mamba's forward
+    # shape, its decode step (with and without h0), a ragged F (8240 * 16 =
+    # 515 blocks of 256 and a half), a small odd F, a decode step with
+    # F % 4 != 0 and one with an unaligned h0
+    (2, 2048, 8192, 16, None, "sequential"),
+    (4, 1, 8192, 16, "fresh", "step"),
+    (4, 1, 8192, 16, None, "step"),
+    (3, 1000, 8192 + 48, 16, None, "sequential"),
+    (2, 300, 7, 3, "fresh", "sequential"),
+    (4, 1, 8191, 3, "fresh", "sequential"),
+    (4, 1, 8192, 16, "offset", "sequential"),
 ]
-SCAN_TOL = 1e-5
 
 
-def _scan_operands(g, B, S, DI, DS, with_h0):
-    """a in [0.499, 0.999) (a decay, as exp(dt * A) is), b and h0 normal."""
+def _scan_operands(g, B, S, DI, DS, h0):
+    """a in [0.499, 0.999) (a decay, as exp(dt * A) is), b and h0 normal;
+    h0 as in ``SCAN_CASES``."""
     a = torch.rand((B, S, DI, DS), generator=g, device=DEVICE) * 0.5 + 0.499
     b = torch.randn((B, S, DI, DS), generator=g, device=DEVICE)
-    h0 = (torch.randn((B, DI, DS), generator=g, device=DEVICE)
-          if with_h0 else None)
+    if h0 is not None:
+        buf = torch.randn((B * DI * DS + 1,), generator=g, device=DEVICE)
+        h0 = (buf[1:] if h0 == "offset" else buf[:-1]).view(B, DI, DS)
     return a, b, h0
 
 
@@ -336,16 +362,25 @@ def phase_kernels() -> dict:
     g = torch.Generator(device=DEVICE).manual_seed(SEED)
     errs = {"flash_attention": 0.0, "decode_attention": 0.0,
             "selective_scan": 0.0}
-    for B, S, DI, DS, with_h0 in SCAN_CASES:
-        a, b, h0 = _scan_operands(g, B, S, DI, DS, with_h0)
+    for B, S, DI, DS, h0_kind, variant in SCAN_CASES:
+        a, b, h0 = _scan_operands(g, B, S, DI, DS, h0_kind)
+        what = f"scan {B, S, DI, DS, h0_kind}"
+        check(ops.scan_variant(a, b, h0) == variant,
+              f"{what}: variant {ops.scan_variant(a, b, h0)} != {variant}")
+        before = ops.SCAN_VARIANTS[variant]
         out = ops.selective_scan(a, b, h0)
         sync()
+        check(ops.SCAN_VARIANTS[variant] == before + 1,
+              f"{what}: the {variant} kernel did not launch")
         want = ref.selective_scan_ref(a, b, h0)
-        err = assert_close(out, want, SCAN_TOL, f"scan {B, S, DI, DS, with_h0}")
+        err = max_err(out, want)
+        # one rounded product and one rounded sum per step, in both
+        check(bool(torch.equal(out, want)),
+              f"{what}: not bit-identical to the plain loop (max_abs_err "
+              f"{err:.3e})")
         errs["selective_scan"] = max(errs["selective_scan"], err)
-        log(f"scan B={B} S={S} DI={DI} DS={DS} h0={with_h0}: max_abs_err "
-            f"{err:.3e} (tol {SCAN_TOL}), bit-identical "
-            f"{bool(torch.equal(out, want))}")
+        log(f"scan B={B} S={S} DI={DI} DS={DS} h0={h0_kind} ({variant}): "
+            f"bit-identical to the plain loop")
         del a, b, h0, out, want
     for B, S, H, KV, D, dt, window, softcap, lens in DECODE_CASES:
         q = _randn(g, (B, H, D), dt)
@@ -364,9 +399,10 @@ def phase_kernels() -> dict:
                                         softcap=softcap)
         err = assert_close(out, want, TOL[dt], f"decode {B,S,H,KV,D,dt}")
         errs["decode_attention"] = max(errs["decode_attention"], err)
+        n_split = ops.decode_grid(B, KV, S, ops.sm_count(0))
         log(f"decode B={B} S={S} H={H} KV={KV} D={D} {str(dt)[6:]} "
-            f"window={window} softcap={softcap} lengths={lengths.tolist()}: "
-            f"max_abs_err {err:.3e} (tol {TOL[dt]})")
+            f"window={window} softcap={softcap} lengths={lengths.tolist()} "
+            f"cluster {n_split}: max_abs_err {err:.3e} (tol {TOL[dt]})")
     for B, S, H, KV, D, dt, causal, window, softcap in FLASH_CASES:
         q = _randn(g, (B, S, H, D), dt)
         k = _randn(g, (B, S, KV, D), dt)
@@ -414,10 +450,14 @@ def phase_forward(cfg, kernel: str) -> dict:
         logits_k, _ = M.forward(params, batch, cfg, runtime("kernel"))
         sync()
         launches = ops.LAUNCHES[kernel]
+        variants = dict(ops.SCAN_VARIANTS)
         logits_p, _ = M.forward(params, batch, cfg, runtime("plain"))
         sync()
     check(launches == cfg.n_layers,
           f"{kernel} launches {launches} != n_layers {cfg.n_layers}")
+    if kernel == "selective_scan":
+        check(variants["sequential"] == launches,
+              f"forward scan launches by variant {variants}")
     check(tuple(logits_k.shape) == (FWD_B, FWD_S, cfg.vocab), "logits shape")
     check(bool(torch.isfinite(logits_k).all()), "non-finite logits")
     # bf16 activations round at every layer, so two bf16 paths that differ
@@ -543,17 +583,25 @@ def phase_serve(cfg, kernel: str) -> dict:
                 f"({SLOTS / ms * 1e3:.1f} tok/s)")
             log_breakdown(f"{tag} serve_step {impl}",
                           profile_kernels(step[impl], 5), ms)
+        in_step = (scan_in_step(step["kernel"], tag)
+                   if kernel == "selective_scan" else None)
         # (b) the servers: kernel (counted) and plain
         gaps_k, gaps_p = [], []
         ops.reset_launches()
         out_k, steps, secs_k = _serve(
             SlotServer(params, cfg, runtime("kernel"), SLOTS, MAX_LEN), gaps_k)
         launches = ops.LAUNCHES[kernel]
+        variants = dict(ops.SCAN_VARIANTS)
         out_p, steps_p, secs_p = _serve(
             SlotServer(params, cfg, runtime("plain"), SLOTS, MAX_LEN), gaps_p)
     check(launches == cfg.n_layers * steps,
           f"{kernel} launches {launches} != n_layers x steps "
           f"{cfg.n_layers} x {steps}")
+    if kernel == "selective_scan":
+        # every decode step of the server goes to the float4 step kernel
+        check(variants["step"] == launches,
+              f"server scan launches by variant {variants}")
+        log(f"{tag}: scan launches by variant {variants}")
     check(sorted(out_k) == list(range(REQUESTS)), "missing requests")
     check(all(len(o) == TOKENS for o in out_k.values()), "short requests")
     diverged = []
@@ -577,7 +625,49 @@ def phase_serve(cfg, kernel: str) -> dict:
     check(steps == steps_p, "plain server took another number of steps")
     del params
     log_memory(tag)
-    return {"launches": launches, "cache": caches["kernel"], "pos": pos}
+    return {"launches": launches, "cache": caches["kernel"], "pos": pos,
+            "scan_in_step": in_step}
+
+
+def _scan_addcmul(a, b, h0=None):
+    """One decode step of the scan as one library call (S = 1 and h0 only):
+    h = a * h0 + b. Timed, never used by the port; CUDA may fuse its
+    product and sum, so its bits may differ from the kernel's."""
+    return torch.addcmul(b, a, h0.unsqueeze(1))
+
+
+def scan_in_step(step, tag: str) -> dict:
+    """Device ms per scan launch inside the Mamba serve step, where a and b
+    were just written and sit in L2, three ways in turns: the step kernel
+    (the path's), the sequential kernel at S = 1 (what took S = 1 before the
+    step kernel; ``ops.scan_variant`` patched for the run) and one library
+    call in the kernel's place (``_scan_addcmul``, ``ops.selective_scan``
+    patched for the run). The patched runs only time; nothing is checked or
+    counted from them."""
+    ways = {
+        "step": (contextlib.nullcontext, SCAN_KERNEL["step"]),
+        "sequential": (lambda: mock.patch.object(
+            ops, "scan_variant", lambda *_: "sequential"),
+            SCAN_KERNEL["sequential"]),
+        "addcmul": (lambda: mock.patch.object(
+            ops, "selective_scan", _scan_addcmul), "addcmul"),
+    }
+    runs = {way: [] for way in ways}
+    for way in ("step", "sequential", "addcmul", "addcmul", "sequential",
+                "step"):
+        patch, name = ways[way]
+        with patch():
+            prof = profile_kernels(step, 5)
+        runs[way].append(kernel_ms(prof, name))
+        busy = sum(ms for _, ms in prof["kernels"].values())
+        log(f"{tag} serve_step scan in the step, {way} ({name}): "
+            f"{_fmt(runs[way][-1])} ms per launch, {recorded(prof, name):g} "
+            f"launches recorded a step, device busy {busy:.3f} ms a step")
+    out = {way: (statistics.mean(t) if None not in t else None)
+           for way, t in runs.items()}
+    log(f"{tag} serve_step scan per launch (mean of 2): "
+        + ", ".join(f"{way} {_fmt(ms)} ms" for way, ms in out.items()))
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -648,11 +738,26 @@ def time_flash(cfg) -> dict:
     return out
 
 
-def make_flush():
-    """A call that writes 256 MB through the 50 MB L2, so that the next
-    kernel's reads start cold."""
-    scratch = torch.empty(256 * 2**20, dtype=torch.uint8, device=DEVICE)
-    return scratch.zero_
+def make_flush(kind: str = "write"):
+    """A call that moves 256 MB through the 50 MB L2, so that the next
+    kernel's reads start cold. "write" (the flush of the earlier timings)
+    leaves the L2 full of dirty lines, whose write-back then falls in the
+    next kernel's time;
+    "read" leaves it full of clean lines, as the serve step's weight reads
+    do before an attention or scan kernel."""
+    scratch = torch.empty(64 * 2**20, dtype=torch.float32, device=DEVICE)
+    return scratch.zero_ if kind == "write" else scratch.sum
+
+
+def _clean_l2_times(fn, names) -> tuple:
+    """Event and device ms of fn() after a read flush (``make_flush``)."""
+    flush = make_flush("read")
+    ms = cuda_ms(fn, flush=flush)
+    return ms, kernel_ms(profile_kernels(lambda: (flush(), fn())), *names)
+
+
+def _share(bound_ms, ms) -> str:
+    return "not measured" if ms is None else f"{100 * bound_ms / ms:.1f}%"
 
 
 def time_decode(q, k, v, lengths, tag: str) -> dict:
@@ -669,8 +774,11 @@ def time_decode(q, k, v, lengths, tag: str) -> dict:
                        flush=flush)
     lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
         qs, ks, vs, attn_mask=mask, enable_gqa=True), flush=flush)
+    names = DEVICE_KERNELS["decode_attention"][0]
     dev_ms = kernel_ms(profile_kernels(lambda: (flush(), ops.decode_attention(
-        q, k, v, lengths))), "decode_split_kernel", "decode_combine_kernel")
+        q, k, v, lengths))), *names)
+    clean_ms, clean_dev = _clean_l2_times(
+        lambda: ops.decode_attention(q, k, v, lengths), names)
     valid = lengths.clamp(max=S).sum().item()
     nbytes = (2 * valid * KV * D + 2 * q.numel()) * q.element_size() \
         + lengths.numel() * 4
@@ -679,29 +787,50 @@ def time_decode(q, k, v, lengths, tag: str) -> dict:
     t_bytes = nbytes / HBM_BYTES_PER_S
     bound_ms = max(t_ops, t_bytes) * 1e3
     by = "operations" if t_ops >= t_bytes else "bytes"
+    n_split = ops.decode_grid(B, KV, S, ops.sm_count(0))
     log(f"time decode {tag} {str(q.dtype)[6:]} B={B} S={S} H={H} KV={KV} D={D} "
-        f"valid keys {valid}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-        f"sdpa(mask, enable_gqa) {lib_ms:.4f} ms, bound {bound_ms * 1e3:.2f} us "
-        f"({by}: {nbytes / 1e6:.3f} MB), "
-        f"{nbytes / ms / 1e6:.1f} GB/s achieved; kernel device time "
-        f"{_fmt(dev_ms)} ms ({_fmt(dev_ms and nbytes / dev_ms / 1e6)} GB/s)")
+        f"valid keys {valid}, cluster {n_split}: kernel {ms:.4f} ms, plain "
+        f"{plain_ms:.4f} ms, sdpa(mask, enable_gqa) {lib_ms:.4f} ms, bound "
+        f"{bound_ms * 1e3:.2f} us ({by}: {nbytes / 1e6:.3f} MB), "
+        f"{nbytes / ms / 1e6:.1f} GB/s achieved, {100 * bound_ms / ms:.1f}% of "
+        f"the bound; kernel device time {_fmt(dev_ms)} ms "
+        f"({_fmt(dev_ms and nbytes / dev_ms / 1e6)} GB/s, "
+        f"{_share(bound_ms, dev_ms)} of the bound); after a read flush "
+        f"(clean L2): kernel {clean_ms:.4f} ms ({_share(bound_ms, clean_ms)}), "
+        f"device {_fmt(clean_dev)} ms ({_share(bound_ms, clean_dev)})")
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-                bound_ms=bound_ms, bound_by=by, device_ms=dev_ms)
+                bound_ms=bound_ms, bound_by=by, device_ms=dev_ms,
+                clean_l2_ms=clean_ms, clean_l2_device_ms=clean_dev)
 
 
 def time_scan(a, b, h0, tag: str, cold: bool) -> dict:
     """The scan kernel at one shape, its plain loop and its bound (bytes:
     a and b read, h written, h0 read; 2 flops an element). No single PyTorch
-    call computes a linear recurrence, so there is no library time."""
+    call computes a linear recurrence (S > 1), so there the library time is
+    None; one step with h0 (S = 1) is ``torch.addcmul`` (``_scan_addcmul``),
+    timed as the kernel is."""
     flush = make_flush() if cold else None
     B, S, DI, DS = a.shape
+    variant = ops.scan_variant(a, b, h0)
     err = max_err(ops.selective_scan(a, b, h0), ref.selective_scan_ref(a, b, h0))
     ms = cuda_ms(lambda: ops.selective_scan(a, b, h0), flush=flush)
     plain_ms = cuda_ms(lambda: ref.selective_scan_ref(a, b, h0), iters=5,
                        flush=flush)
     prof = profile_kernels(lambda: (flush and flush(),
                                     ops.selective_scan(a, b, h0)), iters=20)
-    dev_ms = kernel_ms(prof, "selective_scan_kernel")
+    dev_ms = kernel_ms(prof, SCAN_KERNEL[variant])
+    clean_ms, clean_dev = (_clean_l2_times(lambda: ops.selective_scan(a, b, h0),
+                                           (SCAN_KERNEL[variant],))
+                           if cold else (None, None))
+    lib = (lambda: _scan_addcmul(a, b, h0)) if S == 1 and h0 is not None \
+        else None
+    lib_ms = lib_dev = lib_clean_dev = None
+    if lib is not None:
+        lib_ms = cuda_ms(lib, flush=flush)
+        lib_dev = kernel_ms(profile_kernels(lambda: (flush and flush(), lib()),
+                                            iters=20), "addcmul")
+        if cold:
+            _, lib_clean_dev = _clean_l2_times(lib, ("addcmul",))
     if dev_ms is None:
         log(f"time scan {tag}: the profiler recorded no scan launch; it saw "
             f"{sorted(k[:60] for k in prof['kernels'])[:6]}")
@@ -713,13 +842,27 @@ def time_scan(a, b, h0, tag: str, cold: bool) -> dict:
     bound_ms = max(t_ops, t_bytes) * 1e3
     by = "operations" if t_ops >= t_bytes else "bytes"
     log(f"time scan {tag} f32 [{B},{S},{DI},{DS}] h0={h0 is not None}"
-        f"{' cold L2' if cold else ''}: kernel {ms:.4f} ms, plain {plain_ms:.4f}"
-        f" ms, library none, bound {bound_ms * 1e3:.2f} us ({by}: "
-        f"{nbytes / 1e6:.2f} MB), {nbytes / ms / 1e6:.1f} GB/s achieved; "
-        f"kernel device time {_fmt(dev_ms)} ms "
-        f"({_fmt(dev_ms and nbytes / dev_ms / 1e6)} GB/s)")
-    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=None,
-                bound_ms=bound_ms, bound_by=by, device_ms=dev_ms)
+        f"{' cold L2' if cold else ''} ({variant}, {SCAN_KERNEL[variant]}): "
+        f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, library "
+        + ("none" if lib is None else
+           f"addcmul {lib_ms:.4f} ms (device {_fmt(lib_dev)} ms"
+           + (f", after a read flush {_fmt(lib_clean_dev)} ms" if cold else "")
+           + ")")
+        + ", bound "
+        f"{bound_ms * 1e3:.2f} us ({by}: {nbytes / 1e6:.2f} MB), "
+        f"{nbytes / ms / 1e6:.1f} GB/s achieved, {100 * bound_ms / ms:.1f}% of "
+        f"the bound; kernel device time {_fmt(dev_ms)} ms "
+        f"({_fmt(dev_ms and nbytes / dev_ms / 1e6)} GB/s, "
+        f"{_share(bound_ms, dev_ms)} of the bound)"
+        + (f"; after a read flush (clean L2): kernel {clean_ms:.4f} ms "
+           f"({_share(bound_ms, clean_ms)}), device {_fmt(clean_dev)} ms "
+           f"({_share(bound_ms, clean_dev)})" if cold else ""))
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                library_device_ms=lib_dev,
+                library_clean_l2_device_ms=lib_clean_dev,
+                bound_ms=bound_ms, bound_by=by, device_ms=dev_ms,
+                variant=variant, clean_l2_ms=clean_ms,
+                clean_l2_device_ms=clean_dev)
 
 
 def main() -> int:
@@ -743,8 +886,8 @@ def main() -> int:
         decode_t = time_decode(q, k, v, (serve["pos"] + 1).to(torch.int32),
                                tag="serve shape")
         full = torch.full((SLOTS,), MAX_LEN, device=DEVICE, dtype=torch.int32)
-        time_decode(q, torch.randn_like(k), torch.randn_like(v), full,
-                    tag="full cache")
+        decode_full = time_decode(q, torch.randn_like(k), torch.randn_like(v),
+                                  full, tag="full cache")
         del q, k, v, serve["cache"]
     log_memory("attention timings")
     torch.cuda.empty_cache()
@@ -754,9 +897,9 @@ def main() -> int:
     with torch.inference_mode():
         g = torch.Generator(device=DEVICE).manual_seed(SEED + 3)
         di, ds = mcfg.d_inner, mcfg.mamba.d_state
-        a, b, _ = _scan_operands(g, FWD_B, FWD_S, di, ds, False)
+        a, b, _ = _scan_operands(g, FWD_B, FWD_S, di, ds, None)
         scan_t = time_scan(a, b, None, "forward shape", cold=False)
-        a, b, _ = _scan_operands(g, SLOTS, 1, di, ds, False)
+        a, b, _ = _scan_operands(g, SLOTS, 1, di, ds, None)
         scan_dec = time_scan(a, b, serve_m["cache"][0]["ssm"][0],
                              "decode shape", cold=True)
         del a, b, serve_m["cache"]
@@ -780,15 +923,36 @@ def main() -> int:
     flash_row = next(r for r in rows if r["name"] == "flash_attention")
     flash_row.update({key: flash_t[key] for key in (
         "f32_source", "f32_ms", "f32_device_ms", "f32_bound_ms", "f32_plain_ms")})
+    # decode attention: the serve shape above (the main path's), a full
+    # cache beside it
+    decode_row = next(r for r in rows if r["name"] == "decode_attention")
+    decode_row.update(
+        max_abs_err=max(decode_row["max_abs_err"], decode_full["max_abs_err"]),
+        clean_l2_ms=decode_t["clean_l2_ms"],
+        clean_l2_device_ms=decode_t["clean_l2_device_ms"],
+        full_cache_ms=decode_full["ms"],
+        full_cache_device_ms=decode_full["device_ms"],
+        full_cache_bound_ms=decode_full["bound_ms"],
+        full_cache_clean_l2_ms=decode_full["clean_l2_ms"],
+        full_cache_clean_l2_device_ms=decode_full["clean_l2_device_ms"])
     # the scan runs on both paths: its forward-shape numbers above, the
-    # decode step's and the launches of each path here
+    # decode step's (and the variant it ran) and the launches of each path
     scan_row = next(r for r in rows if r["name"] == "selective_scan")
     scan_row.update(
         launches_forward=fwd_m["launches"], launches_serve=serve_m["launches"],
         max_abs_err=max(scan_row["max_abs_err"], scan_dec["max_abs_err"]),
+        variant=scan_t["variant"], decode_variant=scan_dec["variant"],
+        decode_kernel=SCAN_KERNEL[scan_dec["variant"]],
         decode_ms=scan_dec["ms"], decode_plain_ms=scan_dec["plain_ms"],
         decode_bound_ms=scan_dec["bound_ms"],
-        decode_device_ms=scan_dec["device_ms"])
+        decode_device_ms=scan_dec["device_ms"],
+        decode_clean_l2_ms=scan_dec["clean_l2_ms"],
+        decode_clean_l2_device_ms=scan_dec["clean_l2_device_ms"],
+        decode_library_ms=scan_dec["library_ms"],
+        decode_library_device_ms=scan_dec["library_device_ms"],
+        decode_library_clean_l2_device_ms=scan_dec[
+            "library_clean_l2_device_ms"],
+        decode_in_serve_step_device_ms=serve_m["scan_in_step"])
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": rows}))
     print(f"card: {dev['smi']}")

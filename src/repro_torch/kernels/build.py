@@ -33,10 +33,10 @@ SIGNATURES = {
                               _F, _P),
     "repro_flash_attention_tc": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                                  _I, _F, _P),
-    "repro_decode_attention": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
-                               _I, _I, _I, _F, _I, _P),
-    "repro_decode_attention_warps": (),
+    "repro_decode_attention": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                               _I, _F, _I, _P),
     "repro_selective_scan": (_P, _P, _P, _P, _I, _I, _L, _P),
+    "repro_selective_scan_step": (_P, _P, _P, _P, _L, _I, _P),
 }
 
 

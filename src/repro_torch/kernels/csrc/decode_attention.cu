@@ -1,5 +1,5 @@
 // Decode attention for Hopper (sm_90a): one query token per (slot, head)
-// against a KV cache held at kv heads.
+// against a KV cache held at kv heads, in one launch.
 //
 // Replaces: src/repro/kernels/decode_attention.py, `_kernel` / `decode_attention`
 // (the Pallas TPU kernel, grid (B, H, S/block_k) with the KV axis sequential).
@@ -17,48 +17,210 @@
 // What bounds it on the card: bytes. Each valid key costs 2*D*sizeof(T) bytes
 // of K and V and about 4*D flops per query head in its group, far below the
 // H100's 295 flops per byte. The floor is the K+V bytes of the valid prefix
-// over 3.35 TB/s.
+// over 3.35 TB/s. At the serving shape that prefix is small (64 keys per slot,
+// 2 MB), so what is left is latency: one launch, one round trip to memory for
+// K/V, and the merge of the pieces.
 //
 // What the design does about it:
+//   * One launch, no global scratch. The n_split blocks of one (slot, kv head)
+//     form a thread block cluster (n_split <= 8, the portable cluster size).
+//     Each block merges its warps' partials (m, l, acc) in shared memory, in
+//     warp order, and stores the result through distributed shared memory
+//     into its slot of block rank 0's inbox; after the cluster barrier, rank
+//     0 merges the inbox in rank order and writes the output. Stores, not
+//     loads, cross the cluster: no block waits on a remote round trip, and
+//     only rank 0 waits at the barrier (the others exit, since nothing reads
+//     their shared memory). No atomics: the result is bit-identical from run
+//     to run.
 //   * K/V are read once per kv head: the G = H/KV query heads of a group live
 //     in the same warp's registers, so the cache is never expanded to H heads.
-//   * Flash-decoding: the valid key range is cut into n_split pieces along S,
-//     and each block (split, kv head, slot) runs 4 warps over its piece, so
-//     B*KV*n_split blocks fill the 132 SMs even at small batch. Keys outside
-//     [lo, hi) are never read.
-//   * A warp reads whole 2*D-element K/V rows with 2- to 16-byte loads per
-//     lane and keeps its running max, sum and accumulator in registers; every
-//     warp writes its own (m, l, acc) partial.
-//   * A second kernel combines the partials of a (slot, head) in a fixed order.
-//     There are no atomics, so the result is bit-identical from run to run.
+//   * Work follows the valid range, not S: each block derives [lo, hi) from
+//     lengths[b] and the window on the device and cuts it into one contiguous
+//     piece per warp of the cluster (n_split * 4 pieces), so with 64 valid
+//     keys every warp gets 2 and keys outside [lo, hi) are never read. The
+//     host picks n_split from S, B*KV and the SM count only (reading lengths
+//     would force a sync).
+//   * Loads overlap the softmax: each warp streams its piece through its own
+//     ring of kStages tiles (4 KB each at f32 D=128) in shared memory with
+//     16-byte cp.async (commit_group / wait_group), so the next tile is in
+//     flight while the current one's scores, max, exp and V accumulation
+//     run. A ring per warp needs only __syncwarp, never a block barrier,
+//     inside the key loop. Two stages measured fastest: deeper rings or
+//     larger tiles take more shared memory per block, fewer clusters of 8
+//     fit on the card at once, and a full cache streams slower.
+#include <cooperative_groups.h>
+
 #include "common.cuh"
+
+namespace cg = cooperative_groups;
 
 namespace repro {
 namespace {
 
 constexpr int kWarps = 4;
+constexpr int kThreads = kWarps * 32;
+constexpr int kStages = 2;
+constexpr int kMaxSplit = 8;        // portable cluster size
+constexpr int kStageBytes = 4096;   // K+V bytes of one ring tile, at least
+
+__device__ __forceinline__ void cp_async_16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n"
+               :: "r"(static_cast<uint32_t>(__cvta_generic_to_shared(dst))), "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
+}
+
+// The cluster barrier in two halves (PTX barrier.cluster): arrive, then wait
+// for every non-exited thread of the cluster to have arrived. The release /
+// acquire pair makes stores into another block's shared memory before the
+// arrive visible after the wait.
+__device__ __forceinline__ void cluster_arrive_relaxed() {
+  asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cluster_arrive_release() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+// A (m, l, acc) record of GMAX heads in shared memory: acc at [g * D], m at
+// [GMAX * D + g], l at [GMAX * D + GMAX + g].
+template <int D, int GMAX>
+struct Part {
+  static constexpr int FLOATS = GMAX * (D + 2);
+  float* p;
+  __device__ float& acc(int g, int d) const { return p[g * D + d]; }
+  __device__ float& m(int g) const { return p[GMAX * D + g]; }
+  __device__ float& l(int g) const { return p[GMAX * D + GMAX + g]; }
+};
+
+// Compile-time shape of one instance: D dims, up to GMAX query heads per kv
+// head, KEYS keys scored together (independent shuffle chains), TILE keys per
+// ring stage.
+template <typename T, int D, int GMAX>
+struct Shape {
+  static constexpr int EPL = D / 32;                                // dims per lane
+  static constexpr int KEYS = GMAX <= 2 ? 4 : (GMAX == 4 ? 2 : 1);
+  static constexpr int ROW_BYTES = D * static_cast<int>(sizeof(T));
+  static constexpr int PAIR_BYTES = 2 * ROW_BYTES;
+  static constexpr int TILE = (kStageBytes / PAIR_BYTES > KEYS) ? kStageBytes / PAIR_BYTES : KEYS;
+  static constexpr int CHUNKS = ROW_BYTES / 16;                     // 16-byte copies a row
+  static constexpr int STAGE_ELEMS = TILE * 2 * D;                  // [TILE][K, V][D]
+  static constexpr int RING_BYTES = kWarps * kStages * STAGE_ELEMS * static_cast<int>(sizeof(T));
+  static constexpr int PART_FLOATS = Part<D, GMAX>::FLOATS;         // acc[G][D], m[G], l[G]
+  static constexpr int PART_BYTES = kWarps * PART_FLOATS * 4;
+  static constexpr int MERGE_OFFSET = RING_BYTES > PART_BYTES ? RING_BYTES : PART_BYTES;
+  // the ring, then its reuse for the warps' partials; then rank 0's inbox of
+  // one record per block of the cluster; then the merge weights
+  static constexpr int SMEM = MERGE_OFFSET + (kMaxSplit * PART_FLOATS + GMAX * (kMaxSplit + 2)) * 4;
+  static_assert(ROW_BYTES % 16 == 0, "rows are copied in 16-byte pieces");
+  static_assert(TILE % KEYS == 0, "a tile holds whole key groups");
+};
+
+// The merge weights of head g over the first n of N records (m, l, acc) at
+// recs, stride one record: w[r] = exp(m_r - M) with M the largest m of a
+// record that saw a key (l > 0; a record with l == 0 weighs 0), and their
+// sum L = sum_r w[r] l_r in index order. Stored at out: w[0..N), M, L.
+template <int D, int GMAX, int N>
+__device__ __forceinline__ void merge_weights(float* recs, int n, int g, float* out) {
+  float rm[N], rl[N];
+#pragma unroll
+  for (int r = 0; r < N; ++r) {   // every load issued before the first is used
+    const Part<D, GMAX> pr{recs + r * Part<D, GMAX>::FLOATS};
+    rm[r] = r < n ? pr.m(g) : -INFINITY;
+    rl[r] = r < n ? pr.l(g) : 0.f;
+  }
+  float M = -INFINITY;
+#pragma unroll
+  for (int r = 0; r < N; ++r)
+    if (rl[r] > 0.f) M = fmaxf(M, rm[r]);
+  float L = 0.f;
+#pragma unroll
+  for (int r = 0; r < N; ++r) {
+    const float w = rl[r] > 0.f ? expf(rm[r] - M) : 0.f;
+    L = fmaf(w, rl[r], L);
+    out[r] = w;
+  }
+  out[N] = M;
+  out[N + 1] = L;
+}
+
+// sum_r w[r] acc_r[g][d] over the first n of N records, in index order.
+template <int D, int GMAX, int N>
+__device__ __forceinline__ float merge_acc(float* recs, int n, int g, int d, const float* w) {
+  float ra[N];
+#pragma unroll
+  for (int r = 0; r < N; ++r)
+    ra[r] = r < n ? Part<D, GMAX>{recs + r * Part<D, GMAX>::FLOATS}.acc(g, d) : 0.f;
+  float o = 0.f;
+#pragma unroll
+  for (int r = 0; r < N; ++r)
+    if (r < n && w[r] > 0.f) o = fmaf(w[r], ra[r], o);
+  return o;
+}
 
 template <typename T, int D, int GMAX>
-__global__ void __launch_bounds__(kWarps * 32)
-decode_split_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                    const T* __restrict__ v, const int* __restrict__ lengths,
-                    float* __restrict__ part_acc, float* __restrict__ part_ml,
-                    int S, int H, int KV, int window, float softcap, float scale,
-                    int n_split) {
-  constexpr int EPL = D / 32;                                  // dims per lane
-  constexpr int KEYS = GMAX <= 2 ? 4 : (GMAX == 4 ? 2 : 1);   // keys per step
+__global__ void __launch_bounds__(kThreads)
+decode_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                        const T* __restrict__ v, const int* __restrict__ lengths,
+                        T* __restrict__ out, int S, int H, int KV, int window,
+                        float softcap, float scale) {
+  using Sh = Shape<T, D, GMAX>;
+  constexpr int EPL = Sh::EPL, KEYS = Sh::KEYS, TILE = Sh::TILE;
+  extern __shared__ __align__(128) unsigned char smem[];
+  cg::cluster_group cluster = cg::this_cluster();
+  const int n_split = gridDim.x;                 // = the cluster's size
   const int split = blockIdx.x, kvh = blockIdx.y, b = blockIdx.z;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int G = H / KV;
 
+  // this warp's contiguous piece [s0, s1) of the valid range [lo, hi)
   const int length = lengths[b];
   int hi = min(length, S);
   int lo = window > 0 ? max(length - window, 0) : 0;
   const bool uniform = hi <= lo;      // no valid key: softmax is uniform over S
   if (uniform) { lo = 0; hi = S; }
-  const int chunk = (hi - lo + n_split - 1) / n_split;
-  const int s0 = lo + split * chunk;
-  const int s1 = min(hi, s0 + chunk);
+  const int pieces = n_split * kWarps;
+  const int per = (hi - lo + pieces - 1) / pieces;
+  const int s0 = min(hi, lo + (split * kWarps + warp) * per);
+  const int s1 = min(hi, s0 + per);
+  const int n_tiles = (s1 - s0 + TILE - 1) / TILE;
+  cluster_arrive_relaxed();   // phase 0: this block runs (waited for before the merge)
+
+  T* ring = reinterpret_cast<T*>(smem) + warp * kStages * Sh::STAGE_ELEMS;
+  const size_t row = static_cast<size_t>(KV) * D;
+  const T* kb = k + (static_cast<size_t>(b) * S * KV + kvh) * D;
+  const T* vb = v + (static_cast<size_t>(b) * S * KV + kvh) * D;
+  // tile i of the piece -> ring stage i % kStages, laid out [TILE][K, V][D]
+  auto issue = [&](int i) {
+    if (i < n_tiles) {
+      T* st = ring + (i % kStages) * Sh::STAGE_ELEMS;
+      const int key0 = s0 + i * TILE;
+#pragma unroll
+      for (int c = lane; c < TILE * 2 * Sh::CHUNKS; c += 32) {
+        const int r = c / Sh::CHUNKS, ch = c % Sh::CHUNKS;   // r = 2 * key + (0 K, 1 V)
+        const int key = key0 + r / 2;
+        if (key < s1) {
+          const T* src = ((r & 1) ? vb : kb) + static_cast<size_t>(key) * row + ch * (16 / sizeof(T));
+          cp_async_16(st + r * D + ch * (16 / sizeof(T)), src);
+        }
+      }
+    }
+    cp_async_commit();   // an empty group when i >= n_tiles keeps the count
+  };
+#pragma unroll
+  for (int i = 0; i < kStages - 1; ++i) issue(i);
 
   float qr[GMAX][EPL];
   float m[GMAX], l[GMAX], acc[GMAX][EPL];
@@ -71,157 +233,185 @@ decode_split_kernel(const T* __restrict__ q, const T* __restrict__ k,
     if (g < G) load_row<T, EPL>(q + ((size_t)b * H + kvh * G + g) * D + lane * EPL, qr[g]);
   }
 
-  const size_t row = (size_t)KV * D;
-  const T* kb = k + ((size_t)b * S * KV + kvh) * D + lane * EPL;
-  const T* vb = v + ((size_t)b * S * KV + kvh) * D + lane * EPL;
-  for (int s = s0 + warp * KEYS; s < s1; s += kWarps * KEYS) {
-    float kr[KEYS][EPL], vr[KEYS][EPL];
-    bool ok[KEYS];
+  for (int i = 0; i < n_tiles; ++i) {
+    cp_async_wait<kStages - 2>();   // this lane's copies of tile i have landed
+    __syncwarp();                   // and every lane's; tile i - 1 is consumed
+    issue(i + kStages - 1);         // into the stage tile i - 1 held
+    const T* st = ring + (i % kStages) * Sh::STAGE_ELEMS;
+    const int key0 = s0 + i * TILE;
 #pragma unroll
-    for (int j = 0; j < KEYS; ++j) {
-      ok[j] = s + j < s1;
-#pragma unroll
-      for (int e = 0; e < EPL; ++e) { kr[j][e] = 0.f; vr[j][e] = 0.f; }
-      if (ok[j]) {
-        load_row<T, EPL>(kb + (size_t)(s + j) * row, kr[j]);
-        load_row<T, EPL>(vb + (size_t)(s + j) * row, vr[j]);
-      }
-    }
-    float sc[KEYS][GMAX];
-#pragma unroll
-    for (int j = 0; j < KEYS; ++j) {
-#pragma unroll
-      for (int g = 0; g < GMAX; ++g) {
-        float part = 0.f;
-#pragma unroll
-        for (int e = 0; e < EPL; ++e) part = fmaf(qr[g][e], kr[j][e], part);
-        sc[j][g] = part;
-      }
-    }
-#pragma unroll
-    for (int j = 0; j < KEYS; ++j) {
-#pragma unroll
-      for (int g = 0; g < GMAX; ++g) {
-        float x = warp_sum(sc[j][g]) * scale;
-        if (softcap > 0.f) x = softcap * tanhf(x / softcap);
-        if (uniform) x = 0.f;
-        sc[j][g] = ok[j] ? x : -INFINITY;
-      }
-    }
-#pragma unroll
-    for (int g = 0; g < GMAX; ++g) {
-      if (g >= G) continue;
-      float mx = sc[0][g];
-#pragma unroll
-      for (int j = 1; j < KEYS; ++j) mx = fmaxf(mx, sc[j][g]);
-      const float m_new = fmaxf(m[g], mx);      // finite: key s is always valid
-      const float alpha = expf(m[g] - m_new);   // exp(-inf) = 0 on the first key
-      float p[KEYS];
-      float psum = 0.f;
+    for (int j0 = 0; j0 < TILE; j0 += KEYS) {
+      if (key0 + j0 >= s1) break;
+      float kr[KEYS][EPL], vr[KEYS][EPL];
+      bool ok[KEYS];
 #pragma unroll
       for (int j = 0; j < KEYS; ++j) {
-        p[j] = ok[j] ? expf(sc[j][g] - m_new) : 0.f;
-        psum += p[j];
-      }
-      l[g] = l[g] * alpha + psum;
+        ok[j] = key0 + j0 + j < s1;
 #pragma unroll
-      for (int e = 0; e < EPL; ++e) {
-        float a = acc[g][e] * alpha;
-#pragma unroll
-        for (int j = 0; j < KEYS; ++j) a = fmaf(p[j], vr[j][e], a);
-        acc[g][e] = a;
+        for (int e = 0; e < EPL; ++e) { kr[j][e] = 0.f; vr[j][e] = 0.f; }
+        if (ok[j]) {   // rows past s1 were never copied: stale, not read
+          load_row<T, EPL>(st + (2 * (j0 + j)) * D + lane * EPL, kr[j]);
+          load_row<T, EPL>(st + (2 * (j0 + j) + 1) * D + lane * EPL, vr[j]);
+        }
       }
-      m[g] = m_new;
+      float sc[KEYS][GMAX];
+#pragma unroll
+      for (int j = 0; j < KEYS; ++j) {
+#pragma unroll
+        for (int g = 0; g < GMAX; ++g) {
+          float part = 0.f;
+#pragma unroll
+          for (int e = 0; e < EPL; ++e) part = fmaf(qr[g][e], kr[j][e], part);
+          sc[j][g] = part;
+        }
+      }
+#pragma unroll
+      for (int j = 0; j < KEYS; ++j) {
+#pragma unroll
+        for (int g = 0; g < GMAX; ++g) {
+          float x = warp_sum(sc[j][g]) * scale;
+          if (softcap > 0.f) x = softcap * tanhf(x / softcap);
+          if (uniform) x = 0.f;
+          sc[j][g] = ok[j] ? x : -INFINITY;
+        }
+      }
+#pragma unroll
+      for (int g = 0; g < GMAX; ++g) {
+        if (g >= G) continue;
+        float mx = sc[0][g];
+#pragma unroll
+        for (int j = 1; j < KEYS; ++j) mx = fmaxf(mx, sc[j][g]);
+        const float m_new = fmaxf(m[g], mx);      // finite: key j0 is always valid
+        const float alpha = expf(m[g] - m_new);   // exp(-inf) = 0 on the first key
+        float p[KEYS];
+        float psum = 0.f;
+#pragma unroll
+        for (int j = 0; j < KEYS; ++j) {
+          p[j] = ok[j] ? expf(sc[j][g] - m_new) : 0.f;
+          psum += p[j];
+        }
+        l[g] = l[g] * alpha + psum;
+#pragma unroll
+        for (int e = 0; e < EPL; ++e) {
+          float a = acc[g][e] * alpha;
+#pragma unroll
+          for (int j = 0; j < KEYS; ++j) a = fmaf(p[j], vr[j][e], a);
+          acc[g][e] = a;
+        }
+        m[g] = m_new;
+      }
     }
   }
+  cp_async_wait<0>();
+  __syncthreads();   // every warp is done with the ring: its bytes become the partials
 
-  const int n_parts = n_split * kWarps;
-  const int part = split * kWarps + warp;
+  // each warp's partial into shared memory
+  float* parts = reinterpret_cast<float*>(smem);
+  const Part<D, GMAX> mine{parts + warp * Sh::PART_FLOATS};
 #pragma unroll
   for (int g = 0; g < GMAX; ++g) {
     if (g >= G) continue;
-    const size_t idx = ((size_t)b * H + kvh * G + g) * n_parts + part;
 #pragma unroll
-    for (int e = 0; e < EPL; ++e) part_acc[idx * D + lane * EPL + e] = acc[g][e];
-    if (lane == 0) {
-      part_ml[idx * 2] = m[g];
-      part_ml[idx * 2 + 1] = l[g];
-    }
+    for (int e = 0; e < EPL; ++e) mine.acc(g, lane * EPL + e) = acc[g][e];
+    if (lane == 0) { mine.m(g) = m[g]; mine.l(g) = l[g]; }
   }
-}
+  __syncthreads();
+  // per head, the block's merge weights over its warps (one thread a head)
+  float* inbox = reinterpret_cast<float*>(smem + Sh::MERGE_OFFSET);
+  float* wts = inbox + kMaxSplit * Sh::PART_FLOATS;   // [GMAX][kMaxSplit + 2]
+  if (threadIdx.x < G)
+    merge_weights<D, GMAX, kWarps>(parts, kWarps, threadIdx.x, wts + threadIdx.x * (kMaxSplit + 2));
+  __syncthreads();
+  cluster_wait();   // phase 0: every block of the cluster runs, rank 0's inbox exists
 
-// One block per (slot, head), one thread per dim: merge the n_parts partials
-// in index order. A partial with l == 0 saw no key and weighs nothing.
-template <typename T>
-__global__ void decode_combine_kernel(const float* __restrict__ part_acc,
-                                      const float* __restrict__ part_ml,
-                                      T* __restrict__ out, int D, int n_parts) {
-  const size_t bh = blockIdx.x;
-  const int d = threadIdx.x;
-  const float* ml = part_ml + bh * n_parts * 2;
-  float M = -INFINITY;
-  for (int p = 0; p < n_parts; ++p)
-    if (ml[2 * p + 1] > 0.f) M = fmaxf(M, ml[2 * p]);
-  float L = 0.f, o = 0.f;
-  for (int p = 0; p < n_parts; ++p) {
-    const float lp = ml[2 * p + 1];
-    if (lp > 0.f) {
-      const float w = expf(ml[2 * p] - M);
-      L = fmaf(w, lp, L);
-      o = fmaf(w, part_acc[(bh * n_parts + p) * D + d], o);
-    }
+  // the block's merge of its warps' partials, in warp order, stored through
+  // distributed shared memory into this block's slot of rank 0's inbox
+  const Part<D, GMAX> slot{cluster.map_shared_rank(inbox, 0) + split * Sh::PART_FLOATS};
+  for (int idx = threadIdx.x; idx < G * D; idx += kThreads) {
+    const int g = idx / D, d = idx % D;
+    const float* w = wts + g * (kMaxSplit + 2);
+    slot.acc(g, d) = merge_acc<D, GMAX, kWarps>(parts, kWarps, g, d, w);
+    if (d == 0) { slot.m(g) = w[kWarps]; slot.l(g) = w[kWarps + 1]; }
   }
-  out[bh * D + d] = from_float<T>(L > 0.f ? o / L : 0.f);
+  cluster_arrive_release();   // phase 1: this block's record is in the inbox
+  if (split != 0) return;     // no block reads the shared memory of another rank
+  cluster_wait();             // phase 1: every rank's record has arrived
+
+  // rank 0: the cluster's merge of the inbox, in rank order
+  if (threadIdx.x < G)
+    merge_weights<D, GMAX, kMaxSplit>(inbox, n_split, threadIdx.x,
+                                      wts + threadIdx.x * (kMaxSplit + 2));
+  __syncthreads();
+  for (int idx = threadIdx.x; idx < G * D; idx += kThreads) {
+    const int g = idx / D, d = idx % D;
+    const float* w = wts + g * (kMaxSplit + 2);
+    const float L = w[kMaxSplit + 1];
+    const float o = merge_acc<D, GMAX, kMaxSplit>(inbox, n_split, g, d, w);
+    out[((size_t)b * H + kvh * G + g) * D + d] = from_float<T>(L > 0.f ? o / L : 0.f);
+  }
 }
 
 template <typename T, int D, int GMAX>
-cudaError_t launch_split(const void* q, const void* k, const void* v,
-                         const int* lengths, float* part_acc, float* part_ml,
-                         int B, int S, int H, int KV, int window, float softcap,
-                         int n_split, cudaStream_t stream) {
-  dim3 grid(n_split, KV, B);
-  decode_split_kernel<T, D, GMAX><<<grid, kWarps * 32, 0, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      lengths, part_acc, part_ml, S, H, KV, window, softcap,
-      1.0f / sqrtf(static_cast<float>(D)), n_split);
-  return cudaGetLastError();
+cudaError_t launch(const void* q, const void* k, const void* v, const int* lengths,
+                   void* out, int B, int S, int H, int KV, int window, float softcap,
+                   int n_split, cudaStream_t stream) {
+  using Sh = Shape<T, D, GMAX>;
+  auto* kernel = decode_attention_kernel<T, D, GMAX>;
+  static std::atomic<uint64_t> smem_set{0};
+  const cudaError_t attr = set_smem_once(smem_set, kernel, Sh::SMEM);
+  if (attr != cudaSuccess) return attr;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(n_split, KV, B);
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = Sh::SMEM;
+  cfg.stream = stream;
+  cudaLaunchAttribute cluster[1];
+  cluster[0].id = cudaLaunchAttributeClusterDimension;
+  cluster[0].val.clusterDim.x = n_split;
+  cluster[0].val.clusterDim.y = 1;
+  cluster[0].val.clusterDim.z = 1;
+  cfg.attrs = cluster;
+  cfg.numAttrs = 1;
+  const cudaError_t err = cudaLaunchKernelEx(
+      &cfg, kernel, static_cast<const T*>(q), static_cast<const T*>(k),
+      static_cast<const T*>(v), lengths, static_cast<T*>(out), S, H, KV, window, softcap,
+      1.0f / sqrtf(static_cast<float>(D)));
+  return err != cudaSuccess ? err : cudaGetLastError();
 }
 
 template <typename T, int D>
 cudaError_t dispatch_group(int G, const void* q, const void* k, const void* v,
-                           const int* lengths, float* part_acc, float* part_ml,
-                           int B, int S, int H, int KV, int window, float softcap,
-                           int n_split, cudaStream_t stream) {
-#define REPRO_SPLIT(GM)                                                        \
-  return launch_split<T, D, GM>(q, k, v, lengths, part_acc, part_ml, B, S, H, \
-                                KV, window, softcap, n_split, stream)
-  if (G <= 1) REPRO_SPLIT(1);
-  if (G <= 2) REPRO_SPLIT(2);
-  if (G <= 4) REPRO_SPLIT(4);
-  if (G <= 8) REPRO_SPLIT(8);
-  if (G <= 16) REPRO_SPLIT(16);
-#undef REPRO_SPLIT
+                           const int* lengths, void* out, int B, int S, int H, int KV,
+                           int window, float softcap, int n_split, cudaStream_t stream) {
+#define REPRO_DECODE(GM)                                                      \
+  return launch<T, D, GM>(q, k, v, lengths, out, B, S, H, KV, window, softcap, \
+                          n_split, stream)
+  if (G <= 1) REPRO_DECODE(1);
+  if (G <= 2) REPRO_DECODE(2);
+  if (G <= 4) REPRO_DECODE(4);
+  if (G <= 8) REPRO_DECODE(8);
+  if (G <= 16) REPRO_DECODE(16);
+#undef REPRO_DECODE
   return cudaErrorInvalidValue;
 }
 
 template <typename T>
-cudaError_t dispatch_dim(int D, int G, const void* q, const void* k,
-                         const void* v, const int* lengths, float* part_acc,
-                         float* part_ml, int B, int S, int H, int KV, int window,
-                         float softcap, int n_split, cudaStream_t stream) {
+cudaError_t dispatch_dim(int D, int G, const void* q, const void* k, const void* v,
+                         const int* lengths, void* out, int B, int S, int H, int KV,
+                         int window, float softcap, int n_split, cudaStream_t stream) {
   switch (D) {
     case 32:
-      return dispatch_group<T, 32>(G, q, k, v, lengths, part_acc, part_ml, B, S,
-                                   H, KV, window, softcap, n_split, stream);
+      return dispatch_group<T, 32>(G, q, k, v, lengths, out, B, S, H, KV, window,
+                                   softcap, n_split, stream);
     case 64:
-      return dispatch_group<T, 64>(G, q, k, v, lengths, part_acc, part_ml, B, S,
-                                   H, KV, window, softcap, n_split, stream);
+      return dispatch_group<T, 64>(G, q, k, v, lengths, out, B, S, H, KV, window,
+                                   softcap, n_split, stream);
     case 128:
-      return dispatch_group<T, 128>(G, q, k, v, lengths, part_acc, part_ml, B, S,
-                                    H, KV, window, softcap, n_split, stream);
+      return dispatch_group<T, 128>(G, q, k, v, lengths, out, B, S, H, KV, window,
+                                    softcap, n_split, stream);
     case 256:
-      return dispatch_group<T, 256>(G, q, k, v, lengths, part_acc, part_ml, B, S,
-                                    H, KV, window, softcap, n_split, stream);
+      return dispatch_group<T, 256>(G, q, k, v, lengths, out, B, S, H, KV, window,
+                                    softcap, n_split, stream);
     default:
       return cudaErrorInvalidValue;
   }
@@ -231,39 +421,24 @@ cudaError_t dispatch_dim(int D, int G, const void* q, const void* k,
 }  // namespace repro
 
 // C entry point. dtype: 0 = f32, 1 = bf16 (q, k, v and out share it).
-// window <= 0 means no window; softcap <= 0 means no softcap. part_acc holds
-// B*H*n_split*4*D floats and part_ml B*H*n_split*4*2 floats of scratch.
-// Returns cudaGetLastError() after the two launches (0 on success).
+// window <= 0 means no window; softcap <= 0 means no softcap. n_split (1..8)
+// is the cluster size: the grid is (n_split, KV, B), one cluster per (kv head,
+// slot). Returns the launch's error (0 on success).
 extern "C" int repro_decode_attention(const void* q, const void* k, const void* v,
-                                      const void* lengths, void* out,
-                                      void* part_acc, void* part_ml, int B, int S,
+                                      const void* lengths, void* out, int B, int S,
                                       int H, int KV, int D, int dtype, int window,
                                       float softcap, int n_split, void* stream) {
   using namespace repro;
-  if (B <= 0 || S <= 0 || KV <= 0 || H % KV != 0 || n_split <= 0 ||
-      (dtype != 0 && dtype != 1))
+  if (B <= 0 || B > 65535 || S <= 0 || KV <= 0 || KV > 65535 || H % KV != 0 ||
+      n_split <= 0 || n_split > kMaxSplit || (dtype != 0 && dtype != 1))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int G = H / KV;
   const int* len = static_cast<const int*>(lengths);
-  float* pa = static_cast<float*>(part_acc);
-  float* pm = static_cast<float*>(part_ml);
-  cudaError_t err = dtype == 0
-      ? dispatch_dim<float>(D, G, q, k, v, len, pa, pm, B, S, H, KV, window,
-                            softcap, n_split, st)
-      : dispatch_dim<__nv_bfloat16>(D, G, q, k, v, len, pa, pm, B, S, H, KV,
-                                    window, softcap, n_split, st);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const int n_parts = n_split * kWarps;
-  if (dtype == 0)
-    decode_combine_kernel<float><<<B * H, D, 0, st>>>(
-        pa, pm, static_cast<float*>(out), D, n_parts);
-  else
-    decode_combine_kernel<__nv_bfloat16><<<B * H, D, 0, st>>>(
-        pa, pm, static_cast<__nv_bfloat16*>(out), D, n_parts);
-  return static_cast<int>(cudaGetLastError());
+  const cudaError_t err = dtype == 0
+      ? dispatch_dim<float>(D, G, q, k, v, len, out, B, S, H, KV, window, softcap,
+                            n_split, st)
+      : dispatch_dim<__nv_bfloat16>(D, G, q, k, v, len, out, B, S, H, KV, window,
+                                    softcap, n_split, st);
+  return static_cast<int>(err);
 }
-
-// Number of warps, each of which writes one partial, in a block of the split
-// kernel: the wrapper sizes the scratch with it.
-extern "C" int repro_decode_attention_warps() { return repro::kWarps; }

@@ -30,6 +30,13 @@
 //     the forward shape, far above what 3.35 TB/s needs to hide latency).
 //   * Loads and stores are streaming (__ldcs / __stcs): nothing is read
 //     twice, so the data need not stay in L2.
+//   * The decode step (S = 1, F % 4 == 0, 16-byte aligned operands) has its
+//     own kernel: at S = 1 the sequential kernel gives each thread one 4-byte
+//     load of a, b and h0, in about two waves of blocks. The step kernel gives
+//     each thread 4 consecutive f as one float4 of each operand (16-byte
+//     streaming loads and store, 4x the bytes in flight per thread) over a
+//     grid of one wave, sized from the SM count, with a grid-stride loop.
+//     Same arithmetic, same bits.
 #include <cuda_runtime.h>
 
 namespace repro {
@@ -72,6 +79,23 @@ selective_scan_kernel(const float* __restrict__ a, const float* __restrict__ b,
   }
 }
 
+// One step from h0 (or 0) over n4 float4s of a, b, h0 and h, all [B*F].
+__global__ void __launch_bounds__(kThreads)
+selective_scan_step_kernel(const float4* __restrict__ a, const float4* __restrict__ b,
+                           const float4* __restrict__ h0, float4* __restrict__ h,
+                           long long n4) {
+  const long long stride = static_cast<long long>(gridDim.x) * kThreads;
+  for (long long i = static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x; i < n4;
+       i += stride) {
+    const float4 ra = __ldcs(a + i), rb = __ldcs(b + i);
+    const float4 s = h0 != nullptr ? __ldcs(h0 + i) : make_float4(0.f, 0.f, 0.f, 0.f);
+    __stcs(h + i, make_float4(__fadd_rn(__fmul_rn(ra.x, s.x), rb.x),
+                              __fadd_rn(__fmul_rn(ra.y, s.y), rb.y),
+                              __fadd_rn(__fmul_rn(ra.z, s.z), rb.z),
+                              __fadd_rn(__fmul_rn(ra.w, s.w), rb.w)));
+  }
+}
+
 }  // namespace
 }  // namespace repro
 
@@ -89,5 +113,23 @@ extern "C" int repro_selective_scan(const void* a, const void* b, const void* h0
   selective_scan_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(a), static_cast<const float*>(b),
       static_cast<const float*>(h0), static_cast<float*>(h), S, F);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// C entry point of the decode step: a, b, h: [B,1,F] f32 and h0: [B,F] f32
+// or null, all contiguous and 16-byte aligned, with F % 4 == 0; n = B * F.
+// The grid is one wave of sms SMs (8 blocks of kThreads each).
+// Returns cudaGetLastError() after the launch (0 on success).
+extern "C" int repro_selective_scan_step(const void* a, const void* b, const void* h0,
+                                         void* h, long long n, int sms, void* stream) {
+  using namespace repro;
+  if (n <= 0 || n % 4 != 0 || sms <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  const long long n4 = n / 4;
+  const long long wave = static_cast<long long>(sms) * (2048 / kThreads);
+  const long long need = (n4 + kThreads - 1) / kThreads;
+  const unsigned blocks = static_cast<unsigned>(need < wave ? need : wave);
+  selective_scan_step_kernel<<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float4*>(a), static_cast<const float4*>(b),
+      static_cast<const float4*>(h0), static_cast<float4*>(h), n4);
   return static_cast<int>(cudaGetLastError());
 }

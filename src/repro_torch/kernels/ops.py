@@ -3,17 +3,20 @@
 Each wrapper checks what it is given and picks its path by the tensors'
 device alone: a CPU tensor gets the plain version from ``ref``; a CUDA
 tensor gets the kernel (for flash attention, the variant of its dtype:
-``flash_variant``) or an exception. Nothing falls back from the card to the
-plain version, nor from one kernel to another. Outputs and scratch are
-allocated here with ``torch.empty`` and the kernel runs on
+``flash_variant``; for the scan, the variant of its shape and alignment:
+``scan_variant``) or an exception. Nothing falls back from the card to the
+plain version, nor from one kernel to another. Outputs are allocated here
+with ``torch.empty`` (the kernels need no scratch) and the kernel runs on
 ``torch.cuda.current_stream()``.
 
 ``LAUNCHES`` counts kernel launches per wrapper (one per call that reaches
-the card); ``reset_launches()`` sets every count to 0.
+the card), ``SCAN_VARIANTS`` the scan's launches by variant
+(``scan_variant``); ``reset_launches()`` sets every count to 0.
 """
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Optional
 
 import torch
@@ -21,15 +24,24 @@ import torch
 from repro_torch.kernels import build, ref
 
 LAUNCHES = {"flash_attention": 0, "decode_attention": 0, "selective_scan": 0}
+SCAN_VARIANTS = {"step": 0, "sequential": 0}
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _HEAD_DIMS = (32, 64, 128, 256)
 _MAX_GROUP = 16
-_SMS = 132   # H100 SXM: the decode split aims for two blocks per SM
+MAX_CLUSTER = 8   # the portable thread block cluster size
 
 
 def reset_launches() -> None:
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
+    for counts in (LAUNCHES, SCAN_VARIANTS):
+        for name in counts:
+            counts[name] = 0
+
+
+@functools.cache
+def sm_count(index: int) -> int:
+    """Streaming multiprocessors of CUDA device ``index`` (132 on an H100
+    SXM, 114 on an H100 PCIe), read once per device."""
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def _check_heads(H: int, KV: int) -> None:
@@ -132,11 +144,14 @@ def _launch_flash_attention(q, k, v, out, causal, window, softcap) -> None:
 # ---------------------------------------------------------------------------
 
 
-def _decode_splits(B: int, KV: int, S: int) -> int:
-    """Pieces the key axis is cut into: enough blocks for two per SM, and at
-    least 256 keys a piece."""
-    want = -(-2 * _SMS // (B * KV))
-    return max(1, min(want, -(-S // 256)))
+def decode_grid(B: int, KV: int, S: int, sms: int) -> int:
+    """n_split, the cluster size of the decode kernel: one cluster of n_split
+    blocks per (kv head, slot), grid (n_split, KV, B) (built by the C entry).
+    n_split aims for two blocks per SM and at least 256 keys of S a block,
+    within the portable cluster size; the lengths are never read here (that
+    would sync)."""
+    want = -(-2 * sms // (B * KV))
+    return max(1, min(want, -(-S // 256), MAX_CLUSTER))
 
 
 def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -169,17 +184,11 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 def _launch_decode_attention(q, k, v, lengths, out, window, softcap) -> None:
     B, H, D = q.shape
     S, KV = k.shape[1], k.shape[2]
-    lib = build.load()
-    n_split = _decode_splits(B, KV, S)
-    n_parts = n_split * lib.repro_decode_attention_warps()
-    part_acc = torch.empty(B * H * n_parts * D, dtype=torch.float32,
-                           device=q.device)
-    part_ml = torch.empty(B * H * n_parts * 2, dtype=torch.float32,
-                          device=q.device)
-    code = lib.repro_decode_attention(
-        _ptr(q), _ptr(k), _ptr(v), _ptr(lengths), _ptr(out), _ptr(part_acc),
-        _ptr(part_ml), B, S, H, KV, D, _DTYPES[q.dtype], int(window or 0),
-        float(softcap or 0.0), n_split, _stream())
+    n_split = decode_grid(B, KV, S, sm_count(q.device.index))
+    code = build.load().repro_decode_attention(
+        _ptr(q), _ptr(k), _ptr(v), _ptr(lengths), _ptr(out), B, S, H, KV, D,
+        _DTYPES[q.dtype], int(window or 0), float(softcap or 0.0), n_split,
+        _stream())
     _raise_on(code, "decode_attention")
 
 
@@ -205,14 +214,34 @@ def selective_scan(a: torch.Tensor, b: torch.Tensor,
         return ref.selective_scan_ref(a, b, h0)
     _check_cuda_operands("selective_scan", *ts, align=4)
     out = torch.empty_like(a)
-    _launch_selective_scan(a, b, h0, out)
+    variant = scan_variant(a, b, h0)
+    _launch_selective_scan(a, b, h0, out, variant)
     LAUNCHES["selective_scan"] += 1
+    SCAN_VARIANTS[variant] += 1
     return out
 
 
-def _launch_selective_scan(a, b, h0, out) -> None:
+def scan_variant(a: torch.Tensor, b: torch.Tensor,
+                 h0: Optional[torch.Tensor] = None) -> str:
+    """The scan kernel that takes these operands: "step" (one decode step,
+    a float4 per thread) when S == 1, F % 4 == 0 and every operand is
+    16-byte aligned; else "sequential" (a thread per f, the t loop in it)."""
+    ts = (a, b) if h0 is None else (a, b, h0)
+    if (a.shape[1] == 1 and (a.shape[2] * a.shape[3]) % 4 == 0
+            and all(t.data_ptr() % 16 == 0 for t in ts)):
+        return "step"
+    return "sequential"
+
+
+def _launch_selective_scan(a, b, h0, out, variant: str) -> None:
     B, S, DI, DS = a.shape
-    code = build.load().repro_selective_scan(
-        _ptr(a), _ptr(b), ctypes.c_void_p(None) if h0 is None else _ptr(h0),
-        _ptr(out), B, S, DI * DS, _stream())
+    lib = build.load()
+    h0p = ctypes.c_void_p(None) if h0 is None else _ptr(h0)
+    if variant == "step":   # out is a fresh allocation: 16-byte aligned too
+        code = lib.repro_selective_scan_step(
+            _ptr(a), _ptr(b), h0p, _ptr(out), a.numel(),
+            sm_count(a.device.index), _stream())
+    else:
+        code = lib.repro_selective_scan(_ptr(a), _ptr(b), h0p, _ptr(out), B,
+                                        S, DI * DS, _stream())
     _raise_on(code, "selective_scan")

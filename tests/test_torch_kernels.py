@@ -263,3 +263,48 @@ def test_row_error_sees_a_dropped_key_tile():
     keep = torch.cat([torch.arange(0, 960), torch.arange(1088, 2048)])
     dropped = ref.flash_attention_ref(q, k[:, keep], v[:, keep], **kw)
     assert ref.row_error(dropped, exact) > 5 * ref.BF16_ROW_TOL
+
+
+@pytest.mark.parametrize("sms", [16, 114, 132])
+def test_decode_grid_fits_whole_clusters(sms):
+    """The decode kernel's host-side sizing: the cluster (the blocks of one
+    (kv head, slot)) holds 1 to 8 blocks, and the split never grows past
+    what S or the card needs."""
+    for B in (1, 2, 4, 7, 64, 300):
+        for KV in (1, 2, 8, 16):
+            for S in (1, 64, 255, 256, 257, 1000, 2047, 4096, 8192, 131072):
+                cluster = ops.decode_grid(B, KV, S, sms)
+                assert 1 <= cluster <= ops.MAX_CLUSTER == 8
+                assert cluster <= max(1, -(-S // 256))
+                assert cluster <= max(1, -(-2 * sms // (B * KV)))
+
+
+@pytest.mark.parametrize("B, KV, S, sms, n_split", [
+    (4, 8, 4096, 132, 8),    # the serve path's shape: 9 wanted, the cluster limit
+    (4, 8, 4096, 114, 8),    # an H100 PCIe
+    (1, 4, 2048, 132, 8),
+    (2, 2, 2047, 132, 8),    # S not a multiple of the split or the ring tile
+    (64, 8, 4096, 132, 1),   # enough blocks without a split
+    (4, 8, 300, 132, 2),     # at least 256 keys a block
+])
+def test_decode_grid_split_counts(B, KV, S, sms, n_split):
+    assert ops.decode_grid(B, KV, S, sms) == n_split
+
+
+@pytest.mark.parametrize("S, DI, DS, h0, variant", [
+    (1, 64, 16, "fresh", "step"),
+    (1, 64, 16, None, "step"),
+    (1, 7, 3, "fresh", "sequential"),       # F % 4 != 0
+    (1, 64, 16, "offset", "sequential"),    # h0 not 16-byte aligned
+    (5, 64, 16, "fresh", "sequential"),     # more than one step
+])
+def test_scan_variant_follows_shape_and_alignment(S, DI, DS, h0, variant):
+    """The scan wrapper's choice of kernel depends on S, F and the operands'
+    alignment only, so it is the same on the CPU as on the card."""
+    B = 2
+    a, b = torch.zeros(B, S, DI, DS), torch.zeros(B, S, DI, DS)
+    if h0 == "fresh":
+        h0 = torch.zeros(B, DI, DS)
+    elif h0 == "offset":
+        h0 = torch.zeros(B * DI * DS + 1)[1:].view(B, DI, DS)
+    assert ops.scan_variant(a, b, h0) == variant

@@ -53,16 +53,35 @@ DECODE_CASES = [
     (2, 128, 4, 2, 32, None, None, "bf16", [5, 128]),
     (3, 64, 4, 2, 256, None, None, "f32", [65, 100, 200]),
     (2, 64, 36, 4, 128, 16, None, "f32", [64, 200]),   # group 9, no valid key
+    # the cluster kernel: most splits of a cluster empty (1 and 64 keys of
+    # 8 x 512), a split count at the cluster limit (8), S a multiple of
+    # neither the split count nor the ring tile, head group 16 at D = 256,
+    # bf16 with window and softcap, and the serve path's shape (64 valid
+    # keys a slot, as at the end of a serve run, then random lengths)
+    (3, 4096, 16, 8, 128, None, None, "f32", [1, 64, 4096]),
+    (1, 2048, 4, 1, 64, None, None, "f32", [2048]),
+    (2, 2047, 8, 2, 128, None, None, "f32", [2047, 1999]),
+    (2, 4093, 8, 2, 32, 1000, None, "bf16", [4093, 3001]),
+    (2, 512, 32, 2, 256, None, None, "f32", [300, 512]),
+    (2, 512, 32, 2, 256, 100, 50.0, "bf16", [512, 77]),
+    (2, 1024, 16, 4, 128, 200, 30.0, "bf16", [1024, 700]),
+    (4, 4096, 16, 8, 128, None, None, "f32", [64, 64, 64, 64]),
+    (4, 4096, 16, 8, 128, None, None, "f32", None),
 ]
 
 
 SCAN_CASES = [
-    # (B, S, DI, DS, with h0)
-    (2, 64, 32, 8, False),
-    (1, 256, 16, 16, True),
-    (3, 100, 24, 5, False),       # F = 120: one ragged block
-    (4, 1, 8192, 16, True),       # the decode step at full width
-    (2, 13, 8, 3, True),          # S below the unroll, odd F
+    # (B, S, DI, DS, h0, variant); h0: None, "fresh" or "offset" (a view 4
+    # bytes into a buffer, so not 16-byte aligned)
+    (2, 64, 32, 8, None, "sequential"),
+    (1, 256, 16, 16, "fresh", "sequential"),
+    (3, 100, 24, 5, None, "sequential"),       # F = 120: one ragged block
+    (4, 1, 8192, 16, "fresh", "step"),         # the decode step at full width
+    (2, 13, 8, 3, "fresh", "sequential"),      # S below the unroll, odd F
+    (4, 1, 8192, 16, None, "step"),
+    (3, 1, 1000, 4, "fresh", "step"),          # F = 4000: a ragged block
+    (3, 1, 7, 3, "fresh", "sequential"),       # F % 4 != 0
+    (4, 1, 8192, 16, "offset", "sequential"),
 ]
 
 
@@ -120,11 +139,12 @@ def test_decode_attention_kernel_matches_plain(card, case):
 
 
 @pytest.mark.cuda
-def test_decode_attention_is_deterministic(card):
+@pytest.mark.parametrize("lens", [[1, 1000, 4096, 2500], [1, 1, 4096, 1]])
+def test_decode_attention_is_deterministic(card, lens):
     g = torch.Generator(device=card).manual_seed(1)
     q = _randn(g, (4, 16, 128), "f32", card)
     k, v = (_randn(g, (4, 4096, 8, 128), "f32", card) for _ in range(2))
-    lengths = torch.tensor([1, 1000, 4096, 2500], device=card, dtype=torch.int32)
+    lengths = torch.tensor(lens, device=card, dtype=torch.int32)
     first = ops.decode_attention(q, k, v, lengths)
     for _ in range(3):
         assert torch.equal(ops.decode_attention(q, k, v, lengths), first)
@@ -133,18 +153,25 @@ def test_decode_attention_is_deterministic(card):
 @pytest.mark.cuda
 @pytest.mark.parametrize("case", SCAN_CASES)
 def test_selective_scan_kernel_matches_plain(card, case):
-    B, S, DI, DS, with_h0 = case
+    B, S, DI, DS, h0_kind, variant = case
     g = torch.Generator(device=card).manual_seed(0)
     a = torch.rand((B, S, DI, DS), generator=g, device=card) * 0.5 + 0.499
     b = torch.randn((B, S, DI, DS), generator=g, device=card)
-    h0 = torch.randn((B, DI, DS), generator=g, device=card) if with_h0 else None
-    n = ops.LAUNCHES["selective_scan"]
+    h0 = None
+    if h0_kind is not None:
+        h0 = torch.randn((B * DI * DS + 1,), generator=g, device=card)
+        h0 = (h0[1:] if h0_kind == "offset" else h0[:-1]).view(B, DI, DS)
+    assert ops.scan_variant(a, b, h0) == variant
+    n, nv = ops.LAUNCHES["selective_scan"], ops.SCAN_VARIANTS[variant]
     got = ops.selective_scan(a, b, h0)
     torch.cuda.synchronize()
     assert ops.LAUNCHES["selective_scan"] == n + 1
+    assert ops.SCAN_VARIANTS[variant] == nv + 1
     assert got.dtype == torch.float32 and got.shape == a.shape
-    torch.testing.assert_close(got, ref.selective_scan_ref(a, b, h0),
-                               rtol=1e-5, atol=1e-5)
+    want = ref.selective_scan_ref(a, b, h0)
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+    if S == 1:   # both variants round a * h, then + b: the plain loop's bits
+        assert torch.equal(got, want)
 
 
 @pytest.mark.cuda
