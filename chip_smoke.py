@@ -34,7 +34,25 @@ d_state=16, d_conv=4, dt_rank=256, V=65024). Phases:
    shapes of phases 3-4, with the kernel's bound; flash in both variants
    (bf16 on the tensor cores, f32 on the CUDA cores), each against the peak
    of its type; decode attention at the serve shape and at a full cache;
-   the scan at the forward shape and at the decode step.
+   the scan at the forward shape and at the decode step; the flash backward
+   (f32) beside its bound and f32 SDPA's backward, and the f32 forward
+   beside f32 SDPA;
+6. internlm2 ``make_train_step`` at full width in f32 (24 layers, tokens
+   [accum 1, mb 2, S 2048], 30.2 GB of params, grads and AdamW moments):
+   step ms, tokens/s, the device breakdown, 24 forward and 24 backward
+   flash launches a step (counted and recorded), a first loss near ln V,
+   two steps from the same state bitwise equal, and the grads at full width
+   and depth cut to 2 layers against the ``attn_impl="plain"`` path;
+   6b. ``run_training(device="cuda")`` (the LOG.io-protected feed, reduced
+   to d_model 512 and 4 layers so dh = 128) with a trainer kill and a
+   worker kill, whose losses and final state must equal, bit for bit, a run
+   without kills.
+
+Phase 2 also holds the flash backward (``csrc/flash_attention_bwd.cu``)
+against its plain version at rtol = atol = 2e-5 relative to each
+gradient's largest magnitude, bitwise repeatable, and the forward's lse.
+Training needs ``CUBLAS_WORKSPACE_CONFIG`` (set here before torch starts)
+and runs under ``torch.use_deterministic_algorithms(True)`` from phase 6 on.
 
 Every breakdown prints the port's kernel launches the profiler recorded
 beside those the wrappers counted, and reads its device busy time as a lower
@@ -48,25 +66,35 @@ from __future__ import annotations
 
 import contextlib
 import copy
+import dataclasses
 import json
+import math
+import os
 import re
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
+import warnings
 from pathlib import Path
 from unittest import mock
 
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
+# deterministic cuBLAS for the training phases; read when CUDA starts
+os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
 
 import torch  # noqa: E402
 import torch.nn.functional as F  # noqa: E402
 
-from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.configs import get_config, reduced  # noqa: E402
 from repro_torch.kernels import build, ops, ref  # noqa: E402
 from repro_torch.models import model as M  # noqa: E402
+from repro_torch.launch import train as train_driver  # noqa: E402
 from repro_torch.serving import SlotServer, serve_step  # noqa: E402
+from repro_torch.training import loss_fn, make_train_step  # noqa: E402
+from repro_torch.training import OptHParams, init_train_state  # noqa: E402
 
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM data sheet
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}  # dense; f32 off the tensor cores
@@ -77,12 +105,22 @@ ARCH = "internlm2-1.8b"
 MAMBA_ARCH = "falcon-mamba-7b"
 FWD_B, FWD_S = 2, 2048
 SLOTS, MAX_LEN, REQUESTS, TOKENS = 4, 4096, 8, 64
+TRAIN_STEPS = 2          # timed full-width steps after the checked first one
+GRAD_LAYERS = 2          # depth of the kernel-vs-plain gradient check
+GRAD_TOL = 1e-4          # that check's tolerance, relative to each leaf's max
+LOGIO_RUN = dict(steps=10, ckpt_every=3, seq_len=128, batch_size=4,
+                 d_model=512, n_layers=4, seed=3)   # phase 6b
 
 KERNELS = {
     # bf16 (the main path) runs on the tensor cores; f32 on the CUDA cores
     # (``ops.flash_variant``), timed beside it in phase 5
     "flash_attention": dict(
         route="cuda", source="src/repro_torch/kernels/csrc/flash_attention_tc.cu",
+        replaces="src/repro/kernels/flash_attention.py:93"),
+    # the Pallas kernel has no backward (JAX differentiates XLA attention);
+    # this is the backward of the kernel that replaces it, on the train path
+    "flash_attention_backward": dict(
+        route="cuda", source="src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
         replaces="src/repro/kernels/flash_attention.py:93"),
     "decode_attention": dict(
         route="cuda", source="src/repro_torch/kernels/csrc/decode_attention.cu",
@@ -98,8 +136,11 @@ SCAN_KERNEL = {"sequential": "selective_scan_kernel",
                "step": "selective_scan_step_kernel"}
 # per wrapper: the names of its device kernels (matched as substrings) and
 # how many of them one counted launch runs (one of its variants' kernels)
+FLASH_BWD = ("flash_bwd_delta_kernel", "flash_bwd_dkdv_kernel",
+             "flash_bwd_dq_kernel")
 DEVICE_KERNELS = {
     "flash_attention": ((FLASH_TC, FLASH_CC), 1),
+    "flash_attention_backward": (FLASH_BWD, 3),
     "decode_attention": (("decode_attention_kernel",), 1),
     "selective_scan": (tuple(SCAN_KERNEL.values()), 1),
 }
@@ -331,6 +372,68 @@ FLASH_CASES = [
     (2, 1000, 16, 8, 128, torch.bfloat16, False, None, None),   # ragged, no mask
 ]
 
+BWD_CASES = [
+    # f32 flash backward: (B, Sq, Sk, H, KV, D, causal, window, softcap); the
+    # train step's shape first, then D = 64 / 256, groups 1 / 4, window and
+    # softcap, ragged S, Sq != Sk without a mask
+    (2, 2048, 2048, 16, 8, 128, True, None, None),
+    (2, 1024, 1024, 16, 8, 64, True, None, None),
+    (1, 1024, 1024, 16, 8, 256, True, None, None),
+    (1, 1024, 1024, 16, 16, 64, True, None, None),
+    (1, 1024, 1024, 16, 4, 128, True, None, None),
+    (1, 1024, 1024, 16, 8, 128, True, 256, 50.0),
+    (2, 1000, 1000, 16, 8, 128, True, None, None),
+    (1, 700, 1000, 16, 8, 128, False, None, None),
+]
+
+
+def assert_close_to_max(got, want, tol, what) -> float:
+    """rtol = atol = tol after dividing both by max|want|: a gradient's
+    tolerance relative to its own scale. Returns the largest error over
+    max|want|."""
+    scale = want.abs().max().clamp_min(1e-30)
+    torch.testing.assert_close(got / scale, want / scale, rtol=tol, atol=tol,
+                               msg=lambda m: f"{what}: {m}")
+    return max_err(got, want) / scale.item()
+
+
+def check_flash_backward(g, case) -> float:
+    """One backward case: the forward's o with and without lse (bitwise),
+    its lse against the plain one, the backward kernel against the plain
+    backward, and a second backward call bitwise equal to the first."""
+    B, Sq, Sk, H, KV, D, causal, window, softcap = case
+    q = _randn(g, (B, Sq, H, D), torch.float32)
+    k = _randn(g, (B, Sk, KV, D), torch.float32)
+    v = _randn(g, (B, Sk, KV, D), torch.float32)
+    dout = _randn(g, (B, Sq, H, D), torch.float32)
+    kw = dict(causal=causal, window=window, softcap=softcap)
+    what = f"flash backward {case}"
+    out_plain = ops.flash_attention(q, k, v, **kw)
+    out, lse = ops.flash_attention_forward(q, k, v, causal, window, softcap,
+                                  want_lse=True)
+    check(bool(torch.equal(out, out_plain)), f"{what}: o moved with lse on")
+    lse_err = assert_close(lse, ref.flash_attention_lse_ref(q, k, **kw),
+                           TOL[torch.float32], f"{what} lse")
+    before = ops.LAUNCHES["flash_attention_backward"]
+    got = ops.flash_attention_backward(q, k, v, out, lse, dout, **kw)
+    sync()
+    check(ops.LAUNCHES["flash_attention_backward"] == before + 1,
+          f"{what}: the backward kernel did not launch")
+    want = ref.flash_attention_backward_ref(q, k, v, out, lse, dout, **kw)
+    errs = [assert_close_to_max(a, b, TOL[torch.float32], f"{what} {n}")
+            for n, a, b in zip(("dq", "dk", "dv"), got, want)]
+    abs_err = max(max_err(a, b) for a, b in zip(got, want))
+    again = ops.flash_attention_backward(q, k, v, out, lse, dout, **kw)
+    check(all(bool(torch.equal(a, b)) for a, b in zip(got, again)),
+          f"{what}: two calls differ")
+    log(f"flash backward B={B} Sq={Sq} Sk={Sk} H={H} KV={KV} D={D} "
+        f"causal={causal} window={window} softcap={softcap}: dq/dk/dv error "
+        f"relative to max {errs[0]:.3e} / {errs[1]:.3e} / {errs[2]:.3e} "
+        f"(tol {TOL[torch.float32]}), bitwise repeatable, o unchanged by lse, "
+        f"lse max_abs_err {lse_err:.3e}, grads max_abs_err {abs_err:.3e}")
+    return abs_err
+
+
 SCAN_CASES = [
     # (B, S, DI, DS, h0, variant); h0 None, "fresh" or "offset" (a view 4
     # bytes into its buffer, not 16-byte aligned): falcon-mamba's forward
@@ -360,8 +463,8 @@ def _scan_operands(g, B, S, DI, DS, h0):
 
 def phase_kernels() -> dict:
     g = torch.Generator(device=DEVICE).manual_seed(SEED)
-    errs = {"flash_attention": 0.0, "decode_attention": 0.0,
-            "selective_scan": 0.0}
+    errs = {"flash_attention": 0.0, "flash_attention_backward": 0.0,
+            "decode_attention": 0.0, "selective_scan": 0.0}
     for B, S, DI, DS, h0_kind, variant in SCAN_CASES:
         a, b, h0 = _scan_operands(g, B, S, DI, DS, h0_kind)
         what = f"scan {B, S, DI, DS, h0_kind}"
@@ -419,6 +522,9 @@ def phase_kernels() -> dict:
         log(f"flash B={B} S={S} H={H} KV={KV} D={D} {str(dt)[6:]} causal={causal} "
             f"window={window} softcap={softcap}: max_abs_err {err:.3e} "
             f"(tol {TOL[dt]}){rows}")
+    for case in BWD_CASES:
+        errs["flash_attention_backward"] = max(
+            errs["flash_attention_backward"], check_flash_backward(g, case))
     return errs
 
 
@@ -710,32 +816,153 @@ def time_flash(cfg) -> dict:
         t_ops, t_bytes = flops / PEAK_FLOPS[dt], nbytes / HBM_BYTES_PER_S
         bound_ms = max(t_ops, t_bytes) * 1e3
         by = "operations" if t_ops >= t_bytes else "bytes"
-        lib_ms = None
+        lib_ms = lib_backend = None
+        qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
         if dt == torch.bfloat16:
-            qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
             lib_ms = cuda_ms(lambda: _sdpa_flash(qt, kt, vt))
-            del qt, kt, vt
+        else:   # no flash SDPA in f32: the fastest backend that takes it
+            lib_ms, lib_backend = time_sdpa(
+                lambda: (lambda: _sdpa_flash(qt, kt, vt)), f"f32 forward")
+            expanded_ms = time_sdpa_expanded(qt, kt, vt, None, "f32 forward")
+        del qt, kt, vt
         log(f"time flash {str(dt)[6:]} ({ops.flash_variant(dt)}, {name}) "
             f"[{B},{S},{H},{D}] kv {KV} causal: kernel {ms:.4f} ms "
             f"({flops / ms / 1e9:.1f} TFLOP/s, {100 * bound_ms / ms:.1f}% of "
             f"the bound), plain {plain_ms:.4f} ms"
-            + (f", sdpa(enable_gqa) {lib_ms:.4f} ms (kernel/sdpa "
-               f"{ms / lib_ms:.2f})" if lib_ms else "")
+            + (f", sdpa(enable_gqa{', ' + lib_backend if lib_backend else ''})"
+               f" {lib_ms:.4f} ms (kernel/sdpa {ms / lib_ms:.2f})"
+               if lib_ms else "")
             + f", bound {bound_ms * 1e3:.2f} us ({by}: {flops / 1e9:.2f} GFLOP "
             f"at {PEAK_FLOPS[dt] / 1e12:.0f} TFLOP/s, {nbytes / 1e6:.2f} MB); "
             f"kernel device time {_fmt(dev_ms)} ms"
             + (f" ({flops / dev_ms / 1e9:.1f} TFLOP/s)" if dev_ms else ""))
         res[dt] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                       library_ms=lib_ms, bound_ms=bound_ms, bound_by=by,
-                       device_ms=dev_ms)
+                       library_ms=lib_ms, library_backend=lib_backend,
+                       bound_ms=bound_ms, bound_by=by, device_ms=dev_ms)
         del q, k, v
     out = res[torch.bfloat16]
     f32 = res[torch.float32]
     out.update(f32_source="src/repro_torch/kernels/csrc/flash_attention.cu",
                f32_ms=f32["ms"], f32_device_ms=f32["device_ms"],
                f32_bound_ms=f32["bound_ms"], f32_plain_ms=f32["plain_ms"],
+               f32_library_ms=f32["library_ms"],
+               f32_library_backend=f32["library_backend"],
+               f32_library_expanded_kv_ms=expanded_ms,
                max_abs_err=max(out["max_abs_err"], f32["max_abs_err"]))
     return out
+
+
+SDPA_BACKENDS = ("EFFICIENT_ATTENTION", "CUDNN_ATTENTION", "MATH")
+
+
+def time_sdpa(make_fn, tag: str) -> tuple:
+    """(ms, backend) of the fastest SDPA backend that takes the inputs of
+    ``make_fn()``'s call, each backend alone (``sdpa_kernel``), with
+    ``make_fn`` run inside the backend's context (so a backward follows its
+    own forward). A yardstick only: a backend that refuses the inputs is
+    logged and skipped; the port never calls SDPA."""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    best, seen = (None, None), []
+    for name in SDPA_BACKENDS:
+        with sdpa_kernel([getattr(SDPBackend, name)]):
+            try:
+                fn = make_fn()
+                fn()
+                sync()
+            except RuntimeError as e:   # the library's "no kernel for this"
+                seen.append(f"{name} refused ({str(e).splitlines()[0][:60]})")
+                continue
+            ms = cuda_ms(fn, iters=10)
+        seen.append(f"{name} {ms:.4f} ms")
+        if best[0] is None or ms < best[0]:
+            best = (ms, name)
+    log(f"time sdpa {tag}: " + "; ".join(seen))
+    check(best[0] is not None, f"sdpa {tag}: no backend took the inputs")
+    return best
+
+
+def time_sdpa_expanded(qt, kt, vt, dout, tag: str):
+    """ms of memory-efficient SDPA on K/V repeated to q's heads (the repeat
+    made outside the timed call): f32 SDPA's fused kernel, which refuses
+    GQA, so not the same inputs as the kernel's. The forward alone, or its
+    backward when ``dout`` is given. None (logged) if the backend refuses."""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    rep = qt.shape[1] // kt.shape[1]
+    ke, ve = (t.detach().repeat_interleave(rep, dim=1).requires_grad_(
+        dout is not None) for t in (kt, vt))
+    with sdpa_kernel([SDPBackend.EFFICIENT_ATTENTION]):
+        try:
+            o = F.scaled_dot_product_attention(qt, ke, ve, is_causal=True)
+        except RuntimeError as e:   # the library's "no kernel for this"
+            log(f"time sdpa {tag}, K/V repeated: EFFICIENT_ATTENTION refused "
+                f"({str(e).splitlines()[0][:60]})")
+            return None
+        if dout is None:
+            fn = lambda: F.scaled_dot_product_attention(  # noqa: E731
+                qt, ke, ve, is_causal=True)
+        else:
+            fn = lambda: torch.autograd.grad(  # noqa: E731
+                o, (qt, ke, ve), dout, retain_graph=True)
+        ms = cuda_ms(fn, iters=10)
+    log(f"time sdpa {tag}, K/V repeated to the q heads: EFFICIENT_ATTENTION "
+        f"{ms:.4f} ms")
+    return ms
+
+
+def time_flash_backward(cfg) -> dict:
+    """The f32 backward kernel at the train step's shape (causal, GQA), its
+    plain version, f32 SDPA's backward (``enable_gqa``, the fastest backend
+    that takes it) and its bound: five products of the kept pairs (S
+    recomputed, dP, dq, dk, dv) at the f32 peak, or q, k, v, o, dO, lse
+    read and dq, dk, dv written once at the HBM rate."""
+    g = torch.Generator(device=DEVICE).manual_seed(SEED + 4)
+    B, S, H, KV, D = FWD_B, FWD_S, cfg.n_heads, cfg.n_kv_heads, cfg.d_head
+    dt = torch.float32
+    q = _randn(g, (B, S, H, D), dt)
+    k, v = _randn(g, (B, S, KV, D), dt), _randn(g, (B, S, KV, D), dt)
+    dout = _randn(g, (B, S, H, D), dt)
+    out, lse = ops.flash_attention_forward(q, k, v, True, None, None, want_lse=True)
+
+    def fn():
+        return ops.flash_attention_backward(q, k, v, out, lse, dout)
+    err = max(max_err(a, b) for a, b in zip(
+        fn(), ref.flash_attention_backward_ref(q, k, v, out, lse, dout)))
+    ms = cuda_ms(fn)
+    plain_ms = cuda_ms(lambda: ref.flash_attention_backward_ref(
+        q, k, v, out, lse, dout), iters=5)
+    prof = profile_kernels(fn)
+    dev_ms = kernel_ms(prof, *FLASH_BWD)
+    by_kernel = {n: kernel_ms(prof, n) for n in FLASH_BWD}
+    pairs = B * H * (S * (S + 1) // 2)
+    flops = 10 * pairs * D
+    nbytes = (4 * q.numel() + 2 * k.numel() + 2 * v.numel() + lse.numel()) * 4
+    t_ops, t_bytes = flops / PEAK_FLOPS[dt], nbytes / HBM_BYTES_PER_S
+    bound_ms = max(t_ops, t_bytes) * 1e3
+    by = "operations" if t_ops >= t_bytes else "bytes"
+    qt, kt, vt = (t.transpose(1, 2).contiguous().requires_grad_(True)
+                  for t in (q, k, v))
+    dot = dout.transpose(1, 2).contiguous()
+
+    def sdpa_backward():
+        o = _sdpa_flash(qt, kt, vt)
+        return lambda: torch.autograd.grad(o, (qt, kt, vt), dot,
+                                           retain_graph=True)
+    lib_ms, lib_backend = time_sdpa(sdpa_backward, "f32 backward")
+    expanded_ms = time_sdpa_expanded(qt, kt, vt, dot, "f32 backward")
+    del qt, kt, vt, dot
+    log(f"time flash backward f32 (flash_attention_bwd.cu) [{B},{S},{H},{D}] "
+        f"kv {KV} causal: kernel {ms:.4f} ms ({flops / ms / 1e9:.1f} TFLOP/s, "
+        f"{100 * bound_ms / ms:.1f}% of the bound), plain {plain_ms:.4f} ms, "
+        f"sdpa backward (enable_gqa, {lib_backend}) {lib_ms:.4f} ms "
+        f"(kernel/sdpa {ms / lib_ms:.2f}), bound {bound_ms * 1e3:.2f} us ({by}: "
+        f"{flops / 1e9:.2f} GFLOP at {PEAK_FLOPS[dt] / 1e12:.0f} TFLOP/s, "
+        f"{nbytes / 1e6:.2f} MB); kernel device time {_fmt(dev_ms)} ms ("
+        + ", ".join(f"{n} {_fmt(t)}" for n, t in by_kernel.items())
+        + f"), {_share(bound_ms, dev_ms)} of the bound; max_abs_err {err:.3e}")
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                library_backend=lib_backend, library_expanded_kv_ms=expanded_ms,
+                bound_ms=bound_ms, bound_by=by, device_ms=dev_ms,
+                device_ms_by_kernel=by_kernel)
 
 
 def make_flush(kind: str = "write"):
@@ -865,6 +1092,169 @@ def time_scan(a, b, h0, tag: str, cold: bool) -> dict:
                 clean_l2_device_ms=clean_dev)
 
 
+# ---------------------------------------------------------------------------
+# phase 6 / 6b: training at full width, f32; the LOG.io-protected run
+# ---------------------------------------------------------------------------
+
+
+def _train_batch(cfg, g):
+    toks = torch.randint(0, cfg.vocab, (1, FWD_B, FWD_S + 1), generator=g,
+                         device=DEVICE)
+    return {"tokens": toks[..., :-1], "labels": toks[..., 1:].to(torch.int32)}
+
+
+def _fresh_state(cfg, hp):
+    return init_train_state(torch.Generator(device=DEVICE).manual_seed(SEED),
+                            cfg, hp, torch.float32, DEVICE)
+
+
+def phase_train(cfg) -> dict:
+    """``make_train_step`` on internlm2 at full width in f32, tokens [1, 2,
+    2048], under the training's deterministic mode: launches, first loss,
+    step time and breakdown, bitwise repeat, and the grads at depth
+    GRAD_LAYERS against the plain path."""
+    train_driver.deterministic(torch.device(DEVICE))
+    hp = OptHParams()
+    batch = _train_batch(cfg, torch.Generator(device=DEVICE).manual_seed(SEED + 5))
+    step = make_train_step(cfg, hp)
+    tag = f"train {cfg.name} f32 [1,{FWD_B},{FWD_S}]"
+    tokens = FWD_B * FWD_S
+    state = _fresh_state(cfg, hp)
+    n = sum(t.numel() for t in state["params"].parameters())
+    log(f"{tag}: {n / 1e9:.3f} B params; params + grads + m + v "
+        f"{4 * n * 4 / 1e9:.1f} GB f32; AdamW {hp}")
+    ops.reset_launches()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        t0 = time.perf_counter()
+        state, metrics = step(state, batch)
+        sync()
+        first_s = time.perf_counter() - t0
+    first = {k: ops.LAUNCHES[k] for k in ("flash_attention",
+                                          "flash_attention_backward")}
+    check(first == {"flash_attention": cfg.n_layers,
+                    "flash_attention_backward": cfg.n_layers},
+          f"{tag}: flash launches in one step {first}, want {cfg.n_layers} each")
+    nondet = [str(w.message)[:120] for w in caught
+              if "determinis" in str(w.message).lower()]
+    check(not nondet, f"{tag}: determinism warnings {nondet}")
+    loss, gn = float(metrics["loss"]), float(metrics["grad_norm"])
+    check(math.isfinite(loss) and math.isfinite(gn), f"{tag}: non-finite loss")
+    check(abs(loss - math.log(cfg.vocab)) < 1.0,
+          f"{tag}: first loss {loss:.4f} far from ln V {math.log(cfg.vocab):.4f}")
+    log(f"{tag}: first step {first_s:.2f} s, loss {loss:.6f} (ln V "
+        f"{math.log(cfg.vocab):.4f}), grad norm {gn:.4f}, launches {first}; "
+        f"{len(caught)} warnings, none about determinism"
+        + (f" (first: {str(caught[0].message)[:100]})" if caught else ""))
+    host = [t.detach().to("cpu", copy=True) for t in state["params"].parameters()]
+    times, losses = [], [loss]
+    for _ in range(TRAIN_STEPS):
+        t0 = time.perf_counter()
+        state, metrics = step(state, batch)
+        sync()
+        times.append((time.perf_counter() - t0) * 1e3)
+        losses.append(float(metrics["loss"]))
+    step_ms = statistics.median(times)
+    log(f"{tag}: steps {' / '.join(f'{x:.1f}' for x in times)} ms "
+        f"({tokens / step_ms * 1e3:.0f} tok/s), losses {losses}")
+    check(all(math.isfinite(x) for x in losses), f"{tag}: non-finite loss")
+    prof = profile_kernels(lambda: step(state, batch), iters=1)
+    log_breakdown(f"{tag} step", prof, step_ms, top=10)
+    fwd_rec = recorded(prof, FLASH_CC)
+    bwd_rec = sum(recorded(prof, x) for x in FLASH_BWD)
+    check(recorded(prof, FLASH_TC) == 0, f"{tag}: a tensor-core launch")
+    check(fwd_rec == cfg.n_layers and bwd_rec == 3 * cfg.n_layers,
+          f"{tag}: recorded flash launches {fwd_rec} forward, {bwd_rec} "
+          f"backward kernels, want {cfg.n_layers} and 3 x {cfg.n_layers}")
+    index = sorted({k[:50] for k in prof["kernels"] if "index" in k.lower()
+                    or "sort" in k.lower()})
+    log(f"{tag}: recorded {fwd_rec:g} forward flash launches and "
+        f"{bwd_rec:g} backward kernels (3 a call) a step; the embedding's "
+        f"backward ran {index}")
+    flash_fwd_ms = kernel_ms(prof, FLASH_CC)
+    flash_bwd_ms = kernel_ms(prof, *FLASH_BWD)
+    del state, metrics
+    torch.cuda.empty_cache()
+    log_memory(tag)
+    # bitwise: the first step again from a fresh state of the same seed
+    state = _fresh_state(cfg, hp)
+    state, metrics = step(state, batch)
+    sync()
+    check(float(metrics["loss"]) == loss, f"{tag}: repeat loss differs")
+    same = all(bool(torch.equal(a.detach().cpu(), b))
+               for a, b in zip(state["params"].parameters(), host))
+    check(same, f"{tag}: two steps from the same state differ")
+    launches = {k: ops.LAUNCHES[k] for k in first}
+    steps_run = 2 + TRAIN_STEPS + 2   # first, timed, profiled (2), repeat
+    check(all(x == cfg.n_layers * steps_run for x in launches.values()),
+          f"{tag}: launches {launches} over {steps_run} steps")
+    log(f"{tag}: the repeated first step is bitwise equal (loss and all "
+        f"{len(host)} param leaves); launches over the phase's {steps_run} "
+        f"steps {launches}")
+    del state, metrics, host
+    torch.cuda.empty_cache()
+    # the grads at full width, depth cut, against the plain path
+    cfg2 = dataclasses.replace(cfg, n_layers=GRAD_LAYERS)
+    params = M.init_params(torch.Generator(device=DEVICE).manual_seed(SEED),
+                           cfg2, torch.float32, DEVICE).requires_grad_(True)
+    names = [name for name, _ in params.named_parameters()]
+    leaves = list(params.parameters())
+    mb = {"tokens": batch["tokens"][0], "labels": batch["labels"][0]}
+    grads = {impl: torch.autograd.grad(
+        loss_fn(params, mb, cfg2, runtime(impl))[0], leaves)
+        for impl in ("kernel", "plain")}
+    worst = max((assert_close_to_max(a, b, GRAD_TOL, f"{tag} grad {name}"), name)
+                for name, a, b in zip(names, grads["kernel"], grads["plain"]))
+    log(f"{tag}: grads at depth {GRAD_LAYERS}, kernel vs plain path: worst "
+        f"leaf {worst[1]} error {worst[0]:.3e} of its max (tol {GRAD_TOL})")
+    del params, grads, leaves
+    torch.cuda.empty_cache()
+    log_memory(f"{tag} grad check")
+    return {"launches": launches, "steps": steps_run, "step_ms": step_ms,
+            "flash_fwd_device_ms": flash_fwd_ms,
+            "flash_bwd_device_ms": flash_bwd_ms}
+
+
+def phase_logio(cfg) -> dict:
+    """``run_training(device="cuda")`` twice, as tests/test_train_e2e.py
+    does: without kills, and with a worker kill (at batch 2) and a trainer
+    kill (at step 7); losses and final state must be bit-identical."""
+    red = reduced(cfg, d_model=LOGIO_RUN["d_model"],
+                               n_layers=LOGIO_RUN["n_layers"], vocab=2048,
+                               d_ff=4 * LOGIO_RUN["d_model"], n_heads=4)
+    log(f"logio: cut to d_model {red.d_model}, {red.n_layers} layers, "
+        f"{red.n_heads} heads / {red.n_kv_heads} kv (dh {red.d_head}), d_ff "
+        f"{red.d_ff}, vocab {red.vocab} (a full-width checkpoint is 22.7 GB, "
+        f"written four times per pair of runs); {LOGIO_RUN}")
+    ops.reset_launches()
+    with tempfile.TemporaryDirectory() as tmp:
+        a = train_driver.run_training(**LOGIO_RUN, ckpt_dir=f"{tmp}/a",
+                                      verbose=False, device=DEVICE)
+        b = train_driver.run_training(**LOGIO_RUN, ckpt_dir=f"{tmp}/b",
+                                      verbose=False, device=DEVICE,
+                                      kill_trainer_at=7, kill_worker_at=2)
+    launches = {k: ops.LAUNCHES[k] for k in ("flash_attention",
+                                             "flash_attention_backward")}
+    check(b["losses"][:7] == a["losses"][:7], "logio: pre-crash losses differ")
+    check(b["losses"][7:] == a["losses"][6:], "logio: replayed losses differ")
+    check(b["engine"].failures >= 2, f"logio: {b['engine'].failures} failures")
+    sa, sb = a["final_state"], b["final_state"]
+    mods = [(sa["params"], sb["params"]), (sa["opt"]["m"], sb["opt"]["m"]),
+            (sa["opt"]["v"], sb["opt"]["v"])]
+    same = all(bool(torch.equal(x, y)) for ma, mb in mods
+               for x, y in zip(ma.parameters(), mb.parameters()))
+    check(same and int(sa["step"]) == int(sb["step"]),
+          "logio: final states differ")
+    n_steps = len(a["losses"]) + len(b["losses"])
+    check(all(x == red.n_layers * n_steps for x in launches.values()),
+          f"logio: launches {launches} over {n_steps} steps")
+    log(f"logio: {len(a['losses'])} + {len(b['losses'])} steps, crash steps "
+        f"{b['crash_steps']}, pipeline failures {b['engine'].failures} "
+        f"restarts {b['engine'].restarts}; losses and final state "
+        f"bit-identical; flash launches {launches}; losses {a['losses']}")
+    return {"launches": launches}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -889,6 +1279,7 @@ def main() -> int:
         decode_full = time_decode(q, torch.randn_like(k), torch.randn_like(v),
                                   full, tag="full cache")
         del q, k, v, serve["cache"]
+    flash_bwd_t = time_flash_backward(cfg)
     log_memory("attention timings")
     torch.cuda.empty_cache()
     # falcon-mamba: the selective scan, in forward and in each decode step
@@ -904,11 +1295,18 @@ def main() -> int:
                              "decode shape", cold=True)
         del a, b, serve_m["cache"]
     log_memory("scan timings")
+    torch.cuda.empty_cache()
+    # internlm2 training: the f32 flash kernel and its backward
+    train = phase_train(cfg)
+    logio = phase_logio(cfg)
     launches = {"flash_attention": fwd["launches"],
+                "flash_attention_backward": train["launches"][
+                    "flash_attention_backward"],
                 "decode_attention": serve["launches"],
                 "selective_scan": fwd_m["launches"] + serve_m["launches"]}
-    timed = {"flash_attention": flash_t, "decode_attention": decode_t,
-             "selective_scan": scan_t}
+    timed = {"flash_attention": flash_t,
+             "flash_attention_backward": flash_bwd_t,
+             "decode_attention": decode_t, "selective_scan": scan_t}
     rows = []
     for name, meta in KERNELS.items():
         t = timed[name]
@@ -918,11 +1316,26 @@ def main() -> int:
                      "bound_ms": t["bound_ms"], "bound_us": t["bound_ms"] * 1e3,
                      "bound_by": t["bound_by"], "library_ms": t["library_ms"],
                      "device_ms": t["device_ms"]})
-    # flash: the bf16 tensor-core variant above; the f32 CUDA-core one
-    # beside it (off the main path: no f32 forward runs)
+    # flash: the bf16 tensor-core variant above (the forward's); the f32
+    # CUDA-core one beside it, on the train path (phases 6 and 6b)
     flash_row = next(r for r in rows if r["name"] == "flash_attention")
     flash_row.update({key: flash_t[key] for key in (
-        "f32_source", "f32_ms", "f32_device_ms", "f32_bound_ms", "f32_plain_ms")})
+        "f32_source", "f32_ms", "f32_device_ms", "f32_bound_ms", "f32_plain_ms",
+        "f32_library_ms", "f32_library_backend", "f32_library_expanded_kv_ms")})
+    flash_row.update(
+        f32_launches_train=train["launches"]["flash_attention"],
+        f32_launches_logio=logio["launches"]["flash_attention"],
+        f32_device_ms_in_step=train["flash_fwd_device_ms"])
+    bwd_row = next(r for r in rows if r["name"] == "flash_attention_backward")
+    bwd_row.update(
+        launches_per_step=train["launches"]["flash_attention_backward"]
+        // train["steps"],
+        launches_logio=logio["launches"]["flash_attention_backward"],
+        library_backend=flash_bwd_t["library_backend"],
+        device_ms_by_kernel=flash_bwd_t["device_ms_by_kernel"],
+        device_ms_in_step=train["flash_bwd_device_ms"],
+        library_expanded_kv_ms=flash_bwd_t["library_expanded_kv_ms"],
+        train_step_ms=train["step_ms"])
     # decode attention: the serve shape above (the main path's), a full
     # cache beside it
     decode_row = next(r for r in rows if r["name"] == "decode_attention")

@@ -1,4 +1,5 @@
-"""Move the JAX package's params and decode caches into the port and back.
+"""Move the JAX package's params, train states and decode caches into the
+port and back.
 
 Both sides speak numpy at the boundary: the caller turns JAX arrays into
 numpy (``jax.tree.map(np.asarray, ...)``) and this module never imports JAX.
@@ -23,7 +24,7 @@ from repro_torch import resolve_device
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models.model import Cache, DecoderParams
 
-_TORCH_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
+TORCH_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
                  "float16": torch.float16}
 
 
@@ -66,7 +67,7 @@ def params_from_jax(np_params: Dict[str, Any], cfg: ArchConfig,
     shape or dtype differs from the port's parameter, or a leaf is missing
     or unexpected."""
     dev = resolve_device(device)
-    dtype = _TORCH_DTYPES[np.asarray(np_params["embed"]).dtype.name]
+    dtype = TORCH_DTYPES[np.asarray(np_params["embed"]).dtype.name]
     out = DecoderParams(cfg, dtype, dev)
     expected = {name for name, _ in out.named_parameters()}
     seen = set()
@@ -135,3 +136,31 @@ def cache_from_jax(np_cache: List[Dict[str, Any]], device=None) -> Cache:
 
 def cache_to_jax(cache: Cache) -> List[Dict[str, np.ndarray]]:
     return [{name: to_numpy(t) for name, t in c.items()} for c in cache]
+
+
+def train_state_from_jax(np_state: Dict[str, Any], cfg: ArchConfig,
+                         device=None) -> Dict[str, Any]:
+    """A numpy copy of ``repro.training.step.init_train_state``'s state ->
+    the port's (``repro_torch.training.step``): params (with grad on),
+    ``opt.m`` / ``opt.v`` in the params' layout (f32 moments only),
+    ``opt.count`` and ``step`` as int32 scalars."""
+    dev = resolve_device(device)
+    opt = np_state["opt"]
+    return {"params": params_from_jax(np_state["params"], cfg,
+                                      dev).requires_grad_(True),
+            "opt": {"m": params_from_jax(opt["m"], cfg, dev),
+                    "v": params_from_jax(opt["v"], cfg, dev),
+                    "count": to_torch(np.asarray(opt["count"]), dev)},
+            "step": to_torch(np.asarray(np_state["step"]), dev)}
+
+
+def train_state_to_jax(state: Dict[str, Any], cfg: ArchConfig
+                       ) -> Dict[str, Any]:
+    """The inverse of ``train_state_from_jax``: a numpy pytree in the JAX
+    layout."""
+    opt = state["opt"]
+    return {"params": params_to_jax(state["params"], cfg),
+            "opt": {"m": params_to_jax(opt["m"], cfg),
+                    "v": params_to_jax(opt["v"], cfg),
+                    "count": to_numpy(opt["count"])},
+            "step": to_numpy(state["step"])}

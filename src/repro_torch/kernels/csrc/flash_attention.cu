@@ -3,7 +3,8 @@
 // Replaces: src/repro/kernels/flash_attention.py, `_kernel` / `flash_attention`
 // (the Pallas TPU kernel, grid (B, H, S/bq, S/bk) with the k axis sequential,
 // reached from the model through `_pallas_attn` in src/repro/models/layers.py).
-// Forward only: the backward comes with the training slice.
+// The backward is flash_attention_bwd.cu: it reads the row log-sum-exp this
+// kernel writes when its `lse` pointer is non-null.
 //
 // Function: q [B,Sq,H,D], k/v [B,Sk,KV,D] f32 -> out [B,Sq,H,D] f32.
 //   q head h reads kv head h / (H/KV): the GQA repeat of the JAX caller is
@@ -12,6 +13,8 @@
 //   (only when causal, as on the TPU). Masked scores are -1e30, running max,
 //   sum and accumulator are f32, and a row whose sum is 0 outputs 0. Any Sq and
 //   Sk: the ragged last tile is masked here (the TPU kernel asserted S % block).
+//   Optional lse [B,H,Sq] f32: m + log(l) per row (+inf for a row with no kept
+//   key), written only when the pointer is non-null; `o` is the same either way.
 //
 // What bounds it on the card: operations. At S = 2048 and D = 128 a (b, h)
 // pair does ~4*S*S*D/2 causal flops on 4*S*D*4 bytes, hundreds of flops per
@@ -54,9 +57,9 @@ constexpr int smem_floats() {
 template <int D, int BK>
 __global__ void __launch_bounds__(kThreads)
 flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                 const float* __restrict__ v, float* __restrict__ o, int Sq, int Sk,
-                 int H, int KV, int causal, int window, float softcap,
-                 float scale) {
+                 const float* __restrict__ v, float* __restrict__ o,
+                 float* __restrict__ lse, int Sq, int Sk, int H, int KV,
+                 int causal, int window, float softcap, float scale) {
   constexpr int LD = D + 1, LDS = BK + 1;
   constexpr int RI = kBQ / 16;   // rows per thread: ty + 16 i
   constexpr int CJ = BK / 16;    // score columns per thread: tx + 16 j
@@ -190,19 +193,23 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
     for (int j = 0; j < DJ; ++j) dst[tx + 16 * j] = l == 0.f ? 0.f : acc[i][j] / l;
   }
+  if (lse != nullptr && tid < kBQ && q0 + tid < Sq) {
+    const float l = sL[tid];
+    lse[((size_t)b * H + h) * Sq + q0 + tid] = l == 0.f ? INFINITY : sM[tid] + logf(l);
+  }
 }
 
 template <int D, int BK>
-cudaError_t launch(const float* q, const float* k, const float* v, float* o, int B,
-                   int Sq, int Sk, int H, int KV, int causal, int window,
-                   float softcap, cudaStream_t stream) {
+cudaError_t launch(const float* q, const float* k, const float* v, float* o,
+                   float* lse, int B, int Sq, int Sk, int H, int KV, int causal,
+                   int window, float softcap, cudaStream_t stream) {
   constexpr int bytes = smem_floats<D, BK>() * static_cast<int>(sizeof(float));
   static std::atomic<uint64_t> smem_set{0};
   const cudaError_t attr = set_smem_once(smem_set, flash_fwd_kernel<D, BK>, bytes);
   if (attr != cudaSuccess) return attr;
   dim3 grid((Sq + kBQ - 1) / kBQ, H, B);
   flash_fwd_kernel<D, BK><<<grid, kThreads, bytes, stream>>>(
-      q, k, v, o, Sq, Sk, H, KV, causal, window, softcap,
+      q, k, v, o, lse, Sq, Sk, H, KV, causal, window, softcap,
       1.0f / sqrtf(static_cast<float>(D)));
   return cudaGetLastError();
 }
@@ -210,11 +217,11 @@ cudaError_t launch(const float* q, const float* k, const float* v, float* o, int
 }  // namespace
 }  // namespace repro
 
-// C entry point, f32 only (q, k, v and out). causal is 0 or 1; window <= 0
-// means no window; softcap <= 0 means none. Returns cudaGetLastError() after
-// the launch (0 on success).
+// C entry point, f32 only (q, k, v, out and lse). causal is 0 or 1; window <= 0
+// means no window; softcap <= 0 means none; lse may be null. Returns
+// cudaGetLastError() after the launch (0 on success).
 extern "C" int repro_flash_attention(const float* q, const float* k, const float* v,
-                                     float* out, int B, int Sq, int Sk, int H,
+                                     float* out, float* lse, int B, int Sq, int Sk, int H,
                                      int KV, int D, int causal, int window,
                                      float softcap, void* stream) {
   using namespace repro;
@@ -223,10 +230,10 @@ extern "C" int repro_flash_attention(const float* q, const float* k, const float
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   switch (D) {
-    case 32: err = launch<32, 64>(q, k, v, out, B, Sq, Sk, H, KV, causal, window, softcap, st); break;
-    case 64: err = launch<64, 64>(q, k, v, out, B, Sq, Sk, H, KV, causal, window, softcap, st); break;
-    case 128: err = launch<128, 64>(q, k, v, out, B, Sq, Sk, H, KV, causal, window, softcap, st); break;
-    case 256: err = launch<256, 32>(q, k, v, out, B, Sq, Sk, H, KV, causal, window, softcap, st); break;
+    case 32: err = launch<32, 64>(q, k, v, out, lse, B, Sq, Sk, H, KV, causal, window, softcap, st); break;
+    case 64: err = launch<64, 64>(q, k, v, out, lse, B, Sq, Sk, H, KV, causal, window, softcap, st); break;
+    case 128: err = launch<128, 64>(q, k, v, out, lse, B, Sq, Sk, H, KV, causal, window, softcap, st); break;
+    case 256: err = launch<256, 32>(q, k, v, out, lse, B, Sq, Sk, H, KV, causal, window, softcap, st); break;
     default: err = cudaErrorInvalidValue;
   }
   return static_cast<int>(err);

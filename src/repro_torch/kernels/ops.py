@@ -5,13 +5,21 @@ device alone: a CPU tensor gets the plain version from ``ref``; a CUDA
 tensor gets the kernel (for flash attention, the variant of its dtype:
 ``flash_variant``; for the scan, the variant of its shape and alignment:
 ``scan_variant``) or an exception. Nothing falls back from the card to the
-plain version, nor from one kernel to another. Outputs are allocated here
-with ``torch.empty`` (the kernels need no scratch) and the kernel runs on
-``torch.cuda.current_stream()``.
+plain version, nor from one kernel to another. Outputs (and the flash
+backward's one scratch buffer, delta) are allocated here with
+``torch.empty``, and the kernel runs on ``torch.cuda.current_stream()``.
 
 ``LAUNCHES`` counts kernel launches per wrapper (one per call that reaches
-the card), ``SCAN_VARIANTS`` the scan's launches by variant
-(``scan_variant``); ``reset_launches()`` sets every count to 0.
+the card; a flash backward call runs three kernels and counts one),
+``SCAN_VARIANTS`` the scan's launches by variant (``scan_variant``);
+``reset_launches()`` sets every count to 0.
+
+Flash attention is differentiable: with grad on and an operand that needs
+it, ``flash_attention`` goes through ``FlashAttention`` (a
+``torch.autograd.Function``), whose forward saves the output and the row
+log-sum-exp (the f32 kernel writes it) and whose backward is the kernel of
+``csrc/flash_attention_bwd.cu`` (``flash_attention_backward``). On the CPU
+the Function takes the plain versions of both.
 """
 from __future__ import annotations
 
@@ -23,7 +31,8 @@ import torch
 
 from repro_torch.kernels import build, ref
 
-LAUNCHES = {"flash_attention": 0, "decode_attention": 0, "selective_scan": 0}
+LAUNCHES = {"flash_attention": 0, "flash_attention_backward": 0,
+            "decode_attention": 0, "selective_scan": 0}
 SCAN_VARIANTS = {"step": 0, "sequential": 0}
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _HEAD_DIMS = (32, 64, 128, 256)
@@ -69,8 +78,9 @@ def _check_cuda_operands(name: str, *ts: torch.Tensor, align: int = 16) -> None:
             raise ValueError(f"{name}: operands must be {align}-byte aligned")
     if torch.is_grad_enabled() and any(t.requires_grad for t in ts):
         raise NotImplementedError(
-            f"{name}: the CUDA kernel is forward only; its backward arrives "
-            "with the training slice")
+            f"{name}: a bare kernel call takes no grad; gradients of flash "
+            "attention go through ops.FlashAttention (the "
+            "torch.autograd.Function that ops.flash_attention applies)")
 
 
 def _ptr(t: torch.Tensor) -> ctypes.c_void_p:
@@ -87,14 +97,11 @@ def _raise_on(code: int, name: str) -> None:
 
 
 # ---------------------------------------------------------------------------
-# flash attention (forward)
+# flash attention (forward and backward)
 # ---------------------------------------------------------------------------
 
 
-def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                    causal: bool = True, window: Optional[int] = None,
-                    softcap: Optional[float] = None) -> torch.Tensor:
-    """q: [B,Sq,H,D]; k,v: [B,Sk,KV,D] (kv heads) -> [B,Sq,H,D], q's dtype."""
+def _check_flash(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
     if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape:
         raise ValueError(f"flash_attention: bad shapes q{tuple(q.shape)} "
                          f"k{tuple(k.shape)} v{tuple(v.shape)}")
@@ -105,15 +112,103 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         raise ValueError(f"flash_attention: dtypes {q.dtype}/{k.dtype}/"
                          f"{v.dtype}; need one of {list(_DTYPES)}")
     _check_heads(H, k.shape[2])
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, window: Optional[int] = None,
+                    softcap: Optional[float] = None) -> torch.Tensor:
+    """q: [B,Sq,H,D]; k,v: [B,Sk,KV,D] (kv heads) -> [B,Sq,H,D], q's dtype.
+
+    Differentiable through ``FlashAttention`` when grad is on and an operand
+    needs it (f32 only: the backward kernel is f32)."""
+    _check_flash(q, k, v)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        return FlashAttention.apply(q, k, v, causal, window, softcap)
+    return flash_attention_forward(q, k, v, causal, window, softcap,
+                                   want_lse=False)[0]
+
+
+def flash_attention_forward(q, k, v, causal, window, softcap, *,
+                            want_lse: bool):
+    """(out, lse or None): the forward kernel on the card, the plain version
+    on the CPU, without autograd (a call with grad raises; ``FlashAttention``
+    is the differentiable route). lse [B,H,Sq] f32, the row log-sum-exp the
+    backward reads, comes from the f32 kernel only."""
+    B, Sq, H, D = q.shape
+    kw = dict(causal=causal, window=window, softcap=softcap)
     if q.device.type == "cpu":
-        return ref.flash_attention_ref(q, k, v, causal=causal, window=window,
-                                       softcap=softcap)
+        out = ref.flash_attention_ref(q, k, v, **kw)
+        return out, ref.flash_attention_lse_ref(q, k, **kw) if want_lse else None
     _check_attention_limits("flash_attention", H, k.shape[2], D)
     _check_cuda_operands("flash_attention", q, k, v)
+    if want_lse and q.dtype != torch.float32:
+        raise NotImplementedError(
+            "flash_attention: the backward kernel is f32 only; the bf16 "
+            "(tensor-core) backward is a later slice")
     out = torch.empty_like(q)
-    _launch_flash_attention(q, k, v, out, causal, window, softcap)
+    lse = q.new_empty((B, H, Sq), dtype=torch.float32) if want_lse else None
+    _launch_flash_attention(q, k, v, out, lse, causal, window, softcap)
     LAUNCHES["flash_attention"] += 1
-    return out
+    return out, lse
+
+
+class FlashAttention(torch.autograd.Function):
+    """Flash attention with its backward kernel: the forward saves q, k, v,
+    the output and the row log-sum-exp; the backward recomputes the scores
+    from them (``flash_attention_backward``)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, softcap):
+        out, lse = flash_attention_forward(q, k, v, causal, window,
+                                           softcap, want_lse=True)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.kw = dict(causal=causal, window=window, softcap=softcap)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_backward(q, k, v, out, lse,
+                                              dout.contiguous(), **ctx.kw)
+        return dq, dk, dv, None, None, None
+
+
+def flash_attention_backward(q: torch.Tensor, k: torch.Tensor,
+                             v: torch.Tensor, out: torch.Tensor,
+                             lse: torch.Tensor, dout: torch.Tensor, *,
+                             causal: bool = True, window: Optional[int] = None,
+                             softcap: Optional[float] = None):
+    """(dq, dk, dv) of flash attention. q, out, dout: [B,Sq,H,D]; k, v:
+    [B,Sk,KV,D]; lse: [B,H,Sq] f32 from the forward. f32 on the card (the
+    kernel of ``csrc/flash_attention_bwd.cu``: three launches, no atomics,
+    the same bits on every call); the plain version on the CPU."""
+    _check_flash(q, k, v)
+    B, Sq, H, D = q.shape
+    if out.shape != q.shape or dout.shape != q.shape:
+        raise ValueError("flash_attention_backward: out and dout must have "
+                         f"q's shape {tuple(q.shape)}")
+    if lse.shape != (B, H, Sq) or lse.dtype != torch.float32:
+        raise ValueError(f"flash_attention_backward: lse must be f32 of "
+                         f"shape {(B, H, Sq)}")
+    kw = dict(causal=causal, window=window, softcap=softcap)
+    if q.device.type == "cpu":
+        return ref.flash_attention_backward_ref(q, k, v, out, lse, dout, **kw)
+    if q.dtype != torch.float32 or out.dtype != q.dtype or dout.dtype != q.dtype:
+        raise NotImplementedError(
+            "flash_attention_backward: the kernel is f32 only; the bf16 "
+            "(tensor-core) backward is a later slice")
+    _check_attention_limits("flash_attention_backward", H, k.shape[2], D)
+    _check_cuda_operands("flash_attention_backward", q, k, v, out, lse, dout)
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    delta = torch.empty_like(lse)
+    code = build.load().repro_flash_attention_bwd(
+        _ptr(q), _ptr(k), _ptr(v), _ptr(out), _ptr(dout), _ptr(lse),
+        _ptr(delta), _ptr(dq), _ptr(dk), _ptr(dv), B, Sq, k.shape[1], H,
+        k.shape[2], D, int(causal), int(window or 0), float(softcap or 0.0),
+        _stream())
+    _raise_on(code, "flash_attention_backward")
+    LAUNCHES["flash_attention_backward"] += 1
+    return dq, dk, dv
 
 
 def flash_variant(dtype: torch.dtype) -> str:
@@ -128,14 +223,19 @@ def flash_variant(dtype: torch.dtype) -> str:
     raise ValueError(f"flash_attention: no kernel for {dtype}")
 
 
-def _launch_flash_attention(q, k, v, out, causal, window, softcap) -> None:
+def _launch_flash_attention(q, k, v, out, lse, causal, window, softcap) -> None:
     B, Sq, H, D = q.shape
     Sk, KV = k.shape[1], k.shape[2]
     lib = build.load()
-    entry = (lib.repro_flash_attention_tc if flash_variant(q.dtype) == "tensor_core"
-             else lib.repro_flash_attention)
-    code = entry(_ptr(q), _ptr(k), _ptr(v), _ptr(out), B, Sq, Sk, H, KV, D,
-                 int(causal), int(window or 0), float(softcap or 0.0), _stream())
+    args = (B, Sq, Sk, H, KV, D, int(causal), int(window or 0),
+            float(softcap or 0.0), _stream())
+    if flash_variant(q.dtype) == "tensor_core":
+        code = lib.repro_flash_attention_tc(_ptr(q), _ptr(k), _ptr(v),
+                                            _ptr(out), *args)
+    else:
+        lse_p = ctypes.c_void_p(None) if lse is None else _ptr(lse)
+        code = lib.repro_flash_attention(_ptr(q), _ptr(k), _ptr(v), _ptr(out),
+                                         lse_p, *args)
     _raise_on(code, "flash_attention")
 
 

@@ -1,7 +1,9 @@
 """Plain PyTorch versions of the kernels (the allclose ground truth).
 
 Same signatures as the wrappers in ``ops``: K/V at kv heads (q head ``h``
-reads kv head ``h // (H // KV)``) and any sequence length. Scores are f32
+reads kv head ``h // (H // KV)``) and any sequence length. Flash attention's
+backward is written out as well (``flash_attention_backward_ref``), from the
+row log-sum-exp the forward saves (``flash_attention_lse_ref``). Scores are f32
 and the full score matrix is built, as in ``repro.kernels.ref``. The scan is
 a loop over the sequence. The tests use these, and ``ops`` uses them for
 tensors on the CPU; on the card the model only reaches them when
@@ -21,25 +23,89 @@ def _softcap(sc: torch.Tensor, softcap: Optional[float]) -> torch.Tensor:
     return sc if softcap is None else softcap * torch.tanh(sc / softcap)
 
 
-def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                        causal: bool = True, window: Optional[int] = None,
-                        softcap: Optional[float] = None) -> torch.Tensor:
-    """q: [B,Sq,H,D]; k,v: [B,Sk,KV,D] -> [B,Sq,H,D] in q's dtype."""
+def _mask(Sq: int, Sk: int, causal: bool, window: Optional[int],
+          device) -> Optional[torch.Tensor]:
+    """Kept (q, k) pairs [Sq, Sk]: kpos <= qpos and, with a window,
+    kpos > qpos - window; None when not causal (all kept)."""
+    if not causal:
+        return None
+    qpos = torch.arange(Sq, device=device)[:, None]
+    kpos = torch.arange(Sk, device=device)[None, :]
+    mask = kpos <= qpos
+    if window is not None:
+        mask &= kpos > qpos - window
+    return mask
+
+
+def _scores(q, k, causal, window, softcap) -> torch.Tensor:
+    """Masked f32 scores [B,KV,G,Sq,Sk] (G = H // KV), masked pairs -1e30."""
     B, Sq, H, D = q.shape
     Sk, KV = k.shape[1], k.shape[2]
     qg = q.float().reshape(B, Sq, KV, H // KV, D)
     sc = torch.einsum("bqkgd,bskd->bkgqs", qg, k.float()) / math.sqrt(D)
     sc = _softcap(sc, softcap)
-    if causal:
-        qpos = torch.arange(Sq, device=q.device)[:, None]
-        kpos = torch.arange(Sk, device=q.device)[None, :]
-        mask = kpos <= qpos
-        if window is not None:
-            mask &= kpos > qpos - window
-        sc = torch.where(mask, sc, NEG_INF)
-    pr = torch.softmax(sc, dim=-1)
+    mask = _mask(Sq, Sk, causal, window, q.device)
+    return sc if mask is None else torch.where(mask, sc, NEG_INF)
+
+
+def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                        causal: bool = True, window: Optional[int] = None,
+                        softcap: Optional[float] = None) -> torch.Tensor:
+    """q: [B,Sq,H,D]; k,v: [B,Sk,KV,D] -> [B,Sq,H,D] in q's dtype."""
+    B, Sq, H, D = q.shape
+    pr = torch.softmax(_scores(q, k, causal, window, softcap), dim=-1)
     out = torch.einsum("bkgqs,bskd->bqkgd", pr, v.float())
     return out.reshape(B, Sq, H, D).to(q.dtype)
+
+
+def flash_attention_lse_ref(q: torch.Tensor, k: torch.Tensor, *,
+                            causal: bool = True, window: Optional[int] = None,
+                            softcap: Optional[float] = None) -> torch.Tensor:
+    """The row log-sum-exp of the masked scores, [B,H,Sq] f32: what the f32
+    flash kernel writes beside its output for the backward."""
+    B, Sq, H, _ = q.shape
+    lse = torch.logsumexp(_scores(q, k, causal, window, softcap), dim=-1)
+    return lse.reshape(B, H, Sq)
+
+
+def flash_attention_backward_ref(q: torch.Tensor, k: torch.Tensor,
+                                 v: torch.Tensor, out: torch.Tensor,
+                                 lse: torch.Tensor, dout: torch.Tensor, *,
+                                 causal: bool = True,
+                                 window: Optional[int] = None,
+                                 softcap: Optional[float] = None):
+    """The gradient of ``flash_attention_ref`` written out, as the backward
+    kernel computes it: P = exp(s - lse) on kept pairs (0 elsewhere), delta =
+    rowsum(dout * out), dS = P (dout V^T - delta) (1 - tanh^2) / sqrt(D).
+
+    q, out, dout: [B,Sq,H,D]; k, v: [B,Sk,KV,D]; lse: [B,H,Sq] f32 ->
+    (dq, dk, dv) in the dtypes of q, k, v; dk and dv sum the group's q heads.
+    """
+    B, Sq, H, D = q.shape
+    Sk, KV = k.shape[1], k.shape[2]
+    G = H // KV
+    qg = q.float().reshape(B, Sq, KV, G, D)
+    x = torch.einsum("bqkgd,bskd->bkgqs", qg, k.float()) / math.sqrt(D)
+    if softcap is None:
+        sc, chain = x, None
+    else:
+        t = torch.tanh(x / softcap)
+        sc, chain = softcap * t, 1.0 - t * t
+    p = torch.exp(sc - lse.float().reshape(B, KV, G, Sq, 1))
+    mask = _mask(Sq, Sk, causal, window, q.device)
+    if mask is not None:
+        p = torch.where(mask, p, 0.0)
+    dog = dout.float().reshape(B, Sq, KV, G, D)
+    delta = (dog * out.float().reshape(B, Sq, KV, G, D)).sum(-1)   # [B,Sq,KV,G]
+    dp = torch.einsum("bqkgd,bskd->bkgqs", dog, v.float())
+    ds = p * (dp - delta.permute(0, 2, 3, 1)[..., None])
+    if chain is not None:
+        ds = ds * chain
+    ds = ds / math.sqrt(D)
+    dq = torch.einsum("bkgqs,bskd->bqkgd", ds, k.float()).reshape(B, Sq, H, D)
+    dk = torch.einsum("bkgqs,bqkgd->bskd", ds, qg)
+    dv = torch.einsum("bkgqs,bqkgd->bskd", p, dog)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
 # The most a bf16 attention output row may be off: bf16's unit roundoff is

@@ -58,8 +58,8 @@ def rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor
 
 
 def leaf(shape, dtype, device) -> nn.Parameter:
-    """An uninitialised weight. No autograd in the serving slice: the kernels
-    are forward only."""
+    """An uninitialised weight, without grad (serving); the train state turns
+    grad on (``training.step.init_train_state``)."""
     return nn.Parameter(torch.empty(shape, dtype=dtype, device=device),
                         requires_grad=False)
 

@@ -3,12 +3,15 @@
 * it imports neither JAX nor anything of the ``repro`` package;
 * its entry points run on ``cuda`` and raise without a card unless the
   caller asks for ``device="cpu"``;
-* families outside the ported slices (MoE, encoder-decoder) raise
-  ``NotImplementedError``;
+* families outside the ported slices (MoE, encoder-decoder), and the parts
+  of the LOG.io core and the optimizer the training slice left out (other
+  log stores, process mode, ABS, replay, bf16/int8 moments, gradient
+  compression), raise ``NotImplementedError``;
 * the kernel wrappers pick the plain version by the tensors' device alone:
   a tensor on the card gets the kernel or an error, never the plain version.
 """
 import dataclasses
+import functools
 import json
 import os
 import subprocess
@@ -24,6 +27,7 @@ from repro_torch import bridge  # noqa: E402
 from repro_torch.configs import ARCHS, get_config, reduced  # noqa: E402
 from repro_torch.kernels import ops, ref  # noqa: E402
 from repro_torch.launch import serve as serve_driver  # noqa: E402
+from repro_torch.launch import train as train_driver  # noqa: E402
 from repro_torch.models import model as M  # noqa: E402
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -55,7 +59,13 @@ def test_port_imports_no_jax_and_nothing_of_repro():
     for mod in ("repro_torch.bridge", "repro_torch.kernels.ops",
                 "repro_torch.kernels.build", "repro_torch.models.model",
                 "repro_torch.serving.decode", "repro_torch.launch.serve",
-                "repro_torch.configs.base"):
+                "repro_torch.configs.base", "repro_torch.core.engine",
+                "repro_torch.core.operator", "repro_torch.core.recovery",
+                "repro_torch.core.logstore.memory",
+                "repro_torch.core.transport.local", "repro_torch.data.pipeline",
+                "repro_torch.training.step", "repro_torch.training.optimizer",
+                "repro_torch.training.loss", "repro_torch.checkpoint.store",
+                "repro_torch.launch.train"):
         assert mod in res["modules"]
 
 
@@ -102,6 +112,92 @@ def test_entry_points_raise_without_a_card(no_card):
     done = serve_driver.main(["--requests", "1", "--tokens", "2",
                               "--d-model", "64", "--device", "cpu"])
     assert len(done[0]) == 2
+
+
+def test_training_raises_without_a_card(no_card, tmp_path):
+    from repro_torch.training import OptHParams, init_train_state
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        train_driver.run_training(steps=1, ckpt_dir=str(tmp_path / "a"),
+                                  verbose=False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        train_driver.main(["--steps", "1", "--ckpt-dir", str(tmp_path / "b")])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        init_train_state(torch.Generator(), _tiny(), OptHParams())
+    out = train_driver.main(["--steps", "2", "--ckpt-every", "1", "--seq-len",
+                             "16", "--d-model", "32", "--n-layers", "1",
+                             "--ckpt-dir", str(tmp_path / "c"),
+                             "--device", "cpu"])
+    assert out["steps"] == 2 and len(out["losses"]) == 2
+
+
+def test_training_on_the_card_needs_a_pinned_cublas(monkeypatch):
+    """Deterministic training on the card refuses to start unless cuBLAS's
+    workspace is pinned (CUBLAS_WORKSPACE_CONFIG)."""
+    monkeypatch.delenv("CUBLAS_WORKSPACE_CONFIG", raising=False)
+    with pytest.raises(RuntimeError, match="CUBLAS_WORKSPACE_CONFIG"):
+        train_driver.deterministic(torch.device("cuda"))
+    monkeypatch.setenv("CUBLAS_WORKSPACE_CONFIG", ":0:0")
+    with pytest.raises(RuntimeError, match="CUBLAS_WORKSPACE_CONFIG"):
+        train_driver.deterministic(torch.device("cuda"))
+    train_driver.deterministic(torch.device("cpu"))   # nothing to pin
+
+
+def _linear_pipeline():
+    from repro_torch.core import (CountWindowOperator, GeneratorSource,
+                                  Pipeline, ReadSource, TerminalSink)
+    p = Pipeline()
+    p.add(lambda: GeneratorSource("src", ReadSource([{"v": 1}])))
+    p.add(lambda: CountWindowOperator("win", 1, agg=len))
+    p.add(lambda: TerminalSink("sink", target=1))
+    p.connect("src", "out", "win", "in")
+    p.connect("win", "out", "sink", "in")
+    return p
+
+
+TRIMMED = {
+    "sqlite store": lambda: __import__(
+        "repro_torch.core.logstore", fromlist=["x"]).build_store("sqlite"),
+    "sharded store": lambda: __import__(
+        "repro_torch.core.logstore", fromlist=["x"]).build_store(
+            "memory+sharded+group"),
+    "segment config": lambda: __import__(
+        "repro_torch.core.logstore", fromlist=["x"]).StoreConfig(
+            base="segment"),
+    "process mode": lambda: __import__(
+        "repro_torch.core", fromlist=["x"]).Engine(_linear_pipeline(),
+                                                   mode="process"),
+    "abs": lambda: __import__(
+        "repro_torch.core", fromlist=["x"]).Engine(_linear_pipeline(),
+                                                   protocol="abs"),
+    "replay": lambda: __import__(
+        "repro_torch.core", fromlist=["x"]).Engine(
+            _linear_pipeline(), mode="step").replay([("win", "out", 0)]),
+    "int8 moments": lambda: __import__(
+        "repro_torch.training", fromlist=["x"]).OptHParams(
+            moment_dtype="int8"),
+    "bf16 moments": lambda: __import__(
+        "repro_torch.training", fromlist=["x"]).OptHParams(
+            moment_dtype="bfloat16"),
+    "compressed grads": lambda: __import__(
+        "repro_torch.training", fromlist=["x"]).make_train_step(
+            _tiny(), __import__("repro_torch.training",
+                                fromlist=["x"]).OptHParams(),
+            compress_grads=True),
+}
+
+
+@pytest.mark.parametrize("what", sorted(TRIMMED))
+def test_trimmed_paths_raise(what):
+    with pytest.raises(NotImplementedError, match="slice"):
+        TRIMMED[what]()
+
+
+def test_memory_store_and_step_engine_run():
+    from repro_torch.core import Engine, MemoryLogStore, build_store
+    assert isinstance(build_store("memory"), MemoryLogStore)
+    eng = Engine(_linear_pipeline(), mode="step", store="memory")
+    assert eng.run_to_completion()
+    assert eng.external.committed() == [1]
 
 
 UNSUPPORTED = {
@@ -208,14 +304,45 @@ def test_kernel_limits_are_checked_before_launch(monkeypatch, bad):
     q4 = torch.randn(1, 8, H, D)
     if bad == "noncontiguous":
         k = torch.randn(1, 8, D, KV).transpose(2, 3)
+    flash = ops.flash_attention
     if bad == "grad":
         q.requires_grad_(True)
         q4.requires_grad_(True)
+        # gradients of flash attention go through ops.FlashAttention; a bare
+        # kernel call refuses them (test_flash_grad_reaches_the_kernels)
+        flash = functools.partial(ops.flash_attention_forward, causal=True,
+                                  window=None, softcap=None, want_lse=False)
     err = NotImplementedError if bad == "grad" else ValueError
     with pytest.raises(err):
         ops.decode_attention(*(_claims_cuda(t) for t in (q, k, k, lengths)))
-    with pytest.raises(err):
-        ops.flash_attention(*(_claims_cuda(t) for t in (q4, k, k)))
+    with pytest.raises(err, match="FlashAttention" if bad == "grad" else None):
+        flash(*(_claims_cuda(t) for t in (q4, k, k)))
+
+
+def test_flash_grad_reaches_the_kernels(monkeypatch):
+    """On the card, flash attention with grad goes through ops.FlashAttention
+    to the forward kernel (asked for its lse); the backward wrapper refuses
+    bf16 and a malformed lse before any launch."""
+    seen = []
+    monkeypatch.setattr(ops, "_launch_flash_attention",
+                        lambda *a: seen.append(a[4]) or _refuse())
+    q = torch.randn(1, 8, 4, 32, requires_grad=True)
+    k = torch.randn(1, 8, 2, 32)
+    with pytest.raises(_Launched):
+        ops.flash_attention(*(_claims_cuda(t) for t in (q, k, k)))
+    assert len(seen) == 1 and tuple(seen[0].shape) == (1, 4, 8)   # lse [B,H,Sq]
+    with pytest.raises(NotImplementedError, match="f32 only"):
+        ops.flash_attention(*(_claims_cuda(t.detach().bfloat16().requires_grad_())
+                              for t in (q, k, k)))
+    qd = q.detach()
+    lse = torch.zeros(1, 4, 8)
+    with pytest.raises(NotImplementedError, match="f32 only"):
+        ops.flash_attention_backward(*(_claims_cuda(t.bfloat16()) for t in
+                                       (qd, k, k, qd)), _claims_cuda(lse),
+                                     _claims_cuda(qd.bfloat16()))
+    with pytest.raises(ValueError, match="lse"):
+        ops.flash_attention_backward(*(_claims_cuda(t) for t in
+                                       (qd, k, k, qd, lse[:, :, :4], qd)))
 
 
 @pytest.mark.parametrize("bad", ["noncontiguous", "grad"])

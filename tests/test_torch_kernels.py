@@ -308,3 +308,104 @@ def test_scan_variant_follows_shape_and_alignment(S, DI, DS, h0, variant):
     elif h0 == "offset":
         h0 = torch.zeros(B * DI * DS + 1)[1:].view(B, DI, DS)
     assert ops.scan_variant(a, b, h0) == variant
+
+
+# The backward's plain version (``ref.flash_attention_backward_ref``, which
+# ``ops.FlashAttention`` runs for CPU tensors) against autograd of the plain
+# forward and jax.grad of the JAX oracle: chip_smoke.py's phase-2 backward
+# cases at small sizes (the main path's causal GQA, D = 64 / 256, groups
+# 1 / 2 / 4, window and softcap, ragged S, Sq != Sk without a mask).
+BWD_CASES = [
+    # (B, Sq, Sk, H, KV, D, causal, window, softcap)
+    (2, 64, 64, 4, 2, 128, True, None, None),
+    (1, 48, 48, 4, 4, 64, True, None, None),
+    (2, 40, 40, 8, 2, 32, True, None, None),
+    (1, 32, 32, 4, 2, 256, True, None, None),
+    (1, 70, 70, 8, 4, 64, True, 12, None),
+    (2, 50, 50, 4, 2, 64, True, 16, 50.0),
+    (1, 37, 37, 4, 2, 32, False, None, 30.0),
+    (2, 20, 45, 4, 2, 64, False, None, None),
+    (1, 45, 20, 4, 1, 32, False, None, None),
+]
+
+
+def _bwd_inputs(case, seed=4):
+    B, Sq, Sk, H, KV, D, causal, window, softcap = case
+    rng = np.random.default_rng(seed)
+    arrs = (_np(rng, (B, Sq, H, D)), _np(rng, (B, Sk, KV, D)),
+            _np(rng, (B, Sk, KV, D)), _np(rng, (B, Sq, H, D)))
+    return arrs, dict(causal=causal, window=window, softcap=softcap)
+
+
+def _close_to_max(got, want, tol=TOL["f32"]):
+    """f32 tolerance relative to the gradient's largest magnitude."""
+    got, want = np.asarray(got, np.float32), np.asarray(want, np.float32)
+    scale = max(float(np.abs(want).max()), 1e-30)
+    np.testing.assert_allclose(got / scale, want / scale, rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("case", BWD_CASES)
+def test_flash_attention_backward_ref_matches_autograd_and_jax(case):
+    (q, k, v, do), kw = _bwd_inputs(case)
+    H, KV = q.shape[2], k.shape[2]
+    tq, tk, tv = (torch.from_numpy(x).requires_grad_(True) for x in (q, k, v))
+    tdo = torch.from_numpy(do)
+    out = ref.flash_attention_ref(tq, tk, tv, **kw)
+    lse = ref.flash_attention_lse_ref(tq.detach(), tk.detach(), **kw)
+    got = ref.flash_attention_backward_ref(tq.detach(), tk.detach(),
+                                           tv.detach(), out.detach(), lse,
+                                           tdo, **kw)
+    want_torch = torch.autograd.grad(out, (tq, tk, tv), tdo)
+
+    def jf(a, b, c):
+        return jref.flash_attention_ref(a, jnp.repeat(b, H // KV, axis=2),
+                                        jnp.repeat(c, H // KV, axis=2), **kw)
+    _, vjp = jax.vjp(jf, jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
+    want_jax = vjp(jnp.asarray(do))
+    for g, wt, wj in zip(got, want_torch, want_jax):
+        assert g.shape == wt.shape and g.dtype == torch.float32
+        _close_to_max(g.numpy(), wt.numpy())
+        _close_to_max(g.numpy(), wj)
+
+
+@pytest.mark.parametrize("case", BWD_CASES[:3] + BWD_CASES[-2:])
+def test_flash_attention_lse_ref_matches_jax(case):
+    (q, k, _, _), kw = _bwd_inputs(case)
+    H, KV, D = q.shape[2], k.shape[2], q.shape[3]
+    sc = jnp.einsum("bqhd,bkhd->bhqk", q, jnp.repeat(k, H // KV, axis=2)
+                    ) / np.sqrt(D)
+    if kw["softcap"] is not None:
+        sc = kw["softcap"] * jnp.tanh(sc / kw["softcap"])
+    if kw["causal"]:
+        qpos, kpos = np.arange(q.shape[1])[:, None], np.arange(k.shape[1])[None]
+        mask = kpos <= qpos
+        if kw["window"] is not None:
+            mask &= kpos > qpos - kw["window"]
+        sc = jnp.where(mask, sc, -1e30)
+    want = jax.nn.logsumexp(sc, axis=-1)
+    got = ref.flash_attention_lse_ref(torch.from_numpy(q), torch.from_numpy(k),
+                                      **kw)
+    _close(got.numpy(), want, "f32")
+
+
+@pytest.mark.parametrize("case", BWD_CASES[:2] + BWD_CASES[5:6])
+def test_flash_attention_grad_on_cpu_takes_the_plain_backward(case,
+                                                              monkeypatch):
+    """With grad on, the wrapper goes through ops.FlashAttention, whose CPU
+    backward is the plain backward (never autograd of the plain forward)
+    and launches nothing."""
+    (q, k, v, do), kw = _bwd_inputs(case, seed=5)
+    leaves = [torch.from_numpy(x).requires_grad_(True) for x in (q, k, v)]
+    calls = []
+    plain_bwd = ref.flash_attention_backward_ref
+    monkeypatch.setattr(ref, "flash_attention_backward_ref",
+                        lambda *a, **k_: calls.append(1) or plain_bwd(*a, **k_))
+    before = dict(ops.LAUNCHES)
+    out = ops.flash_attention(*leaves, **kw)
+    assert out.grad_fn is not None and "FlashAttention" in type(out.grad_fn).__name__
+    got = torch.autograd.grad(out, leaves, torch.from_numpy(do))
+    assert calls == [1] and ops.LAUNCHES == before
+    want = torch.autograd.grad(ref.flash_attention_ref(*leaves, **kw), leaves,
+                               torch.from_numpy(do))
+    for g, w in zip(got, want):
+        _close_to_max(g.numpy(), w.numpy())

@@ -69,6 +69,32 @@ DECODE_CASES = [
     (4, 4096, 16, 8, 128, None, None, "f32", None),
 ]
 
+# f32 flash backward (csrc/flash_attention_bwd.cu) against its plain version:
+# the main path's shape, D = 32/64/256, groups 1/2/4, window and softcap,
+# ragged S, Sq != Sk without a mask
+BWD_CASES = [
+    # (B, Sq, Sk, H, KV, D, causal, window, softcap)
+    (2, 2048, 2048, 16, 8, 128, True, None, None),   # internlm2's train step
+    (1, 256, 256, 4, 4, 64, True, None, None),       # group 1
+    (2, 192, 192, 8, 2, 32, True, None, None),       # group 4
+    (1, 128, 128, 4, 2, 256, True, None, None),
+    (1, 300, 300, 8, 4, 64, True, 48, None),         # window, ragged
+    (2, 200, 200, 4, 2, 256, True, 64, 50.0),        # gemma2's form
+    (1, 130, 130, 4, 2, 128, False, None, 30.0),
+    (2, 100, 333, 4, 2, 64, False, None, None),      # Sq != Sk, no mask
+    (1, 333, 100, 4, 1, 128, False, None, None),
+]
+BWD_TOL = 2e-5   # relative to each gradient's largest magnitude
+
+
+def assert_close_to_max(got, want, tol, what=""):
+    """|got - want| <= tol * max|want| + tol * |want|: the f32 tolerance
+    stated relative to the gradient's scale, which sums over up to Sq rows
+    (dk, dv) or Sk keys (dq)."""
+    scale = want.abs().max().clamp_min(1e-30)
+    torch.testing.assert_close(got / scale, want / scale, rtol=tol, atol=tol,
+                               msg=lambda m: f"{what}: {m}")
+
 
 SCAN_CASES = [
     # (B, S, DI, DS, h0, variant); h0: None, "fresh" or "offset" (a view 4
@@ -222,3 +248,76 @@ def test_model_paths_agree_on_card(card):
             lb, _ = M.decode_step(p, caches[1], tokens[:, step], pos, cfg,
                                   M.Runtime("plain"))
             torch.testing.assert_close(la, lb, rtol=2e-5, atol=2e-5)
+
+
+def _bwd_operands(card, case, seed=0):
+    B, Sq, Sk, H, KV, D, causal, window, softcap = case
+    g = torch.Generator(device=card).manual_seed(seed)
+    q = _randn(g, (B, Sq, H, D), "f32", card)
+    k, v = (_randn(g, (B, Sk, KV, D), "f32", card) for _ in range(2))
+    dout = _randn(g, (B, Sq, H, D), "f32", card)
+    return q, k, v, dout, dict(causal=causal, window=window, softcap=softcap)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", BWD_CASES)
+def test_flash_attention_lse_leaves_the_output_alone(card, case):
+    """The f32 forward with its lse output: o bit-identical to the call
+    without it, lse against the plain log-sum-exp."""
+    q, k, v, _, kw = _bwd_operands(card, case)
+    plain_out = ops.flash_attention(q, k, v, **kw)
+    out, lse = ops.flash_attention_forward(q, k, v, kw["causal"], kw["window"],
+                                  kw["softcap"], want_lse=True)
+    torch.cuda.synchronize()
+    assert torch.equal(out, plain_out)
+    torch.testing.assert_close(lse, ref.flash_attention_lse_ref(q, k, **kw),
+                               rtol=2e-5, atol=2e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", BWD_CASES)
+def test_flash_attention_backward_matches_plain(card, case):
+    q, k, v, dout, kw = _bwd_operands(card, case)
+    out, lse = ops.flash_attention_forward(q, k, v, kw["causal"], kw["window"],
+                                  kw["softcap"], want_lse=True)
+    n = ops.LAUNCHES["flash_attention_backward"]
+    got = ops.flash_attention_backward(q, k, v, out, lse, dout, **kw)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["flash_attention_backward"] == n + 1
+    want = ref.flash_attention_backward_ref(q, k, v, out, lse, dout, **kw)
+    for name, a, b in zip(("dq", "dk", "dv"), got, want):
+        assert a.shape == b.shape and a.dtype == torch.float32
+        assert_close_to_max(a, b, BWD_TOL, name)
+    again = ops.flash_attention_backward(q, k, v, out, lse, dout, **kw)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))   # no atomics
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", BWD_CASES[1:])
+def test_flash_attention_autograd_on_card(card, case):
+    """ops.flash_attention with grad: the forward and backward kernels, one
+    counted launch each, against autograd of the plain version."""
+    q, k, v, dout, kw = _bwd_operands(card, case, seed=1)
+    leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    n = dict(ops.LAUNCHES)
+    out = ops.flash_attention(*leaves, **kw)
+    got = torch.autograd.grad(out, leaves, dout)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["flash_attention"] == n["flash_attention"] + 1
+    assert (ops.LAUNCHES["flash_attention_backward"]
+            == n["flash_attention_backward"] + 1)
+    want = torch.autograd.grad(ref.flash_attention_ref(*leaves, **kw), leaves,
+                               dout)
+    for name, a, b in zip(("dq", "dk", "dv"), got, want):
+        assert_close_to_max(a, b, BWD_TOL, name)
+
+
+@pytest.mark.cuda
+def test_bare_flash_kernel_call_refuses_grad(card):
+    q = torch.randn(1, 64, 4, 64, device=card, requires_grad=True)
+    k = torch.randn(1, 64, 2, 64, device=card)
+    with pytest.raises(NotImplementedError, match="FlashAttention"):
+        ops.flash_attention_forward(q, k, k, True, None, None, want_lse=True)
+    with pytest.raises(NotImplementedError, match="f32 only"):
+        ops.flash_attention(q.detach().bfloat16().requires_grad_(True),
+                            k.bfloat16(), k.bfloat16())
