@@ -16,7 +16,7 @@ d_state=16, d_conv=4, dt_rank=256, V=65024). Phases:
    bit-identical to the plain loop);
 3. internlm2 ``forward`` in bf16 on tokens [2, 2048] with the flash kernel
    (its tensor-core variant) against the plain path, and the flash launch
-   count (one per layer, none of them the f32 CUDA-core variant);
+   count (one per layer, none of them an f32 variant);
    3b. falcon-mamba ``forward`` the same way through the scan kernel (one
    launch per layer);
 4. internlm2 ``SlotServer`` with f32 weights and its f32 cache (4 slots,
@@ -31,16 +31,20 @@ d_state=16, d_conv=4, dt_rank=256, V=65024). Phases:
    ``torch.addcmul`` in its place;
 5. timings (CUDA-event medians and profiler device time) of each kernel,
    its plain version and, where one exists, one PyTorch library call at the
-   shapes of phases 3-4, with the kernel's bound; flash in both variants
-   (bf16 on the tensor cores, f32 on the CUDA cores), each against the peak
-   of its type; decode attention at the serve shape and at a full cache;
-   the scan at the forward shape and at the decode step; the flash backward
-   (f32) beside its bound and f32 SDPA's backward, and the f32 forward
-   beside f32 SDPA;
+   shapes of phases 3-4, with the kernel's bound; flash at dh = 128 in both
+   of its variants there (bf16 on the tensor cores against the bf16 peak;
+   f32 split-f32, three TF32 products against the TF32 peak, with the f32
+   CUDA-core bound beside it); decode attention at the serve shape and at a
+   full cache; the scan at the forward shape and at the decode step; the f32
+   flash backward beside its bounds; beside the f32 pair, memory-efficient
+   SDPA on K/V repeated to the q heads and SDPA with ``enable_gqa`` (MATH),
+   after step 0, which measures that SDPA's error against the plain
+   versions at phase 2's f32 cases (the evidence for split-f32);
 6. internlm2 ``make_train_step`` at full width in f32 (24 layers, tokens
    [accum 1, mb 2, S 2048], 30.2 GB of params, grads and AdamW moments):
    step ms, tokens/s, the device breakdown, 24 forward and 24 backward
-   flash launches a step (counted and recorded), a first loss near ln V,
+   flash launches a step (counted, and recorded on the split-f32 kernels
+   only: prep and forward, prep, dk/dv and dq), a first loss near ln V,
    two steps from the same state bitwise equal, and the grads at full width
    and depth cut to 2 layers against the ``attn_impl="plain"`` path;
    6b. ``run_training(device="cuda")`` (the LOG.io-protected feed, reduced
@@ -48,8 +52,9 @@ d_state=16, d_conv=4, dt_rank=256, V=65024). Phases:
    worker kill, whose losses and final state must equal, bit for bit, a run
    without kills.
 
-Phase 2 also holds the flash backward (``csrc/flash_attention_bwd.cu``)
-against its plain version at rtol = atol = 2e-5 relative to each
+Phase 2 also holds the f32 flash backward (``csrc/flash_attention_f32tc.cu``
+at D <= 128, ``csrc/flash_attention_bwd.cu`` at D = 256) against its plain
+version at rtol = atol = 2e-5 relative to each
 gradient's largest magnitude, bitwise repeatable, and the forward's lse.
 Training needs ``CUBLAS_WORKSPACE_CONFIG`` (set here before torch starts)
 and runs under ``torch.use_deterministic_algorithms(True)`` from phase 6 on.
@@ -98,6 +103,7 @@ from repro_torch.training import OptHParams, init_train_state  # noqa: E402
 
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM data sheet
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}  # dense; f32 off the tensor cores
+TF32_FLOPS = 495e12   # dense TF32 on the tensor cores; split-f32 runs three products
 TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
 SEED = 0
 DEVICE = "cuda"   # the phases take their device from here
@@ -112,15 +118,16 @@ LOGIO_RUN = dict(steps=10, ckpt_every=3, seq_len=128, batch_size=4,
                  d_model=512, n_layers=4, seed=3)   # phase 6b
 
 KERNELS = {
-    # bf16 (the main path) runs on the tensor cores; f32 on the CUDA cores
-    # (``ops.flash_variant``), timed beside it in phase 5
+    # bf16 (the forward path) runs on the tensor cores; f32 (the train path)
+    # on split-f32 tensor-core kernels at D <= 128 (``ops.flash_variant``),
+    # timed beside it in phase 5
     "flash_attention": dict(
         route="cuda", source="src/repro_torch/kernels/csrc/flash_attention_tc.cu",
         replaces="src/repro/kernels/flash_attention.py:93"),
     # the Pallas kernel has no backward (JAX differentiates XLA attention);
     # this is the backward of the kernel that replaces it, on the train path
     "flash_attention_backward": dict(
-        route="cuda", source="src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+        route="cuda", source="src/repro_torch/kernels/csrc/flash_attention_f32tc.cu",
         replaces="src/repro/kernels/flash_attention.py:93"),
     "decode_attention": dict(
         route="cuda", source="src/repro_torch/kernels/csrc/decode_attention.cu",
@@ -129,20 +136,25 @@ KERNELS = {
         route="cuda", source="src/repro_torch/kernels/csrc/selective_scan.cu",
         replaces="src/repro/kernels/selective_scan.py:49"),
 }
-# flash's device kernel by dtype (``ops.flash_variant``), the scan's by
-# ``ops.scan_variant``; as substrings, neither name of a pair contains the other
+# flash's device kernels by variant (``ops.flash_variant``: dtype and head
+# dim), the scan's by ``ops.scan_variant``. Names are matched as substrings;
+# no name of one variant contains another's.
 FLASH_TC, FLASH_CC = "flash_fwd_tc_kernel", "flash_fwd_kernel"
+F32TC_FWD_PREP, F32TC_FWD = "flash_f32tc_fwd_prep_kernel", "flash_f32tc_fwd_kernel"
+F32TC_BWD = ("flash_f32tc_bwd_prep_kernel", "flash_f32tc_dkdv_kernel",
+             "flash_f32tc_dq_kernel")
 SCAN_KERNEL = {"sequential": "selective_scan_kernel",
                "step": "selective_scan_step_kernel"}
-# per wrapper: the names of its device kernels (matched as substrings) and
-# how many of them one counted launch runs (one of its variants' kernels)
 FLASH_BWD = ("flash_bwd_delta_kernel", "flash_bwd_dkdv_kernel",
-             "flash_bwd_dq_kernel")
+             "flash_bwd_dq_kernel")   # the CUDA-core backward (f32, D = 256)
+# per wrapper, per variant: its device kernels and how many of them one
+# counted launch runs
 DEVICE_KERNELS = {
-    "flash_attention": ((FLASH_TC, FLASH_CC), 1),
-    "flash_attention_backward": (FLASH_BWD, 3),
-    "decode_attention": (("decode_attention_kernel",), 1),
-    "selective_scan": (tuple(SCAN_KERNEL.values()), 1),
+    "flash_attention": [((FLASH_TC,), 1), ((FLASH_CC,), 1),
+                        ((F32TC_FWD_PREP, F32TC_FWD), 2)],
+    "flash_attention_backward": [(FLASH_BWD, 3), (F32TC_BWD, 3)],
+    "decode_attention": [(("decode_attention_kernel",), 1)],
+    "selective_scan": [(tuple(SCAN_KERNEL.values()), 1)],
 }
 
 
@@ -261,15 +273,18 @@ def log_breakdown(tag: str, prof: dict, wall_ms: float, top: int = 6) -> None:
     busy = sum(ms for _, ms in kernels.values())
     short = []
     for name, per_call in sorted(prof["counted"].items()):
-        names, per_launch = DEVICE_KERNELS[name]
-        by_name = {x: recorded(prof, x) for x in names}
-        seen = sum(by_name.values())
-        want = per_call * per_launch
+        variants = DEVICE_KERNELS[name]
+        by_name = {x: recorded(prof, x) for names, _ in variants for x in names}
+        # counted launches the records account for, each variant's kernels
+        # divided by how many one launch runs
+        seen = sum(sum(by_name[x] for x in names) / per_launch
+                   for names, per_launch in variants)
+        ran = [x for names, _ in variants for x in names if by_name[x]]
         log(f"breakdown {tag}: {name} launches recorded {seen:g} / counted "
-            f"{want:g} per call ("
-            + ", ".join(f"{x} {n:g}" for x, n in by_name.items())
-            + f"), {_fmt(kernel_ms(prof, *names))} ms per launch")
-        if seen < want:
+            f"{per_call:g} per call ("
+            + ", ".join(f"{x} {by_name[x]:g}" for x in ran)
+            + f"), {_fmt(kernel_ms(prof, *ran))} ms per launch")
+        if seen < per_call:
             short.append(name)
     bound = ">= " if short else ""
     note = (f" (lower bound: launch records of {', '.join(short)} missing)"
@@ -427,6 +442,7 @@ def check_flash_backward(g, case) -> float:
     check(all(bool(torch.equal(a, b)) for a, b in zip(got, again)),
           f"{what}: two calls differ")
     log(f"flash backward B={B} Sq={Sq} Sk={Sk} H={H} KV={KV} D={D} "
+        f"({ops.flash_variant(torch.float32, D)}) "
         f"causal={causal} window={window} softcap={softcap}: dq/dk/dv error "
         f"relative to max {errs[0]:.3e} / {errs[1]:.3e} / {errs[2]:.3e} "
         f"(tol {TOL[torch.float32]}), bitwise repeatable, o unchanged by lse, "
@@ -519,7 +535,8 @@ def phase_kernels() -> dict:
         rows = (f", row error {check_flash_rows(out, q, k, v, kw, what):.3e} "
                 f"(tol {ref.BF16_ROW_TOL})" if dt == torch.bfloat16 else "")
         errs["flash_attention"] = max(errs["flash_attention"], err)
-        log(f"flash B={B} S={S} H={H} KV={KV} D={D} {str(dt)[6:]} causal={causal} "
+        log(f"flash B={B} S={S} H={H} KV={KV} D={D} {str(dt)[6:]} "
+            f"({ops.flash_variant(dt, D)}) causal={causal} "
             f"window={window} softcap={softcap}: max_abs_err {err:.3e} "
             f"(tol {TOL[dt]}){rows}")
     for case in BWD_CASES:
@@ -601,9 +618,9 @@ def phase_forward(cfg, kernel: str) -> dict:
         log_breakdown(f"{tag} kernel", prof, fwd_ms)
     if kernel == "flash_attention" and prof["kernels"]:
         # bf16 goes to the tensor-core variant; a dropped record cannot make
-        # a CUDA-core launch appear
-        check(recorded(prof, FLASH_CC) == 0,
-              "the bf16 forward launched the CUDA-core flash kernel")
+        # an f32 launch appear
+        check(recorded(prof, FLASH_CC) == 0 and recorded(prof, F32TC_FWD) == 0,
+              "the bf16 forward launched an f32 flash kernel")
     log(f"{tag}: kernel {fwd_ms:.2f} ms "
         f"({FWD_B * FWD_S / fwd_ms * 1e3:.0f} tok/s), plain path "
         f"{fwd_plain_ms:.2f} ms ({FWD_B * FWD_S / fwd_plain_ms * 1e3:.0f} tok/s)")
@@ -790,14 +807,21 @@ def _sdpa_flash(q, k, v):
                                           enable_gqa=True)
 
 
-def time_flash(cfg) -> dict:
-    """The tensor-core variant (bf16, the main path's) and the CUDA-core one
-    (f32) at the forward's shape, each against its own bound; SDPA beside
-    the bf16 one."""
+def time_flash(cfg, sdpa_err: dict) -> dict:
+    """The flash forward at the forward's shape in both of its variants at
+    dh = 128: bf16 on the tensor cores (the forward path's) and f32 split-f32
+    (the train path's), each against its bound: bf16 at 989 TFLOP/s; f32 as
+    three TF32 products at 495 TFLOP/s, with the 67 TFLOP/s CUDA-core bound
+    beside it. Beside each, SDPA: ``enable_gqa`` for bf16; for f32 the
+    memory-efficient backend on K/V repeated to the q heads, and the fastest
+    backend that takes ``enable_gqa`` (MATH), each with its error from
+    ``sdpa_err`` (step 0). The f32 prep launch's device time apart."""
     g = torch.Generator(device=DEVICE).manual_seed(SEED + 2)
     B, S, H, KV, D = FWD_B, FWD_S, cfg.n_heads, cfg.n_kv_heads, cfg.d_head
     res = {}
-    for dt, name in ((torch.bfloat16, FLASH_TC), (torch.float32, FLASH_CC)):
+    for dt in (torch.bfloat16, torch.float32):
+        variant = ops.flash_variant(dt, D)
+        names = (FLASH_TC,) if dt == torch.bfloat16 else (F32TC_FWD_PREP, F32TC_FWD)
         q = _randn(g, (B, S, H, D), dt)
         k = _randn(g, (B, S, KV, D), dt)
         v = _randn(g, (B, S, KV, D), dt)
@@ -809,45 +833,66 @@ def time_flash(cfg) -> dict:
         del got
         ms = cuda_ms(lambda: ops.flash_attention(q, k, v))
         plain_ms = cuda_ms(lambda: ref.flash_attention_ref(q, k, v), iters=5)
-        dev_ms = kernel_ms(profile_kernels(lambda: ops.flash_attention(q, k, v)),
-                           name)
+        prof = profile_kernels(lambda: ops.flash_attention(q, k, v))
+        dev_ms = kernel_ms(prof, *names)
+        prep_ms = kernel_ms(prof, F32TC_FWD_PREP) if dt == torch.float32 else None
         flops = 4 * B * H * (S * (S + 1) // 2) * D   # kept (q, k) pairs, causal
         nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
-        t_ops, t_bytes = flops / PEAK_FLOPS[dt], nbytes / HBM_BYTES_PER_S
+        t_bytes = nbytes / HBM_BYTES_PER_S
+        t_ops = (flops / PEAK_FLOPS[dt] if dt == torch.bfloat16
+                 else 3 * flops / TF32_FLOPS)
         bound_ms = max(t_ops, t_bytes) * 1e3
         by = "operations" if t_ops >= t_bytes else "bytes"
-        lib_ms = lib_backend = None
+        cc_bound_ms = max(flops / PEAK_FLOPS[torch.float32], t_bytes) * 1e3
+        lib_ms = lib_math_ms = lib_backend = None
         qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
         if dt == torch.bfloat16:
             lib_ms = cuda_ms(lambda: _sdpa_flash(qt, kt, vt))
-        else:   # no flash SDPA in f32: the fastest backend that takes it
-            lib_ms, lib_backend = time_sdpa(
-                lambda: (lambda: _sdpa_flash(qt, kt, vt)), f"f32 forward")
-            expanded_ms = time_sdpa_expanded(qt, kt, vt, None, "f32 forward")
+            libs = f", sdpa(enable_gqa) {lib_ms:.4f} ms (kernel/sdpa {ms / lib_ms:.2f})"
+        else:
+            lib_ms = time_sdpa_expanded(qt, kt, vt, None, "f32 forward")
+            lib_math_ms, lib_backend = time_sdpa(
+                lambda: (lambda: _sdpa_flash(qt, kt, vt)), "f32 forward")
+            libs = (f", sdpa on K/V repeated (EFFICIENT_ATTENTION) {_fmt(lib_ms)} ms"
+                    f" (kernel/sdpa {_fmt(lib_ms and ms / lib_ms)}, its error "
+                    f"{_fmt_err(sdpa_err.get('forward'))}), sdpa(enable_gqa, "
+                    f"{lib_backend}) {lib_math_ms:.4f} ms")
         del qt, kt, vt
-        log(f"time flash {str(dt)[6:]} ({ops.flash_variant(dt)}, {name}) "
+        log(f"time flash {str(dt)[6:]} ({variant}, {', '.join(names)}) "
             f"[{B},{S},{H},{D}] kv {KV} causal: kernel {ms:.4f} ms "
             f"({flops / ms / 1e9:.1f} TFLOP/s, {100 * bound_ms / ms:.1f}% of "
-            f"the bound), plain {plain_ms:.4f} ms"
-            + (f", sdpa(enable_gqa{', ' + lib_backend if lib_backend else ''})"
-               f" {lib_ms:.4f} ms (kernel/sdpa {ms / lib_ms:.2f})"
-               if lib_ms else "")
-            + f", bound {bound_ms * 1e3:.2f} us ({by}: {flops / 1e9:.2f} GFLOP "
-            f"at {PEAK_FLOPS[dt] / 1e12:.0f} TFLOP/s, {nbytes / 1e6:.2f} MB); "
-            f"kernel device time {_fmt(dev_ms)} ms"
-            + (f" ({flops / dev_ms / 1e9:.1f} TFLOP/s)" if dev_ms else ""))
+            f"the bound), plain {plain_ms:.4f} ms{libs}, bound "
+            f"{bound_ms * 1e3:.2f} us ({by}: {flops / 1e9:.2f} GFLOP"
+            + (f" at {PEAK_FLOPS[dt] / 1e12:.0f} TFLOP/s" if dt == torch.bfloat16
+               else f" x 3 TF32 products at {TF32_FLOPS / 1e12:.0f} TFLOP/s; "
+                    f"CUDA-core bound {cc_bound_ms * 1e3:.2f} us at "
+                    f"{PEAK_FLOPS[dt] / 1e12:.0f} TFLOP/s")
+            + f", {nbytes / 1e6:.2f} MB); kernel device time {_fmt(dev_ms)} ms"
+            + (f" ({flops / dev_ms / 1e9:.1f} TFLOP/s, "
+               f"{_share(bound_ms, dev_ms)} of the bound"
+               + (f", {_share(cc_bound_ms, dev_ms)} of the CUDA-core bound"
+                  if dt == torch.float32 else "") + ")" if dev_ms else "")
+            + (f", of which prep {_fmt(prep_ms)} ms" if dt == torch.float32 else ""))
         res[dt] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                       library_ms=lib_ms, library_backend=lib_backend,
-                       bound_ms=bound_ms, bound_by=by, device_ms=dev_ms)
+                       library_ms=lib_ms, library_math_ms=lib_math_ms,
+                       library_backend=lib_backend, bound_ms=bound_ms,
+                       bound_by=by, cc_bound_ms=cc_bound_ms, device_ms=dev_ms,
+                       prep_device_ms=prep_ms)
         del q, k, v
     out = res[torch.bfloat16]
     f32 = res[torch.float32]
-    out.update(f32_source="src/repro_torch/kernels/csrc/flash_attention.cu",
+    out.update(f32_source="src/repro_torch/kernels/csrc/flash_attention_f32tc.cu",
+               f32_variant=ops.flash_variant(torch.float32, D),
                f32_ms=f32["ms"], f32_device_ms=f32["device_ms"],
-               f32_bound_ms=f32["bound_ms"], f32_plain_ms=f32["plain_ms"],
+               f32_prep_device_ms=f32["prep_device_ms"],
+               f32_bound_ms=f32["bound_ms"], f32_bound_by=f32["bound_by"],
+               f32_cuda_core_bound_ms=f32["cc_bound_ms"],
+               f32_plain_ms=f32["plain_ms"],
                f32_library_ms=f32["library_ms"],
-               f32_library_backend=f32["library_backend"],
-               f32_library_expanded_kv_ms=expanded_ms,
+               f32_library_call="EFFICIENT_ATTENTION on K/V repeated to the q heads",
+               f32_library_max_abs_err=sdpa_err.get("forward"),
+               f32_library_math_ms=f32["library_math_ms"],
+               f32_library_math_backend=f32["library_backend"],
                max_abs_err=max(out["max_abs_err"], f32["max_abs_err"]))
     return out
 
@@ -909,12 +954,14 @@ def time_sdpa_expanded(qt, kt, vt, dout, tag: str):
     return ms
 
 
-def time_flash_backward(cfg) -> dict:
-    """The f32 backward kernel at the train step's shape (causal, GQA), its
-    plain version, f32 SDPA's backward (``enable_gqa``, the fastest backend
-    that takes it) and its bound: five products of the kept pairs (S
-    recomputed, dP, dq, dk, dv) at the f32 peak, or q, k, v, o, dO, lse
-    read and dq, dk, dv written once at the HBM rate."""
+def time_flash_backward(cfg, sdpa_err: dict) -> dict:
+    """The f32 backward (split-f32, the train path's) at the train step's
+    shape (causal, GQA), its plain version, SDPA's backward (memory-efficient
+    on K/V repeated to the q heads, with its step-0 error, and the fastest
+    backend that takes ``enable_gqa``) and its bound: five products of the
+    kept pairs (S recomputed, dP, dq, dk, dv), three TF32 products each at
+    495 TFLOP/s (the 67 TFLOP/s CUDA-core bound beside it), or q, k, v, o,
+    dO, lse read and dq, dk, dv written once at the HBM rate."""
     g = torch.Generator(device=DEVICE).manual_seed(SEED + 4)
     B, S, H, KV, D = FWD_B, FWD_S, cfg.n_heads, cfg.n_kv_heads, cfg.d_head
     dt = torch.float32
@@ -931,14 +978,15 @@ def time_flash_backward(cfg) -> dict:
     plain_ms = cuda_ms(lambda: ref.flash_attention_backward_ref(
         q, k, v, out, lse, dout), iters=5)
     prof = profile_kernels(fn)
-    dev_ms = kernel_ms(prof, *FLASH_BWD)
-    by_kernel = {n: kernel_ms(prof, n) for n in FLASH_BWD}
+    dev_ms = kernel_ms(prof, *F32TC_BWD)
+    by_kernel = {n: kernel_ms(prof, n) for n in F32TC_BWD}
     pairs = B * H * (S * (S + 1) // 2)
     flops = 10 * pairs * D
     nbytes = (4 * q.numel() + 2 * k.numel() + 2 * v.numel() + lse.numel()) * 4
-    t_ops, t_bytes = flops / PEAK_FLOPS[dt], nbytes / HBM_BYTES_PER_S
+    t_ops, t_bytes = 3 * flops / TF32_FLOPS, nbytes / HBM_BYTES_PER_S
     bound_ms = max(t_ops, t_bytes) * 1e3
     by = "operations" if t_ops >= t_bytes else "bytes"
+    cc_bound_ms = max(flops / PEAK_FLOPS[dt], t_bytes) * 1e3
     qt, kt, vt = (t.transpose(1, 2).contiguous().requires_grad_(True)
                   for t in (q, k, v))
     dot = dout.transpose(1, 2).contiguous()
@@ -947,22 +995,123 @@ def time_flash_backward(cfg) -> dict:
         o = _sdpa_flash(qt, kt, vt)
         return lambda: torch.autograd.grad(o, (qt, kt, vt), dot,
                                            retain_graph=True)
-    lib_ms, lib_backend = time_sdpa(sdpa_backward, "f32 backward")
-    expanded_ms = time_sdpa_expanded(qt, kt, vt, dot, "f32 backward")
+    math_ms, math_backend = time_sdpa(sdpa_backward, "f32 backward")
+    lib_ms = time_sdpa_expanded(qt, kt, vt, dot, "f32 backward")
     del qt, kt, vt, dot
-    log(f"time flash backward f32 (flash_attention_bwd.cu) [{B},{S},{H},{D}] "
-        f"kv {KV} causal: kernel {ms:.4f} ms ({flops / ms / 1e9:.1f} TFLOP/s, "
-        f"{100 * bound_ms / ms:.1f}% of the bound), plain {plain_ms:.4f} ms, "
-        f"sdpa backward (enable_gqa, {lib_backend}) {lib_ms:.4f} ms "
-        f"(kernel/sdpa {ms / lib_ms:.2f}), bound {bound_ms * 1e3:.2f} us ({by}: "
-        f"{flops / 1e9:.2f} GFLOP at {PEAK_FLOPS[dt] / 1e12:.0f} TFLOP/s, "
-        f"{nbytes / 1e6:.2f} MB); kernel device time {_fmt(dev_ms)} ms ("
+    log(f"time flash backward f32 ({ops.flash_variant(dt, D)}, "
+        f"flash_attention_f32tc.cu) [{B},{S},{H},{D}] kv {KV} causal: kernel "
+        f"{ms:.4f} ms ({flops / ms / 1e9:.1f} TFLOP/s, {100 * bound_ms / ms:.1f}% "
+        f"of the bound), plain {plain_ms:.4f} ms, sdpa backward on K/V repeated "
+        f"(EFFICIENT_ATTENTION) {_fmt(lib_ms)} ms (kernel/sdpa "
+        f"{_fmt(lib_ms and ms / lib_ms)}, its error relative to max "
+        f"{_fmt_err(sdpa_err.get('backward'))}), sdpa backward (enable_gqa, "
+        f"{math_backend}) {math_ms:.4f} ms, bound {bound_ms * 1e3:.2f} us "
+        f"({by}: {flops / 1e9:.2f} GFLOP x 3 TF32 products at "
+        f"{TF32_FLOPS / 1e12:.0f} TFLOP/s, {nbytes / 1e6:.2f} MB; CUDA-core "
+        f"bound {cc_bound_ms * 1e3:.2f} us at {PEAK_FLOPS[dt] / 1e12:.0f} "
+        f"TFLOP/s); kernel device time {_fmt(dev_ms)} ms ("
         + ", ".join(f"{n} {_fmt(t)}" for n, t in by_kernel.items())
-        + f"), {_share(bound_ms, dev_ms)} of the bound; max_abs_err {err:.3e}")
+        + f"), {_share(bound_ms, dev_ms)} of the bound, "
+        f"{_share(cc_bound_ms, dev_ms)} of the CUDA-core bound; max_abs_err "
+        f"{err:.3e}")
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-                library_backend=lib_backend, library_expanded_kv_ms=expanded_ms,
-                bound_ms=bound_ms, bound_by=by, device_ms=dev_ms,
-                device_ms_by_kernel=by_kernel)
+                library_call="EFFICIENT_ATTENTION on K/V repeated to the q heads",
+                library_max_err_to_max=sdpa_err.get("backward"),
+                library_math_ms=math_ms, library_math_backend=math_backend,
+                bound_ms=bound_ms, bound_by=by, cuda_core_bound_ms=cc_bound_ms,
+                device_ms=dev_ms, device_ms_by_kernel=by_kernel)
+
+
+def _fmt_err(x) -> str:
+    return "not measured" if x is None else f"{x:.3e}"
+
+
+def _sdpa_mask(Sq, Sk, causal, window):
+    """SDPA's boolean attn_mask (True = kept) for the kernels' mask rule."""
+    if not causal:
+        return None
+    qpos = torch.arange(Sq, device=DEVICE)[:, None]
+    kpos = torch.arange(Sk, device=DEVICE)[None, :]
+    keep = kpos <= qpos
+    if window is not None:
+        keep &= kpos > qpos - window
+    return keep
+
+
+def sdpa_accuracy() -> dict:
+    """Step 0: the error of memory-efficient SDPA (split-f32 products on the
+    tensor cores, CUTLASS's OpMultiplyAddFastF32) on K/V repeated to the q
+    heads, against the plain versions, at phase 2's f32 cases with D <= 128
+    (SDPA has no softcap: those are skipped). The forward's max abs error
+    (rtol = atol = 2e-5 as phase 2), the backward's largest gradient error
+    relative to that gradient's max (2e-5). Logged, not checked: a yardstick
+    of what 3xTF32 gives at these shapes, the evidence the split-f32 route
+    rests on. {"forward": err, "backward": err, "within": bool}."""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    g = torch.Generator(device=DEVICE).manual_seed(SEED + 6)
+    tol = TOL[torch.float32]
+    fwd = [(B, S, S, H, KV, D, c, w, cap) for B, S, H, KV, D, dt, c, w, cap
+           in FLASH_CASES if dt == torch.float32 and D <= 128]
+    bwd = [case for case in BWD_CASES if case[5] <= 128]
+    worst = {"forward": None, "backward": None}   # None: no case measured
+    within = True
+    for kind, cases in (("forward", fwd), ("backward", bwd)):
+        for case in cases:
+            B, Sq, Sk, H, KV, D, causal, window, softcap = case
+            if softcap is not None:
+                log(f"step 0 sdpa {kind} {case}: skipped (SDPA has no softcap)")
+                continue
+            q = _randn(g, (B, Sq, H, D), torch.float32)
+            k, v = (_randn(g, (B, Sk, KV, D), torch.float32) for _ in range(2))
+            dout = _randn(g, (B, Sq, H, D), torch.float32)
+            kw = dict(causal=causal, window=window, softcap=None)
+            mask = _sdpa_mask(Sq, Sk, causal, window)
+            rep = H // KV
+            qt = q.transpose(1, 2).contiguous().requires_grad_(kind == "backward")
+            ke, ve = (t.transpose(1, 2).repeat_interleave(rep, dim=1).contiguous()
+                      .requires_grad_(kind == "backward") for t in (k, v))
+            try:
+                with sdpa_kernel([SDPBackend.EFFICIENT_ATTENTION]), \
+                        torch.set_grad_enabled(kind == "backward"):
+                    o = F.scaled_dot_product_attention(qt, ke, ve, attn_mask=mask)
+                    if kind == "backward":
+                        grads = torch.autograd.grad(o, (qt, ke, ve),
+                                                    dout.transpose(1, 2))
+            except RuntimeError as e:   # the library's "no kernel for this"
+                log(f"step 0 sdpa {kind} {case}: EFFICIENT_ATTENTION refused "
+                    f"({str(e).splitlines()[0][:60]})")
+                continue
+            want_o = ref.flash_attention_ref(q, k, v, **kw)
+            if kind == "forward":
+                got = o.detach().transpose(1, 2)
+                err = max_err(got, want_o)
+                ok = bool(torch.allclose(got, want_o, rtol=tol, atol=tol))
+            else:
+                lse = ref.flash_attention_lse_ref(q, k, **kw)
+                want = ref.flash_attention_backward_ref(q, k, v, want_o, lse,
+                                                        dout, **kw)
+                dq = grads[0].transpose(1, 2)
+                dk, dv = (x.reshape(B, KV, rep, Sk, D).sum(2).transpose(1, 2)
+                          for x in grads[1:])
+                errs = []
+                ok = True
+                for a, b in zip((dq, dk, dv), want):
+                    scale = b.abs().max().clamp_min(1e-30)
+                    errs.append(max_err(a, b) / scale.item())
+                    ok &= bool(torch.allclose(a / scale, b / scale, rtol=tol,
+                                              atol=tol))
+                err = max(errs)
+            worst[kind] = max(worst[kind] or 0.0, err)
+            within &= ok
+            log(f"step 0 sdpa {kind} (EFFICIENT_ATTENTION, K/V repeated) "
+                f"{case}: {'max_abs_err' if kind == 'forward' else 'error relative to max'} "
+                f"{err:.3e}, {'within' if ok else 'OUTSIDE'} rtol=atol {tol}")
+            del q, k, v, dout, qt, ke, ve, o
+    log(f"step 0: memory-efficient SDPA (3xTF32) worst forward max_abs_err "
+        f"{_fmt_err(worst['forward'])}, worst backward error relative to max "
+        f"{_fmt_err(worst['backward'])}; "
+        f"{'all measured within' if within else 'NOT all within'} {tol}")
+    return {**worst, "within": within}
 
 
 def make_flush(kind: str = "write"):
@@ -1001,7 +1150,7 @@ def time_decode(q, k, v, lengths, tag: str) -> dict:
                        flush=flush)
     lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
         qs, ks, vs, attn_mask=mask, enable_gqa=True), flush=flush)
-    names = DEVICE_KERNELS["decode_attention"][0]
+    names = DEVICE_KERNELS["decode_attention"][0][0]
     dev_ms = kernel_ms(profile_kernels(lambda: (flush(), ops.decode_attention(
         q, k, v, lengths))), *names)
     clean_ms, clean_dev = _clean_l2_times(
@@ -1160,19 +1309,22 @@ def phase_train(cfg) -> dict:
     check(all(math.isfinite(x) for x in losses), f"{tag}: non-finite loss")
     prof = profile_kernels(lambda: step(state, batch), iters=1)
     log_breakdown(f"{tag} step", prof, step_ms, top=10)
-    fwd_rec = recorded(prof, FLASH_CC)
-    bwd_rec = sum(recorded(prof, x) for x in FLASH_BWD)
-    check(recorded(prof, FLASH_TC) == 0, f"{tag}: a tensor-core launch")
-    check(fwd_rec == cfg.n_layers and bwd_rec == 3 * cfg.n_layers,
+    # dh = 128: the split-f32 variant, and none of the CUDA-core or bf16 ones
+    fwd_rec = recorded(prof, F32TC_FWD)
+    bwd_rec = sum(recorded(prof, x) for x in F32TC_BWD)
+    other = {x: recorded(prof, x) for x in (FLASH_TC, FLASH_CC, *FLASH_BWD)}
+    check(not any(other.values()), f"{tag}: launches of another variant {other}")
+    check(fwd_rec == cfg.n_layers and recorded(prof, F32TC_FWD_PREP) == cfg.n_layers
+          and all(recorded(prof, x) == cfg.n_layers for x in F32TC_BWD),
           f"{tag}: recorded flash launches {fwd_rec} forward, {bwd_rec} "
           f"backward kernels, want {cfg.n_layers} and 3 x {cfg.n_layers}")
     index = sorted({k[:50] for k in prof["kernels"] if "index" in k.lower()
                     or "sort" in k.lower()})
-    log(f"{tag}: recorded {fwd_rec:g} forward flash launches and "
-        f"{bwd_rec:g} backward kernels (3 a call) a step; the embedding's "
-        f"backward ran {index}")
-    flash_fwd_ms = kernel_ms(prof, FLASH_CC)
-    flash_bwd_ms = kernel_ms(prof, *FLASH_BWD)
+    log(f"{tag}: recorded {fwd_rec:g} forward flash launches (split-f32) and "
+        f"{bwd_rec:g} backward kernels (prep, dk/dv, dq a call) a step; the "
+        f"embedding's backward ran {index}")
+    flash_fwd_ms = kernel_ms(prof, F32TC_FWD_PREP, F32TC_FWD)
+    flash_bwd_ms = kernel_ms(prof, *F32TC_BWD)
     del state, metrics
     torch.cuda.empty_cache()
     log_memory(tag)
@@ -1269,8 +1421,9 @@ def main() -> int:
     # internlm2: flash (forward) and decode attention
     fwd = phase_forward(cfg, "flash_attention")
     serve = phase_serve(cfg, "decode_attention")
+    sdpa_err = sdpa_accuracy()   # step 0 of the split-f32 route
     with torch.inference_mode():
-        flash_t = time_flash(cfg)
+        flash_t = time_flash(cfg, sdpa_err)
         q = torch.randn((SLOTS, cfg.n_heads, cfg.d_head), device=DEVICE)
         k, v = serve["cache"][0]["k"][0], serve["cache"][0]["v"][0]
         decode_t = time_decode(q, k, v, (serve["pos"] + 1).to(torch.int32),
@@ -1279,7 +1432,7 @@ def main() -> int:
         decode_full = time_decode(q, torch.randn_like(k), torch.randn_like(v),
                                   full, tag="full cache")
         del q, k, v, serve["cache"]
-    flash_bwd_t = time_flash_backward(cfg)
+    flash_bwd_t = time_flash_backward(cfg, sdpa_err)
     log_memory("attention timings")
     torch.cuda.empty_cache()
     # falcon-mamba: the selective scan, in forward and in each decode step
@@ -1317,11 +1470,10 @@ def main() -> int:
                      "bound_by": t["bound_by"], "library_ms": t["library_ms"],
                      "device_ms": t["device_ms"]})
     # flash: the bf16 tensor-core variant above (the forward's); the f32
-    # CUDA-core one beside it, on the train path (phases 6 and 6b)
+    # split-f32 one beside it, on the train path (phases 6 and 6b)
     flash_row = next(r for r in rows if r["name"] == "flash_attention")
-    flash_row.update({key: flash_t[key] for key in (
-        "f32_source", "f32_ms", "f32_device_ms", "f32_bound_ms", "f32_plain_ms",
-        "f32_library_ms", "f32_library_backend", "f32_library_expanded_kv_ms")})
+    flash_row.update({key: val for key, val in flash_t.items()
+                      if key.startswith("f32_")})
     flash_row.update(
         f32_launches_train=train["launches"]["flash_attention"],
         f32_launches_logio=logio["launches"]["flash_attention"],
@@ -1331,11 +1483,12 @@ def main() -> int:
         launches_per_step=train["launches"]["flash_attention_backward"]
         // train["steps"],
         launches_logio=logio["launches"]["flash_attention_backward"],
-        library_backend=flash_bwd_t["library_backend"],
         device_ms_by_kernel=flash_bwd_t["device_ms_by_kernel"],
         device_ms_in_step=train["flash_bwd_device_ms"],
-        library_expanded_kv_ms=flash_bwd_t["library_expanded_kv_ms"],
-        train_step_ms=train["step_ms"])
+        train_step_ms=train["step_ms"],
+        **{key: flash_bwd_t[key] for key in (
+            "library_call", "library_max_err_to_max", "library_math_ms",
+            "library_math_backend", "cuda_core_bound_ms")})
     # decode attention: the serve shape above (the main path's), a full
     # cache beside it
     decode_row = next(r for r in rows if r["name"] == "decode_attention")

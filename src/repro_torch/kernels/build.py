@@ -35,6 +35,11 @@ SIGNATURES = {
                                   _I, _I, _I, _I, _I, _I, _I, _F, _P),
     "repro_flash_attention_tc": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                                  _I, _F, _P),
+    "repro_flash_attention_f32tc": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                                    _I, _I, _I, _I, _F, _P),
+    "repro_flash_attention_f32tc_bwd": (_P, _P, _P, _P, _P, _P, _P, _P, _P,
+                                        _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                                        _I, _F, _P),
     "repro_decode_attention": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                                _I, _F, _I, _P),
     "repro_selective_scan": (_P, _P, _P, _P, _I, _I, _L, _P),
@@ -122,4 +127,7 @@ def load() -> ctypes.CDLL:
         fn = getattr(lib, name)
         fn.argtypes = list(argtypes)
         fn.restype = ctypes.c_int
+    # bytes of the split-f32 flash kernels' workspace (not a launch)
+    lib.repro_flash_f32tc_workspace.argtypes = [_I] * 7
+    lib.repro_flash_f32tc_workspace.restype = ctypes.c_longlong
     return lib

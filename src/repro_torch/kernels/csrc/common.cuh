@@ -1,7 +1,7 @@
 // Helpers shared by the kernels: element conversion to and from f32,
-// vectorised row loads, warp reductions and the one-time shared-memory
-// attribute. Only f32 and bf16 elements are used; dtype code 0 is f32 and 1
-// is bf16 in the C entry points that take one.
+// vectorised row loads, warp reductions, flash attention's row mask and the
+// one-time shared-memory attribute. Only f32 and bf16 elements are used;
+// dtype code 0 is f32 and 1 is bf16 in the C entry points that take one.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -14,6 +14,7 @@
 namespace repro {
 
 constexpr float kNegInf = -1e30f;   // masked score, as in the TPU kernels
+constexpr float kLog2e = 1.4426950408889634f;
 
 __device__ __forceinline__ float to_float(float x) { return x; }
 __device__ __forceinline__ float to_float(__nv_bfloat16 x) { return __bfloat162float(x); }
@@ -53,6 +54,20 @@ __device__ __forceinline__ float warp_sum(float x) {
   for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
   return x;
 }
+
+// Flash attention's mask for one row, relative to a tile, where a thread
+// holds columns 8 j + col + {0, 1} of the row (the wgmma accumulator
+// fragment): key k0 + 8 j + col + e is kept when lo <= 8 j + e <= hi.
+struct RowKeys {
+  int lo, hi;
+  __device__ __forceinline__ RowKeys(int qpos, int k0, int col, int Sk, int causal,
+                                     int window) {
+    const int first = (causal && window > 0) ? qpos - window + 1 : 0;
+    const int last = causal ? min(qpos, Sk - 1) : Sk - 1;
+    lo = first - k0 - col;
+    hi = last - k0 - col;
+  }
+};
 
 // Raise `kernel`'s dynamic shared memory limit to `bytes` on the current
 // device, once per device: the attribute belongs to the device, so a process

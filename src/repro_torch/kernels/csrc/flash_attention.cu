@@ -21,8 +21,10 @@
 // byte, above the H100's ridge. The floor is the causal flops over the f32
 // peak off the tensor cores (67 TFLOP/s).
 //
-// f32 only: bf16 goes to the tensor-core kernel of flash_attention_tc.cu,
-// and TF32 products could not meet the f32 tolerance.
+// f32 at D = 256 only (ops.flash_variant): bf16 goes to the tensor-core
+// kernel of flash_attention_tc.cu, f32 at D <= 128 to the split-f32
+// tensor-core kernel of flash_attention_f32tc.cu, which meets the f32
+// tolerance with three TF32 products per product (it has no D = 256 tiles).
 //
 // What the design does about it (simple first):
 //   * One block per (q tile of 64 rows, head, batch); the loop over k tiles
@@ -217,7 +219,8 @@ cudaError_t launch(const float* q, const float* k, const float* v, float* o,
 }  // namespace
 }  // namespace repro
 
-// C entry point, f32 only (q, k, v, out and lse). causal is 0 or 1; window <= 0
+// C entry point, f32 only (q, k, v, out and lse), D = 256 only (ops.flash_variant
+// sends D <= 128 to flash_attention_f32tc.cu). causal is 0 or 1; window <= 0
 // means no window; softcap <= 0 means none; lse may be null. Returns
 // cudaGetLastError() after the launch (0 on success).
 extern "C" int repro_flash_attention(const float* q, const float* k, const float* v,
@@ -230,9 +233,6 @@ extern "C" int repro_flash_attention(const float* q, const float* k, const float
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   switch (D) {
-    case 32: err = launch<32, 64>(q, k, v, out, lse, B, Sq, Sk, H, KV, causal, window, softcap, st); break;
-    case 64: err = launch<64, 64>(q, k, v, out, lse, B, Sq, Sk, H, KV, causal, window, softcap, st); break;
-    case 128: err = launch<128, 64>(q, k, v, out, lse, B, Sq, Sk, H, KV, causal, window, softcap, st); break;
     case 256: err = launch<256, 32>(q, k, v, out, lse, B, Sq, Sk, H, KV, causal, window, softcap, st); break;
     default: err = cudaErrorInvalidValue;
   }

@@ -4,8 +4,8 @@
 // src/repro/kernels/flash_attention.py (`_kernel` / `flash_attention`) has no
 // backward; the JAX train path differentiates query-chunked XLA attention
 // (the attn_impl="xla" branch of `apply_attention` in
-// src/repro/models/layers.py). The port trains through the f32 flash kernel of
-// flash_attention.cu, so its gradient is this file.
+// src/repro/models/layers.py). This is the gradient of the f32 CUDA-core
+// flash kernel of flash_attention.cu (D = 256).
 //
 // Function: the gradient of flash_attention.cu's forward. Inputs q [B,Sq,H,D],
 // k/v [B,Sk,KV,D], the forward's out [B,Sq,H,D] and row log-sum-exp lse
@@ -20,7 +20,9 @@
 //
 // What bounds it on the card: operations. Five products of the kept (q, k)
 // pairs (S recomputed, dP, dq, dk, dv), 2.5 times the forward's flops, over
-// the f32 peak off the tensor cores (67 TFLOP/s); TF32 could not meet 2e-5.
+// the f32 peak off the tensor cores (67 TFLOP/s). It runs at D = 256 only
+// (ops.flash_variant); D <= 128 goes to the split-f32 tensor-core backward of
+// flash_attention_f32tc.cu.
 //
 // What the design does about it (simple and deterministic first):
 //   * No atomics anywhere, so the gradients are the same bits on every run
@@ -367,7 +369,8 @@ cudaError_t launch(const BwdArgs& a, cudaStream_t stream) {
 }  // namespace
 }  // namespace repro
 
-// C entry point, f32 only. q, out, dout, dq: [B,Sq,H,D]; k, v, dk, dv:
+// C entry point, f32 only, D = 256 only (ops.flash_variant sends D <= 128 to
+// flash_attention_f32tc.cu). q, out, dout, dq: [B,Sq,H,D]; k, v, dk, dv:
 // [B,Sk,KV,D]; lse, delta: [B,H,Sq] (delta is scratch, written here). causal
 // is 0 or 1; window <= 0 means no window; softcap <= 0 means none. Runs three
 // kernels on `stream` in order and returns the first launch error (0 on
@@ -386,9 +389,6 @@ extern "C" int repro_flash_attention_bwd(const float* q, const float* k, const f
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   switch (D) {
-    case 32: err = launch<32, 64, 64>(a, st); break;
-    case 64: err = launch<64, 64, 64>(a, st); break;
-    case 128: err = launch<128, 64, 64>(a, st); break;
     case 256: err = launch<256, 32, 32>(a, st); break;
     default: err = cudaErrorInvalidValue;
   }

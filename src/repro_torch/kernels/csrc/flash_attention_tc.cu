@@ -3,9 +3,10 @@
 // Replaces: src/repro/kernels/flash_attention.py, `_kernel` / `flash_attention`
 // (the Pallas TPU kernel, grid (B, H, S/bq, S/bk) with the k axis sequential,
 // reached from the model through `_pallas_attn` in src/repro/models/layers.py)
-// for bf16 operands. f32 operands keep the CUDA-core kernel of
-// flash_attention.cu: TF32 products keep about three decimal digits and
-// cannot meet the f32 tolerance (2e-5). Forward only.
+// for bf16 operands. f32 operands go to flash_attention_f32tc.cu (D <= 128:
+// split-f32, three TF32 products per f32 product, which meet the f32
+// tolerance of 2e-5 where one TF32 product cannot) or to the CUDA-core
+// kernel of flash_attention.cu (D = 256). Forward only.
 //
 // Function: as flash_attention.cu and ref.flash_attention_ref. q [B,Sq,H,D],
 //   k/v [B,Sk,KV,D] bf16 -> out [B,Sq,H,D] bf16; q head h reads kv head
@@ -61,7 +62,6 @@ constexpr int kBQ = 128;                        // q rows per block
 constexpr int kConsumers = 256;                 // two warpgroups of 64 rows each
 constexpr int kThreadsTC = 128 + kConsumers;    // after one producer warpgroup
 constexpr int kProducerRegs = 24, kConsumerRegs = 240;   // setmaxnreg split
-constexpr float kLog2e = 1.4426950408889634f;
 
 template <int D>
 struct Tile {
@@ -142,19 +142,6 @@ __device__ __forceinline__ void pv_product(float (&o)[D / 2],
     sm90::wgmma_rs<D>(o, p[kk], v + ((kk * 16 * T::SW) >> 4), 1);
   sm90::wgmma_commit();
 }
-
-// The keys one row keeps, relative to a tile: key k0 + 8 j + col + e (e in
-// {0, 1}) is kept when lo <= 8 j + e <= hi.
-struct RowKeys {
-  int lo, hi;
-  __device__ __forceinline__ RowKeys(int qpos, int k0, int col, int Sk, int causal,
-                                     int window) {
-    const int first = (causal && window > 0) ? qpos - window + 1 : 0;
-    const int last = causal ? min(qpos, Sk - 1) : Sk - 1;
-    lo = first - k0 - col;
-    hi = last - k0 - col;
-  }
-};
 
 // Online softmax over one k tile, in the registers of the S fragment.
 // This thread holds rows qpos0 and qpos1 (index e < 2 and e >= 2 of each
@@ -361,29 +348,8 @@ flash_fwd_tc_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constan
 
 // ---- host side --------------------------------------------------------------
 
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-// libcuda's cuTensorMapEncodeTiled, found once through the runtime (so the
-// library does not link libcuda); nullptr when libcuda lacks it.
-EncodeTiled encode_tiled() {
-  static const EncodeTiled fn = [] {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found = cudaDriverEntryPointSymbolNotFound;
-#if CUDART_VERSION >= 12050
-    const cudaError_t err = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
-#else
-    const cudaError_t err =
-        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
-#endif
-    return (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
-               ? reinterpret_cast<EncodeTiled>(p) : nullptr;
-  }();
-  return fn;
-}
+using sm90::EncodeTiled;
+using sm90::encode_tiled;
 
 // A tensor map over x [B, S, heads, D] bf16 whose box is `rows` rows of one
 // head, swizzle_bytes / 2 columns wide.
@@ -426,6 +392,8 @@ cudaError_t launch_tc(const void* q, const void* k, const void* v, void* o, int 
                       int Sk, int H, int KV, int causal, int window, float softcap,
                       cudaStream_t stream) {
   using T = Tile<D>;
+  const cudaError_t bound = sm90::bind_context();
+  if (bound != cudaSuccess) return bound;
   CUtensorMap tq, tk, tv;
   if (!make_map(&tq, q, B, Sq, H, D, kBQ, T::SW) || !make_map(&tk, k, B, Sk, KV, D, T::BK, T::SW) ||
       !make_map(&tv, v, B, Sk, KV, D, T::BK, T::SW))

@@ -2,24 +2,26 @@
 
 Each wrapper checks what it is given and picks its path by the tensors'
 device alone: a CPU tensor gets the plain version from ``ref``; a CUDA
-tensor gets the kernel (for flash attention, the variant of its dtype:
-``flash_variant``; for the scan, the variant of its shape and alignment:
-``scan_variant``) or an exception. Nothing falls back from the card to the
-plain version, nor from one kernel to another. Outputs (and the flash
-backward's one scratch buffer, delta) are allocated here with
-``torch.empty``, and the kernel runs on ``torch.cuda.current_stream()``.
+tensor gets the kernel (for flash attention, the variant of its dtype and
+head dim: ``flash_variant``; for the scan, the variant of its shape and
+alignment: ``scan_variant``) or an exception. Nothing falls back from the
+card to the plain version, nor from one kernel to another. Outputs and
+scratch (the flash backward's delta, the split-f32 kernels' workspace of
+hi/lo operand copies) are allocated here with ``torch.empty``, and the
+kernels run on ``torch.cuda.current_stream()``.
 
 ``LAUNCHES`` counts kernel launches per wrapper (one per call that reaches
-the card; a flash backward call runs three kernels and counts one),
+the card, however many device kernels the call runs: a split-f32 flash
+forward runs two, a flash backward three),
 ``SCAN_VARIANTS`` the scan's launches by variant (``scan_variant``);
 ``reset_launches()`` sets every count to 0.
 
 Flash attention is differentiable: with grad on and an operand that needs
 it, ``flash_attention`` goes through ``FlashAttention`` (a
 ``torch.autograd.Function``), whose forward saves the output and the row
-log-sum-exp (the f32 kernel writes it) and whose backward is the kernel of
-``csrc/flash_attention_bwd.cu`` (``flash_attention_backward``). On the CPU
-the Function takes the plain versions of both.
+log-sum-exp (the f32 kernels write it) and whose backward is the f32
+backward kernel of the forward's variant (``flash_attention_backward``). On
+the CPU the Function takes the plain versions of both.
 """
 from __future__ import annotations
 
@@ -66,9 +68,23 @@ def _check_attention_limits(name: str, H: int, KV: int, D: int) -> None:
         raise ValueError(f"{name}: head dim {D} not in {_HEAD_DIMS}")
 
 
+# How each wrapper's gradient is taken, for the message of a bare kernel call
+# with grad.
+_GRAD_ROUTE = {
+    "flash_attention": "gradients of flash attention go through "
+                       "ops.FlashAttention (the torch.autograd.Function that "
+                       "ops.flash_attention applies)",
+    "decode_attention": "decode attention is inference only",
+    "selective_scan": "the selective scan has no backward kernel yet (ROADMAP "
+                      "B.2 / A.1): on the card a Mamba layer trains only "
+                      "with Runtime(scan_impl=\"plain\")",
+}
+
+
 def _check_cuda_operands(name: str, *ts: torch.Tensor, align: int = 16) -> None:
     """What the kernels take beyond the plain versions: one CUDA device,
-    contiguous operands aligned to ``align`` bytes, no grad."""
+    contiguous operands aligned to ``align`` bytes, no grad (the message
+    names the wrapper's own gradient route)."""
     for t in ts:
         if t.device.type != "cuda" or t.device != ts[0].device:
             raise ValueError(f"{name}: all operands must be on one CUDA device")
@@ -77,10 +93,9 @@ def _check_cuda_operands(name: str, *ts: torch.Tensor, align: int = 16) -> None:
         if t.data_ptr() % align:
             raise ValueError(f"{name}: operands must be {align}-byte aligned")
     if torch.is_grad_enabled() and any(t.requires_grad for t in ts):
+        route = _GRAD_ROUTE[name.removesuffix("_backward")]
         raise NotImplementedError(
-            f"{name}: a bare kernel call takes no grad; gradients of flash "
-            "attention go through ops.FlashAttention (the "
-            "torch.autograd.Function that ops.flash_attention applies)")
+            f"{name}: a kernel call takes no grad; {route}")
 
 
 def _ptr(t: torch.Tensor) -> ctypes.c_void_p:
@@ -179,9 +194,12 @@ def flash_attention_backward(q: torch.Tensor, k: torch.Tensor,
                              causal: bool = True, window: Optional[int] = None,
                              softcap: Optional[float] = None):
     """(dq, dk, dv) of flash attention. q, out, dout: [B,Sq,H,D]; k, v:
-    [B,Sk,KV,D]; lse: [B,H,Sq] f32 from the forward. f32 on the card (the
-    kernel of ``csrc/flash_attention_bwd.cu``: three launches, no atomics,
-    the same bits on every call); the plain version on the CPU."""
+    [B,Sk,KV,D]; lse: [B,H,Sq] f32 from the forward. f32 on the card, the
+    backward of the forward's variant (``flash_variant``): split-f32 on the
+    tensor cores (``csrc/flash_attention_f32tc.cu``: prep, dk/dv and dq
+    launches) or the CUDA cores (``csrc/flash_attention_bwd.cu``: delta,
+    dk/dv and dq); no atomics in either, the same bits on every call. The
+    plain version on the CPU."""
     _check_flash(q, k, v)
     B, Sq, H, D = q.shape
     if out.shape != q.shape or dout.shape != q.shape:
@@ -201,26 +219,50 @@ def flash_attention_backward(q: torch.Tensor, k: torch.Tensor,
     _check_cuda_operands("flash_attention_backward", q, k, v, out, lse, dout)
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     delta = torch.empty_like(lse)
-    code = build.load().repro_flash_attention_bwd(
-        _ptr(q), _ptr(k), _ptr(v), _ptr(out), _ptr(dout), _ptr(lse),
-        _ptr(delta), _ptr(dq), _ptr(dk), _ptr(dv), B, Sq, k.shape[1], H,
-        k.shape[2], D, int(causal), int(window or 0), float(softcap or 0.0),
-        _stream())
+    lib = build.load()
+    ptrs = (_ptr(q), _ptr(k), _ptr(v), _ptr(out), _ptr(dout), _ptr(lse),
+            _ptr(delta), _ptr(dq), _ptr(dk), _ptr(dv))
+    args = (B, Sq, k.shape[1], H, k.shape[2], D, int(causal), int(window or 0),
+            float(softcap or 0.0), _stream())
+    if flash_variant(q.dtype, D) == "split_f32":
+        work = _f32tc_workspace(q, k, backward=True)
+        code = lib.repro_flash_attention_f32tc_bwd(*ptrs, _ptr(work), *args)
+    else:
+        code = lib.repro_flash_attention_bwd(*ptrs, *args)
     _raise_on(code, "flash_attention_backward")
     LAUNCHES["flash_attention_backward"] += 1
     return dq, dk, dv
 
 
-def flash_variant(dtype: torch.dtype) -> str:
-    """The CUDA kernel that takes flash attention in ``dtype``: bf16 runs on
-    the tensor cores (``csrc/flash_attention_tc.cu``, wgmma + TMA); f32 stays
-    on the CUDA cores (``csrc/flash_attention.cu``), since TF32 products
-    cannot meet the f32 tolerance."""
+SPLIT_F32_HEAD_DIMS = (32, 64, 128)
+
+
+def flash_variant(dtype: torch.dtype, head_dim: int) -> str:
+    """The CUDA kernels that take flash attention in ``dtype`` at head dim
+    ``head_dim``, chosen by shape before any launch (never a fallback):
+
+    - bf16: "tensor_core", ``csrc/flash_attention_tc.cu`` (wgmma + TMA);
+    - f32, D in ``SPLIT_F32_HEAD_DIMS``: "split_f32",
+      ``csrc/flash_attention_f32tc.cu``, forward and backward on the tensor
+      cores with split-f32 products (hi + lo tf32 parts, three wgmma a
+      product): one TF32 product keeps 10 mantissa bits and misses the f32
+      tolerance (2e-5), three of them meet it;
+    - f32, other D (256): "cuda_core", ``csrc/flash_attention.cu`` and
+      ``csrc/flash_attention_bwd.cu``, f32 FMAs."""
     if dtype == torch.bfloat16:
         return "tensor_core"
     if dtype == torch.float32:
-        return "cuda_core"
+        return "split_f32" if head_dim in SPLIT_F32_HEAD_DIMS else "cuda_core"
     raise ValueError(f"flash_attention: no kernel for {dtype}")
+
+
+def _f32tc_workspace(q, k, *, backward: bool) -> torch.Tensor:
+    """The split-f32 kernels' workspace (the hi/lo operand copies their prep
+    launch writes), as many bytes as the C side asks for."""
+    B, Sq, H, D = q.shape
+    nbytes = build.load().repro_flash_f32tc_workspace(
+        B, Sq, k.shape[1], H, k.shape[2], D, int(backward))
+    return torch.empty(nbytes // 4, dtype=torch.float32, device=q.device)
 
 
 def _launch_flash_attention(q, k, v, out, lse, causal, window, softcap) -> None:
@@ -229,11 +271,17 @@ def _launch_flash_attention(q, k, v, out, lse, causal, window, softcap) -> None:
     lib = build.load()
     args = (B, Sq, Sk, H, KV, D, int(causal), int(window or 0),
             float(softcap or 0.0), _stream())
-    if flash_variant(q.dtype) == "tensor_core":
+    variant = flash_variant(q.dtype, D)
+    lse_p = ctypes.c_void_p(None) if lse is None else _ptr(lse)
+    if variant == "tensor_core":
         code = lib.repro_flash_attention_tc(_ptr(q), _ptr(k), _ptr(v),
                                             _ptr(out), *args)
+    elif variant == "split_f32":
+        work = _f32tc_workspace(q, k, backward=False)
+        code = lib.repro_flash_attention_f32tc(_ptr(q), _ptr(k), _ptr(v),
+                                               _ptr(out), lse_p, _ptr(work),
+                                               *args)
     else:
-        lse_p = ctypes.c_void_p(None) if lse is None else _ptr(lse)
         code = lib.repro_flash_attention(_ptr(q), _ptr(k), _ptr(v), _ptr(out),
                                          lse_p, *args)
     _raise_on(code, "flash_attention")

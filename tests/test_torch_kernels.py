@@ -237,17 +237,21 @@ def test_plain_versions_take_any_head_dim():
     assert out.shape == (1, 6, 16)
 
 
-@pytest.mark.parametrize("dtype, variant", [(torch.bfloat16, "tensor_core"),
-                                            (torch.float32, "cuda_core")])
-def test_flash_variant_follows_dtype(dtype, variant):
-    """bf16 goes to the tensor-core kernel (flash_attention_tc.cu), f32 to
-    the CUDA-core one (flash_attention.cu); the choice is by dtype alone."""
-    assert ops.flash_variant(dtype) == variant
+@pytest.mark.parametrize("dtype, head_dim, variant", [
+    (torch.bfloat16, 128, "tensor_core"), (torch.bfloat16, 256, "tensor_core"),
+    (torch.float32, 32, "split_f32"), (torch.float32, 64, "split_f32"),
+    (torch.float32, 128, "split_f32"), (torch.float32, 256, "cuda_core")])
+def test_flash_variant_follows_dtype(dtype, head_dim, variant):
+    """bf16 goes to the tensor-core kernel (flash_attention_tc.cu); f32 at
+    D <= 128 to the split-f32 tensor-core kernels (flash_attention_f32tc.cu),
+    f32 at D = 256 to the CUDA-core ones (flash_attention.cu and
+    flash_attention_bwd.cu); the choice is by dtype and head dim alone."""
+    assert ops.flash_variant(dtype, head_dim) == variant
 
 
 def test_flash_variant_refuses_other_dtypes():
     with pytest.raises(ValueError):
-        ops.flash_variant(torch.float16)
+        ops.flash_variant(torch.float16, 128)
 
 
 def test_row_error_sees_a_dropped_key_tile():
@@ -409,3 +413,138 @@ def test_flash_attention_grad_on_cpu_takes_the_plain_backward(case,
                                torch.from_numpy(do))
     for g, w in zip(got, want):
         _close_to_max(g.numpy(), w.numpy())
+
+
+# Why the f32 flash kernels of csrc/flash_attention_f32tc.cu split each
+# operand: plain-PyTorch emulations of the tensor cores' tf32 products at
+# reduced sizes of the f32 cases (D = 64 / 128, GQA, causal, window and
+# softcap, ragged S, Sq != Sk). cvt.rna.tf32.f32 keeps 10 mantissa bits
+# (round to nearest, ties away from zero); a tf32 x tf32 product is exact in
+# f32 and the sums are f32. "3xtf32" splits x = hi + lo, hi = tf32(x),
+# lo = tf32(x - hi), and sums lo.hi + hi.lo + hi.hi; "tf32" is one product.
+SPLIT_CASES = [
+    # (B, Sq, Sk, H, KV, D, causal, window, softcap)
+    (2, 128, 128, 4, 2, 128, True, None, None),   # the train path's form
+    (1, 96, 96, 8, 2, 64, True, 24, 30.0),        # window and softcap
+    (1, 100, 100, 4, 4, 64, True, None, None),    # ragged S
+    (2, 40, 70, 4, 2, 128, False, None, None),    # Sq != Sk, no mask
+]
+
+
+def _tf32(x: torch.Tensor) -> torch.Tensor:
+    """cvt.rna.tf32.f32: add half a unit of the 10th mantissa bit to the
+    magnitude (the sign is apart in the bits) and clear the 13 bits below."""
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+def _matmul(a: torch.Tensor, b: torch.Tensor, mode: str) -> torch.Tensor:
+    if mode == "tf32":
+        return _tf32(a) @ _tf32(b)
+    ahi, bhi = _tf32(a), _tf32(b)
+    alo, blo = _tf32(a - ahi), _tf32(b - bhi)
+    return alo @ bhi + ahi @ blo + ahi @ bhi
+
+
+def _split_inputs(case, seed=6):
+    B, Sq, Sk, H, KV, D, causal, window, softcap = case
+    rng = np.random.default_rng(seed)
+    q, k, v, do = (torch.from_numpy(_np(rng, s)) for s in (
+        (B, Sq, H, D), (B, Sk, KV, D), (B, Sk, KV, D), (B, Sq, H, D)))
+    return q, k, v, do, dict(causal=causal, window=window, softcap=softcap)
+
+
+def _emulated_scores(q, k, mode, causal, window, softcap):
+    """[B,KV,G,Sq,Sk] masked scores, the product q k^T in ``mode``."""
+    B, Sq, H, D = q.shape
+    Sk, KV = k.shape[1], k.shape[2]
+    qg = q.reshape(B, Sq, KV, H // KV, D).permute(0, 2, 3, 1, 4)
+    sc = _matmul(qg, k.permute(0, 2, 3, 1)[:, :, None], mode) / np.sqrt(D)
+    if softcap is not None:
+        sc = softcap * torch.tanh(sc / softcap)
+    if causal:
+        qpos, kpos = torch.arange(Sq)[:, None], torch.arange(Sk)[None]
+        keep = kpos <= qpos
+        if window is not None:
+            keep &= kpos > qpos - window
+        sc = torch.where(keep, sc, ref.NEG_INF)
+    return sc
+
+
+def _emulated_forward(q, k, v, mode, causal, window, softcap):
+    B, Sq, H, D = q.shape
+    p = torch.softmax(_emulated_scores(q, k, mode, causal, window, softcap), -1)
+    out = _matmul(p, v.permute(0, 2, 1, 3)[:, :, None], mode)   # [B,KV,G,Sq,D]
+    return out.permute(0, 3, 1, 2, 4).reshape(B, Sq, H, D)
+
+
+def _emulated_backward(q, k, v, out, lse, do, mode, causal, window, softcap):
+    """(dq, dk, dv) as ref.flash_attention_backward_ref, its five products
+    in ``mode``."""
+    B, Sq, H, D = q.shape
+    Sk, KV = k.shape[1], k.shape[2]
+    G = H // KV
+    x = _emulated_scores(q, k, mode, False, None, None)   # unmasked, uncapped
+    chain = None
+    if softcap is not None:
+        t = torch.tanh(x / softcap)
+        x, chain = softcap * t, 1.0 - t * t
+    p = torch.exp(x - lse.reshape(B, KV, G, Sq, 1))
+    if causal:
+        qpos, kpos = torch.arange(Sq)[:, None], torch.arange(Sk)[None]
+        keep = kpos <= qpos
+        if window is not None:
+            keep &= kpos > qpos - window
+        p = torch.where(keep, p, 0.0)
+    dog = do.reshape(B, Sq, KV, G, D).permute(0, 2, 3, 1, 4)     # [B,KV,G,Sq,D]
+    qg = q.reshape(B, Sq, KV, G, D).permute(0, 2, 3, 1, 4)
+    delta = (do * out).sum(-1).reshape(B, Sq, KV, G).permute(0, 2, 3, 1)
+    dp = _matmul(dog, v.permute(0, 2, 3, 1)[:, :, None], mode)
+    ds = p * (dp - delta[..., None])
+    if chain is not None:
+        ds = ds * chain
+    ds = ds / np.sqrt(D)
+    dq = _matmul(ds, k.permute(0, 2, 1, 3)[:, :, None], mode)
+    dk = _matmul(ds.transpose(-1, -2), qg, mode).sum(2)         # [B,KV,Sk,D]
+    dv = _matmul(p.transpose(-1, -2), dog, mode).sum(2)
+    return (dq.permute(0, 3, 1, 2, 4).reshape(B, Sq, H, D),
+            dk.permute(0, 2, 1, 3), dv.permute(0, 2, 1, 3))
+
+
+def _misses(got, want, tol=TOL["f32"], to_max=False):
+    got, want = got.numpy(), want.numpy()
+    if to_max:
+        scale = float(np.abs(want).max())
+        got, want = got / scale, want / scale
+    return not np.allclose(got, want, rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("x, want", [
+    (1.0, 1.0), (1.0 + 2.0 ** -11, 1.0 + 2.0 ** -10),      # a tie: away from 0
+    (-(1.0 + 2.0 ** -11), -(1.0 + 2.0 ** -10)),
+    (1.0 + 2.0 ** -11 - 2.0 ** -20, 1.0), (3.0 * 2.0 ** -20, 3.0 * 2.0 ** -20)])
+def test_tf32_emulation_rounds_to_nearest_ties_away(x, want):
+    got = _tf32(torch.tensor([x], dtype=torch.float32))
+    assert got.item() == want
+
+
+@pytest.mark.parametrize("case", SPLIT_CASES)
+def test_split_f32_forward_meets_the_f32_tolerance(case):
+    q, k, v, _, kw = _split_inputs(case)
+    want = ref.flash_attention_ref(q, k, v, **kw)
+    got = _emulated_forward(q, k, v, "3xtf32", **kw)
+    _close(got.numpy(), want.numpy(), "f32")
+    assert _misses(_emulated_forward(q, k, v, "tf32", **kw), want)
+
+
+@pytest.mark.parametrize("case", SPLIT_CASES)
+def test_split_f32_backward_meets_the_f32_tolerance(case):
+    q, k, v, do, kw = _split_inputs(case)
+    out = ref.flash_attention_ref(q, k, v, **kw)
+    lse = ref.flash_attention_lse_ref(q, k, **kw)
+    want = ref.flash_attention_backward_ref(q, k, v, out, lse, do, **kw)
+    got = _emulated_backward(q, k, v, out, lse, do, "3xtf32", **kw)
+    for g, w in zip(got, want):
+        _close_to_max(g.numpy(), w.numpy())
+    one = _emulated_backward(q, k, v, out, lse, do, "tf32", **kw)
+    assert all(_misses(g, w, to_max=True) for g, w in zip(one, want))

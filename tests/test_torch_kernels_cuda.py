@@ -17,8 +17,9 @@ from repro_torch.kernels import ops, ref  # noqa: E402
 TDT = {"f32": torch.float32, "bf16": torch.bfloat16}
 TOL = {"f32": 2e-5, "bf16": 2e-2}
 
-# bf16 goes to the tensor-core kernel (csrc/flash_attention_tc.cu), f32 to
-# the CUDA-core one (csrc/flash_attention.cu)
+# bf16 goes to the tensor-core kernel (csrc/flash_attention_tc.cu), f32 at
+# D <= 128 to the split-f32 tensor-core one (csrc/flash_attention_f32tc.cu),
+# f32 at D = 256 to the CUDA-core one (csrc/flash_attention.cu)
 FLASH_CASES = [
     # (B, Sq, Sk, H, KV, D, causal, window, softcap, dtype)
     (2, 128, 128, 4, 4, 64, True, None, None, "f32"),
@@ -39,6 +40,12 @@ FLASH_CASES = [
     (1, 1024, 1024, 8, 4, 256, True, 256, 50.0, "bf16"),      # gemma2's form, scaled
     (1, 700, 700, 4, 2, 64, True, 48, None, "bf16"),          # window < q tile
     (1, 640, 640, 32, 2, 128, True, 200, None, "bf16"),       # head group 16
+    (2, 2048, 2048, 16, 8, 128, True, None, None, "f32"),     # internlm2's train step
+    (1, 1000, 1000, 8, 4, 64, True, None, None, "f32"),       # ragged
+    (2, 200, 333, 4, 2, 128, False, None, None, "f32"),       # Sq != Sk, no mask
+    (1, 333, 200, 4, 2, 32, False, None, 30.0, "f32"),
+    (1, 640, 640, 32, 2, 128, True, 200, None, "f32"),        # head group 16
+    (1, 200, 200, 4, 2, 256, True, 64, 50.0, "f32"),          # D = 256: CUDA cores
 ]
 # bf16 also per output row (b, q, h): its error over D relative to that row
 # of the f32 result may be at most ref.BF16_ROW_TOL. rtol=atol 2e-2 alone
@@ -69,9 +76,10 @@ DECODE_CASES = [
     (4, 4096, 16, 8, 128, None, None, "f32", None),
 ]
 
-# f32 flash backward (csrc/flash_attention_bwd.cu) against its plain version:
-# the main path's shape, D = 32/64/256, groups 1/2/4, window and softcap,
-# ragged S, Sq != Sk without a mask
+# f32 flash backward against its plain version (csrc/flash_attention_f32tc.cu
+# at D <= 128, csrc/flash_attention_bwd.cu at D = 256): the main path's
+# shape, D = 32/64/256, groups 1/2/4, window and softcap, ragged S, Sq != Sk
+# without a mask
 BWD_CASES = [
     # (B, Sq, Sk, H, KV, D, causal, window, softcap)
     (2, 2048, 2048, 16, 8, 128, True, None, None),   # internlm2's train step
@@ -321,3 +329,49 @@ def test_bare_flash_kernel_call_refuses_grad(card):
     with pytest.raises(NotImplementedError, match="f32 only"):
         ops.flash_attention(q.detach().bfloat16().requires_grad_(True),
                             k.bfloat16(), k.bfloat16())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D, variant", [(64, "split_f32"), (128, "split_f32"),
+                                        (256, "cuda_core")])
+def test_f32_flash_runs_the_variant_of_its_head_dim(card, D, variant):
+    """The f32 forward and backward at head dim D run the kernels of
+    ops.flash_variant (by shape, before the launch): their device kernels
+    are the ones the profiler records."""
+    from torch.profiler import ProfilerActivity, profile
+    names = {"split_f32": ("flash_f32tc_fwd_kernel", "flash_f32tc_dkdv_kernel",
+                           "flash_f32tc_dq_kernel"),
+             "cuda_core": ("flash_fwd_kernel", "flash_bwd_dkdv_kernel",
+                           "flash_bwd_dq_kernel")}
+    assert ops.flash_variant(torch.float32, D) == variant
+    q, k, v, dout, kw = _bwd_operands(card, (1, 128, 128, 4, 2, D, True, None,
+                                             None))
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        out, lse = ops.flash_attention_forward(q, k, v, True, None, None,
+                                               want_lse=True)
+        ops.flash_attention_backward(q, k, v, out, lse, dout, **kw)
+        torch.cuda.synchronize()
+    seen = " ".join(ev.key for ev in prof.key_averages())
+    other = "cuda_core" if variant == "split_f32" else "split_f32"
+    assert all(n in seen for n in names[variant]), seen
+    assert not any(n in seen for n in names[other]), seen
+
+
+@pytest.mark.cuda
+def test_scan_with_grad_names_its_missing_backward(card):
+    """A scan kernel call with grad, bare and from a falcon-mamba layer,
+    raises a message that names the scan's missing backward (not the flash
+    attention route)."""
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.models import model as M
+    a = torch.rand(1, 4, 8, 4, device=card, requires_grad=True)
+    with pytest.raises(NotImplementedError, match="no backward kernel") as e:
+        ops.selective_scan(a, torch.rand(1, 4, 8, 4, device=card))
+    assert "FlashAttention" not in str(e.value)
+    cfg = reduced(get_config("falcon-mamba-7b"), n_layers=1)
+    p = M.init_params(torch.Generator(device=card).manual_seed(0), cfg,
+                      torch.float32, card).requires_grad_(True)
+    tokens = torch.randint(0, cfg.vocab, (1, 8), device=card)
+    with pytest.raises(NotImplementedError, match="selective scan has no "
+                                                  "backward kernel"):
+        M.forward(p, {"tokens": tokens}, cfg, M.Runtime(scan_impl="kernel"))
