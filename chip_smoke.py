@@ -3,17 +3,18 @@
 
     python3 chip_smoke.py
 
-Models, at full width with random weights from a seed, depth not cut:
-internlm2-1.8b (24 layers, d=2048, 16 heads, 8 kv heads, dh=128, d_ff=8192,
-V=92544) and falcon-mamba-7b (64 Mamba layers, d=4096, d_inner=8192,
-d_state=16, d_conv=4, dt_rank=256, V=65024). Phases:
+Models, at full width with random weights from a seed, depth not cut
+except in phase 7: internlm2-1.8b (24 layers, d=2048, 16 heads, 8 kv heads,
+dh=128, d_ff=8192, V=92544) and falcon-mamba-7b (64 Mamba layers, d=4096,
+d_inner=8192, d_state=16, d_conv=4, dt_rank=256, V=65024). Phases:
 
 1. device: name, power limit, kernel build (nvcc, sm_90a) and its seconds;
 2. each CUDA kernel, launched directly, against its plain PyTorch version
    on the card (tolerance 2e-5 for f32, 2e-2 for bf16, as the JAX package's
    kernel tests use; bf16 flash also row by row against the f32 result of
    its inputs, ``ref.BF16_ROW_TOL``; the scan, in both its variants,
-   bit-identical to the plain loop);
+   bit-identical to the plain loop, and its backward bit-identical to the
+   plain reverse loop and bitwise repeatable);
 3. internlm2 ``forward`` in bf16 on tokens [2, 2048] with the flash kernel
    (its tensor-core variant) against the plain path, and the flash launch
    count (one per layer, none of them an f32 variant);
@@ -39,7 +40,10 @@ d_state=16, d_conv=4, dt_rank=256, V=65024). Phases:
    flash backward beside its bounds; beside the f32 pair, memory-efficient
    SDPA on K/V repeated to the q heads and SDPA with ``enable_gqa`` (MATH),
    after step 0, which measures that SDPA's error against the plain
-   versions at phase 2's f32 cases (the evidence for split-f32);
+   versions at phase 2's f32 cases (the evidence for split-f32); the f32
+   CUDA-core flash pair at gemma2-9b's attention shape (dh = 256, softcap
+   50; off the main paths) beside its 67 TFLOP/s bound and SDPA without
+   the softcap; the scan's backward at phase 7's shape beside its bound;
 6. internlm2 ``make_train_step`` at full width in f32 (24 layers, tokens
    [accum 1, mb 2, S 2048], 30.2 GB of params, grads and AdamW moments):
    step ms, tokens/s, the device breakdown, 24 forward and 24 backward
@@ -50,7 +54,15 @@ d_state=16, d_conv=4, dt_rank=256, V=65024). Phases:
    6b. ``run_training(device="cuda")`` (the LOG.io-protected feed, reduced
    to d_model 512 and 4 layers so dh = 128) with a trainer kill and a
    worker kill, whose losses and final state must equal, bit for bit, a run
-   without kills.
+   without kills;
+7. falcon-mamba ``make_train_step`` (mamba-train-f32) at full width in f32,
+   depth cut to MAMBA_TRAIN_LAYERS (4 of 64: device memory, reckoned on its
+   own line), tokens [1, 2, 2048]: the same checks and timings as phase 6,
+   with 4 forward (sequential variant) and 4 backward scan launches a step,
+   the scan pair's share of the step and the grads at depth 2 against
+   ``scan_impl="plain"`` (and whether they are bitwise equal);
+   7b. (mamba-train-logio) phase 6b's pair of runs on falcon-mamba, reduced
+   to d_model 512 and 4 layers (d_inner 1024, d_state 8).
 
 Phase 2 also holds the f32 flash backward (``csrc/flash_attention_f32tc.cu``
 at D <= 128, ``csrc/flash_attention_bwd.cu`` at D = 256) against its plain
@@ -58,6 +70,8 @@ version at rtol = atol = 2e-5 relative to each
 gradient's largest magnitude, bitwise repeatable, and the forward's lse.
 Training needs ``CUBLAS_WORKSPACE_CONFIG`` (set here before torch starts)
 and runs under ``torch.use_deterministic_algorithms(True)`` from phase 6 on.
+The phases that drive a main path (3-4b, 6-7b) set the launch counts to 0
+just before and read them just after.
 
 Every breakdown prints the port's kernel launches the profiler recorded
 beside those the wrappers counted, and reads its device busy time as a lower
@@ -115,7 +129,8 @@ TRAIN_STEPS = 2          # timed full-width steps after the checked first one
 GRAD_LAYERS = 2          # depth of the kernel-vs-plain gradient check
 GRAD_TOL = 1e-4          # that check's tolerance, relative to each leaf's max
 LOGIO_RUN = dict(steps=10, ckpt_every=3, seq_len=128, batch_size=4,
-                 d_model=512, n_layers=4, seed=3)   # phase 6b
+                 d_model=512, n_layers=4, seed=3)   # phases 6b and 7b
+MAMBA_TRAIN_LAYERS = 4   # phase 7's depth (of 64): what device memory allows
 
 KERNELS = {
     # bf16 (the forward path) runs on the tensor cores; f32 (the train path)
@@ -135,6 +150,12 @@ KERNELS = {
     "selective_scan": dict(
         route="cuda", source="src/repro_torch/kernels/csrc/selective_scan.cu",
         replaces="src/repro/kernels/selective_scan.py:49"),
+    # the Pallas scan has no backward (JAX differentiates its XLA scans,
+    # models/layers.py:539-561); this is the backward of the kernel that
+    # replaces it, on the Mamba train path
+    "selective_scan_backward": dict(
+        route="cuda", source="src/repro_torch/kernels/csrc/selective_scan.cu",
+        replaces="src/repro/kernels/selective_scan.py:49"),
 }
 # flash's device kernels by variant (``ops.flash_variant``: dtype and head
 # dim), the scan's by ``ops.scan_variant``. Names are matched as substrings;
@@ -145,6 +166,7 @@ F32TC_BWD = ("flash_f32tc_bwd_prep_kernel", "flash_f32tc_dkdv_kernel",
              "flash_f32tc_dq_kernel")
 SCAN_KERNEL = {"sequential": "selective_scan_kernel",
                "step": "selective_scan_step_kernel"}
+SCAN_BWD = "selective_scan_bwd_kernel"
 FLASH_BWD = ("flash_bwd_delta_kernel", "flash_bwd_dkdv_kernel",
              "flash_bwd_dq_kernel")   # the CUDA-core backward (f32, D = 256)
 # per wrapper, per variant: its device kernels and how many of them one
@@ -155,6 +177,7 @@ DEVICE_KERNELS = {
     "flash_attention_backward": [(FLASH_BWD, 3), (F32TC_BWD, 3)],
     "decode_attention": [(("decode_attention_kernel",), 1)],
     "selective_scan": [(tuple(SCAN_KERNEL.values()), 1)],
+    "selective_scan_backward": [((SCAN_BWD,), 1)],
 }
 
 
@@ -296,11 +319,14 @@ def log_breakdown(tag: str, prof: dict, wall_ms: float, top: int = 6) -> None:
         log(f"  {100 * ms / busy:5.1f}% {ms:8.4f} ms x{n:g} {key[:90]}")
 
 
-def log_memory(tag: str) -> None:
-    """Peak device memory since the last reset, then reset it."""
+def log_memory(tag: str, reckoned_gb=None) -> None:
+    """Peak device memory since the last reset (beside what was reckoned
+    for it, where given), then reset it."""
     if torch.device(DEVICE).type == "cuda":
-        log(f"memory {tag}: peak {torch.cuda.max_memory_allocated() / 2**30:.2f}"
-            f" GiB allocated")
+        peak = torch.cuda.max_memory_allocated()
+        log(f"memory {tag}: peak {peak / 2**30:.2f} GiB ({peak / 1e9:.2f} GB)"
+            f" allocated" + (f", reckoned {reckoned_gb:.1f} GB"
+                             if reckoned_gb is not None else ""))
         torch.cuda.reset_peak_memory_stats()
 
 
@@ -477,10 +503,56 @@ def _scan_operands(g, B, S, DI, DS, h0):
     return a, b, h0
 
 
+SCAN_BWD_CASES = [
+    # (B, S, DI, DS, h0) as in ``SCAN_CASES``: phase 7's shape (the train
+    # path's, no h0), a ragged F with h0 and S one past a multiple of the
+    # kernel's 8-step groups, a small odd F with h0, S below one group, an
+    # h0 that is 4 bytes into its buffer, S = 1 with and without h0
+    (2, 2048, 8192, 16, None),
+    (3, 1001, 8192 + 48, 16, "fresh"),
+    (2, 300, 7, 3, "fresh"),
+    (2, 13, 24, 5, None),
+    (2, 37, 64, 16, "offset"),
+    (4, 1, 8192, 16, "fresh"),
+    (4, 1, 8192, 16, None),
+]
+
+
+def check_scan_backward(g, case) -> float:
+    """One backward case: the kernel against the plain reverse loop, bit for
+    bit (dh0 too, with h0), from the forward kernel's h and a random dh; a
+    second call bitwise equal to the first. Returns the max abs error (0)."""
+    B, S, DI, DS, h0_kind = case
+    a, b, h0 = _scan_operands(g, B, S, DI, DS, h0_kind)
+    h = ops.selective_scan(a, b, h0)
+    del b
+    dh = torch.randn(a.shape, generator=g, device=DEVICE)
+    what = f"scan backward {B, S, DI, DS, h0_kind}"
+    before = ops.LAUNCHES["selective_scan_backward"]
+    got = ops.selective_scan_backward(a, h, h0, dh)
+    sync()
+    check(ops.LAUNCHES["selective_scan_backward"] == before + 1,
+          f"{what}: the backward kernel did not launch")
+    want = ref.selective_scan_backward_ref(a, h, h0, dh)
+    check((got[2] is None) == (h0 is None) == (want[2] is None),
+          f"{what}: dh0 given without h0 or missing with it")
+    pairs = [(x, y) for x, y in zip(got, want) if y is not None]
+    err = max(max_err(x, y) for x, y in pairs)
+    check(all(bool(torch.equal(x, y)) for x, y in pairs),
+          f"{what}: not bit-identical to the plain reverse loop (max_abs_err "
+          f"{err:.3e})")
+    again = ops.selective_scan_backward(a, h, h0, dh)
+    check(all(bool(torch.equal(x, y)) for x, y in zip(got, again)
+              if x is not None), f"{what}: two calls differ")
+    log(f"scan backward B={B} S={S} DI={DI} DS={DS} h0={h0_kind}: da, db"
+        f"{', dh0' if h0 is not None else ''} bit-identical to the plain "
+        f"reverse loop, bitwise repeatable")
+    return err
+
+
 def phase_kernels() -> dict:
     g = torch.Generator(device=DEVICE).manual_seed(SEED)
-    errs = {"flash_attention": 0.0, "flash_attention_backward": 0.0,
-            "decode_attention": 0.0, "selective_scan": 0.0}
+    errs = {name: 0.0 for name in KERNELS}
     for B, S, DI, DS, h0_kind, variant in SCAN_CASES:
         a, b, h0 = _scan_operands(g, B, S, DI, DS, h0_kind)
         what = f"scan {B, S, DI, DS, h0_kind}"
@@ -501,6 +573,9 @@ def phase_kernels() -> dict:
         log(f"scan B={B} S={S} DI={DI} DS={DS} h0={h0_kind} ({variant}): "
             f"bit-identical to the plain loop")
         del a, b, h0, out, want
+    for case in SCAN_BWD_CASES:
+        errs["selective_scan_backward"] = max(
+            errs["selective_scan_backward"], check_scan_backward(g, case))
     for B, S, H, KV, D, dt, window, softcap, lens in DECODE_CASES:
         q = _randn(g, (B, H, D), dt)
         k = _randn(g, (B, S, KV, D), dt)
@@ -1241,8 +1316,111 @@ def time_scan(a, b, h0, tag: str, cold: bool) -> dict:
                 clean_l2_device_ms=clean_dev)
 
 
+def time_scan_backward(a, h, dh, tag: str) -> dict:
+    """The scan's backward kernel at one shape (no h0, as on the train path),
+    its plain reverse loop and its bound (bytes: a, h and dh read, da and db
+    written; 3 flops an element). No PyTorch call computes a reverse linear
+    recurrence, so there is no library time."""
+    B, S, DI, DS = a.shape
+    fn = lambda: ops.selective_scan_backward(a, h, None, dh)  # noqa: E731
+    plain = lambda: ref.selective_scan_backward_ref(a, h, None, dh)  # noqa: E731
+    err = max(max_err(x, y) for x, y in zip(fn()[:2], plain()[:2]))
+    ms = cuda_ms(fn)
+    plain_ms = cuda_ms(plain, iters=3, warmup=1)
+    dev_ms = kernel_ms(profile_kernels(fn, iters=20), SCAN_BWD)
+    n = a.numel()
+    nbytes = 5 * n * 4
+    t_ops = 3 * n / PEAK_FLOPS[torch.float32]
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    bound_ms = max(t_ops, t_bytes) * 1e3
+    by = "operations" if t_ops >= t_bytes else "bytes"
+    log(f"time scan backward {tag} f32 [{B},{S},{DI},{DS}] ({SCAN_BWD}): "
+        f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, library none (no "
+        f"PyTorch call computes a reverse linear recurrence), bound "
+        f"{bound_ms * 1e3:.2f} us ({by}: {nbytes / 1e6:.2f} MB), "
+        f"{nbytes / ms / 1e6:.1f} GB/s achieved, {100 * bound_ms / ms:.1f}% of "
+        f"the bound; kernel device time {_fmt(dev_ms)} ms "
+        f"({_fmt(dev_ms and nbytes / dev_ms / 1e6)} GB/s, "
+        f"{_share(bound_ms, dev_ms)} of the bound); max_abs_err {err:.3e}")
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=None,
+                bound_ms=bound_ms, bound_by=by, device_ms=dev_ms)
+
+
+# gemma2-9b's attention shape for the f32 CUDA-core flash pair (dh = 256):
+# (B, S, H, KV, D, softcap), causal; 4096-key window of its local layers
+# has no effect at S = 2048
+D256_SHAPE = (2, 2048, 16, 8, 256, 50.0)
+
+
+def time_flash_cuda_core() -> dict:
+    """The f32 flash pair at dh = 256 (``ops.flash_variant``: the CUDA-core
+    ``csrc/flash_attention.cu`` and ``csrc/flash_attention_bwd.cu``), off
+    the main paths, at ``D256_SHAPE``: event and device time, the plain
+    versions, the bound (operations at the 67 TFLOP/s f32 CUDA-core rate:
+    4 flops a kept (q, k) pair and dim forward, 10 backward; or bytes) and
+    memory-efficient SDPA on K/V repeated to the q heads, without the
+    softcap (SDPA has none). {"forward": row, "backward": row}."""
+    g = torch.Generator(device=DEVICE).manual_seed(SEED + 7)
+    B, S, H, KV, D, softcap = D256_SHAPE
+    dt = torch.float32
+    check(ops.flash_variant(dt, D) == "cuda_core", "dh 256 is not cuda_core")
+    q = _randn(g, (B, S, H, D), dt)
+    k, v = _randn(g, (B, S, KV, D), dt), _randn(g, (B, S, KV, D), dt)
+    dout = _randn(g, (B, S, H, D), dt)
+    kw = dict(causal=True, window=None, softcap=softcap)
+    out, lse = ops.flash_attention_forward(q, k, v, True, None, softcap,
+                                           want_lse=True)
+    pairs = B * H * (S * (S + 1) // 2)
+    qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+    dot = dout.transpose(1, 2).contiguous()
+    res = {}
+    for kind in ("forward", "backward"):
+        if kind == "forward":
+            fn = lambda: ops.flash_attention(q, k, v, **kw)  # noqa: E731
+            plain = lambda: ref.flash_attention_ref(q, k, v, **kw)  # noqa: E731
+            names, flops = (FLASH_CC,), 4 * pairs * D
+            nbytes = (2 * q.numel() + k.numel() + v.numel()) * 4
+            got, want = (fn(),), (plain(),)
+        else:
+            fn = lambda: ops.flash_attention_backward(  # noqa: E731
+                q, k, v, out, lse, dout, **kw)
+            plain = lambda: ref.flash_attention_backward_ref(  # noqa: E731
+                q, k, v, out, lse, dout, **kw)
+            names, flops = FLASH_BWD, 10 * pairs * D
+            nbytes = (4 * q.numel() + 2 * k.numel() + 2 * v.numel()
+                      + lse.numel()) * 4
+            got, want = fn(), plain()
+        err = max(max_err(x, y) for x, y in zip(got, want))
+        del got, want
+        ms = cuda_ms(fn)
+        plain_ms = cuda_ms(plain, iters=5)
+        dev_ms = kernel_ms(profile_kernels(fn), *names)
+        t_ops, t_bytes = flops / PEAK_FLOPS[dt], nbytes / HBM_BYTES_PER_S
+        bound_ms = max(t_ops, t_bytes) * 1e3
+        by = "operations" if t_ops >= t_bytes else "bytes"
+        grad_in = [t.detach().requires_grad_(kind == "backward")
+                   for t in (qt, kt, vt)]
+        lib_ms = time_sdpa_expanded(*grad_in, dot if kind == "backward"
+                                    else None, f"f32 dh 256 {kind}")
+        log(f"time flash {kind} f32 (cuda_core, {', '.join(names)}) "
+            f"[{B},{S},{H},{D}] kv {KV} causal softcap {softcap}: kernel "
+            f"{ms:.4f} ms ({flops / ms / 1e9:.1f} TFLOP/s), plain "
+            f"{plain_ms:.4f} ms, sdpa on K/V repeated (EFFICIENT_ATTENTION, "
+            f"no softcap) "
+            + ("refused" if lib_ms is None else
+               f"{lib_ms:.4f} ms (kernel/sdpa {ms / lib_ms:.2f})")
+            + f", bound {bound_ms * 1e3:.2f} us ({by}: {flops / 1e9:.2f} GFLOP "
+            f"at {PEAK_FLOPS[dt] / 1e12:.0f} TFLOP/s, {nbytes / 1e6:.2f} MB); "
+            f"kernel device time {_fmt(dev_ms)} ms "
+            f"({_share(bound_ms, dev_ms)} of the bound); max_abs_err {err:.3e}")
+        res[kind] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                         library_ms=lib_ms, bound_ms=bound_ms, bound_by=by,
+                         device_ms=dev_ms)
+    return res
+
+
 # ---------------------------------------------------------------------------
-# phase 6 / 6b: training at full width, f32; the LOG.io-protected run
+# phase 6 / 6b, 7 / 7b: training at full width, f32; the LOG.io-protected runs
 # ---------------------------------------------------------------------------
 
 
@@ -1257,21 +1435,54 @@ def _fresh_state(cfg, hp):
                             cfg, hp, torch.float32, DEVICE)
 
 
-def phase_train(cfg) -> dict:
-    """``make_train_step`` on internlm2 at full width in f32, tokens [1, 2,
-    2048], under the training's deterministic mode: launches, first loss,
-    step time and breakdown, bitwise repeat, and the grads at depth
-    GRAD_LAYERS against the plain path."""
+# The train path of each family: the wrappers it counts (forward, backward),
+# the device kernels each counted launch must be recorded as (every one of
+# them n_layers times a step) and those of another variant that must not run.
+TRAIN_PATHS = {
+    "attention": dict(wrappers=("flash_attention", "flash_attention_backward"),
+                      forward=(F32TC_FWD_PREP, F32TC_FWD), backward=F32TC_BWD,
+                      others=(FLASH_TC, FLASH_CC, *FLASH_BWD)),
+    "scan": dict(wrappers=("selective_scan", "selective_scan_backward"),
+                 forward=(SCAN_KERNEL["sequential"],), backward=(SCAN_BWD,),
+                 others=(SCAN_KERNEL["step"],)),
+}
+
+
+def mamba_train_memory(cfg, depth: int, tokens: int) -> float:
+    """Phase 7's peak device memory in GB, reckoned from the code: f32
+    params, grads, m and v (16 bytes a param); per layer the two [N, DI, DS]
+    f32 tensors autograd keeps (a, saved by ``exp``; h, saved by the
+    ``h.C`` einsum and by ``ops.SelectiveScan``) and about a dozen [N, DI]
+    ones; the logits and their loss (three [N, V]); the backward's
+    [N, DI, DS] transients (dh, da, db, exp's gradient)."""
+    one, two = (dataclasses.replace(cfg, n_layers=n).param_count()
+                for n in (1, 2))
+    per_layer = two - one
+    state = 16 * (one - per_layer + depth * per_layer)
+    big = tokens * cfg.d_inner * cfg.mamba.d_state * 4
+    acts = depth * (2 * big + 12 * tokens * cfg.d_inner * 4)
+    logits = 3 * tokens * cfg.eff_vocab * 4
+    return (state + acts + logits + 4 * big) / 1e9
+
+
+def phase_train(cfg, path: str, tag: str, reckoned_gb=None) -> dict:
+    """``make_train_step`` at full width in f32 (``cfg.n_layers`` deep),
+    tokens [1, 2, 2048], under the training's deterministic mode: the
+    launches of ``TRAIN_PATHS[path]`` (counted and recorded), first loss,
+    step time and breakdown with the kernel pair's share, bitwise repeat,
+    peak memory (beside ``reckoned_gb`` where given) and the grads at depth
+    GRAD_LAYERS against the plain path, and whether they are bitwise equal."""
+    spec = TRAIN_PATHS[path]
     train_driver.deterministic(torch.device(DEVICE))
     hp = OptHParams()
     batch = _train_batch(cfg, torch.Generator(device=DEVICE).manual_seed(SEED + 5))
     step = make_train_step(cfg, hp)
-    tag = f"train {cfg.name} f32 [1,{FWD_B},{FWD_S}]"
+    tag = f"{tag} {cfg.name} f32 [1,{FWD_B},{FWD_S}]"
     tokens = FWD_B * FWD_S
     state = _fresh_state(cfg, hp)
     n = sum(t.numel() for t in state["params"].parameters())
-    log(f"{tag}: {n / 1e9:.3f} B params; params + grads + m + v "
-        f"{4 * n * 4 / 1e9:.1f} GB f32; AdamW {hp}")
+    log(f"{tag}: {cfg.n_layers} layers, {n / 1e9:.3f} B params; params + "
+        f"grads + m + v {4 * n * 4 / 1e9:.1f} GB f32; AdamW {hp}")
     ops.reset_launches()
     with warnings.catch_warnings(record=True) as caught:
         warnings.simplefilter("always")
@@ -1279,11 +1490,12 @@ def phase_train(cfg) -> dict:
         state, metrics = step(state, batch)
         sync()
         first_s = time.perf_counter() - t0
-    first = {k: ops.LAUNCHES[k] for k in ("flash_attention",
-                                          "flash_attention_backward")}
-    check(first == {"flash_attention": cfg.n_layers,
-                    "flash_attention_backward": cfg.n_layers},
-          f"{tag}: flash launches in one step {first}, want {cfg.n_layers} each")
+    first = {k: ops.LAUNCHES[k] for k in spec["wrappers"]}
+    check(first == {k: cfg.n_layers for k in spec["wrappers"]},
+          f"{tag}: launches in one step {first}, want {cfg.n_layers} each")
+    if path == "scan":   # S = 2048: every forward on the sequential kernel
+        check(ops.SCAN_VARIANTS == {"step": 0, "sequential": cfg.n_layers},
+              f"{tag}: scan launches by variant {ops.SCAN_VARIANTS}")
     nondet = [str(w.message)[:120] for w in caught
               if "determinis" in str(w.message).lower()]
     check(not nondet, f"{tag}: determinism warnings {nondet}")
@@ -1309,25 +1521,37 @@ def phase_train(cfg) -> dict:
     check(all(math.isfinite(x) for x in losses), f"{tag}: non-finite loss")
     prof = profile_kernels(lambda: step(state, batch), iters=1)
     log_breakdown(f"{tag} step", prof, step_ms, top=10)
-    # dh = 128: the split-f32 variant, and none of the CUDA-core or bf16 ones
-    fwd_rec = recorded(prof, F32TC_FWD)
-    bwd_rec = sum(recorded(prof, x) for x in F32TC_BWD)
-    other = {x: recorded(prof, x) for x in (FLASH_TC, FLASH_CC, *FLASH_BWD)}
+    rec = {x: recorded(prof, x) for x in spec["forward"] + spec["backward"]}
+    other = {x: recorded(prof, x) for x in spec["others"]}
     check(not any(other.values()), f"{tag}: launches of another variant {other}")
-    check(fwd_rec == cfg.n_layers and recorded(prof, F32TC_FWD_PREP) == cfg.n_layers
-          and all(recorded(prof, x) == cfg.n_layers for x in F32TC_BWD),
-          f"{tag}: recorded flash launches {fwd_rec} forward, {bwd_rec} "
-          f"backward kernels, want {cfg.n_layers} and 3 x {cfg.n_layers}")
+    check(all(x == cfg.n_layers for x in rec.values()),
+          f"{tag}: recorded launches a step {rec}, want {cfg.n_layers} each")
     index = sorted({k[:50] for k in prof["kernels"] if "index" in k.lower()
                     or "sort" in k.lower()})
-    log(f"{tag}: recorded {fwd_rec:g} forward flash launches (split-f32) and "
-        f"{bwd_rec:g} backward kernels (prep, dk/dv, dq a call) a step; the "
-        f"embedding's backward ran {index}")
-    flash_fwd_ms = kernel_ms(prof, F32TC_FWD_PREP, F32TC_FWD)
-    flash_bwd_ms = kernel_ms(prof, *F32TC_BWD)
+    fwd_ms = kernel_ms(prof, *spec["forward"])
+    bwd_ms = kernel_ms(prof, *spec["backward"])
+    busy = sum(ms for _, ms in prof["kernels"].values())
+    pair = (cfg.n_layers * (fwd_ms + bwd_ms)
+            if None not in (fwd_ms, bwd_ms) else None)
+    log(f"{tag}: recorded a step {rec} (none of {list(other)}); the "
+        f"embedding's backward ran {index}; {' + '.join(spec['wrappers'])}: "
+        f"{cfg.n_layers} x ({_fmt(fwd_ms)} + {_fmt(bwd_ms)}) ms = "
+        f"{_fmt(pair)} ms a step, "
+        + ("not measured" if pair is None else
+           f"{100 * pair / busy:.1f}% of device busy, "
+           f"{100 * pair / step_ms:.1f}% of the step"))
+    if busy:
+        gemm = sum(ms for key, (_, ms) in prof["kernels"].items()
+                   if "gemm" in key.lower() or "gemv" in key.lower())
+        rest = busy - gemm - (pair or 0.0)
+        log(f"{tag}: device busy {busy:.1f} ms a step by class: GEMMs and "
+            f"GEMVs (cuBLAS, CUTLASS) {gemm:.1f} ms ({100 * gemm / busy:.1f}%)"
+            f", the kernel pair {_fmt(pair)} ms, the rest (ATen elementwise, "
+            f"reductions, copies, the embedding, AdamW) {rest:.1f} ms "
+            f"({100 * rest / busy:.1f}%)")
     del state, metrics
     torch.cuda.empty_cache()
-    log_memory(tag)
+    log_memory(tag, reckoned_gb)
     # bitwise: the first step again from a fresh state of the same seed
     state = _fresh_state(cfg, hp)
     state, metrics = step(state, batch)
@@ -1352,41 +1576,56 @@ def phase_train(cfg) -> dict:
     names = [name for name, _ in params.named_parameters()]
     leaves = list(params.parameters())
     mb = {"tokens": batch["tokens"][0], "labels": batch["labels"][0]}
-    grads = {impl: torch.autograd.grad(
-        loss_fn(params, mb, cfg2, runtime(impl))[0], leaves)
-        for impl in ("kernel", "plain")}
+    grads, secs = {}, {}
+    for impl in ("kernel", "plain"):
+        t0 = time.perf_counter()
+        grads[impl] = torch.autograd.grad(
+            loss_fn(params, mb, cfg2, runtime(impl))[0], leaves)
+        sync()
+        secs[impl] = time.perf_counter() - t0
     worst = max((assert_close_to_max(a, b, GRAD_TOL, f"{tag} grad {name}"), name)
                 for name, a, b in zip(names, grads["kernel"], grads["plain"]))
+    bitwise = all(bool(torch.equal(a, b))
+                  for a, b in zip(grads["kernel"], grads["plain"]))
     log(f"{tag}: grads at depth {GRAD_LAYERS}, kernel vs plain path: worst "
-        f"leaf {worst[1]} error {worst[0]:.3e} of its max (tol {GRAD_TOL})")
+        f"leaf {worst[1]} error {worst[0]:.3e} of its max (tol {GRAD_TOL}); "
+        f"bitwise equal: {bitwise}; seconds kernel {secs['kernel']:.2f}, "
+        f"plain {secs['plain']:.2f}")
     del params, grads, leaves
     torch.cuda.empty_cache()
     log_memory(f"{tag} grad check")
     return {"launches": launches, "steps": steps_run, "step_ms": step_ms,
-            "flash_fwd_device_ms": flash_fwd_ms,
-            "flash_bwd_device_ms": flash_bwd_ms}
+            "fwd_device_ms": fwd_ms, "bwd_device_ms": bwd_ms,
+            "grads_bitwise": bitwise}
 
 
-def phase_logio(cfg) -> dict:
-    """``run_training(device="cuda")`` twice, as tests/test_train_e2e.py
-    does: without kills, and with a worker kill (at batch 2) and a trainer
-    kill (at step 7); losses and final state must be bit-identical."""
+def phase_logio(cfg, path: str) -> dict:
+    """``run_training(arch=cfg.name, device="cuda")`` twice, as
+    tests/test_train_e2e.py does: without kills, and with a worker kill (at
+    batch 2) and a trainer kill (at step 7); losses and final state must be
+    bit-identical, and each wrapper of ``TRAIN_PATHS[path]`` launched once
+    per layer per step."""
+    wrappers = TRAIN_PATHS[path]["wrappers"]
     red = reduced(cfg, d_model=LOGIO_RUN["d_model"],
-                               n_layers=LOGIO_RUN["n_layers"], vocab=2048,
-                               d_ff=4 * LOGIO_RUN["d_model"], n_heads=4)
-    log(f"logio: cut to d_model {red.d_model}, {red.n_layers} layers, "
-        f"{red.n_heads} heads / {red.n_kv_heads} kv (dh {red.d_head}), d_ff "
-        f"{red.d_ff}, vocab {red.vocab} (a full-width checkpoint is 22.7 GB, "
-        f"written four times per pair of runs); {LOGIO_RUN}")
+                  n_layers=LOGIO_RUN["n_layers"], vocab=2048,
+                  d_ff=4 * LOGIO_RUN["d_model"], n_heads=4)
+    shape = (f"{red.n_heads} heads / {red.n_kv_heads} kv (dh {red.d_head}), "
+             f"d_ff {red.d_ff}" if path == "attention" else
+             f"d_inner {red.d_inner}, d_state {red.mamba.d_state}")
+    log(f"logio {cfg.name}: cut to d_model {red.d_model}, {red.n_layers} "
+        f"layers, {shape}, vocab {red.vocab} (a full-width checkpoint is "
+        f"{12 * cfg.param_count() / 1e9:.1f} GB, written four times per pair "
+        f"of runs); {LOGIO_RUN}")
     ops.reset_launches()
     with tempfile.TemporaryDirectory() as tmp:
-        a = train_driver.run_training(**LOGIO_RUN, ckpt_dir=f"{tmp}/a",
-                                      verbose=False, device=DEVICE)
-        b = train_driver.run_training(**LOGIO_RUN, ckpt_dir=f"{tmp}/b",
-                                      verbose=False, device=DEVICE,
-                                      kill_trainer_at=7, kill_worker_at=2)
-    launches = {k: ops.LAUNCHES[k] for k in ("flash_attention",
-                                             "flash_attention_backward")}
+        a = train_driver.run_training(**LOGIO_RUN, arch=cfg.name,
+                                      ckpt_dir=f"{tmp}/a", verbose=False,
+                                      device=DEVICE)
+        b = train_driver.run_training(**LOGIO_RUN, arch=cfg.name,
+                                      ckpt_dir=f"{tmp}/b", verbose=False,
+                                      device=DEVICE, kill_trainer_at=7,
+                                      kill_worker_at=2)
+    launches = {k: ops.LAUNCHES[k] for k in wrappers}
     check(b["losses"][:7] == a["losses"][:7], "logio: pre-crash losses differ")
     check(b["losses"][7:] == a["losses"][6:], "logio: replayed losses differ")
     check(b["engine"].failures >= 2, f"logio: {b['engine'].failures} failures")
@@ -1400,10 +1639,11 @@ def phase_logio(cfg) -> dict:
     n_steps = len(a["losses"]) + len(b["losses"])
     check(all(x == red.n_layers * n_steps for x in launches.values()),
           f"logio: launches {launches} over {n_steps} steps")
-    log(f"logio: {len(a['losses'])} + {len(b['losses'])} steps, crash steps "
-        f"{b['crash_steps']}, pipeline failures {b['engine'].failures} "
-        f"restarts {b['engine'].restarts}; losses and final state "
-        f"bit-identical; flash launches {launches}; losses {a['losses']}")
+    log(f"logio {cfg.name}: {len(a['losses'])} + {len(b['losses'])} steps, "
+        f"crash steps {b['crash_steps']}, pipeline failures "
+        f"{b['engine'].failures} restarts {b['engine'].restarts}; losses and "
+        f"final state bit-identical; launches {launches}; losses "
+        f"{a['losses']}")
     return {"launches": launches}
 
 
@@ -1433,6 +1673,7 @@ def main() -> int:
                                   full, tag="full cache")
         del q, k, v, serve["cache"]
     flash_bwd_t = time_flash_backward(cfg, sdpa_err)
+    d256_t = time_flash_cuda_core()
     log_memory("attention timings")
     torch.cuda.empty_cache()
     # falcon-mamba: the selective scan, in forward and in each decode step
@@ -1447,19 +1688,45 @@ def main() -> int:
         scan_dec = time_scan(a, b, serve_m["cache"][0]["ssm"][0],
                              "decode shape", cold=True)
         del a, b, serve_m["cache"]
+        # the backward at phase 7's shape, from the forward kernel's h
+        a, b, _ = _scan_operands(g, FWD_B, FWD_S, di, ds, None)
+        h = ops.selective_scan(a, b)
+        del b
+        dh = torch.randn(a.shape, generator=g, device=DEVICE)
+        scan_bwd_t = time_scan_backward(a, h, dh, "train shape")
+        del a, h, dh
     log_memory("scan timings")
     torch.cuda.empty_cache()
     # internlm2 training: the f32 flash kernel and its backward
-    train = phase_train(cfg)
-    logio = phase_logio(cfg)
+    train = phase_train(cfg, "attention", "train-f32")
+    logio = phase_logio(cfg, "attention")
+    # falcon-mamba training: the scan kernel and its backward, depth cut
+    mcfg_cut = dataclasses.replace(mcfg, n_layers=MAMBA_TRAIN_LAYERS)
+    tokens = FWD_B * FWD_S
+    reckoned = mamba_train_memory(mcfg, MAMBA_TRAIN_LAYERS, tokens)
+    log(f"mamba-train-f32: depth cut to {MAMBA_TRAIN_LAYERS} of "
+        f"{mcfg.n_layers} layers, for device memory: full depth is "
+        f"{mcfg.param_count() / 1e9:.3f} B params, "
+        f"{16 * mcfg.param_count() / 1e9:.1f} GB of f32 params, grads, m and "
+        f"v; reckoned peak at depth {MAMBA_TRAIN_LAYERS} {reckoned:.1f} GB, at "
+        f"depth {2 * MAMBA_TRAIN_LAYERS} "
+        f"{mamba_train_memory(mcfg, 2 * MAMBA_TRAIN_LAYERS, tokens):.1f} GB "
+        f"(card: {torch.cuda.get_device_properties(0).total_memory / 1e9:.1f}"
+        f" GB)")
+    mtrain = phase_train(mcfg_cut, "scan", "mamba-train-f32", reckoned)
+    mlogio = phase_logio(mcfg, "scan")
     launches = {"flash_attention": fwd["launches"],
                 "flash_attention_backward": train["launches"][
                     "flash_attention_backward"],
                 "decode_attention": serve["launches"],
-                "selective_scan": fwd_m["launches"] + serve_m["launches"]}
+                "selective_scan": fwd_m["launches"] + serve_m["launches"]
+                + mtrain["launches"]["selective_scan"],
+                "selective_scan_backward": mtrain["launches"][
+                    "selective_scan_backward"]}
     timed = {"flash_attention": flash_t,
              "flash_attention_backward": flash_bwd_t,
-             "decode_attention": decode_t, "selective_scan": scan_t}
+             "decode_attention": decode_t, "selective_scan": scan_t,
+             "selective_scan_backward": scan_bwd_t}
     rows = []
     for name, meta in KERNELS.items():
         t = timed[name]
@@ -1477,15 +1744,21 @@ def main() -> int:
     flash_row.update(
         f32_launches_train=train["launches"]["flash_attention"],
         f32_launches_logio=logio["launches"]["flash_attention"],
-        f32_device_ms_in_step=train["flash_fwd_device_ms"])
+        f32_device_ms_in_step=train["fwd_device_ms"],
+        **{f"f32_d256_{key}": val for key, val in d256_t["forward"].items()},
+        f32_d256_shape=list(D256_SHAPE),
+        f32_d256_source="src/repro_torch/kernels/csrc/flash_attention.cu",
+        f32_d256_library_call="EFFICIENT_ATTENTION on K/V repeated, no softcap")
     bwd_row = next(r for r in rows if r["name"] == "flash_attention_backward")
     bwd_row.update(
         launches_per_step=train["launches"]["flash_attention_backward"]
         // train["steps"],
         launches_logio=logio["launches"]["flash_attention_backward"],
         device_ms_by_kernel=flash_bwd_t["device_ms_by_kernel"],
-        device_ms_in_step=train["flash_bwd_device_ms"],
+        device_ms_in_step=train["bwd_device_ms"],
         train_step_ms=train["step_ms"],
+        **{f"d256_{key}": val for key, val in d256_t["backward"].items()},
+        d256_source="src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
         **{key: flash_bwd_t[key] for key in (
             "library_call", "library_max_err_to_max", "library_math_ms",
             "library_math_backend", "cuda_core_bound_ms")})
@@ -1518,7 +1791,21 @@ def main() -> int:
         decode_library_device_ms=scan_dec["library_device_ms"],
         decode_library_clean_l2_device_ms=scan_dec[
             "library_clean_l2_device_ms"],
-        decode_in_serve_step_device_ms=serve_m["scan_in_step"])
+        decode_in_serve_step_device_ms=serve_m["scan_in_step"],
+        launches_train=mtrain["launches"]["selective_scan"],
+        launches_train_logio=mlogio["launches"]["selective_scan"],
+        device_ms_in_train_step=mtrain["fwd_device_ms"])
+    scan_bwd_row = next(r for r in rows if r["name"] == "selective_scan_backward")
+    scan_bwd_row.update(
+        launches_per_step=mtrain["launches"]["selective_scan_backward"]
+        // mtrain["steps"],
+        launches_logio=mlogio["launches"]["selective_scan_backward"],
+        device_ms_in_step=mtrain["bwd_device_ms"],
+        train_step_ms=mtrain["step_ms"],
+        train_depth=MAMBA_TRAIN_LAYERS,
+        grads_bitwise_equal_to_plain=mtrain["grads_bitwise"],
+        library_note="none: no PyTorch call computes a reverse linear "
+                     "recurrence")
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": rows}))
     print(f"card: {dev['smi']}")

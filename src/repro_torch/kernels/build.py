@@ -44,6 +44,7 @@ SIGNATURES = {
                                _I, _F, _I, _P),
     "repro_selective_scan": (_P, _P, _P, _P, _I, _I, _L, _P),
     "repro_selective_scan_step": (_P, _P, _P, _P, _L, _I, _P),
+    "repro_selective_scan_bwd": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _L, _P),
 }
 
 

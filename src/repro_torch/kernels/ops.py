@@ -16,12 +16,15 @@ forward runs two, a flash backward three),
 ``SCAN_VARIANTS`` the scan's launches by variant (``scan_variant``);
 ``reset_launches()`` sets every count to 0.
 
-Flash attention is differentiable: with grad on and an operand that needs
-it, ``flash_attention`` goes through ``FlashAttention`` (a
-``torch.autograd.Function``), whose forward saves the output and the row
+Flash attention and the scan are differentiable: with grad on and an
+operand that needs it, ``flash_attention`` goes through ``FlashAttention``
+(a ``torch.autograd.Function``), whose forward saves the output and the row
 log-sum-exp (the f32 kernels write it) and whose backward is the f32
-backward kernel of the forward's variant (``flash_attention_backward``). On
-the CPU the Function takes the plain versions of both.
+backward kernel of the forward's variant (``flash_attention_backward``);
+``selective_scan`` goes through ``SelectiveScan``, whose forward saves a, h
+and h0 and whose backward is the reverse-scan kernel
+(``selective_scan_backward``). On the CPU each Function takes the plain
+versions of both.
 """
 from __future__ import annotations
 
@@ -34,7 +37,8 @@ import torch
 from repro_torch.kernels import build, ref
 
 LAUNCHES = {"flash_attention": 0, "flash_attention_backward": 0,
-            "decode_attention": 0, "selective_scan": 0}
+            "decode_attention": 0, "selective_scan": 0,
+            "selective_scan_backward": 0}
 SCAN_VARIANTS = {"step": 0, "sequential": 0}
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _HEAD_DIMS = (32, 64, 128, 256)
@@ -75,9 +79,9 @@ _GRAD_ROUTE = {
                        "ops.FlashAttention (the torch.autograd.Function that "
                        "ops.flash_attention applies)",
     "decode_attention": "decode attention is inference only",
-    "selective_scan": "the selective scan has no backward kernel yet (ROADMAP "
-                      "B.2 / A.1): on the card a Mamba layer trains only "
-                      "with Runtime(scan_impl=\"plain\")",
+    "selective_scan": "gradients of the selective scan go through "
+                      "ops.SelectiveScan (the torch.autograd.Function that "
+                      "ops.selective_scan applies)",
 }
 
 
@@ -345,10 +349,9 @@ def _launch_decode_attention(q, k, v, lengths, out, window, softcap) -> None:
 # ---------------------------------------------------------------------------
 
 
-def selective_scan(a: torch.Tensor, b: torch.Tensor,
-                   h0: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """``h_t = a_t * h_{t-1} + b_t`` over axis 1. a, b: [B,S,DI,DS] f32;
-    h0: [B,DI,DS] f32 (zeros when None) -> h [B,S,DI,DS] f32."""
+def _check_scan(a: torch.Tensor, b: torch.Tensor,
+                h0: Optional[torch.Tensor]) -> tuple:
+    """The operands as a tuple, after the checks every device shares."""
     if a.dim() != 4 or a.shape != b.shape:
         raise ValueError(f"selective_scan: bad shapes a{tuple(a.shape)} "
                          f"b{tuple(b.shape)}")
@@ -358,6 +361,28 @@ def selective_scan(a: torch.Tensor, b: torch.Tensor,
                          f"{(a.shape[0],) + tuple(a.shape[2:])}")
     if any(t.dtype != torch.float32 for t in ts):
         raise ValueError("selective_scan: a, b and h0 must be float32")
+    return ts
+
+
+def selective_scan(a: torch.Tensor, b: torch.Tensor,
+                   h0: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """``h_t = a_t * h_{t-1} + b_t`` over axis 1. a, b: [B,S,DI,DS] f32;
+    h0: [B,DI,DS] f32 (zeros when None) -> h [B,S,DI,DS] f32.
+
+    Differentiable through ``SelectiveScan`` when grad is on and an operand
+    needs it."""
+    ts = _check_scan(a, b, h0)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in ts):
+        return SelectiveScan.apply(a, b, h0)
+    return selective_scan_forward(a, b, h0)
+
+
+def selective_scan_forward(a: torch.Tensor, b: torch.Tensor,
+                           h0: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The scan's forward kernel (of ``scan_variant``) on the card, the plain
+    loop on the CPU, without autograd (a call with grad raises;
+    ``SelectiveScan`` is the differentiable route)."""
+    ts = _check_scan(a, b, h0)
     if a.device.type == "cpu":
         return ref.selective_scan_ref(a, b, h0)
     _check_cuda_operands("selective_scan", *ts, align=4)
@@ -367,6 +392,52 @@ def selective_scan(a: torch.Tensor, b: torch.Tensor,
     LAUNCHES["selective_scan"] += 1
     SCAN_VARIANTS[variant] += 1
     return out
+
+
+class SelectiveScan(torch.autograd.Function):
+    """The scan with its backward kernel: the forward saves a (the caller's
+    tensor itself, no copy), its output h and h0; the backward runs the
+    reverse scan (``selective_scan_backward``) from them."""
+
+    @staticmethod
+    def forward(ctx, a, b, h0):
+        h = selective_scan_forward(a, b, h0)
+        ctx.save_for_backward(a, h, h0)
+        return h
+
+    @staticmethod
+    def backward(ctx, dh):
+        a, h, h0 = ctx.saved_tensors
+        da, db, dh0 = selective_scan_backward(a, h, h0, dh.contiguous())
+        return da, db, dh0 if ctx.needs_input_grad[2] else None
+
+
+def selective_scan_backward(a: torch.Tensor, h: torch.Tensor,
+                            h0: Optional[torch.Tensor], dh: torch.Tensor):
+    """(da, db, dh0) of the scan. a, h (the forward's output), dh:
+    [B,S,DI,DS] f32; h0: [B,DI,DS] f32 or None (then dh0 is None). On the
+    card the reverse-scan kernel (``csrc/selective_scan.cu``, one kernel for
+    every S: the S = 1 step variant has no backward), bit-identical to the
+    plain reverse loop and the same bits on every call; that loop
+    (``ref.selective_scan_backward_ref``) on the CPU."""
+    ts = _check_scan(a, h, h0) + (dh,)
+    if dh.shape != a.shape or dh.dtype != torch.float32:
+        raise ValueError(f"selective_scan_backward: dh must be float32 of "
+                         f"shape {tuple(a.shape)}")
+    if a.device.type == "cpu":
+        return ref.selective_scan_backward_ref(a, h, h0, dh)
+    _check_cuda_operands("selective_scan_backward", *ts, align=4)
+    B, S, DI, DS = a.shape
+    da, db = torch.empty_like(a), torch.empty_like(a)
+    dh0 = None if h0 is None else torch.empty_like(h0)
+    none = ctypes.c_void_p(None)
+    code = build.load().repro_selective_scan_bwd(
+        _ptr(a), _ptr(h), none if h0 is None else _ptr(h0), _ptr(dh),
+        _ptr(da), _ptr(db), none if dh0 is None else _ptr(dh0), B, S,
+        DI * DS, _stream())
+    _raise_on(code, "selective_scan_backward")
+    LAUNCHES["selective_scan_backward"] += 1
+    return da, db, dh0
 
 
 def scan_variant(a: torch.Tensor, b: torch.Tensor,

@@ -163,3 +163,29 @@ def selective_scan_ref(a: torch.Tensor, b: torch.Tensor,
         h = a[:, t] * h + b[:, t]
         out[:, t] = h
     return out
+
+
+def selective_scan_backward_ref(a: torch.Tensor, h: torch.Tensor,
+                                h0: Optional[torch.Tensor],
+                                dh: torch.Tensor):
+    """The gradient of ``selective_scan_ref`` written out as a reverse loop.
+
+    a, h (the forward's output), dh: [B,S,DI,DS] f32; h0: [B,DI,DS] f32 or
+    None -> (da, db [B,S,DI,DS], dh0 [B,DI,DS] or None). With g the gradient
+    that reaches h_t, ``g_t = dh_t + a_{t+1} * g_{t+1}`` (g = dh_{S-1} at the
+    end), ``db_t = g_t``, ``da_t = g_t * h_{t-1}`` (h_{-1} = h0, or zeros),
+    ``dh0 = a_0 * g_0``. One rounded product and one rounded sum per step,
+    in order over t: autograd through the forward loop rounds the same
+    operations (up to the order of a commutative product or sum), so the
+    bits are the same.
+    """
+    S = a.shape[1]
+    hprev0 = torch.zeros_like(a[:, 0]) if h0 is None else h0
+    da, db = torch.empty_like(a), torch.empty_like(a)
+    g = dh[:, S - 1]
+    for t in range(S - 1, -1, -1):
+        if t < S - 1:
+            g = dh[:, t] + a[:, t + 1] * g
+        db[:, t] = g
+        da[:, t] = g * (h[:, t - 1] if t > 0 else hprev0)
+    return da, db, None if h0 is None else a[:, 0] * g

@@ -10,8 +10,9 @@ Counterpart of ``repro.launch.train``, with ``device`` (``cuda`` unless
 On the card the run is deterministic: ``torch.use_deterministic_algorithms``
 is turned on, and ``CUBLAS_WORKSPACE_CONFIG`` must be ``:4096:8`` or
 ``:16:8`` before CUDA starts (cuBLAS is otherwise free to reduce in another
-order from run to run); the attention backward is the deterministic kernel
-of ``csrc/flash_attention_bwd.cu``.
+order from run to run); the attention backward (``ops.FlashAttention``) and
+the scan's backward (``ops.SelectiveScan``, for ``--arch falcon-mamba-7b``)
+are deterministic kernels, with no atomics.
 
 Exactly-once training semantics: consumed batches are acknowledged (their
 Input Sets marked done, with the checkpoint as the covering *write action*)

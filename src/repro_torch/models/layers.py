@@ -314,7 +314,11 @@ def apply_mamba(p: MambaParams, x: torch.Tensor, cfg: ArchConfig, *,
 
     The ``scan_impl="pallas"`` branch of the JAX code: a and b are built at
     [B,S,di,ds] in f32 and the recurrence runs in one scan-kernel launch
-    (``scan_impl="kernel"``) or the plain loop (``"plain"``).
+    (``scan_impl="kernel"``) or the plain loop (``"plain"``). Both
+    differentiate: the kernel route through ``ops.SelectiveScan`` (its
+    backward is one reverse-scan kernel launch, from the saved a and h),
+    the plain one through autograd of the loop. JAX differentiates its XLA
+    scans (``scan_impl="chunked"``), which the tests hold the gradients to.
     """
     u, z, dt, Bc, Cc, _ = _mamba_pre(p, x, cfg)
     a, b = _scan_inputs(p, u, dt, Bc)

@@ -6,7 +6,9 @@ that takes each microbatch's gradient with ``torch.autograd.grad`` and adds
 it into f32 accumulators in a fixed order (``0 + g_1 + g_2 + ...``, as the
 scan does), then divides by ``accum``. Attention runs through
 ``ops.flash_attention`` (the flash kernel and its backward kernel on the
-card). The state is
+card), the Mamba recurrence through ``ops.selective_scan`` (the scan
+kernel and its reverse-scan backward kernel, ``ops.SelectiveScan``). The
+state is
 
     {"params": DecoderParams, "opt": {"m": DecoderParams (f32),
      "v": DecoderParams (f32), "count": int32}, "step": int32}

@@ -347,14 +347,20 @@ def test_flash_grad_reaches_the_kernels(monkeypatch):
 
 @pytest.mark.parametrize("bad", ["noncontiguous", "grad"])
 def test_scan_limits_are_checked_before_launch(monkeypatch, bad):
+    """A non-contiguous operand, or a bare forward-kernel call with grad, is
+    refused before any launch; with grad the wrapper itself goes through
+    ops.SelectiveScan to the forward kernel."""
     monkeypatch.setattr(ops, "_launch_selective_scan", _refuse)
     a, b = torch.rand(2, 8, 4, 3), torch.randn(2, 8, 4, 3)
     if bad == "noncontiguous":
         b = torch.randn(2, 8, 3, 4).transpose(2, 3)
-    else:
-        a.requires_grad_(True)
-    err = NotImplementedError if bad == "grad" else ValueError
-    with pytest.raises(err):
+        with pytest.raises(ValueError):
+            ops.selective_scan(_claims_cuda(a), _claims_cuda(b))
+        return
+    a.requires_grad_(True)
+    with pytest.raises(NotImplementedError, match="SelectiveScan"):
+        ops.selective_scan_forward(_claims_cuda(a), _claims_cuda(b))
+    with pytest.raises(_Launched):
         ops.selective_scan(_claims_cuda(a), _claims_cuda(b))
 
 

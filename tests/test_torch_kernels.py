@@ -192,6 +192,101 @@ def test_selective_scan_ref_from_a_state_matches_jax(B, S, DI, DS):
         np.testing.assert_allclose(got[:, 0], want, rtol=1e-5, atol=1e-5)
 
 
+# The scan's backward: the plain reverse loop (``ref.selective_scan_backward_ref``,
+# which ``ops.SelectiveScan`` runs for CPU tensors and the CUDA kernel
+# reproduces bit for bit) at small sizes: S = 1, S below and past the
+# kernel's 8-step groups, odd F, with and without h0.
+SCAN_BWD_CASES = [
+    # (B, S, DI, DS, h0)
+    (2, 64, 32, 8, False),
+    (1, 37, 16, 16, True),
+    (3, 1, 7, 3, True),
+    (2, 1, 8, 4, False),
+    (2, 13, 24, 5, False),
+    (2, 100, 24, 5, True),
+]
+
+
+def _scan_grad_inputs(case, seed=6):
+    B, S, DI, DS, with_h0 = case
+    rng = np.random.default_rng(seed)
+    a, b = _scan_inputs(rng, B, S, DI, DS)
+    h0 = _np(rng, (B, DI, DS)) if with_h0 else None
+    return a, b, h0, _np(rng, (B, S, DI, DS))
+
+
+@pytest.mark.parametrize("case", SCAN_BWD_CASES)
+def test_selective_scan_backward_ref_is_autograd_bit_for_bit(case):
+    """One rounded product and one rounded sum per step, in the order of
+    autograd through the forward loop: the same bits (``torch.equal``)."""
+    a, b, h0, dh = _scan_grad_inputs(case)
+    leaves = [torch.from_numpy(x).requires_grad_(True)
+              for x in ((a, b) if h0 is None else (a, b, h0))]
+    h = ref.selective_scan_ref(*leaves)
+    want = torch.autograd.grad(h, leaves, torch.from_numpy(dh))
+    got = ref.selective_scan_backward_ref(
+        leaves[0].detach(), h.detach(),
+        None if h0 is None else leaves[2].detach(), torch.from_numpy(dh))
+    assert (got[2] is None) == (h0 is None)
+    for g, w in zip(got, want):
+        assert g.dtype == torch.float32 and g.shape == w.shape
+        assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("case", SCAN_CASES)
+def test_selective_scan_backward_ref_matches_jax_vjp(case):
+    """Against jax.vjp of the JAX oracle (its associative scan, which has no
+    h0): within 2e-5 of each gradient's largest magnitude."""
+    B, S, DI, DS = case[:4]
+    a, b, _, dh = _scan_grad_inputs((B, S, DI, DS, False), seed=7)
+    h = ref.selective_scan_ref(torch.from_numpy(a), torch.from_numpy(b))
+    da, db, dh0 = ref.selective_scan_backward_ref(
+        torch.from_numpy(a), h, None, torch.from_numpy(dh))
+    assert dh0 is None
+    _, vjp = jax.vjp(jref.selective_scan_ref, jnp.asarray(a), jnp.asarray(b))
+    want_da, want_db = vjp(jnp.asarray(dh))
+    _close_to_max(da.numpy(), want_da)
+    _close_to_max(db.numpy(), want_db)
+
+
+@pytest.mark.parametrize("case", SCAN_BWD_CASES[:3])
+def test_selective_scan_grad_on_cpu_takes_the_plain_backward(case,
+                                                              monkeypatch):
+    """With grad on, the wrapper goes through ops.SelectiveScan, whose CPU
+    backward is the plain reverse loop, called once, launching nothing; the
+    bits are those of autograd through the plain loop."""
+    a, b, h0, dh = _scan_grad_inputs(case, seed=8)
+    leaves = [torch.from_numpy(x).requires_grad_(True)
+              for x in ((a, b) if h0 is None else (a, b, h0))]
+    calls = []
+    plain_bwd = ref.selective_scan_backward_ref
+    monkeypatch.setattr(ref, "selective_scan_backward_ref",
+                        lambda *x: calls.append(1) or plain_bwd(*x))
+    before = dict(ops.LAUNCHES)
+    out = ops.selective_scan(*leaves)
+    assert out.grad_fn is not None and "SelectiveScan" in type(out.grad_fn).__name__
+    got = torch.autograd.grad(out, leaves, torch.from_numpy(dh))
+    assert calls == [1] and ops.LAUNCHES == before
+    want = torch.autograd.grad(ref.selective_scan_ref(*leaves), leaves,
+                               torch.from_numpy(dh))
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+    with torch.no_grad():
+        assert ops.selective_scan(*leaves).grad_fn is None
+
+
+@pytest.mark.parametrize("bad", ["shape", "dh", "dtype"])
+def test_selective_scan_backward_rejects_bad_operands(bad):
+    a = h = dh = torch.zeros(2, 4, 8, 4)
+    if bad == "shape":
+        h = torch.zeros(2, 4, 8, 2)
+    elif bad == "dh":
+        dh = torch.zeros(2, 3, 8, 4)
+    else:
+        dh = dh.double()
+    with pytest.raises(ValueError):
+        ops.selective_scan_backward(a, h, None, dh)
+
+
 @pytest.mark.parametrize("bad", ["shape", "h0", "dtype"])
 def test_selective_scan_rejects_bad_operands_on_any_device(bad):
     a = b = torch.zeros(2, 4, 8, 4)

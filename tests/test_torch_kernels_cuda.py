@@ -358,20 +358,106 @@ def test_f32_flash_runs_the_variant_of_its_head_dim(card, D, variant):
 
 
 @pytest.mark.cuda
-def test_scan_with_grad_names_its_missing_backward(card):
-    """A scan kernel call with grad, bare and from a falcon-mamba layer,
-    raises a message that names the scan's missing backward (not the flash
-    attention route)."""
+def test_bare_scan_kernel_call_refuses_grad(card):
+    """The scan's forward kernel called bare with grad raises, and its
+    message names the differentiable route (ops.SelectiveScan), as the flash
+    kernel's names ops.FlashAttention."""
+    a = torch.rand(1, 4, 8, 4, device=card, requires_grad=True)
+    with pytest.raises(NotImplementedError, match="SelectiveScan") as e:
+        ops.selective_scan_forward(a, torch.rand(1, 4, 8, 4, device=card))
+    assert "FlashAttention" not in str(e.value)
+
+
+# The scan's backward kernel against the plain reverse loop, bit for bit:
+# chip_smoke.py's phase-2 cases (falcon-mamba's train shape, a ragged F with
+# h0 and S one past a multiple of the 8-step groups, a small odd F, S below
+# one group, an h0 4 bytes into its buffer, S = 1 with and without h0)
+SCAN_BWD_CASES = [
+    # (B, S, DI, DS, h0)
+    (2, 2048, 8192, 16, None),
+    (3, 1001, 8192 + 48, 16, "fresh"),
+    (2, 300, 7, 3, "fresh"),
+    (2, 13, 24, 5, None),
+    (2, 37, 64, 16, "offset"),
+    (4, 1, 8192, 16, "fresh"),
+    (4, 1, 8192, 16, None),
+]
+
+
+def _scan_operands(card, B, S, DI, DS, h0_kind, seed=0):
+    g = torch.Generator(device=card).manual_seed(seed)
+    a = torch.rand((B, S, DI, DS), generator=g, device=card) * 0.5 + 0.499
+    b = torch.randn((B, S, DI, DS), generator=g, device=card)
+    h0 = None
+    if h0_kind is not None:
+        h0 = torch.randn((B * DI * DS + 1,), generator=g, device=card)
+        h0 = (h0[1:] if h0_kind == "offset" else h0[:-1]).view(B, DI, DS)
+    dh = torch.randn((B, S, DI, DS), generator=g, device=card)
+    return a, b, h0, dh
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", SCAN_BWD_CASES)
+def test_selective_scan_backward_kernel_matches_plain(card, case):
+    a, b, h0, dh = _scan_operands(card, *case)
+    h = ops.selective_scan(a, b, h0)
+    n = ops.LAUNCHES["selective_scan_backward"]
+    got = ops.selective_scan_backward(a, h, h0, dh)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["selective_scan_backward"] == n + 1
+    want = ref.selective_scan_backward_ref(a, h, h0, dh)
+    assert (got[2] is None) == (h0 is None) == (want[2] is None)
+    for x, y in zip(got, want):
+        if y is not None:
+            assert x.dtype == torch.float32 and x.shape == y.shape
+            assert torch.equal(x, y)   # rounded mul and add, as the loop
+    again = ops.selective_scan_backward(a, h, h0, dh)
+    assert all(torch.equal(x, y) for x, y in zip(got, again) if x is not None)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", [(2, 64, 32, 8, None), (1, 37, 16, 16, "fresh"),
+                                  (3, 1, 7, 3, "fresh"), (2, 512, 256, 16, None)])
+def test_selective_scan_autograd_on_card(card, case):
+    """ops.selective_scan with grad: the forward and backward kernels, one
+    counted launch each, give the bits of autograd through the plain loop."""
+    a, b, h0, dh = _scan_operands(card, *case, seed=1)
+    leaves = [t.clone().requires_grad_(True)
+              for t in ((a, b) if h0 is None else (a, b, h0))]
+    n = dict(ops.LAUNCHES)
+    out = ops.selective_scan(*leaves)
+    got = torch.autograd.grad(out, leaves, dh)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["selective_scan"] == n["selective_scan"] + 1
+    assert (ops.LAUNCHES["selective_scan_backward"]
+            == n["selective_scan_backward"] + 1)
+    want_out = ref.selective_scan_ref(*leaves)
+    want = torch.autograd.grad(want_out, leaves, dh)
+    assert torch.equal(out, want_out)
+    assert all(torch.equal(x, y) for x, y in zip(got, want))
+
+
+@pytest.mark.cuda
+def test_mamba_layer_grads_through_the_kernel_route(card):
+    """A reduced falcon-mamba's loss gradient through the scan kernel and its
+    backward kernel (one launch of each per layer) against the plain path."""
     from repro_torch.configs import get_config, reduced
     from repro_torch.models import model as M
-    a = torch.rand(1, 4, 8, 4, device=card, requires_grad=True)
-    with pytest.raises(NotImplementedError, match="no backward kernel") as e:
-        ops.selective_scan(a, torch.rand(1, 4, 8, 4, device=card))
-    assert "FlashAttention" not in str(e.value)
-    cfg = reduced(get_config("falcon-mamba-7b"), n_layers=1)
+    from repro_torch.training import loss_fn
+    cfg = reduced(get_config("falcon-mamba-7b"), n_layers=2)
     p = M.init_params(torch.Generator(device=card).manual_seed(0), cfg,
                       torch.float32, card).requires_grad_(True)
-    tokens = torch.randint(0, cfg.vocab, (1, 8), device=card)
-    with pytest.raises(NotImplementedError, match="selective scan has no "
-                                                  "backward kernel"):
-        M.forward(p, {"tokens": tokens}, cfg, M.Runtime(scan_impl="kernel"))
+    toks = torch.randint(0, cfg.vocab, (2, 41), device=card)
+    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:].to(torch.int32)}
+    leaves = list(p.parameters())
+    n = dict(ops.LAUNCHES)
+    got = torch.autograd.grad(
+        loss_fn(p, batch, cfg, M.Runtime(scan_impl="kernel"))[0], leaves)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["selective_scan"] == n["selective_scan"] + cfg.n_layers
+    assert (ops.LAUNCHES["selective_scan_backward"]
+            == n["selective_scan_backward"] + cfg.n_layers)
+    want = torch.autograd.grad(
+        loss_fn(p, batch, cfg, M.Runtime(scan_impl="plain"))[0], leaves)
+    for (name, _), x, y in zip(p.named_parameters(), got, want):
+        assert_close_to_max(x, y, BWD_TOL, name)

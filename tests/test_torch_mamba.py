@@ -21,6 +21,7 @@ from repro.configs import get_config, reduced  # noqa: E402
 from repro.models import layers as JL, model as JM  # noqa: E402
 from repro_torch import bridge  # noqa: E402
 from repro_torch.configs import get_config as t_get_config, reduced as t_reduced  # noqa: E402
+from repro_torch.kernels import ref  # noqa: E402
 from repro_torch.models import layers as TL, model as TM  # noqa: E402
 
 TOL = {"float32": 2e-5, "bfloat16": 2e-2}
@@ -78,6 +79,43 @@ def test_apply_mamba_matches_jax(S, jax_impl):
         got = TL.apply_mamba(tp, torch.from_numpy(x), tcfg, scan_impl=impl)
         assert got.shape == (2, S, cfg.d_model)
         _close(got.numpy(), want)
+
+
+@pytest.mark.parametrize("S", [16, 512])
+def test_apply_mamba_grad_matches_jax(S, monkeypatch):
+    """The mixer's gradient (every param leaf and the input) of a weighted
+    sum of its output, through the port's kernel route (``ops.SelectiveScan``
+    on the CPU: the plain reverse loop) against ``jax.grad`` of JAX's chunked
+    path (the associative scan at S <= 256), which JAX trains through:
+    within 2e-5 of each leaf's largest magnitude."""
+    cfg, tcfg = _configs()
+    p, tp = _mixer(cfg, tcfg)
+    rng = np.random.default_rng(3)
+    x = rng.standard_normal((2, S, cfg.d_model)).astype(np.float32)
+    w = rng.standard_normal((2, S, cfg.d_model)).astype(np.float32)
+
+    def jloss(params, xx):
+        return jnp.sum(JL.apply_mamba(params, xx, cfg, scan_impl="chunked")
+                       * jnp.asarray(w))
+    want_p, want_x = jax.grad(jloss, argnums=(0, 1))(p, jnp.asarray(x))
+    calls = []
+    plain_bwd = ref.selective_scan_backward_ref
+    monkeypatch.setattr(ref, "selective_scan_backward_ref",
+                        lambda *a: calls.append(1) or plain_bwd(*a))
+    tp.requires_grad_(True)
+    tx = torch.from_numpy(x).requires_grad_(True)
+    out = TL.apply_mamba(tp, tx, tcfg, scan_impl="kernel")
+    names = sorted(want_p)
+    leaves = [getattr(tp, n) for n in names] + [tx]
+    got = torch.autograd.grad((out * torch.from_numpy(w)).sum(), leaves)
+    assert calls == [1]      # the scan's gradient came from its backward
+    for name, g, want in zip(names + ["x"], got,
+                             [want_p[n] for n in names] + [want_x]):
+        want = np.asarray(want, np.float32)
+        scale = max(float(np.abs(want).max()), 1e-30)
+        np.testing.assert_allclose(g.numpy() / scale, want / scale,
+                                   rtol=TOL["float32"], atol=TOL["float32"],
+                                   err_msg=name)
 
 
 def test_apply_mamba_decode_matches_jax():

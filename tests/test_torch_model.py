@@ -25,7 +25,8 @@ from repro_torch.models import layers as TL, model as TM  # noqa: E402
 
 TOL = 2e-5
 KEY = jax.random.PRNGKey(0)
-CONFIGS = ["internlm2-1.8b", "qwen3-32b", "gemma2-9b", "starcoder2-7b-padded"]
+CONFIGS = ["internlm2-1.8b", "qwen3-32b", "gemma2-9b", "starcoder2-7b-padded",
+           "chameleon-34b"]
 
 
 def _configs(name):

@@ -19,15 +19,14 @@ def _leaves(tree):
         yield np.asarray(tree)
 
 
-@pytest.mark.timeout(300)      # two short training runs
-def test_bit_identical_resume(tmp_path):
+def _check_resume(tmp_path, **kw):
     a = run_training(steps=10, ckpt_every=3, seq_len=64, batch_size=4,
                      ckpt_dir=str(tmp_path / "a"), d_model=64, n_layers=2,
-                     verbose=False, seed=3, device="cpu")
+                     verbose=False, seed=3, device="cpu", **kw)
     b = run_training(steps=10, ckpt_every=3, seq_len=64, batch_size=4,
                      ckpt_dir=str(tmp_path / "b"), d_model=64, n_layers=2,
                      verbose=False, seed=3, kill_trainer_at=7,
-                     kill_worker_at=2, device="cpu")
+                     kill_worker_at=2, device="cpu", **kw)
     # pre-crash prefix identical
     assert b["losses"][:7] == a["losses"][:7]
     # post-crash: replays from the last checkpoint (step 6) onward
@@ -37,6 +36,18 @@ def test_bit_identical_resume(tmp_path):
                for x, y in zip(_leaves(to_host(a["final_state"])),
                                _leaves(to_host(b["final_state"]))))
     assert same
+
+
+@pytest.mark.timeout(300)      # two short training runs
+def test_bit_identical_resume(tmp_path):
+    _check_resume(tmp_path)
+
+
+@pytest.mark.timeout(300)      # two short training runs
+def test_bit_identical_resume_falcon_mamba(tmp_path):
+    """The same through falcon-mamba's train step (the scan's gradient via
+    ``ops.SelectiveScan``), reduced to d_model 64 and 2 layers."""
+    _check_resume(tmp_path, arch="falcon-mamba-7b")
 
 
 @pytest.mark.timeout(300)      # a short training run

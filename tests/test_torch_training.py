@@ -32,6 +32,7 @@ from repro.training import loss as JLoss, optimizer as JO, step as JS  # noqa: E
 from repro_torch import bridge  # noqa: E402
 from repro_torch.configs import ARCHS as T_ARCHS, reduced as t_reduced  # noqa: E402
 from repro_torch.training import loss as TLoss, optimizer as TO, step as TS  # noqa: E402
+from tests.test_torch_model import _configs as _model_configs  # noqa: E402
 
 pytestmark = pytest.mark.timeout(300)
 
@@ -58,6 +59,10 @@ def _close_trees(got, want, tol):
 
 
 def _configs(name):
+    """The reduced configs of tests/test_archs_smoke.py; "-padded" gives
+    test_torch_model.py's padded variant (heads and vocab padded)."""
+    if name.endswith("-padded"):
+        return _model_configs(name)
     full, t_full = ARCHS[name], T_ARCHS[name]
     n = 2 * len(full.block) if len(full.block) == 1 else len(full.block)
     return reduced(full, n_layers=n), t_reduced(t_full, n_layers=n)
@@ -115,17 +120,21 @@ def _batch(rng, cfg, accum, mb, S):
 
 
 @pytest.mark.parametrize("accum", [1, 2])
-@pytest.mark.parametrize("name", ["internlm2-1.8b", "qwen3-32b", "gemma2-9b"])
+@pytest.mark.parametrize("name", ["internlm2-1.8b", "qwen3-32b", "gemma2-9b",
+                                  "falcon-mamba-7b", "chameleon-34b",
+                                  "starcoder2-7b-padded"])
 def test_train_step_matches_jax(name, accum):
     """Three steps from one bridged state; compared after the first and the
     third (gemma2: local window 8 at S = 16, softcaps, tied embeddings;
-    qwen3: qk-norm)."""
+    qwen3: qk-norm; falcon-mamba: the port's scan gradient through
+    ``ops.SelectiveScan`` against JAX's chunked path, the one JAX trains
+    through; starcoder2 with its heads and vocab padded)."""
     cfg, tcfg = _configs(name)
     rng = np.random.default_rng(3)
     state = JS.init_train_state(jax.random.PRNGKey(0), cfg, HP, jnp.float32)
     t_state = bridge.train_state_from_jax(_np_tree(state), tcfg, "cpu")
-    rt = JM.Runtime(attn_impl="xla", remat="none", q_chunk=16,
-                    shard_activations=False)
+    rt = JM.Runtime(attn_impl="xla", scan_impl="chunked", remat="none",
+                    q_chunk=16, shard_activations=False)
     step = jax.jit(JS.make_train_step(cfg, HP, rt))
     t_step = TS.make_train_step(tcfg, T_HP)
     for i in range(3):
