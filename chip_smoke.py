@@ -4,9 +4,12 @@
     python3 chip_smoke.py
 
 Models, at full width with random weights from a seed, depth not cut
-except in phase 7: internlm2-1.8b (24 layers, d=2048, 16 heads, 8 kv heads,
-dh=128, d_ff=8192, V=92544) and falcon-mamba-7b (64 Mamba layers, d=4096,
-d_inner=8192, d_state=16, d_conv=4, dt_rank=256, V=65024). Phases:
+except in phases 7 and 8: internlm2-1.8b (24 layers, d=2048, 16 heads, 8 kv
+heads, dh=128, d_ff=8192, V=92544), falcon-mamba-7b (64 Mamba layers,
+d=4096, d_inner=8192, d_state=16, d_conv=4, dt_rank=256, V=65024) and
+gemma2-9b (42 layers, alternating local (window 4096) and global attention,
+d=3584, 16 heads, 8 kv heads, dh=256, d_ff=14336, V=256000 tied, softcaps
+50 / 30). Phases:
 
 1. device: name, power limit, kernel build (nvcc, sm_90a) and its seconds;
 2. each CUDA kernel, launched directly, against its plain PyTorch version
@@ -41,9 +44,11 @@ d_inner=8192, d_state=16, d_conv=4, dt_rank=256, V=65024). Phases:
    SDPA on K/V repeated to the q heads and SDPA with ``enable_gqa`` (MATH),
    after step 0, which measures that SDPA's error against the plain
    versions at phase 2's f32 cases (the evidence for split-f32); the f32
-   CUDA-core flash pair at gemma2-9b's attention shape (dh = 256, softcap
-   50; off the main paths) beside its 67 TFLOP/s bound and SDPA without
-   the softcap; the scan's backward at phase 7's shape beside its bound;
+   flash pair at gemma2-9b's attention shape (dh = 256, softcap 50; phase
+   8's: split-f32, clusters of two blocks) beside its 3xTF32 and CUDA-core
+   bounds and memory-efficient SDPA without the softcap, and the bf16
+   forward there (off the main paths) beside its bound and SDPA's flash
+   backend; the scan's backward at phase 7's shape beside its bound;
 6. internlm2 ``make_train_step`` at full width in f32 (24 layers, tokens
    [accum 1, mb 2, S 2048], 30.2 GB of params, grads and AdamW moments):
    step ms, tokens/s, the device breakdown, 24 forward and 24 backward
@@ -62,15 +67,22 @@ d_inner=8192, d_state=16, d_conv=4, dt_rank=256, V=65024). Phases:
    the scan pair's share of the step and the grads at depth 2 against
    ``scan_impl="plain"`` (and whether they are bitwise equal);
    7b. (mamba-train-logio) phase 6b's pair of runs on falcon-mamba, reduced
-   to d_model 512 and 4 layers (d_inner 1024, d_state 8).
+   to d_model 512 and 4 layers (d_inner 1024, d_state 8);
+8. gemma2-9b ``make_train_step`` (gemma2-train-f32) at full width in f32,
+   depth cut to GEMMA_TRAIN_LAYERS (4 of 42, two (local, global) pairs:
+   device memory, reckoned on its own line), tokens [1, 2, 2048]: the same
+   checks and timings as phase 6, with 4 forward and 4 backward flash
+   launches a step recorded as the split-f32 kernels at dh = 256 (the
+   *_d256_* pair kernels) and none of another variant; its first loss is
+   held to the plain path's (a tied N(0, 1) embedding puts it far above
+   ln V, see ``phase_train``).
 
-Phase 2 also holds the f32 flash backward (``csrc/flash_attention_f32tc.cu``
-at D <= 128, ``csrc/flash_attention_bwd.cu`` at D = 256) against its plain
-version at rtol = atol = 2e-5 relative to each
+Phase 2 also holds the f32 flash backward (``csrc/flash_attention_f32tc.cu``)
+against its plain version at rtol = atol = 2e-5 relative to each
 gradient's largest magnitude, bitwise repeatable, and the forward's lse.
 Training needs ``CUBLAS_WORKSPACE_CONFIG`` (set here before torch starts)
 and runs under ``torch.use_deterministic_algorithms(True)`` from phase 6 on.
-The phases that drive a main path (3-4b, 6-7b) set the launch counts to 0
+The phases that drive a main path (3-4b, 6-8) set the launch counts to 0
 just before and read them just after.
 
 Every breakdown prints the port's kernel launches the profiler recorded
@@ -123,6 +135,7 @@ SEED = 0
 DEVICE = "cuda"   # the phases take their device from here
 ARCH = "internlm2-1.8b"
 MAMBA_ARCH = "falcon-mamba-7b"
+GEMMA_ARCH = "gemma2-9b"
 FWD_B, FWD_S = 2, 2048
 SLOTS, MAX_LEN, REQUESTS, TOKENS = 4, 4096, 8, 64
 TRAIN_STEPS = 2          # timed full-width steps after the checked first one
@@ -131,11 +144,12 @@ GRAD_TOL = 1e-4          # that check's tolerance, relative to each leaf's max
 LOGIO_RUN = dict(steps=10, ckpt_every=3, seq_len=128, batch_size=4,
                  d_model=512, n_layers=4, seed=3)   # phases 6b and 7b
 MAMBA_TRAIN_LAYERS = 4   # phase 7's depth (of 64): what device memory allows
+GEMMA_TRAIN_LAYERS = 4   # phase 8's depth (of 42): two (local, global) pairs
 
 KERNELS = {
     # bf16 (the forward path) runs on the tensor cores; f32 (the train path)
-    # on split-f32 tensor-core kernels at D <= 128 (``ops.flash_variant``),
-    # timed beside it in phase 5
+    # on split-f32 tensor-core kernels (``ops.flash_variant``), timed beside
+    # it in phase 5
     "flash_attention": dict(
         route="cuda", source="src/repro_torch/kernels/csrc/flash_attention_tc.cu",
         replaces="src/repro/kernels/flash_attention.py:93"),
@@ -160,21 +174,24 @@ KERNELS = {
 # flash's device kernels by variant (``ops.flash_variant``: dtype and head
 # dim), the scan's by ``ops.scan_variant``. Names are matched as substrings;
 # no name of one variant contains another's.
-FLASH_TC, FLASH_CC = "flash_fwd_tc_kernel", "flash_fwd_kernel"
+FLASH_TC = "flash_fwd_tc_kernel"
 F32TC_FWD_PREP, F32TC_FWD = "flash_f32tc_fwd_prep_kernel", "flash_f32tc_fwd_kernel"
-F32TC_BWD = ("flash_f32tc_bwd_prep_kernel", "flash_f32tc_dkdv_kernel",
-             "flash_f32tc_dq_kernel")
+F32TC_BWD_PREP = "flash_f32tc_bwd_prep_kernel"
+F32TC_BWD = (F32TC_BWD_PREP, "flash_f32tc_dkdv_kernel", "flash_f32tc_dq_kernel")
+# split-f32 at D = 256: the same prep launches, then kernels whose blocks form
+# clusters of two (one per half of the head dim)
+F32TC_FWD_D256 = "flash_f32tc_fwd_d256_kernel"
+F32TC_BWD_D256 = (F32TC_BWD_PREP, "flash_f32tc_dkdv_d256_kernel",
+                  "flash_f32tc_dq_d256_kernel")
 SCAN_KERNEL = {"sequential": "selective_scan_kernel",
                "step": "selective_scan_step_kernel"}
 SCAN_BWD = "selective_scan_bwd_kernel"
-FLASH_BWD = ("flash_bwd_delta_kernel", "flash_bwd_dkdv_kernel",
-             "flash_bwd_dq_kernel")   # the CUDA-core backward (f32, D = 256)
 # per wrapper, per variant: its device kernels and how many of them one
 # counted launch runs
 DEVICE_KERNELS = {
-    "flash_attention": [((FLASH_TC,), 1), ((FLASH_CC,), 1),
-                        ((F32TC_FWD_PREP, F32TC_FWD), 2)],
-    "flash_attention_backward": [(FLASH_BWD, 3), (F32TC_BWD, 3)],
+    "flash_attention": [((FLASH_TC,), 1),
+                        ((F32TC_FWD_PREP, F32TC_FWD, F32TC_FWD_D256), 2)],
+    "flash_attention_backward": [(F32TC_BWD + F32TC_BWD_D256[1:], 3)],
     "decode_attention": [(("decode_attention_kernel",), 1)],
     "selective_scan": [(tuple(SCAN_KERNEL.values()), 1)],
     "selective_scan_backward": [((SCAN_BWD,), 1)],
@@ -405,6 +422,7 @@ FLASH_CASES = [
     (2, 2048, 16, 8, 128, torch.float32, True, None, None),
     (1, 2048, 16, 8, 256, torch.bfloat16, True, 512, 50.0),
     (1, 1024, 16, 8, 256, torch.float32, True, 300, 50.0),
+    (2, 2048, 16, 8, 256, torch.float32, True, None, 50.0),   # gemma2's train step
     (2, 1024, 16, 8, 128, torch.bfloat16, False, None, None),
     (2, 1000, 16, 8, 128, torch.float32, True, None, None),
     (1, 1000, 8, 2, 64, torch.bfloat16, True, 128, 30.0),
@@ -416,10 +434,16 @@ FLASH_CASES = [
 BWD_CASES = [
     # f32 flash backward: (B, Sq, Sk, H, KV, D, causal, window, softcap); the
     # train step's shape first, then D = 64 / 256, groups 1 / 4, window and
-    # softcap, ragged S, Sq != Sk without a mask
+    # softcap, ragged S, Sq != Sk without a mask; at D = 256 (the pair kernels)
+    # gemma2's train step, a window that bites with softcap, ragged S and
+    # Sq != Sk without a mask
     (2, 2048, 2048, 16, 8, 128, True, None, None),
     (2, 1024, 1024, 16, 8, 64, True, None, None),
     (1, 1024, 1024, 16, 8, 256, True, None, None),
+    (2, 2048, 2048, 16, 8, 256, True, None, 50.0),
+    (1, 1024, 1024, 16, 8, 256, True, 300, 50.0),
+    (1, 1000, 1000, 16, 8, 256, True, None, 50.0),
+    (1, 700, 1000, 16, 4, 256, False, None, None),
     (1, 1024, 1024, 16, 16, 64, True, None, None),
     (1, 1024, 1024, 16, 4, 128, True, None, None),
     (1, 1024, 1024, 16, 8, 128, True, 256, 50.0),
@@ -694,7 +718,8 @@ def phase_forward(cfg, kernel: str) -> dict:
     if kernel == "flash_attention" and prof["kernels"]:
         # bf16 goes to the tensor-core variant; a dropped record cannot make
         # an f32 launch appear
-        check(recorded(prof, FLASH_CC) == 0 and recorded(prof, F32TC_FWD) == 0,
+        check(recorded(prof, F32TC_FWD) == 0
+              and recorded(prof, F32TC_FWD_D256) == 0,
               "the bf16 forward launched an f32 flash kernel")
     log(f"{tag}: kernel {fwd_ms:.2f} ms "
         f"({FWD_B * FWD_S / fwd_ms * 1e3:.0f} tok/s), plain path "
@@ -1346,24 +1371,28 @@ def time_scan_backward(a, h, dh, tag: str) -> dict:
                 bound_ms=bound_ms, bound_by=by, device_ms=dev_ms)
 
 
-# gemma2-9b's attention shape for the f32 CUDA-core flash pair (dh = 256):
-# (B, S, H, KV, D, softcap), causal; 4096-key window of its local layers
+# gemma2-9b's attention shape (dh = 256), as in phase 8's train step:
+# (B, S, H, KV, D, softcap), causal; the 4096-key window of its local layers
 # has no effect at S = 2048
 D256_SHAPE = (2, 2048, 16, 8, 256, 50.0)
 
 
-def time_flash_cuda_core() -> dict:
-    """The f32 flash pair at dh = 256 (``ops.flash_variant``: the CUDA-core
-    ``csrc/flash_attention.cu`` and ``csrc/flash_attention_bwd.cu``), off
-    the main paths, at ``D256_SHAPE``: event and device time, the plain
-    versions, the bound (operations at the 67 TFLOP/s f32 CUDA-core rate:
-    4 flops a kept (q, k) pair and dim forward, 10 backward; or bytes) and
-    memory-efficient SDPA on K/V repeated to the q heads, without the
-    softcap (SDPA has none). {"forward": row, "backward": row}."""
+def time_flash_d256() -> dict:
+    """The flash kernels at gemma2-9b's attention shape (``D256_SHAPE``):
+    the f32 pair of the train path (split-f32, ``ops.flash_variant``; the
+    pair's kernels form clusters of two) and the bf16 forward (tensor
+    cores; off the main paths). Event and device time, the plain versions,
+    the bounds (operations: 4 flops a kept (q, k) pair and dim forward, 10
+    backward; f32 as three TF32 products at 495 TFLOP/s with the 67 TFLOP/s
+    CUDA-core bound beside it, bf16 at 989 TFLOP/s; or bytes) and SDPA
+    without the softcap (SDPA has none): memory-efficient on K/V repeated
+    to the q heads for f32, the flash backend with ``enable_gqa`` for bf16.
+    {"forward": row, "backward": row, "bf16_forward": row}."""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
     g = torch.Generator(device=DEVICE).manual_seed(SEED + 7)
     B, S, H, KV, D, softcap = D256_SHAPE
     dt = torch.float32
-    check(ops.flash_variant(dt, D) == "cuda_core", "dh 256 is not cuda_core")
+    check(ops.flash_variant(dt, D) == "split_f32", "dh 256 is not split_f32")
     q = _randn(g, (B, S, H, D), dt)
     k, v = _randn(g, (B, S, KV, D), dt), _randn(g, (B, S, KV, D), dt)
     dout = _randn(g, (B, S, H, D), dt)
@@ -1374,48 +1403,88 @@ def time_flash_cuda_core() -> dict:
     qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
     dot = dout.transpose(1, 2).contiguous()
     res = {}
-    for kind in ("forward", "backward"):
+    for kind in ("forward", "backward", "bf16_forward"):
         if kind == "forward":
             fn = lambda: ops.flash_attention(q, k, v, **kw)  # noqa: E731
             plain = lambda: ref.flash_attention_ref(q, k, v, **kw)  # noqa: E731
-            names, flops = (FLASH_CC,), 4 * pairs * D
+            names, flops = (F32TC_FWD_PREP, F32TC_FWD_D256), 4 * pairs * D
             nbytes = (2 * q.numel() + k.numel() + v.numel()) * 4
             got, want = (fn(),), (plain(),)
-        else:
+        elif kind == "backward":
             fn = lambda: ops.flash_attention_backward(  # noqa: E731
                 q, k, v, out, lse, dout, **kw)
             plain = lambda: ref.flash_attention_backward_ref(  # noqa: E731
                 q, k, v, out, lse, dout, **kw)
-            names, flops = FLASH_BWD, 10 * pairs * D
+            names, flops = F32TC_BWD_D256, 10 * pairs * D
             nbytes = (4 * q.numel() + 2 * k.numel() + 2 * v.numel()
                       + lse.numel()) * 4
             got, want = fn(), plain()
+        else:
+            qb, kb, vb = (t.bfloat16() for t in (q, k, v))
+            fn = lambda: ops.flash_attention(qb, kb, vb, **kw)  # noqa: E731
+            plain = lambda: ref.flash_attention_ref(qb, kb, vb, **kw)  # noqa: E731
+            names, flops = (FLASH_TC,), 4 * pairs * D
+            nbytes = (2 * q.numel() + k.numel() + v.numel()) * 2
+            got, want = (fn(),), (plain(),)
+            assert_close(got[0], want[0], TOL[torch.bfloat16], "time flash bf16 dh 256")
+            check_flash_rows(got[0], qb, kb, vb, kw, "time flash bf16 dh 256")
         err = max(max_err(x, y) for x, y in zip(got, want))
         del got, want
         ms = cuda_ms(fn)
         plain_ms = cuda_ms(plain, iters=5)
-        dev_ms = kernel_ms(profile_kernels(fn), *names)
-        t_ops, t_bytes = flops / PEAK_FLOPS[dt], nbytes / HBM_BYTES_PER_S
+        prof = profile_kernels(fn)
+        dev_ms = kernel_ms(prof, *names)
+        by_kernel = {n: kernel_ms(prof, n) for n in names}
+        t_bytes = nbytes / HBM_BYTES_PER_S
+        t_ops = (flops / PEAK_FLOPS[torch.bfloat16] if kind == "bf16_forward"
+                 else 3 * flops / TF32_FLOPS)
         bound_ms = max(t_ops, t_bytes) * 1e3
         by = "operations" if t_ops >= t_bytes else "bytes"
-        grad_in = [t.detach().requires_grad_(kind == "backward")
-                   for t in (qt, kt, vt)]
-        lib_ms = time_sdpa_expanded(*grad_in, dot if kind == "backward"
-                                    else None, f"f32 dh 256 {kind}")
-        log(f"time flash {kind} f32 (cuda_core, {', '.join(names)}) "
+        cc_bound_ms = max(flops / PEAK_FLOPS[dt], t_bytes) * 1e3
+        if kind == "bf16_forward":
+            qs, ks, vs = (t.bfloat16() for t in (qt, kt, vt))
+            with sdpa_kernel([SDPBackend.FLASH_ATTENTION]):
+                try:
+                    _sdpa_flash(qs, ks, vs)
+                    lib_ms = cuda_ms(lambda: _sdpa_flash(qs, ks, vs))
+                except RuntimeError as e:   # the library's "no kernel for this"
+                    log(f"time sdpa bf16 dh 256: FLASH_ATTENTION refused "
+                        f"({str(e).splitlines()[0][:60]})")
+                    lib_ms = None
+            del qs, ks, vs
+            lib = "sdpa (FLASH_ATTENTION, enable_gqa, no softcap)"
+            bounds = (f"{flops / 1e9:.2f} GFLOP at "
+                      f"{PEAK_FLOPS[torch.bfloat16] / 1e12:.0f} TFLOP/s")
+        else:
+            grad_in = [t.detach().requires_grad_(kind == "backward")
+                       for t in (qt, kt, vt)]
+            lib_ms = time_sdpa_expanded(*grad_in, dot if kind == "backward"
+                                        else None, f"f32 dh 256 {kind}")
+            lib = "sdpa on K/V repeated (EFFICIENT_ATTENTION, no softcap)"
+            bounds = (f"{flops / 1e9:.2f} GFLOP x 3 TF32 products at "
+                      f"{TF32_FLOPS / 1e12:.0f} TFLOP/s; CUDA-core bound "
+                      f"{cc_bound_ms * 1e3:.2f} us at "
+                      f"{PEAK_FLOPS[dt] / 1e12:.0f} TFLOP/s")
+        variant = ops.flash_variant(torch.bfloat16 if kind == "bf16_forward"
+                                    else dt, D)
+        log(f"time flash {kind} dh 256 ({variant}, {', '.join(names)}) "
             f"[{B},{S},{H},{D}] kv {KV} causal softcap {softcap}: kernel "
             f"{ms:.4f} ms ({flops / ms / 1e9:.1f} TFLOP/s), plain "
-            f"{plain_ms:.4f} ms, sdpa on K/V repeated (EFFICIENT_ATTENTION, "
-            f"no softcap) "
+            f"{plain_ms:.4f} ms, {lib} "
             + ("refused" if lib_ms is None else
                f"{lib_ms:.4f} ms (kernel/sdpa {ms / lib_ms:.2f})")
-            + f", bound {bound_ms * 1e3:.2f} us ({by}: {flops / 1e9:.2f} GFLOP "
-            f"at {PEAK_FLOPS[dt] / 1e12:.0f} TFLOP/s, {nbytes / 1e6:.2f} MB); "
-            f"kernel device time {_fmt(dev_ms)} ms "
-            f"({_share(bound_ms, dev_ms)} of the bound); max_abs_err {err:.3e}")
+            + f", bound {bound_ms * 1e3:.2f} us ({by}: {bounds}, "
+            f"{nbytes / 1e6:.2f} MB); kernel device time {_fmt(dev_ms)} ms ("
+            + ", ".join(f"{n} {_fmt(t)}" for n, t in by_kernel.items())
+            + f"), {_share(bound_ms, dev_ms)} of the bound"
+            + ("" if kind == "bf16_forward" else
+               f", {_share(cc_bound_ms, dev_ms)} of the CUDA-core bound")
+            + f"; max_abs_err {err:.3e}")
         res[kind] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
                          library_ms=lib_ms, bound_ms=bound_ms, bound_by=by,
-                         device_ms=dev_ms)
+                         cuda_core_bound_ms=cc_bound_ms, device_ms=dev_ms,
+                         device_ms_by_kernel=by_kernel)
+    res["bf16_forward"].pop("cuda_core_bound_ms")
     return res
 
 
@@ -1441,28 +1510,65 @@ def _fresh_state(cfg, hp):
 TRAIN_PATHS = {
     "attention": dict(wrappers=("flash_attention", "flash_attention_backward"),
                       forward=(F32TC_FWD_PREP, F32TC_FWD), backward=F32TC_BWD,
-                      others=(FLASH_TC, FLASH_CC, *FLASH_BWD)),
+                      others=(FLASH_TC, F32TC_FWD_D256, *F32TC_BWD_D256[1:])),
+    # dh = 256 (gemma2-9b): the split-f32 kernels whose blocks form pairs
+    "attention_d256": dict(wrappers=("flash_attention",
+                                     "flash_attention_backward"),
+                           forward=(F32TC_FWD_PREP, F32TC_FWD_D256),
+                           backward=F32TC_BWD_D256,
+                           others=(FLASH_TC, F32TC_FWD, *F32TC_BWD[1:])),
     "scan": dict(wrappers=("selective_scan", "selective_scan_backward"),
                  forward=(SCAN_KERNEL["sequential"],), backward=(SCAN_BWD,),
                  others=(SCAN_KERNEL["step"],)),
 }
 
 
-def mamba_train_memory(cfg, depth: int, tokens: int) -> float:
-    """Phase 7's peak device memory in GB, reckoned from the code: f32
-    params, grads, m and v (16 bytes a param); per layer the two [N, DI, DS]
-    f32 tensors autograd keeps (a, saved by ``exp``; h, saved by the
-    ``h.C`` einsum and by ``ops.SelectiveScan``) and about a dozen [N, DI]
-    ones; the logits and their loss (three [N, V]); the backward's
-    [N, DI, DS] transients (dh, da, db, exp's gradient)."""
-    one, two = (dataclasses.replace(cfg, n_layers=n).param_count()
-                for n in (1, 2))
-    per_layer = two - one
-    state = 16 * (one - per_layer + depth * per_layer)
-    big = tokens * cfg.d_inner * cfg.mamba.d_state * 4
-    acts = depth * (2 * big + 12 * tokens * cfg.d_inner * 4)
-    logits = 3 * tokens * cfg.eff_vocab * 4
-    return (state + acts + logits + 4 * big) / 1e9
+def train_memory(cfg, depth: int, tokens: int) -> float:
+    """A train step's peak device memory in GB at ``depth`` layers, reckoned
+    from the code: f32 params, grads, m and v (16 bytes a param), the
+    activations autograd keeps a layer, the logits and their loss, and the
+    backward's transients. N = ``tokens``.
+
+    - mamba: per layer the two [N, DI, DS] f32 tensors autograd keeps (a,
+      saved by ``exp``; h, saved by the ``h.C`` einsum and by
+      ``ops.SelectiveScan``) and about a dozen [N, DI] ones; three [N, V]
+      for the logits and loss; four [N, DI, DS] transients (dh, da, db,
+      exp's gradient).
+    - attention: per layer six [N, d] (the inputs and norms of both halves,
+      the projections back), three [N, H dh] (q before and after rope, the
+      flash output) and four [N, KV dh] (k before and after rope, v), and
+      four [N, d_ff] (the MLP's gate, up, activation and product); five
+      [N, V] for the logits, the final softcap's tanh, the loss and its
+      gradient; a layer's activations again and the flash backward's hi/lo
+      copies (eight of q's size, six of k's) as transients."""
+    state = 16 * dataclasses.replace(cfg, n_layers=depth).param_count()
+    V = cfg.eff_vocab
+    if cfg.family == "ssm":
+        big = tokens * cfg.d_inner * cfg.mamba.d_state * 4
+        acts = depth * (2 * big + 12 * tokens * cfg.d_inner * 4)
+        return (state + acts + 3 * tokens * V * 4 + 4 * big) / 1e9
+    hd, kvd = cfg.n_heads * cfg.d_head, cfg.n_kv_heads * cfg.d_head
+    layer = tokens * (6 * cfg.d_model + 3 * hd + 4 * kvd + 4 * cfg.d_ff) * 4
+    flash = tokens * (8 * hd + 6 * kvd) * 4
+    return (state + depth * layer + 5 * tokens * V * 4 + layer + flash) / 1e9
+
+
+def depth_cut(tag: str, cfg, depth: int) -> float:
+    """Log why ``tag`` trains ``cfg`` at ``depth`` layers (device memory,
+    ``train_memory`` at that depth and at twice it, beside the card's) and
+    return the reckoning at ``depth``."""
+    tokens = FWD_B * FWD_S
+    reckoned = train_memory(cfg, depth, tokens)
+    n = cfg.param_count()
+    log(f"{tag}: depth cut to {depth} of {cfg.n_layers} layers, for device "
+        f"memory: full depth is {n / 1e9:.3f} B params, {16 * n / 1e9:.1f} GB "
+        f"of f32 params, grads, m and v; reckoned peak at depth {depth} "
+        f"{reckoned:.1f} GB, at depth {2 * depth} "
+        f"{train_memory(cfg, 2 * depth, tokens):.1f} GB (card: "
+        f"{torch.cuda.get_device_properties(0).total_memory / 1e9:.1f} GB); "
+        f"the repeat check keeps its reference params on the host, so it "
+        f"adds no device memory")
+    return reckoned
 
 
 def phase_train(cfg, path: str, tag: str, reckoned_gb=None) -> dict:
@@ -1471,7 +1577,14 @@ def phase_train(cfg, path: str, tag: str, reckoned_gb=None) -> dict:
     launches of ``TRAIN_PATHS[path]`` (counted and recorded), first loss,
     step time and breakdown with the kernel pair's share, bitwise repeat,
     peak memory (beside ``reckoned_gb`` where given) and the grads at depth
-    GRAD_LAYERS against the plain path, and whether they are bitwise equal."""
+    GRAD_LAYERS against the plain path, and whether they are bitwise equal.
+
+    The first loss is held within 1 of ln V, where the init predicts near
+    uniformly. A tied embedding is drawn N(0, 1) (as the JAX init), so its
+    logits have std sqrt(d) before any final softcap (gemma2: ~60, capped
+    at 30) and the first loss lies far above ln V (~41 at gemma2-9b's
+    width, V 256000); there it is held to the plain path's loss of the same
+    state and batch, within GRAD_TOL relative."""
     spec = TRAIN_PATHS[path]
     train_driver.deterministic(torch.device(DEVICE))
     hp = OptHParams()
@@ -1483,6 +1596,12 @@ def phase_train(cfg, path: str, tag: str, reckoned_gb=None) -> dict:
     n = sum(t.numel() for t in state["params"].parameters())
     log(f"{tag}: {cfg.n_layers} layers, {n / 1e9:.3f} B params; params + "
         f"grads + m + v {4 * n * 4 / 1e9:.1f} GB f32; AdamW {hp}")
+    mb = {"tokens": batch["tokens"][0], "labels": batch["labels"][0]}
+    plain_loss = None
+    if cfg.tie_embeddings:
+        with torch.no_grad():
+            plain_loss = float(loss_fn(state["params"], mb, cfg,
+                                       runtime("plain"))[0])
     ops.reset_launches()
     with warnings.catch_warnings(record=True) as caught:
         warnings.simplefilter("always")
@@ -1501,10 +1620,20 @@ def phase_train(cfg, path: str, tag: str, reckoned_gb=None) -> dict:
     check(not nondet, f"{tag}: determinism warnings {nondet}")
     loss, gn = float(metrics["loss"]), float(metrics["grad_norm"])
     check(math.isfinite(loss) and math.isfinite(gn), f"{tag}: non-finite loss")
-    check(abs(loss - math.log(cfg.vocab)) < 1.0,
-          f"{tag}: first loss {loss:.4f} far from ln V {math.log(cfg.vocab):.4f}")
+    if plain_loss is None:
+        check(abs(loss - math.log(cfg.vocab)) < 1.0,
+              f"{tag}: first loss {loss:.4f} far from ln V "
+              f"{math.log(cfg.vocab):.4f}")
+    else:
+        check(abs(loss - plain_loss) <= GRAD_TOL * abs(plain_loss),
+              f"{tag}: first loss {loss:.6f} vs the plain path's "
+              f"{plain_loss:.6f}")
+    vs = ("" if plain_loss is None else
+          f"; tied N(0, 1) embedding: the plain path's loss {plain_loss:.6f}, "
+          f"relative difference {abs(loss - plain_loss) / abs(plain_loss):.2e}"
+          f" (tol {GRAD_TOL})")
     log(f"{tag}: first step {first_s:.2f} s, loss {loss:.6f} (ln V "
-        f"{math.log(cfg.vocab):.4f}), grad norm {gn:.4f}, launches {first}; "
+        f"{math.log(cfg.vocab):.4f}{vs}), grad norm {gn:.4f}, launches {first}; "
         f"{len(caught)} warnings, none about determinism"
         + (f" (first: {str(caught[0].message)[:100]})" if caught else ""))
     host = [t.detach().to("cpu", copy=True) for t in state["params"].parameters()]
@@ -1575,7 +1704,6 @@ def phase_train(cfg, path: str, tag: str, reckoned_gb=None) -> dict:
                            cfg2, torch.float32, DEVICE).requires_grad_(True)
     names = [name for name, _ in params.named_parameters()]
     leaves = list(params.parameters())
-    mb = {"tokens": batch["tokens"][0], "labels": batch["labels"][0]}
     grads, secs = {}, {}
     for impl in ("kernel", "plain"):
         t0 = time.perf_counter()
@@ -1673,7 +1801,7 @@ def main() -> int:
                                   full, tag="full cache")
         del q, k, v, serve["cache"]
     flash_bwd_t = time_flash_backward(cfg, sdpa_err)
-    d256_t = time_flash_cuda_core()
+    d256_t = time_flash_d256()
     log_memory("attention timings")
     torch.cuda.empty_cache()
     # falcon-mamba: the selective scan, in forward and in each decode step
@@ -1702,22 +1830,19 @@ def main() -> int:
     logio = phase_logio(cfg, "attention")
     # falcon-mamba training: the scan kernel and its backward, depth cut
     mcfg_cut = dataclasses.replace(mcfg, n_layers=MAMBA_TRAIN_LAYERS)
-    tokens = FWD_B * FWD_S
-    reckoned = mamba_train_memory(mcfg, MAMBA_TRAIN_LAYERS, tokens)
-    log(f"mamba-train-f32: depth cut to {MAMBA_TRAIN_LAYERS} of "
-        f"{mcfg.n_layers} layers, for device memory: full depth is "
-        f"{mcfg.param_count() / 1e9:.3f} B params, "
-        f"{16 * mcfg.param_count() / 1e9:.1f} GB of f32 params, grads, m and "
-        f"v; reckoned peak at depth {MAMBA_TRAIN_LAYERS} {reckoned:.1f} GB, at "
-        f"depth {2 * MAMBA_TRAIN_LAYERS} "
-        f"{mamba_train_memory(mcfg, 2 * MAMBA_TRAIN_LAYERS, tokens):.1f} GB "
-        f"(card: {torch.cuda.get_device_properties(0).total_memory / 1e9:.1f}"
-        f" GB)")
+    reckoned = depth_cut("mamba-train-f32", mcfg, MAMBA_TRAIN_LAYERS)
     mtrain = phase_train(mcfg_cut, "scan", "mamba-train-f32", reckoned)
     mlogio = phase_logio(mcfg, "scan")
+    # gemma2-9b training: the split-f32 flash pair at dh = 256, depth cut
+    gcfg = get_config(GEMMA_ARCH)
+    gtrain = phase_train(
+        dataclasses.replace(gcfg, n_layers=GEMMA_TRAIN_LAYERS),
+        "attention_d256", "gemma2-train-f32",
+        depth_cut("gemma2-train-f32", gcfg, GEMMA_TRAIN_LAYERS))
     launches = {"flash_attention": fwd["launches"],
                 "flash_attention_backward": train["launches"][
-                    "flash_attention_backward"],
+                    "flash_attention_backward"]
+                + gtrain["launches"]["flash_attention_backward"],
                 "decode_attention": serve["launches"],
                 "selective_scan": fwd_m["launches"] + serve_m["launches"]
                 + mtrain["launches"]["selective_scan"],
@@ -1747,8 +1872,15 @@ def main() -> int:
         f32_device_ms_in_step=train["fwd_device_ms"],
         **{f"f32_d256_{key}": val for key, val in d256_t["forward"].items()},
         f32_d256_shape=list(D256_SHAPE),
-        f32_d256_source="src/repro_torch/kernels/csrc/flash_attention.cu",
-        f32_d256_library_call="EFFICIENT_ATTENTION on K/V repeated, no softcap")
+        f32_d256_source="src/repro_torch/kernels/csrc/flash_attention_f32tc.cu",
+        f32_d256_library_call="EFFICIENT_ATTENTION on K/V repeated, no softcap",
+        f32_d256_launches_train=gtrain["launches"]["flash_attention"],
+        f32_d256_launches_per_step=gtrain["launches"]["flash_attention"]
+        // gtrain["steps"],
+        f32_d256_device_ms_in_step=gtrain["fwd_device_ms"],
+        **{f"bf16_d256_{key}": val
+           for key, val in d256_t["bf16_forward"].items()},
+        bf16_d256_library_call="FLASH_ATTENTION (enable_gqa), no softcap")
     bwd_row = next(r for r in rows if r["name"] == "flash_attention_backward")
     bwd_row.update(
         launches_per_step=train["launches"]["flash_attention_backward"]
@@ -1758,7 +1890,13 @@ def main() -> int:
         device_ms_in_step=train["bwd_device_ms"],
         train_step_ms=train["step_ms"],
         **{f"d256_{key}": val for key, val in d256_t["backward"].items()},
-        d256_source="src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+        d256_source="src/repro_torch/kernels/csrc/flash_attention_f32tc.cu",
+        d256_launches_train=gtrain["launches"]["flash_attention_backward"],
+        d256_launches_per_step=gtrain["launches"]["flash_attention_backward"]
+        // gtrain["steps"],
+        d256_device_ms_in_step=gtrain["bwd_device_ms"],
+        d256_train_step_ms=gtrain["step_ms"],
+        d256_train_depth=GEMMA_TRAIN_LAYERS,
         **{key: flash_bwd_t[key] for key in (
             "library_call", "library_max_err_to_max", "library_math_ms",
             "library_math_backend", "cuda_core_bound_ms")})

@@ -51,6 +51,7 @@
 #include <cooperative_groups.h>
 
 #include "common.cuh"
+#include "hopper.cuh"
 
 namespace cg = cooperative_groups;
 
@@ -78,21 +79,10 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
 }
 
-// The cluster barrier in two halves (PTX barrier.cluster): arrive, then wait
-// for every non-exited thread of the cluster to have arrived. The release /
-// acquire pair makes stores into another block's shared memory before the
-// arrive visible after the wait.
-__device__ __forceinline__ void cluster_arrive_relaxed() {
-  asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void cluster_arrive_release() {
-  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void cluster_wait() {
-  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
-}
+// the cluster barrier's halves (hopper.cuh)
+using sm90::cluster_arrive_relaxed;
+using sm90::cluster_arrive_release;
+using sm90::cluster_wait;
 
 // A (m, l, acc) record of GMAX heads in shared memory: acc at [g * D], m at
 // [GMAX * D + g], l at [GMAX * D + GMAX + g].

@@ -3,20 +3,17 @@
 //
 // Replaces: src/repro/kernels/flash_attention.py, `_kernel` / `flash_attention`
 // (the Pallas TPU kernel, grid (B, H, S/bq, S/bk) with the k axis sequential)
-// for f32 operands at head dims 32, 64 and 128 (the train path's dh = 128).
-// The Pallas kernel has no backward (JAX differentiates XLA attention); the
-// backward here is that of this forward, as flash_attention_bwd.cu is for the
-// CUDA-core forward of flash_attention.cu, which keeps D = 256
-// (ops.flash_variant chooses by dtype and head dim before any launch).
+// for f32 operands at head dims 32, 64, 128 (internlm2's train path) and 256
+// (gemma2-9b's). The Pallas kernel has no backward (JAX differentiates XLA
+// attention); the backward here is that of this forward.
 //
-// Function: as flash_attention.cu / flash_attention_bwd.cu and
-//   ref.flash_attention_ref / ref.flash_attention_backward_ref. q [B,Sq,H,D],
-//   k/v [B,Sk,KV,D] f32; q head h reads kv head h / (H/KV). Scores
-//   (q.k)/sqrt(D), optional tanh softcap, causal mask with optional window;
-//   a row whose sum is 0 outputs 0 (lse +inf); lse [B,H,Sq] = m + log(l) is
-//   written when asked and `o` is the same bits either way. The backward
-//   takes q, k, v, o, lse, dO and gives dq, dk, dv (dk, dv summed over the
-//   group's q heads) with delta = rowsum(dO * o) as scratch.
+// Function: as ref.flash_attention_ref / ref.flash_attention_backward_ref.
+//   q [B,Sq,H,D], k/v [B,Sk,KV,D] f32; q head h reads kv head h / (H/KV).
+//   Scores (q.k)/sqrt(D), optional tanh softcap, causal mask with optional
+//   window; a row whose sum is 0 outputs 0 (lse +inf); lse [B,H,Sq] = m +
+//   log(l) is written when asked and `o` is the same bits either way. The
+//   backward takes q, k, v, o, lse, dO and gives dq, dk, dv (dk, dv summed
+//   over the group's q heads) with delta = rowsum(dO * o) as scratch.
 //
 // Numerics: one TF32 product keeps 10 mantissa bits and misses the f32
 // tolerance (2e-5; tests/test_torch_kernels.py emulates both). Each operand
@@ -28,7 +25,8 @@
 // What bounds it on the card: operations. At [2,2048,16,128] kv 8 causal the
 // forward's two products of the kept pairs are 34.4 GFLOP and the backward's
 // five 85.9 GFLOP; three TF32 products each at 495 TFLOP/s give 208 us and
-// 521 us (at 67 TFLOP/s off the tensor cores: 513 us and 1283 us).
+// 521 us (at 67 TFLOP/s off the tensor cores: 513 us and 1283 us). At
+// [2,2048,16,256] (gemma2-9b) twice that: 68.75 / 171.88 GFLOP, 417 / 1042 us.
 //
 // The K-major rule, and how the design keeps to it:
 //   * For 32-bit types wgmma takes A (from shared memory) and B K-major only:
@@ -59,8 +57,8 @@
 //     products into the accumulators). A part is refilled as soon as its
 //     products of this tile are done, so its copy overlaps the softmax and
 //     the products of the other part: in the forward for the next tile; in
-//     the backward through rings of two stages (BwdRing: the dq launch
-//     both parts, dk/dv the transposed one), two tiles ahead.
+//     the backward through rings (BwdRing: at D = 128 the dq launch two
+//     stages of both parts, dk/dv two of the transposed one).
 //   * The forward uses 96 KB of shared memory at D = 128, two blocks per SM
 //     (one block's softmax overlaps the other's products); online softmax,
 //     running max and sum in f32 registers. Tiles that causality or the
@@ -80,6 +78,28 @@
 //   * Causal order: the q tile is the slowest grid axis, reversed in the
 //     forward and dq grids, so the heaviest tiles start first; in dk/dv the
 //     k tile is the slowest axis in order (k tile 0 sees every query).
+//
+// D = 256 (Split): the D = 128 design does not fit one block. The backward's
+// four fixed hi/lo operands would be 4 x 64 KB, over the 227 KB a block may
+// hold, and its dk + dv sums 256 registers a thread; the forward's o sum and
+// P V part would be 256. So a tile takes a thread block cluster of two, rank
+// r owning head-dim columns [128 r, 128 r + 128): its half of the fixed
+// operands (128 KB of hi/lo in the backward), of each streamed tile, and of
+// o, dq or dk and dv (64 registers each, as at D = 128). Each block computes
+// its half-D partial of S (and of dP) over its 16-step k loop, puts it in its
+// shared memory, and after one cluster barrier a step adds the peer's
+// through distributed shared memory (xch_add): fl(a + b) = fl(b + a), so both
+// blocks hold the same score bits, (half 0) + (half 1), and run the same
+// softmax or gradient on them. The exchange has two stages (one barrier a
+// step, not two); with its 16 KB the backward rings keep one stage of each
+// part in dk/dv, and in dq two of the K-major part and one transposed. The rest is the D = 128 code
+// at DH = 128: the pair shares the prep launch, the masks and the loop, and
+// the kernels are named *_d256_* in a profile. Two consumer warpgroups in
+// one block, splitting D through its own shared memory, would fit the
+// forward but not the backward's fixed operands, so both take the cluster.
+// The prep's hi copy stays: reading the raw f32 as hi would truncate it
+// (wgmma's tf32 read drops the low 13 bits), a split the emulation in
+// tests/test_torch_kernels.py does not cover.
 #include "common.cuh"
 #include "hopper.cuh"
 
@@ -90,13 +110,22 @@ constexpr int kRows = 64;     // rows of a block's fixed operand (one warpgroup)
 constexpr int kBN = 16;       // rows of each streamed tile
 constexpr int kThreads = 128;
 
+// Tile sizes of a block that owns D columns of the head dim.
 template <int D>
 struct Geo {
-  static_assert(D == 32 || D == 64 || D == 128, "head dim");
+  static_assert(D == 32 || D == 64 || D == 128, "head-dim columns of a block");
   static constexpr int NC = D / 32;             // 128-byte boxes across D
   static constexpr int FIX = kRows * D * 4;     // one part (hi or lo) of a fixed operand
   static constexpr int STR = kBN * D * 4;       // one part of a streamed K-major tile
   static constexpr int TR = D * kBN * 4;        // one part of a streamed transposed tile
+};
+
+// How a head dim D is split: N blocks (a cluster of N when N = 2) take one
+// (rows, head) tile, each the DH = D / N columns of its cluster rank.
+template <int D>
+struct Split {
+  static constexpr int N = D == 256 ? 2 : 1;
+  static constexpr int DH = D / N;
 };
 
 __host__ __device__ constexpr int round16(int s) { return (s + 15) / 16 * 16; }
@@ -186,21 +215,22 @@ __global__ void __launch_bounds__(kPrepThreads) flash_f32tc_bwd_prep_kernel(cons
 
 // ---- tiles and descriptors -----------------------------------------------------
 
-// Rows [row0, row0 + R) of one head of a K-major copy: NC boxes of 32 columns,
-// box c at dst + c * R * 128, each row 128 bytes in the 128-byte swizzle.
+// Rows [row0, row0 + R) of one head of a K-major copy, columns [c0, c0 + D):
+// NC boxes of 32 columns, box c at dst + c * R * 128, each row 128 bytes in
+// the 128-byte swizzle.
 template <int D, int R>
 __device__ __forceinline__ void load_kmajor(char* dst, const CUtensorMap* map, uint64_t* bar,
-                                            int head, int row0, int b) {
+                                            int head, int row0, int b, int c0) {
 #pragma unroll
   for (int c = 0; c < Geo<D>::NC; ++c)
-    sm90::tma_load_4d(dst + c * R * 128, map, bar, c * 32, head, row0, b);
+    sm90::tma_load_4d(dst + c * R * 128, map, bar, c0 + c * 32, head, row0, b);
 }
 
-// Positions [pos0, pos0 + 16) of one head of a transposed copy: D rows of 64
-// bytes in the 64-byte swizzle.
+// Positions [pos0, pos0 + 16) of one head of a transposed copy, head-dim rows
+// [c0, c0 + the map's box): rows of 64 bytes in the 64-byte swizzle.
 __device__ __forceinline__ void load_trans(char* dst, const CUtensorMap* map, uint64_t* bar,
-                                           int head, int pos0, int b) {
-  sm90::tma_load_4d(dst, map, bar, pos0, 0, head, b);
+                                           int head, int pos0, int b, int c0) {
+  sm90::tma_load_4d(dst, map, bar, pos0, c0, head, b);
 }
 
 // Descriptors: K-major tiles of R rows (8-row groups 1024 bytes apart; k step
@@ -282,27 +312,79 @@ struct MapPair {
   CUtensorMap hi, lo;
 };
 
+// ---- the cluster of two at D = 256 ---------------------------------------------
+
+// Each block of the pair sums its half of the head dim into every score
+// element (F of them a thread: s, and dp in the backward), puts its partial
+// sums into a stage of its shared memory (stage i % 2 at step i: the peer may
+// still read stage i - 1), and after the cluster barrier adds the peer's from
+// the same offset of the peer's stage. fl(a + b) = fl(b + a), so both blocks
+// hold the same bits: those of (rank 0's half) + (rank 1's half). Laid out as
+// float4 slots [slot][kThreads], so a warp's 16-byte accesses do not conflict.
+template <int F>
+__device__ __forceinline__ void xch_put(float* stage, int slot, const float (&x)[F]) {
+  float4* dst = reinterpret_cast<float4*>(stage) + slot * kThreads + threadIdx.x;
+#pragma unroll
+  for (int i = 0; i < F / 4; ++i)
+    dst[i * kThreads] = make_float4(x[4 * i], x[4 * i + 1], x[4 * i + 2], x[4 * i + 3]);
+}
+
+template <int F>
+__device__ __forceinline__ void xch_add(const float* stage, int slot, uint32_t peer,
+                                        float (&x)[F]) {
+  const uint32_t src = sm90::cluster_addr(
+      reinterpret_cast<const float4*>(stage) + slot * kThreads + threadIdx.x, peer);
+#pragma unroll
+  for (int i = 0; i < F / 4; ++i) {
+    const float4 v = sm90::ld_cluster_v4(src + i * kThreads * 16);
+    x[4 * i] += v.x;
+    x[4 * i + 1] += v.y;
+    x[4 * i + 2] += v.z;
+    x[4 * i + 3] += v.w;
+  }
+}
+
+__device__ __forceinline__ void cluster_sync() {
+  sm90::cluster_arrive_release();
+  sm90::cluster_wait();
+}
+
+// Bytes of a block's two exchange stages of F floats a thread (none alone).
+template <int D, int F>
+__host__ __device__ constexpr int xch_bytes() {
+  return Split<D>::N == 2 ? 2 * kThreads * F * 4 : 0;
+}
+
+__device__ __forceinline__ char* align1024(uint8_t* p) {
+  return reinterpret_cast<char*>((reinterpret_cast<uintptr_t>(p) + 1023) &
+                                 ~static_cast<uintptr_t>(1023));
+}
+
 // ---- forward -----------------------------------------------------------------
 
 struct FwdMaps {
   MapPair q, k, vt;   // Q and K as stored, V transposed
 };
 
+// The forward of one (64 q rows, head, batch) tile, or at D = 256 of its
+// DH = 128 head-dim columns of the cluster rank (see Split).
 template <int D, bool kCap>
-__global__ void __launch_bounds__(kThreads, 2)
-flash_f32tc_fwd_kernel(const __grid_constant__ FwdMaps m, float* __restrict__ o,
-                       float* __restrict__ lse, int Sq, int Sk, int H, int KV, int causal,
-                       int window, float softcap, float scale) {
-  using G = Geo<D>;
+__device__ __forceinline__ void fwd_body(const FwdMaps& m, float* __restrict__ o,
+                                         float* __restrict__ lse, int Sq, int Sk, int H, int KV,
+                                         int causal, int window, float softcap, float scale) {
+  constexpr int NS = Split<D>::N, DH = Split<D>::DH;
+  using G = Geo<DH>;
   extern __shared__ uint8_t smem_raw[];
   // the swizzle pattern follows address bits: tiles start 1024-byte aligned
-  char* sQ = reinterpret_cast<char*>(
-      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~static_cast<uintptr_t>(1023));
+  char* sQ = align1024(smem_raw);
   char* sK = sQ + 2 * G::FIX;    // hi, then lo
   char* sV = sK + 2 * G::STR;    // V^T: hi, then lo
-  uint64_t* bar = reinterpret_cast<uint64_t*>(sV + 2 * G::TR);   // Q, K, V
+  float* sX = reinterpret_cast<float*>(sV + 2 * G::TR);   // the pair's exchange stages
+  uint64_t* bar = reinterpret_cast<uint64_t*>(sV + 2 * G::TR + xch_bytes<D, 8>());   // Q, K, V
 
-  const int h = blockIdx.x, b = blockIdx.y;
+  const uint32_t rank = NS == 2 ? sm90::cluster_rank() : 0;
+  const int c0 = rank * DH;   // the block's first head-dim column
+  const int h = blockIdx.x / NS, b = blockIdx.y;
   const int q0 = (gridDim.z - 1 - blockIdx.z) * kRows;   // heaviest q tile first
   const int kvh = h / (H / KV);
   // k tiles that hold a kept key for some row of this block
@@ -315,20 +397,20 @@ flash_f32tc_fwd_kernel(const __grid_constant__ FwdMaps m, float* __restrict__ o,
 
   auto load_k = [&](int i) {
     sm90::mbar_arrive_expect_tx(&bar[1], 2 * G::STR);
-    load_kmajor<D, kBN>(sK, &m.k.hi, &bar[1], kvh, (t_begin + i) * kBN, b);
-    load_kmajor<D, kBN>(sK + G::STR, &m.k.lo, &bar[1], kvh, (t_begin + i) * kBN, b);
+    load_kmajor<DH, kBN>(sK, &m.k.hi, &bar[1], kvh, (t_begin + i) * kBN, b, c0);
+    load_kmajor<DH, kBN>(sK + G::STR, &m.k.lo, &bar[1], kvh, (t_begin + i) * kBN, b, c0);
   };
   auto load_v = [&](int i) {
     sm90::mbar_arrive_expect_tx(&bar[2], 2 * G::TR);
-    load_trans(sV, &m.vt.hi, &bar[2], kvh, (t_begin + i) * kBN, b);
-    load_trans(sV + G::TR, &m.vt.lo, &bar[2], kvh, (t_begin + i) * kBN, b);
+    load_trans(sV, &m.vt.hi, &bar[2], kvh, (t_begin + i) * kBN, b, c0);
+    load_trans(sV + G::TR, &m.vt.lo, &bar[2], kvh, (t_begin + i) * kBN, b, c0);
   };
   if (tid == 0) {
     for (int i = 0; i < 3; ++i) sm90::mbar_init(&bar[i], 1);
     sm90::fence_barrier_init();
     sm90::mbar_arrive_expect_tx(&bar[0], 2 * G::FIX);
-    load_kmajor<D, kRows>(sQ, &m.q.hi, &bar[0], h, q0, b);
-    load_kmajor<D, kRows>(sQ + G::FIX, &m.q.lo, &bar[0], h, q0, b);
+    load_kmajor<DH, kRows>(sQ, &m.q.hi, &bar[0], h, q0, b, c0);
+    load_kmajor<DH, kRows>(sQ + G::FIX, &m.q.lo, &bar[0], h, q0, b, c0);
     if (n_tiles > 0) {
       load_k(0);
       load_v(0);
@@ -345,9 +427,9 @@ flash_f32tc_fwd_kernel(const __grid_constant__ FwdMaps m, float* __restrict__ o,
   const uint64_t khi = kmajor_desc(sK), klo = kmajor_desc(sK + G::STR);
   const uint64_t vhi = trans_desc(sV), vlo = trans_desc(sV + G::TR);
 
-  float acc[D / 2], part[D / 2];
+  float acc[DH / 2], part[DH / 2];
 #pragma unroll
-  for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+  for (int i = 0; i < DH / 2; ++i) acc[i] = 0.f;
   float m0 = kNegInf, m1 = kNegInf;   // running max of rows qpos0, qpos1 (raw units)
   float l0 = 0.f, l1 = 0.f;           // this thread's share of the running sums
 
@@ -358,11 +440,18 @@ flash_f32tc_fwd_kernel(const __grid_constant__ FwdMaps m, float* __restrict__ o,
     float s[8];
     sm90::mbar_wait(&bar[1], parity);
     sm90::wgmma_fence();
-    score_product<D>(s, qhi, qlo, khi, klo);
+    score_product<DH>(s, qhi, qlo, khi, klo);
     sm90::wgmma_wait<0>();
     sm90::fence_regs(s);
-    __syncthreads();   // every warp is done with this K tile
+    [[maybe_unused]] float* stage = sX + (i & 1) * kThreads * 8;
+    if constexpr (NS == 2) {   // the barrier also orders every warp's use of this K tile
+      xch_put(stage, 0, s);
+      cluster_sync();
+    } else {
+      __syncthreads();   // every warp is done with this K tile
+    }
     if (tid == 0 && i + 1 < n_tiles) load_k(i + 1);
+    if constexpr (NS == 2) xch_add(stage, 0, rank ^ 1, s);
 
     // online softmax in the registers of the S fragment: s[4 j + e] is row
     // qpos0 (e < 2) or qpos1, column k0 + 8 j + col + (e & 1)
@@ -410,19 +499,20 @@ flash_f32tc_fwd_kernel(const __grid_constant__ FwdMaps m, float* __restrict__ o,
 
     sm90::mbar_wait(&bar[2], parity);
     sm90::wgmma_fence();
-    part_product<D>(part, phi, plo, vhi, vlo);
+    part_product<DH>(part, phi, plo, vhi, vlo);
     sm90::wgmma_wait<0>();
     sm90::fence_regs(part);
     __syncthreads();   // every warp is done with this V^T tile
     if (tid == 0 && i + 1 < n_tiles) load_v(i + 1);
 #pragma unroll
-    for (int j = 0; j < D / 8; ++j) {   // o = o * alpha + P V, one rounding
+    for (int j = 0; j < DH / 8; ++j) {   // o = o * alpha + P V, one rounding
       acc[4 * j] = fmaf(acc[4 * j], alpha0, part[4 * j]);
       acc[4 * j + 1] = fmaf(acc[4 * j + 1], alpha0, part[4 * j + 1]);
       acc[4 * j + 2] = fmaf(acc[4 * j + 2], alpha1, part[4 * j + 2]);
       acc[4 * j + 3] = fmaf(acc[4 * j + 3], alpha1, part[4 * j + 3]);
     }
   }
+  if constexpr (NS == 2) sm90::cluster_arrive_release();   // done reading the peer's stages
 
   l0 += __shfl_xor_sync(0xffffffffu, l0, 1);
   l0 += __shfl_xor_sync(0xffffffffu, l0, 2);
@@ -430,25 +520,45 @@ flash_f32tc_fwd_kernel(const __grid_constant__ FwdMaps m, float* __restrict__ o,
   l1 += __shfl_xor_sync(0xffffffffu, l1, 2);
   const float inv0 = l0 == 0.f ? 0.f : 1.f / l0;
   const float inv1 = l1 == 0.f ? 0.f : 1.f / l1;
+  // lse from rank 0 only: both blocks of a pair hold the same m and l
+  const bool write_lse = lse != nullptr && lane % 4 == 0 && rank == 0;
   if (qpos0 < Sq) {
-    float* dst = o + ((static_cast<size_t>(b) * Sq + qpos0) * H + h) * D + col;
+    float* dst = o + ((static_cast<size_t>(b) * Sq + qpos0) * H + h) * D + c0 + col;
 #pragma unroll
-    for (int j = 0; j < D / 8; ++j)
+    for (int j = 0; j < DH / 8; ++j)
       *reinterpret_cast<float2*>(dst + 8 * j) = make_float2(acc[4 * j] * inv0, acc[4 * j + 1] * inv0);
-    if (lse != nullptr && lane % 4 == 0)
+    if (write_lse)
       lse[(static_cast<size_t>(b) * H + h) * Sq + qpos0] =
           l0 == 0.f ? INFINITY : m0 * scale + logf(l0);
   }
   if (qpos1 < Sq) {
-    float* dst = o + ((static_cast<size_t>(b) * Sq + qpos1) * H + h) * D + col;
+    float* dst = o + ((static_cast<size_t>(b) * Sq + qpos1) * H + h) * D + c0 + col;
 #pragma unroll
-    for (int j = 0; j < D / 8; ++j)
+    for (int j = 0; j < DH / 8; ++j)
       *reinterpret_cast<float2*>(dst + 8 * j) =
           make_float2(acc[4 * j + 2] * inv1, acc[4 * j + 3] * inv1);
-    if (lse != nullptr && lane % 4 == 0)
+    if (write_lse)
       lse[(static_cast<size_t>(b) * H + h) * Sq + qpos1] =
           l1 == 0.f ? INFINITY : m1 * scale + logf(l1);
   }
+  if constexpr (NS == 2) sm90::cluster_wait();   // the peer is done reading ours: exit
+}
+
+template <int D, bool kCap>
+__global__ void __launch_bounds__(kThreads, 2)
+flash_f32tc_fwd_kernel(const __grid_constant__ FwdMaps m, float* __restrict__ o,
+                       float* __restrict__ lse, int Sq, int Sk, int H, int KV, int causal,
+                       int window, float softcap, float scale) {
+  fwd_body<D, kCap>(m, o, lse, Sq, Sk, H, KV, causal, window, softcap, scale);
+}
+
+// D = 256: a cluster of two blocks a tile, one per half of the head dim.
+template <bool kCap>
+__global__ void __cluster_dims__(2, 1, 1) __launch_bounds__(kThreads, 2)
+flash_f32tc_fwd_d256_kernel(const __grid_constant__ FwdMaps m, float* __restrict__ o,
+                            float* __restrict__ lse, int Sq, int Sk, int H, int KV, int causal,
+                            int window, float softcap, float scale) {
+  fwd_body<256, kCap>(m, o, lse, Sq, Sk, H, KV, causal, window, softcap, scale);
 }
 
 // ---- backward ----------------------------------------------------------------
@@ -478,41 +588,52 @@ __device__ __forceinline__ void grad_element(float raw, float dp, float lse, flo
 
 // The backward's rings of streamed tiles: NY stages of the K-major part
 // (y1, y2 hi/lo), NT of the transposed part (t1 and, in dk/dv, t2), each
-// refilled NY / NT steps ahead; as many as 227 KB hold at D = 128.
+// refilled NY / NT steps ahead; as many as 227 KB hold at D = 128. At D = 256
+// a block of the pair holds the half-D copies (DH = 128) and its exchange
+// stages (s and dp), which leave room for one stage fewer: dk/dv keeps one
+// of each part, dq two K-major ones (its next scores' tiles then load
+// during this step's products) and one transposed.
 template <int D, bool kDQ>
 struct BwdRing {
-  static constexpr int NY = kDQ ? 2 : 1, NT = 2;
-  static constexpr int Y_BYTES = 4 * Geo<D>::STR;                  // one stage
-  static constexpr int T_BYTES = (kDQ ? 2 : 4) * Geo<D>::TR;       // one stage
-  static constexpr int SMEM = 1024 + 4 * Geo<D>::FIX + NY * Y_BYTES + NT * T_BYTES + 64;
+  static constexpr int DH = Split<D>::DH;
+  static constexpr bool kPair = Split<D>::N == 2;
+  static constexpr int NY = kDQ ? 2 : 1, NT = kPair ? 1 : 2;
+  static constexpr int Y_BYTES = 4 * Geo<DH>::STR;                  // one stage
+  static constexpr int T_BYTES = (kDQ ? 2 : 4) * Geo<DH>::TR;       // one stage
+  static constexpr int XCH = xch_bytes<D, 16>();
+  static constexpr int SMEM = 1024 + 4 * Geo<DH>::FIX + NY * Y_BYTES + NT * T_BYTES + XCH + 64;
   static_assert(SMEM <= 232448, "tiles exceed a block's shared memory");
   static_assert(1 + NY + NT <= 8, "barriers");
 };
 
-// The dk/dv (kDQ false) or dq (kDQ true) launch; see BwdMaps.
+// The dk/dv (kDQ false) or dq (kDQ true) launch; see BwdMaps. At D = 256 one
+// block of a pair, for the DH head-dim columns of its cluster rank.
 template <int D, bool kDQ, bool kCap>
 __device__ __forceinline__ void bwd_body(const BwdMaps& m, const float* __restrict__ lse,
                                          const float* __restrict__ delta,
                                          float* __restrict__ out1, float* __restrict__ out2,
                                          int Sq, int Sk, int H, int KV, int causal, int window,
                                          float softcap, float scale) {
-  using G = Geo<D>;
+  constexpr int NS = Split<D>::N, DH = Split<D>::DH;
+  using G = Geo<DH>;
   using R = BwdRing<D, kDQ>;
   extern __shared__ uint8_t smem_raw[];
-  char* sX = reinterpret_cast<char*>(
-      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~static_cast<uintptr_t>(1023));
+  char* sX = align1024(smem_raw);
   char* sY = sX + 4 * G::FIX;          // x1 hi, x1 lo, x2 hi, x2 lo
   char* sT = sY + R::NY * R::Y_BYTES;  // stage s: y1 hi, y1 lo, y2 hi, y2 lo
-  uint64_t* bar = reinterpret_cast<uint64_t*>(sT + R::NT * R::T_BYTES);
+  float* sE = reinterpret_cast<float*>(sT + R::NT * R::T_BYTES);   // the pair's exchange
+  uint64_t* bar = reinterpret_cast<uint64_t*>(sT + R::NT * R::T_BYTES + R::XCH);
   uint64_t* bar_y = bar + 1;           // bar[0]: X; then the Y and T stages
   uint64_t* bar_t = bar_y + R::NY;     // stage s: t1 hi, t1 lo (, t2 hi, t2 lo)
 
+  const uint32_t rank = NS == 2 ? sm90::cluster_rank() : 0;
+  const int c0 = rank * DH;   // the block's first head-dim column
   const int b = blockIdx.y, group = H / KV;
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   // the block's rows, the heads it reads, and the steps it takes
   int x0, xhead, s_begin, n_steps, nq = 1;
   if constexpr (kDQ) {
-    const int h = blockIdx.x;
+    const int h = blockIdx.x / NS;
     x0 = (gridDim.z - 1 - blockIdx.z) * kRows;   // heaviest q tile first
     xhead = h;
     const int q_last = min(x0 + kRows, Sq) - 1;
@@ -521,7 +642,7 @@ __device__ __forceinline__ void bwd_body(const BwdMaps& m, const float* __restri
     s_begin = k_begin / kBN;
     n_steps = max(0, (k_end + kBN - 1) / kBN - s_begin);
   } else {
-    xhead = blockIdx.x;   // kv head
+    xhead = blockIdx.x / NS;   // kv head
     x0 = blockIdx.z * kRows;   // k tile 0, the heaviest, first
     const int k_last = min(x0 + kRows, Sk) - 1;
     const int q_begin = causal ? x0 : 0;
@@ -546,10 +667,10 @@ __device__ __forceinline__ void bwd_body(const BwdMaps& m, const float* __restri
     char* dst = sY + (i % R::NY) * R::Y_BYTES;
     uint64_t* full = &bar_y[i % R::NY];
     sm90::mbar_arrive_expect_tx(full, R::Y_BYTES);
-    load_kmajor<D, kBN>(dst, &m.y1.hi, full, head, pos0, b);
-    load_kmajor<D, kBN>(dst + G::STR, &m.y1.lo, full, head, pos0, b);
-    load_kmajor<D, kBN>(dst + 2 * G::STR, &m.y2.hi, full, head, pos0, b);
-    load_kmajor<D, kBN>(dst + 3 * G::STR, &m.y2.lo, full, head, pos0, b);
+    load_kmajor<DH, kBN>(dst, &m.y1.hi, full, head, pos0, b, c0);
+    load_kmajor<DH, kBN>(dst + G::STR, &m.y1.lo, full, head, pos0, b, c0);
+    load_kmajor<DH, kBN>(dst + 2 * G::STR, &m.y2.hi, full, head, pos0, b, c0);
+    load_kmajor<DH, kBN>(dst + 3 * G::STR, &m.y2.lo, full, head, pos0, b, c0);
   };
   auto load_t = [&](int i) {
     int pos0, head;
@@ -557,21 +678,21 @@ __device__ __forceinline__ void bwd_body(const BwdMaps& m, const float* __restri
     char* dst = sT + (i % R::NT) * R::T_BYTES;
     uint64_t* full = &bar_t[i % R::NT];
     sm90::mbar_arrive_expect_tx(full, R::T_BYTES);
-    load_trans(dst, &m.t1.hi, full, head, pos0, b);
-    load_trans(dst + G::TR, &m.t1.lo, full, head, pos0, b);
+    load_trans(dst, &m.t1.hi, full, head, pos0, b, c0);
+    load_trans(dst + G::TR, &m.t1.lo, full, head, pos0, b, c0);
     if constexpr (!kDQ) {
-      load_trans(dst + 2 * G::TR, &m.t2.hi, full, head, pos0, b);
-      load_trans(dst + 3 * G::TR, &m.t2.lo, full, head, pos0, b);
+      load_trans(dst + 2 * G::TR, &m.t2.hi, full, head, pos0, b, c0);
+      load_trans(dst + 3 * G::TR, &m.t2.lo, full, head, pos0, b, c0);
     }
   };
   if (tid == 0) {
     for (int i = 0; i < 1 + R::NY + R::NT; ++i) sm90::mbar_init(&bar[i], 1);
     sm90::fence_barrier_init();
     sm90::mbar_arrive_expect_tx(&bar[0], 4 * G::FIX);
-    load_kmajor<D, kRows>(sX, &m.x1.hi, &bar[0], xhead, x0, b);
-    load_kmajor<D, kRows>(sX + G::FIX, &m.x1.lo, &bar[0], xhead, x0, b);
-    load_kmajor<D, kRows>(sX + 2 * G::FIX, &m.x2.hi, &bar[0], xhead, x0, b);
-    load_kmajor<D, kRows>(sX + 3 * G::FIX, &m.x2.lo, &bar[0], xhead, x0, b);
+    load_kmajor<DH, kRows>(sX, &m.x1.hi, &bar[0], xhead, x0, b, c0);
+    load_kmajor<DH, kRows>(sX + G::FIX, &m.x1.lo, &bar[0], xhead, x0, b, c0);
+    load_kmajor<DH, kRows>(sX + 2 * G::FIX, &m.x2.hi, &bar[0], xhead, x0, b, c0);
+    load_kmajor<DH, kRows>(sX + 3 * G::FIX, &m.x2.lo, &bar[0], xhead, x0, b, c0);
     for (int i = 0; i < R::NY && i < n_steps; ++i) load_y(i);
     for (int i = 0; i < R::NT && i < n_steps; ++i) load_t(i);
   }
@@ -588,11 +709,11 @@ __device__ __forceinline__ void bwd_body(const BwdMaps& m, const float* __restri
   const uint64_t t1hi = trans_desc(sT), t1lo = trans_desc(sT + G::TR);
   const uint64_t t2hi = trans_desc(sT + 2 * G::TR), t2lo = trans_desc(sT + 3 * G::TR);
 
-  float acc1[D / 2], acc2[kDQ ? 1 : D / 2], part[D / 2];
+  float acc1[DH / 2], acc2[kDQ ? 1 : DH / 2], part[DH / 2];
 #pragma unroll
-  for (int i = 0; i < D / 2; ++i) acc1[i] = 0.f;
+  for (int i = 0; i < DH / 2; ++i) acc1[i] = 0.f;
 #pragma unroll
-  for (int i = 0; i < (kDQ ? 1 : D / 2); ++i) acc2[i] = 0.f;
+  for (int i = 0; i < (kDQ ? 1 : DH / 2); ++i) acc2[i] = 0.f;
   // dq: lse and delta of this thread's two rows, read once
   float row_lse[2] = {0.f, 0.f}, row_delta[2] = {0.f, 0.f};
   if constexpr (kDQ) {
@@ -631,13 +752,24 @@ __device__ __forceinline__ void bwd_body(const BwdMaps& m, const float* __restri
     float s[8], dp[8];
     sm90::mbar_wait(&bar_y[ys], (i / R::NY) & 1);
     sm90::wgmma_fence();
-    score_product<D>(s, x1hi, x1lo, y1hi + yoff, y1lo + yoff);
-    score_product<D>(dp, x2hi, x2lo, y2hi + yoff, y2lo + yoff);
+    score_product<DH>(s, x1hi, x1lo, y1hi + yoff, y1lo + yoff);
+    score_product<DH>(dp, x2hi, x2lo, y2hi + yoff, y2lo + yoff);
     sm90::wgmma_wait<0>();
     sm90::fence_regs(s);
     sm90::fence_regs(dp);
-    __syncthreads();   // every warp is done with this step's K-major tiles
+    [[maybe_unused]] float* stage = sE + (i & 1) * kThreads * 16;
+    if constexpr (NS == 2) {   // the barrier also orders every warp's use of the tiles
+      xch_put(stage, 0, s);
+      xch_put(stage, 2, dp);
+      cluster_sync();
+    } else {
+      __syncthreads();   // every warp is done with this step's K-major tiles
+    }
     if (tid == 0 && i + R::NY < n_steps) load_y(i + R::NY);
+    if constexpr (NS == 2) {
+      xch_add(stage, 0, rank ^ 1, s);
+      xch_add(stage, 2, rank ^ 1, dp);
+    }
 
     // s[4 j + e]: row row0 (e < 2) or row1, column pos0 + 8 j + col + (e & 1)
     float p[8], ds[8];
@@ -658,28 +790,29 @@ __device__ __forceinline__ void bwd_body(const BwdMaps& m, const float* __restri
     if constexpr (!kDQ) {   // dV += P^T dO
       split_fragments(p, ahi, alo);
       sm90::wgmma_fence();
-      part_product<D>(part, ahi, alo, t1hi + toff, t1lo + toff);
+      part_product<DH>(part, ahi, alo, t1hi + toff, t1lo + toff);
       sm90::wgmma_wait<0>();
       sm90::fence_regs(part);
 #pragma unroll
-      for (int e = 0; e < D / 2; ++e) acc1[e] += part[e];
+      for (int e = 0; e < DH / 2; ++e) acc1[e] += part[e];
     }
     // dq: dQ += dS K; dk/dv: dK += dS^T Q
     split_fragments(ds, ahi, alo);
     sm90::wgmma_fence();
-    part_product<D>(part, ahi, alo, (kDQ ? t1hi : t2hi) + toff, (kDQ ? t1lo : t2lo) + toff);
+    part_product<DH>(part, ahi, alo, (kDQ ? t1hi : t2hi) + toff, (kDQ ? t1lo : t2lo) + toff);
     sm90::wgmma_wait<0>();
     sm90::fence_regs(part);
     __syncthreads();   // every warp is done with this step's transposed tiles
     if (tid == 0 && i + R::NT < n_steps) load_t(i + R::NT);
     if constexpr (kDQ) {
 #pragma unroll
-      for (int e = 0; e < D / 2; ++e) acc1[e] += part[e];
+      for (int e = 0; e < DH / 2; ++e) acc1[e] += part[e];
     } else {
 #pragma unroll
-      for (int e = 0; e < D / 2; ++e) acc2[e] += part[e];
+      for (int e = 0; e < DH / 2; ++e) acc2[e] += part[e];
     }
   }
+  if constexpr (NS == 2) sm90::cluster_arrive_release();   // done reading the peer's stages
 
   // dq: out1 = dq [B,Sq,H,D]; dk/dv: out1 = dv, out2 = dk [B,Sk,KV,D]
   const int S_out = kDQ ? Sq : Sk, heads_out = kDQ ? H : KV;
@@ -687,9 +820,10 @@ __device__ __forceinline__ void bwd_body(const BwdMaps& m, const float* __restri
 #pragma unroll
   for (int e = 0; e < 2; ++e) {
     if (rows[e] >= S_out) continue;
-    const size_t base = ((static_cast<size_t>(b) * S_out + rows[e]) * heads_out + xhead) * D + col;
+    const size_t base =
+        ((static_cast<size_t>(b) * S_out + rows[e]) * heads_out + xhead) * D + c0 + col;
 #pragma unroll
-    for (int j = 0; j < D / 8; ++j) {
+    for (int j = 0; j < DH / 8; ++j) {
       *reinterpret_cast<float2*>(out1 + base + 8 * j) =
           make_float2(acc1[4 * j + 2 * e], acc1[4 * j + 2 * e + 1]);
       if constexpr (!kDQ)
@@ -697,27 +831,58 @@ __device__ __forceinline__ void bwd_body(const BwdMaps& m, const float* __restri
             make_float2(acc2[4 * j + 2 * e], acc2[4 * j + 2 * e + 1]);
     }
   }
+  if constexpr (NS == 2) sm90::cluster_wait();   // the peer is done reading ours: exit
 }
 
 // Two names for the profile: the dk/dv launch (out1 = dv, out2 = dk) and
-// the dq launch (out1 = dq).
+// the dq launch (out1 = dq); at D = 256 two more, whose blocks form pairs.
+#define REPRO_F32TC_BWD_ARGS                                                          \
+  const __grid_constant__ BwdMaps m, const float* __restrict__ lse,                  \
+      const float* __restrict__ delta, float* __restrict__ out1, float* __restrict__ out2, \
+      int Sq, int Sk, int H, int KV, int causal, int window, float softcap, float scale
+#define REPRO_F32TC_BWD_CALL m, lse, delta, out1, out2, Sq, Sk, H, KV, causal, window, softcap, scale
+
 template <int D, bool kCap>
-__global__ void __launch_bounds__(kThreads, 1)
-flash_f32tc_dkdv_kernel(const __grid_constant__ BwdMaps m, const float* __restrict__ lse,
-                        const float* __restrict__ delta, float* __restrict__ dv,
-                        float* __restrict__ dk, int Sq, int Sk, int H, int KV, int causal,
-                        int window, float softcap, float scale) {
-  bwd_body<D, false, kCap>(m, lse, delta, dv, dk, Sq, Sk, H, KV, causal, window, softcap, scale);
+__global__ void __launch_bounds__(kThreads, 1) flash_f32tc_dkdv_kernel(REPRO_F32TC_BWD_ARGS) {
+  bwd_body<D, false, kCap>(REPRO_F32TC_BWD_CALL);
 }
 
 template <int D, bool kCap>
-__global__ void __launch_bounds__(kThreads, 1)
-flash_f32tc_dq_kernel(const __grid_constant__ BwdMaps m, const float* __restrict__ lse,
-                      const float* __restrict__ delta, float* __restrict__ dq,
-                      float* __restrict__ unused, int Sq, int Sk, int H, int KV, int causal,
-                      int window, float softcap, float scale) {
-  bwd_body<D, true, kCap>(m, lse, delta, dq, unused, Sq, Sk, H, KV, causal, window, softcap,
-                          scale);
+__global__ void __launch_bounds__(kThreads, 1) flash_f32tc_dq_kernel(REPRO_F32TC_BWD_ARGS) {
+  bwd_body<D, true, kCap>(REPRO_F32TC_BWD_CALL);
+}
+
+template <bool kCap>
+__global__ void __cluster_dims__(2, 1, 1) __launch_bounds__(kThreads, 1)
+flash_f32tc_dkdv_d256_kernel(REPRO_F32TC_BWD_ARGS) {
+  bwd_body<256, false, kCap>(REPRO_F32TC_BWD_CALL);
+}
+
+template <bool kCap>
+__global__ void __cluster_dims__(2, 1, 1) __launch_bounds__(kThreads, 1)
+flash_f32tc_dq_d256_kernel(REPRO_F32TC_BWD_ARGS) {
+  bwd_body<256, true, kCap>(REPRO_F32TC_BWD_CALL);
+}
+#undef REPRO_F32TC_BWD_ARGS
+#undef REPRO_F32TC_BWD_CALL
+
+// The kernels of head dim D: those of one block a tile, or of pairs at 256.
+template <int D, bool kCap>
+auto fwd_kernel() {
+  if constexpr (Split<D>::N == 2) return flash_f32tc_fwd_d256_kernel<kCap>;
+  else return flash_f32tc_fwd_kernel<D, kCap>;
+}
+
+template <int D, bool kCap>
+auto dkdv_kernel() {
+  if constexpr (Split<D>::N == 2) return flash_f32tc_dkdv_d256_kernel<kCap>;
+  else return flash_f32tc_dkdv_kernel<D, kCap>;
+}
+
+template <int D, bool kCap>
+auto dq_kernel() {
+  if constexpr (Split<D>::N == 2) return flash_f32tc_dq_d256_kernel<kCap>;
+  else return flash_f32tc_dq_kernel<D, kCap>;
 }
 
 // ---- host side --------------------------------------------------------------
@@ -740,8 +905,9 @@ bool kmajor_map(CUtensorMap* map, const float* x, int B, int S, int heads, int D
 }
 
 // A tensor map over a transposed copy [B, heads, D, S_pad] f32 whose box is
-// 16 positions of all D rows of one head, in the 64-byte swizzle.
-bool trans_map(CUtensorMap* map, const float* x, int B, int S, int heads, int D) {
+// 16 positions of `rows` head-dim rows (all D, or the half of a pair) of one
+// head, in the 64-byte swizzle.
+bool trans_map(CUtensorMap* map, const float* x, int B, int S, int heads, int D, int rows) {
   const sm90::EncodeTiled encode = sm90::encode_tiled();
   if (encode == nullptr) return false;
   const int S_pad = round16(S);
@@ -749,7 +915,7 @@ bool trans_map(CUtensorMap* map, const float* x, int B, int S, int heads, int D)
                               static_cast<cuuint64_t>(heads), static_cast<cuuint64_t>(B)};
   const cuuint64_t row = static_cast<cuuint64_t>(S_pad) * 4;
   const cuuint64_t strides[3] = {row, row * D, row * D * heads};
-  const cuuint32_t box[4] = {static_cast<cuuint32_t>(kBN), static_cast<cuuint32_t>(D), 1, 1};
+  const cuuint32_t box[4] = {static_cast<cuuint32_t>(kBN), static_cast<cuuint32_t>(rows), 1, 1};
   const cuuint32_t unit[4] = {1, 1, 1, 1};
   return encode(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, const_cast<float*>(x), dims, strides,
                 box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_64B,
@@ -805,7 +971,8 @@ struct Args {
 
 template <int D, bool kCap>
 cudaError_t launch_forward(const Args& a, cudaStream_t stream) {
-  using G = Geo<D>;
+  constexpr int NS = Split<D>::N, DH = Split<D>::DH;
+  using G = Geo<DH>;
   size_t off[kBwdParts];
   workspace_parts(a.B, a.Sq, a.Sk, a.H, a.KV, D, false, off);
   cudaError_t err = sm90::bind_context();
@@ -829,17 +996,18 @@ cudaError_t launch_forward(const Args& a, cudaStream_t stream) {
       !kmajor_map(&m.q.lo, w + off[1], a.B, a.Sq, a.H, D, kRows) ||
       !kmajor_map(&m.k.hi, w + off[2], a.B, a.Sk, a.KV, D, kBN) ||
       !kmajor_map(&m.k.lo, w + off[3], a.B, a.Sk, a.KV, D, kBN) ||
-      !trans_map(&m.vt.hi, w + off[4], a.B, a.Sk, a.KV, D) ||
-      !trans_map(&m.vt.lo, w + off[5], a.B, a.Sk, a.KV, D))
+      !trans_map(&m.vt.hi, w + off[4], a.B, a.Sk, a.KV, D, DH) ||
+      !trans_map(&m.vt.lo, w + off[5], a.B, a.Sk, a.KV, D, DH))
     return cudaErrorInvalidValue;
   err = launch_prep(flash_f32tc_fwd_prep_kernel, p, stream);
   if (err != cudaSuccess) return err;
-  constexpr int smem = 1024 + 2 * G::FIX + 2 * G::STR + 2 * G::TR + 64;
+  constexpr int smem = 1024 + 2 * G::FIX + 2 * G::STR + 2 * G::TR + xch_bytes<D, 8>() + 64;
+  const auto kernel = fwd_kernel<D, kCap>();
   static std::atomic<uint64_t> smem_set{0};
-  err = set_smem_once(smem_set, flash_f32tc_fwd_kernel<D, kCap>, smem);
+  err = set_smem_once(smem_set, kernel, smem);
   if (err != cudaSuccess) return err;
-  const dim3 grid(a.H, a.B, (a.Sq + kRows - 1) / kRows);
-  flash_f32tc_fwd_kernel<D, kCap><<<grid, kThreads, smem, stream>>>(
+  const dim3 grid(NS * a.H, a.B, (a.Sq + kRows - 1) / kRows);
+  kernel<<<grid, kThreads, smem, stream>>>(
       m, a.o, a.lse_out, a.Sq, a.Sk, a.H, a.KV, a.causal, a.window, a.softcap,
       1.0f / sqrtf(static_cast<float>(D)));
   return cudaGetLastError();
@@ -847,6 +1015,7 @@ cudaError_t launch_forward(const Args& a, cudaStream_t stream) {
 
 template <int D, bool kCap>
 cudaError_t launch_backward(const Args& a, cudaStream_t stream) {
+  constexpr int NS = Split<D>::N, DH = Split<D>::DH;
   size_t off[kBwdParts];
   workspace_parts(a.B, a.Sq, a.Sk, a.H, a.KV, D, true, off);
   cudaError_t err = sm90::bind_context();
@@ -876,31 +1045,33 @@ cudaError_t launch_backward(const Args& a, cudaStream_t stream) {
       kmajor_map(&kv.x2.hi, vhi, B, Sk, KV, D, kRows) && kmajor_map(&kv.x2.lo, vlo, B, Sk, KV, D, kRows) &&
       kmajor_map(&kv.y1.hi, qhi, B, Sq, H, D, kBN) && kmajor_map(&kv.y1.lo, qlo, B, Sq, H, D, kBN) &&
       kmajor_map(&kv.y2.hi, ohi, B, Sq, H, D, kBN) && kmajor_map(&kv.y2.lo, olo, B, Sq, H, D, kBN) &&
-      trans_map(&kv.t1.hi, othi, B, Sq, H, D) && trans_map(&kv.t1.lo, otlo, B, Sq, H, D) &&
-      trans_map(&kv.t2.hi, qthi, B, Sq, H, D) && trans_map(&kv.t2.lo, qtlo, B, Sq, H, D) &&
+      trans_map(&kv.t1.hi, othi, B, Sq, H, D, DH) && trans_map(&kv.t1.lo, otlo, B, Sq, H, D, DH) &&
+      trans_map(&kv.t2.hi, qthi, B, Sq, H, D, DH) && trans_map(&kv.t2.lo, qtlo, B, Sq, H, D, DH) &&
       kmajor_map(&qd.x1.hi, qhi, B, Sq, H, D, kRows) && kmajor_map(&qd.x1.lo, qlo, B, Sq, H, D, kRows) &&
       kmajor_map(&qd.x2.hi, ohi, B, Sq, H, D, kRows) && kmajor_map(&qd.x2.lo, olo, B, Sq, H, D, kRows) &&
       kmajor_map(&qd.y1.hi, khi, B, Sk, KV, D, kBN) && kmajor_map(&qd.y1.lo, klo, B, Sk, KV, D, kBN) &&
       kmajor_map(&qd.y2.hi, vhi, B, Sk, KV, D, kBN) && kmajor_map(&qd.y2.lo, vlo, B, Sk, KV, D, kBN) &&
-      trans_map(&qd.t1.hi, kthi, B, Sk, KV, D) && trans_map(&qd.t1.lo, ktlo, B, Sk, KV, D);
+      trans_map(&qd.t1.hi, kthi, B, Sk, KV, D, DH) && trans_map(&qd.t1.lo, ktlo, B, Sk, KV, D, DH);
   if (!ok) return cudaErrorInvalidValue;
   qd.t2 = qd.t1;   // unused by the dq launch
   err = launch_prep(flash_f32tc_bwd_prep_kernel, p, stream);
   if (err != cudaSuccess) return err;
   constexpr int dkdv_smem = BwdRing<D, false>::SMEM, dq_smem = BwdRing<D, true>::SMEM;
+  const auto dkdv = dkdv_kernel<D, kCap>();
+  const auto dq = dq_kernel<D, kCap>();
   static std::atomic<uint64_t> dkdv_set{0}, dq_set{0};
-  err = set_smem_once(dkdv_set, flash_f32tc_dkdv_kernel<D, kCap>, dkdv_smem);
+  err = set_smem_once(dkdv_set, dkdv, dkdv_smem);
   if (err != cudaSuccess) return err;
-  err = set_smem_once(dq_set, flash_f32tc_dq_kernel<D, kCap>, dq_smem);
+  err = set_smem_once(dq_set, dq, dq_smem);
   if (err != cudaSuccess) return err;
   const float scale = 1.0f / sqrtf(static_cast<float>(D));
-  const dim3 grid_kv(KV, B, (Sk + kRows - 1) / kRows);
-  flash_f32tc_dkdv_kernel<D, kCap><<<grid_kv, kThreads, dkdv_smem, stream>>>(
+  const dim3 grid_kv(NS * KV, B, (Sk + kRows - 1) / kRows);
+  dkdv<<<grid_kv, kThreads, dkdv_smem, stream>>>(
       kv, a.lse, a.delta, a.dv, a.dk, Sq, Sk, H, KV, a.causal, a.window, a.softcap, scale);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  const dim3 grid_q(H, B, (Sq + kRows - 1) / kRows);
-  flash_f32tc_dq_kernel<D, kCap><<<grid_q, kThreads, dq_smem, stream>>>(
+  const dim3 grid_q(NS * H, B, (Sq + kRows - 1) / kRows);
+  dq<<<grid_q, kThreads, dq_smem, stream>>>(
       qd, a.lse, a.delta, a.dq, nullptr, Sq, Sk, H, KV, a.causal, a.window, a.softcap, scale);
   return cudaGetLastError();
 }
@@ -918,6 +1089,7 @@ cudaError_t dispatch(const Args& a, int D, cudaStream_t st) {
     REPRO_F32TC_CASE(32)
     REPRO_F32TC_CASE(64)
     REPRO_F32TC_CASE(128)
+    REPRO_F32TC_CASE(256)
     default: return cudaErrorInvalidValue;
   }
 #undef REPRO_F32TC_CASE
@@ -940,7 +1112,7 @@ extern "C" long long repro_flash_f32tc_workspace(int B, int Sq, int Sk, int H, i
       repro::workspace_parts(B, Sq, Sk, H, KV, D, backward != 0, off));
 }
 
-// C entry points, f32 only, D in {32, 64, 128}. The forward writes out and,
+// C entry points, f32 only, D in {32, 64, 128, 256}. The forward writes out and,
 // when lse is non-null, lse [B,H,Sq]; the backward writes dq, dk, dv and
 // delta [B,H,Sq] (scratch). work: repro_flash_f32tc_workspace bytes, 256-byte
 // aligned. causal is 0 or 1; window <= 0 means none; softcap <= 0 means none.

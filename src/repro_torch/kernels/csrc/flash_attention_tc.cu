@@ -3,12 +3,11 @@
 // Replaces: src/repro/kernels/flash_attention.py, `_kernel` / `flash_attention`
 // (the Pallas TPU kernel, grid (B, H, S/bq, S/bk) with the k axis sequential,
 // reached from the model through `_pallas_attn` in src/repro/models/layers.py)
-// for bf16 operands. f32 operands go to flash_attention_f32tc.cu (D <= 128:
-// split-f32, three TF32 products per f32 product, which meet the f32
-// tolerance of 2e-5 where one TF32 product cannot) or to the CUDA-core
-// kernel of flash_attention.cu (D = 256). Forward only.
+// for bf16 operands. f32 operands go to flash_attention_f32tc.cu (split-f32,
+// three TF32 products per f32 product, which meet the f32 tolerance of 2e-5
+// where one TF32 product cannot). Forward only.
 //
-// Function: as flash_attention.cu and ref.flash_attention_ref. q [B,Sq,H,D],
+// Function: as ref.flash_attention_ref. q [B,Sq,H,D],
 //   k/v [B,Sk,KV,D] bf16 -> out [B,Sq,H,D] bf16; q head h reads kv head
 //   h / (H/KV), the GQA repeat is never materialised. Scores (q.k)/sqrt(D) in
 //   f32, then the optional tanh softcap, then the causal mask kpos <= qpos

@@ -2,9 +2,9 @@
 
 Each wrapper checks what it is given and picks its path by the tensors'
 device alone: a CPU tensor gets the plain version from ``ref``; a CUDA
-tensor gets the kernel (for flash attention, the variant of its dtype and
-head dim: ``flash_variant``; for the scan, the variant of its shape and
-alignment: ``scan_variant``) or an exception. Nothing falls back from the
+tensor gets the kernel (for flash attention, the variant of its dtype:
+``flash_variant``; for the scan, the variant of its shape and alignment:
+``scan_variant``) or an exception. Nothing falls back from the
 card to the plain version, nor from one kernel to another. Outputs and
 scratch (the flash backward's delta, the split-f32 kernels' workspace of
 hi/lo operand copies) are allocated here with ``torch.empty``, and the
@@ -199,11 +199,9 @@ def flash_attention_backward(q: torch.Tensor, k: torch.Tensor,
                              softcap: Optional[float] = None):
     """(dq, dk, dv) of flash attention. q, out, dout: [B,Sq,H,D]; k, v:
     [B,Sk,KV,D]; lse: [B,H,Sq] f32 from the forward. f32 on the card, the
-    backward of the forward's variant (``flash_variant``): split-f32 on the
-    tensor cores (``csrc/flash_attention_f32tc.cu``: prep, dk/dv and dq
-    launches) or the CUDA cores (``csrc/flash_attention_bwd.cu``: delta,
-    dk/dv and dq); no atomics in either, the same bits on every call. The
-    plain version on the CPU."""
+    backward of the split-f32 forward (``csrc/flash_attention_f32tc.cu``:
+    prep, dk/dv and dq launches on the tensor cores; no atomics, the same
+    bits on every call). The plain version on the CPU."""
     _check_flash(q, k, v)
     B, Sq, H, D = q.shape
     if out.shape != q.shape or dout.shape != q.shape:
@@ -228,35 +226,31 @@ def flash_attention_backward(q: torch.Tensor, k: torch.Tensor,
             _ptr(delta), _ptr(dq), _ptr(dk), _ptr(dv))
     args = (B, Sq, k.shape[1], H, k.shape[2], D, int(causal), int(window or 0),
             float(softcap or 0.0), _stream())
-    if flash_variant(q.dtype, D) == "split_f32":
-        work = _f32tc_workspace(q, k, backward=True)
-        code = lib.repro_flash_attention_f32tc_bwd(*ptrs, _ptr(work), *args)
-    else:
-        code = lib.repro_flash_attention_bwd(*ptrs, *args)
+    work = _f32tc_workspace(q, k, backward=True)
+    code = lib.repro_flash_attention_f32tc_bwd(*ptrs, _ptr(work), *args)
     _raise_on(code, "flash_attention_backward")
     LAUNCHES["flash_attention_backward"] += 1
     return dq, dk, dv
 
 
-SPLIT_F32_HEAD_DIMS = (32, 64, 128)
-
-
 def flash_variant(dtype: torch.dtype, head_dim: int) -> str:
     """The CUDA kernels that take flash attention in ``dtype`` at head dim
-    ``head_dim``, chosen by shape before any launch (never a fallback):
+    ``head_dim`` (one of ``_HEAD_DIMS``), chosen before any launch (never a
+    fallback):
 
     - bf16: "tensor_core", ``csrc/flash_attention_tc.cu`` (wgmma + TMA);
-    - f32, D in ``SPLIT_F32_HEAD_DIMS``: "split_f32",
-      ``csrc/flash_attention_f32tc.cu``, forward and backward on the tensor
-      cores with split-f32 products (hi + lo tf32 parts, three wgmma a
-      product): one TF32 product keeps 10 mantissa bits and misses the f32
-      tolerance (2e-5), three of them meet it;
-    - f32, other D (256): "cuda_core", ``csrc/flash_attention.cu`` and
-      ``csrc/flash_attention_bwd.cu``, f32 FMAs."""
+    - f32: "split_f32", ``csrc/flash_attention_f32tc.cu``, forward and
+      backward on the tensor cores with split-f32 products (hi + lo tf32
+      parts, three wgmma a product): one TF32 product keeps 10 mantissa bits
+      and misses the f32 tolerance (2e-5), three of them meet it. At D = 256
+      a tile takes a cluster of two blocks, one per half of the head dim."""
+    if head_dim not in _HEAD_DIMS:
+        raise ValueError(f"flash_attention: head dim {head_dim} not in "
+                         f"{_HEAD_DIMS}")
     if dtype == torch.bfloat16:
         return "tensor_core"
     if dtype == torch.float32:
-        return "split_f32" if head_dim in SPLIT_F32_HEAD_DIMS else "cuda_core"
+        return "split_f32"
     raise ValueError(f"flash_attention: no kernel for {dtype}")
 
 
@@ -280,14 +274,11 @@ def _launch_flash_attention(q, k, v, out, lse, causal, window, softcap) -> None:
     if variant == "tensor_core":
         code = lib.repro_flash_attention_tc(_ptr(q), _ptr(k), _ptr(v),
                                             _ptr(out), *args)
-    elif variant == "split_f32":
+    else:
         work = _f32tc_workspace(q, k, backward=False)
         code = lib.repro_flash_attention_f32tc(_ptr(q), _ptr(k), _ptr(v),
                                                _ptr(out), lse_p, _ptr(work),
                                                *args)
-    else:
-        code = lib.repro_flash_attention(_ptr(q), _ptr(k), _ptr(v), _ptr(out),
-                                         lse_p, *args)
     _raise_on(code, "flash_attention")
 
 

@@ -335,18 +335,20 @@ def test_plain_versions_take_any_head_dim():
 @pytest.mark.parametrize("dtype, head_dim, variant", [
     (torch.bfloat16, 128, "tensor_core"), (torch.bfloat16, 256, "tensor_core"),
     (torch.float32, 32, "split_f32"), (torch.float32, 64, "split_f32"),
-    (torch.float32, 128, "split_f32"), (torch.float32, 256, "cuda_core")])
+    (torch.float32, 128, "split_f32"), (torch.float32, 256, "split_f32")])
 def test_flash_variant_follows_dtype(dtype, head_dim, variant):
     """bf16 goes to the tensor-core kernel (flash_attention_tc.cu); f32 at
-    D <= 128 to the split-f32 tensor-core kernels (flash_attention_f32tc.cu),
-    f32 at D = 256 to the CUDA-core ones (flash_attention.cu and
-    flash_attention_bwd.cu); the choice is by dtype and head dim alone."""
+    every head dim to the split-f32 tensor-core kernels
+    (flash_attention_f32tc.cu; at D = 256 their cluster-pair kernels); the
+    choice is by dtype alone, before any launch."""
     assert ops.flash_variant(dtype, head_dim) == variant
 
 
 def test_flash_variant_refuses_other_dtypes():
     with pytest.raises(ValueError):
         ops.flash_variant(torch.float16, 128)
+    with pytest.raises(ValueError):
+        ops.flash_variant(torch.float32, 96)
 
 
 def test_row_error_sees_a_dropped_key_tile():
@@ -512,17 +514,23 @@ def test_flash_attention_grad_on_cpu_takes_the_plain_backward(case,
 
 # Why the f32 flash kernels of csrc/flash_attention_f32tc.cu split each
 # operand: plain-PyTorch emulations of the tensor cores' tf32 products at
-# reduced sizes of the f32 cases (D = 64 / 128, GQA, causal, window and
-# softcap, ragged S, Sq != Sk). cvt.rna.tf32.f32 keeps 10 mantissa bits
+# reduced sizes of the f32 cases (D = 64 / 128 / 256, GQA, causal, window
+# and softcap, ragged S, Sq != Sk). cvt.rna.tf32.f32 keeps 10 mantissa bits
 # (round to nearest, ties away from zero); a tf32 x tf32 product is exact in
 # f32 and the sums are f32. "3xtf32" splits x = hi + lo, hi = tf32(x),
 # lo = tf32(x - hi), and sums lo.hi + hi.lo + hi.hi; "tf32" is one product.
+# At D = 256 the products over the head dim (the scores q.k and dO.v) are
+# summed as the kernels' cluster pairs sum them: each half of D apart, then
+# half 0 + half 1.
 SPLIT_CASES = [
     # (B, Sq, Sk, H, KV, D, causal, window, softcap)
     (2, 128, 128, 4, 2, 128, True, None, None),   # the train path's form
     (1, 96, 96, 8, 2, 64, True, 24, 30.0),        # window and softcap
     (1, 100, 100, 4, 4, 64, True, None, None),    # ragged S
     (2, 40, 70, 4, 2, 128, False, None, None),    # Sq != Sk, no mask
+    (2, 64, 64, 4, 2, 256, True, None, 50.0),     # gemma2's form
+    (1, 96, 96, 4, 2, 256, True, 24, 50.0),       # a window that bites
+    (1, 100, 100, 4, 2, 256, True, None, 50.0),   # ragged S
 ]
 
 
@@ -541,6 +549,18 @@ def _matmul(a: torch.Tensor, b: torch.Tensor, mode: str) -> torch.Tensor:
     return alo @ bhi + ahi @ blo + ahi @ bhi
 
 
+def _head_dim_matmul(a: torch.Tensor, b: torch.Tensor, mode: str) -> torch.Tensor:
+    """a @ b over the head dim (a's last axis), summed as the kernels sum
+    it: at D = 256 each block of a cluster pair sums its half of D, and the
+    two partial sums are added, half 0 + half 1."""
+    D = a.shape[-1]
+    if D != 256:
+        return _matmul(a, b, mode)
+    h = D // 2
+    return (_matmul(a[..., :h], b[..., :h, :], mode)
+            + _matmul(a[..., h:], b[..., h:, :], mode))
+
+
 def _split_inputs(case, seed=6):
     B, Sq, Sk, H, KV, D, causal, window, softcap = case
     rng = np.random.default_rng(seed)
@@ -554,7 +574,7 @@ def _emulated_scores(q, k, mode, causal, window, softcap):
     B, Sq, H, D = q.shape
     Sk, KV = k.shape[1], k.shape[2]
     qg = q.reshape(B, Sq, KV, H // KV, D).permute(0, 2, 3, 1, 4)
-    sc = _matmul(qg, k.permute(0, 2, 3, 1)[:, :, None], mode) / np.sqrt(D)
+    sc = _head_dim_matmul(qg, k.permute(0, 2, 3, 1)[:, :, None], mode) / np.sqrt(D)
     if softcap is not None:
         sc = softcap * torch.tanh(sc / softcap)
     if causal:
@@ -594,7 +614,7 @@ def _emulated_backward(q, k, v, out, lse, do, mode, causal, window, softcap):
     dog = do.reshape(B, Sq, KV, G, D).permute(0, 2, 3, 1, 4)     # [B,KV,G,Sq,D]
     qg = q.reshape(B, Sq, KV, G, D).permute(0, 2, 3, 1, 4)
     delta = (do * out).sum(-1).reshape(B, Sq, KV, G).permute(0, 2, 3, 1)
-    dp = _matmul(dog, v.permute(0, 2, 3, 1)[:, :, None], mode)
+    dp = _head_dim_matmul(dog, v.permute(0, 2, 3, 1)[:, :, None], mode)
     ds = p * (dp - delta[..., None])
     if chain is not None:
         ds = ds * chain

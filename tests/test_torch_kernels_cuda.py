@@ -17,9 +17,9 @@ from repro_torch.kernels import ops, ref  # noqa: E402
 TDT = {"f32": torch.float32, "bf16": torch.bfloat16}
 TOL = {"f32": 2e-5, "bf16": 2e-2}
 
-# bf16 goes to the tensor-core kernel (csrc/flash_attention_tc.cu), f32 at
-# D <= 128 to the split-f32 tensor-core one (csrc/flash_attention_f32tc.cu),
-# f32 at D = 256 to the CUDA-core one (csrc/flash_attention.cu)
+# bf16 goes to the tensor-core kernel (csrc/flash_attention_tc.cu), f32 to
+# the split-f32 tensor-core one (csrc/flash_attention_f32tc.cu; at D = 256
+# its kernels whose blocks form cluster pairs, one per half of the head dim)
 FLASH_CASES = [
     # (B, Sq, Sk, H, KV, D, causal, window, softcap, dtype)
     (2, 128, 128, 4, 4, 64, True, None, None, "f32"),
@@ -45,7 +45,10 @@ FLASH_CASES = [
     (2, 200, 333, 4, 2, 128, False, None, None, "f32"),       # Sq != Sk, no mask
     (1, 333, 200, 4, 2, 32, False, None, 30.0, "f32"),
     (1, 640, 640, 32, 2, 128, True, 200, None, "f32"),        # head group 16
-    (1, 200, 200, 4, 2, 256, True, 64, 50.0, "f32"),          # D = 256: CUDA cores
+    (1, 200, 200, 4, 2, 256, True, 64, 50.0, "f32"),          # D = 256: cluster pairs
+    (2, 256, 256, 8, 4, 256, True, None, 50.0, "f32"),        # gemma2's form
+    (1, 333, 333, 4, 2, 256, True, 100, 50.0, "f32"),         # window, ragged
+    (2, 200, 333, 4, 2, 256, False, None, None, "f32"),       # Sq != Sk, no mask
 ]
 # bf16 also per output row (b, q, h): its error over D relative to that row
 # of the f32 result may be at most ref.BF16_ROW_TOL. rtol=atol 2e-2 alone
@@ -76,10 +79,10 @@ DECODE_CASES = [
     (4, 4096, 16, 8, 128, None, None, "f32", None),
 ]
 
-# f32 flash backward against its plain version (csrc/flash_attention_f32tc.cu
-# at D <= 128, csrc/flash_attention_bwd.cu at D = 256): the main path's
-# shape, D = 32/64/256, groups 1/2/4, window and softcap, ragged S, Sq != Sk
-# without a mask
+# f32 flash backward against its plain version (csrc/flash_attention_f32tc.cu):
+# the main path's shape, D = 32/64/256, groups 1/2/4, window and softcap,
+# ragged S, Sq != Sk without a mask; at D = 256 (the cluster pairs) also
+# gemma2's form, a window with ragged S and Sq != Sk
 BWD_CASES = [
     # (B, Sq, Sk, H, KV, D, causal, window, softcap)
     (2, 2048, 2048, 16, 8, 128, True, None, None),   # internlm2's train step
@@ -91,6 +94,9 @@ BWD_CASES = [
     (1, 130, 130, 4, 2, 128, False, None, 30.0),
     (2, 100, 333, 4, 2, 64, False, None, None),      # Sq != Sk, no mask
     (1, 333, 100, 4, 1, 128, False, None, None),
+    (2, 256, 256, 8, 4, 256, True, None, 50.0),      # gemma2's form
+    (1, 333, 333, 4, 2, 256, True, 100, 50.0),
+    (1, 100, 333, 4, 2, 256, False, None, None),
 ]
 BWD_TOL = 2e-5   # relative to each gradient's largest magnitude
 
@@ -333,16 +339,18 @@ def test_bare_flash_kernel_call_refuses_grad(card):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("D, variant", [(64, "split_f32"), (128, "split_f32"),
-                                        (256, "cuda_core")])
+                                        (256, "split_f32")])
 def test_f32_flash_runs_the_variant_of_its_head_dim(card, D, variant):
     """The f32 forward and backward at head dim D run the kernels of
-    ops.flash_variant (by shape, before the launch): their device kernels
-    are the ones the profiler records."""
+    ops.flash_variant (before the launch): their device kernels are the
+    ones the profiler records, the cluster-pair kernels at D = 256 and the
+    one-block kernels below it, never the other set."""
     from torch.profiler import ProfilerActivity, profile
-    names = {"split_f32": ("flash_f32tc_fwd_kernel", "flash_f32tc_dkdv_kernel",
-                           "flash_f32tc_dq_kernel"),
-             "cuda_core": ("flash_fwd_kernel", "flash_bwd_dkdv_kernel",
-                           "flash_bwd_dq_kernel")}
+    single = ("flash_f32tc_fwd_kernel", "flash_f32tc_dkdv_kernel",
+              "flash_f32tc_dq_kernel")
+    pairs = ("flash_f32tc_fwd_d256_kernel", "flash_f32tc_dkdv_d256_kernel",
+             "flash_f32tc_dq_d256_kernel")
+    names, other = (pairs, single) if D == 256 else (single, pairs)
     assert ops.flash_variant(torch.float32, D) == variant
     q, k, v, dout, kw = _bwd_operands(card, (1, 128, 128, 4, 2, D, True, None,
                                              None))
@@ -352,9 +360,26 @@ def test_f32_flash_runs_the_variant_of_its_head_dim(card, D, variant):
         ops.flash_attention_backward(q, k, v, out, lse, dout, **kw)
         torch.cuda.synchronize()
     seen = " ".join(ev.key for ev in prof.key_averages())
-    other = "cuda_core" if variant == "split_f32" else "split_f32"
-    assert all(n in seen for n in names[variant]), seen
-    assert not any(n in seen for n in names[other]), seen
+    assert all(n in seen for n in names), seen
+    assert not any(n in seen for n in other), seen
+
+
+@pytest.mark.cuda
+def test_f32_flash_d256_is_bitwise_repeatable(card):
+    """At D = 256 both blocks of a pair sum the scores in one order: the
+    forward (with and without lse) and the backward give the same bits on
+    every call, as the trainer's resume check (==) needs."""
+    q, k, v, dout, kw = _bwd_operands(card, (2, 333, 333, 8, 4, 256, True,
+                                             100, 50.0))
+    runs = []
+    for _ in range(2):
+        out, lse = ops.flash_attention_forward(q, k, v, True, 100, 50.0,
+                                               want_lse=True)
+        grads = ops.flash_attention_backward(q, k, v, out, lse, dout, **kw)
+        runs.append((ops.flash_attention(q, k, v, **kw), out, lse, *grads))
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(*runs))
+    assert torch.equal(runs[0][0], runs[0][1])   # o unchanged by lse
 
 
 @pytest.mark.cuda
