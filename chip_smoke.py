@@ -4,12 +4,14 @@
     python3 chip_smoke.py
 
 Models, at full width with random weights from a seed, depth not cut
-except in phases 7 and 8: internlm2-1.8b (24 layers, d=2048, 16 heads, 8 kv
-heads, dh=128, d_ff=8192, V=92544), falcon-mamba-7b (64 Mamba layers,
-d=4096, d_inner=8192, d_state=16, d_conv=4, dt_rank=256, V=65024) and
+except in phases 7, 8 and 9: internlm2-1.8b (24 layers, d=2048, 16 heads, 8
+kv heads, dh=128, d_ff=8192, V=92544), falcon-mamba-7b (64 Mamba layers,
+d=4096, d_inner=8192, d_state=16, d_conv=4, dt_rank=256, V=65024),
 gemma2-9b (42 layers, alternating local (window 4096) and global attention,
 d=3584, 16 heads, 8 kv heads, dh=256, d_ff=14336, V=256000 tied, softcaps
-50 / 30). Phases:
+50 / 30) and grok-1-314b (64 layers, d=6144, 48 heads, 8 kv heads (head
+group 6), dh=128, an MoE FFN of 8 experts top-2 with d_ff=32768,
+V=131072 untied). Phases:
 
 1. device: name, power limit, kernel build (nvcc, sm_90a) and its seconds;
 2. each CUDA kernel, launched directly, against its plain PyTorch version
@@ -17,7 +19,8 @@ d=3584, 16 heads, 8 kv heads, dh=256, d_ff=14336, V=256000 tied, softcaps
    kernel tests use; bf16 flash also row by row against the f32 result of
    its inputs, ``ref.BF16_ROW_TOL``; the scan, in both its variants,
    bit-identical to the plain loop, and its backward bit-identical to the
-   plain reverse loop and bitwise repeatable);
+   plain reverse loop and bitwise repeatable); flash and decode also at the
+   head groups of grok (6: 48 / 8 heads) and arctic (7: 56 / 8);
 3. internlm2 ``forward`` in bf16 on tokens [2, 2048] with the flash kernel
    (its tensor-core variant) against the plain path, and the flash launch
    count (one per layer, none of them an f32 variant);
@@ -48,7 +51,9 @@ d=3584, 16 heads, 8 kv heads, dh=256, d_ff=14336, V=256000 tied, softcaps
    8's: split-f32, clusters of two blocks) beside its 3xTF32 and CUDA-core
    bounds and memory-efficient SDPA without the softcap, and the bf16
    forward there (off the main paths) beside its bound and SDPA's flash
-   backend; the scan's backward at phase 7's shape beside its bound;
+   backend; the scan's backward at phase 7's shape beside its bound; after
+   phase 9b, bf16 flash at grok's forward shape and decode at grok's serve
+   shape, each beside its bound and SDPA;
 6. internlm2 ``make_train_step`` at full width in f32 (24 layers, tokens
    [accum 1, mb 2, S 2048], 30.2 GB of params, grads and AdamW moments):
    step ms, tokens/s, the device breakdown, 24 forward and 24 backward
@@ -75,15 +80,28 @@ d=3584, 16 heads, 8 kv heads, dh=256, d_ff=14336, V=256000 tied, softcaps
    launches a step recorded as the split-f32 kernels at dh = 256 (the
    *_d256_* pair kernels) and none of another variant; its first loss is
    held to the plain path's (a tied N(0, 1) embedding puts it far above
-   ln V, see ``phase_train``).
+   ln V, see ``phase_train``);
+9. grok-1-314b ``forward`` (grok-forward-bf16) at full width, depth cut to
+   GROK_LAYERS (2 of 64: device memory, reckoned by ``serve_memory``), as
+   phase 3 (2 tensor-core flash launches a forward, none f32; the error
+   against an f32 forward within phase 3's limits; the f32 copy made leaf
+   by leaf in place after the bf16 runs), with the MoE FFN's breakdown
+   (expert GEMMs, dispatch and combine, attention, the rest), its routed
+   counts per expert and its dropped assignments, and the MoE dispatch
+   run twice (bitwise equal) and once under
+   ``torch.cuda.set_sync_debug_mode("error")`` (no host sync);
+   9b. grok ``SlotServer`` (grok-serve-f32) as phase 4, with the bytes a
+   decode step must read beside its time, and the dispatch checks at the
+   decode shape.
 
 Phase 2 also holds the f32 flash backward (``csrc/flash_attention_f32tc.cu``)
 against its plain version at rtol = atol = 2e-5 relative to each
 gradient's largest magnitude, bitwise repeatable, and the forward's lse.
 Training needs ``CUBLAS_WORKSPACE_CONFIG`` (set here before torch starts)
-and runs under ``torch.use_deterministic_algorithms(True)`` from phase 6 on.
-The phases that drive a main path (3-4b, 6-8) set the launch counts to 0
-just before and read them just after.
+and runs under ``torch.use_deterministic_algorithms(True)`` from phase 6 on,
+so phases 9 and 9b run under it too. The phases that drive a main path
+(3-4b, 6-9b) set the launch counts to 0 just before and read them just
+after.
 
 Every breakdown prints the port's kernel launches the profiler recorded
 beside those the wrappers counted, and reads its device busy time as a lower
@@ -96,7 +114,6 @@ non-zero without one, or without the repository's ``src/`` beside it.
 from __future__ import annotations
 
 import contextlib
-import copy
 import dataclasses
 import json
 import math
@@ -121,7 +138,7 @@ import torch.nn.functional as F  # noqa: E402
 
 from repro_torch.configs import get_config, reduced  # noqa: E402
 from repro_torch.kernels import build, ops, ref  # noqa: E402
-from repro_torch.models import model as M  # noqa: E402
+from repro_torch.models import layers as L, model as M  # noqa: E402
 from repro_torch.launch import train as train_driver  # noqa: E402
 from repro_torch.serving import SlotServer, serve_step  # noqa: E402
 from repro_torch.training import loss_fn, make_train_step  # noqa: E402
@@ -145,6 +162,8 @@ LOGIO_RUN = dict(steps=10, ckpt_every=3, seq_len=128, batch_size=4,
                  d_model=512, n_layers=4, seed=3)   # phases 6b and 7b
 MAMBA_TRAIN_LAYERS = 4   # phase 7's depth (of 64): what device memory allows
 GEMMA_TRAIN_LAYERS = 4   # phase 8's depth (of 42): two (local, global) pairs
+GROK_ARCH = "grok-1-314b"
+GROK_LAYERS = 2          # phases 9 and 9b's depth (of 64): device memory
 
 KERNELS = {
     # bf16 (the forward path) runs on the tensor cores; f32 (the train path)
@@ -414,6 +433,13 @@ DECODE_CASES = [
     (2, 2047, 16, 8, 128, torch.float32, None, None, [2047, 1999]),
     (2, 4096, 32, 2, 256, torch.float32, None, None, [4096, 3000]),
     (4, 4096, 16, 8, 128, torch.bfloat16, 1000, 30.0, None),
+    # head groups 6 (grok's serve shape) and 7 (arctic's heads): the kernel
+    # takes them in its group-of-8 instance, two or one lanes of it idle
+    (4, 4096, 48, 8, 128, torch.float32, None, None, [64, 64, 64, 64]),
+    (4, 4096, 48, 8, 128, torch.float32, None, None, None),
+    (4, 4096, 48, 8, 128, torch.bfloat16, 1000, 30.0, None),
+    (4, 4096, 56, 8, 128, torch.float32, None, None, None),
+    (2, 2047, 56, 8, 128, torch.float32, None, None, [2047, 64]),
 ]
 
 FLASH_CASES = [
@@ -429,6 +455,11 @@ FLASH_CASES = [
     (2, 2048, 16, 8, 32, torch.bfloat16, True, None, None),
     (2, 1024, 8, 2, 64, torch.bfloat16, True, None, None),
     (2, 1000, 16, 8, 128, torch.bfloat16, False, None, None),   # ragged, no mask
+    # head groups 6 (grok's forward shape) and 7 (arctic's heads)
+    (2, 2048, 48, 8, 128, torch.bfloat16, True, None, None),
+    (1, 1000, 48, 8, 128, torch.float32, True, None, None),
+    (2, 1024, 56, 8, 128, torch.bfloat16, True, None, None),
+    (1, 1000, 56, 8, 128, torch.bfloat16, False, None, None),
 ]
 
 BWD_CASES = [
@@ -649,18 +680,21 @@ def phase_kernels() -> dict:
 # ---------------------------------------------------------------------------
 
 
-def as_f32(params, cfg):
-    """An f32 copy of ``params`` made leaf by leaf (no second bf16 copy)."""
-    p32 = M.DecoderParams(cfg, torch.float32, params.embed.device)
+def to_f32_(params) -> None:
+    """Turn every leaf of ``params`` into f32 in place, one leaf at a time:
+    a leaf's bf16 storage is freed as soon as its f32 copy exists, so no
+    second copy of the model is ever made."""
     with torch.no_grad():
-        for dst, src in zip(p32.parameters(), params.parameters()):
-            dst.copy_(src)
-    return p32
+        for t in params.parameters():
+            t.data = t.data.float()
 
 
-def phase_forward(cfg, kernel: str) -> dict:
+def phase_forward(cfg, kernel: str, reckoned_gb=None) -> dict:
     """``forward`` in bf16 on tokens [FWD_B, FWD_S] through ``kernel`` (one
-    launch per layer), held against the plain path and an f32 forward."""
+    launch per layer), held against the plain path and an f32 forward of
+    the same weights (made in place after the bf16 runs and timings). With
+    an MoE FFN, ``moe_report`` adds its breakdown, routing and dispatch
+    checks. Peak memory beside ``reckoned_gb`` where given."""
     g = torch.Generator(device=DEVICE).manual_seed(SEED)
     params = M.init_params(g, cfg, torch.bfloat16, DEVICE)
     tokens = torch.randint(0, cfg.vocab, (FWD_B, FWD_S), generator=g,
@@ -682,29 +716,6 @@ def phase_forward(cfg, kernel: str) -> dict:
               f"forward scan launches by variant {variants}")
     check(tuple(logits_k.shape) == (FWD_B, FWD_S, cfg.vocab), "logits shape")
     check(bool(torch.isfinite(logits_k).all()), "non-finite logits")
-    # bf16 activations round at every layer, so two bf16 paths that differ
-    # only in a kernel's summation order drift apart by about what bf16
-    # itself costs. The stated tolerance is relative to that cost: against
-    # an f32 forward of the same weights (the plain path in full f32), the
-    # kernel path's max and mean errors may be at most 2x and 1.25x the
-    # plain bf16 path's.
-    with torch.inference_mode():
-        p32 = as_f32(params, cfg)
-        logits_r, _ = M.forward(p32, batch, cfg, runtime("plain"))
-        del p32
-    e_k, e_p = max_err(logits_k, logits_r), max_err(logits_p, logits_r)
-    m_k = (logits_k - logits_r).abs().mean().item()
-    m_p = (logits_p - logits_r).abs().mean().item()
-    top1 = (logits_k.argmax(-1) == logits_p.argmax(-1)).float().mean().item()
-    log(f"{tag}: {kernel} launches {launches}; vs f32 forward: kernel max "
-        f"{e_k:.3e} mean {m_k:.3e}, plain max {e_p:.3e} mean {m_p:.3e}; "
-        f"kernel vs plain max {max_err(logits_k, logits_p):.3e}, "
-        f"max|logit| {logits_r.abs().max().item():.3f}, top-1 agreement "
-        f"{top1:.4f}")
-    check(e_k <= 2 * e_p and m_k <= 1.25 * m_p,
-          "forward logits: the kernel path is less accurate than the plain "
-          "path beyond the stated tolerance")
-    del logits_k, logits_p, logits_r
     with torch.inference_mode():
         fwd_ms = cuda_ms(lambda: M.forward(params, batch, cfg,
                                            runtime("kernel")), iters=5,
@@ -724,10 +735,139 @@ def phase_forward(cfg, kernel: str) -> dict:
     log(f"{tag}: kernel {fwd_ms:.2f} ms "
         f"({FWD_B * FWD_S / fwd_ms * 1e3:.0f} tok/s), plain path "
         f"{fwd_plain_ms:.2f} ms ({FWD_B * FWD_S / fwd_plain_ms * 1e3:.0f} tok/s)")
-    del params
-    log_memory(tag)
+    moe = (moe_report(params, batch, cfg, tag, fwd_ms, prof)
+           if cfg.moe is not None else None)
+    # bf16 activations round at every layer, so two bf16 paths that differ
+    # only in a kernel's summation order drift apart by about what bf16
+    # itself costs. The stated tolerance is relative to that cost: against
+    # an f32 forward of the same weights (the plain path in full f32), the
+    # kernel path's max and mean errors may be at most 2x and 1.25x the
+    # plain bf16 path's.
+    to_f32_(params)
+    with torch.inference_mode():
+        logits_r, _ = M.forward(params, batch, cfg, runtime("plain"))
+    e_k, e_p = max_err(logits_k, logits_r), max_err(logits_p, logits_r)
+    m_k = (logits_k - logits_r).abs().mean().item()
+    m_p = (logits_p - logits_r).abs().mean().item()
+    top1 = (logits_k.argmax(-1) == logits_p.argmax(-1)).float().mean().item()
+    log(f"{tag}: {kernel} launches {launches}; vs f32 forward: kernel max "
+        f"{e_k:.3e} mean {m_k:.3e}, plain max {e_p:.3e} mean {m_p:.3e}; "
+        f"kernel vs plain max {max_err(logits_k, logits_p):.3e}, "
+        f"max|logit| {logits_r.abs().max().item():.3f}, top-1 agreement "
+        f"{top1:.4f}")
+    check(e_k <= 2 * e_p and m_k <= 1.25 * m_p,
+          "forward logits: the kernel path is less accurate than the plain "
+          "path beyond the stated tolerance")
+    del logits_k, logits_p, logits_r, params
+    log_memory(tag, reckoned_gb)
     torch.cuda.empty_cache()
-    return {"launches": launches}
+    return {"launches": launches, "ms": fwd_ms, "moe": moe}
+
+
+def moe_inputs(params, batch, cfg) -> list:
+    """The input of every MoE layer in one kernel-path forward (the
+    ``apply_moe`` calls recorded; nothing is counted from this run)."""
+    seen = []
+    inner = L.apply_moe
+
+    def record(p, x, c):
+        seen.append(x)
+        return inner(p, x, c)
+    with mock.patch.object(L, "apply_moe", record), torch.inference_mode():
+        M.forward(params, batch, cfg, runtime("kernel"))
+    return seen
+
+
+def moe_report(params, batch, cfg, tag: str, fwd_ms: float, prof: dict) -> dict:
+    """The MoE FFN of the bf16 forward: per layer the routed count of each
+    expert and the assignments that lost their expert (past capacity, and
+    the rank-0 token of an overflowing expert, the reference's slot-0
+    behaviour); the forward's time by part (CUDA events on layer 0's input:
+    the MoE layer, its expert GEMMs alone, the dispatch and combine as the
+    difference; attention from the profiler's flash device time; the rest);
+    and the dispatch checks of ``check_moe_dispatch``."""
+    m = cfg.moe
+    E = m.n_experts * m.expert_split
+    hs = moe_inputs(params, batch, cfg)
+    moes = [layer.moe for layer in params.layers if hasattr(layer, "moe")]
+    T, d = FWD_B * FWD_S, cfg.d_model
+    C = L.moe_capacity(T, cfg)
+    routed = []
+    for i, (mp, h) in enumerate(zip(moes, hs)):
+        with torch.inference_mode():
+            top_e = L.moe_route(mp, h.reshape(T, d), cfg)[2]
+            counts, _, _, _, kept = L.moe_slots(top_e, E, C)
+        counts = counts.tolist()
+        lost = int((~kept).sum())
+        past = sum(max(0, c - C) for c in counts)
+        routed.append({"counts": counts, "capacity": C, "lost": lost,
+                       "past_capacity": past})
+        log(f"{tag} moe layer {i}: routed per expert {counts} (C {C}, "
+            f"expected {T * m.top_k * m.expert_split / E:.0f} an expert); "
+            f"assignments without their expert {lost} of {T * top_e.shape[1]}"
+            f" ({past} past capacity, {lost - past} the slot-0 token of an "
+            f"overflowing expert)")
+    mp, h = moes[0], hs[0]
+    with torch.inference_mode():
+        xf = h.reshape(T, d)
+        top_e = L.moe_route(mp, xf, cfg)[2]
+        _, slot_tok, slot_valid, _, _ = L.moe_slots(top_e, E, C)
+        xe = torch.where(slot_valid[:, None], xf[slot_tok], 0).reshape(E, C, d)
+        moe_ms = cuda_ms(lambda: L.apply_moe(mp, h, cfg), iters=10)
+        exp_ms = cuda_ms(lambda: L.moe_experts(mp, xe, cfg.act), iters=10)
+    f = mp.w1.shape[-1]
+    flops = 2 * 3 * E * C * d * f
+    attn = kernel_ms(prof, FLASH_TC)
+    n_attn = sum(spec.mixer == "attn" for spec in cfg.layer_kinds())
+    attn_ms = None if attn is None else n_attn * attn
+    rest = fwd_ms - len(moes) * moe_ms - (attn_ms or 0.0)
+    log(f"{tag} by part (CUDA events on layer 0's input; attention from the "
+        f"profiler): {len(moes)} MoE layers x {moe_ms:.3f} ms = expert GEMMs "
+        f"{len(moes)} x {exp_ms:.3f} ms ({flops / exp_ms / 1e9:.1f} TFLOP/s on "
+        f"[{E},{C},{d}] x [{d},{f}] x 3, "
+        f"{_share(flops / PEAK_FLOPS[torch.bfloat16] * 1e3, exp_ms)} of the "
+        f"bf16 peak) + dispatch and combine {len(moes)} x "
+        f"{moe_ms - exp_ms:.3f} ms; attention (flash device) {n_attn} x "
+        f"{_fmt(attn)} ms; the rest (projections, norms, embedding, logits) "
+        f"{rest:.3f} ms; forward {fwd_ms:.3f} ms")
+    with torch.inference_mode():
+        dispatch = check_moe_dispatch(mp, h, cfg, f"{tag} moe layer 0")
+    del hs, xe
+    return {"routed": routed, "moe_layer_ms": moe_ms, "expert_gemm_ms": exp_ms,
+            "dispatch_combine_ms": moe_ms - exp_ms, "attention_ms": attn_ms,
+            "rest_ms": rest, **dispatch}
+
+
+def check_moe_dispatch(mp, h, cfg, tag: str) -> dict:
+    """``layers.apply_moe`` on h twice under the deterministic mode (bitwise
+    equal outputs and aux, no determinism warning), then once under
+    ``torch.cuda.set_sync_debug_mode("error")``, which raises on any host
+    sync, with the same bits."""
+    check(torch.are_deterministic_algorithms_enabled(),
+          f"{tag}: the deterministic mode is off")
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        a = L.apply_moe(mp, h, cfg)
+        b = L.apply_moe(mp, h, cfg)
+        sync()
+    nondet = [str(w.message)[:120] for w in caught
+              if "determinis" in str(w.message).lower()]
+    check(not nondet, f"{tag}: determinism warnings {nondet}")
+    check(bool(torch.equal(a[0], b[0])) and bool(torch.equal(a[1], b[1])),
+          f"{tag}: two MoE calls differ")
+    sync()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        c = L.apply_moe(mp, h, cfg)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    sync()
+    check(bool(torch.equal(a[0], c[0])), f"{tag}: the third MoE call differs")
+    log(f"{tag}: MoE dispatch on {list(h.shape)} {str(h.dtype)[6:]}: two calls "
+        f"bitwise equal (out and aux {float(a[1]):.6f}), no determinism "
+        f"warning; a third under set_sync_debug_mode('error') made no host "
+        f"sync and gave the same bits")
+    return {"dispatch_bitwise": True, "dispatch_sync_free": True}
 
 
 # ---------------------------------------------------------------------------
@@ -766,11 +906,13 @@ def _serve(server: SlotServer, gaps: list) -> tuple[dict, int, float]:
     return done, steps, time.perf_counter() - t0
 
 
-def phase_serve(cfg, kernel: str) -> dict:
+def phase_serve(cfg, kernel: str, reckoned_gb=None) -> dict:
     """``SlotServer`` with f32 weights and cache through ``kernel`` (one
-    launch per layer per step): lockstep logits, greedy streams, launches.
-    Returns the kernel path's lockstep cache and last positions, which
-    phase 5 times the kernel on."""
+    launch per layer per step): lockstep logits, greedy streams, launches;
+    with an MoE FFN, the bytes a step must read beside its time and
+    ``check_moe_dispatch`` at the decode shape. Peak memory beside
+    ``reckoned_gb`` where given. Returns the kernel path's lockstep cache
+    and last positions, which phase 5 times the kernel on."""
     g = torch.Generator(device=DEVICE).manual_seed(SEED + 1)
     params = M.init_params(g, cfg, torch.float32, DEVICE)
     tol = TOL[torch.float32]
@@ -806,6 +948,8 @@ def phase_serve(cfg, kernel: str) -> dict:
                 f"({SLOTS / ms * 1e3:.1f} tok/s)")
             log_breakdown(f"{tag} serve_step {impl}",
                           profile_kernels(step[impl], 5), ms)
+        if cfg.moe is not None:
+            decode_moe(params, cfg, tag, statistics.mean(step_ms["kernel"]))
         in_step = (scan_in_step(step["kernel"], tag)
                    if kernel == "selective_scan" else None)
         # (b) the servers: kernel (counted) and plain
@@ -847,9 +991,31 @@ def phase_serve(cfg, kernel: str) -> dict:
         f"({tok / secs_p:.1f} tok/s); diverged requests: {len(diverged)}")
     check(steps == steps_p, "plain server took another number of steps")
     del params
-    log_memory(tag)
+    log_memory(tag, reckoned_gb)
     return {"launches": launches, "cache": caches["kernel"], "pos": pos,
             "scan_in_step": in_step}
+
+
+def decode_moe(params, cfg, tag: str, step_ms: float) -> None:
+    """An MoE decode step runs ``apply_moe`` on SLOTS tokens (C = 32, so no
+    assignment is dropped) and its expert GEMMs read every expert's
+    weights: the step must read every weight but the embedding table (only
+    SLOTS rows of it). That, over the HBM rate, is the step's least time,
+    printed beside the measured one; then ``check_moe_dispatch`` on a
+    [SLOTS, 1, d] input."""
+    nbytes = sum(t.numel() * t.element_size() for t in params.parameters()) \
+        - params.embed.numel() * params.embed.element_size()
+    bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    C = L.moe_capacity(SLOTS, cfg)
+    log(f"{tag} serve_step reads >= {nbytes / 1e9:.2f} GB a step (every "
+        f"weight but the embedding table; MoE at T = {SLOTS}, C = {C}: every "
+        f"expert's GEMMs run), >= {bound_ms:.2f} ms at "
+        f"{HBM_BYTES_PER_S / 1e12:.2f} TB/s; measured {step_ms:.3f} ms "
+        f"({100 * bound_ms / step_ms:.1f}% of that bound)")
+    moe = next(layer.moe for layer in params.layers if hasattr(layer, "moe"))
+    g = torch.Generator(device=DEVICE).manual_seed(SEED + 8)
+    h = torch.randn((SLOTS, 1, cfg.d_model), generator=g, device=DEVICE)
+    check_moe_dispatch(moe, h, cfg, f"{tag} moe decode")
 
 
 def _scan_addcmul(a, b, h0=None):
@@ -907,10 +1073,12 @@ def _sdpa_flash(q, k, v):
                                           enable_gqa=True)
 
 
-def time_flash(cfg, sdpa_err: dict) -> dict:
-    """The flash forward at the forward's shape in both of its variants at
-    dh = 128: bf16 on the tensor cores (the forward path's) and f32 split-f32
-    (the train path's), each against its bound: bf16 at 989 TFLOP/s; f32 as
+def time_flash(cfg, sdpa_err: dict,
+               dtypes=(torch.bfloat16, torch.float32)) -> dict:
+    """The flash forward at the forward's shape (``cfg``'s heads) in the
+    variants of ``dtypes`` at dh = 128: bf16 on the tensor cores (the
+    forward path's) and f32 split-f32 (the train path's), each against its
+    bound: bf16 at 989 TFLOP/s; f32 as
     three TF32 products at 495 TFLOP/s, with the 67 TFLOP/s CUDA-core bound
     beside it. Beside each, SDPA: ``enable_gqa`` for bf16; for f32 the
     memory-efficient backend on K/V repeated to the q heads, and the fastest
@@ -919,7 +1087,7 @@ def time_flash(cfg, sdpa_err: dict) -> dict:
     g = torch.Generator(device=DEVICE).manual_seed(SEED + 2)
     B, S, H, KV, D = FWD_B, FWD_S, cfg.n_heads, cfg.n_kv_heads, cfg.d_head
     res = {}
-    for dt in (torch.bfloat16, torch.float32):
+    for dt in dtypes:
         variant = ops.flash_variant(dt, D)
         names = (FLASH_TC,) if dt == torch.bfloat16 else (F32TC_FWD_PREP, F32TC_FWD)
         q = _randn(g, (B, S, H, D), dt)
@@ -980,6 +1148,8 @@ def time_flash(cfg, sdpa_err: dict) -> dict:
                        prep_device_ms=prep_ms)
         del q, k, v
     out = res[torch.bfloat16]
+    if torch.float32 not in res:
+        return out
     f32 = res[torch.float32]
     out.update(f32_source="src/repro_torch/kernels/csrc/flash_attention_f32tc.cu",
                f32_variant=ops.flash_variant(torch.float32, D),
@@ -1571,6 +1741,52 @@ def depth_cut(tag: str, cfg, depth: int) -> float:
     return reckoned
 
 
+def serve_memory(cfg, depth: int) -> dict:
+    """Phases 9 and 9b's peak device memory in GB at ``depth`` layers,
+    reckoned from the code, and the model's size (N = FWD_B * FWD_S):
+
+    - forward: the f32 params after ``to_f32_`` (4 bytes a param), the
+      kernel and plain paths' f32 logits kept for the comparison and the
+      f32 path's ([N, V] each), and the larger of the f32 path's
+      transients: an MoE layer's (xe and ye [E C, d]; four [E, C, f/sp]:
+      the first GEMM's output while its activation is made, g, u and g*u)
+      or plain attention's (three [B, H, S, S]);
+    - serve: the f32 params and the larger of the f32 draw ``init_params``
+      makes of its largest leaf (an expert weight, [E, d, f/sp]) before
+      copying it in, and what serving adds: three f32 caches (the lockstep
+      pair and a server's) and an MoE decode layer's four [E, 32, f/sp]."""
+    n = dataclasses.replace(cfg, n_layers=depth).param_count()
+    N, V, d = FWD_B * FWD_S, cfg.eff_vocab, cfg.d_model
+    m = cfg.moe
+    E, f = m.n_experts * m.expert_split, cfg.d_ff // m.expert_split
+    C = L.moe_capacity(N, cfg)
+    moe = (2 * E * C * d + 4 * E * C * f) * 4
+    attn = 3 * FWD_B * cfg.n_heads * FWD_S ** 2 * 4
+    cache = depth * 2 * SLOTS * MAX_LEN * cfg.n_kv_heads * cfg.d_head * 4
+    serving = 3 * cache + 4 * E * L.moe_capacity(SLOTS, cfg) * f * 4
+    return {"params": n,
+            "forward_gb": (4 * n + 3 * N * V * 4 + max(moe, attn)) / 1e9,
+            "serve_gb": (4 * n + max(E * d * f * 4, serving)) / 1e9}
+
+
+def moe_depth_cut(tag: str, cfg, depth: int) -> dict:
+    """Log why phases 9 and 9b run ``cfg`` at ``depth`` layers (device
+    memory: ``serve_memory`` at that depth and at twice it, beside the
+    card's) and return the reckoning at ``depth``."""
+    full, here, twice = (serve_memory(cfg, x) for x in (cfg.n_layers, depth,
+                                                       2 * depth))
+    log(f"{tag}: depth cut to {depth} of {cfg.n_layers} layers, for device "
+        f"memory: full depth is {full['params'] / 1e9:.3f} B params "
+        f"({2 * full['params'] / 1e9:.1f} GB bf16); depth {depth} "
+        f"{here['params'] / 1e9:.3f} B params, {2 * here['params'] / 1e9:.1f} "
+        f"GB bf16, {4 * here['params'] / 1e9:.1f} GB f32; reckoned peak "
+        f"forward {here['forward_gb']:.1f} GB (the f32 reference made in "
+        f"place), serve {here['serve_gb']:.1f} GB; at depth {2 * depth} "
+        f"{twice['forward_gb']:.1f} / {twice['serve_gb']:.1f} GB (card: "
+        f"{torch.cuda.get_device_properties(0).total_memory / 1e9:.1f} GB)")
+    return here
+
+
 def phase_train(cfg, path: str, tag: str, reckoned_gb=None) -> dict:
     """``make_train_step`` at full width in f32 (``cfg.n_layers`` deep),
     tokens [1, 2, 2048], under the training's deterministic mode: the
@@ -1839,11 +2055,27 @@ def main() -> int:
         dataclasses.replace(gcfg, n_layers=GEMMA_TRAIN_LAYERS),
         "attention_d256", "gemma2-train-f32",
         depth_cut("gemma2-train-f32", gcfg, GEMMA_TRAIN_LAYERS))
-    launches = {"flash_attention": fwd["launches"],
+    torch.cuda.empty_cache()
+    # grok-1-314b: the MoE FFN on the forward's flash kernel (head group 6)
+    # and the server's decode kernel, depth cut
+    kcfg = get_config(GROK_ARCH)
+    mem = moe_depth_cut("grok", kcfg, GROK_LAYERS)
+    kcfg = dataclasses.replace(kcfg, n_layers=GROK_LAYERS)
+    fwd_k = phase_forward(kcfg, "flash_attention", mem["forward_gb"])
+    serve_k = phase_serve(kcfg, "decode_attention", mem["serve_gb"])
+    with torch.inference_mode():
+        flash_k = time_flash(kcfg, sdpa_err, dtypes=(torch.bfloat16,))
+        q = torch.randn((SLOTS, kcfg.n_heads, kcfg.d_head), device=DEVICE)
+        k, v = serve_k["cache"][0]["k"][0], serve_k["cache"][0]["v"][0]
+        decode_k = time_decode(q, k, v, (serve_k["pos"] + 1).to(torch.int32),
+                               tag="grok serve shape")
+        del q, k, v, serve_k["cache"]
+    log_memory("grok timings")
+    launches = {"flash_attention": fwd["launches"] + fwd_k["launches"],
                 "flash_attention_backward": train["launches"][
                     "flash_attention_backward"]
                 + gtrain["launches"]["flash_attention_backward"],
-                "decode_attention": serve["launches"],
+                "decode_attention": serve["launches"] + serve_k["launches"],
                 "selective_scan": fwd_m["launches"] + serve_m["launches"]
                 + mtrain["launches"]["selective_scan"],
                 "selective_scan_backward": mtrain["launches"][
@@ -1880,7 +2112,17 @@ def main() -> int:
         f32_d256_device_ms_in_step=gtrain["fwd_device_ms"],
         **{f"bf16_d256_{key}": val
            for key, val in d256_t["bf16_forward"].items()},
-        bf16_d256_library_call="FLASH_ATTENTION (enable_gqa), no softcap")
+        bf16_d256_library_call="FLASH_ATTENTION (enable_gqa), no softcap",
+        launches_internlm2_forward=fwd["launches"],
+        launches_grok_forward=fwd_k["launches"],
+        **{f"grok_{key}": val for key, val in flash_k.items()},
+        grok_shape=[FWD_B, FWD_S, kcfg.n_heads, kcfg.n_kv_heads, kcfg.d_head],
+        grok_forward_ms=fwd_k["ms"],
+        grok_moe={key: val for key, val in fwd_k["moe"].items()
+                  if key != "routed"},
+        grok_moe_routed=fwd_k["moe"]["routed"])
+    flash_row["max_abs_err"] = max(flash_row["max_abs_err"],
+                                   flash_k["max_abs_err"])
     bwd_row = next(r for r in rows if r["name"] == "flash_attention_backward")
     bwd_row.update(
         launches_per_step=train["launches"]["flash_attention_backward"]
@@ -1911,7 +2153,12 @@ def main() -> int:
         full_cache_device_ms=decode_full["device_ms"],
         full_cache_bound_ms=decode_full["bound_ms"],
         full_cache_clean_l2_ms=decode_full["clean_l2_ms"],
-        full_cache_clean_l2_device_ms=decode_full["clean_l2_device_ms"])
+        full_cache_clean_l2_device_ms=decode_full["clean_l2_device_ms"],
+        launches_internlm2_serve=serve["launches"],
+        launches_grok_serve=serve_k["launches"],
+        **{f"grok_{key}": val for key, val in decode_k.items()})
+    decode_row["max_abs_err"] = max(decode_row["max_abs_err"],
+                                    decode_k["max_abs_err"])
     # the scan runs on both paths: its forward-shape numbers above, the
     # decode step's (and the variant it ran) and the launches of each path
     scan_row = next(r for r in rows if r["name"] == "selective_scan")

@@ -9,9 +9,9 @@ port holds them as ``layers[n * len(cfg.block) + i]``. The cache keeps the
 same stacked layout on both sides, so its leaves copy one to one (``k``/``v``
 for attention, ``conv``/``ssm`` for Mamba). bf16 leaves travel as
 ``ml_dtypes.bfloat16`` numpy arrays, the type JAX hands out. Leaves keep
-their dtype: a Mamba model's ``A_log``, ``D`` and ``dt_bias`` are f32 in a
-bf16 model on both sides, and a leaf whose dtype differs from the port's
-parameter is refused, never cast.
+their dtype: a Mamba model's ``A_log``, ``D`` and ``dt_bias`` and an MoE
+layer's ``router`` are f32 in a bf16 model on both sides, and a leaf whose
+dtype differs from the port's parameter is refused, never cast.
 """
 from __future__ import annotations
 

@@ -1,14 +1,17 @@
-"""Serving driver: batched decode over a dense decoder or Mamba architecture.
+"""Serving entry point: batched decode over a dense decoder, Mamba or MoE
+architecture.
 
 Same flags as ``repro.launch.serve`` plus ``--device`` (default ``cuda``;
 ``cpu`` runs the plain versions of the kernels):
     PYTHONPATH=src python -m repro_torch.launch.serve --arch internlm2-1.8b \
         --requests 8 --tokens 16
     PYTHONPATH=src python -m repro_torch.launch.serve --arch falcon-mamba-7b
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch grok-1-314b
     PYTHONPATH=src python -m repro_torch.launch.serve --device cpu
 The model is the reduced same-family config of ``--arch`` at ``--d-model``,
-with seeded random f32 weights. MoE and encoder-decoder archs (grok, arctic,
-jamba, seamless) raise ``NotImplementedError`` until their slices land.
+with seeded random f32 weights; grok-1-314b, arctic-480b and
+jamba-1.5-large-398b serve their MoE FFNs. The encoder-decoder arch
+(seamless) raises ``NotImplementedError`` until its slice lands.
 """
 from __future__ import annotations
 

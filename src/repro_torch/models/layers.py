@@ -1,15 +1,15 @@
-"""Model layers of the dense decoder and Mamba families, in PyTorch.
+"""Model layers of the dense decoder, Mamba and MoE families, in PyTorch.
 
 Counterpart of ``repro.models.layers`` (``rms_norm``, ``_act``, ``rope``,
-attention, decode attention, the gated MLP and the Mamba-1 mixer). Parameter
-leaves keep the JAX package's shapes (``wq [d,h,dh]``, ``wo [h,dh,d]``,
-``w1 [d,f]``, ``in_proj [d,2*di]`` ...), so the einsum formulas carry over
-and ``repro_torch.bridge`` copies leaves as they are. Attention and the scan
-go through the hand-written kernels (``attn_impl`` / ``scan_impl`` "kernel",
-the default) or their plain versions ("plain"); on the CPU the kernel
-wrappers take the plain versions themselves.
-
-The MoE layers of ``repro.models.layers`` belong to a later slice.
+attention, decode attention, the gated MLP, the MoE FFN and the Mamba-1
+mixer). Parameter leaves keep the JAX package's shapes (``wq [d,h,dh]``,
+``wo [h,dh,d]``, ``w1 [d,f]``, ``in_proj [d,2*di]`` ...), so the einsum
+formulas carry over and ``repro_torch.bridge`` copies leaves as they are.
+Attention and the scan go through the hand-written kernels (``attn_impl`` /
+``scan_impl`` "kernel", the default) or their plain versions ("plain"); on
+the CPU the kernel wrappers take the plain versions themselves. The MoE
+FFN runs no kernel of its own: its expert GEMMs are ``torch.bmm``, as the
+JAX code's are XLA einsums.
 """
 from __future__ import annotations
 
@@ -215,6 +215,167 @@ def apply_mlp(p: MLPParams, x: torch.Tensor, act: str) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
+# MoE: top-k routing with capacity, sort-based slotting, gather dispatch and
+# a gather combine (no scatter, no atomics, no host sync)
+# ---------------------------------------------------------------------------
+
+
+class MoEParams(nn.Module):
+    """Leaves of one MoE FFN, in the JAX package's shapes: ``router`` [d, E]
+    in f32 whatever the model's dtype; ``w1`` / ``w3`` [E*sp, d, f/sp] and
+    ``w2`` [E*sp, f/sp, d], sp = ``expert_split``."""
+
+    def __init__(self, cfg: ArchConfig, dtype, device):
+        super().__init__()
+        d, f, E = cfg.d_model, cfg.d_ff, cfg.moe.n_experts
+        sp = cfg.moe.expert_split
+        self.router = leaf((d, E), torch.float32, device)
+        self.w1 = leaf((E * sp, d, f // sp), dtype, device)
+        self.w3 = leaf((E * sp, d, f // sp), dtype, device)
+        self.w2 = leaf((E * sp, f // sp, d), dtype, device)
+
+
+def init_moe(p: MoEParams, generator: torch.Generator, cfg: ArchConfig) -> None:
+    """Fill ``p`` in place with ``repro.models.layers.init_moe``'s
+    distributions: N(0, 1) / sqrt(d) for the router, w1 and w3, / sqrt(f)
+    for w2."""
+    d, f = cfg.d_model, cfg.d_ff
+    for name, fan_in in (("router", d), ("w1", d), ("w3", d), ("w2", f)):
+        normal_(getattr(p, name), generator, 1.0 / math.sqrt(fan_in))
+
+
+def moe_capacity(n_tokens: int, cfg: ArchConfig) -> int:
+    """Slots per expert: capacity_factor * n_tokens * top_k / n_experts,
+    rounded up to a multiple of 32, at least 32 (as the JAX code)."""
+    m = cfg.moe
+    c = int(math.ceil(m.capacity_factor * n_tokens * m.top_k / m.n_experts))
+    return max(32, -(-c // 32) * 32)
+
+
+MOE_TOKEN_CHUNK = 65_536
+
+
+def apply_moe(p: MoEParams, x: torch.Tensor, cfg: ArchConfig
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """x: [B, S, d] -> (out [B, S, d], aux loss, f32 scalar).
+
+    When T = B*S exceeds ``MOE_TOKEN_CHUNK`` and divides by it, the tokens
+    run in chunks of that size, each with its own capacity, and aux is the
+    mean of the chunks' (the JAX code's ``lax.map``). Decode calls this too,
+    on [B, 1, d], as the JAX ``decode_step`` does.
+    """
+    B, S, d = x.shape
+    T = B * S
+    if T > MOE_TOKEN_CHUNK and T % MOE_TOKEN_CHUNK == 0:
+        parts = [_moe_block(p, xi[None], cfg)
+                 for xi in x.reshape(T // MOE_TOKEN_CHUNK, -1, d)]
+        out = torch.cat([o for o, _ in parts]).reshape(B, S, d)
+        return out, torch.stack([a for _, a in parts]).mean()
+    return _moe_block(p, x, cfg)
+
+
+def moe_route(p: MoEParams, xf: torch.Tensor, cfg: ArchConfig):
+    """xf: [T, d] -> (probs [T, E] f32, top_w [T, K] f32, top_e [T, K]):
+    router logits in f32, softmax, the top k by probability renormalised.
+    With ``expert_split`` sp > 1, expert e becomes shards e*sp ..
+    e*sp+sp-1, each with the token's weight (K = k * sp). A token's
+    assignments come in ascending (shard) id, which changes no rank in
+    ``moe_slots`` (ids are distinct within a token).
+
+    The top k come from a stable descending sort, not ``torch.topk``:
+    ``lax.top_k`` breaks ties toward the lower expert id, which a stable
+    sort keeps, while ``torch.topk`` promises no order among equal values
+    on CUDA. Ties need exactly equal probs, as a zero input row gives
+    (uniform probs)."""
+    m = cfg.moe
+    T, sp = xf.shape[0], m.expert_split
+    logits = torch.einsum("td,de->te", xf.float(), p.router)
+    probs = torch.softmax(logits, dim=-1)
+    top_w, top_e = torch.sort(probs, dim=-1, descending=True, stable=True)
+    top_w, top_e = top_w[:, :m.top_k], top_e[:, :m.top_k]
+    top_w = top_w / (top_w.sum(-1, keepdim=True) + 1e-9)
+    if sp > 1:
+        top_e = (top_e[..., None] * sp
+                 + torch.arange(sp, device=xf.device)).reshape(T, -1)
+        top_w = top_w[..., None].expand(T, m.top_k, sp).reshape(T, -1)
+    top_e, perm = torch.sort(top_e, dim=-1)
+    return probs, torch.gather(top_w, -1, perm), top_e
+
+
+def moe_slots(top_e: torch.Tensor, n_experts: int, C: int):
+    """Capacity slotting of the assignments ``top_e`` [T, K] (expert ids,
+    ascending within each token) over ``n_experts`` experts (E) of C slots.
+
+    Returns (counts [E], slot_tok [E*C], slot_valid [E*C], slot [T, K],
+    kept [T, K]). An assignment's rank is its position among its expert's
+    assignments in token order (the JAX code's stable argsort); ranks below
+    C are kept, in slot e*C + rank. Each slot is read from the sorted
+    assignments (a gather), so no slot is written twice.
+
+    Pinned reference behaviour: the JAX code writes a dropped assignment to
+    slot e*C and keeps the last of the duplicate writes (XLA on the CPU),
+    so an expert with more than C assignments ends with slot e*C empty: its
+    rank-0 token also loses that expert's output. This reproduces it.
+    """
+    T, K = top_e.shape
+    dev = top_e.device
+    flat_e = top_e.reshape(-1)
+    sorted_e, order = torch.sort(flat_e, stable=True)
+    ids = torch.arange(n_experts, device=dev)
+    starts = torch.searchsorted(sorted_e, ids)
+    counts = torch.searchsorted(sorted_e, ids, right=True) - starts
+    over = counts > C
+    r = torch.arange(C, device=dev)
+    slot_valid = (r < counts[:, None]) & ((r > 0) | ~over[:, None])
+    src = order[(starts[:, None] + r).clamp(max=T * K - 1)]
+    slot_tok = torch.where(slot_valid, src // K, 0).reshape(-1)
+    rank = (torch.argsort(order) - starts[flat_e]).reshape(T, K)
+    kept = (rank < C) & ((rank > 0) | ~over[top_e])
+    slot = top_e * C + rank.clamp(max=C - 1)
+    return counts, slot_tok, slot_valid.reshape(-1), slot, kept
+
+
+def moe_experts(p: MoEParams, xe: torch.Tensor, act: str) -> torch.Tensor:
+    """The expert FFNs on their slots: xe [E, C, d] -> [E, C, d]."""
+    g = _act(act)(torch.bmm(xe, p.w1))
+    u = torch.bmm(xe, p.w3)
+    return torch.bmm(g * u, p.w2)
+
+
+def _moe_block(p: MoEParams, x: torch.Tensor, cfg: ArchConfig
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One capacity block of tokens, in the JAX code's order of operations.
+
+    The combine is a gather: each token adds its kept assignments from zero
+    in ascending expert id, the order in which XLA's serial scatter-add on
+    the CPU adds its slots, each product ``ye * w`` with w rounded to the
+    model dtype first. So bf16 rounds as in JAX step by step, and the card
+    gives one answer bitwise every time. The aux loss is Switch's, on the
+    un-split router.
+    """
+    B, S, d = x.shape
+    m = cfg.moe
+    sp = m.expert_split
+    T, E, K = B * S, m.n_experts * sp, m.top_k * sp
+    C = moe_capacity(T, cfg)
+    xf = x.reshape(T, d)
+    probs, top_w, top_e = moe_route(p, xf, cfg)
+    counts, slot_tok, slot_valid, slot, kept = moe_slots(top_e, E, C)
+
+    xe = torch.where(slot_valid[:, None], xf[slot_tok], 0).reshape(E, C, d)
+    ye = moe_experts(p, xe, cfg.act).reshape(E * C, d)
+    w = top_w.to(ye.dtype)
+    out = torch.zeros((T, d), dtype=ye.dtype, device=x.device)
+    for j in range(K):
+        out = out + torch.where(kept[:, j, None], ye[slot[:, j]] * w[:, j, None],
+                                0)
+
+    frac = counts.reshape(m.n_experts, sp).sum(-1).float() / (T * K)
+    aux = m.n_experts * torch.sum(frac * probs.mean(dim=0))
+    return out.reshape(B, S, d), aux
+
+
+# ---------------------------------------------------------------------------
 # Mamba-1 mixer (conv + selective scan)
 # ---------------------------------------------------------------------------
 
@@ -365,7 +526,5 @@ def check_supported(cfg: ArchConfig) -> None:
     for spec in cfg.block:
         if spec.mixer not in ("attn", "mamba"):
             raise ValueError(f"{cfg.name}: unknown mixer {spec.mixer!r}")
-        if spec.ffn in ("moe", "moe_dense"):
-            raise unsupported(f"{cfg.name}: the {spec.ffn} FFN", "MoE")
-        if spec.ffn not in ("dense", "none"):
+        if spec.ffn not in ("dense", "moe", "moe_dense", "none"):
             raise ValueError(f"{cfg.name}: unknown ffn {spec.ffn!r}")

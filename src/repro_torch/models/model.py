@@ -1,4 +1,4 @@
-"""Model assembly for the dense decoder and Mamba families, in PyTorch.
+"""Model assembly for the dense decoder, Mamba and MoE families, in PyTorch.
 
 Counterpart of ``repro.models.model``. The JAX package stacks the layers of a
 block position over ``n_blocks`` and scans; here the layers are a
@@ -7,18 +7,18 @@ block position over ``n_blocks`` and scans; here the layers are a
 
 Public API (the JAX signatures and layouts):
     init_params(generator, cfg, dtype, device)   -> DecoderParams
-    forward(params, batch, cfg, rt)              -> (logits [B,S,V], aux)
+    forward(params, batch, cfg, rt)              -> (logits [B,S,V], moe aux)
     init_cache(cfg, B, S, dtype, device)         -> [{"k","v"} or
                                                      {"conv","ssm"} per block pos]
     decode_step(params, cache, tokens, pos, cfg, rt) -> (logits [B,V], cache)
 
-MoE and encoder-decoder configs raise ``NotImplementedError``.
+Encoder-decoder configs raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Dict, List, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import torch
 from torch import nn
@@ -35,9 +35,12 @@ class Runtime:
     """Runtime knobs. ``attn_impl`` (attention) and ``scan_impl`` (the Mamba
     recurrence): "kernel" (the hand-written CUDA kernels on the card, their
     plain versions on the CPU) or "plain" (the plain PyTorch versions
-    everywhere; an explicit request for references)."""
+    everywhere; an explicit request for references). ``aux_loss_weight``
+    weighs the MoE load-balance loss in ``loss_fn``, as the JAX
+    ``Runtime``'s field does."""
     attn_impl: str = "kernel"
     scan_impl: str = "kernel"
+    aux_loss_weight: float = 0.01
 
     def __post_init__(self):
         if self.attn_impl not in L.ATTN_IMPLS:
@@ -63,7 +66,9 @@ class LayerParams(nn.Module):
             self.mamba = L.MambaParams(cfg, dtype, device)
         if spec.ffn != "none":
             self.norm2 = L.leaf((cfg.d_model,), dtype, device)
-        if spec.ffn == "dense":
+        if spec.ffn in ("moe", "moe_dense"):
+            self.moe = L.MoEParams(cfg, dtype, device)
+        if spec.ffn in ("dense", "moe_dense"):
             self.mlp = L.MLPParams(cfg, dtype, device)
 
 
@@ -101,6 +106,8 @@ def init_params(generator: torch.Generator, cfg: ArchConfig,
             L.init_mamba(layer.mamba, generator, cfg)
         if hasattr(layer, "norm2"):
             layer.norm2.zero_()
+        if hasattr(layer, "moe"):
+            L.init_moe(layer.moe, generator, cfg)
         if hasattr(layer, "mlp"):
             L.init_mlp(layer.mlp, generator, cfg)
     return p
@@ -120,11 +127,23 @@ def _no_tf32(device: torch.device) -> None:
 
 
 def _ffn(layer: LayerParams, spec: LayerSpec, x: torch.Tensor,
-         cfg: ArchConfig) -> torch.Tensor:
+         cfg: ArchConfig) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """x + FFN(norm2(x)), and the MoE aux loss (None without MoE).
+
+    JAX sums ``f = 0; f = f + moe; f = f + mlp; x = x + f``. Its leading
+    ``0 +`` changes no value, so ``f`` starts at the first term here; the
+    order of the rest, which moves bf16 bits under ``moe_dense``, is kept.
+    """
     if spec.ffn == "none":
-        return x
+        return x, None
     h = L.rms_norm(x, layer.norm2, cfg.norm_eps)
-    return x + L.apply_mlp(layer.mlp, h, cfg.act)
+    f = aux = None
+    if spec.ffn in ("moe", "moe_dense"):
+        f, aux = L.apply_moe(layer.moe, h, cfg)
+    if spec.ffn in ("dense", "moe_dense"):
+        mlp = L.apply_mlp(layer.mlp, h, cfg.act)
+        f = mlp if f is None else f + mlp
+    return x + f, aux
 
 
 def _embed(params: DecoderParams, tokens: torch.Tensor,
@@ -155,7 +174,8 @@ def _logits(params: DecoderParams, x: torch.Tensor,
 def forward(params: DecoderParams, batch: Dict[str, torch.Tensor],
             cfg: ArchConfig, rt: Runtime = Runtime()
             ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Returns (logits [B,S,V] f32, moe_aux scalar; 0 for dense configs).
+    """Returns (logits [B,S,V] f32, moe_aux f32 scalar: the sum of the MoE
+    layers' aux losses, 0 without MoE).
 
     batch: {"tokens": [B,S] integer}. Attention runs through the flash
     kernel (``rt.attn_impl="kernel"``) and the Mamba recurrence through the
@@ -168,6 +188,7 @@ def forward(params: DecoderParams, batch: Dict[str, torch.Tensor],
     S = tokens.shape[1]
     positions = torch.arange(S, device=dev)[None, :]
     x = _embed(params, tokens, cfg)
+    aux = torch.zeros((), device=dev)
     for layer, spec in zip(params.layers, cfg.layer_kinds()):
         h = L.rms_norm(x, layer.norm1, cfg.norm_eps)
         if spec.mixer == "attn":
@@ -175,8 +196,10 @@ def forward(params: DecoderParams, batch: Dict[str, torch.Tensor],
                                     attn_impl=rt.attn_impl)
         else:
             mix = L.apply_mamba(layer.mamba, h, cfg, scan_impl=rt.scan_impl)
-        x = _ffn(layer, spec, x + mix, cfg)
-    return _logits(params, x, cfg), torch.zeros((), device=dev)
+        x, a = _ffn(layer, spec, x + mix, cfg)
+        if a is not None:
+            aux = aux + a
+    return _logits(params, x, cfg), aux
 
 
 # ---------------------------------------------------------------------------
@@ -217,7 +240,9 @@ def decode_step(params: DecoderParams, cache: Cache, tokens: torch.Tensor,
     Returns (logits [B,V] f32, cache). The cache is updated IN PLACE (see
     ``layers.apply_attention_decode`` and ``layers.apply_mamba_decode``) and
     returned. Attention runs through the decode kernel and the Mamba state
-    update through the scan kernel, once per layer each.
+    update through the scan kernel, once per layer each. An MoE FFN runs
+    ``layers.apply_moe`` on the [B, 1, d] tokens (capacity from T = B) and
+    drops its aux, as the JAX ``decode_step`` does.
     """
     L.check_supported(cfg)
     dev = params.embed.device
@@ -237,5 +262,5 @@ def decode_step(params: DecoderParams, cache: Cache, tokens: torch.Tensor,
             mix, _, _ = L.apply_mamba_decode(
                 layer.mamba, h, cfg, c["conv"][n], c["ssm"][n],
                 scan_impl=rt.scan_impl)
-        x = _ffn(layer, spec, x + mix, cfg)
+        x, _ = _ffn(layer, spec, x + mix, cfg)
     return _logits(params, x, cfg)[:, 0, :], cache

@@ -1,7 +1,8 @@
-"""Next-token cross-entropy loss (+ z-loss), in PyTorch.
+"""Next-token cross-entropy loss (+ z-loss + MoE aux), in PyTorch.
 
-Counterpart of ``repro.training.loss``; the MoE aux term is 0 for the
-dense configs this slice carries (``forward`` returns it as a 0 scalar).
+Counterpart of ``repro.training.loss``: the total adds the MoE aux loss
+(``forward``'s second value; 0 without MoE) weighed by
+``rt.aux_loss_weight``.
 """
 from __future__ import annotations
 
@@ -25,14 +26,11 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
     return (nll.sum() + zl.sum()) / denom
 
 
-AUX_LOSS_WEIGHT = 0.01   # ``repro.models.model.Runtime.aux_loss_weight``
-
-
 def loss_fn(params: M.DecoderParams, batch: Dict[str, torch.Tensor], cfg,
             rt: M.Runtime = M.Runtime()
             ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """batch: tokens [B,S], labels [B,S]. Returns (total, {"ce", "moe_aux"})."""
     logits, aux = M.forward(params, batch, cfg, rt)
     ce = cross_entropy(logits, batch["labels"].to(logits.device))
-    total = ce + AUX_LOSS_WEIGHT * aux
+    total = ce + rt.aux_loss_weight * aux
     return total, {"ce": ce, "moe_aux": aux}

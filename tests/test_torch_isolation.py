@@ -3,7 +3,7 @@
 * it imports neither JAX nor anything of the ``repro`` package;
 * its entry points run on ``cuda`` and raise without a card unless the
   caller asks for ``device="cpu"``;
-* families outside the ported slices (MoE, encoder-decoder), and the parts
+* families outside the ported slices (encoder-decoder), and the parts
   of the LOG.io core and the optimizer the training slice left out (other
   log stores, process mode, ABS, replay, bf16/int8 moments, gradient
   compression), raise ``NotImplementedError``;
@@ -201,9 +201,6 @@ def test_memory_store_and_step_engine_run():
 
 
 UNSUPPORTED = {
-    "jamba-1.5-large-398b": "MoE",     # Mamba layers pass; its MoE FFN raises
-    "grok-1-314b": "MoE",
-    "arctic-480b": "MoE",
     "seamless-m4t-large-v2": "encoder-decoder",
 }
 
@@ -222,6 +219,18 @@ def test_unsupported_families_raise(name):
     dense = M.init_params(torch.Generator(), _tiny(), torch.float32, "cpu")
     with pytest.raises(NotImplementedError, match=match):
         M.forward(dense, {"tokens": torch.zeros(1, 4, dtype=torch.long)}, cfg)
+
+
+@pytest.mark.parametrize("arch", ["grok-1-314b", "arctic-480b",
+                                  "jamba-1.5-large-398b"])
+def test_moe_families_serve_through_the_driver(arch):
+    """The MoE families (grok; arctic's MoE beside a dense FFN; jamba's
+    Mamba + attention + MoE block) serve a reduced model on the CPU."""
+    done = serve_driver.main(["--arch", arch, "--device", "cpu",
+                              "--requests", "3", "--tokens", "4", "--slots",
+                              "2", "--d-model", "64"])
+    assert sorted(done) == [0, 1, 2]
+    assert all(len(toks) == 4 for toks in done.values())
 
 
 def test_falcon_mamba_serves_through_the_driver():

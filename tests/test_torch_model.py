@@ -26,20 +26,25 @@ from repro_torch.models import layers as TL, model as TM  # noqa: E402
 TOL = 2e-5
 KEY = jax.random.PRNGKey(0)
 CONFIGS = ["internlm2-1.8b", "qwen3-32b", "gemma2-9b", "starcoder2-7b-padded",
-           "chameleon-34b"]
+           "chameleon-34b", "grok-1-314b", "arctic-480b",
+           "jamba-1.5-large-398b"]
 
 
 def _configs(name):
     """(JAX config, port config): the reduced configs of
-    tests/test_archs_smoke.py, and its padded starcoder2 (heads 4 -> 6,
-    vocab 512 -> 520)."""
-    base = name.replace("-padded", "")
+    tests/test_archs_smoke.py, its padded starcoder2 (heads 4 -> 6, vocab
+    512 -> 520), and "-split2": the MoE experts split in two
+    (``expert_split=2``, which ``reduced`` drops)."""
+    base = name.replace("-padded", "").replace("-split2", "")
     full, t_full = ARCHS[base], T_ARCHS[base]
     n = 2 * len(full.block) if len(full.block) == 1 else len(full.block)
     cfg, tcfg = reduced(full, n_layers=n), t_reduced(t_full, n_layers=n)
     if name.endswith("-padded"):
         pad = dict(pad_heads_to=6, pad_vocab_to=520)
         cfg, tcfg = dataclasses.replace(cfg, **pad), dataclasses.replace(tcfg, **pad)
+    if name.endswith("-split2"):
+        cfg, tcfg = (dataclasses.replace(
+            c, moe=dataclasses.replace(c.moe, expert_split=2)) for c in (cfg, tcfg))
     return cfg, tcfg
 
 
@@ -158,17 +163,21 @@ def _tokens(cfg, B=2, S=24, seed=5):
     return np.random.default_rng(seed).integers(0, cfg.vocab, (B, S)).astype(np.int32)
 
 
-@pytest.mark.parametrize("name", CONFIGS)
+@pytest.mark.parametrize("name", CONFIGS + ["grok-1-314b-split2"])
 def test_forward_logits_match_jax_xla(name):
+    """Logits within 2e-5 and the MoE aux loss (0 without MoE; the sum over
+    the MoE layers) within 1e-6."""
     cfg, tcfg, params, tp = _jax_and_port_params(name)
     toks = _tokens(cfg)
-    want, _ = JM.forward(params, {"tokens": jnp.asarray(toks)}, cfg,
-                         JM.Runtime(q_chunk=8))
+    want, want_aux = JM.forward(params, {"tokens": jnp.asarray(toks)}, cfg,
+                                JM.Runtime(q_chunk=8))
     for impl in TL.ATTN_IMPLS:
         got, aux = TM.forward(tp, {"tokens": torch.from_numpy(toks)}, tcfg,
                               TM.Runtime(attn_impl=impl))
         assert got.shape == (2, 24, cfg.eff_vocab) and got.dtype == torch.float32
-        assert float(aux) == 0.0
+        assert aux.dtype == torch.float32 and aux.shape == ()
+        assert abs(float(aux) - float(want_aux)) <= 1e-6
+        assert (float(aux) > 0) == (cfg.moe is not None)
         _close(got.numpy(), want)
 
 
@@ -185,12 +194,14 @@ def test_forward_logits_match_jax_pallas(name):
     _close(got.numpy(), want)
 
 
-@pytest.mark.parametrize("name", CONFIGS)
+@pytest.mark.parametrize("name", CONFIGS + ["grok-1-314b-split2"])
 def test_decode_steps_match_jax(name):
     """Multi-step decode_step on a bridged cache, the positions running past
     the cache length S (pos >= S): the JAX code writes at pos % S and masks
     with absolute positions, and the port matches it there too (for the
-    windowed gemma2 layers up to where no key is valid any more)."""
+    windowed gemma2 layers up to where no key is valid any more). MoE
+    layers run ``apply_moe`` on the step's B tokens on both sides; jamba's
+    Mamba layers carry conv and SSM caches."""
     cfg, tcfg, params, tp = _jax_and_port_params(name)
     B, S = 2, 16
     cache = JM.init_cache(cfg, B, S, jnp.float32)
@@ -207,7 +218,8 @@ def test_decode_steps_match_jax(name):
         assert got.shape == (B, cfg.eff_vocab)
         _close(got.numpy(), want)
     for c, tc in zip(cache, tcache):
-        for leaf in ("k", "v"):
+        assert sorted(c) == sorted(tc)
+        for leaf in c:
             _close(tc[leaf].numpy(), c[leaf])
 
 
@@ -228,6 +240,33 @@ def test_init_params_shapes_and_count():
     assert cache[0]["v"].dtype == torch.float32 and not cache[0]["v"].any()
 
 
+@pytest.mark.parametrize("name", ["grok-1-314b-split2", "arctic-480b",
+                                  "jamba-1.5-large-398b"])
+def test_init_params_moe_leaves(name):
+    """MoE layers: the config's parameter count, an f32 router in a bf16
+    model, ``init_moe``'s scales (1/sqrt(d) for router, w1, w3; 1/sqrt(d_ff)
+    for w2) and seeded repeatability."""
+    _, tcfg = _configs(name)
+    p = TM.init_params(torch.Generator().manual_seed(0), tcfg, torch.bfloat16, "cpu")
+    assert sum(t.numel() for t in p.parameters()) == tcfg.param_count()
+    kinds = tcfg.layer_kinds()
+    for layer, spec in zip(p.layers, kinds):
+        assert hasattr(layer, "moe") == (spec.ffn in ("moe", "moe_dense"))
+        assert hasattr(layer, "mlp") == (spec.ffn in ("dense", "moe_dense"))
+    moe = next(layer.moe for layer in p.layers if hasattr(layer, "moe"))
+    E, sp = tcfg.moe.n_experts, tcfg.moe.expert_split
+    d, f = tcfg.d_model, tcfg.d_ff
+    assert moe.router.dtype == torch.float32 and moe.router.shape == (d, E)
+    assert moe.w1.shape == moe.w3.shape == (E * sp, d, f // sp)
+    assert moe.w2.shape == (E * sp, f // sp, d) and moe.w2.dtype == torch.bfloat16
+    for leaf, scale in ((moe.router, d), (moe.w1, d), (moe.w3, d), (moe.w2, f)):
+        std = float(leaf.float().std()) * scale ** 0.5
+        assert 0.9 < std < 1.1, std
+    again = TM.init_params(torch.Generator().manual_seed(0), tcfg, torch.bfloat16,
+                           "cpu")
+    assert all(torch.equal(a, b) for a, b in zip(p.parameters(), again.parameters()))
+
+
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_bridge_round_trip_is_exact(dtype):
     cfg, tcfg = _configs("qwen3-32b")
@@ -246,6 +285,27 @@ def test_bridge_round_trip_is_exact(dtype):
     cback = bridge.cache_to_jax(bridge.cache_from_jax(cache, "cpu"))
     for a, b in zip(jax.tree.leaves(cache), jax.tree.leaves(cback)):
         assert a.dtype == b.dtype
+        np.testing.assert_array_equal(a.view(np.uint8), b.view(np.uint8))
+
+
+@pytest.mark.parametrize("name", ["grok-1-314b-split2", "arctic-480b",
+                                  "jamba-1.5-large-398b"])
+def test_bridge_round_trip_keeps_the_f32_router(name):
+    """A bf16 MoE model: its router leaves are f32 on both sides, and the
+    round trip keeps every leaf's bits and dtype."""
+    cfg, tcfg = _configs(name)
+    params = jax.tree.map(np.asarray, JM.init_params(KEY, cfg, jnp.bfloat16))
+    tp = bridge.params_from_jax(params, tcfg, "cpu")
+    moe = [m for n, m in tp.named_modules() if n.endswith(".moe")]
+    assert len(moe) == sum(s.ffn in ("moe", "moe_dense") for s in tcfg.layer_kinds())
+    assert all(m.router.dtype == torch.float32 and m.w1.dtype == torch.bfloat16
+               for m in moe)
+    back = bridge.params_to_jax(tp, tcfg)
+    flat, tree = jax.tree.flatten(params)
+    flat_back, tree_back = jax.tree.flatten(back)
+    assert tree == tree_back
+    for a, b in zip(flat, flat_back):
+        assert a.dtype == b.dtype and a.shape == b.shape
         np.testing.assert_array_equal(a.view(np.uint8), b.view(np.uint8))
 
 

@@ -50,6 +50,14 @@ def test_bit_identical_resume_falcon_mamba(tmp_path):
     _check_resume(tmp_path, arch="falcon-mamba-7b")
 
 
+@pytest.mark.timeout(300)      # two short training runs
+def test_bit_identical_resume_grok_moe(tmp_path):
+    """The same through grok's MoE FFN (routing, capacity slots, the
+    dispatch's gathers and the aux loss in the gradient), reduced to
+    d_model 64 and 2 layers."""
+    _check_resume(tmp_path, arch="grok-1-314b")
+
+
 @pytest.mark.timeout(300)      # a short training run
 def test_worker_crash_nonblocking(tmp_path):
     out = run_training(steps=8, ckpt_every=4, seq_len=64, batch_size=4,

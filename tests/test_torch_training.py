@@ -31,6 +31,7 @@ from repro.models import model as JM  # noqa: E402
 from repro.training import loss as JLoss, optimizer as JO, step as JS  # noqa: E402
 from repro_torch import bridge  # noqa: E402
 from repro_torch.configs import ARCHS as T_ARCHS, reduced as t_reduced  # noqa: E402
+from repro_torch.models import model as TM  # noqa: E402
 from repro_torch.training import loss as TLoss, optimizer as TO, step as TS  # noqa: E402
 from tests.test_torch_model import _configs as _model_configs  # noqa: E402
 
@@ -59,9 +60,10 @@ def _close_trees(got, want, tol):
 
 
 def _configs(name):
-    """The reduced configs of tests/test_archs_smoke.py; "-padded" gives
-    test_torch_model.py's padded variant (heads and vocab padded)."""
-    if name.endswith("-padded"):
+    """The reduced configs of tests/test_archs_smoke.py; "-padded" and
+    "-split2" give test_torch_model.py's variants (heads and vocab padded;
+    MoE experts split in two)."""
+    if name.endswith(("-padded", "-split2")):
         return _model_configs(name)
     full, t_full = ARCHS[name], T_ARCHS[name]
     n = 2 * len(full.block) if len(full.block) == 1 else len(full.block)
@@ -77,6 +79,27 @@ def test_cross_entropy_matches_jax():
         want = JLoss.cross_entropy(jnp.asarray(logits), jnp.asarray(lab))
         got = TLoss.cross_entropy(torch.from_numpy(logits), torch.from_numpy(lab))
         _close(got.numpy(), want, TOL)
+
+
+@pytest.mark.parametrize("name", ["grok-1-314b-split2", "arctic-480b"])
+def test_loss_reads_the_runtime_aux_weight(name):
+    """``loss_fn`` at ``aux_loss_weight=0.05`` (not the default 0.01) on
+    both sides: total, ce and the MoE aux agree, and total - ce is 0.05 x
+    aux."""
+    cfg, tcfg = _configs(name)
+    params = JM.init_params(jax.random.PRNGKey(4), cfg, jnp.float32)
+    tp = bridge.params_from_jax(_np_tree(params), tcfg, "cpu")
+    batch = _batch(np.random.default_rng(4), cfg, 1, 2, 16)
+    batch = {k: v[0] for k, v in batch.items()}
+    want, want_m = JLoss.loss_fn(params, {k: jnp.asarray(v) for k, v in batch.items()},
+                                 cfg, JM.Runtime(aux_loss_weight=0.05, q_chunk=16))
+    got, got_m = TLoss.loss_fn(tp, {k: torch.from_numpy(v) for k, v in batch.items()},
+                               tcfg, TM.Runtime(aux_loss_weight=0.05))
+    _close(got.numpy(), want, TOL)
+    _close(got_m["ce"].numpy(), want_m["ce"], TOL)
+    assert abs(float(got_m["moe_aux"]) - float(want_m["moe_aux"])) <= 1e-6
+    assert float(got_m["moe_aux"]) > 0
+    _close(float(got - got_m["ce"]), 0.05 * float(got_m["moe_aux"]), 1e-6)
 
 
 def test_adamw_update_matches_jax():
@@ -119,16 +142,24 @@ def _batch(rng, cfg, accum, mb, S):
     return {"tokens": toks[..., :-1], "labels": toks[..., 1:]}
 
 
-@pytest.mark.parametrize("accum", [1, 2])
-@pytest.mark.parametrize("name", ["internlm2-1.8b", "qwen3-32b", "gemma2-9b",
-                                  "falcon-mamba-7b", "chameleon-34b",
-                                  "starcoder2-7b-padded"])
+# jamba (8 layers a block, ~80 s a case here) runs without accumulation only
+TRAIN_CASES = [(name, accum) for name in (
+    "internlm2-1.8b", "qwen3-32b", "gemma2-9b", "falcon-mamba-7b",
+    "chameleon-34b", "starcoder2-7b-padded", "grok-1-314b-split2",
+    "arctic-480b") for accum in (1, 2)] + [("jamba-1.5-large-398b", 1)]
+
+
+@pytest.mark.parametrize("name, accum", TRAIN_CASES)
 def test_train_step_matches_jax(name, accum):
     """Three steps from one bridged state; compared after the first and the
     third (gemma2: local window 8 at S = 16, softcaps, tied embeddings;
     qwen3: qk-norm; falcon-mamba: the port's scan gradient through
     ``ops.SelectiveScan`` against JAX's chunked path, the one JAX trains
-    through; starcoder2 with its heads and vocab padded)."""
+    through; starcoder2 with its heads and vocab padded; grok with its
+    experts split in two, arctic's MoE beside a dense FFN and jamba's
+    Mamba + attention + MoE block: the router's gradient through the
+    routing weights and the aux loss, the experts' through the dispatch's
+    gathers)."""
     cfg, tcfg = _configs(name)
     rng = np.random.default_rng(3)
     state = JS.init_train_state(jax.random.PRNGKey(0), cfg, HP, jnp.float32)
