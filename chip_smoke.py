@@ -4,14 +4,17 @@
     python3 chip_smoke.py
 
 Models, at full width with random weights from a seed, depth not cut
-except in phases 7, 8 and 9: internlm2-1.8b (24 layers, d=2048, 16 heads, 8
+except in phases 7, 8, 9 and 10c: internlm2-1.8b (24 layers, d=2048, 16 heads, 8
 kv heads, dh=128, d_ff=8192, V=92544), falcon-mamba-7b (64 Mamba layers,
 d=4096, d_inner=8192, d_state=16, d_conv=4, dt_rank=256, V=65024),
 gemma2-9b (42 layers, alternating local (window 4096) and global attention,
 d=3584, 16 heads, 8 kv heads, dh=256, d_ff=14336, V=256000 tied, softcaps
 50 / 30) and grok-1-314b (64 layers, d=6144, 48 heads, 8 kv heads (head
 group 6), dh=128, an MoE FFN of 8 experts top-2 with d_ff=32768,
-V=131072 untied). Phases:
+V=131072 untied) and seamless-m4t-large-v2 (an encoder-decoder: 24
+encoder and 24 decoder layers, d=1024, 16 heads, 16 kv heads (head group
+1), dh=64, d_ff=8192, V=256206 untied; its encoder and cross-attention
+non-causal). Phases:
 
 1. device: name, power limit, kernel build (nvcc, sm_90a) and its seconds;
 2. each CUDA kernel, launched directly, against its plain PyTorch version
@@ -92,15 +95,31 @@ V=131072 untied). Phases:
    ``torch.cuda.set_sync_debug_mode("error")`` (no host sync);
    9b. grok ``SlotServer`` (grok-serve-f32) as phase 4, with the bytes a
    decode step must read beside its time, and the dispatch checks at the
-   decode shape.
+   decode shape;
+10. seamless-m4t-large-v2 ``forward`` (seamless-forward-bf16) at full width
+    and depth on tokens [2, 2048] and frames [2, 2048, 1024] as phase 3:
+    72 tensor-core flash launches a forward (24 encoder, 24 decoder, 24
+    cross), the error against an f32 forward within phase 3's limits;
+    10b. seamless ``SlotServer`` (seamless-serve-f32) as phase 4, with
+    cross_len 4096: 48 decode launches a step (24 self, 24 cross over the
+    whole cross cache, which serving leaves zero, as the JAX server does),
+    the bytes a step must read beside its time, and one more step of each
+    path with random cross K/V (kernel against plain within 2e-5); then
+    phase 5's timings at seamless's shapes (flash non-causal at [2, 2048,
+    16, 64] kv 16 in bf16 and the f32 pair; decode over the cross cache);
+    10c. seamless ``make_train_step`` (seamless-train-f32) at full width,
+    encoder and decoder both cut to SEAMLESS_TRAIN_LAYERS (12 of 24: device
+    memory, reckoned on its own line), tokens and frames [1, 2, 2048]: the
+    checks of phase 6, with 36 forward and 36 backward split-f32 flash
+    launches a step and the grads at depth 2 + 2.
 
 Phase 2 also holds the f32 flash backward (``csrc/flash_attention_f32tc.cu``)
 against its plain version at rtol = atol = 2e-5 relative to each
 gradient's largest magnitude, bitwise repeatable, and the forward's lse.
 Training needs ``CUBLAS_WORKSPACE_CONFIG`` (set here before torch starts)
 and runs under ``torch.use_deterministic_algorithms(True)`` from phase 6 on,
-so phases 9 and 9b run under it too. The phases that drive a main path
-(3-4b, 6-9b) set the launch counts to 0 just before and read them just
+so phases 9-10b run under it too. The phases that drive a main path
+(3-4b, 6-10c) set the launch counts to 0 just before and read them just
 after.
 
 Every breakdown prints the port's kernel launches the profiler recorded
@@ -164,6 +183,8 @@ MAMBA_TRAIN_LAYERS = 4   # phase 7's depth (of 64): what device memory allows
 GEMMA_TRAIN_LAYERS = 4   # phase 8's depth (of 42): two (local, global) pairs
 GROK_ARCH = "grok-1-314b"
 GROK_LAYERS = 2          # phases 9 and 9b's depth (of 64): device memory
+SEAMLESS_ARCH = "seamless-m4t-large-v2"
+SEAMLESS_TRAIN_LAYERS = 12   # phase 10c's depth (of 24), encoder and decoder
 
 KERNELS = {
     # bf16 (the forward path) runs on the tensor cores; f32 (the train path)
@@ -303,6 +324,26 @@ def profile_kernels(fn, iters: int = 10) -> dict:
     return {"kernels": out, "counted": counted}
 
 
+def profile_recorded(fn, names, per_call: float, iters: int = 10,
+                     grow: int = 1, tries: int = 3) -> tuple:
+    """(profile, calls of fn made): ``profile_kernels(fn, iters)``, made
+    again (up to ``tries`` profiles, ``iters`` times ``grow`` each time)
+    while it recorded fewer than ``per_call`` launches a call of a device
+    kernel in ``names``. CUPTI drops a record now and then: a launch the
+    wrapper counted, whose kernel ran, missing from the profile. What
+    follows holds the last profile to its counts all the same."""
+    calls = 0
+    for n in range(tries):
+        prof = profile_kernels(fn, iters)
+        calls += iters + 1
+        got = {x: recorded(prof, x) for x in names}
+        if all(v >= per_call for v in got.values()) or n == tries - 1:
+            return prof, calls
+        log(f"profile: records missing ({got}, want {per_call:g} a call of "
+            f"each); profiling again")
+        iters *= grow
+
+
 def kernel_ms(prof: dict, *names: str):
     """Device ms per launch, summed over the kernels whose names contain one
     of names (each launched once per call); per launch recorded, so a launch
@@ -440,6 +481,15 @@ DECODE_CASES = [
     (4, 4096, 48, 8, 128, torch.bfloat16, 1000, 30.0, None),
     (4, 4096, 56, 8, 128, torch.float32, None, None, None),
     (2, 2047, 56, 8, 128, torch.float32, None, None, [2047, 64]),
+    # seamless's serve shape (D = 64, head group 1): self-attention at 64
+    # keys a slot, cross-attention over the whole cross cache (every split
+    # of a cluster holds keys), random lengths
+    (4, 4096, 16, 16, 64, torch.float32, None, None, [64] * 4),
+    (4, 4096, 16, 16, 64, torch.float32, None, None, [4096] * 4),
+    (4, 4096, 16, 16, 64, torch.float32, None, None, None),
+    (4, 4096, 16, 16, 64, torch.bfloat16, None, None, [64] * 4),
+    (4, 4096, 16, 16, 64, torch.bfloat16, None, None, [4096] * 4),
+    (4, 4096, 16, 16, 64, torch.bfloat16, None, None, None),
 ]
 
 FLASH_CASES = [
@@ -460,6 +510,19 @@ FLASH_CASES = [
     (1, 1000, 48, 8, 128, torch.float32, True, None, None),
     (2, 1024, 56, 8, 128, torch.bfloat16, True, None, None),
     (1, 1000, 56, 8, 128, torch.bfloat16, False, None, None),
+    # seamless (dh 64, head group 1): its encoder and cross-attention
+    # (non-causal) and its decoder (causal)
+    (2, 2048, 16, 16, 64, torch.bfloat16, False, None, None),
+    (2, 2048, 16, 16, 64, torch.float32, False, None, None),
+    (2, 2048, 16, 16, 64, torch.bfloat16, True, None, None),
+    (2, 2048, 16, 16, 64, torch.float32, True, None, None),
+]
+
+FLASH_CROSS_CASES = [
+    # Sq != Sk without a mask, as seamless's cross-attention runs it with a
+    # memory shorter than the decoder's tokens: (B, Sq, Sk, H, KV, D, dtype)
+    (2, 2048, 1500, 16, 16, 64, torch.bfloat16),
+    (2, 2048, 1500, 16, 16, 64, torch.float32),
 ]
 
 BWD_CASES = [
@@ -480,6 +543,9 @@ BWD_CASES = [
     (1, 1024, 1024, 16, 8, 128, True, 256, 50.0),
     (2, 1000, 1000, 16, 8, 128, True, None, None),
     (1, 700, 1000, 16, 8, 128, False, None, None),
+    # seamless's train step: its encoder's shape, and Sq != Sk at group 1
+    (2, 2048, 2048, 16, 16, 64, False, None, None),
+    (1, 700, 1000, 16, 16, 64, False, None, None),
 ]
 
 
@@ -652,20 +718,24 @@ def phase_kernels() -> dict:
         log(f"decode B={B} S={S} H={H} KV={KV} D={D} {str(dt)[6:]} "
             f"window={window} softcap={softcap} lengths={lengths.tolist()} "
             f"cluster {n_split}: max_abs_err {err:.3e} (tol {TOL[dt]})")
-    for B, S, H, KV, D, dt, causal, window, softcap in FLASH_CASES:
-        q = _randn(g, (B, S, H, D), dt)
-        k = _randn(g, (B, S, KV, D), dt)
-        v = _randn(g, (B, S, KV, D), dt)
+    cases = [(B, S, S, H, KV, D, dt, causal, window, softcap)
+             for B, S, H, KV, D, dt, causal, window, softcap in FLASH_CASES]
+    cases += [case + (False, None, None) for case in FLASH_CROSS_CASES]
+    for B, Sq, Sk, H, KV, D, dt, causal, window, softcap in cases:
+        q = _randn(g, (B, Sq, H, D), dt)
+        k = _randn(g, (B, Sk, KV, D), dt)
+        v = _randn(g, (B, Sk, KV, D), dt)
         kw = dict(causal=causal, window=window, softcap=softcap)
         out = ops.flash_attention(q, k, v, **kw)
         sync()
         want = ref.flash_attention_ref(q, k, v, **kw)
-        what = f"flash {B,S,H,KV,D,dt,causal}"
+        what = f"flash {B,Sq,Sk,H,KV,D,dt,causal}"
         err = assert_close(out, want, TOL[dt], what)
         rows = (f", row error {check_flash_rows(out, q, k, v, kw, what):.3e} "
                 f"(tol {ref.BF16_ROW_TOL})" if dt == torch.bfloat16 else "")
         errs["flash_attention"] = max(errs["flash_attention"], err)
-        log(f"flash B={B} S={S} H={H} KV={KV} D={D} {str(dt)[6:]} "
+        log(f"flash B={B} S={Sq}" + (f" Sk={Sk}" if Sk != Sq else "")
+            + f" H={H} KV={KV} D={D} {str(dt)[6:]} "
             f"({ops.flash_variant(dt, D)}) causal={causal} "
             f"window={window} softcap={softcap}: max_abs_err {err:.3e} "
             f"(tol {TOL[dt]}){rows}")
@@ -689,9 +759,32 @@ def to_f32_(params) -> None:
             t.data = t.data.float()
 
 
+def flash_per_forward(cfg) -> int:
+    """Flash launches of one forward: one per attention layer; an
+    encoder-decoder adds one per encoder layer and a cross-attention per
+    decoder layer."""
+    n = sum(spec.mixer == "attn" for spec in cfg.layer_kinds())
+    return n + (cfg.n_enc_layers + cfg.n_layers if cfg.enc_dec else 0)
+
+
+def decode_per_step(cfg) -> int:
+    """Decode launches of one decode step: one per attention layer, and a
+    cross-attention per decoder layer of an encoder-decoder."""
+    n = sum(spec.mixer == "attn" for spec in cfg.layer_kinds())
+    return n + (cfg.n_layers if cfg.enc_dec else 0)
+
+
+def at_depth(cfg, depth: int):
+    """``cfg`` cut to ``depth`` layers; an encoder-decoder's encoder too."""
+    return dataclasses.replace(cfg, n_layers=depth, **(
+        {"n_enc_layers": depth} if cfg.enc_dec else {}))
+
+
 def phase_forward(cfg, kernel: str, reckoned_gb=None) -> dict:
-    """``forward`` in bf16 on tokens [FWD_B, FWD_S] through ``kernel`` (one
-    launch per layer), held against the plain path and an f32 forward of
+    """``forward`` in bf16 on tokens [FWD_B, FWD_S] (an encoder-decoder's
+    frames [FWD_B, FWD_S, d] beside them, drawn in f32: ``forward`` casts
+    them) through ``kernel`` (flash: ``flash_per_forward`` launches; the
+    scan: one per layer), held against the plain path and an f32 forward of
     the same weights (made in place after the bf16 runs and timings). With
     an MoE FFN, ``moe_report`` adds its breakdown, routing and dispatch
     checks. Peak memory beside ``reckoned_gb`` where given."""
@@ -700,6 +793,10 @@ def phase_forward(cfg, kernel: str, reckoned_gb=None) -> dict:
     tokens = torch.randint(0, cfg.vocab, (FWD_B, FWD_S), generator=g,
                            device=DEVICE)
     batch = {"tokens": tokens}
+    if cfg.enc_dec:
+        batch["frames"] = torch.randn((FWD_B, FWD_S, cfg.d_model),
+                                      generator=g, device=DEVICE)
+    want = flash_per_forward(cfg) if kernel == "flash_attention" else cfg.n_layers
     tag = f"forward {cfg.name} bf16 [{FWD_B},{FWD_S}]"
     with torch.inference_mode():
         ops.reset_launches()
@@ -709,8 +806,7 @@ def phase_forward(cfg, kernel: str, reckoned_gb=None) -> dict:
         variants = dict(ops.SCAN_VARIANTS)
         logits_p, _ = M.forward(params, batch, cfg, runtime("plain"))
         sync()
-    check(launches == cfg.n_layers,
-          f"{kernel} launches {launches} != n_layers {cfg.n_layers}")
+    check(launches == want, f"{kernel} launches {launches} != {want}")
     if kernel == "selective_scan":
         check(variants["sequential"] == launches,
               f"forward scan launches by variant {variants}")
@@ -903,14 +999,19 @@ def _serve(server: SlotServer, gaps: list) -> tuple[dict, int, float]:
             if len(server.outputs.get(rid, [])) >= TOKENS:
                 done[active.pop(rid)] = server.finish(rid)
     sync()
-    return done, steps, time.perf_counter() - t0
+    secs = time.perf_counter() - t0
+    # ``recording`` holds the server: unhook it, so the server and its
+    # cache are freed when the caller drops them, not at the next GC
+    server._step = inner
+    return done, steps, secs
 
 
 def phase_serve(cfg, kernel: str, reckoned_gb=None) -> dict:
-    """``SlotServer`` with f32 weights and cache through ``kernel`` (one
-    launch per layer per step): lockstep logits, greedy streams, launches;
-    with an MoE FFN, the bytes a step must read beside its time and
-    ``check_moe_dispatch`` at the decode shape. Peak memory beside
+    """``SlotServer`` with f32 weights and cache through ``kernel`` (decode:
+    ``decode_per_step`` launches a step; the scan: one per layer a step):
+    lockstep logits, greedy streams, launches; with an MoE FFN, the bytes a
+    step must read beside its time and ``check_moe_dispatch`` at the decode
+    shape; for an encoder-decoder, ``decode_cross``. Peak memory beside
     ``reckoned_gb`` where given. Returns the kernel path's lockstep cache
     and last positions, which phase 5 times the kernel on."""
     g = torch.Generator(device=DEVICE).manual_seed(SEED + 1)
@@ -950,6 +1051,9 @@ def phase_serve(cfg, kernel: str, reckoned_gb=None) -> dict:
                           profile_kernels(step[impl], 5), ms)
         if cfg.moe is not None:
             decode_moe(params, cfg, tag, statistics.mean(step_ms["kernel"]))
+        cross_err = (decode_cross(params, cfg, caches, tokens, pos, tag,
+                                  statistics.mean(step_ms["kernel"]))
+                     if cfg.enc_dec else None)
         in_step = (scan_in_step(step["kernel"], tag)
                    if kernel == "selective_scan" else None)
         # (b) the servers: kernel (counted) and plain
@@ -961,9 +1065,9 @@ def phase_serve(cfg, kernel: str, reckoned_gb=None) -> dict:
         variants = dict(ops.SCAN_VARIANTS)
         out_p, steps_p, secs_p = _serve(
             SlotServer(params, cfg, runtime("plain"), SLOTS, MAX_LEN), gaps_p)
-    check(launches == cfg.n_layers * steps,
-          f"{kernel} launches {launches} != n_layers x steps "
-          f"{cfg.n_layers} x {steps}")
+    per_step = decode_per_step(cfg) if kernel == "decode_attention" else cfg.n_layers
+    check(launches == per_step * steps,
+          f"{kernel} launches {launches} != {per_step} a step x {steps} steps")
     if kernel == "selective_scan":
         # every decode step of the server goes to the float4 step kernel
         check(variants["step"] == launches,
@@ -993,7 +1097,7 @@ def phase_serve(cfg, kernel: str, reckoned_gb=None) -> dict:
     del params
     log_memory(tag, reckoned_gb)
     return {"launches": launches, "cache": caches["kernel"], "pos": pos,
-            "scan_in_step": in_step}
+            "scan_in_step": in_step, "cross_err": cross_err}
 
 
 def decode_moe(params, cfg, tag: str, step_ms: float) -> None:
@@ -1016,6 +1120,49 @@ def decode_moe(params, cfg, tag: str, step_ms: float) -> None:
     g = torch.Generator(device=DEVICE).manual_seed(SEED + 8)
     h = torch.randn((SLOTS, 1, cfg.d_model), generator=g, device=DEVICE)
     check_moe_dispatch(moe, h, cfg, f"{tag} moe decode")
+
+
+def decode_cross(params, cfg, caches, tokens, pos, tag: str,
+                 step_ms: float) -> float:
+    """An encoder-decoder's decode step: the bytes it must read (every
+    weight but the encoder's and the embedding table, of which it reads
+    SLOTS rows; the cross K/V whole; the self-attention K/V of pos + 1 keys
+    a slot) over the HBM rate, beside its time. Then one more step of each
+    path at the same tokens and positions with random cross K/V, the same
+    in both (serving leaves xk/xv zero, as the JAX server does, so this is
+    where the card holds the cross path with values): kernel against plain
+    within 2e-5. Returns that error; the caches keep the random xk/xv."""
+    weights = sum(t.numel() * t.element_size()
+                  for name, t in params.named_parameters()
+                  if not name.startswith(("encoder.", "embed")))
+    cross = sum(c[x].numel() * c[x].element_size()
+                for c in caches["kernel"] for x in ("xk", "xv"))
+    key = cfg.n_kv_heads * cfg.d_head * 4
+    own = 2 * cfg.n_layers * int((pos + 1).sum()) * key
+    bound_ms = (weights + cross + own) / HBM_BYTES_PER_S * 1e3
+    log(f"{tag} serve_step reads >= {weights / 1e9:.2f} GB of weights (the "
+        f"decoder's and the unembedding) + {cross / 1e9:.2f} GB of cross K/V "
+        f"(read whole, {caches['kernel'][0]['xk'].shape[2]} keys a slot) + "
+        f"{own / 1e6:.2f} MB of self-attention K/V a step, >= {bound_ms:.2f} ms"
+        f" at {HBM_BYTES_PER_S / 1e12:.2f} TB/s; measured {step_ms:.3f} ms "
+        f"({100 * bound_ms / step_ms:.1f}% of that bound)")
+    zero = serve_step(params, caches["kernel"], tokens, pos, cfg=cfg,
+                      rt=runtime("kernel"))[1]
+    g = torch.Generator(device=DEVICE).manual_seed(SEED + 9)
+    for ck, cp in zip(caches["kernel"], caches["plain"]):
+        for x in ("xk", "xv"):
+            ck[x].copy_(torch.randn(ck[x].shape, generator=g, device=DEVICE))
+            cp[x].copy_(ck[x])
+    got = {impl: serve_step(params, caches[impl], tokens, pos, cfg=cfg,
+                            rt=runtime(impl))[1] for impl in ("kernel", "plain")}
+    err = assert_close(got["kernel"], got["plain"], TOL[torch.float32],
+                       f"{tag} step with random cross K/V")
+    moved = max_err(got["kernel"], zero)
+    check(moved > 0, f"{tag}: random cross K/V left the logits unchanged")
+    log(f"{tag} one step with random cross K/V: kernel vs plain max|dlogit| "
+        f"{err:.3e} (tol {TOL[torch.float32]}); the cross path moved the "
+        f"logits by up to {moved:.3e} from the zero cache's")
+    return err
 
 
 def _scan_addcmul(a, b, h0=None):
@@ -1068,8 +1215,8 @@ def _fmt(x) -> str:
     return "not measured" if x is None else f"{x:.4f}"
 
 
-def _sdpa_flash(q, k, v):
-    return F.scaled_dot_product_attention(q, k, v, is_causal=True,
+def _sdpa_flash(q, k, v, causal: bool = True):
+    return F.scaled_dot_product_attention(q, k, v, is_causal=causal,
                                           enable_gqa=True)
 
 
@@ -1101,7 +1248,8 @@ def time_flash(cfg, sdpa_err: dict,
         del got
         ms = cuda_ms(lambda: ops.flash_attention(q, k, v))
         plain_ms = cuda_ms(lambda: ref.flash_attention_ref(q, k, v), iters=5)
-        prof = profile_kernels(lambda: ops.flash_attention(q, k, v))
+        prof, _ = profile_recorded(lambda: ops.flash_attention(q, k, v),
+                                   names, 1, grow=5)
         dev_ms = kernel_ms(prof, *names)
         prep_ms = kernel_ms(prof, F32TC_FWD_PREP) if dt == torch.float32 else None
         flops = 4 * B * H * (S * (S + 1) // 2) * D   # kept (q, k) pairs, causal
@@ -1196,7 +1344,7 @@ def time_sdpa(make_fn, tag: str) -> tuple:
     return best
 
 
-def time_sdpa_expanded(qt, kt, vt, dout, tag: str):
+def time_sdpa_expanded(qt, kt, vt, dout, tag: str, causal: bool = True):
     """ms of memory-efficient SDPA on K/V repeated to q's heads (the repeat
     made outside the timed call): f32 SDPA's fused kernel, which refuses
     GQA, so not the same inputs as the kernel's. The forward alone, or its
@@ -1207,14 +1355,14 @@ def time_sdpa_expanded(qt, kt, vt, dout, tag: str):
         dout is not None) for t in (kt, vt))
     with sdpa_kernel([SDPBackend.EFFICIENT_ATTENTION]):
         try:
-            o = F.scaled_dot_product_attention(qt, ke, ve, is_causal=True)
+            o = F.scaled_dot_product_attention(qt, ke, ve, is_causal=causal)
         except RuntimeError as e:   # the library's "no kernel for this"
             log(f"time sdpa {tag}, K/V repeated: EFFICIENT_ATTENTION refused "
                 f"({str(e).splitlines()[0][:60]})")
             return None
         if dout is None:
             fn = lambda: F.scaled_dot_product_attention(  # noqa: E731
-                qt, ke, ve, is_causal=True)
+                qt, ke, ve, is_causal=causal)
         else:
             fn = lambda: torch.autograd.grad(  # noqa: E731
                 o, (qt, ke, ve), dout, retain_graph=True)
@@ -1545,31 +1693,38 @@ def time_scan_backward(a, h, dh, tag: str) -> dict:
 # (B, S, H, KV, D, softcap), causal; the 4096-key window of its local layers
 # has no effect at S = 2048
 D256_SHAPE = (2, 2048, 16, 8, 256, 50.0)
+# seamless-m4t-large-v2's (dh = 64, head group 1), as its encoder runs it in
+# phases 10 and 10c: non-causal, no softcap
+SEAMLESS_SHAPE = (2, 2048, 16, 16, 64, None)
 
 
-def time_flash_d256() -> dict:
-    """The flash kernels at gemma2-9b's attention shape (``D256_SHAPE``):
-    the f32 pair of the train path (split-f32, ``ops.flash_variant``; the
-    pair's kernels form clusters of two) and the bf16 forward (tensor
-    cores; off the main paths). Event and device time, the plain versions,
-    the bounds (operations: 4 flops a kept (q, k) pair and dim forward, 10
-    backward; f32 as three TF32 products at 495 TFLOP/s with the 67 TFLOP/s
-    CUDA-core bound beside it, bf16 at 989 TFLOP/s; or bytes) and SDPA
-    without the softcap (SDPA has none): memory-efficient on K/V repeated
-    to the q heads for f32, the flash backend with ``enable_gqa`` for bf16.
+def time_flash_set(shape, causal: bool, seed: int, tag: str) -> dict:
+    """The flash kernels at one attention shape (B, S, H, KV, D, softcap):
+    the f32 pair of the train path (split-f32, ``ops.flash_variant``; at
+    D = 256 the pair's kernels form clusters of two) and the bf16 forward
+    (tensor cores). Event and device time, the plain versions, the bounds
+    (operations: 4 flops a kept (q, k) pair and dim forward, 10 backward;
+    f32 as three TF32 products at 495 TFLOP/s with the 67 TFLOP/s CUDA-core
+    bound beside it, bf16 at 989 TFLOP/s; or bytes) and SDPA (without a
+    softcap, which SDPA has not): memory-efficient on K/V repeated to the q
+    heads for f32, the flash backend with ``enable_gqa`` for bf16.
     {"forward": row, "backward": row, "bf16_forward": row}."""
     from torch.nn.attention import SDPBackend, sdpa_kernel
-    g = torch.Generator(device=DEVICE).manual_seed(SEED + 7)
-    B, S, H, KV, D, softcap = D256_SHAPE
+    g = torch.Generator(device=DEVICE).manual_seed(seed)
+    B, S, H, KV, D, softcap = shape
     dt = torch.float32
-    check(ops.flash_variant(dt, D) == "split_f32", "dh 256 is not split_f32")
+    check(ops.flash_variant(dt, D) == "split_f32", f"dh {D} is not split_f32")
     q = _randn(g, (B, S, H, D), dt)
     k, v = _randn(g, (B, S, KV, D), dt), _randn(g, (B, S, KV, D), dt)
     dout = _randn(g, (B, S, H, D), dt)
-    kw = dict(causal=True, window=None, softcap=softcap)
-    out, lse = ops.flash_attention_forward(q, k, v, True, None, softcap,
+    kw = dict(causal=causal, window=None, softcap=softcap)
+    out, lse = ops.flash_attention_forward(q, k, v, causal, None, softcap,
                                            want_lse=True)
-    pairs = B * H * (S * (S + 1) // 2)
+    pairs = B * H * (S * (S + 1) // 2 if causal else S * S)
+    fwd_names = (F32TC_FWD_PREP, F32TC_FWD_D256 if D == 256 else F32TC_FWD)
+    bwd_names = F32TC_BWD_D256 if D == 256 else F32TC_BWD
+    mask = "causal" if causal else "non-causal"
+    no_cap = "" if softcap is None else ", no softcap"
     qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
     dot = dout.transpose(1, 2).contiguous()
     res = {}
@@ -1577,7 +1732,7 @@ def time_flash_d256() -> dict:
         if kind == "forward":
             fn = lambda: ops.flash_attention(q, k, v, **kw)  # noqa: E731
             plain = lambda: ref.flash_attention_ref(q, k, v, **kw)  # noqa: E731
-            names, flops = (F32TC_FWD_PREP, F32TC_FWD_D256), 4 * pairs * D
+            names, flops = fwd_names, 4 * pairs * D
             nbytes = (2 * q.numel() + k.numel() + v.numel()) * 4
             got, want = (fn(),), (plain(),)
         elif kind == "backward":
@@ -1585,7 +1740,7 @@ def time_flash_d256() -> dict:
                 q, k, v, out, lse, dout, **kw)
             plain = lambda: ref.flash_attention_backward_ref(  # noqa: E731
                 q, k, v, out, lse, dout, **kw)
-            names, flops = F32TC_BWD_D256, 10 * pairs * D
+            names, flops = bwd_names, 10 * pairs * D
             nbytes = (4 * q.numel() + 2 * k.numel() + 2 * v.numel()
                       + lse.numel()) * 4
             got, want = fn(), plain()
@@ -1596,13 +1751,14 @@ def time_flash_d256() -> dict:
             names, flops = (FLASH_TC,), 4 * pairs * D
             nbytes = (2 * q.numel() + k.numel() + v.numel()) * 2
             got, want = (fn(),), (plain(),)
-            assert_close(got[0], want[0], TOL[torch.bfloat16], "time flash bf16 dh 256")
-            check_flash_rows(got[0], qb, kb, vb, kw, "time flash bf16 dh 256")
+            assert_close(got[0], want[0], TOL[torch.bfloat16],
+                         f"time flash bf16 {tag}")
+            check_flash_rows(got[0], qb, kb, vb, kw, f"time flash bf16 {tag}")
         err = max(max_err(x, y) for x, y in zip(got, want))
         del got, want
         ms = cuda_ms(fn)
         plain_ms = cuda_ms(plain, iters=5)
-        prof = profile_kernels(fn)
+        prof, _ = profile_recorded(fn, names, 1, grow=5)
         dev_ms = kernel_ms(prof, *names)
         by_kernel = {n: kernel_ms(prof, n) for n in names}
         t_bytes = nbytes / HBM_BYTES_PER_S
@@ -1615,30 +1771,30 @@ def time_flash_d256() -> dict:
             qs, ks, vs = (t.bfloat16() for t in (qt, kt, vt))
             with sdpa_kernel([SDPBackend.FLASH_ATTENTION]):
                 try:
-                    _sdpa_flash(qs, ks, vs)
-                    lib_ms = cuda_ms(lambda: _sdpa_flash(qs, ks, vs))
+                    _sdpa_flash(qs, ks, vs, causal)
+                    lib_ms = cuda_ms(lambda: _sdpa_flash(qs, ks, vs, causal))
                 except RuntimeError as e:   # the library's "no kernel for this"
-                    log(f"time sdpa bf16 dh 256: FLASH_ATTENTION refused "
+                    log(f"time sdpa bf16 {tag}: FLASH_ATTENTION refused "
                         f"({str(e).splitlines()[0][:60]})")
                     lib_ms = None
             del qs, ks, vs
-            lib = "sdpa (FLASH_ATTENTION, enable_gqa, no softcap)"
+            lib = f"sdpa (FLASH_ATTENTION, enable_gqa{no_cap})"
             bounds = (f"{flops / 1e9:.2f} GFLOP at "
                       f"{PEAK_FLOPS[torch.bfloat16] / 1e12:.0f} TFLOP/s")
         else:
             grad_in = [t.detach().requires_grad_(kind == "backward")
                        for t in (qt, kt, vt)]
             lib_ms = time_sdpa_expanded(*grad_in, dot if kind == "backward"
-                                        else None, f"f32 dh 256 {kind}")
-            lib = "sdpa on K/V repeated (EFFICIENT_ATTENTION, no softcap)"
+                                        else None, f"f32 {tag} {kind}", causal)
+            lib = f"sdpa on K/V repeated (EFFICIENT_ATTENTION{no_cap})"
             bounds = (f"{flops / 1e9:.2f} GFLOP x 3 TF32 products at "
                       f"{TF32_FLOPS / 1e12:.0f} TFLOP/s; CUDA-core bound "
                       f"{cc_bound_ms * 1e3:.2f} us at "
                       f"{PEAK_FLOPS[dt] / 1e12:.0f} TFLOP/s")
         variant = ops.flash_variant(torch.bfloat16 if kind == "bf16_forward"
                                     else dt, D)
-        log(f"time flash {kind} dh 256 ({variant}, {', '.join(names)}) "
-            f"[{B},{S},{H},{D}] kv {KV} causal softcap {softcap}: kernel "
+        log(f"time flash {kind} {tag} ({variant}, {', '.join(names)}) "
+            f"[{B},{S},{H},{D}] kv {KV} {mask} softcap {softcap}: kernel "
             f"{ms:.4f} ms ({flops / ms / 1e9:.1f} TFLOP/s), plain "
             f"{plain_ms:.4f} ms, {lib} "
             + ("refused" if lib_ms is None else
@@ -1664,9 +1820,15 @@ def time_flash_d256() -> dict:
 
 
 def _train_batch(cfg, g):
+    """tokens/labels [1, FWD_B, FWD_S]; an encoder-decoder's frames [1,
+    FWD_B, FWD_S, d] beside them."""
     toks = torch.randint(0, cfg.vocab, (1, FWD_B, FWD_S + 1), generator=g,
                          device=DEVICE)
-    return {"tokens": toks[..., :-1], "labels": toks[..., 1:].to(torch.int32)}
+    batch = {"tokens": toks[..., :-1], "labels": toks[..., 1:].to(torch.int32)}
+    if cfg.enc_dec:
+        batch["frames"] = torch.randn((1, FWD_B, FWD_S, cfg.d_model),
+                                      generator=g, device=DEVICE)
+    return batch
 
 
 def _fresh_state(cfg, hp):
@@ -1710,8 +1872,12 @@ def train_memory(cfg, depth: int, tokens: int) -> float:
       four [N, d_ff] (the MLP's gate, up, activation and product); five
       [N, V] for the logits, the final softcap's tanh, the loss and its
       gradient; a layer's activations again and the flash backward's hi/lo
-      copies (eight of q's size, six of k's) as transients."""
-    state = 16 * dataclasses.replace(cfg, n_layers=depth).param_count()
+      copies (eight of q's size, six of k's) as transients. An
+      encoder-decoder (its encoder cut to ``depth`` too) keeps as much for
+      each encoder layer, and for each decoder layer's cross half two [N, d]
+      (its input and norm), three [N, H dh] (q, the flash output, the
+      projection's input) and four [N, KV dh] (k and v, of the memory)."""
+    state = 16 * at_depth(cfg, depth).param_count()
     V = cfg.eff_vocab
     if cfg.family == "ssm":
         big = tokens * cfg.d_inner * cfg.mamba.d_state * 4
@@ -1720,7 +1886,13 @@ def train_memory(cfg, depth: int, tokens: int) -> float:
     hd, kvd = cfg.n_heads * cfg.d_head, cfg.n_kv_heads * cfg.d_head
     layer = tokens * (6 * cfg.d_model + 3 * hd + 4 * kvd + 4 * cfg.d_ff) * 4
     flash = tokens * (8 * hd + 6 * kvd) * 4
-    return (state + depth * layer + 5 * tokens * V * 4 + layer + flash) / 1e9
+    if cfg.enc_dec:
+        cross = tokens * (2 * cfg.d_model + 3 * hd + 4 * kvd) * 4
+        layer_all = 2 * layer + cross    # an encoder and a decoder layer
+    else:
+        layer_all = layer
+    return (state + depth * layer_all + 5 * tokens * V * 4 + layer
+            + flash) / 1e9
 
 
 def depth_cut(tag: str, cfg, depth: int) -> float:
@@ -1730,7 +1902,10 @@ def depth_cut(tag: str, cfg, depth: int) -> float:
     tokens = FWD_B * FWD_S
     reckoned = train_memory(cfg, depth, tokens)
     n = cfg.param_count()
-    log(f"{tag}: depth cut to {depth} of {cfg.n_layers} layers, for device "
+    enc = (f" (and the encoder to {depth} of {cfg.n_enc_layers}; "
+           f"{at_depth(cfg, depth).param_count() / 1e9:.3f} B params)"
+           if cfg.enc_dec else "")
+    log(f"{tag}: depth cut to {depth} of {cfg.n_layers} layers{enc}, for device "
         f"memory: full depth is {n / 1e9:.3f} B params, {16 * n / 1e9:.1f} GB "
         f"of f32 params, grads, m and v; reckoned peak at depth {depth} "
         f"{reckoned:.1f} GB, at depth {2 * depth} "
@@ -1787,6 +1962,31 @@ def moe_depth_cut(tag: str, cfg, depth: int) -> dict:
     return here
 
 
+def encdec_memory(cfg) -> dict:
+    """Phases 10 and 10b's peak device memory in GB at full depth, reckoned
+    from the code, and the model's size (N = FWD_B * FWD_S):
+
+    - forward: the f32 params after ``to_f32_`` (4 bytes a param), the
+      kernel and plain paths' f32 logits kept for the comparison and the
+      f32 path's ([N, V] each), and the larger of the f32 path's largest
+      transient (plain attention's three [B, H, S, S]) and the
+      comparison's (a difference and its absolute value, [N, V] each);
+    - serve: the f32 params, three f32 caches (the lockstep pair and a
+      server's), each with self K/V of MAX_LEN keys and cross K/V of
+      ``Runtime().cross_len`` keys a slot in every layer, and the f32 draw
+      ``init_params`` makes of its largest leaf (the embedding) before
+      copying it in."""
+    n = cfg.param_count()
+    N, V = FWD_B * FWD_S, cfg.eff_vocab
+    attn = 3 * FWD_B * cfg.n_heads * FWD_S ** 2 * 4
+    key = SLOTS * cfg.n_kv_heads * cfg.d_head * 4
+    cache = cfg.n_layers * 2 * (MAX_LEN + M.Runtime().cross_len) * key
+    logits = N * V * 4
+    return {"params": n,
+            "forward_gb": (4 * n + 3 * logits + max(attn, 2 * logits)) / 1e9,
+            "serve_gb": (4 * n + 3 * cache + V * cfg.d_model * 4) / 1e9}
+
+
 def phase_train(cfg, path: str, tag: str, reckoned_gb=None) -> dict:
     """``make_train_step`` at full width in f32 (``cfg.n_layers`` deep),
     tokens [1, 2, 2048], under the training's deterministic mode: the
@@ -1802,6 +2002,9 @@ def phase_train(cfg, path: str, tag: str, reckoned_gb=None) -> dict:
     width, V 256000); there it is held to the plain path's loss of the same
     state and batch, within GRAD_TOL relative."""
     spec = TRAIN_PATHS[path]
+    # launches of each wrapper a step: flash as many as a forward makes
+    per_step = (flash_per_forward(cfg) if spec["wrappers"][0] == "flash_attention"
+                else cfg.n_layers)
     train_driver.deterministic(torch.device(DEVICE))
     hp = OptHParams()
     batch = _train_batch(cfg, torch.Generator(device=DEVICE).manual_seed(SEED + 5))
@@ -1810,9 +2013,10 @@ def phase_train(cfg, path: str, tag: str, reckoned_gb=None) -> dict:
     tokens = FWD_B * FWD_S
     state = _fresh_state(cfg, hp)
     n = sum(t.numel() for t in state["params"].parameters())
-    log(f"{tag}: {cfg.n_layers} layers, {n / 1e9:.3f} B params; params + "
+    enc = f" + {cfg.n_enc_layers} encoder layers" if cfg.enc_dec else ""
+    log(f"{tag}: {cfg.n_layers} layers{enc}, {n / 1e9:.3f} B params; params + "
         f"grads + m + v {4 * n * 4 / 1e9:.1f} GB f32; AdamW {hp}")
-    mb = {"tokens": batch["tokens"][0], "labels": batch["labels"][0]}
+    mb = {key: val[0] for key, val in batch.items()}
     plain_loss = None
     if cfg.tie_embeddings:
         with torch.no_grad():
@@ -1826,8 +2030,8 @@ def phase_train(cfg, path: str, tag: str, reckoned_gb=None) -> dict:
         sync()
         first_s = time.perf_counter() - t0
     first = {k: ops.LAUNCHES[k] for k in spec["wrappers"]}
-    check(first == {k: cfg.n_layers for k in spec["wrappers"]},
-          f"{tag}: launches in one step {first}, want {cfg.n_layers} each")
+    check(first == {k: per_step for k in spec["wrappers"]},
+          f"{tag}: launches in one step {first}, want {per_step} each")
     if path == "scan":   # S = 2048: every forward on the sequential kernel
         check(ops.SCAN_VARIANTS == {"step": 0, "sequential": cfg.n_layers},
               f"{tag}: scan launches by variant {ops.SCAN_VARIANTS}")
@@ -1864,23 +2068,25 @@ def phase_train(cfg, path: str, tag: str, reckoned_gb=None) -> dict:
     log(f"{tag}: steps {' / '.join(f'{x:.1f}' for x in times)} ms "
         f"({tokens / step_ms * 1e3:.0f} tok/s), losses {losses}")
     check(all(math.isfinite(x) for x in losses), f"{tag}: non-finite loss")
-    prof = profile_kernels(lambda: step(state, batch), iters=1)
+    prof, profiled = profile_recorded(lambda: step(state, batch),
+                                      spec["forward"] + spec["backward"],
+                                      per_step, iters=1)
     log_breakdown(f"{tag} step", prof, step_ms, top=10)
     rec = {x: recorded(prof, x) for x in spec["forward"] + spec["backward"]}
     other = {x: recorded(prof, x) for x in spec["others"]}
     check(not any(other.values()), f"{tag}: launches of another variant {other}")
-    check(all(x == cfg.n_layers for x in rec.values()),
-          f"{tag}: recorded launches a step {rec}, want {cfg.n_layers} each")
+    check(all(x == per_step for x in rec.values()),
+          f"{tag}: recorded launches a step {rec}, want {per_step} each")
     index = sorted({k[:50] for k in prof["kernels"] if "index" in k.lower()
                     or "sort" in k.lower()})
     fwd_ms = kernel_ms(prof, *spec["forward"])
     bwd_ms = kernel_ms(prof, *spec["backward"])
     busy = sum(ms for _, ms in prof["kernels"].values())
-    pair = (cfg.n_layers * (fwd_ms + bwd_ms)
+    pair = (per_step * (fwd_ms + bwd_ms)
             if None not in (fwd_ms, bwd_ms) else None)
     log(f"{tag}: recorded a step {rec} (none of {list(other)}); the "
         f"embedding's backward ran {index}; {' + '.join(spec['wrappers'])}: "
-        f"{cfg.n_layers} x ({_fmt(fwd_ms)} + {_fmt(bwd_ms)}) ms = "
+        f"{per_step} x ({_fmt(fwd_ms)} + {_fmt(bwd_ms)}) ms = "
         f"{_fmt(pair)} ms a step, "
         + ("not measured" if pair is None else
            f"{100 * pair / busy:.1f}% of device busy, "
@@ -1906,8 +2112,8 @@ def phase_train(cfg, path: str, tag: str, reckoned_gb=None) -> dict:
                for a, b in zip(state["params"].parameters(), host))
     check(same, f"{tag}: two steps from the same state differ")
     launches = {k: ops.LAUNCHES[k] for k in first}
-    steps_run = 2 + TRAIN_STEPS + 2   # first, timed, profiled (2), repeat
-    check(all(x == cfg.n_layers * steps_run for x in launches.values()),
+    steps_run = 1 + TRAIN_STEPS + profiled + 1   # first, timed, profiled, repeat
+    check(all(x == per_step * steps_run for x in launches.values()),
           f"{tag}: launches {launches} over {steps_run} steps")
     log(f"{tag}: the repeated first step is bitwise equal (loss and all "
         f"{len(host)} param leaves); launches over the phase's {steps_run} "
@@ -1915,7 +2121,7 @@ def phase_train(cfg, path: str, tag: str, reckoned_gb=None) -> dict:
     del state, metrics, host
     torch.cuda.empty_cache()
     # the grads at full width, depth cut, against the plain path
-    cfg2 = dataclasses.replace(cfg, n_layers=GRAD_LAYERS)
+    cfg2 = at_depth(cfg, GRAD_LAYERS)
     params = M.init_params(torch.Generator(device=DEVICE).manual_seed(SEED),
                            cfg2, torch.float32, DEVICE).requires_grad_(True)
     names = [name for name, _ in params.named_parameters()]
@@ -1939,8 +2145,8 @@ def phase_train(cfg, path: str, tag: str, reckoned_gb=None) -> dict:
     torch.cuda.empty_cache()
     log_memory(f"{tag} grad check")
     return {"launches": launches, "steps": steps_run, "step_ms": step_ms,
-            "fwd_device_ms": fwd_ms, "bwd_device_ms": bwd_ms,
-            "grads_bitwise": bitwise}
+            "per_step": per_step, "fwd_device_ms": fwd_ms,
+            "bwd_device_ms": bwd_ms, "grads_bitwise": bitwise}
 
 
 def phase_logio(cfg, path: str) -> dict:
@@ -2017,7 +2223,7 @@ def main() -> int:
                                   full, tag="full cache")
         del q, k, v, serve["cache"]
     flash_bwd_t = time_flash_backward(cfg, sdpa_err)
-    d256_t = time_flash_d256()
+    d256_t = time_flash_set(D256_SHAPE, True, SEED + 7, "dh 256")
     log_memory("attention timings")
     torch.cuda.empty_cache()
     # falcon-mamba: the selective scan, in forward and in each decode step
@@ -2071,11 +2277,43 @@ def main() -> int:
                                tag="grok serve shape")
         del q, k, v, serve_k["cache"]
     log_memory("grok timings")
-    launches = {"flash_attention": fwd["launches"] + fwd_k["launches"],
+    torch.cuda.empty_cache()
+    # seamless-m4t-large-v2: the encoder-decoder at full width and depth
+    # (head dim 64, head group 1; encoder and cross-attention non-causal)
+    # through the forward's flash kernel and the server's decode kernel,
+    # then its f32 train step through the split-f32 pair, depth cut
+    scfg = get_config(SEAMLESS_ARCH)
+    smem = encdec_memory(scfg)
+    log(f"seamless: full depth ({scfg.n_enc_layers} + {scfg.n_layers} "
+        f"layers), {smem['params'] / 1e9:.3f} B params "
+        f"({2 * smem['params'] / 1e9:.1f} GB bf16, "
+        f"{4 * smem['params'] / 1e9:.1f} GB f32); reckoned peak forward "
+        f"{smem['forward_gb']:.1f} GB (the f32 reference made in place), "
+        f"serve {smem['serve_gb']:.1f} GB")
+    fwd_s = phase_forward(scfg, "flash_attention", smem["forward_gb"])
+    serve_s = phase_serve(scfg, "decode_attention", smem["serve_gb"])
+    with torch.inference_mode():
+        # decode over the whole cross cache (its random K/V from decode_cross)
+        xk, xv = serve_s["cache"][0]["xk"][0], serve_s["cache"][0]["xv"][0]
+        q = torch.randn((SLOTS, scfg.n_heads, scfg.d_head), device=DEVICE)
+        full = torch.full((SLOTS,), xk.shape[1], device=DEVICE, dtype=torch.int32)
+        decode_s = time_decode(q, xk, xv, full, tag="seamless cross")
+        del q, xk, xv, serve_s["cache"]
+    flash_s = time_flash_set(SEAMLESS_SHAPE, False, SEED + 10, "seamless")
+    log_memory("seamless timings")
+    torch.cuda.empty_cache()
+    strain = phase_train(
+        at_depth(scfg, SEAMLESS_TRAIN_LAYERS), "attention",
+        "seamless-train-f32",
+        depth_cut("seamless-train-f32", scfg, SEAMLESS_TRAIN_LAYERS))
+    launches = {"flash_attention": fwd["launches"] + fwd_k["launches"]
+                + fwd_s["launches"],
                 "flash_attention_backward": train["launches"][
                     "flash_attention_backward"]
-                + gtrain["launches"]["flash_attention_backward"],
-                "decode_attention": serve["launches"] + serve_k["launches"],
+                + gtrain["launches"]["flash_attention_backward"]
+                + strain["launches"]["flash_attention_backward"],
+                "decode_attention": serve["launches"] + serve_k["launches"]
+                + serve_s["launches"],
                 "selective_scan": fwd_m["launches"] + serve_m["launches"]
                 + mtrain["launches"]["selective_scan"],
                 "selective_scan_backward": mtrain["launches"][
@@ -2121,8 +2359,24 @@ def main() -> int:
         grok_moe={key: val for key, val in fwd_k["moe"].items()
                   if key != "routed"},
         grok_moe_routed=fwd_k["moe"]["routed"])
+    flash_row.update(
+        launches_seamless_forward=fwd_s["launches"],
+        seamless_shape=list(SEAMLESS_SHAPE[:5]), seamless_causal=False,
+        seamless_forward_ms=fwd_s["ms"],
+        **{f"seamless_{key}": val
+           for key, val in flash_s["bf16_forward"].items()},
+        seamless_library_call="FLASH_ATTENTION (enable_gqa), non-causal",
+        **{f"seamless_f32_{key}": val
+           for key, val in flash_s["forward"].items()},
+        seamless_f32_library_call="EFFICIENT_ATTENTION on K/V repeated, "
+                                  "non-causal",
+        f32_launches_seamless_train=strain["launches"]["flash_attention"],
+        f32_seamless_launches_per_step=strain["per_step"],
+        f32_seamless_device_ms_in_step=strain["fwd_device_ms"])
     flash_row["max_abs_err"] = max(flash_row["max_abs_err"],
-                                   flash_k["max_abs_err"])
+                                   flash_k["max_abs_err"],
+                                   flash_s["bf16_forward"]["max_abs_err"],
+                                   flash_s["forward"]["max_abs_err"])
     bwd_row = next(r for r in rows if r["name"] == "flash_attention_backward")
     bwd_row.update(
         launches_per_step=train["launches"]["flash_attention_backward"]
@@ -2141,7 +2395,18 @@ def main() -> int:
         d256_train_depth=GEMMA_TRAIN_LAYERS,
         **{key: flash_bwd_t[key] for key in (
             "library_call", "library_max_err_to_max", "library_math_ms",
-            "library_math_backend", "cuda_core_bound_ms")})
+            "library_math_backend", "cuda_core_bound_ms")},
+        **{f"seamless_{key}": val for key, val in flash_s["backward"].items()},
+        seamless_shape=list(SEAMLESS_SHAPE[:5]), seamless_causal=False,
+        seamless_library_call="EFFICIENT_ATTENTION backward on K/V repeated, "
+                              "non-causal",
+        seamless_launches_train=strain["launches"]["flash_attention_backward"],
+        seamless_launches_per_step=strain["per_step"],
+        seamless_device_ms_in_step=strain["bwd_device_ms"],
+        seamless_train_step_ms=strain["step_ms"],
+        seamless_train_depth=[SEAMLESS_TRAIN_LAYERS, SEAMLESS_TRAIN_LAYERS])
+    bwd_row["max_abs_err"] = max(bwd_row["max_abs_err"],
+                                 flash_s["backward"]["max_abs_err"])
     # decode attention: the serve shape above (the main path's), a full
     # cache beside it
     decode_row = next(r for r in rows if r["name"] == "decode_attention")
@@ -2156,9 +2421,14 @@ def main() -> int:
         full_cache_clean_l2_device_ms=decode_full["clean_l2_device_ms"],
         launches_internlm2_serve=serve["launches"],
         launches_grok_serve=serve_k["launches"],
-        **{f"grok_{key}": val for key, val in decode_k.items()})
+        **{f"grok_{key}": val for key, val in decode_k.items()},
+        launches_seamless_serve=serve_s["launches"],
+        **{f"seamless_cross_{key}": val for key, val in decode_s.items()},
+        seamless_random_cross_step_max_abs_err=serve_s["cross_err"])
     decode_row["max_abs_err"] = max(decode_row["max_abs_err"],
-                                    decode_k["max_abs_err"])
+                                    decode_k["max_abs_err"],
+                                    decode_s["max_abs_err"],
+                                    serve_s["cross_err"])
     # the scan runs on both paths: its forward-shape numbers above, the
     # decode step's (and the variant it ran) and the launches of each path
     scan_row = next(r for r in rows if r["name"] == "selective_scan")

@@ -5,9 +5,12 @@ Both sides speak numpy at the boundary: the caller turns JAX arrays into
 numpy (``jax.tree.map(np.asarray, ...)``) and this module never imports JAX.
 Leaf shapes stay as they are. The JAX params stack every block position's
 leaves over ``n_blocks`` on axis 0 (``params["blocks"][i][...][n]``); the
-port holds them as ``layers[n * len(cfg.block) + i]``. The cache keeps the
-same stacked layout on both sides, so its leaves copy one to one (``k``/``v``
-for attention, ``conv``/``ssm`` for Mamba). bf16 leaves travel as
+port holds them as ``layers[n * len(cfg.block) + i]``; an encoder-decoder's
+``params["encoder"]["layers"]`` stack its ``n_enc_layers`` on axis 0 and
+become ``encoder.layers[n]`` (``["encoder"]["final_norm"]``:
+``encoder.final_norm``). The cache keeps the same stacked layout on both
+sides, so its leaves copy one to one (``k``/``v`` for attention,
+``conv``/``ssm`` for Mamba, ``xk``/``xv`` for cross-attention). bf16 leaves travel as
 ``ml_dtypes.bfloat16`` numpy arrays, the type JAX hands out. Leaves keep
 their dtype: a Mamba model's ``A_log``, ``D`` and ``dt_bias`` and an MoE
 layer's ``router`` are f32 in a bf16 model on both sides, and a leaf whose
@@ -93,6 +96,11 @@ def params_from_jax(np_params: Dict[str, Any], cfg: ArchConfig,
                 for path, stacked in _leaves(block):
                     for n in range(cfg.n_blocks):
                         put(("layers", str(n * nb + i)) + path, stacked[n])
+        elif name == "encoder":
+            for path, stacked in _leaves(leaf["layers"]):
+                for n in range(cfg.n_enc_layers):
+                    put(("encoder", "layers", str(n)) + path, stacked[n])
+            put(("encoder", "final_norm"), leaf["final_norm"])
         else:
             put((name,), leaf)
     if seen != expected:
@@ -101,29 +109,41 @@ def params_from_jax(np_params: Dict[str, Any], cfg: ArchConfig,
     return out
 
 
+def _put_stacked(tree: Dict[str, Any], path, n: int, count: int,
+                 leaf: np.ndarray) -> None:
+    """Put layer ``n`` of ``count`` of the leaf at ``path`` into ``tree``."""
+    for key in path[:-1]:
+        tree = tree.setdefault(key, {})
+    tree.setdefault(path[-1], [None] * count)[n] = leaf
+
+
+def _stack(tree: Dict[str, Any]) -> Dict[str, Any]:
+    """``_put_stacked``'s lists of layers -> leaves stacked on axis 0."""
+    return {key: _stack(val) if isinstance(val, dict) else np.stack(val)
+            for key, val in tree.items()}
+
+
 def params_to_jax(params: DecoderParams, cfg: ArchConfig) -> Dict[str, Any]:
     """The inverse of ``params_from_jax``: a numpy pytree in the JAX layout."""
     out: Dict[str, Any] = {}
     nb = len(cfg.block)
     blocks: List[Dict[str, Any]] = [{} for _ in range(nb)]
+    enc_layers: Dict[str, Any] = {}
     for name, t in params.named_parameters():
         path = name.split(".")
-        if path[0] != "layers":
+        if path[0] == "layers":
+            n, i = divmod(int(path[1]), nb)
+            _put_stacked(blocks[i], path[2:], n, cfg.n_blocks, to_numpy(t))
+        elif path[:2] == ["encoder", "layers"]:
+            _put_stacked(enc_layers, path[3:], int(path[2]), cfg.n_enc_layers,
+                         to_numpy(t))
+        elif path[0] == "encoder":
+            out.setdefault("encoder", {})[path[1]] = to_numpy(t)
+        else:
             out[name] = to_numpy(t)
-            continue
-        idx = int(path[1])
-        n, i = divmod(idx, nb)
-        node = blocks[i]
-        for key in path[2:-1]:
-            node = node.setdefault(key, {})
-        node.setdefault(path[-1], [None] * cfg.n_blocks)[n] = to_numpy(t)
-    for block in blocks:
-        for path, parts in list(_leaves(block)):
-            node = block
-            for key in path[:-1]:
-                node = node[key]
-            node[path[-1]] = np.stack(parts)
-    out["blocks"] = blocks
+    out["blocks"] = [_stack(block) for block in blocks]
+    if cfg.enc_dec:
+        out["encoder"]["layers"] = _stack(enc_layers)
     return out
 
 

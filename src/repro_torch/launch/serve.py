@@ -1,5 +1,5 @@
-"""Serving entry point: batched decode over a dense decoder, Mamba or MoE
-architecture.
+"""Serving entry point: batched decode over any architecture (dense, Mamba,
+MoE, encoder-decoder).
 
 Same flags as ``repro.launch.serve`` plus ``--device`` (default ``cuda``;
 ``cpu`` runs the plain versions of the kernels):
@@ -7,11 +7,14 @@ Same flags as ``repro.launch.serve`` plus ``--device`` (default ``cuda``;
         --requests 8 --tokens 16
     PYTHONPATH=src python -m repro_torch.launch.serve --arch falcon-mamba-7b
     PYTHONPATH=src python -m repro_torch.launch.serve --arch grok-1-314b
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch seamless
     PYTHONPATH=src python -m repro_torch.launch.serve --device cpu
 The model is the reduced same-family config of ``--arch`` at ``--d-model``,
 with seeded random f32 weights; grok-1-314b, arctic-480b and
-jamba-1.5-large-398b serve their MoE FFNs. The encoder-decoder arch
-(seamless) raises ``NotImplementedError`` until its slice lands.
+jamba-1.5-large-398b serve their MoE FFNs. The runtime's ``cross_len`` is
+16, as in ``repro.launch.serve``: the encoder-decoder (seamless) decodes
+with a cross K/V cache of 16 zero keys a slot (nothing fills it, as in the
+JAX server).
 """
 from __future__ import annotations
 
@@ -46,8 +49,8 @@ def main(argv=None):
                   else len(full.block))
     gen = torch.Generator(device=dev).manual_seed(0)
     params = M.init_params(gen, cfg, torch.float32, dev)
-    server = SlotServer(params, cfg, M.Runtime(), n_slots=args.slots,
-                        max_len=args.max_len)
+    server = SlotServer(params, cfg, M.Runtime(cross_len=16),
+                        n_slots=args.slots, max_len=args.max_len)
 
     t0 = time.time()
     pending = list(range(args.requests))

@@ -1,4 +1,4 @@
-"""Model layers of the dense decoder, Mamba and MoE families, in PyTorch.
+"""Model layers of every family (dense, Mamba, MoE, encoder-decoder), in PyTorch.
 
 Counterpart of ``repro.models.layers`` (``rms_norm``, ``_act``, ``rope``,
 attention, decode attention, the gated MLP, the MoE FFN and the Mamba-1
@@ -118,23 +118,30 @@ def _head_mask(out: torch.Tensor, cfg: ArchConfig, head_dim: int) -> torch.Tenso
 
 def apply_attention(p: AttentionParams, x: torch.Tensor, spec: AttnSpec,
                     cfg: ArchConfig, positions: torch.Tensor, *,
+                    kv_override: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
                     causal: bool = True, attn_impl: str = "kernel"
                     ) -> torch.Tensor:
-    """Full-sequence self-attention (prefill / forward). x: [B,S,d].
+    """Full-sequence attention (prefill / forward / encoder / cross). x: [B,S,d].
 
-    K/V stay at kv heads: the kernel (or its plain version) reads kv head
-    ``h // groups`` for q head ``h``, so the JAX path's repeat is never made.
-    Padded heads are zeroed after attention, as on the JAX XLA path.
+    ``kv_override=(memory, mem_positions)`` (cross-attention) projects k and
+    v from the encoder memory [B,Ss,d] through ``wk``/``wv``. RoPE applies
+    when ``causal or kv_override is None``, as in the JAX code: decoder and
+    encoder self-attention get it (at ``positions``), cross-attention does
+    not. K/V stay at kv heads: the kernel (or its plain version) reads kv
+    head ``h // groups`` for q head ``h``, so the JAX path's repeat is never
+    made. Padded heads are zeroed after attention, as on the JAX XLA path.
     """
+    xkv, k_pos = (x, positions) if kv_override is None else kv_override
     q = torch.einsum("bsd,dhk->bshk", x, p.wq)
-    k = torch.einsum("bsd,dhk->bshk", x, p.wk)
-    v = torch.einsum("bsd,dhk->bshk", x, p.wv)
+    k = torch.einsum("bsd,dhk->bshk", xkv, p.wk)
+    v = torch.einsum("bsd,dhk->bshk", xkv, p.wv)
     if spec.qk_norm:
         q = rms_norm(q, p.q_norm, cfg.norm_eps)
         k = rms_norm(k, p.k_norm, cfg.norm_eps)
-    q = rope(q, positions, cfg.rope_theta).contiguous()
-    k = rope(k, positions, cfg.rope_theta).contiguous()
-    v = v.contiguous()
+    if causal or kv_override is None:
+        q = rope(q, positions, cfg.rope_theta)
+        k = rope(k, k_pos, cfg.rope_theta)
+    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
     kw = dict(causal=causal, window=spec.window, softcap=spec.softcap)
     if attn_impl == "kernel":
         out = ops.flash_attention(q, k, v, **kw)
@@ -149,34 +156,41 @@ def apply_attention(p: AttentionParams, x: torch.Tensor, spec: AttnSpec,
 def apply_attention_decode(p: AttentionParams, x: torch.Tensor, spec: AttnSpec,
                            cfg: ArchConfig, cache_k: torch.Tensor,
                            cache_v: torch.Tensor, pos: torch.Tensor, *,
-                           attn_impl: str = "kernel"
+                           cross: bool = False, attn_impl: str = "kernel"
                            ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """One-token decode. x: [B,1,d]; cache_k/v: [B,S,kv,dh]; pos: [B].
 
-    Returns (out [B,1,d], cache_k, cache_v). The new K/V row is written
-    IN PLACE at ``pos % S`` of each slot (the JAX code blends it in with a
-    one-hot; the values written are the same), so the returned caches are
-    the tensors passed in. Keys are valid where ``kpos <= pos`` (and
+    Returns (out [B,1,d], cache_k, cache_v). Self-attention writes the new
+    K/V row IN PLACE at ``pos % S`` of each slot (the JAX code blends it in
+    with a one-hot; the values written are the same), so the returned caches
+    are the tensors passed in. Keys are valid where ``kpos <= pos`` (and
     ``kpos > pos - window``), absolute positions as in the JAX code, which
     the kernel evaluates as ``kpos < pos + 1`` on the same predicate, for
-    ``pos >= S`` too. q is cast to the cache's dtype (exact when widening).
+    ``pos >= S`` too. With ``cross=True`` the cache holds the encoder
+    memory's K/V: no RoPE on q, no write, and every key valid (lengths S,
+    made on the device, no host sync). q is cast to the cache's dtype
+    (exact when widening).
     """
     B, S = x.shape[0], cache_k.shape[1]
     q = torch.einsum("bsd,dhk->bshk", x, p.wq)
-    k_new = torch.einsum("bsd,dhk->bshk", x, p.wk)
-    v_new = torch.einsum("bsd,dhk->bshk", x, p.wv)
     if spec.qk_norm:
         q = rms_norm(q, p.q_norm, cfg.norm_eps)
-        k_new = rms_norm(k_new, p.k_norm, cfg.norm_eps)
-    q = rope(q, pos[:, None], cfg.rope_theta)
-    k_new = rope(k_new, pos[:, None], cfg.rope_theta)
-    slots = torch.arange(B, device=x.device)
-    at = (pos % S).long()
-    cache_k[slots, at] = k_new[:, 0].to(cache_k.dtype)
-    cache_v[slots, at] = v_new[:, 0].to(cache_v.dtype)
-    lengths = (pos + 1).to(torch.int32)
+    if cross:
+        lengths = torch.full((B,), S, dtype=torch.int32, device=x.device)
+    else:
+        k_new = torch.einsum("bsd,dhk->bshk", x, p.wk)
+        v_new = torch.einsum("bsd,dhk->bshk", x, p.wv)
+        if spec.qk_norm:
+            k_new = rms_norm(k_new, p.k_norm, cfg.norm_eps)
+        q = rope(q, pos[:, None], cfg.rope_theta)
+        k_new = rope(k_new, pos[:, None], cfg.rope_theta)
+        slots = torch.arange(B, device=x.device)
+        at = (pos % S).long()
+        cache_k[slots, at] = k_new[:, 0].to(cache_k.dtype)
+        cache_v[slots, at] = v_new[:, 0].to(cache_v.dtype)
+        lengths = (pos + 1).to(torch.int32)
     qd = q[:, 0].to(cache_k.dtype).contiguous()                 # [B,h,dh]
-    kw = dict(window=spec.window, softcap=spec.softcap)
+    kw = dict(window=None if cross else spec.window, softcap=spec.softcap)
     if attn_impl == "kernel":
         out = ops.decode_attention(qd, cache_k, cache_v, lengths, **kw)
     elif attn_impl == "plain":
@@ -512,17 +526,9 @@ def apply_mamba_decode(p: MambaParams, x: torch.Tensor, cfg: ArchConfig,
     return out, conv_state, ssm_state
 
 
-def unsupported(what: str, slice_name: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"repro_torch: {what} is not ported yet; it arrives with the "
-        f"{slice_name} slice")
-
-
 def check_supported(cfg: ArchConfig) -> None:
-    """Raise for the families this slice does not carry (never run another
-    path instead)."""
-    if cfg.enc_dec:
-        raise unsupported(f"{cfg.name}: encoder-decoder", "encoder-decoder")
+    """Raise for a mixer or FFN kind the port does not know (never run
+    another path instead)."""
     for spec in cfg.block:
         if spec.mixer not in ("attn", "mamba"):
             raise ValueError(f"{cfg.name}: unknown mixer {spec.mixer!r}")

@@ -1,4 +1,5 @@
-"""Model assembly for the dense decoder, Mamba and MoE families, in PyTorch.
+"""Model assembly for every family (the decoders and the encoder-decoder),
+in PyTorch.
 
 Counterpart of ``repro.models.model``. The JAX package stacks the layers of a
 block position over ``n_blocks`` and scans; here the layers are a
@@ -8,11 +9,16 @@ block position over ``n_blocks`` and scans; here the layers are a
 Public API (the JAX signatures and layouts):
     init_params(generator, cfg, dtype, device)   -> DecoderParams
     forward(params, batch, cfg, rt)              -> (logits [B,S,V], moe aux)
-    init_cache(cfg, B, S, dtype, device)         -> [{"k","v"} or
-                                                     {"conv","ssm"} per block pos]
+    init_cache(cfg, B, S, dtype, device, cross_len)
+                                                 -> [{"k","v"} or
+                                                     {"conv","ssm"} per block pos,
+                                                     + {"xk","xv"} for enc-dec]
     decode_step(params, cache, tokens, pos, cfg, rt) -> (logits [B,V], cache)
 
-Encoder-decoder configs raise ``NotImplementedError``.
+The encoder-decoder (seamless) has ``params.encoder`` (its ``layers`` and
+``final_norm``) and a cross-attention (``norm_cross``, ``cross``) in every
+decoder layer; ``forward`` reads the encoder's input from
+``batch["frames"]`` [B, Ss, d], as the JAX code does.
 """
 from __future__ import annotations
 
@@ -36,11 +42,13 @@ class Runtime:
     recurrence): "kernel" (the hand-written CUDA kernels on the card, their
     plain versions on the CPU) or "plain" (the plain PyTorch versions
     everywhere; an explicit request for references). ``aux_loss_weight``
-    weighs the MoE load-balance loss in ``loss_fn``, as the JAX
-    ``Runtime``'s field does."""
+    weighs the MoE load-balance loss in ``loss_fn`` and ``cross_len`` sizes
+    the encoder-decoder's cross K/V cache in ``SlotServer``, as the JAX
+    ``Runtime``'s fields do."""
     attn_impl: str = "kernel"
     scan_impl: str = "kernel"
     aux_loss_weight: float = 0.01
+    cross_len: int = 4096
 
     def __post_init__(self):
         if self.attn_impl not in L.ATTN_IMPLS:
@@ -57,13 +65,17 @@ class Runtime:
 
 
 class LayerParams(nn.Module):
-    def __init__(self, cfg: ArchConfig, spec: LayerSpec, dtype, device):
+    def __init__(self, cfg: ArchConfig, spec: LayerSpec, dtype, device,
+                 with_cross: bool = False):
         super().__init__()
         self.norm1 = L.leaf((cfg.d_model,), dtype, device)
         if spec.mixer == "attn":
             self.attn = L.AttentionParams(cfg, spec.attn, dtype, device)
         else:
             self.mamba = L.MambaParams(cfg, dtype, device)
+        if with_cross:
+            self.norm_cross = L.leaf((cfg.d_model,), dtype, device)
+            self.cross = L.AttentionParams(cfg, spec.attn, dtype, device)
         if spec.ffn != "none":
             self.norm2 = L.leaf((cfg.d_model,), dtype, device)
         if spec.ffn in ("moe", "moe_dense"):
@@ -72,8 +84,25 @@ class LayerParams(nn.Module):
             self.mlp = L.MLPParams(cfg, dtype, device)
 
 
+# the encoder's layers: bidirectional self-attention and a dense FFN
+ENC_SPEC = LayerSpec(mixer="attn", ffn="dense")
+
+
+class EncoderParams(nn.Module):
+    """The encoder of an encoder-decoder: ``n_enc_layers`` layers (norm1,
+    attn, norm2, mlp) and its ``final_norm``."""
+
+    def __init__(self, cfg: ArchConfig, dtype, device):
+        super().__init__()
+        self.layers = nn.ModuleList(
+            LayerParams(cfg, ENC_SPEC, dtype, device)
+            for _ in range(cfg.n_enc_layers))
+        self.final_norm = L.leaf((cfg.d_model,), dtype, device)
+
+
 class DecoderParams(nn.Module):
-    """All weights of a decoder, leaves in the JAX package's shapes."""
+    """All weights of a model, leaves in the JAX package's shapes (with
+    ``encoder`` for an encoder-decoder)."""
 
     def __init__(self, cfg: ArchConfig, dtype, device):
         super().__init__()
@@ -84,7 +113,10 @@ class DecoderParams(nn.Module):
         if not cfg.tie_embeddings:
             self.unembed = L.leaf((d, V), dtype, device)
         self.layers = nn.ModuleList(
-            LayerParams(cfg, spec, dtype, device) for spec in cfg.layer_kinds())
+            LayerParams(cfg, spec, dtype, device, with_cross=cfg.enc_dec)
+            for spec in cfg.layer_kinds())
+        if cfg.enc_dec:
+            self.encoder = EncoderParams(cfg, dtype, device)
 
 
 def init_params(generator: torch.Generator, cfg: ArchConfig,
@@ -98,12 +130,19 @@ def init_params(generator: torch.Generator, cfg: ArchConfig,
     p.final_norm.zero_()
     if not cfg.tie_embeddings:
         L.normal_(p.unembed, generator, 1.0 / math.sqrt(cfg.d_model))
-    for layer in p.layers:
+    layers = list(p.layers)
+    if cfg.enc_dec:
+        p.encoder.final_norm.zero_()
+        layers += list(p.encoder.layers)
+    for layer in layers:
         layer.norm1.zero_()
         if hasattr(layer, "attn"):
             L.init_attention(layer.attn, generator, cfg)
         else:
             L.init_mamba(layer.mamba, generator, cfg)
+        if hasattr(layer, "cross"):
+            layer.norm_cross.zero_()
+            L.init_attention(layer.cross, generator, cfg)
         if hasattr(layer, "norm2"):
             layer.norm2.zero_()
         if hasattr(layer, "moe"):
@@ -171,15 +210,40 @@ def _logits(params: DecoderParams, x: torch.Tensor,
     return logits
 
 
+def _encode(params: DecoderParams, frames: torch.Tensor, cfg: ArchConfig,
+            rt: Runtime) -> Tuple[torch.Tensor, torch.Tensor]:
+    """frames: [B, Ss, d], the stub frontend's embeddings -> (memory [B, Ss,
+    d], its positions [1, Ss]). ``n_enc_layers`` x (rms_norm -> non-causal
+    self-attention with RoPE -> rms_norm -> gated MLP), then the encoder's
+    final norm. Attention goes through the flash kernel
+    (``rt.attn_impl``); the JAX encoder always runs XLA attention, the same
+    function."""
+    positions = torch.arange(frames.shape[1], device=frames.device)[None, :]
+    x = frames
+    for layer in params.encoder.layers:
+        h = L.rms_norm(x, layer.norm1, cfg.norm_eps)
+        x = x + L.apply_attention(layer.attn, h, ENC_SPEC.attn, cfg,
+                                  positions, causal=False,
+                                  attn_impl=rt.attn_impl)
+        h = L.rms_norm(x, layer.norm2, cfg.norm_eps)
+        x = x + L.apply_mlp(layer.mlp, h, cfg.act)
+    return L.rms_norm(x, params.encoder.final_norm, cfg.norm_eps), positions
+
+
 def forward(params: DecoderParams, batch: Dict[str, torch.Tensor],
             cfg: ArchConfig, rt: Runtime = Runtime()
             ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Returns (logits [B,S,V] f32, moe_aux f32 scalar: the sum of the MoE
     layers' aux losses, 0 without MoE).
 
-    batch: {"tokens": [B,S] integer}. Attention runs through the flash
+    batch: {"tokens": [B,S] integer} (+ "frames": [B,Ss,d] for an
+    encoder-decoder, cast to the embedding's dtype; without it a
+    ``KeyError``, as in the JAX code). Attention runs through the flash
     kernel (``rt.attn_impl="kernel"``) and the Mamba recurrence through the
-    scan kernel (``rt.scan_impl="kernel"``), once per layer each.
+    scan kernel (``rt.scan_impl="kernel"``), once per layer each; an
+    encoder-decoder adds one flash call per encoder layer and a non-causal
+    cross-attention per decoder layer (``x + cross(norm_cross(x), memory)``
+    between the mixer and the FFN), without RoPE.
     """
     L.check_supported(cfg)
     dev = params.embed.device
@@ -188,6 +252,9 @@ def forward(params: DecoderParams, batch: Dict[str, torch.Tensor],
     S = tokens.shape[1]
     positions = torch.arange(S, device=dev)[None, :]
     x = _embed(params, tokens, cfg)
+    memory = None   # (encoder output, its positions): cross-attention's K/V
+    if cfg.enc_dec:
+        memory = _encode(params, batch["frames"].to(dev, x.dtype), cfg, rt)
     aux = torch.zeros((), device=dev)
     for layer, spec in zip(params.layers, cfg.layer_kinds()):
         h = L.rms_norm(x, layer.norm1, cfg.norm_eps)
@@ -196,7 +263,13 @@ def forward(params: DecoderParams, batch: Dict[str, torch.Tensor],
                                     attn_impl=rt.attn_impl)
         else:
             mix = L.apply_mamba(layer.mamba, h, cfg, scan_impl=rt.scan_impl)
-        x, a = _ffn(layer, spec, x + mix, cfg)
+        x = x + mix
+        if memory is not None:
+            h = L.rms_norm(x, layer.norm_cross, cfg.norm_eps)
+            x = x + L.apply_attention(layer.cross, h, spec.attn, cfg,
+                                      positions, kv_override=memory,
+                                      causal=False, attn_impl=rt.attn_impl)
+        x, a = _ffn(layer, spec, x, cfg)
         if a is not None:
             aux = aux + a
     return _logits(params, x, cfg), aux
@@ -208,11 +281,15 @@ def forward(params: DecoderParams, batch: Dict[str, torch.Tensor],
 
 
 def init_cache(cfg: ArchConfig, B: int, S: int, dtype=torch.bfloat16,
-               device=None) -> Cache:
+               device=None, cross_len: int = 4096) -> Cache:
     """Decode cache of zeros, as in the JAX package: per in-block position
     ``{"k","v"}`` of ``[n_blocks, B, S, kv, dh]`` for attention, or
     ``{"conv": [n_blocks, B, d_conv-1, d_inner]`` in ``dtype``, ``"ssm":
-    [n_blocks, B, d_inner, d_state]`` in f32 whatever ``dtype``} for Mamba."""
+    [n_blocks, B, d_inner, d_state]`` in f32 whatever ``dtype``} for Mamba;
+    an encoder-decoder adds the cross K/V ``{"xk","xv"}`` of ``[n_blocks, B,
+    cross_len, kv, dh]``. Nothing fills them (the JAX package has no
+    prefill from the encoder), so serving attends over ``cross_len`` zero
+    keys."""
     L.check_supported(cfg)
     dev = resolve_device(device)
     n = cfg.n_blocks
@@ -220,15 +297,19 @@ def init_cache(cfg: ArchConfig, B: int, S: int, dtype=torch.bfloat16,
     for spec in cfg.block:
         if spec.mixer == "attn":
             shape = (n, B, S, cfg.n_kv_heads, cfg.d_head)
-            cache.append({"k": torch.zeros(shape, dtype=dtype, device=dev),
-                          "v": torch.zeros(shape, dtype=dtype, device=dev)})
+            c = {"k": torch.zeros(shape, dtype=dtype, device=dev),
+                 "v": torch.zeros(shape, dtype=dtype, device=dev)}
         else:
             ms = cfg.mamba
-            cache.append({
-                "conv": torch.zeros((n, B, ms.d_conv - 1, cfg.d_inner),
-                                    dtype=dtype, device=dev),
-                "ssm": torch.zeros((n, B, cfg.d_inner, ms.d_state),
-                                   dtype=torch.float32, device=dev)})
+            c = {"conv": torch.zeros((n, B, ms.d_conv - 1, cfg.d_inner),
+                                     dtype=dtype, device=dev),
+                 "ssm": torch.zeros((n, B, cfg.d_inner, ms.d_state),
+                                    dtype=torch.float32, device=dev)}
+        if cfg.enc_dec:
+            shape = (n, B, cross_len, cfg.n_kv_heads, cfg.d_head)
+            c["xk"] = torch.zeros(shape, dtype=dtype, device=dev)
+            c["xv"] = torch.zeros(shape, dtype=dtype, device=dev)
+        cache.append(c)
     return cache
 
 
@@ -240,9 +321,11 @@ def decode_step(params: DecoderParams, cache: Cache, tokens: torch.Tensor,
     Returns (logits [B,V] f32, cache). The cache is updated IN PLACE (see
     ``layers.apply_attention_decode`` and ``layers.apply_mamba_decode``) and
     returned. Attention runs through the decode kernel and the Mamba state
-    update through the scan kernel, once per layer each. An MoE FFN runs
-    ``layers.apply_moe`` on the [B, 1, d] tokens (capacity from T = B) and
-    drops its aux, as the JAX ``decode_step`` does.
+    update through the scan kernel, once per layer each; an
+    encoder-decoder's cross-attention runs the decode kernel once more per
+    layer over the whole of ``xk``/``xv``, which it reads and never writes.
+    An MoE FFN runs ``layers.apply_moe`` on the [B, 1, d] tokens (capacity
+    from T = B) and drops its aux, as the JAX ``decode_step`` does.
     """
     L.check_supported(cfg)
     dev = params.embed.device
@@ -262,5 +345,12 @@ def decode_step(params: DecoderParams, cache: Cache, tokens: torch.Tensor,
             mix, _, _ = L.apply_mamba_decode(
                 layer.mamba, h, cfg, c["conv"][n], c["ssm"][n],
                 scan_impl=rt.scan_impl)
-        x, _ = _ffn(layer, spec, x + mix, cfg)
+        x = x + mix
+        if cfg.enc_dec:
+            h = L.rms_norm(x, layer.norm_cross, cfg.norm_eps)
+            cross, _, _ = L.apply_attention_decode(
+                layer.cross, h, spec.attn, cfg, c["xk"][n], c["xv"][n], pos,
+                cross=True, attn_impl=rt.attn_impl)
+            x = x + cross
+        x, _ = _ffn(layer, spec, x, cfg)
     return _logits(params, x, cfg)[:, 0, :], cache

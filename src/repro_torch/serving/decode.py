@@ -39,14 +39,17 @@ def make_serve_step(cfg, rt: M.Runtime, temperature: float = 0.0):
 
 class SlotServer:
     """Minimal continuous-batching server: fixed B slots, per-slot position,
-    requests queue in when slots free up. Runs where ``params`` live."""
+    requests queue in when slots free up. Runs where ``params`` live. An
+    encoder-decoder's cross K/V cache holds ``rt.cross_len`` keys a slot
+    and stays zero, as in the JAX server (``models.model.init_cache``)."""
 
     def __init__(self, params: M.DecoderParams, cfg, rt: M.Runtime,
                  n_slots: int, max_len: int, bos: int = 1):
         self.params, self.cfg, self.rt = params, cfg, rt
         self.n_slots, self.max_len, self.bos = n_slots, max_len, bos
         dev = params.embed.device
-        self.cache = M.init_cache(cfg, n_slots, max_len, torch.float32, dev)
+        self.cache = M.init_cache(cfg, n_slots, max_len, torch.float32, dev,
+                                  cross_len=rt.cross_len)
         self.tokens = torch.full((n_slots,), bos, dtype=torch.int32, device=dev)
         self.pos = torch.zeros((n_slots,), dtype=torch.int32, device=dev)
         self.active = [False] * n_slots

@@ -29,7 +29,9 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
 def loss_fn(params: M.DecoderParams, batch: Dict[str, torch.Tensor], cfg,
             rt: M.Runtime = M.Runtime()
             ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-    """batch: tokens [B,S], labels [B,S]. Returns (total, {"ce", "moe_aux"})."""
+    """batch: tokens [B,S], labels [B,S] (+frames [B,Ss,d] for an
+    encoder-decoder, read by ``forward``). Returns (total, {"ce",
+    "moe_aux"})."""
     logits, aux = M.forward(params, batch, cfg, rt)
     ce = cross_entropy(logits, batch["labels"].to(logits.device))
     total = ce + rt.aux_loss_weight * aux

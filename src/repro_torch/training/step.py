@@ -48,21 +48,23 @@ def init_train_state(generator: torch.Generator, cfg, hp: OptHParams,
 def train_step(state: State, batch: Dict[str, torch.Tensor], *, cfg,
                hp: OptHParams, rt: M.Runtime = M.Runtime()
                ) -> Tuple[State, Dict[str, Any]]:
-    """batch: tokens/labels [accum, mb, S]. Updates ``state`` in place and
-    returns it with {"loss", "ce", "grad_norm"} (0-d tensors)."""
+    """batch: tokens/labels [accum, mb, S] (+frames [accum, mb, S, d] for
+    an encoder-decoder). Microbatch i takes index i of every entry, as the
+    JAX scan over the batch does. Updates ``state`` in place and returns it
+    with {"loss", "ce", "grad_norm"} (0-d tensors)."""
     params = state["params"]
     leaves = list(params.parameters())
     dev = params.embed.device
-    tokens = batch["tokens"].to(dev).long()
-    labels = batch["labels"].to(dev)
-    accum = tokens.shape[0]
+    batch = {key: val.to(dev) for key, val in batch.items()}
+    batch["tokens"] = batch["tokens"].long()
+    accum = batch["tokens"].shape[0]
     grads = None
     loss_sum = torch.zeros((), dtype=torch.float32, device=dev)
     ces = []
     for i in range(accum):
         with torch.enable_grad():
-            loss, metrics = loss_fn(params, {"tokens": tokens[i],
-                                             "labels": labels[i]}, cfg, rt)
+            loss, metrics = loss_fn(params, {key: val[i] for key, val
+                                             in batch.items()}, cfg, rt)
             g = torch.autograd.grad(loss, leaves)
         if grads is None:
             grads = [x.float() for x in g]

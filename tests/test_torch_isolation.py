@@ -24,7 +24,7 @@ torch = pytest.importorskip("torch")
 
 import repro_torch  # noqa: E402
 from repro_torch import bridge  # noqa: E402
-from repro_torch.configs import ARCHS, get_config, reduced  # noqa: E402
+from repro_torch.configs import get_config, reduced  # noqa: E402
 from repro_torch.kernels import ops, ref  # noqa: E402
 from repro_torch.launch import serve as serve_driver  # noqa: E402
 from repro_torch.launch import train as train_driver  # noqa: E402
@@ -200,33 +200,23 @@ def test_memory_store_and_step_engine_run():
     assert eng.external.committed() == [1]
 
 
-UNSUPPORTED = {
-    "seamless-m4t-large-v2": "encoder-decoder",
-}
-
-
-@pytest.mark.parametrize("name", sorted(UNSUPPORTED))
-def test_unsupported_families_raise(name):
-    cfg = reduced(ARCHS[name])
-    match = f"{UNSUPPORTED[name]} slice"
-    with pytest.raises(NotImplementedError, match=match):
-        M.init_params(torch.Generator(), cfg, torch.float32, "cpu")
-    with pytest.raises(NotImplementedError, match=match):
-        M.init_cache(cfg, 1, 4, torch.float32, "cpu")
-    with pytest.raises(NotImplementedError, match=match):
-        serve_driver.main(["--arch", name, "--device", "cpu"])
-    # a dense model's weights do not let forward run another family's config
-    dense = M.init_params(torch.Generator(), _tiny(), torch.float32, "cpu")
-    with pytest.raises(NotImplementedError, match=match):
-        M.forward(dense, {"tokens": torch.zeros(1, 4, dtype=torch.long)}, cfg)
-
-
 @pytest.mark.parametrize("arch", ["grok-1-314b", "arctic-480b",
                                   "jamba-1.5-large-398b"])
 def test_moe_families_serve_through_the_driver(arch):
     """The MoE families (grok; arctic's MoE beside a dense FFN; jamba's
     Mamba + attention + MoE block) serve a reduced model on the CPU."""
     done = serve_driver.main(["--arch", arch, "--device", "cpu",
+                              "--requests", "3", "--tokens", "4", "--slots",
+                              "2", "--d-model", "64"])
+    assert sorted(done) == [0, 1, 2]
+    assert all(len(toks) == 4 for toks in done.values())
+
+
+def test_encdec_serves_through_the_driver():
+    """seamless: a reduced encoder-decoder serves on the CPU, its decoder
+    over a cross K/V cache of ``cross_len`` = 16 zero keys a slot (nothing
+    fills it, as in the JAX driver)."""
+    done = serve_driver.main(["--arch", "seamless", "--device", "cpu",
                               "--requests", "3", "--tokens", "4", "--slots",
                               "2", "--d-model", "64"])
     assert sorted(done) == [0, 1, 2]

@@ -55,6 +55,12 @@ FLASH_CASES = [
     (1, 333, 200, 48, 8, 64, False, None, 30.0, "bf16"),
     (1, 333, 333, 48, 8, 128, True, None, None, "f32"),
     (1, 300, 300, 56, 8, 64, False, None, None, "f32"),
+    # seamless-m4t-large-v2 (head dim 64, head group 1, non-causal): its
+    # encoder's self-attention and its cross-attention (Sq != Sk)
+    (2, 2048, 2048, 16, 16, 64, False, None, None, "bf16"),
+    (2, 2048, 1500, 16, 16, 64, False, None, None, "bf16"),
+    (2, 2048, 2048, 16, 16, 64, False, None, None, "f32"),
+    (1, 700, 1000, 16, 16, 64, False, None, None, "f32"),
 ]
 # bf16 also per output row (b, q, h): its error over D relative to that row
 # of the f32 result may be at most ref.BF16_ROW_TOL. rtol=atol 2e-2 alone
@@ -90,6 +96,10 @@ DECODE_CASES = [
     (2, 1024, 48, 8, 128, 300, 30.0, "bf16", [1024, 700]),
     (3, 1024, 56, 8, 128, None, None, "f32", None),
     (2, 512, 56, 8, 64, 100, 50.0, "bf16", [512, 77]),
+    # seamless's serve shape (D = 64, group 1): cross-attention over the
+    # whole cross cache, and self-attention at 64 keys a slot
+    (4, 4096, 16, 16, 64, None, None, "f32", [4096] * 4),
+    (4, 4096, 16, 16, 64, None, None, "bf16", [64] * 4),
 ]
 
 # f32 flash backward against its plain version (csrc/flash_attention_f32tc.cu):
@@ -110,6 +120,9 @@ BWD_CASES = [
     (2, 256, 256, 8, 4, 256, True, None, 50.0),      # gemma2's form
     (1, 333, 333, 4, 2, 256, True, 100, 50.0),
     (1, 100, 333, 4, 2, 256, False, None, None),
+    # seamless's train step (D = 64, group 1, non-causal; cross: Sq != Sk)
+    (2, 2048, 2048, 16, 16, 64, False, None, None),
+    (1, 700, 1000, 16, 16, 64, False, None, None),
 ]
 BWD_TOL = 2e-5   # relative to each gradient's largest magnitude
 
@@ -274,6 +287,46 @@ def test_model_paths_agree_on_card(card):
                                   M.Runtime("kernel"))
             lb, _ = M.decode_step(p, caches[1], tokens[:, step], pos, cfg,
                                   M.Runtime("plain"))
+            torch.testing.assert_close(la, lb, rtol=2e-5, atol=2e-5)
+
+
+@pytest.mark.cuda
+def test_encdec_paths_agree_on_card(card):
+    """A reduced seamless (head dim 32): forward (the encoder and the
+    cross-attention through the flash kernel, non-causal) and decode steps
+    (cross-attention through the decode kernel over random cross K/V)
+    against the plain path, on the card, in f32."""
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.models import model as M
+    cfg = reduced(get_config("seamless-m4t-large-v2"), n_layers=2)
+    p = M.init_params(torch.Generator(device=card).manual_seed(0), cfg,
+                      torch.float32, card)
+    g = torch.Generator(device=card).manual_seed(1)
+    batch = {"tokens": torch.randint(0, cfg.vocab, (2, 40), generator=g,
+                                     device=card),
+             "frames": torch.randn((2, 56, cfg.d_model), generator=g,
+                                   device=card)}
+    rt = {impl: M.Runtime(impl) for impl in ("kernel", "plain")}
+    with torch.inference_mode():
+        n = ops.LAUNCHES["flash_attention"]
+        a, _ = M.forward(p, batch, cfg, rt["kernel"])
+        assert ops.LAUNCHES["flash_attention"] == n + cfg.n_enc_layers + 2 * cfg.n_layers
+        b, _ = M.forward(p, batch, cfg, rt["plain"])
+        torch.testing.assert_close(a, b, rtol=2e-5, atol=2e-5)
+        caches = {impl: M.init_cache(cfg, 2, 16, torch.float32, card, cross_len=24)
+                  for impl in rt}
+        for c_k, c_p in zip(caches["kernel"], caches["plain"]):
+            for leaf in ("xk", "xv"):
+                c_k[leaf].copy_(torch.randn(c_k[leaf].shape, generator=g, device=card))
+                c_p[leaf].copy_(c_k[leaf])
+        for step in range(20):
+            pos = torch.tensor([step, step + 3], device=card, dtype=torch.int32)
+            n = ops.LAUNCHES["decode_attention"]
+            la, _ = M.decode_step(p, caches["kernel"], batch["tokens"][:, step], pos,
+                                  cfg, rt["kernel"])
+            assert ops.LAUNCHES["decode_attention"] == n + 2 * cfg.n_layers
+            lb, _ = M.decode_step(p, caches["plain"], batch["tokens"][:, step], pos,
+                                  cfg, rt["plain"])
             torch.testing.assert_close(la, lb, rtol=2e-5, atol=2e-5)
 
 

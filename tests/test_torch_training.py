@@ -138,15 +138,22 @@ def test_train_state_bridge_round_trips():
 
 
 def _batch(rng, cfg, accum, mb, S):
+    """tokens/labels [accum, mb, S]; an encoder-decoder also gets frames
+    [accum, mb, S, d] (the JAX step's batch layout)."""
     toks = rng.integers(0, cfg.vocab, (accum, mb, S + 1)).astype(np.int32)
-    return {"tokens": toks[..., :-1], "labels": toks[..., 1:]}
+    batch = {"tokens": toks[..., :-1], "labels": toks[..., 1:]}
+    if cfg.enc_dec:
+        batch["frames"] = rng.standard_normal(
+            (accum, mb, S, cfg.d_model)).astype(np.float32)
+    return batch
 
 
 # jamba (8 layers a block, ~80 s a case here) runs without accumulation only
 TRAIN_CASES = [(name, accum) for name in (
     "internlm2-1.8b", "qwen3-32b", "gemma2-9b", "falcon-mamba-7b",
     "chameleon-34b", "starcoder2-7b-padded", "grok-1-314b-split2",
-    "arctic-480b") for accum in (1, 2)] + [("jamba-1.5-large-398b", 1)]
+    "arctic-480b", "seamless-m4t-large-v2") for accum in (1, 2)] + [
+    ("jamba-1.5-large-398b", 1)]
 
 
 @pytest.mark.parametrize("name, accum", TRAIN_CASES)
@@ -159,7 +166,8 @@ def test_train_step_matches_jax(name, accum):
     experts split in two, arctic's MoE beside a dense FFN and jamba's
     Mamba + attention + MoE block: the router's gradient through the
     routing weights and the aux loss, the experts' through the dispatch's
-    gathers)."""
+    gathers; seamless: frames in the batch, the encoder's and the
+    cross-attention's gradients through the flash route, non-causal)."""
     cfg, tcfg = _configs(name)
     rng = np.random.default_rng(3)
     state = JS.init_train_state(jax.random.PRNGKey(0), cfg, HP, jnp.float32)
