@@ -4,7 +4,7 @@
     python3 chip_smoke.py
 
 Models, at full width with random weights from a seed, depth not cut
-except in phases 7, 8, 9 and 10c: internlm2-1.8b (24 layers, d=2048, 16 heads, 8
+except in phases 7, 8, 9, 10c and 11b: internlm2-1.8b (24 layers, d=2048, 16 heads, 8
 kv heads, dh=128, d_ff=8192, V=92544), falcon-mamba-7b (64 Mamba layers,
 d=4096, d_inner=8192, d_state=16, d_conv=4, dt_rank=256, V=65024),
 gemma2-9b (42 layers, alternating local (window 4096) and global attention,
@@ -112,14 +112,36 @@ non-causal). Phases:
     memory, reckoned on its own line), tokens and frames [1, 2, 2048]: the
     checks of phase 6, with 36 forward and 36 backward split-f32 flash
     launches a step and the grads at depth 2 + 2.
+11. internlm2 ``make_train_step`` (internlm2-train-bf16) at full width and
+    depth with bf16 params (``init_train_state``'s default dtype) and the
+    default optimizer (f32 moments and accumulation), tokens [1, 2, 2048]:
+    the checks of phase 6, with 24 forward and 24 backward flash launches a
+    step recorded on the bf16 kernels at dh 128 only (the tensor-core
+    forward; the bf16 backward's delta, dk/dv and dq) and the grads at depth
+    2 held against the f32 grads of f32 copies of the weights (kernel path
+    within 2x / 1.25x of the plain bf16 path's max / mean error, phase 3's
+    rule); then one step of each optimizer variant (bf16 moments with bf16
+    accumulation, int8 moments, ``compress_grads``), each twice from the same
+    state and bitwise equal, with its time and peak memory;
+    11b. gemma2-9b the same way (gemma2-train-bf16), depth cut to
+    GEMMA_BF16_TRAIN_LAYERS (8 of 42) when ``train_memory`` reckons it
+    within BF16_TRAIN_GB, else 4: its launches recorded on the dh 256 bf16
+    kernels, its first loss held to the plain path's (bf16 tolerance).
 
 Phase 2 also holds the f32 flash backward (``csrc/flash_attention_f32tc.cu``)
 against its plain version at rtol = atol = 2e-5 relative to each
-gradient's largest magnitude, bitwise repeatable, and the forward's lse.
+gradient's largest magnitude, bitwise repeatable, and the forward's lse;
+and the bf16 backward (``csrc/flash_attention_tc_bwd.cu``) at 2e-2 of each
+gradient's largest magnitude against the f32 backward of the f32 copies of
+its bf16 operands, bitwise repeatable, with the bf16 forward's o the same
+bits with and without lse and its lse within 1e-3 of the f32 one. Phase 5
+also times the bf16 backward at internlm2's, gemma2's and seamless's
+shapes beside its bound and SDPA's bf16 backward, and the bf16 forward's
+device time with and without lse.
 Training needs ``CUBLAS_WORKSPACE_CONFIG`` (set here before torch starts)
 and runs under ``torch.use_deterministic_algorithms(True)`` from phase 6 on,
-so phases 9-10b run under it too. The phases that drive a main path
-(3-4b, 6-10c) set the launch counts to 0 just before and read them just
+so phases 9-11b run under it too. The phases that drive a main path
+(3-4b, 6-11b) set the launch counts to 0 just before and read them just
 after.
 
 Every breakdown prints the port's kernel launches the profiler recorded
@@ -147,6 +169,7 @@ import warnings
 from pathlib import Path
 from unittest import mock
 
+T_START = time.perf_counter()
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 # deterministic cuBLAS for the training phases; read when CUDA starts
@@ -162,6 +185,8 @@ from repro_torch.launch import train as train_driver  # noqa: E402
 from repro_torch.serving import SlotServer, serve_step  # noqa: E402
 from repro_torch.training import loss_fn, make_train_step  # noqa: E402
 from repro_torch.training import OptHParams, init_train_state  # noqa: E402
+from repro_torch.training.optimizer import moment_leaves  # noqa: E402
+from repro_torch.training.quant import is_qtensor  # noqa: E402
 
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM data sheet
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}  # dense; f32 off the tensor cores
@@ -185,6 +210,9 @@ GROK_ARCH = "grok-1-314b"
 GROK_LAYERS = 2          # phases 9 and 9b's depth (of 64): device memory
 SEAMLESS_ARCH = "seamless-m4t-large-v2"
 SEAMLESS_TRAIN_LAYERS = 12   # phase 10c's depth (of 24), encoder and decoder
+GEMMA_BF16_TRAIN_LAYERS = 8  # phase 11b's depth (of 42), if reckoned within
+BF16_TRAIN_GB = 75.0         # this many GB (``train_memory``); else 4
+BF16_LSE_TOL = 1e-3          # the bf16 forward's lse against the f32 one
 
 KERNELS = {
     # bf16 (the forward path) runs on the tensor cores; f32 (the train path)
@@ -194,9 +222,17 @@ KERNELS = {
         route="cuda", source="src/repro_torch/kernels/csrc/flash_attention_tc.cu",
         replaces="src/repro/kernels/flash_attention.py:93"),
     # the Pallas kernel has no backward (JAX differentiates XLA attention);
-    # this is the backward of the kernel that replaces it, on the train path
+    # this is the backward of the kernel that replaces it, on the f32 train
+    # path (phases 6-8, 10c)
     "flash_attention_backward": dict(
         route="cuda", source="src/repro_torch/kernels/csrc/flash_attention_f32tc.cu",
+        replaces="src/repro/kernels/flash_attention.py:93"),
+    # the backward of the bf16 forward, on the bf16 train path (phases 11,
+    # 11b); it counts in ops.LAUNCHES["flash_attention_backward"] too, and
+    # its row reads the bf16 phases' counts
+    "flash_attention_backward_bf16": dict(
+        route="cuda",
+        source="src/repro_torch/kernels/csrc/flash_attention_tc_bwd.cu",
         replaces="src/repro/kernels/flash_attention.py:93"),
     "decode_attention": dict(
         route="cuda", source="src/repro_torch/kernels/csrc/decode_attention.cu",
@@ -215,6 +251,8 @@ KERNELS = {
 # dim), the scan's by ``ops.scan_variant``. Names are matched as substrings;
 # no name of one variant contains another's.
 FLASH_TC = "flash_fwd_tc_kernel"
+FLASH_TC_BWD = ("flash_bwd_tc_delta_kernel", "flash_bwd_tc_dkdv_kernel",
+                "flash_bwd_tc_dq_kernel")
 F32TC_FWD_PREP, F32TC_FWD = "flash_f32tc_fwd_prep_kernel", "flash_f32tc_fwd_kernel"
 F32TC_BWD_PREP = "flash_f32tc_bwd_prep_kernel"
 F32TC_BWD = (F32TC_BWD_PREP, "flash_f32tc_dkdv_kernel", "flash_f32tc_dq_kernel")
@@ -231,7 +269,8 @@ SCAN_BWD = "selective_scan_bwd_kernel"
 DEVICE_KERNELS = {
     "flash_attention": [((FLASH_TC,), 1),
                         ((F32TC_FWD_PREP, F32TC_FWD, F32TC_FWD_D256), 2)],
-    "flash_attention_backward": [(F32TC_BWD + F32TC_BWD_D256[1:], 3)],
+    "flash_attention_backward": [(F32TC_BWD + F32TC_BWD_D256[1:], 3),
+                                 (FLASH_TC_BWD, 3)],
     "decode_attention": [(("decode_attention_kernel",), 1)],
     "selective_scan": [(tuple(SCAN_KERNEL.values()), 1)],
     "selective_scan_backward": [((SCAN_BWD,), 1)],
@@ -398,12 +437,14 @@ def log_breakdown(tag: str, prof: dict, wall_ms: float, top: int = 6) -> None:
 
 def log_memory(tag: str, reckoned_gb=None) -> None:
     """Peak device memory since the last reset (beside what was reckoned
-    for it, where given), then reset it."""
+    for it, where given), then reset it; and the seconds since the script
+    started, which time each phase."""
     if torch.device(DEVICE).type == "cuda":
         peak = torch.cuda.max_memory_allocated()
         log(f"memory {tag}: peak {peak / 2**30:.2f} GiB ({peak / 1e9:.2f} GB)"
             f" allocated" + (f", reckoned {reckoned_gb:.1f} GB"
-                             if reckoned_gb is not None else ""))
+                             if reckoned_gb is not None else "")
+            + f" (at {time.perf_counter() - T_START:.1f} s)")
         torch.cuda.reset_peak_memory_stats()
 
 
@@ -597,6 +638,72 @@ def check_flash_backward(g, case) -> float:
     return abs_err
 
 
+BF16_BWD_CASES = [
+    # bf16 flash backward (csrc/flash_attention_tc_bwd.cu): (B, Sq, Sk, H,
+    # KV, D, causal, window, softcap); internlm2's train step, gemma2's
+    # (D = 256: two warpgroups a block) and its local layers' window,
+    # seamless's encoder (non-causal, group 1) and cross-attention (Sq !=
+    # Sk), head groups 6 and 7, ragged Sq / Sk, D = 32
+    (2, 2048, 2048, 16, 8, 128, True, None, None),
+    (2, 2048, 2048, 16, 8, 256, True, None, 50.0),
+    (1, 1024, 1024, 16, 8, 256, True, 256, 50.0),
+    (2, 2048, 2048, 16, 16, 64, False, None, None),
+    (2, 2048, 1500, 16, 16, 64, False, None, None),
+    (1, 1024, 1024, 48, 8, 128, True, None, None),
+    (1, 1000, 1000, 56, 8, 128, True, None, None),
+    (1, 700, 1000, 16, 8, 128, False, None, None),
+    (2, 1024, 1024, 16, 8, 32, True, None, None),
+]
+
+
+def check_flash_backward_bf16(g, case) -> float:
+    """One bf16 backward case: the bf16 forward's o with and without lse
+    (bitwise), its lse within BF16_LSE_TOL of the plain one of the f32
+    copies, the backward kernel's dq, dk and dv within 2e-2 of each
+    gradient's largest magnitude of the plain backward on the f32 copies of
+    the same bf16 operands (given the plain f32 forward's o and lse), and a
+    second call bitwise equal. Returns the largest absolute error."""
+    B, Sq, Sk, H, KV, D, causal, window, softcap = case
+    dt = torch.bfloat16
+    q = _randn(g, (B, Sq, H, D), dt)
+    k, v = _randn(g, (B, Sk, KV, D), dt), _randn(g, (B, Sk, KV, D), dt)
+    dout = _randn(g, (B, Sq, H, D), dt)
+    kw = dict(causal=causal, window=window, softcap=softcap)
+    what = f"bf16 flash backward {case}"
+    out_plain = ops.flash_attention(q, k, v, **kw)
+    out, lse = ops.flash_attention_forward(q, k, v, causal, window, softcap,
+                                           want_lse=True)
+    check(bool(torch.equal(out, out_plain)), f"{what}: o moved with lse on")
+    f32 = [t.float() for t in (q, k, v, dout)]
+    lse_want = ref.flash_attention_lse_ref(f32[0], f32[1], **kw)
+    lse_err = assert_close(lse, lse_want, BF16_LSE_TOL, f"{what} lse")
+    before = ops.LAUNCHES["flash_attention_backward"]
+    got = ops.flash_attention_backward(q, k, v, out, lse, dout, **kw)
+    sync()
+    check(ops.LAUNCHES["flash_attention_backward"] == before + 1,
+          f"{what}: the backward kernel did not launch")
+    check(all(x.dtype == dt for x in got), f"{what}: grads not bf16")
+    want = ref.flash_attention_backward_ref(
+        *f32[:3], ref.flash_attention_ref(*f32[:3], **kw), lse_want, f32[3],
+        **kw)
+    errs = [assert_close_to_max(a.float(), b, TOL[dt], f"{what} {n}")
+            for n, a, b in zip(("dq", "dk", "dv"), got, want)]
+    means = [((a.float() - b).abs().mean() / b.abs().max()).item()
+             for a, b in zip(got, want)]
+    abs_err = max(max_err(a, b) for a, b in zip(got, want))
+    again = ops.flash_attention_backward(q, k, v, out, lse, dout, **kw)
+    check(all(bool(torch.equal(a, b)) for a, b in zip(got, again)),
+          f"{what}: two calls differ")
+    log(f"bf16 flash backward B={B} Sq={Sq} Sk={Sk} H={H} KV={KV} D={D} "
+        f"causal={causal} window={window} softcap={softcap}: dq/dk/dv error "
+        f"relative to max: max {errs[0]:.3e} / {errs[1]:.3e} / {errs[2]:.3e}, "
+        f"mean {means[0]:.3e} / {means[1]:.3e} / {means[2]:.3e} (tol "
+        f"{TOL[dt]}, against the f32 backward of the f32 copies), bitwise "
+        f"repeatable, o unchanged by lse, lse max_abs_err {lse_err:.3e} (tol "
+        f"{BF16_LSE_TOL}), grads max_abs_err {abs_err:.3e}")
+    return abs_err
+
+
 SCAN_CASES = [
     # (B, S, DI, DS, h0, variant); h0 None, "fresh" or "offset" (a view 4
     # bytes into its buffer, not 16-byte aligned): falcon-mamba's forward
@@ -742,6 +849,10 @@ def phase_kernels() -> dict:
     for case in BWD_CASES:
         errs["flash_attention_backward"] = max(
             errs["flash_attention_backward"], check_flash_backward(g, case))
+    for case in BF16_BWD_CASES:
+        errs["flash_attention_backward_bf16"] = max(
+            errs["flash_attention_backward_bf16"],
+            check_flash_backward_bf16(g, case))
     return errs
 
 
@@ -1814,6 +1925,113 @@ def time_flash_set(shape, causal: bool, seed: int, tag: str) -> dict:
     return res
 
 
+# internlm2-1.8b's attention shape as its train step runs it: (B, S, H, KV, D,
+# softcap), causal
+TRAIN_SHAPE = (2, 2048, 16, 8, 128, None)
+
+
+def time_sdpa_bf16_backward(qt, kt, vt, dot, causal: bool, tag: str):
+    """(ms, call) of SDPA's bf16 backward on these inputs ([B, heads, S, D]):
+    the flash backend with ``enable_gqa``, else on K/V repeated to the q
+    heads (the repeat outside the timed call). A yardstick only; the port
+    never calls SDPA. (None, reason) if the backend refuses both."""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    rep = qt.shape[1] // kt.shape[1]
+    tries = [("FLASH_ATTENTION, enable_gqa", kt, vt, True)]
+    if rep > 1:
+        tries.append(("FLASH_ATTENTION on K/V repeated to the q heads",
+                      *(t.repeat_interleave(rep, dim=1) for t in (kt, vt)),
+                      False))
+    refused = []
+    for call, kk, vv, gqa in tries:
+        leaves = [t.detach().requires_grad_(True) for t in (qt, kk, vv)]
+        with sdpa_kernel([SDPBackend.FLASH_ATTENTION]):
+            try:
+                o = F.scaled_dot_product_attention(*leaves, is_causal=causal,
+                                                   enable_gqa=gqa)
+                fn = lambda: torch.autograd.grad(  # noqa: E731
+                    o, leaves, dot, retain_graph=True)
+                fn()
+                sync()
+            except RuntimeError as e:   # the library's "no kernel for this"
+                refused.append(f"{call} refused ({str(e).splitlines()[0][:60]})")
+                continue
+            ms = cuda_ms(fn, iters=10)
+        log(f"time sdpa bf16 backward {tag}: {call} {ms:.4f} ms"
+            + (f" ({'; '.join(refused)})" if refused else ""))
+        return ms, call
+    log(f"time sdpa bf16 backward {tag}: " + "; ".join(refused))
+    return None, "; ".join(refused)
+
+
+def time_flash_backward_bf16(shape, causal: bool, seed: int, tag: str) -> dict:
+    """The bf16 backward (``csrc/flash_attention_tc_bwd.cu``) at one
+    attention shape (B, S, H, KV, D, softcap): the wrapper's CUDA-event
+    time, the device time of each of its launches (delta, dk/dv, dq), the
+    plain backward's time, its bound (five products of the kept pairs, 2 x
+    5 x pairs x D flops, at the 989 TFLOP/s dense bf16 peak; or q, k, v, o,
+    dO and lse read and dq, dk, dv written once at the HBM rate) and SDPA's
+    bf16 backward (``time_sdpa_bf16_backward``; without a softcap, which
+    SDPA has not). Beside it, the bf16 forward's device time with and
+    without lse."""
+    g = torch.Generator(device=DEVICE).manual_seed(seed)
+    B, S, H, KV, D, softcap = shape
+    dt = torch.bfloat16
+    q = _randn(g, (B, S, H, D), dt)
+    k, v = _randn(g, (B, S, KV, D), dt), _randn(g, (B, S, KV, D), dt)
+    dout = _randn(g, (B, S, H, D), dt)
+    kw = dict(causal=causal, window=None, softcap=softcap)
+    out, lse = ops.flash_attention_forward(q, k, v, causal, None, softcap,
+                                           want_lse=True)
+
+    def fn():
+        return ops.flash_attention_backward(q, k, v, out, lse, dout, **kw)
+
+    def plain():
+        return ref.flash_attention_backward_ref(q, k, v, out, lse, dout, **kw)
+    err = max(max_err(a, b) for a, b in zip(fn(), plain()))
+    ms = cuda_ms(fn)
+    plain_ms = cuda_ms(plain, iters=5)
+    prof, _ = profile_recorded(fn, FLASH_TC_BWD, 1, grow=5)
+    dev_ms = kernel_ms(prof, *FLASH_TC_BWD)
+    by_kernel = {n: kernel_ms(prof, n) for n in FLASH_TC_BWD}
+    fwd = {}
+    for want_lse in (False, True):
+        p, _ = profile_recorded(lambda: ops.flash_attention_forward(
+            q, k, v, causal, None, softcap, want_lse=want_lse), (FLASH_TC,), 1,
+            grow=5)
+        fwd[want_lse] = kernel_ms(p, FLASH_TC)
+    pairs = B * H * (S * (S + 1) // 2 if causal else S * S)
+    flops = 10 * pairs * D
+    nbytes = (4 * q.numel() + 4 * k.numel()) * 2 + lse.numel() * 4
+    t_ops, t_bytes = flops / PEAK_FLOPS[dt], nbytes / HBM_BYTES_PER_S
+    bound_ms = max(t_ops, t_bytes) * 1e3
+    by = "operations" if t_ops >= t_bytes else "bytes"
+    qt, kt, vt, dot = (t.transpose(1, 2).contiguous() for t in (q, k, v, dout))
+    lib_ms, lib_call = time_sdpa_bf16_backward(qt, kt, vt, dot, causal, tag)
+    del qt, kt, vt, dot
+    mask = "causal" if causal else "non-causal"
+    log(f"time flash backward bf16 {tag} (tensor_core, "
+        f"flash_attention_tc_bwd.cu) [{B},{S},{H},{D}] kv {KV} {mask} softcap "
+        f"{softcap}: kernel {ms:.4f} ms ({flops / ms / 1e9:.1f} TFLOP/s), "
+        f"plain {plain_ms:.4f} ms, sdpa ({lib_call}"
+        + ("" if softcap is None else ", no softcap") + ") "
+        + (f"{lib_ms:.4f} ms (kernel/sdpa {ms / lib_ms:.2f})" if lib_ms
+           else "not measured")
+        + f", bound {bound_ms * 1e3:.2f} us ({by}: {flops / 1e9:.2f} GFLOP at "
+        f"{PEAK_FLOPS[dt] / 1e12:.0f} TFLOP/s, {nbytes / 1e6:.2f} MB); kernel "
+        f"device time {_fmt(dev_ms)} ms ("
+        + ", ".join(f"{n} {_fmt(t)}" for n, t in by_kernel.items())
+        + f"), {_share(bound_ms, dev_ms)} of the bound; bf16 forward device "
+        f"time without lse {_fmt(fwd[False])} ms, with lse {_fmt(fwd[True])} "
+        f"ms; max_abs_err against the plain backward {err:.3e}")
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                library_call=lib_call, bound_ms=bound_ms, bound_by=by,
+                device_ms=dev_ms, device_ms_by_kernel=by_kernel,
+                forward_device_ms=fwd[False], forward_lse_device_ms=fwd[True],
+                shape=list(shape[:5]), causal=causal, softcap=softcap)
+
+
 # ---------------------------------------------------------------------------
 # phase 6 / 6b, 7 / 7b: training at full width, f32; the LOG.io-protected runs
 # ---------------------------------------------------------------------------
@@ -1831,15 +2049,41 @@ def _train_batch(cfg, g):
     return batch
 
 
-def _fresh_state(cfg, hp):
+def _fresh_state(cfg, hp, dtype=torch.float32):
     return init_train_state(torch.Generator(device=DEVICE).manual_seed(SEED),
-                            cfg, hp, torch.float32, DEVICE)
+                            cfg, hp, dtype, DEVICE)
+
+
+DTYPE_NAME = {torch.float32: "f32", torch.bfloat16: "bf16"}
+# bytes an element of AdamW's moments takes, by ``moment_dtype`` (int8: one
+# byte and a 4-byte scale a row, about 1.25 at these rows' widths)
+MOMENT_BYTES = {"float32": 4, "bfloat16": 2, "int8": 1.25}
+ACCUM_BYTES = {"float32": 4, "bfloat16": 2}
 
 
 # The train path of each family: the wrappers it counts (forward, backward),
 # the device kernels each counted launch must be recorded as (every one of
 # them n_layers times a step) and those of another variant that must not run.
+def bf16_path(D: int) -> dict:
+    """The bf16 train path at head dim D: the tensor-core forward and the
+    bf16 backward's three kernels, their names carrying D (the profiler
+    records ``flash_fwd_tc_kernel<128, false>``); any other head dim's and
+    the split-f32 kernels must not run. (No head dim's decimal digits start
+    another's, so ``<128`` matches D = 128 alone.)"""
+    names = (FLASH_TC,) + FLASH_TC_BWD
+    others = tuple(f"{n}<{d}" for d in (32, 64, 128, 256) if d != D
+                   for n in names)
+    return dict(wrappers=("flash_attention", "flash_attention_backward"),
+                forward=(f"{FLASH_TC}<{D}",),
+                backward=tuple(f"{n}<{D}" for n in FLASH_TC_BWD),
+                others=others + (F32TC_FWD_PREP, F32TC_FWD, F32TC_FWD_D256,
+                                 *F32TC_BWD, *F32TC_BWD_D256[1:]))
+
+
 TRAIN_PATHS = {
+    # bf16 (phases 11, 11b): internlm2's dh 128, gemma2's dh 256
+    "attention_bf16": bf16_path(128),
+    "attention_bf16_d256": bf16_path(256),
     "attention": dict(wrappers=("flash_attention", "flash_attention_backward"),
                       forward=(F32TC_FWD_PREP, F32TC_FWD), backward=F32TC_BWD,
                       others=(FLASH_TC, F32TC_FWD_D256, *F32TC_BWD_D256[1:])),
@@ -1855,11 +2099,22 @@ TRAIN_PATHS = {
 }
 
 
-def train_memory(cfg, depth: int, tokens: int) -> float:
+def state_bytes(dtype, hp) -> float:
+    """Bytes a parameter takes in a train step: itself (``dtype``), its
+    gradient accumulator (``hp.grad_accum_dtype``), m and v
+    (``hp.moment_dtype``), and autograd's gradient beside the accumulator
+    where the two dtypes differ (bf16 params, f32 accumulation). 16 in f32;
+    14 + 2 for bf16 params with the default optimizer."""
+    p, acc = (4 if dtype == torch.float32 else 2), ACCUM_BYTES[hp.grad_accum_dtype]
+    return p + acc + 2 * MOMENT_BYTES[hp.moment_dtype] + (p if p != acc else 0)
+
+
+def train_memory(cfg, depth: int, tokens: int, dtype=torch.float32,
+                 hp: OptHParams = OptHParams()) -> float:
     """A train step's peak device memory in GB at ``depth`` layers, reckoned
-    from the code: f32 params, grads, m and v (16 bytes a param), the
-    activations autograd keeps a layer, the logits and their loss, and the
-    backward's transients. N = ``tokens``.
+    from the code: the state (``state_bytes`` a param: 16 in f32), the
+    activations autograd keeps a layer (in the params' dtype), the logits and
+    their loss (f32), and the backward's transients. N = ``tokens``.
 
     - mamba: per layer the two [N, DI, DS] f32 tensors autograd keeps (a,
       saved by ``exp``; h, saved by the ``h.C`` einsum and by
@@ -1871,23 +2126,26 @@ def train_memory(cfg, depth: int, tokens: int) -> float:
       flash output) and four [N, KV dh] (k before and after rope, v), and
       four [N, d_ff] (the MLP's gate, up, activation and product); five
       [N, V] for the logits, the final softcap's tanh, the loss and its
-      gradient; a layer's activations again and the flash backward's hi/lo
-      copies (eight of q's size, six of k's) as transients. An
+      gradient; a layer's activations again and the flash backward's
+      transients (f32: the hi/lo copies, eight of q's size and six of k's;
+      bf16: dq, dk and dv) beside them. An
       encoder-decoder (its encoder cut to ``depth`` too) keeps as much for
       each encoder layer, and for each decoder layer's cross half two [N, d]
       (its input and norm), three [N, H dh] (q, the flash output, the
       projection's input) and four [N, KV dh] (k and v, of the memory)."""
-    state = 16 * at_depth(cfg, depth).param_count()
+    state = state_bytes(dtype, hp) * at_depth(cfg, depth).param_count()
     V = cfg.eff_vocab
+    e = 4 if dtype == torch.float32 else 2
     if cfg.family == "ssm":
         big = tokens * cfg.d_inner * cfg.mamba.d_state * 4
         acts = depth * (2 * big + 12 * tokens * cfg.d_inner * 4)
         return (state + acts + 3 * tokens * V * 4 + 4 * big) / 1e9
     hd, kvd = cfg.n_heads * cfg.d_head, cfg.n_kv_heads * cfg.d_head
-    layer = tokens * (6 * cfg.d_model + 3 * hd + 4 * kvd + 4 * cfg.d_ff) * 4
-    flash = tokens * (8 * hd + 6 * kvd) * 4
+    layer = tokens * (6 * cfg.d_model + 3 * hd + 4 * kvd + 4 * cfg.d_ff) * e
+    flash = (tokens * (8 * hd + 6 * kvd) * 4 if dtype == torch.float32
+             else tokens * (hd + 2 * kvd) * 2)
     if cfg.enc_dec:
-        cross = tokens * (2 * cfg.d_model + 3 * hd + 4 * kvd) * 4
+        cross = tokens * (2 * cfg.d_model + 3 * hd + 4 * kvd) * e
         layer_all = 2 * layer + cross    # an encoder and a decoder layer
     else:
         layer_all = layer
@@ -1895,21 +2153,24 @@ def train_memory(cfg, depth: int, tokens: int) -> float:
             + flash) / 1e9
 
 
-def depth_cut(tag: str, cfg, depth: int) -> float:
+def depth_cut(tag: str, cfg, depth: int, dtype=torch.float32,
+              hp: OptHParams = OptHParams()) -> float:
     """Log why ``tag`` trains ``cfg`` at ``depth`` layers (device memory,
     ``train_memory`` at that depth and at twice it, beside the card's) and
     return the reckoning at ``depth``."""
     tokens = FWD_B * FWD_S
-    reckoned = train_memory(cfg, depth, tokens)
+    reckoned = train_memory(cfg, depth, tokens, dtype, hp)
     n = cfg.param_count()
     enc = (f" (and the encoder to {depth} of {cfg.n_enc_layers}; "
            f"{at_depth(cfg, depth).param_count() / 1e9:.3f} B params)"
            if cfg.enc_dec else "")
     log(f"{tag}: depth cut to {depth} of {cfg.n_layers} layers{enc}, for device "
-        f"memory: full depth is {n / 1e9:.3f} B params, {16 * n / 1e9:.1f} GB "
-        f"of f32 params, grads, m and v; reckoned peak at depth {depth} "
-        f"{reckoned:.1f} GB, at depth {2 * depth} "
-        f"{train_memory(cfg, 2 * depth, tokens):.1f} GB (card: "
+        f"memory: full depth is {n / 1e9:.3f} B params, "
+        f"{state_bytes(dtype, hp) * n / 1e9:.1f} GB of {DTYPE_NAME[dtype]} "
+        f"params, grads, m and v ({state_bytes(dtype, hp):g} bytes a param); "
+        f"reckoned peak at depth {depth} {reckoned:.1f} GB, at depth "
+        f"{2 * depth} {train_memory(cfg, 2 * depth, tokens, dtype, hp):.1f} "
+        f"GB (card: "
         f"{torch.cuda.get_device_properties(0).total_memory / 1e9:.1f} GB); "
         f"the repeat check keeps its reference params on the host, so it "
         f"adds no device memory")
@@ -1987,20 +2248,23 @@ def encdec_memory(cfg) -> dict:
             "serve_gb": (4 * n + 3 * cache + V * cfg.d_model * 4) / 1e9}
 
 
-def phase_train(cfg, path: str, tag: str, reckoned_gb=None) -> dict:
-    """``make_train_step`` at full width in f32 (``cfg.n_layers`` deep),
-    tokens [1, 2, 2048], under the training's deterministic mode: the
-    launches of ``TRAIN_PATHS[path]`` (counted and recorded), first loss,
-    step time and breakdown with the kernel pair's share, bitwise repeat,
-    peak memory (beside ``reckoned_gb`` where given) and the grads at depth
-    GRAD_LAYERS against the plain path, and whether they are bitwise equal.
+def phase_train(cfg, path: str, tag: str, reckoned_gb=None,
+                dtype=torch.float32) -> dict:
+    """``make_train_step`` at full width with ``dtype`` params and the
+    default optimizer (``cfg.n_layers`` deep), tokens [1, 2, 2048], under
+    the training's deterministic mode: the launches of ``TRAIN_PATHS[path]``
+    (counted and recorded), first loss, step time and breakdown with the
+    kernel pair's share, bitwise repeat, peak memory (beside ``reckoned_gb``
+    where given) and the grads at depth GRAD_LAYERS against the plain path
+    (``grad_check``).
 
     The first loss is held within 1 of ln V, where the init predicts near
     uniformly. A tied embedding is drawn N(0, 1) (as the JAX init), so its
     logits have std sqrt(d) before any final softcap (gemma2: ~60, capped
     at 30) and the first loss lies far above ln V (~41 at gemma2-9b's
     width, V 256000); there it is held to the plain path's loss of the same
-    state and batch, within GRAD_TOL relative."""
+    state and batch, within GRAD_TOL relative (bf16: TOL[bf16], the two
+    paths round bf16 activations at other points)."""
     spec = TRAIN_PATHS[path]
     # launches of each wrapper a step: flash as many as a forward makes
     per_step = (flash_per_forward(cfg) if spec["wrappers"][0] == "flash_attention"
@@ -2009,13 +2273,15 @@ def phase_train(cfg, path: str, tag: str, reckoned_gb=None) -> dict:
     hp = OptHParams()
     batch = _train_batch(cfg, torch.Generator(device=DEVICE).manual_seed(SEED + 5))
     step = make_train_step(cfg, hp)
-    tag = f"{tag} {cfg.name} f32 [1,{FWD_B},{FWD_S}]"
+    tag = f"{tag} {cfg.name} {DTYPE_NAME[dtype]} [1,{FWD_B},{FWD_S}]"
     tokens = FWD_B * FWD_S
-    state = _fresh_state(cfg, hp)
+    state = _fresh_state(cfg, hp, dtype)
     n = sum(t.numel() for t in state["params"].parameters())
     enc = f" + {cfg.n_enc_layers} encoder layers" if cfg.enc_dec else ""
     log(f"{tag}: {cfg.n_layers} layers{enc}, {n / 1e9:.3f} B params; params + "
-        f"grads + m + v {4 * n * 4 / 1e9:.1f} GB f32; AdamW {hp}")
+        f"grads + m + v {state_bytes(dtype, hp) * n / 1e9:.1f} GB "
+        f"({DTYPE_NAME[dtype]} params, {state_bytes(dtype, hp):g} bytes a "
+        f"param); AdamW {hp}")
     mb = {key: val[0] for key, val in batch.items()}
     plain_loss = None
     if cfg.tie_embeddings:
@@ -2040,18 +2306,19 @@ def phase_train(cfg, path: str, tag: str, reckoned_gb=None) -> dict:
     check(not nondet, f"{tag}: determinism warnings {nondet}")
     loss, gn = float(metrics["loss"]), float(metrics["grad_norm"])
     check(math.isfinite(loss) and math.isfinite(gn), f"{tag}: non-finite loss")
+    loss_tol = GRAD_TOL if dtype == torch.float32 else TOL[dtype]
     if plain_loss is None:
         check(abs(loss - math.log(cfg.vocab)) < 1.0,
               f"{tag}: first loss {loss:.4f} far from ln V "
               f"{math.log(cfg.vocab):.4f}")
     else:
-        check(abs(loss - plain_loss) <= GRAD_TOL * abs(plain_loss),
+        check(abs(loss - plain_loss) <= loss_tol * abs(plain_loss),
               f"{tag}: first loss {loss:.6f} vs the plain path's "
               f"{plain_loss:.6f}")
     vs = ("" if plain_loss is None else
           f"; tied N(0, 1) embedding: the plain path's loss {plain_loss:.6f}, "
           f"relative difference {abs(loss - plain_loss) / abs(plain_loss):.2e}"
-          f" (tol {GRAD_TOL})")
+          f" (tol {loss_tol})")
     log(f"{tag}: first step {first_s:.2f} s, loss {loss:.6f} (ln V "
         f"{math.log(cfg.vocab):.4f}{vs}), grad norm {gn:.4f}, launches {first}; "
         f"{len(caught)} warnings, none about determinism"
@@ -2093,10 +2360,10 @@ def phase_train(cfg, path: str, tag: str, reckoned_gb=None) -> dict:
            f"{100 * pair / step_ms:.1f}% of the step"))
     if busy:
         gemm = sum(ms for key, (_, ms) in prof["kernels"].items()
-                   if "gemm" in key.lower() or "gemv" in key.lower())
+                   if any(x in key.lower() for x in ("gemm", "gemv", "nvjet")))
         rest = busy - gemm - (pair or 0.0)
         log(f"{tag}: device busy {busy:.1f} ms a step by class: GEMMs and "
-            f"GEMVs (cuBLAS, CUTLASS) {gemm:.1f} ms ({100 * gemm / busy:.1f}%)"
+            f"GEMVs (cuBLAS incl. its nvjet kernels, CUTLASS) {gemm:.1f} ms ({100 * gemm / busy:.1f}%)"
             f", the kernel pair {_fmt(pair)} ms, the rest (ATen elementwise, "
             f"reductions, copies, the embedding, AdamW) {rest:.1f} ms "
             f"({100 * rest / busy:.1f}%)")
@@ -2104,7 +2371,7 @@ def phase_train(cfg, path: str, tag: str, reckoned_gb=None) -> dict:
     torch.cuda.empty_cache()
     log_memory(tag, reckoned_gb)
     # bitwise: the first step again from a fresh state of the same seed
-    state = _fresh_state(cfg, hp)
+    state = _fresh_state(cfg, hp, dtype)
     state, metrics = step(state, batch)
     sync()
     check(float(metrics["loss"]) == loss, f"{tag}: repeat loss differs")
@@ -2120,10 +2387,38 @@ def phase_train(cfg, path: str, tag: str, reckoned_gb=None) -> dict:
         f"steps {launches}")
     del state, metrics, host
     torch.cuda.empty_cache()
-    # the grads at full width, depth cut, against the plain path
+    grads_bitwise = grad_check(cfg, mb, tag, dtype)
+    return {"launches": launches, "steps": steps_run, "step_ms": step_ms,
+            "per_step": per_step, "fwd_device_ms": fwd_ms,
+            "bwd_device_ms": bwd_ms, "grads_bitwise": grads_bitwise,
+            "first_loss": loss}
+
+
+def _leaf_errors(got, want) -> tuple:
+    """(max, mean) over all leaves of |got - want| / max|want| of each leaf,
+    the mean over every element."""
+    worst, total, count = 0.0, 0.0, 0
+    for a, b in zip(got, want):
+        err = (a.float() - b).abs() / b.abs().max().clamp_min(1e-30)
+        worst = max(worst, err.max().item())
+        total += err.sum().item()
+        count += err.numel()
+    return worst, total / count
+
+
+def grad_check(cfg, mb, tag: str, dtype) -> bool:
+    """The grads of one microbatch at full width, depth cut to GRAD_LAYERS,
+    kernel path against plain path; returns whether they are bitwise equal.
+
+    f32: each leaf within GRAD_TOL of its largest magnitude. bf16: both
+    paths against the f32 grads of f32 copies of the same weights (plain
+    path); the kernel path's error, max and mean relative to each leaf's
+    largest magnitude, may be at most 2x and 1.25x the plain bf16 path's
+    (phase 3's rule for bf16 forwards: bf16 rounding alone moves two bf16
+    paths apart by about what it costs each)."""
     cfg2 = at_depth(cfg, GRAD_LAYERS)
     params = M.init_params(torch.Generator(device=DEVICE).manual_seed(SEED),
-                           cfg2, torch.float32, DEVICE).requires_grad_(True)
+                           cfg2, dtype, DEVICE).requires_grad_(True)
     names = [name for name, _ in params.named_parameters()]
     leaves = list(params.parameters())
     grads, secs = {}, {}
@@ -2133,20 +2428,114 @@ def phase_train(cfg, path: str, tag: str, reckoned_gb=None) -> dict:
             loss_fn(params, mb, cfg2, runtime(impl))[0], leaves)
         sync()
         secs[impl] = time.perf_counter() - t0
-    worst = max((assert_close_to_max(a, b, GRAD_TOL, f"{tag} grad {name}"), name)
-                for name, a, b in zip(names, grads["kernel"], grads["plain"]))
     bitwise = all(bool(torch.equal(a, b))
                   for a, b in zip(grads["kernel"], grads["plain"]))
-    log(f"{tag}: grads at depth {GRAD_LAYERS}, kernel vs plain path: worst "
-        f"leaf {worst[1]} error {worst[0]:.3e} of its max (tol {GRAD_TOL}); "
-        f"bitwise equal: {bitwise}; seconds kernel {secs['kernel']:.2f}, "
-        f"plain {secs['plain']:.2f}")
+    took = (f"bitwise equal: {bitwise}; seconds kernel {secs['kernel']:.2f}, "
+            f"plain {secs['plain']:.2f}")
+    if dtype == torch.float32:
+        worst = max((assert_close_to_max(a, b, GRAD_TOL, f"{tag} grad {name}"),
+                     name)
+                    for name, a, b in zip(names, grads["kernel"], grads["plain"]))
+        log(f"{tag}: grads at depth {GRAD_LAYERS}, kernel vs plain path: worst "
+            f"leaf {worst[1]} error {worst[0]:.3e} of its max (tol {GRAD_TOL}); "
+            f"{took}")
+    else:
+        p32 = M.init_params(torch.Generator(device=DEVICE).manual_seed(SEED),
+                            cfg2, torch.float32, DEVICE)
+        with torch.no_grad():
+            for a, b in zip(p32.parameters(), leaves):
+                a.copy_(b)
+        p32.requires_grad_(True)
+        ref32 = torch.autograd.grad(
+            loss_fn(p32, mb, cfg2, runtime("plain"))[0], list(p32.parameters()))
+        del p32
+        k_max, k_mean = _leaf_errors(grads["kernel"], ref32)
+        p_max, p_mean = _leaf_errors(grads["plain"], ref32)
+        del ref32
+        log(f"{tag}: grads at depth {GRAD_LAYERS} against the f32 grads of "
+            f"f32 copies of the weights (plain path), relative to each leaf's "
+            f"max: kernel path max {k_max:.3e} mean {k_mean:.3e}, plain bf16 "
+            f"path max {p_max:.3e} mean {p_mean:.3e} (kernel/plain "
+            f"{k_max / p_max:.2f} / {k_mean / p_mean:.2f}, limits 2 / 1.25); "
+            f"kernel vs plain {took}")
+        check(k_max <= 2 * p_max and k_mean <= 1.25 * p_mean,
+              f"{tag}: the kernel path's grads are less accurate than the "
+              f"plain bf16 path's beyond the stated tolerance")
     del params, grads, leaves
     torch.cuda.empty_cache()
     log_memory(f"{tag} grad check")
-    return {"launches": launches, "steps": steps_run, "step_ms": step_ms,
-            "per_step": per_step, "fwd_device_ms": fwd_ms,
-            "bwd_device_ms": bwd_ms, "grads_bitwise": bitwise}
+    return bitwise
+
+
+# The optimizer-state variants of the JAX package's presets, each run at the
+# bf16 train cell's width and depth: bf16 moments with bf16 accumulation
+# (_BIG: grok, jamba), int8 moments (arctic) and int8 gradient compression.
+TRAIN_VARIANTS = {
+    "bf16 moments + bf16 accumulation": (
+        dict(moment_dtype="bfloat16", grad_accum_dtype="bfloat16"), False),
+    "int8 moments": (dict(moment_dtype="int8"), False),
+    "compress_grads": ({}, True),
+}
+
+
+def _state_leaves(state) -> list:
+    """A train state's params and moment leaves (an int8 moment's q and
+    scale)."""
+    leaves = [t.detach() for t in state["params"].parameters()]
+    for key in ("m", "v"):
+        for x in moment_leaves(state["opt"][key]):
+            leaves += [x.q, x.scale] if is_qtensor(x) else [x]
+    return leaves
+
+
+def phase_train_variants(cfg, tag: str, dtype=torch.bfloat16) -> dict:
+    """``make_train_step`` with each of TRAIN_VARIANTS at full width with
+    ``dtype`` params, tokens [1, 2, 2048]: a first step from a fresh state,
+    whose state is kept on the card (at most 10 bytes a param: a variant's
+    params and moments), then the first step again from a fresh state of
+    the same seed, its loss, params and moments (every int8 q and scale)
+    held bitwise equal to the kept ones; then, the kept copy freed,
+    TRAIN_STEPS timed steps (their median is the variant's step time), whose
+    peak device memory stands beside ``train_memory``'s reckoning."""
+    batch = _train_batch(cfg, torch.Generator(device=DEVICE).manual_seed(SEED + 5))
+    tag = f"{tag} {cfg.name} {DTYPE_NAME[dtype]} [1,{FWD_B},{FWD_S}]"
+    out = {}
+    for name, (kw, compress) in TRAIN_VARIANTS.items():
+        hp = OptHParams(**kw)
+        step = make_train_step(cfg, hp, compress_grads=compress)
+        reckoned = train_memory(cfg, cfg.n_layers, FWD_B * FWD_S, dtype, hp)
+        state, metrics = step(_fresh_state(cfg, hp, dtype), batch)
+        loss, gn = float(metrics["loss"]), float(metrics["grad_norm"])
+        first = [t.clone() for t in _state_leaves(state)]
+        del state, metrics
+        state, metrics = step(_fresh_state(cfg, hp, dtype), batch)
+        check(math.isfinite(loss) and math.isfinite(gn),
+              f"{tag} {name}: non-finite loss")
+        check(float(metrics["loss"]) == loss
+              and all(bool(torch.equal(a, b))
+                      for a, b in zip(first, _state_leaves(state))),
+              f"{tag} {name}: two steps from the same state differ")
+        n_leaves = len(first)
+        del first   # its blocks stay cached for the timed steps
+        log_memory(f"{tag} {name}, its bitwise check")   # and reset the peak
+        times = []
+        for _ in range(TRAIN_STEPS):
+            t0 = time.perf_counter()
+            state, metrics = step(state, batch)
+            sync()
+            times.append((time.perf_counter() - t0) * 1e3)
+        ms = statistics.median(times)
+        log(f"{tag} {name} ({state_bytes(dtype, hp):g} bytes a param, "
+            f"compress_grads={compress}): steps {ms:.1f} ms "
+            f"({FWD_B * FWD_S / ms * 1e3:.0f} tok/s), first loss {loss:.6f}, "
+            f"grad norm {gn:.4f}; the first step twice from the same state "
+            f"bitwise equal (loss and {n_leaves} param and moment leaves)")
+        del state, metrics
+        torch.cuda.empty_cache()
+        log_memory(f"{tag} {name}", reckoned)
+        out[name] = dict(step_ms=ms, loss=loss,
+                         bytes_per_param=state_bytes(dtype, hp))
+    return out
 
 
 def phase_logio(cfg, path: str) -> dict:
@@ -2224,6 +2613,10 @@ def main() -> int:
         del q, k, v, serve["cache"]
     flash_bwd_t = time_flash_backward(cfg, sdpa_err)
     d256_t = time_flash_set(D256_SHAPE, True, SEED + 7, "dh 256")
+    # the bf16 backward at the bf16 train cells' shapes (phases 11, 11b)
+    bwd16_t = time_flash_backward_bf16(TRAIN_SHAPE, True, SEED + 11, "internlm2")
+    bwd16_d256 = time_flash_backward_bf16(D256_SHAPE, True, SEED + 12,
+                                          "gemma2 dh 256")
     log_memory("attention timings")
     torch.cuda.empty_cache()
     # falcon-mamba: the selective scan, in forward and in each decode step
@@ -2300,14 +2693,40 @@ def main() -> int:
         decode_s = time_decode(q, xk, xv, full, tag="seamless cross")
         del q, xk, xv, serve_s["cache"]
     flash_s = time_flash_set(SEAMLESS_SHAPE, False, SEED + 10, "seamless")
+    bwd16_s = time_flash_backward_bf16(SEAMLESS_SHAPE, False, SEED + 13,
+                                       "seamless")
     log_memory("seamless timings")
     torch.cuda.empty_cache()
     strain = phase_train(
         at_depth(scfg, SEAMLESS_TRAIN_LAYERS), "attention",
         "seamless-train-f32",
         depth_cut("seamless-train-f32", scfg, SEAMLESS_TRAIN_LAYERS))
+    torch.cuda.empty_cache()
+    # bf16 training (phases 11, 11b): internlm2 at full width and depth, its
+    # optimizer-state variants, then gemma2-9b at a depth cut, through the
+    # bf16 flash forward and the bf16 backward
+    bf16 = torch.bfloat16
+    reckoned = train_memory(cfg, cfg.n_layers, FWD_B * FWD_S, bf16)
+    log(f"internlm2-train-bf16: full depth ({cfg.n_layers} layers), "
+        f"{cfg.param_count() / 1e9:.3f} B params x "
+        f"{state_bytes(bf16, OptHParams()):g} bytes (bf16 params, f32 "
+        f"accumulator, f32 m and v, bf16 grads beside the accumulator); "
+        f"reckoned peak {reckoned:.1f} GB")
+    itrain = phase_train(cfg, "attention_bf16", "internlm2-train-bf16",
+                         reckoned, dtype=bf16)
+    ivariants = phase_train_variants(cfg, "internlm2-train-bf16")
+    torch.cuda.empty_cache()
+    gdepth = (GEMMA_BF16_TRAIN_LAYERS
+              if train_memory(gcfg, GEMMA_BF16_TRAIN_LAYERS, FWD_B * FWD_S,
+                              bf16) <= BF16_TRAIN_GB else 4)
+    gtrain16 = phase_train(
+        dataclasses.replace(gcfg, n_layers=gdepth), "attention_bf16_d256",
+        "gemma2-train-bf16",
+        depth_cut("gemma2-train-bf16", gcfg, gdepth, bf16), dtype=bf16)
+    torch.cuda.empty_cache()
     launches = {"flash_attention": fwd["launches"] + fwd_k["launches"]
-                + fwd_s["launches"],
+                + fwd_s["launches"] + itrain["launches"]["flash_attention"]
+                + gtrain16["launches"]["flash_attention"],
                 "flash_attention_backward": train["launches"][
                     "flash_attention_backward"]
                 + gtrain["launches"]["flash_attention_backward"]
@@ -2317,9 +2736,13 @@ def main() -> int:
                 "selective_scan": fwd_m["launches"] + serve_m["launches"]
                 + mtrain["launches"]["selective_scan"],
                 "selective_scan_backward": mtrain["launches"][
-                    "selective_scan_backward"]}
+                    "selective_scan_backward"],
+                "flash_attention_backward_bf16": itrain["launches"][
+                    "flash_attention_backward"]
+                + gtrain16["launches"]["flash_attention_backward"]}
     timed = {"flash_attention": flash_t,
              "flash_attention_backward": flash_bwd_t,
+             "flash_attention_backward_bf16": bwd16_t,
              "decode_attention": decode_t, "selective_scan": scan_t,
              "selective_scan_backward": scan_bwd_t}
     rows = []
@@ -2351,6 +2774,16 @@ def main() -> int:
         **{f"bf16_d256_{key}": val
            for key, val in d256_t["bf16_forward"].items()},
         bf16_d256_library_call="FLASH_ATTENTION (enable_gqa), no softcap",
+        bf16_d256_launches_train=gtrain16["launches"]["flash_attention"],
+        bf16_d256_launches_per_step=gtrain16["per_step"],
+        bf16_d256_device_ms_in_step=gtrain16["fwd_device_ms"],
+        bf16_d256_train_depth=gdepth,
+        bf16_d256_forward_lse_device_ms=bwd16_d256["forward_lse_device_ms"],
+        bf16_d256_forward_no_lse_device_ms=bwd16_d256["forward_device_ms"],
+        launches_internlm2_train_bf16=itrain["launches"]["flash_attention"],
+        device_ms_in_internlm2_bf16_step=itrain["fwd_device_ms"],
+        forward_lse_device_ms=bwd16_t["forward_lse_device_ms"],
+        forward_no_lse_device_ms=bwd16_t["forward_device_ms"],
         launches_internlm2_forward=fwd["launches"],
         launches_grok_forward=fwd_k["launches"],
         **{f"grok_{key}": val for key, val in flash_k.items()},
@@ -2407,6 +2840,31 @@ def main() -> int:
         seamless_train_depth=[SEAMLESS_TRAIN_LAYERS, SEAMLESS_TRAIN_LAYERS])
     bwd_row["max_abs_err"] = max(bwd_row["max_abs_err"],
                                  flash_s["backward"]["max_abs_err"])
+    # the bf16 backward: internlm2's shape above (phase 11's), gemma2's dh
+    # 256 (phase 11b's) and seamless's dh 64 non-causal beside it
+    bwd16_row = next(r for r in rows
+                     if r["name"] == "flash_attention_backward_bf16")
+    bwd16_row.update(
+        shape=bwd16_t["shape"], causal=True,
+        library_call=bwd16_t["library_call"],
+        device_ms_by_kernel=bwd16_t["device_ms_by_kernel"],
+        launches_internlm2_train=itrain["launches"]["flash_attention_backward"],
+        launches_per_step=itrain["per_step"],
+        device_ms_in_step=itrain["bwd_device_ms"],
+        train_step_ms=itrain["step_ms"],
+        train_first_loss=itrain["first_loss"],
+        train_variants=ivariants,
+        **{f"d256_{key}": val for key, val in bwd16_d256.items()},
+        d256_launches_train=gtrain16["launches"]["flash_attention_backward"],
+        d256_launches_per_step=gtrain16["per_step"],
+        d256_device_ms_in_step=gtrain16["bwd_device_ms"],
+        d256_train_step_ms=gtrain16["step_ms"],
+        d256_train_depth=gdepth,
+        d256_train_first_loss=gtrain16["first_loss"],
+        **{f"seamless_{key}": val for key, val in bwd16_s.items()})
+    bwd16_row["max_abs_err"] = max(bwd16_row["max_abs_err"],
+                                   bwd16_d256["max_abs_err"],
+                                   bwd16_s["max_abs_err"])
     # decode attention: the serve shape above (the main path's), a full
     # cache beside it
     decode_row = next(r for r in rows if r["name"] == "decode_attention")

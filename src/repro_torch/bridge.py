@@ -56,56 +56,76 @@ def _leaves(tree: Dict[str, Any], prefix=()):
             yield prefix + (name,), val
 
 
-def _get(module: torch.nn.Module, path) -> torch.Tensor:
-    for name in path:
-        module = getattr(module, name)
-    return module
+def _map(tree: Any, fn) -> Any:
+    """``fn`` applied to every leaf of a tree of dicts and lists."""
+    if isinstance(tree, dict):
+        return {key: _map(val, fn) for key, val in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [_map(val, fn) for val in tree]
+    return fn(tree)
 
 
-def params_from_jax(np_params: Dict[str, Any], cfg: ArchConfig,
-                    device=None) -> DecoderParams:
-    """A numpy copy of ``repro.models.model.init_params``'s pytree -> port.
+def _zip(a: Any, b: Any, fn) -> Any:
+    """``fn(x, y)`` for the leaves of two trees of one structure."""
+    if isinstance(a, dict):
+        return {key: _zip(a[key], b[key], fn) for key in a}
+    if isinstance(a, (list, tuple)):
+        return [_zip(x, y, fn) for x, y in zip(a, b)]
+    return fn(a, b)
 
-    The model dtype is the embedding's. Raises ``ValueError`` when a leaf's
-    shape or dtype differs from the port's parameter, or a leaf is missing
-    or unexpected."""
-    dev = resolve_device(device)
-    dtype = TORCH_DTYPES[np.asarray(np_params["embed"]).dtype.name]
-    out = DecoderParams(cfg, dtype, dev)
-    expected = {name for name, _ in out.named_parameters()}
-    seen = set()
 
-    def put(path, leaf):
-        dst = _get(out, path)
-        src = to_torch(np.asarray(leaf), dev)
-        if tuple(dst.shape) != tuple(src.shape):
-            raise ValueError(f"bridge: {'.'.join(path)} has shape "
-                             f"{tuple(src.shape)}, the port wants "
-                             f"{tuple(dst.shape)}")
-        if dst.dtype != src.dtype:
-            raise ValueError(f"bridge: {'.'.join(path)} has dtype "
-                             f"{src.dtype}, the port wants {dst.dtype}")
-        with torch.no_grad():
-            dst.copy_(src)
-        seen.add(".".join(path))
-
+def _jax_named(np_params: Dict[str, Any], cfg: ArchConfig):
+    """(port parameter name, numpy leaf) for every leaf of a tree in the JAX
+    params layout: stacked block and encoder leaves split by layer."""
     nb = len(cfg.block)
     for name, leaf in np_params.items():
         if name == "blocks":
             for i, block in enumerate(leaf):
                 for path, stacked in _leaves(block):
                     for n in range(cfg.n_blocks):
-                        put(("layers", str(n * nb + i)) + path, stacked[n])
+                        yield ".".join(("layers", str(n * nb + i)) + path), stacked[n]
         elif name == "encoder":
             for path, stacked in _leaves(leaf["layers"]):
                 for n in range(cfg.n_enc_layers):
-                    put(("encoder", "layers", str(n)) + path, stacked[n])
-            put(("encoder", "final_norm"), leaf["final_norm"])
+                    yield ".".join(("encoder", "layers", str(n)) + path), stacked[n]
+            yield "encoder.final_norm", leaf["final_norm"]
         else:
-            put((name,), leaf)
-    if seen != expected:
-        raise ValueError(f"bridge: leaves missing {sorted(expected - seen)}, "
-                         f"unexpected {sorted(seen - expected)}")
+            yield name, leaf
+
+
+def params_from_jax(np_params: Dict[str, Any], cfg: ArchConfig,
+                    device=None, *, moment: bool = False) -> DecoderParams:
+    """A numpy copy of ``repro.models.model.init_params``'s pytree -> port.
+
+    The model dtype is the embedding's. Raises ``ValueError`` when a leaf's
+    shape or dtype differs from the port's parameter, or a leaf is missing
+    or unexpected. ``moment``: an AdamW moment in the params' layout, whose
+    leaves all have the moment's dtype (a bf16 model's f32 leaves too), kept
+    as they come."""
+    dev = resolve_device(device)
+    dtype = TORCH_DTYPES[np.asarray(np_params["embed"]).dtype.name]
+    out = DecoderParams(cfg, dtype, dev)
+    named = dict(out.named_parameters())
+    seen = set()
+    for name, leaf in _jax_named(np_params, cfg):
+        seen.add(name)
+        if name not in named:
+            continue
+        dst, src = named[name], to_torch(np.asarray(leaf), dev)
+        if tuple(dst.shape) != tuple(src.shape):
+            raise ValueError(f"bridge: {name} has shape {tuple(src.shape)}, "
+                             f"the port wants {tuple(dst.shape)}")
+        if dst.dtype != src.dtype and not moment:
+            raise ValueError(f"bridge: {name} has dtype {src.dtype}, the "
+                             f"port wants {dst.dtype}")
+        with torch.no_grad():
+            if dst.dtype != src.dtype:
+                dst.data = src
+            else:
+                dst.copy_(src)
+    if seen != set(named):
+        raise ValueError(f"bridge: leaves missing {sorted(set(named) - seen)}, "
+                         f"unexpected {sorted(seen - set(named))}")
     return out
 
 
@@ -123,28 +143,35 @@ def _stack(tree: Dict[str, Any]) -> Dict[str, Any]:
             for key, val in tree.items()}
 
 
-def params_to_jax(params: DecoderParams, cfg: ArchConfig) -> Dict[str, Any]:
-    """The inverse of ``params_from_jax``: a numpy pytree in the JAX layout."""
+def _to_jax_layout(named, cfg: ArchConfig) -> Dict[str, Any]:
+    """(port parameter name, numpy leaf) pairs -> a tree in the JAX params
+    layout (``_jax_named``'s inverse)."""
     out: Dict[str, Any] = {}
     nb = len(cfg.block)
     blocks: List[Dict[str, Any]] = [{} for _ in range(nb)]
     enc_layers: Dict[str, Any] = {}
-    for name, t in params.named_parameters():
+    for name, leaf in named:
         path = name.split(".")
         if path[0] == "layers":
             n, i = divmod(int(path[1]), nb)
-            _put_stacked(blocks[i], path[2:], n, cfg.n_blocks, to_numpy(t))
+            _put_stacked(blocks[i], path[2:], n, cfg.n_blocks, leaf)
         elif path[:2] == ["encoder", "layers"]:
             _put_stacked(enc_layers, path[3:], int(path[2]), cfg.n_enc_layers,
-                         to_numpy(t))
+                         leaf)
         elif path[0] == "encoder":
-            out.setdefault("encoder", {})[path[1]] = to_numpy(t)
+            out.setdefault("encoder", {})[path[1]] = leaf
         else:
-            out[name] = to_numpy(t)
+            out[name] = leaf
     out["blocks"] = [_stack(block) for block in blocks]
     if cfg.enc_dec:
         out["encoder"]["layers"] = _stack(enc_layers)
     return out
+
+
+def params_to_jax(params: DecoderParams, cfg: ArchConfig) -> Dict[str, Any]:
+    """The inverse of ``params_from_jax``: a numpy pytree in the JAX layout."""
+    return _to_jax_layout(((name, to_numpy(t))
+                           for name, t in params.named_parameters()), cfg)
 
 
 def cache_from_jax(np_cache: List[Dict[str, Any]], device=None) -> Cache:
@@ -158,29 +185,77 @@ def cache_to_jax(cache: Cache) -> List[Dict[str, np.ndarray]]:
     return [{name: to_numpy(t) for name, t in c.items()} for c in cache]
 
 
+def _is_jax_qtensor(leaf) -> bool:
+    """JAX's ``QTensor`` (int8 ``q``, f32 ``scale``), told by its fields."""
+    return hasattr(leaf, "q") and hasattr(leaf, "scale")
+
+
+def _moment_from_jax(tree: Dict[str, Any], cfg: ArchConfig, dev):
+    """An AdamW moment: f32 or bf16 in the params' layout -> a parameter
+    module of that dtype; JAX's ``QTensor`` leaves -> {name: ``QTensor``}
+    (``training.quant``), q and scale split by layer as the params are."""
+    if not _is_jax_qtensor(tree["embed"]):
+        return params_from_jax(tree, cfg, dev, moment=True)
+    from repro_torch.training.quant import QTensor
+    q = dict(_jax_named(_map(tree, lambda x: x.q), cfg))
+    scale = dict(_jax_named(_map(tree, lambda x: x.scale), cfg))
+    shapes = {name: tuple(t.shape) for name, t in
+              DecoderParams(cfg, torch.float32, "meta").named_parameters()}
+    if set(q) != set(shapes):
+        raise ValueError(f"bridge: moment leaves {sorted(set(q) ^ set(shapes))}"
+                         " differ from the config's")
+    out = {}
+    for name, shape in shapes.items():
+        qt = QTensor(to_torch(np.asarray(q[name]), dev),
+                     to_torch(np.asarray(scale[name]), dev))
+        if (tuple(qt.q.shape) != shape or qt.q.dtype != torch.int8
+                or tuple(qt.scale.shape) != shape[:-1] + (1,)):
+            raise ValueError(f"bridge: int8 moment {name} has q "
+                             f"{tuple(qt.q.shape)} {qt.q.dtype}, scale "
+                             f"{tuple(qt.scale.shape)}; the port wants q "
+                             f"{shape} int8, scale {shape[:-1] + (1,)}")
+        out[name] = qt
+    return out
+
+
+def _moment_to_jax(m, cfg: ArchConfig, qtensor):
+    if not isinstance(m, dict):
+        return params_to_jax(m, cfg)
+    if qtensor is None:
+        raise ValueError("bridge: int8 moments go back as the JAX package's "
+                         "QTensor; pass it as qtensor")
+    q = _to_jax_layout(((n, to_numpy(x.q)) for n, x in m.items()), cfg)
+    scale = _to_jax_layout(((n, to_numpy(x.scale)) for n, x in m.items()), cfg)
+    return _zip(q, scale, qtensor)
+
+
 def train_state_from_jax(np_state: Dict[str, Any], cfg: ArchConfig,
                          device=None) -> Dict[str, Any]:
     """A numpy copy of ``repro.training.step.init_train_state``'s state ->
     the port's (``repro_torch.training.step``): params (with grad on),
-    ``opt.m`` / ``opt.v`` in the params' layout (f32 moments only),
-    ``opt.count`` and ``step`` as int32 scalars."""
+    ``opt.m`` / ``opt.v`` as ``optimizer.init_opt_state`` makes them (f32 or
+    bf16 moments as parameter modules of that dtype; JAX's int8
+    ``QTensor`` moments as {name: ``QTensor``}), ``opt.count`` and ``step``
+    as int32 scalars. Every leaf keeps its bits."""
     dev = resolve_device(device)
     opt = np_state["opt"]
     return {"params": params_from_jax(np_state["params"], cfg,
                                       dev).requires_grad_(True),
-            "opt": {"m": params_from_jax(opt["m"], cfg, dev),
-                    "v": params_from_jax(opt["v"], cfg, dev),
+            "opt": {"m": _moment_from_jax(opt["m"], cfg, dev),
+                    "v": _moment_from_jax(opt["v"], cfg, dev),
                     "count": to_torch(np.asarray(opt["count"]), dev)},
             "step": to_torch(np.asarray(np_state["step"]), dev)}
 
 
-def train_state_to_jax(state: Dict[str, Any], cfg: ArchConfig
-                       ) -> Dict[str, Any]:
+def train_state_to_jax(state: Dict[str, Any], cfg: ArchConfig,
+                       qtensor=None) -> Dict[str, Any]:
     """The inverse of ``train_state_from_jax``: a numpy pytree in the JAX
-    layout."""
+    layout. int8 moments come back as ``qtensor(q, scale)`` a leaf: the
+    caller passes the JAX package's ``QTensor``, which the bridge never
+    imports (without it, int8 moments raise)."""
     opt = state["opt"]
     return {"params": params_to_jax(state["params"], cfg),
-            "opt": {"m": params_to_jax(opt["m"], cfg),
-                    "v": params_to_jax(opt["v"], cfg),
+            "opt": {"m": _moment_to_jax(opt["m"], cfg, qtensor),
+                    "v": _moment_to_jax(opt["v"], cfg, qtensor),
                     "count": to_numpy(opt["count"])},
             "step": to_numpy(state["step"])}

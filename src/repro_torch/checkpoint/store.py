@@ -9,8 +9,9 @@ after it (deterministic feed and deterministic step => bit-identical
 resume).
 
 ``save`` turns the state into numpy first (``to_host``: each parameter
-module as {name: array}); ``latest`` hands back that numpy tree, and the
-driver puts it on its device (``training.step.train_state_from_host``).
+module as {name: array}, an int8 moment's ``QTensor`` as {"q", "scale"});
+``latest`` hands back that numpy tree, and the driver puts it on its device
+(``training.step.train_state_from_host``), bit for bit.
 """
 from __future__ import annotations
 
@@ -23,11 +24,15 @@ from typing import Any, Optional, Tuple
 import torch
 
 from repro_torch.bridge import to_numpy
+from repro_torch.training.quant import is_qtensor
 
 
 def to_host(tree: Any) -> Any:
-    """numpy copy of a tree of dicts, tensors and modules (a module becomes
-    {parameter name: array})."""
+    """numpy copy of a tree of dicts, tensors, ``QTensor``s and modules (a
+    module becomes {parameter name: array}, a ``QTensor`` {"q": array,
+    "scale": array})."""
+    if is_qtensor(tree):
+        return {"q": to_numpy(tree.q), "scale": to_numpy(tree.scale)}
     if isinstance(tree, torch.nn.Module):
         return {name: to_numpy(t) for name, t in tree.named_parameters()}
     if isinstance(tree, torch.Tensor):

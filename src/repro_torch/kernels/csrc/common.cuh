@@ -69,6 +69,31 @@ struct RowKeys {
   }
 };
 
+// Whether flash attention keeps the pair (query qpos, key kpos): both in
+// range, and with `causal` kpos <= qpos and (with a window) kpos > qpos - window.
+__device__ __forceinline__ bool kept(int qpos, int kpos, int Sq, int Sk, int causal, int window) {
+  if (qpos >= Sq || kpos >= Sk) return false;
+  if (!causal) return true;
+  return kpos <= qpos && (window <= 0 || kpos > qpos - window);
+}
+
+// The flash backward's P and dS of one score element: raw = the (q . k) sum,
+// dp = (dO . v), lse and delta those of its query row. dS carries the scale,
+// so dq = dS K and dk = dS^T Q need nothing more.
+template <bool kCap>
+__device__ __forceinline__ void grad_element(float raw, float dp, float lse, float delta,
+                                             bool keep, float scale, float softcap, float& p,
+                                             float& ds) {
+  float x = raw * scale, chain = 1.f;
+  if constexpr (kCap) {
+    const float t = tanhf(x / softcap);
+    x = softcap * t;
+    chain = 1.f - t * t;
+  }
+  p = keep ? expf(x - lse) : 0.f;
+  ds = p * (dp - delta) * chain * scale;
+}
+
 // Raise `kernel`'s dynamic shared memory limit to `bytes` on the current
 // device, once per device: the attribute belongs to the device, so a process
 // that launches on a second card sets it again there. `done` is the caller's

@@ -301,12 +301,6 @@ __device__ __forceinline__ void part_product(float (&part)[D / 2], const uint32_
   sm90::wgmma_commit();
 }
 
-__device__ __forceinline__ bool kept(int qpos, int kpos, int Sq, int Sk, int causal, int window) {
-  if (qpos >= Sq || kpos >= Sk) return false;
-  if (!causal) return true;
-  return kpos <= qpos && (window <= 0 || kpos > qpos - window);
-}
-
 // The tensor maps of one operand's hi and lo copies.
 struct MapPair {
   CUtensorMap hi, lo;
@@ -355,11 +349,6 @@ __host__ __device__ constexpr int xch_bytes() {
   return Split<D>::N == 2 ? 2 * kThreads * F * 4 : 0;
 }
 
-__device__ __forceinline__ char* align1024(uint8_t* p) {
-  return reinterpret_cast<char*>((reinterpret_cast<uintptr_t>(p) + 1023) &
-                                 ~static_cast<uintptr_t>(1023));
-}
-
 // ---- forward -----------------------------------------------------------------
 
 struct FwdMaps {
@@ -376,7 +365,7 @@ __device__ __forceinline__ void fwd_body(const FwdMaps& m, float* __restrict__ o
   using G = Geo<DH>;
   extern __shared__ uint8_t smem_raw[];
   // the swizzle pattern follows address bits: tiles start 1024-byte aligned
-  char* sQ = align1024(smem_raw);
+  char* sQ = sm90::align1024(smem_raw);
   char* sK = sQ + 2 * G::FIX;    // hi, then lo
   char* sV = sK + 2 * G::STR;    // V^T: hi, then lo
   float* sX = reinterpret_cast<float*>(sV + 2 * G::TR);   // the pair's exchange stages
@@ -571,21 +560,6 @@ struct BwdMaps {
   MapPair x1, x2, y1, y2, t1, t2;
 };
 
-// P and dS of one score element: raw = the (q . k) sum, dp = (dO . v).
-template <bool kCap>
-__device__ __forceinline__ void grad_element(float raw, float dp, float lse, float delta,
-                                             bool keep, float scale, float softcap, float& p,
-                                             float& ds) {
-  float x = raw * scale, chain = 1.f;
-  if constexpr (kCap) {
-    const float t = tanhf(x / softcap);
-    x = softcap * t;
-    chain = 1.f - t * t;
-  }
-  p = keep ? expf(x - lse) : 0.f;
-  ds = p * (dp - delta) * chain * scale;
-}
-
 // The backward's rings of streamed tiles: NY stages of the K-major part
 // (y1, y2 hi/lo), NT of the transposed part (t1 and, in dk/dv, t2), each
 // refilled NY / NT steps ahead; as many as 227 KB hold at D = 128. At D = 256
@@ -618,7 +592,7 @@ __device__ __forceinline__ void bwd_body(const BwdMaps& m, const float* __restri
   using G = Geo<DH>;
   using R = BwdRing<D, kDQ>;
   extern __shared__ uint8_t smem_raw[];
-  char* sX = align1024(smem_raw);
+  char* sX = sm90::align1024(smem_raw);
   char* sY = sX + 4 * G::FIX;          // x1 hi, x1 lo, x2 hi, x2 lo
   char* sT = sY + R::NY * R::Y_BYTES;  // stage s: y1 hi, y1 lo, y2 hi, y2 lo
   float* sE = reinterpret_cast<float*>(sT + R::NT * R::T_BYTES);   // the pair's exchange

@@ -5,7 +5,7 @@
 // reached from the model through `_pallas_attn` in src/repro/models/layers.py)
 // for bf16 operands. f32 operands go to flash_attention_f32tc.cu (split-f32,
 // three TF32 products per f32 product, which meet the f32 tolerance of 2e-5
-// where one TF32 product cannot). Forward only.
+// where one TF32 product cannot). Its backward is flash_attention_tc_bwd.cu.
 //
 // Function: as ref.flash_attention_ref. q [B,Sq,H,D],
 //   k/v [B,Sk,KV,D] bf16 -> out [B,Sq,H,D] bf16; q head h reads kv head
@@ -13,7 +13,11 @@
 //   f32, then the optional tanh softcap, then the causal mask kpos <= qpos
 //   with an optional window kpos > qpos - window (only when causal). Masked
 //   scores get no weight; running max, sum and output are f32; a row whose sum
-//   is 0 outputs 0. Any Sq and Sk; D in {32, 64, 128, 256}.
+//   is 0 outputs 0. Any Sq and Sk; D in {32, 64, 128, 256}. When asked, lse
+//   [B,H,Sq] f32 = m + log(sum of P before its bf16 rounding) of each row
+//   (+inf for a row with no kept key), as ref.flash_attention_lse_ref, is
+//   written after the output, which stays the same bits (a template flag:
+//   the kernel without it keeps no second sum).
 //
 // What bounds it on the card: operations. At S = 2048 and D = 128 a (b, h)
 // pair does ~4*S*S*D/2 causal flops on 4*S*D*2 bytes, hundreds of flops per
@@ -147,10 +151,14 @@ __device__ __forceinline__ void pv_product(float (&o)[D / 2],
 // group of four) at columns k0 + 8 j + col + (e & 1). m is the running max of
 // the raw scores, in raw units; on return s holds P = exp2((s - m) * c) with
 // c = scale * log2(e), and alpha the factors the older sums are scaled by.
-template <int BK, bool kCap>
+// With kLse it also keeps the sums of P before rounding (x0, x1), whose log
+// gives lse to f32 accuracy: the rounded sums that normalise o can be 2^-9
+// off in a row of few keys.
+template <int BK, bool kCap, bool kLse>
 struct RowSoftmax {
   float m0 = kNegInf, m1 = kNegInf;   // running max of rows qpos0, qpos1
   float l0 = 0.f, l1 = 0.f;           // this thread's share of the running sums
+  float x0 = 0.f, x1 = 0.f;           // the same of the unrounded P (kLse)
 
   __device__ __forceinline__ void step(float (&s)[BK / 2], float& alpha0, float& alpha1,
                                        bool edge, RowKeys r0, RowKeys r1, float cap_in,
@@ -190,22 +198,30 @@ struct RowSoftmax {
   }
 
   // Round P to bf16 A fragments and add the rounded values to the sums
-  // (scaled by alpha first).
+  // (scaled by alpha first); with kLse the unrounded ones to x0, x1 too.
   __device__ __forceinline__ void to_fragments(const float (&s)[BK / 2],
                                                uint32_t (&pf)[BK / 16][4], float alpha0,
                                                float alpha1) {
-    float sum0 = 0.f, sum1 = 0.f;
+    float sum0 = 0.f, sum1 = 0.f, ex0 = 0.f, ex1 = 0.f;
 #pragma unroll
     for (int j = 0; j < BK / 8; ++j) {
       const __nv_bfloat162 r0 = __floats2bfloat162_rn(s[4 * j], s[4 * j + 1]);
       const __nv_bfloat162 r1 = __floats2bfloat162_rn(s[4 * j + 2], s[4 * j + 3]);
       sum0 += __low2float(r0) + __high2float(r0);
       sum1 += __low2float(r1) + __high2float(r1);
+      if constexpr (kLse) {
+        ex0 += s[4 * j] + s[4 * j + 1];
+        ex1 += s[4 * j + 2] + s[4 * j + 3];
+      }
       pf[j / 2][(j % 2) * 2] = bits(r0);
       pf[j / 2][(j % 2) * 2 + 1] = bits(r1);
     }
     l0 = l0 * alpha0 + sum0;
     l1 = l1 * alpha1 + sum1;
+    if constexpr (kLse) {
+      x0 = x0 * alpha0 + ex0;
+      x1 = x1 * alpha1 + ex1;
+    }
   }
 };
 
@@ -220,12 +236,12 @@ __device__ __forceinline__ void rescale(float (&o)[R], float alpha0, float alpha
   }
 }
 
-template <int D, bool kCap>
+template <int D, bool kCap, bool kLse>
 __global__ void __launch_bounds__(kThreadsTC, 1)
 flash_fwd_tc_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
-                    const __grid_constant__ CUtensorMap tv, bf16* __restrict__ o, int Sq,
-                    int Sk, int H, int KV, int causal, int window, float softcap,
-                    float scale) {
+                    const __grid_constant__ CUtensorMap tv, bf16* __restrict__ o,
+                    float* __restrict__ lse, int Sq, int Sk, int H, int KV, int causal,
+                    int window, float softcap, float scale) {
   using T = Tile<D>;
   constexpr int BK = T::BK, NS = T::STAGES;
   extern __shared__ uint8_t smem_raw[];
@@ -296,7 +312,7 @@ flash_fwd_tc_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constan
     float acc[D / 2];
 #pragma unroll
     for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
-    RowSoftmax<BK, kCap> sm;
+    RowSoftmax<BK, kCap, kLse> sm;
     float sc[BK / 2];
     uint32_t pf[BK / 16][4];
     float alpha0, alpha1;
@@ -328,6 +344,20 @@ flash_fwd_tc_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constan
     l1 += __shfl_xor_sync(0xffffffffu, l1, 2);
     const float inv0 = l0 == 0.f ? 0.f : 1.f / l0;
     const float inv1 = l1 == 0.f ? 0.f : 1.f / l1;
+    // lse = m + log(x) in scaled units, x the unrounded sum (+inf for a row
+    // with no kept key); o does not read it
+    if constexpr (kLse) {
+      float x0 = sm.x0, x1 = sm.x1;
+      x0 += __shfl_xor_sync(0xffffffffu, x0, 1);
+      x0 += __shfl_xor_sync(0xffffffffu, x0, 2);
+      x1 += __shfl_xor_sync(0xffffffffu, x1, 1);
+      x1 += __shfl_xor_sync(0xffffffffu, x1, 2);
+      if (lane % 4 == 0) {
+        float* row_lse = lse + (static_cast<size_t>(b) * H + h) * Sq;
+        if (qpos0 < Sq) row_lse[qpos0] = x0 == 0.f ? INFINITY : sm.m0 * scale + logf(x0);
+        if (qpos1 < Sq) row_lse[qpos1] = x1 == 0.f ? INFINITY : sm.m1 * scale + logf(x1);
+      }
+    }
     if (qpos0 < Sq) {
       bf16* dst = o + ((static_cast<size_t>(b) * Sq + qpos0) * H + h) * D + col;
 #pragma unroll
@@ -347,73 +377,54 @@ flash_fwd_tc_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constan
 
 // ---- host side --------------------------------------------------------------
 
-using sm90::EncodeTiled;
-using sm90::encode_tiled;
-
-// A tensor map over x [B, S, heads, D] bf16 whose box is `rows` rows of one
-// head, swizzle_bytes / 2 columns wide.
-bool make_map(CUtensorMap* map, const void* x, int B, int S, int heads, int D, int rows,
-              int swizzle_bytes) {
-  const EncodeTiled encode = encode_tiled();
-  if (encode == nullptr) return false;
-  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(D), static_cast<cuuint64_t>(heads),
-                              static_cast<cuuint64_t>(S), static_cast<cuuint64_t>(B)};
-  const cuuint64_t row = static_cast<cuuint64_t>(heads) * D * 2;
-  const cuuint64_t strides[3] = {static_cast<cuuint64_t>(D) * 2, row, row * S};
-  const cuuint32_t box[4] = {static_cast<cuuint32_t>(swizzle_bytes / 2), 1,
-                             static_cast<cuuint32_t>(rows), 1};
-  const cuuint32_t unit[4] = {1, 1, 1, 1};
-  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(x), dims, strides,
-                box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                swizzle_bytes == 128 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B,
-                CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
-
-template <int D, bool kCap>
+template <int D, bool kCap, bool kLse>
 cudaError_t launch_kernel(const CUtensorMap& tq, const CUtensorMap& tk, const CUtensorMap& tv,
-                      void* o, int B, int Sq, int Sk, int H, int KV, int causal, int window,
-                      float softcap, cudaStream_t stream) {
+                      void* o, float* lse, int B, int Sq, int Sk, int H, int KV, int causal,
+                      int window, float softcap, cudaStream_t stream) {
   using T = Tile<D>;
   static std::atomic<uint64_t> smem_set{0};
-  const cudaError_t attr = set_smem_once(smem_set, flash_fwd_tc_kernel<D, kCap>, T::SMEM);
+  const cudaError_t attr = set_smem_once(smem_set, flash_fwd_tc_kernel<D, kCap, kLse>, T::SMEM);
   if (attr != cudaSuccess) return attr;
   const dim3 grid(H, B, (Sq + kBQ - 1) / kBQ);
-  flash_fwd_tc_kernel<D, kCap><<<grid, kThreadsTC, T::SMEM, stream>>>(
-      tq, tk, tv, static_cast<bf16*>(o), Sq, Sk, H, KV, causal, window, softcap,
+  flash_fwd_tc_kernel<D, kCap, kLse><<<grid, kThreadsTC, T::SMEM, stream>>>(
+      tq, tk, tv, static_cast<bf16*>(o), lse, Sq, Sk, H, KV, causal, window, softcap,
       1.0f / sqrtf(static_cast<float>(D)));
   return cudaGetLastError();
 }
 
-// Tensor maps for q, k, v, then the kernel for D with or without a softcap.
+// Tensor maps for q, k, v, then the kernel for D with or without a softcap
+// and an lse output.
 template <int D>
-cudaError_t launch_tc(const void* q, const void* k, const void* v, void* o, int B, int Sq,
-                      int Sk, int H, int KV, int causal, int window, float softcap,
+cudaError_t launch_tc(const void* q, const void* k, const void* v, void* o, float* lse, int B,
+                      int Sq, int Sk, int H, int KV, int causal, int window, float softcap,
                       cudaStream_t stream) {
   using T = Tile<D>;
   const cudaError_t bound = sm90::bind_context();
   if (bound != cudaSuccess) return bound;
   CUtensorMap tq, tk, tv;
-  if (!make_map(&tq, q, B, Sq, H, D, kBQ, T::SW) || !make_map(&tk, k, B, Sk, KV, D, T::BK, T::SW) ||
-      !make_map(&tv, v, B, Sk, KV, D, T::BK, T::SW))
+  if (!sm90::bf16_rows_map(&tq, q, B, Sq, H, D, kBQ, T::SW) || !sm90::bf16_rows_map(&tk, k, B, Sk, KV, D, T::BK, T::SW) ||
+      !sm90::bf16_rows_map(&tv, v, B, Sk, KV, D, T::BK, T::SW))
     return cudaErrorInvalidValue;
-  return softcap > 0.f
-             ? launch_kernel<D, true>(tq, tk, tv, o, B, Sq, Sk, H, KV, causal, window,
-                                      softcap, stream)
-             : launch_kernel<D, false>(tq, tk, tv, o, B, Sq, Sk, H, KV, causal, window,
-                                       softcap, stream);
+  // the softcap and the lse output as template arguments
+  const auto kernel = softcap > 0.f
+                          ? (lse != nullptr ? launch_kernel<D, true, true>
+                                            : launch_kernel<D, true, false>)
+                          : (lse != nullptr ? launch_kernel<D, false, true>
+                                            : launch_kernel<D, false, false>);
+  return kernel(tq, tk, tv, o, lse, B, Sq, Sk, H, KV, causal, window, softcap, stream);
 }
 
 }  // namespace
 }  // namespace repro
 
-// C entry point, bf16 only (q, k, v and out). causal is 0 or 1; window <= 0
-// means no window; softcap <= 0 means none. Returns cudaGetLastError() after
+// C entry point, bf16 only (q, k, v and out). lse [B,H,Sq] f32 is written
+// when non-null (the backward's input; out is the same bits either way).
+// causal is 0 or 1; window <= 0 means no window; softcap <= 0 means none. Returns cudaGetLastError() after
 // the launch (0 on success), or cudaErrorInvalidValue for a shape it does not
 // take or a tensor map cuTensorMapEncodeTiled refuses.
 extern "C" int repro_flash_attention_tc(const void* q, const void* k, const void* v, void* out,
-                                        int B, int Sq, int Sk, int H, int KV, int D, int causal,
-                                        int window, float softcap, void* stream) {
+                                        float* lse, int B, int Sq, int Sk, int H, int KV, int D,
+                                        int causal, int window, float softcap, void* stream) {
   using namespace repro;
   if (B <= 0 || Sq <= 0 || Sk <= 0 || KV <= 0 || H % KV != 0 || B > 65535 ||
       (Sq + kBQ - 1) / kBQ > 65535)
@@ -421,10 +432,10 @@ extern "C" int repro_flash_attention_tc(const void* q, const void* k, const void
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   switch (D) {
-    case 32: err = launch_tc<32>(q, k, v, out, B, Sq, Sk, H, KV, causal, window, softcap, st); break;
-    case 64: err = launch_tc<64>(q, k, v, out, B, Sq, Sk, H, KV, causal, window, softcap, st); break;
-    case 128: err = launch_tc<128>(q, k, v, out, B, Sq, Sk, H, KV, causal, window, softcap, st); break;
-    case 256: err = launch_tc<256>(q, k, v, out, B, Sq, Sk, H, KV, causal, window, softcap, st); break;
+    case 32: err = launch_tc<32>(q, k, v, out, lse, B, Sq, Sk, H, KV, causal, window, softcap, st); break;
+    case 64: err = launch_tc<64>(q, k, v, out, lse, B, Sq, Sk, H, KV, causal, window, softcap, st); break;
+    case 128: err = launch_tc<128>(q, k, v, out, lse, B, Sq, Sk, H, KV, causal, window, softcap, st); break;
+    case 256: err = launch_tc<256>(q, k, v, out, lse, B, Sq, Sk, H, KV, causal, window, softcap, st); break;
     default: err = cudaErrorInvalidValue;
   }
   return static_cast<int>(err);

@@ -26,6 +26,13 @@ __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
+// The first 1024-byte aligned address at or after p: a swizzled tile's
+// pattern follows address bits, so tiles start there.
+__device__ __forceinline__ char* align1024(uint8_t* p) {
+  return reinterpret_cast<char*>((reinterpret_cast<uintptr_t>(p) + 1023) &
+                                 ~static_cast<uintptr_t>(1023));
+}
+
 // ---- mbarriers --------------------------------------------------------------
 
 __device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
@@ -388,6 +395,27 @@ inline EncodeTiled encode_tiled() {
                ? reinterpret_cast<EncodeTiled>(p) : nullptr;
   }();
   return fn;
+}
+
+// A tensor map over x [B, S, heads, D] bf16 whose box is `rows` rows of one
+// head, swizzle_bytes / 2 columns wide (128- or 64-byte swizzle); rows past S
+// arrive as zeros.
+inline bool bf16_rows_map(CUtensorMap* map, const void* x, int B, int S, int heads, int D,
+                          int rows, int swizzle_bytes) {
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return false;
+  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(D), static_cast<cuuint64_t>(heads),
+                              static_cast<cuuint64_t>(S), static_cast<cuuint64_t>(B)};
+  const cuuint64_t row = static_cast<cuuint64_t>(heads) * D * 2;
+  const cuuint64_t strides[3] = {static_cast<cuuint64_t>(D) * 2, row, row * S};
+  const cuuint32_t box[4] = {static_cast<cuuint32_t>(swizzle_bytes / 2), 1,
+                             static_cast<cuuint32_t>(rows), 1};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(x), dims, strides,
+                box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                swizzle_bytes == 128 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
 }  // namespace sm90

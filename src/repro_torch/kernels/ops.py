@@ -12,14 +12,14 @@ kernels run on ``torch.cuda.current_stream()``.
 
 ``LAUNCHES`` counts kernel launches per wrapper (one per call that reaches
 the card, however many device kernels the call runs: a split-f32 flash
-forward runs two, a flash backward three),
+forward runs two, a flash backward three in either dtype),
 ``SCAN_VARIANTS`` the scan's launches by variant (``scan_variant``);
 ``reset_launches()`` sets every count to 0.
 
 Flash attention and the scan are differentiable: with grad on and an
 operand that needs it, ``flash_attention`` goes through ``FlashAttention``
 (a ``torch.autograd.Function``), whose forward saves the output and the row
-log-sum-exp (the f32 kernels write it) and whose backward is the f32
+log-sum-exp (the forward kernels write it) and whose backward is the
 backward kernel of the forward's variant (``flash_attention_backward``);
 ``selective_scan`` goes through ``SelectiveScan``, whose forward saves a, h
 and h0 and whose backward is the reverse-scan kernel
@@ -139,7 +139,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     """q: [B,Sq,H,D]; k,v: [B,Sk,KV,D] (kv heads) -> [B,Sq,H,D], q's dtype.
 
     Differentiable through ``FlashAttention`` when grad is on and an operand
-    needs it (f32 only: the backward kernel is f32)."""
+    needs it (bf16 and f32: each variant has its backward kernel)."""
     _check_flash(q, k, v)
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
         return FlashAttention.apply(q, k, v, causal, window, softcap)
@@ -151,8 +151,8 @@ def flash_attention_forward(q, k, v, causal, window, softcap, *,
                             want_lse: bool):
     """(out, lse or None): the forward kernel on the card, the plain version
     on the CPU, without autograd (a call with grad raises; ``FlashAttention``
-    is the differentiable route). lse [B,H,Sq] f32, the row log-sum-exp the
-    backward reads, comes from the f32 kernel only."""
+    is the differentiable route). lse [B,H,Sq] f32 is the row log-sum-exp the
+    backward reads; the output is the same bits with it or without."""
     B, Sq, H, D = q.shape
     kw = dict(causal=causal, window=window, softcap=softcap)
     if q.device.type == "cpu":
@@ -160,10 +160,6 @@ def flash_attention_forward(q, k, v, causal, window, softcap, *,
         return out, ref.flash_attention_lse_ref(q, k, **kw) if want_lse else None
     _check_attention_limits("flash_attention", H, k.shape[2], D)
     _check_cuda_operands("flash_attention", q, k, v)
-    if want_lse and q.dtype != torch.float32:
-        raise NotImplementedError(
-            "flash_attention: the backward kernel is f32 only; the bf16 "
-            "(tensor-core) backward is a later slice")
     out = torch.empty_like(q)
     lse = q.new_empty((B, H, Sq), dtype=torch.float32) if want_lse else None
     _launch_flash_attention(q, k, v, out, lse, causal, window, softcap)
@@ -198,10 +194,12 @@ def flash_attention_backward(q: torch.Tensor, k: torch.Tensor,
                              causal: bool = True, window: Optional[int] = None,
                              softcap: Optional[float] = None):
     """(dq, dk, dv) of flash attention. q, out, dout: [B,Sq,H,D]; k, v:
-    [B,Sk,KV,D]; lse: [B,H,Sq] f32 from the forward. f32 on the card, the
-    backward of the split-f32 forward (``csrc/flash_attention_f32tc.cu``:
-    prep, dk/dv and dq launches on the tensor cores; no atomics, the same
-    bits on every call). The plain version on the CPU."""
+    [B,Sk,KV,D], all of one dtype; lse: [B,H,Sq] f32 from the forward. On
+    the card the backward of the forward's variant (``flash_variant``): bf16
+    ``csrc/flash_attention_tc_bwd.cu`` (delta, dk/dv and dq launches on the
+    tensor cores), f32 ``csrc/flash_attention_f32tc.cu`` (prep, dk/dv and
+    dq); neither has atomics, so every call gives the same bits. The plain
+    version on the CPU."""
     _check_flash(q, k, v)
     B, Sq, H, D = q.shape
     if out.shape != q.shape or dout.shape != q.shape:
@@ -210,15 +208,15 @@ def flash_attention_backward(q: torch.Tensor, k: torch.Tensor,
     if lse.shape != (B, H, Sq) or lse.dtype != torch.float32:
         raise ValueError(f"flash_attention_backward: lse must be f32 of "
                          f"shape {(B, H, Sq)}")
+    if out.dtype != q.dtype or dout.dtype != q.dtype:
+        raise ValueError(f"flash_attention_backward: out and dout must be "
+                         f"{q.dtype}, as q")
     kw = dict(causal=causal, window=window, softcap=softcap)
     if q.device.type == "cpu":
         return ref.flash_attention_backward_ref(q, k, v, out, lse, dout, **kw)
-    if q.dtype != torch.float32 or out.dtype != q.dtype or dout.dtype != q.dtype:
-        raise NotImplementedError(
-            "flash_attention_backward: the kernel is f32 only; the bf16 "
-            "(tensor-core) backward is a later slice")
     _check_attention_limits("flash_attention_backward", H, k.shape[2], D)
     _check_cuda_operands("flash_attention_backward", q, k, v, out, lse, dout)
+    variant = flash_variant(q.dtype, D)
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     delta = torch.empty_like(lse)
     lib = build.load()
@@ -226,8 +224,11 @@ def flash_attention_backward(q: torch.Tensor, k: torch.Tensor,
             _ptr(delta), _ptr(dq), _ptr(dk), _ptr(dv))
     args = (B, Sq, k.shape[1], H, k.shape[2], D, int(causal), int(window or 0),
             float(softcap or 0.0), _stream())
-    work = _f32tc_workspace(q, k, backward=True)
-    code = lib.repro_flash_attention_f32tc_bwd(*ptrs, _ptr(work), *args)
+    if variant == "tensor_core":
+        code = lib.repro_flash_attention_tc_bwd(*ptrs, *args)
+    else:
+        work = _f32tc_workspace(q, k, backward=True)
+        code = lib.repro_flash_attention_f32tc_bwd(*ptrs, _ptr(work), *args)
     _raise_on(code, "flash_attention_backward")
     LAUNCHES["flash_attention_backward"] += 1
     return dq, dk, dv
@@ -238,7 +239,11 @@ def flash_variant(dtype: torch.dtype, head_dim: int) -> str:
     ``head_dim`` (one of ``_HEAD_DIMS``), chosen before any launch (never a
     fallback):
 
-    - bf16: "tensor_core", ``csrc/flash_attention_tc.cu`` (wgmma + TMA);
+    - bf16: "tensor_core", ``csrc/flash_attention_tc.cu`` (wgmma + TMA; the
+      forward, ``flash_fwd_tc_kernel``) and ``csrc/flash_attention_tc_bwd.cu``
+      (its backward: ``flash_bwd_tc_delta_kernel``, ``flash_bwd_tc_dkdv_kernel``
+      and ``flash_bwd_tc_dq_kernel``; at D = 256 two warpgroups a block, each
+      summing half the head dim);
     - f32: "split_f32", ``csrc/flash_attention_f32tc.cu``, forward and
       backward on the tensor cores with split-f32 products (hi + lo tf32
       parts, three wgmma a product): one TF32 product keeps 10 mantissa bits
@@ -273,7 +278,7 @@ def _launch_flash_attention(q, k, v, out, lse, causal, window, softcap) -> None:
     lse_p = ctypes.c_void_p(None) if lse is None else _ptr(lse)
     if variant == "tensor_core":
         code = lib.repro_flash_attention_tc(_ptr(q), _ptr(k), _ptr(v),
-                                            _ptr(out), *args)
+                                            _ptr(out), lse_p, *args)
     else:
         work = _f32tc_workspace(q, k, backward=False)
         code = lib.repro_flash_attention_f32tc(_ptr(q), _ptr(k), _ptr(v),

@@ -3,15 +3,17 @@
 Not ``torch.optim.AdamW``, which orders the operations differently. Per
 step: count + 1; the global gradient norm; the clip factor
 ``min(1, clip / (gn + 1e-9))``; the warmup schedule; bias correction; weight
-decay inside the step. Moments are f32 (``moment_dtype="float32"``); the
-bf16 and int8 moments of the JAX package raise ``NotImplementedError`` (a
-later slice).
+decay inside the step. The moments are read into f32, updated in f32 and
+written back in their own dtype (``moment_dtype``): f32, bf16 (rounded to
+nearest even, as JAX's ``astype``) or int8 (``quant.QTensor``: per-row int8
+with an f32 scale, through ``quant.quant`` / ``quant.dequant``).
 
-The state is ``{"m", "v", "count"}`` (``training.step.init_opt_state``: the
-moments in the parameters' layout, count an int32 scalar). The update is
-written into the parameters and moments in place (the JAX package returns
-new arrays of the same values), which keeps one copy of the state on the
-card.
+The state is ``{"m", "v", "count"}`` (``init_opt_state``; count an int32
+scalar). f32 and bf16 moments are copies of the parameter module in that
+dtype; int8 moments are a dict {parameter name: ``QTensor``} in
+``named_parameters()`` order. The update is written into the parameters and
+moments in place (the JAX package returns new arrays of the same values),
+which keeps one copy of the state on the card.
 """
 from __future__ import annotations
 
@@ -21,6 +23,12 @@ from typing import Any, Dict, List, Sequence
 
 import torch
 from torch import nn
+
+from repro_torch.training import quant
+
+MOMENT_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
+                 "int8": torch.int8}
+ACCUM_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -32,32 +40,54 @@ class OptHParams:
     weight_decay: float = 0.1
     clip_norm: float = 1.0
     warmup: int = 100
-    moment_dtype: str = "float32"       # only "float32" is ported
-    grad_accum_dtype: str = "float32"   # only "float32" is ported
+    moment_dtype: str = "float32"       # "float32" | "bfloat16" | "int8"
+    grad_accum_dtype: str = "float32"   # "float32" | "bfloat16"
 
     def __post_init__(self):
-        for name in ("moment_dtype", "grad_accum_dtype"):
-            val = getattr(self, name)
-            if val in ("bfloat16", "int8"):
-                raise NotImplementedError(
-                    f"repro_torch: {name}={val!r} is not ported yet; it "
-                    "arrives with the low-precision optimizer slice")
-            if val != "float32":
-                raise ValueError(f"unknown {name} {val!r}")
+        for name, known in (("moment_dtype", MOMENT_DTYPES),
+                            ("grad_accum_dtype", ACCUM_DTYPES)):
+            if getattr(self, name) not in known:
+                raise ValueError(f"unknown {name} {getattr(self, name)!r}; "
+                                 f"one of {sorted(known)}")
 
 
-def _zeros_f32(params: nn.Module) -> nn.Module:
-    """A moment: a copy of ``params``' structure in f32 zeros, no grad."""
-    m = copy.deepcopy(params).float().requires_grad_(False)
+def _moment_init(params: nn.Module, dtype_name: str):
+    """Zero moments of ``params``' structure in ``dtype_name``, no grad."""
+    if dtype_name == "int8":
+        return {name: quant.qzeros_like(p.detach())
+                for name, p in params.named_parameters()}
+    m = copy.deepcopy(params).to(MOMENT_DTYPES[dtype_name])
+    m.requires_grad_(False)
     for t in m.parameters():
         t.zero_()
     return m
 
 
 def init_opt_state(params: nn.Module, hp: OptHParams) -> Dict[str, Any]:
-    return {"m": _zeros_f32(params), "v": _zeros_f32(params),
+    return {"m": _moment_init(params, hp.moment_dtype),
+            "v": _moment_init(params, hp.moment_dtype),
             "count": torch.zeros((), dtype=torch.int32,
                                  device=next(params.parameters()).device)}
+
+
+def moment_leaves(m) -> list:
+    """A moment's leaves in ``parameters()`` order: tensors (f32, bf16) or
+    ``QTensor``s (int8)."""
+    return list(m.values()) if isinstance(m, dict) else list(m.parameters())
+
+
+def _read_moment(x) -> torch.Tensor:
+    return quant.dequant(x) if quant.is_qtensor(x) else x.float()
+
+
+def _write_moment(x, x32: torch.Tensor) -> None:
+    """x32 into the moment leaf ``x``, in place, in x's own form."""
+    if quant.is_qtensor(x):
+        new = quant.quant(x32, x)
+        x.q.copy_(new.q)
+        x.scale.copy_(new.scale)
+    else:
+        x.copy_(x32.to(x.dtype))
 
 
 def schedule(count: torch.Tensor, hp: OptHParams) -> torch.Tensor:
@@ -87,14 +117,20 @@ def adamw_update(params: List[torch.Tensor], grads: List[torch.Tensor],
     lr = schedule(count, hp)
     b1c = 1.0 - hp.b1 ** count.float()
     b2c = 1.0 - hp.b2 ** count.float()
-    for p, g, m, v in zip(params, grads, opt_state["m"].parameters(),
-                          opt_state["v"].parameters()):
+    for p, g, m, v in zip(params, grads, moment_leaves(opt_state["m"]),
+                          moment_leaves(opt_state["v"])):
+        # each f32 temporary is freed (or divided in place) as soon as it is
+        # written back: the largest leaf's temporaries set the update's peak
         g = g.float() * scale
-        m.copy_(hp.b1 * m + (1 - hp.b1) * g)
-        v.copy_(hp.b2 * v + (1 - hp.b2) * g.square())
-        mh = m / b1c
-        vh = v / b2c
+        m32 = hp.b1 * _read_moment(m) + (1 - hp.b1) * g
+        _write_moment(m, m32)
+        mh = m32.div_(b1c)
+        v32 = hp.b2 * _read_moment(v) + (1 - hp.b2) * g.square()
+        del g
+        _write_moment(v, v32)
+        vh = v32.div_(b2c)
         step = mh / (vh.sqrt() + hp.eps) + hp.weight_decay * p.float()
+        del mh, vh
         p.copy_((p.float() - lr * step).to(p.dtype))
     opt_state["count"] = count
     return params, opt_state, gn

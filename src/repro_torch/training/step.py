@@ -3,20 +3,22 @@
 Counterpart of ``repro.training.step``. ``batch["tokens"]`` arrives shaped
 ``[accum, mb, S]``; the JAX ``lax.scan`` over microbatches becomes a loop
 that takes each microbatch's gradient with ``torch.autograd.grad`` and adds
-it into f32 accumulators in a fixed order (``0 + g_1 + g_2 + ...``, as the
-scan does), then divides by ``accum``. Attention runs through
-``ops.flash_attention`` (the flash kernel and its backward kernel on the
-card), the Mamba recurrence through ``ops.selective_scan`` (the scan
-kernel and its reverse-scan backward kernel, ``ops.SelectiveScan``). The
-state is
+it into accumulators of ``hp.grad_accum_dtype`` (f32 or bf16; each add in
+that dtype) in a fixed order (``0 + g_1 + g_2 + ...``, as the scan does),
+then divides by ``accum`` in that dtype. With ``compress_grads`` every
+accumulated gradient then goes through ``quant.dequant(quant.quant(g))``
+(per-row int8 and back), as the JAX code does; like it, no error-feedback
+buffer is kept. Attention runs through ``ops.flash_attention`` (the flash
+kernel of the params' dtype and its backward kernel on the card), the Mamba
+recurrence through ``ops.selective_scan`` (the scan kernel and its
+reverse-scan backward kernel, ``ops.SelectiveScan``). The state is
 
-    {"params": DecoderParams, "opt": {"m": DecoderParams (f32),
-     "v": DecoderParams (f32), "count": int32}, "step": int32}
+    {"params": DecoderParams, "opt": {"m": moments, "v": moments,
+     "count": int32}, "step": int32}
 
-with the moments in the parameters' layout; the update is written in place
-(``optimizer.adamw_update``). Gradient compression (``compress_grads``)
-raises ``NotImplementedError``: it arrives with the low-precision optimizer
-slice.
+with the moments as ``optimizer.init_opt_state`` makes them (a copy of
+the parameter module in f32 or bf16, or {name: ``QTensor``} for int8); the
+update is written in place (``optimizer.adamw_update``).
 """
 from __future__ import annotations
 
@@ -28,9 +30,10 @@ import torch
 from repro_torch import resolve_device
 from repro_torch.bridge import TORCH_DTYPES, to_torch
 from repro_torch.models import model as M
+from repro_torch.training import quant
 from repro_torch.training.loss import loss_fn
-from repro_torch.training.optimizer import (OptHParams, adamw_update,
-                                            init_opt_state)
+from repro_torch.training.optimizer import (ACCUM_DTYPES, OptHParams,
+                                            adamw_update, init_opt_state)
 
 State = Dict[str, Any]
 
@@ -46,7 +49,8 @@ def init_train_state(generator: torch.Generator, cfg, hp: OptHParams,
 
 
 def train_step(state: State, batch: Dict[str, torch.Tensor], *, cfg,
-               hp: OptHParams, rt: M.Runtime = M.Runtime()
+               hp: OptHParams, rt: M.Runtime = M.Runtime(),
+               compress_grads: bool = False
                ) -> Tuple[State, Dict[str, Any]]:
     """batch: tokens/labels [accum, mb, S] (+frames [accum, mb, S, d] for
     an encoder-decoder). Microbatch i takes index i of every entry, as the
@@ -58,6 +62,7 @@ def train_step(state: State, batch: Dict[str, torch.Tensor], *, cfg,
     batch = {key: val.to(dev) for key, val in batch.items()}
     batch["tokens"] = batch["tokens"].long()
     accum = batch["tokens"].shape[0]
+    acc_dt = ACCUM_DTYPES[hp.grad_accum_dtype]
     grads = None
     loss_sum = torch.zeros((), dtype=torch.float32, device=dev)
     ces = []
@@ -66,16 +71,18 @@ def train_step(state: State, batch: Dict[str, torch.Tensor], *, cfg,
             loss, metrics = loss_fn(params, {key: val[i] for key, val
                                              in batch.items()}, cfg, rt)
             g = torch.autograd.grad(loss, leaves)
-        if grads is None:
-            grads = [x.float() for x in g]
+        if grads is None:   # 0 + g_1, rounded to the accumulator's dtype
+            grads = [x.to(acc_dt) for x in g]
         else:
             for acc, x in zip(grads, g):
-                acc.add_(x.float())
+                acc.add_(x.to(acc_dt))
         del g
         loss_sum = loss_sum + loss.detach()
         ces.append(metrics["ce"].detach())
     for acc in grads:
         acc.div_(accum)
+    if compress_grads:
+        grads = [quant.dequant(quant.quant(x.float())) for x in grads]
     _, _, gnorm = adamw_update(leaves, grads, state["opt"], hp)
     del grads
     state["step"] = state["step"] + 1
@@ -86,31 +93,45 @@ def train_step(state: State, batch: Dict[str, torch.Tensor], *, cfg,
 def make_train_step(cfg, hp: OptHParams, rt: M.Runtime = M.Runtime(),
                     compress_grads: bool = False):
     """``train_step`` with its configuration bound."""
-    if compress_grads:
-        raise NotImplementedError(
-            "repro_torch: compress_grads is not ported yet; it arrives with "
-            "the low-precision optimizer slice")
-    return functools.partial(train_step, cfg=cfg, hp=hp, rt=rt)
+    return functools.partial(train_step, cfg=cfg, hp=hp, rt=rt,
+                             compress_grads=compress_grads)
 
 
 def train_state_from_host(host: Dict[str, Any], cfg, device=None) -> State:
     """A train state on ``device`` from its numpy form
-    (``checkpoint.store.to_host``: each parameter module as {name: array})."""
+    (``checkpoint.store.to_host``: each parameter module as {name: array},
+    int8 moments as {name: {"q": array, "scale": array}}). Every leaf keeps
+    its dtype and bits."""
     dev = resolve_device(device)
+    names = [name for name, _ in M.DecoderParams(cfg, torch.float32,
+                                                 "meta").named_parameters()]
 
-    def mod(d, dtype):
-        m = M.DecoderParams(cfg, dtype, dev)
-        named = dict(m.named_parameters())
-        if set(named) != set(d):
-            raise ValueError(f"train state: leaves {sorted(set(d) ^ set(named))}"
+    def check(d):
+        if set(names) != set(d):
+            raise ValueError(f"train state: leaves {sorted(set(d) ^ set(names))}"
                              " differ from the config's")
+
+    def mod(d):
+        check(d)
+        m = M.DecoderParams(cfg, TORCH_DTYPES[d["embed"].dtype.name], dev)
         with torch.no_grad():
-            for name, t in named.items():
-                t.copy_(to_torch(d[name], dev))
+            for name, t in m.named_parameters():
+                src = to_torch(d[name], dev)
+                if src.dtype != t.dtype:   # an f32 leaf of a bf16 model
+                    t.data = src
+                else:
+                    t.copy_(src)
         return m
-    params = mod(host["params"], TORCH_DTYPES[host["params"]["embed"].dtype.name])
-    return {"params": params.requires_grad_(True),
-            "opt": {"m": mod(host["opt"]["m"], torch.float32),
-                    "v": mod(host["opt"]["v"], torch.float32),
+
+    def moment(d):
+        if not isinstance(d["embed"], dict):
+            return mod(d).requires_grad_(False)
+        check(d)
+        return {name: quant.QTensor(to_torch(d[name]["q"], dev),
+                                    to_torch(d[name]["scale"], dev))
+                for name in names}
+    return {"params": mod(host["params"]).requires_grad_(True),
+            "opt": {"m": moment(host["opt"]["m"]),
+                    "v": moment(host["opt"]["v"]),
                     "count": to_torch(host["opt"]["count"], dev)},
             "step": to_torch(host["step"], dev)}

@@ -3,10 +3,10 @@
 * it imports neither JAX nor anything of the ``repro`` package;
 * its entry points run on ``cuda`` and raise without a card unless the
   caller asks for ``device="cpu"``;
-* families outside the ported slices (encoder-decoder), and the parts
-  of the LOG.io core and the optimizer the training slice left out (other
-  log stores, process mode, ABS, replay, bf16/int8 moments, gradient
-  compression), raise ``NotImplementedError``;
+* the parts of the LOG.io core the training slice left out (other log
+  stores, process mode, ABS, replay) raise ``NotImplementedError``; the
+  optimizer-state variants (bf16/int8 moments, bf16 accumulation, gradient
+  compression) build;
 * the kernel wrappers pick the plain version by the tensors' device alone:
   a tensor on the card gets the kernel or an error, never the plain version.
 """
@@ -172,17 +172,6 @@ TRIMMED = {
     "replay": lambda: __import__(
         "repro_torch.core", fromlist=["x"]).Engine(
             _linear_pipeline(), mode="step").replay([("win", "out", 0)]),
-    "int8 moments": lambda: __import__(
-        "repro_torch.training", fromlist=["x"]).OptHParams(
-            moment_dtype="int8"),
-    "bf16 moments": lambda: __import__(
-        "repro_torch.training", fromlist=["x"]).OptHParams(
-            moment_dtype="bfloat16"),
-    "compressed grads": lambda: __import__(
-        "repro_torch.training", fromlist=["x"]).make_train_step(
-            _tiny(), __import__("repro_torch.training",
-                                fromlist=["x"]).OptHParams(),
-            compress_grads=True),
 }
 
 
@@ -190,6 +179,33 @@ TRIMMED = {
 def test_trimmed_paths_raise(what):
     with pytest.raises(NotImplementedError, match="slice"):
         TRIMMED[what]()
+
+
+# The optimizer-state variants, which raised until the low-precision slice:
+# each builds and runs one train step of a tiny model on the CPU.
+LOW_PRECISION = {
+    "int8 moments": dict(moment_dtype="int8"),
+    "bf16 moments": dict(moment_dtype="bfloat16", grad_accum_dtype="bfloat16"),
+    "compressed grads": dict(compress_grads=True),
+}
+
+
+@pytest.mark.parametrize("what", sorted(LOW_PRECISION))
+def test_low_precision_options_run(what):
+    from repro_torch.training import (OptHParams, init_train_state,
+                                      make_train_step)
+    kw = dict(LOW_PRECISION[what])
+    compress = kw.pop("compress_grads", False)
+    cfg, hp = _tiny(), OptHParams(**kw)
+    state = init_train_state(torch.Generator().manual_seed(0), cfg, hp,
+                             device="cpu")
+    toks = torch.randint(0, cfg.vocab, (1, 2, 17),
+                         generator=torch.Generator().manual_seed(1))
+    state, metrics = make_train_step(cfg, hp, compress_grads=compress)(
+        state, {"tokens": toks[..., :-1], "labels": toks[..., 1:]})
+    assert int(state["step"]) == 1 and bool(metrics["loss"].isfinite())
+    with pytest.raises(ValueError):
+        OptHParams(moment_dtype="float16")
 
 
 def test_memory_store_and_step_engine_run():
@@ -320,28 +336,36 @@ def test_kernel_limits_are_checked_before_launch(monkeypatch, bad):
 
 def test_flash_grad_reaches_the_kernels(monkeypatch):
     """On the card, flash attention with grad goes through ops.FlashAttention
-    to the forward kernel (asked for its lse); the backward wrapper refuses
-    bf16 and a malformed lse before any launch."""
+    to the forward kernel (asked for its lse) in f32 and in bf16; the
+    backward wrapper takes both dtypes to the kernel library and refuses a
+    malformed lse or mixed dtypes before any launch."""
     seen = []
     monkeypatch.setattr(ops, "_launch_flash_attention",
                         lambda *a: seen.append(a[4]) or _refuse())
     q = torch.randn(1, 8, 4, 32, requires_grad=True)
     k = torch.randn(1, 8, 2, 32)
-    with pytest.raises(_Launched):
-        ops.flash_attention(*(_claims_cuda(t) for t in (q, k, k)))
-    assert len(seen) == 1 and tuple(seen[0].shape) == (1, 4, 8)   # lse [B,H,Sq]
-    with pytest.raises(NotImplementedError, match="f32 only"):
-        ops.flash_attention(*(_claims_cuda(t.detach().bfloat16().requires_grad_())
-                              for t in (q, k, k)))
+    for dt in (torch.float32, torch.bfloat16):
+        with pytest.raises(_Launched):
+            ops.flash_attention(*(_claims_cuda(t.detach().to(dt).requires_grad_())
+                                  for t in (q, k, k)))
+    assert len(seen) == 2                                # lse [B,H,Sq] f32
+    assert all(tuple(x.shape) == (1, 4, 8) and x.dtype == torch.float32
+               for x in seen)
+    monkeypatch.setattr(ops.build, "load", _refuse)     # the library's load
     qd = q.detach()
     lse = torch.zeros(1, 4, 8)
-    with pytest.raises(NotImplementedError, match="f32 only"):
-        ops.flash_attention_backward(*(_claims_cuda(t.bfloat16()) for t in
-                                       (qd, k, k, qd)), _claims_cuda(lse),
-                                     _claims_cuda(qd.bfloat16()))
+    for dt in (torch.float32, torch.bfloat16):
+        with pytest.raises(_Launched):
+            ops.flash_attention_backward(*(_claims_cuda(t.to(dt)) for t in
+                                           (qd, k, k, qd)), _claims_cuda(lse),
+                                         _claims_cuda(qd.to(dt)))
     with pytest.raises(ValueError, match="lse"):
         ops.flash_attention_backward(*(_claims_cuda(t) for t in
                                        (qd, k, k, qd, lse[:, :, :4], qd)))
+    with pytest.raises(ValueError, match="dout"):
+        ops.flash_attention_backward(*(_claims_cuda(t.bfloat16()) for t in
+                                       (qd, k, k, qd)), _claims_cuda(lse),
+                                     _claims_cuda(qd))
 
 
 @pytest.mark.parametrize("bad", ["noncontiguous", "grad"])

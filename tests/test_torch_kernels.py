@@ -439,18 +439,28 @@ def _bwd_inputs(case, seed=4):
 
 
 def _close_to_max(got, want, tol=TOL["f32"]):
-    """f32 tolerance relative to the gradient's largest magnitude."""
+    """A tolerance relative to the gradient's largest magnitude."""
     got, want = np.asarray(got, np.float32), np.asarray(want, np.float32)
     scale = max(float(np.abs(want).max()), 1e-30)
     np.testing.assert_allclose(got / scale, want / scale, rtol=tol, atol=tol)
 
 
-@pytest.mark.parametrize("case", BWD_CASES)
+# f32 first (ids case0-8), then the bf16 operands of the bf16 backward at
+# its head dims: the plain backward computes the f32 math of the bf16
+# operands and rounds its results to bf16, as JAX's vjp of its oracle in
+# bf16 does; held at the bf16 tolerance relative to each gradient's max.
+BWD_DTYPE_CASES = ([(case, "f32") for case in BWD_CASES]
+                   + [(BWD_CASES[i], "bf16") for i in (0, 3, 5, 7)])
+
+
+@pytest.mark.parametrize("case", BWD_DTYPE_CASES)
 def test_flash_attention_backward_ref_matches_autograd_and_jax(case):
+    case, dt = case
     (q, k, v, do), kw = _bwd_inputs(case)
     H, KV = q.shape[2], k.shape[2]
-    tq, tk, tv = (torch.from_numpy(x).requires_grad_(True) for x in (q, k, v))
-    tdo = torch.from_numpy(do)
+    tq, tk, tv = (torch.from_numpy(x).to(TDT[dt]).requires_grad_(True)
+                  for x in (q, k, v))
+    tdo = torch.from_numpy(do).to(TDT[dt])
     out = ref.flash_attention_ref(tq, tk, tv, **kw)
     lse = ref.flash_attention_lse_ref(tq.detach(), tk.detach(), **kw)
     got = ref.flash_attention_backward_ref(tq.detach(), tk.detach(),
@@ -461,12 +471,13 @@ def test_flash_attention_backward_ref_matches_autograd_and_jax(case):
     def jf(a, b, c):
         return jref.flash_attention_ref(a, jnp.repeat(b, H // KV, axis=2),
                                         jnp.repeat(c, H // KV, axis=2), **kw)
-    _, vjp = jax.vjp(jf, jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
-    want_jax = vjp(jnp.asarray(do))
+    _, vjp = jax.vjp(jf, *(jnp.asarray(x, JDT[dt]) for x in (q, k, v)))
+    want_jax = vjp(jnp.asarray(do, JDT[dt]))
     for g, wt, wj in zip(got, want_torch, want_jax):
-        assert g.shape == wt.shape and g.dtype == torch.float32
-        _close_to_max(g.numpy(), wt.numpy())
-        _close_to_max(g.numpy(), wj)
+        assert g.shape == wt.shape and g.dtype == TDT[dt] == wt.dtype
+        assert wj.dtype == JDT[dt]
+        _close_to_max(g.float().numpy(), wt.float().numpy(), TOL[dt])
+        _close_to_max(g.float().numpy(), wj, TOL[dt])
 
 
 @pytest.mark.parametrize("case", BWD_CASES[:3] + BWD_CASES[-2:])
@@ -542,6 +553,8 @@ def _tf32(x: torch.Tensor) -> torch.Tensor:
 
 
 def _matmul(a: torch.Tensor, b: torch.Tensor, mode: str) -> torch.Tensor:
+    if mode == "bf16":   # bf16 operands, exact products, f32 sums
+        return a.bfloat16().float() @ b.bfloat16().float()
     if mode == "tf32":
         return _tf32(a) @ _tf32(b)
     ahi, bhi = _tf32(a), _tf32(b)
@@ -551,10 +564,11 @@ def _matmul(a: torch.Tensor, b: torch.Tensor, mode: str) -> torch.Tensor:
 
 def _head_dim_matmul(a: torch.Tensor, b: torch.Tensor, mode: str) -> torch.Tensor:
     """a @ b over the head dim (a's last axis), summed as the kernels sum
-    it: at D = 256 each block of a cluster pair sums its half of D, and the
-    two partial sums are added, half 0 + half 1."""
+    it: at D = 256 each block of a split-f32 cluster pair sums its half of
+    D, and the two partial sums are added, half 0 + half 1; the bf16 kernel
+    sums all of D in one chain of products."""
     D = a.shape[-1]
-    if D != 256:
+    if D != 256 or mode == "bf16":
         return _matmul(a, b, mode)
     h = D // 2
     return (_matmul(a[..., :h], b[..., :h, :], mode)
@@ -663,3 +677,42 @@ def test_split_f32_backward_meets_the_f32_tolerance(case):
         _close_to_max(g.numpy(), w.numpy())
     one = _emulated_backward(q, k, v, out, lse, do, "tf32", **kw)
     assert all(_misses(g, w, to_max=True) for g, w in zip(one, want))
+
+
+# The bf16 backward (csrc/flash_attention_tc_bwd.cu) emulated: its products
+# take bf16 operands and sum in f32, so besides the bf16 inputs P and dS are
+# rounded to bf16 before the products into dv, dk and dq; o is the bf16
+# forward's (rounded), lse that of the bf16 operands in f32, and the
+# gradients are rounded to bf16. Held against the f32 backward of the f32
+# copies of the same operands, from the exact o, at 2e-2 of each gradient's
+# largest magnitude: the check phase 2 of chip_smoke.py makes of the kernel
+# on the card, here at reduced sizes of its cases (internlm2's causal GQA,
+# gemma2's D = 256 with softcap, a window, seamless's non-causal group 1 and
+# its cross Sq != Sk, head groups 6 and 7, ragged Sq / Sk, D = 32).
+BF16_EMU_CASES = [
+    # (B, Sq, Sk, H, KV, D, causal, window, softcap)
+    (2, 256, 256, 4, 2, 128, True, None, None),
+    (1, 256, 256, 4, 2, 256, True, None, 50.0),
+    (1, 256, 256, 4, 2, 128, True, 64, None),
+    (1, 256, 256, 4, 4, 64, False, None, None),
+    (1, 256, 188, 4, 4, 64, False, None, None),
+    (1, 128, 128, 12, 2, 128, True, None, None),
+    (1, 128, 128, 14, 2, 128, True, None, None),
+    (1, 88, 125, 4, 2, 128, False, None, None),
+    (1, 256, 256, 4, 2, 32, True, None, None),
+]
+
+
+@pytest.mark.parametrize("case", BF16_EMU_CASES)
+def test_bf16_backward_emulation_meets_the_bf16_tolerance(case):
+    q, k, v, do, kw = _split_inputs(case)
+    q, k, v, do = (t.bfloat16().float() for t in (q, k, v, do))   # bf16 values
+    exact_out = ref.flash_attention_ref(q, k, v, **kw)
+    lse = ref.flash_attention_lse_ref(q, k, **kw)
+    want = ref.flash_attention_backward_ref(q, k, v, exact_out, lse, do, **kw)
+    out = exact_out.bfloat16().float()
+    got = _emulated_backward(q, k, v, out, lse, do, "bf16", **kw)
+    for g, w in zip(got, want):
+        _close_to_max(g.bfloat16().float().numpy(), w.numpy(), TOL["bf16"])
+        # the roundings are there: the f32 tolerance is missed
+        assert _misses(g.bfloat16().float(), w, to_max=True)

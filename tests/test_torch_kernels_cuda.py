@@ -394,13 +394,25 @@ def test_flash_attention_autograd_on_card(card, case):
 
 @pytest.mark.cuda
 def test_bare_flash_kernel_call_refuses_grad(card):
+    """A bare forward-kernel call with grad raises in either dtype and names
+    ops.FlashAttention; through the wrapper a bf16 operand with grad takes
+    that route (the bf16 forward with its lse, then the bf16 backward)."""
     q = torch.randn(1, 64, 4, 64, device=card, requires_grad=True)
     k = torch.randn(1, 64, 2, 64, device=card)
-    with pytest.raises(NotImplementedError, match="FlashAttention"):
-        ops.flash_attention_forward(q, k, k, True, None, None, want_lse=True)
-    with pytest.raises(NotImplementedError, match="f32 only"):
-        ops.flash_attention(q.detach().bfloat16().requires_grad_(True),
-                            k.bfloat16(), k.bfloat16())
+    qb = q.detach().bfloat16().requires_grad_(True)
+    for qq, kk in ((q, k), (qb, k.bfloat16())):
+        with pytest.raises(NotImplementedError, match="FlashAttention"):
+            ops.flash_attention_forward(qq, kk, kk, True, None, None,
+                                        want_lse=True)
+    n = dict(ops.LAUNCHES)
+    out = ops.flash_attention(qb, k.bfloat16(), k.bfloat16())
+    assert "FlashAttention" in type(out.grad_fn).__name__
+    (dq,) = torch.autograd.grad(out, (qb,), torch.ones_like(out))
+    torch.cuda.synchronize()
+    assert dq.dtype == torch.bfloat16 and bool(dq.isfinite().all())
+    assert ops.LAUNCHES["flash_attention"] == n["flash_attention"] + 1
+    assert (ops.LAUNCHES["flash_attention_backward"]
+            == n["flash_attention_backward"] + 1)
 
 
 @pytest.mark.cuda
@@ -446,6 +458,90 @@ def test_f32_flash_d256_is_bitwise_repeatable(card):
     torch.cuda.synchronize()
     assert all(torch.equal(a, b) for a, b in zip(*runs))
     assert torch.equal(runs[0][0], runs[0][1])   # o unchanged by lse
+
+
+# bf16 flash backward (csrc/flash_attention_tc_bwd.cu) against the plain
+# backward on f32 copies of the same bf16 operands, given the plain f32
+# forward's o and lse: every head dim (D = 256: two warpgroups a block),
+# causal and not, softcap, window, ragged S, Sq != Sk, head groups 1-16.
+BF16_BWD_CASES = [
+    # (B, Sq, Sk, H, KV, D, causal, window, softcap)
+    (1, 128, 128, 4, 2, 32, True, None, None),
+    (2, 200, 200, 4, 4, 64, False, None, None),
+    (1, 256, 256, 8, 4, 128, True, None, None),
+    (1, 256, 256, 4, 2, 256, True, None, 50.0),
+    (1, 300, 300, 8, 4, 64, True, 48, None),          # window, ragged
+    (2, 200, 200, 4, 2, 256, True, 64, 50.0),         # gemma2's form
+    (1, 130, 130, 4, 2, 128, False, None, 30.0),
+    (2, 100, 333, 4, 2, 64, False, None, None),       # Sq != Sk, no mask
+    (1, 333, 100, 4, 1, 128, False, None, None),
+    (1, 100, 333, 4, 2, 256, False, None, None),
+    (1, 333, 333, 48, 8, 128, True, None, None),      # head group 6
+    (1, 300, 300, 56, 8, 128, True, None, None),      # head group 7
+    (1, 256, 256, 32, 2, 64, True, 100, None),        # head group 16
+    (1, 700, 1000, 8, 4, 128, False, None, None),     # ragged Sq / Sk
+    (2, 2048, 2048, 16, 8, 128, True, None, None),    # internlm2's train step
+]
+BF16_BWD_TOL = 2e-2   # relative to each gradient's largest magnitude
+BF16_LSE_TOL = 1e-3
+
+
+def _bf16_bwd_operands(card, case, seed=0):
+    """bf16 q, k, v, dO and the f32 reference grads of their f32 copies
+    (the plain backward from the plain f32 forward's o and lse)."""
+    q, k, v, dout, kw = _bwd_operands(card, case, seed)
+    qb, kb, vb, db = (t.bfloat16() for t in (q, k, v, dout))
+    f32 = [t.float() for t in (qb, kb, vb, db)]
+    out = ref.flash_attention_ref(*f32[:3], **kw)
+    lse = ref.flash_attention_lse_ref(*f32[:2], **kw)
+    want = ref.flash_attention_backward_ref(*f32[:3], out, lse, f32[3], **kw)
+    return (qb, kb, vb, db), want, lse, kw
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", BF16_BWD_CASES)
+def test_bf16_flash_backward_matches_plain(card, case):
+    """The bf16 forward with lse (o the same bits as without it, lse within
+    1e-3 of the f32 one), then the bf16 backward: each gradient within 2e-2
+    of its largest magnitude of the f32 reference, and a second call the
+    same bits."""
+    (q, k, v, dout), want, lse_want, kw = _bf16_bwd_operands(card, case)
+    plain_out = ops.flash_attention(q, k, v, **kw)
+    out, lse = ops.flash_attention_forward(q, k, v, kw["causal"], kw["window"],
+                                           kw["softcap"], want_lse=True)
+    torch.cuda.synchronize()
+    assert torch.equal(out, plain_out)
+    torch.testing.assert_close(lse, lse_want, rtol=BF16_LSE_TOL,
+                               atol=BF16_LSE_TOL)
+    n = ops.LAUNCHES["flash_attention_backward"]
+    got = ops.flash_attention_backward(q, k, v, out, lse, dout, **kw)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["flash_attention_backward"] == n + 1
+    for name, a, b in zip(("dq", "dk", "dv"), got, want):
+        assert a.shape == b.shape and a.dtype == torch.bfloat16
+        assert_close_to_max(a.float(), b, BF16_BWD_TOL, name)
+    again = ops.flash_attention_backward(q, k, v, out, lse, dout, **kw)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))   # no atomics
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", BF16_BWD_CASES[:4])
+def test_bf16_flash_autograd_on_card(card, case):
+    """ops.flash_attention on bf16 leaves with grad: the bf16 forward and
+    backward kernels, one counted launch each, within 2e-2 of each
+    gradient's max of the f32 reference."""
+    (q, k, v, dout), want, _, kw = _bf16_bwd_operands(card, case, seed=1)
+    leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    n = dict(ops.LAUNCHES)
+    out = ops.flash_attention(*leaves, **kw)
+    got = torch.autograd.grad(out, leaves, dout)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["flash_attention"] == n["flash_attention"] + 1
+    assert (ops.LAUNCHES["flash_attention_backward"]
+            == n["flash_attention_backward"] + 1)
+    for name, a, b in zip(("dq", "dk", "dv"), got, want):
+        assert a.dtype == torch.bfloat16
+        assert_close_to_max(a.float(), b, BF16_BWD_TOL, name)
 
 
 @pytest.mark.cuda
