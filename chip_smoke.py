@@ -137,7 +137,10 @@ its bf16 operands, bitwise repeatable, with the bf16 forward's o the same
 bits with and without lse and its lse within 1e-3 of the f32 one. Phase 5
 also times the bf16 backward at internlm2's, gemma2's and seamless's
 shapes beside its bound and SDPA's bf16 backward, and the bf16 forward's
-device time with and without lse.
+device time with and without lse; it prints each bf16 flash time beside the
+earlier design's (``EARLIER_BF16_FLASH_MS``), and the ``ptxas -v`` report
+(registers, spill bytes, serialised wgmma) and dynamic shared memory of each
+bf16 flash kernel on a main path (``BF16_FLASH_MAIN``).
 Training needs ``CUBLAS_WORKSPACE_CONFIG`` (set here before torch starts)
 and runs under ``torch.use_deterministic_algorithms(True)`` from phase 6 on,
 so phases 9-11b run under it too. The phases that drive a main path
@@ -489,6 +492,109 @@ def phase_device() -> dict:
     return {"name": name, "smi": smi.splitlines()[0]}
 
 
+# the bf16 flash kernels on a main path: (kernel, template arguments) as the
+# source declares them (D, softcap[, lse])
+BF16_FLASH_MAIN = [
+    ("flash_fwd_tc_kernel", (256, True, True)),        # gemma2-train-bf16
+    ("flash_bwd_tc_dkdv_kernel", (128, False)),        # internlm2-train-bf16
+    ("flash_bwd_tc_dq_kernel", (128, False)),
+    ("flash_bwd_tc_dkdv_kernel", (256, True)),         # gemma2-train-bf16
+    ("flash_bwd_tc_dq_kernel", (256, True)),
+]
+
+
+def _kernel_key(mangled: str):
+    """(name, template arguments) of a flash kernel's mangled name, e.g.
+    ``...flash_bwd_tc_dq_kernelILi128ELb0EE...`` -> ("flash_bwd_tc_dq_kernel",
+    (128, False)); None for any other function."""
+    m = re.search(r"(flash_(?:fwd|bwd)_tc(?:_[a-z]+)?_kernel)I((?:L[ib]\d+E)+)E",
+                  mangled)
+    if m is None:
+        return None
+    args = tuple(int(v) if t == "i" else v == "1"
+                 for t, v in re.findall(r"L([ib])(\d+)E", m.group(2)))
+    return m.group(1), args
+
+
+def ptxas_kernels(text: str) -> dict:
+    """The build's ``-Xptxas -v`` report by flash kernel: {(name, template
+    arguments): {"registers", "stack", "spill_stores", "spill_loads",
+    "serialized"}} ("serialized": ptxas's C7512, wgmma serialised)."""
+    out, cur = {}, None
+    for line in text.splitlines():
+        if "serialized" in line:   # C7512 names its function
+            m = re.search(r"function '(\w+)'", line)
+            key = _kernel_key(m.group(1)) if m else None
+            if key:
+                out.setdefault(key, {})["serialized"] = True
+            continue
+        m = re.search(r"(?:Compiling entry function|Function properties for) '?(\w+)", line)
+        if m:
+            cur = _kernel_key(m.group(1))
+            if cur:
+                out.setdefault(cur, {}).setdefault("serialized", False)
+            continue
+        if cur is None:
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
+        if m:
+            out[cur].update(stack=int(m.group(1)), spill_stores=int(m.group(2)),
+                            spill_loads=int(m.group(3)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            out[cur]["registers"] = int(m.group(1))
+    return out
+
+
+def log_ptxas_bf16_flash() -> dict:
+    """ptxas's registers, spill bytes, stack, C7512 and the block's dynamic
+    shared memory (from the library) of each bf16 flash kernel on a main
+    path ({"name<args>": record})."""
+    report = ptxas_kernels(build.build_log())
+    lib = build.load()
+    rows = {}
+    for name, targs in BF16_FLASH_MAIN:
+        rec = dict(report.get((name, targs), {}))
+        smem = (lib.repro_flash_tc_smem(targs[0]) if "fwd" in name
+                else lib.repro_flash_tc_bwd_smem(targs[0], int("dq" in name)))
+        rec["dynamic_smem_bytes"] = smem
+        label = name + "<" + ", ".join(
+            str(a).lower() for a in targs) + ">"
+        log(f"ptxas {label}: {rec.get('registers', 'not reported')} registers, "
+            f"{rec.get('spill_stores', 'not reported')} bytes spill stores, "
+            f"{rec.get('spill_loads', 'not reported')} bytes spill loads, "
+            f"{rec.get('stack', 'not reported')} bytes stack, wgmma "
+            + ("serialized (C7512)" if rec.get("serialized") else "not serialized")
+            + f"; {smem} bytes of dynamic shared memory a block")
+        rows[label] = rec
+    return rows
+
+
+# Device ms of the earlier design of the bf16 flash pair (the backward: one
+# consumer warpgroup a 64-row block, no producer warp; at dh 256 both
+# warpgroups recomputing the scores; the forward at dh 256: 64-key tiles in
+# two stages), chip_smoke.py phase 5 on an NVIDIA H100 80GB HBM3 at 700.00 W;
+# printed beside this run's
+EARLIER_BF16_FLASH_MS = {
+    "forward dh 128 (internlm2)": 0.0901,
+    "forward dh 128 group 6 (grok)": 0.2710,
+    "forward dh 64 non-causal (seamless)": 0.1180,
+    "forward dh 256 softcap 50 (gemma2)": 0.3523,
+    "backward dh 128 (internlm2)": 0.4739,
+    "backward dh 256 softcap 50 (gemma2)": 1.7566,
+    "backward dh 64 non-causal (seamless)": 0.6173,
+}
+
+
+def log_against_earlier(now: dict) -> None:
+    for key, was in EARLIER_BF16_FLASH_MS.items():
+        t = now.get(key)
+        log(f"bf16 flash {key}: device "
+            + (f"{t:.4f} ms ({t / was:.3f}x)" if t else "not measured")
+            + f"; the earlier design {was:.4f} ms")
+
+
 # ---------------------------------------------------------------------------
 # phase 2: kernels against their plain versions
 # ---------------------------------------------------------------------------
@@ -557,6 +663,11 @@ FLASH_CASES = [
     (2, 2048, 16, 16, 64, torch.float32, False, None, None),
     (2, 2048, 16, 16, 64, torch.bfloat16, True, None, None),
     (2, 2048, 16, 16, 64, torch.float32, True, None, None),
+    # dh 256 in bf16 at the edges of its 32-key tiles: S a multiple of
+    # neither 32 nor 128, a window that ends inside a tile, softcap
+    (1, 1000, 16, 8, 256, torch.bfloat16, True, None, 50.0),
+    (1, 1100, 16, 8, 256, torch.bfloat16, True, 300, 50.0),
+    (2, 1000, 16, 8, 256, torch.bfloat16, False, None, 30.0),
 ]
 
 FLASH_CROSS_CASES = [
@@ -564,6 +675,7 @@ FLASH_CROSS_CASES = [
     # memory shorter than the decoder's tokens: (B, Sq, Sk, H, KV, D, dtype)
     (2, 2048, 1500, 16, 16, 64, torch.bfloat16),
     (2, 2048, 1500, 16, 16, 64, torch.float32),
+    (1, 1100, 1000, 16, 8, 256, torch.bfloat16),
 ]
 
 BWD_CASES = [
@@ -641,9 +753,9 @@ def check_flash_backward(g, case) -> float:
 BF16_BWD_CASES = [
     # bf16 flash backward (csrc/flash_attention_tc_bwd.cu): (B, Sq, Sk, H,
     # KV, D, causal, window, softcap); internlm2's train step, gemma2's
-    # (D = 256: two warpgroups a block) and its local layers' window,
-    # seamless's encoder (non-causal, group 1) and cross-attention (Sq !=
-    # Sk), head groups 6 and 7, ragged Sq / Sk, D = 32
+    # (D = 256) and its local layers' window, seamless's encoder (non-causal,
+    # group 1) and cross-attention (Sq != Sk), head groups 6 and 7, ragged
+    # Sq / Sk, D = 32
     (2, 2048, 2048, 16, 8, 128, True, None, None),
     (2, 2048, 2048, 16, 8, 256, True, None, 50.0),
     (1, 1024, 1024, 16, 8, 256, True, 256, 50.0),
@@ -653,6 +765,22 @@ BF16_BWD_CASES = [
     (1, 1000, 1000, 56, 8, 128, True, None, None),
     (1, 700, 1000, 16, 8, 128, False, None, None),
     (2, 1024, 1024, 16, 8, 32, True, None, None),
+    # shapes that end inside a block (128 rows where a block's two
+    # warpgroups own 64 rows each and skip steps with no kept pair: dk/dv
+    # below D = 128, dq below 256; else 64 rows whose products the two
+    # split): Sq and Sk multiples of neither 128 nor each other, a window
+    # that cuts a 128-key block, head groups 6 and 7 there, D = 32; at D =
+    # 256 an Sk that is not a multiple of 64, with and without the mask
+    (1, 1000, 1000, 16, 8, 128, True, None, None),
+    (1, 1100, 1000, 16, 8, 128, False, None, 30.0),
+    (1, 1100, 1100, 16, 8, 128, True, 200, None),
+    (1, 1100, 1100, 48, 8, 64, True, 300, None),
+    (1, 1000, 1100, 56, 8, 64, False, None, None),
+    (1, 1100, 1100, 8, 2, 32, True, 100, None),
+    (1, 1000, 1100, 16, 8, 32, False, None, None),
+    (1, 1000, 1000, 16, 8, 256, True, None, 50.0),
+    (1, 1100, 1000, 16, 8, 256, False, None, 30.0),
+    (1, 1100, 1100, 16, 8, 256, True, 200, 50.0),
 ]
 
 
@@ -2617,6 +2745,7 @@ def main() -> int:
     bwd16_t = time_flash_backward_bf16(TRAIN_SHAPE, True, SEED + 11, "internlm2")
     bwd16_d256 = time_flash_backward_bf16(D256_SHAPE, True, SEED + 12,
                                           "gemma2 dh 256")
+    bf16_ptxas = log_ptxas_bf16_flash()
     log_memory("attention timings")
     torch.cuda.empty_cache()
     # falcon-mamba: the selective scan, in forward and in each decode step
@@ -2695,6 +2824,16 @@ def main() -> int:
     flash_s = time_flash_set(SEAMLESS_SHAPE, False, SEED + 10, "seamless")
     bwd16_s = time_flash_backward_bf16(SEAMLESS_SHAPE, False, SEED + 13,
                                        "seamless")
+    log_against_earlier({
+        "forward dh 128 (internlm2)": flash_t["device_ms"],
+        "forward dh 128 group 6 (grok)": flash_k["device_ms"],
+        "forward dh 64 non-causal (seamless)":
+            flash_s["bf16_forward"]["device_ms"],
+        "forward dh 256 softcap 50 (gemma2)":
+            d256_t["bf16_forward"]["device_ms"],
+        "backward dh 128 (internlm2)": bwd16_t["device_ms"],
+        "backward dh 256 softcap 50 (gemma2)": bwd16_d256["device_ms"],
+        "backward dh 64 non-causal (seamless)": bwd16_s["device_ms"]})
     log_memory("seamless timings")
     torch.cuda.empty_cache()
     strain = phase_train(
@@ -2861,6 +3000,7 @@ def main() -> int:
         d256_train_step_ms=gtrain16["step_ms"],
         d256_train_depth=gdepth,
         d256_train_first_loss=gtrain16["first_loss"],
+        ptxas=bf16_ptxas,
         **{f"seamless_{key}": val for key, val in bwd16_s.items()})
     bwd16_row["max_abs_err"] = max(bwd16_row["max_abs_err"],
                                    bwd16_d256["max_abs_err"],

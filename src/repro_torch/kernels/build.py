@@ -129,4 +129,10 @@ def load() -> ctypes.CDLL:
     # bytes of the split-f32 flash kernels' workspace (not a launch)
     lib.repro_flash_f32tc_workspace.argtypes = [_I] * 7
     lib.repro_flash_f32tc_workspace.restype = ctypes.c_longlong
+    # dynamic shared memory a block of the bf16 flash forward / backward
+    # takes at a head dim (not launches)
+    lib.repro_flash_tc_smem.argtypes = [_I]
+    lib.repro_flash_tc_bwd_smem.argtypes = [_I, _I]
+    for name in ("repro_flash_tc_smem", "repro_flash_tc_bwd_smem"):
+        getattr(lib, name).restype = ctypes.c_int
     return lib

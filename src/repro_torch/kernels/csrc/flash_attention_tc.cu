@@ -33,13 +33,23 @@
 //     stay f32 in registers; scores never touch shared memory. The sum is
 //     taken over the bf16-rounded P that the product uses.
 //   * One block per (128 q rows, head, batch): two consumer warpgroups own 64
-//     rows each; a producer warpgroup gives its registers to them
-//     (setmaxnreg 24 / 240) and one of its threads loads by TMA: Q once, then
-//     K/V tiles through a ring of stages, each with a full and an empty
-//     mbarrier, so the next tiles arrive while this one is multiplied. Tiles
-//     land in the 128-byte swizzle (64-byte for D = 32) that wgmma reads
-//     without bank conflicts; a 4-D tensor map (D, heads, S, batch) reads one
-//     head's rows in place and fills rows past S with zeros.
+//     rows each, and one thread loads by TMA: Q once, then K/V tiles
+//     through a ring of stages, each with a full and an empty mbarrier, so
+//     the next tiles arrive while this one is multiplied. Tiles land in the
+//     128-byte swizzle (64-byte for D = 32) that wgmma reads without bank
+//     conflicts; a 4-D tensor map (D, heads, S, batch) reads one head's rows
+//     in place and fills rows past S with zeros.
+//   * Registers decide who loads. ptxas holds every thread of a block to
+//     the registers its size allows: 168 for nine to twelve warps (a
+//     quarter of the register file serves a quarter of the warps; setmaxnreg
+//     moves registers at run time, but the code was allocated for 168), 255
+//     for eight. At D <= 128 (O is 64 registers) a ninth warp, the producer,
+//     starts the copies and waits on each release; the consumers fit 168. At
+//     D = 256, O is 128 registers beside S and P (48 at 64 keys): under 168
+//     that spilled and ptxas serialised the wgmmas (C7512), so the block is
+//     the two consumer warpgroups alone (223-248 registers, no spill) and a
+//     consumer thread starts the copies, polling the ring (sm90::Ring)
+//     between its own tiles.
 //   * The two consumer warpgroups run unsynchronised, so one's softmax
 //     overlaps the other's products on the tensor cores.
 //   * Tiles that causality or the window rule out entirely are never loaded;
@@ -52,7 +62,10 @@
 //     causal tiles start first and the light ones fill the tail.
 //   * Tiles: BK = 128 keys and 3 stages for D <= 128 (Q 32 KB + 3 x (K + V)
 //     192 KB at D = 128), BK = 64 and 2 stages for D = 256 (Q 64 KB +
-//     2 x (K + V) 128 KB).
+//     2 x (K + V) 128 KB). At D = 256, 32-key tiles in 4 stages measured
+//     0.308 ms against 0.228 on an H100 at gemma2-9b's shape: O's rescale
+//     (128 registers), the row max shuffles and the barrier waits come once
+//     a tile, twice as often.
 #include "common.cuh"
 #include "hopper.cuh"
 
@@ -63,19 +76,22 @@ using bf16 = __nv_bfloat16;
 
 constexpr int kBQ = 128;                        // q rows per block
 constexpr int kConsumers = 256;                 // two warpgroups of 64 rows each
-constexpr int kThreadsTC = 128 + kConsumers;    // after one producer warpgroup
-constexpr int kProducerRegs = 24, kConsumerRegs = 240;   // setmaxnreg split
 
 template <int D>
 struct Tile {
   static constexpr int BK = D <= 128 ? 128 : 64;   // keys per k tile
   static constexpr int STAGES = D <= 128 ? 3 : 2;  // K/V ring depth
+  // a producer warp after the consumers (ptxas then holds every thread to
+  // 168 registers), or none and one consumer thread starts the copies (255)
+  static constexpr bool WARP = D <= 128;
+  static constexpr int THREADS = kConsumers + (WARP ? 32 : 0);
+  static constexpr int PRODUCER = WARP ? kConsumers : 128;   // the thread that copies
   static constexpr int SW = D >= 64 ? 128 : 64;    // swizzle span (bytes of a row)
   static constexpr int E = SW / 2;                 // bf16 columns per swizzled box
   static constexpr int NC = D / E;                 // boxes across D
   static constexpr int Q_BYTES = kBQ * D * 2;
   static constexpr int KV_BYTES = BK * D * 2;      // one K or V tile
-  static constexpr int BAR_BYTES = 64;
+  static constexpr int BAR_BYTES = 128;
   static constexpr int SMEM = 1024 + Q_BYTES + STAGES * 2 * KV_BYTES + BAR_BYTES;
   static_assert(SMEM <= 232448, "tiles exceed a block's shared memory");
   static_assert(D % E == 0 && BK % 16 == 0 && 2 * STAGES + 1 <= BAR_BYTES / 8, "bad tile");
@@ -118,16 +134,19 @@ __device__ __forceinline__ uint64_t mnmajor_desc(const char* tile) {
 
 // s = Q K^T for one warpgroup: 64 rows of the Q tile (q: their descriptor)
 // against the BK rows of the K tile (k), as one commit group (the caller waits).
+// The first 16-deep step writes s without reading it (wgmma_ss_init), so
+// the last tile's scores need not stay live through the softmax and P V.
 template <int D>
 __device__ __forceinline__ void qk_product(float (&s)[Tile<D>::BK / 2], uint64_t q, uint64_t k) {
   using T = Tile<D>;
   sm90::wgmma_fence();
+  sm90::wgmma_ss_init<T::BK>(s, q, k);
 #pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk) {
+  for (int kk = 1; kk < D / 16; ++kk) {
     // depth kk * 16: box c, byte `inner` into each swizzled row
     const int c = kk * 16 / T::E, inner = (kk * 16 % T::E) * 2;
     sm90::wgmma_ss<T::BK>(s, q + ((c * kBQ * T::SW + inner) >> 4),
-                          k + ((c * T::BK * T::SW + inner) >> 4), kk > 0);
+                          k + ((c * T::BK * T::SW + inner) >> 4), 1);
   }
   sm90::wgmma_commit();
 }
@@ -237,7 +256,7 @@ __device__ __forceinline__ void rescale(float (&o)[R], float alpha0, float alpha
 }
 
 template <int D, bool kCap, bool kLse>
-__global__ void __launch_bounds__(kThreadsTC, 1)
+__global__ void __launch_bounds__(Tile<D>::THREADS, 1)
 flash_fwd_tc_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
                     const __grid_constant__ CUtensorMap tv, bf16* __restrict__ o,
                     float* __restrict__ lse, int Sq, int Sk, int H, int KV, int causal,
@@ -262,9 +281,9 @@ flash_fwd_tc_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constan
   const int k_begin = (causal && window > 0) ? max(0, q0 - window + 1) : 0;
   const int t_begin = k_begin / BK, n_tiles = (k_end + BK - 1) / BK - t_begin;
   const int tid = threadIdx.x;
-  // the warpgroup index, read from lane 0 so the compiler sees it is the same
-  // across the warp: the role branch below then gets its own register budget
-  const int role = __shfl_sync(0xffffffffu, tid / 128, 0);
+  // the warpgroup index, read from lane 0 so the compiler sees it is the
+  // same across the warp
+  const int wg = __shfl_sync(0xffffffffu, tid / 128, 0);
 
   if (tid == 0) {
 #pragma unroll
@@ -277,26 +296,34 @@ flash_fwd_tc_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constan
   }
   __syncthreads();
 
-  if (role == 0) {
-    // the producer warpgroup: one lane starts every copy
-    sm90::setmaxnreg_dec<kProducerRegs>();
-    if (tid == 0) {
-      sm90::mbar_arrive_expect_tx(qbar, T::Q_BYTES);
-      load_rows<D, kBQ>(sQ, &tq, qbar, h, q0, b);
-      for (int i = 0; i < n_tiles; ++i) {
-        const int s = i % NS, k0 = (t_begin + i) * BK;
-        // the stage's previous tile (i - NS) must be released first
-        if (i >= NS) sm90::mbar_wait(&empty[s], (i / NS - 1) & 1);
-        sm90::mbar_arrive_expect_tx(&full[s], 2 * T::KV_BYTES);
-        char* stage = sKV + s * 2 * T::KV_BYTES;
-        load_rows<D, BK>(stage, &tk, &full[s], kvh, k0, b);
-        load_rows<D, BK>(stage + T::KV_BYTES, &tv, &full[s], kvh, k0, b);
-      }
+  // one thread starts every copy: Q once, then K/V tiles through the ring,
+  // refilled as the consumers release stages: the producer warp's lane 0,
+  // waiting for each release, or (no producer warp) a consumer thread,
+  // which polls the ring (sm90::Ring) between its own tiles
+  auto load = [&](int i, int s) {
+    const int k0 = (t_begin + i) * BK;
+    char* stage = sKV + s * 2 * T::KV_BYTES;
+    sm90::mbar_arrive_expect_tx(&full[s], 2 * T::KV_BYTES);
+    load_rows<D, BK>(stage, &tk, &full[s], kvh, k0, b);
+    load_rows<D, BK>(stage + T::KV_BYTES, &tv, &full[s], kvh, k0, b);
+  };
+  const bool producer = tid == T::PRODUCER;
+  if (producer) {
+    sm90::mbar_arrive_expect_tx(qbar, T::Q_BYTES);
+    load_rows<D, kBQ>(sQ, &tq, qbar, h, q0, b);
+  }
+  if (T::WARP && wg == 2) {
+    for (int i = 0; producer && i < n_tiles; ++i) {
+      const int s = i % NS;
+      // the stage's previous tile (i - NS) must be released first
+      if (i >= NS) sm90::mbar_wait(&empty[s], (i / NS - 1) & 1);
+      load(i, s);
     }
   } else {
+    sm90::Ring<NS, decltype(load)> ring{empty, n_tiles, load, 0};
+    if (!T::WARP && producer) ring.poll(1);
     // consumers: warpgroup wg owns rows qw0 .. qw0 + 63 of the block
-    sm90::setmaxnreg_inc<kConsumerRegs>();
-    const int wg = role - 1, warp = (tid % 128) / 32, lane = tid % 32;
+    const int warp = (tid % 128) / 32, lane = tid % 32;
     const int qw0 = q0 + wg * 64;
     const int qpos0 = qw0 + warp * 16 + lane / 4, qpos1 = qpos0 + 8;   // this thread's rows
     const int col = 2 * (lane % 4);   // its first column in each group of 8
@@ -321,6 +348,7 @@ flash_fwd_tc_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constan
     for (int i = 0; i < n_tiles; ++i) {
       const int s = i % NS, k0 = (t_begin + i) * BK;
       const uint64_t stage = (s * 2 * T::KV_BYTES) >> 4;
+      if (!T::WARP && producer) ring.poll(i + 1);
       sm90::mbar_wait(&full[s], (i / NS) & 1);
       qk_product<D>(sc, q_desc, k_desc0 + stage);
       sm90::wgmma_wait<0>();
@@ -336,6 +364,7 @@ flash_fwd_tc_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constan
       sm90::wgmma_wait<0>();
       sm90::fence_regs(acc);
       if (lane == 0) sm90::mbar_arrive(&empty[s]);   // the stage may be refilled
+      if (!T::WARP && producer) ring.poll(0);
     }
     float l0 = sm.l0, l1 = sm.l1;
     l0 += __shfl_xor_sync(0xffffffffu, l0, 1);
@@ -386,7 +415,7 @@ cudaError_t launch_kernel(const CUtensorMap& tq, const CUtensorMap& tk, const CU
   const cudaError_t attr = set_smem_once(smem_set, flash_fwd_tc_kernel<D, kCap, kLse>, T::SMEM);
   if (attr != cudaSuccess) return attr;
   const dim3 grid(H, B, (Sq + kBQ - 1) / kBQ);
-  flash_fwd_tc_kernel<D, kCap, kLse><<<grid, kThreadsTC, T::SMEM, stream>>>(
+  flash_fwd_tc_kernel<D, kCap, kLse><<<grid, T::THREADS, T::SMEM, stream>>>(
       tq, tk, tv, static_cast<bf16*>(o), lse, Sq, Sk, H, KV, causal, window, softcap,
       1.0f / sqrtf(static_cast<float>(D)));
   return cudaGetLastError();
@@ -439,4 +468,17 @@ extern "C" int repro_flash_attention_tc(const void* q, const void* k, const void
     default: err = cudaErrorInvalidValue;
   }
   return static_cast<int>(err);
+}
+
+// Dynamic shared memory (bytes) a block of the forward takes at head dim D;
+// 0 for a D it does not take. Not a launch.
+extern "C" int repro_flash_tc_smem(int D) {
+  using namespace repro;
+  switch (D) {
+    case 32: return Tile<32>::SMEM;
+    case 64: return Tile<64>::SMEM;
+    case 128: return Tile<128>::SMEM;
+    case 256: return Tile<256>::SMEM;
+    default: return 0;
+  }
 }

@@ -1,11 +1,13 @@
 // Hopper (sm_90a) building blocks in inline PTX, for the tensor-core
-// kernels: mbarriers, TMA tile loads, shared-memory matrix descriptors and
+// kernels: mbarriers, a ring of TMA stages that one consumer thread refills,
+// named barriers, TMA tile loads, shared-memory matrix descriptors and
 // warpgroup matrix multiplies (wgmma: bf16 operands, and tf32 operands for
 // the split-f32 kernels of flash_attention_f32tc.cu; f32 sums).
 //
 // The wgmma wrappers name every accumulator register, as inline PTX must:
 //   wgmma_ss<N>: d[64 x N] (+)= A[64 x 16] B[16 x N], A and B in shared memory,
-//                both K-major (the 16-deep axis contiguous);
+//                both K-major (the 16-deep axis contiguous); wgmma_ss_init<N>
+//                the same with d write-only, a product's first step;
 //   wgmma_rs<N>: d[64 x N] (+)= A[64 x 16] B[16 x N], A in registers (four
 //                bf16 pairs a thread), B in shared memory, MN-major.
 // scale_d = 0 overwrites d, 1 accumulates. Each thread of the warpgroup holds
@@ -71,6 +73,48 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
   }
 }
 
+// Test, without waiting, whether the phase of parity `parity` has completed.
+__device__ __forceinline__ bool mbar_test(uint64_t* bar, uint32_t parity) {
+  uint32_t done;
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "mbarrier.test_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+      "selp.u32 %0, 1, 0, p;\n}\n"
+      : "=r"(done) : "r"(smem_addr(bar)), "r"(parity) : "memory");
+  return done != 0;
+}
+
+// The producer side of a ring of NS stages whose copies one thread of the
+// consumer warpgroups issues (a block of two warpgroups and no producer warp
+// keeps up to 255 registers a thread; a ninth warp would cut that to 168,
+// since a quarter of the register file serves a quarter of the warps).
+// `next` is the first step not yet loaded; poll(needed) starts, in order,
+// the copies of every step whose stage all consumer warps have released
+// (its empty barrier), waiting for a release only for steps below `needed`.
+// load(i, s) starts step i's copies into stage s.
+template <int NS, typename Load>
+struct Ring {
+  uint64_t* empty;
+  int n_steps;
+  Load load;
+  int next;
+  __device__ __forceinline__ void poll(int needed) {
+    while (next < n_steps) {
+      const int s = next % NS;
+      if (next >= NS) {
+        const uint32_t parity = (next / NS - 1) & 1;
+        if (next < needed) {
+          mbar_wait(&empty[s], parity);
+        } else if (!mbar_test(&empty[s], parity)) {
+          return;
+        }
+      }
+      load(next, s);
+      ++next;
+    }
+  }
+};
+
 // ---- thread block clusters --------------------------------------------------------
 
 // The cluster barrier in two halves (PTX barrier.cluster): arrive, then wait
@@ -113,19 +157,12 @@ __device__ __forceinline__ float4 ld_cluster_v4(uint32_t addr) {
   return v;
 }
 
-// ---- register split between warpgroups ------------------------------------------
+// ---- named barriers ---------------------------------------------------------------
 
-// Every warp of the warpgroup runs these together: dec gives registers back to
-// the block's pool, inc takes them (a producer that only starts copies needs
-// few; the consumers that hold the accumulators take the rest).
-template <int R>
-__device__ __forceinline__ void setmaxnreg_dec() {
-  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" :: "n"(R));
-}
-
-template <int R>
-__device__ __forceinline__ void setmaxnreg_inc() {
-  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" :: "n"(R));
+// Barrier `id` (1-15; 0 is __syncthreads') over `n` threads, a multiple of
+// 32 counted a warp at a time: wait until all n have arrived.
+__device__ __forceinline__ void named_sync(int id, int n) {
+  asm volatile("bar.sync %0, %1;\n" :: "r"(id), "r"(n) : "memory");
 }
 
 // ---- TMA ----------------------------------------------------------------------
@@ -216,6 +253,54 @@ template <> __device__ __forceinline__ void wgmma_ss<128>(float (&d)[64], uint64
         "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
         "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
       : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// d[64 x N] = A[64 x 16] B[16 x N] with d write-only (scale_d = 0): the
+// first 16-deep step of a product. Its accumulator's old values are not an
+// input, so they need not stay live before it (wgmma_ss reads them).
+template <int N>
+__device__ void wgmma_ss_init(float (&d)[N / 2], uint64_t da, uint64_t db);
+template <> __device__ __forceinline__ void wgmma_ss_init<64>(float (&d)[32], uint64_t da,
+                                                        uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "
+      "%30, %31"
+      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3]), "=f"(d[4]), "=f"(d[5]), "=f"(d[6]),
+        "=f"(d[7]), "=f"(d[8]), "=f"(d[9]), "=f"(d[10]), "=f"(d[11]), "=f"(d[12]), "=f"(d[13]),
+        "=f"(d[14]), "=f"(d[15]), "=f"(d[16]), "=f"(d[17]), "=f"(d[18]), "=f"(d[19]),
+        "=f"(d[20]), "=f"(d[21]), "=f"(d[22]), "=f"(d[23]), "=f"(d[24]), "=f"(d[25]),
+        "=f"(d[26]), "=f"(d[27]), "=f"(d[28]), "=f"(d[29]), "=f"(d[30]), "=f"(d[31])
+      : "l"(da), "l"(db), "r"(0));
+}
+template <> __device__ __forceinline__ void wgmma_ss_init<128>(float (&d)[64], uint64_t da,
+                                                        uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "
+      "%30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, "
+      "%44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, "
+      "%58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3]), "=f"(d[4]), "=f"(d[5]), "=f"(d[6]),
+        "=f"(d[7]), "=f"(d[8]), "=f"(d[9]), "=f"(d[10]), "=f"(d[11]), "=f"(d[12]), "=f"(d[13]),
+        "=f"(d[14]), "=f"(d[15]), "=f"(d[16]), "=f"(d[17]), "=f"(d[18]), "=f"(d[19]),
+        "=f"(d[20]), "=f"(d[21]), "=f"(d[22]), "=f"(d[23]), "=f"(d[24]), "=f"(d[25]),
+        "=f"(d[26]), "=f"(d[27]), "=f"(d[28]), "=f"(d[29]), "=f"(d[30]), "=f"(d[31]),
+        "=f"(d[32]), "=f"(d[33]), "=f"(d[34]), "=f"(d[35]), "=f"(d[36]), "=f"(d[37]),
+        "=f"(d[38]), "=f"(d[39]), "=f"(d[40]), "=f"(d[41]), "=f"(d[42]), "=f"(d[43]),
+        "=f"(d[44]), "=f"(d[45]), "=f"(d[46]), "=f"(d[47]), "=f"(d[48]), "=f"(d[49]),
+        "=f"(d[50]), "=f"(d[51]), "=f"(d[52]), "=f"(d[53]), "=f"(d[54]), "=f"(d[55]),
+        "=f"(d[56]), "=f"(d[57]), "=f"(d[58]), "=f"(d[59]), "=f"(d[60]), "=f"(d[61]),
+        "=f"(d[62]), "=f"(d[63])
+      : "l"(da), "l"(db), "r"(0));
 }
 
 template <> __device__ __forceinline__ void wgmma_rs<32>(float (&d)[16], const uint32_t (&a)[4],

@@ -242,8 +242,9 @@ def flash_variant(dtype: torch.dtype, head_dim: int) -> str:
     - bf16: "tensor_core", ``csrc/flash_attention_tc.cu`` (wgmma + TMA; the
       forward, ``flash_fwd_tc_kernel``) and ``csrc/flash_attention_tc_bwd.cu``
       (its backward: ``flash_bwd_tc_delta_kernel``, ``flash_bwd_tc_dkdv_kernel``
-      and ``flash_bwd_tc_dq_kernel``; at D = 256 two warpgroups a block, each
-      summing half the head dim);
+      and ``flash_bwd_tc_dq_kernel``; two warpgroups a block, each owning 64
+      of its 128 rows, or splitting the products of its 64 rows: dk/dv from
+      D = 128, dq at D = 256);
     - f32: "split_f32", ``csrc/flash_attention_f32tc.cu``, forward and
       backward on the tensor cores with split-f32 products (hi + lo tf32
       parts, three wgmma a product): one TF32 product keeps 10 mantissa bits

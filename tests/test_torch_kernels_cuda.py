@@ -61,6 +61,12 @@ FLASH_CASES = [
     (2, 2048, 1500, 16, 16, 64, False, None, None, "bf16"),
     (2, 2048, 2048, 16, 16, 64, False, None, None, "f32"),
     (1, 700, 1000, 16, 16, 64, False, None, None, "f32"),
+    # bf16 at D = 256 (32-key tiles) ending inside a tile: ragged S, a window
+    # that ends inside one, Sq != Sk, a single partial tile
+    (1, 1000, 1000, 8, 4, 256, True, None, 50.0, "bf16"),
+    (1, 1100, 1100, 8, 4, 256, True, 300, 50.0, "bf16"),
+    (1, 1000, 1100, 4, 2, 256, False, None, 30.0, "bf16"),
+    (1, 33, 33, 2, 1, 256, True, None, None, "bf16"),
 ]
 # bf16 also per output row (b, q, h): its error over D relative to that row
 # of the f32 result may be at most ref.BF16_ROW_TOL. rtol=atol 2e-2 alone
@@ -462,7 +468,8 @@ def test_f32_flash_d256_is_bitwise_repeatable(card):
 
 # bf16 flash backward (csrc/flash_attention_tc_bwd.cu) against the plain
 # backward on f32 copies of the same bf16 operands, given the plain f32
-# forward's o and lse: every head dim (D = 256: two warpgroups a block),
+# forward's o and lse: every head dim (row and product splits of a block's
+# two warpgroups),
 # causal and not, softcap, window, ragged S, Sq != Sk, head groups 1-16.
 BF16_BWD_CASES = [
     # (B, Sq, Sk, H, KV, D, causal, window, softcap)
@@ -482,6 +489,25 @@ BF16_BWD_CASES = [
     (1, 700, 1000, 8, 4, 128, False, None, None),     # ragged Sq / Sk
     (2, 2048, 2048, 16, 8, 128, True, None, None),    # internlm2's train step
 ]
+# shapes that end inside a block (128 rows, 64 a warpgroup, a step with no
+# kept pair of a warpgroup skipped: dk/dv below D = 128, dq below 256; else
+# 64 rows, the two warpgroups splitting the products): Sq, Sk multiples of
+# neither 128 nor each other, a window that cuts a 128-key block, head
+# groups 6 and 7 there, D = 32, D = 256 with Sk not a multiple of 64, a
+# block whose second warpgroup has no row, Sq below one block
+BF16_BWD_EDGE_CASES = [
+    (1, 1000, 1000, 8, 4, 128, True, None, None),
+    (1, 1100, 1000, 8, 4, 128, False, None, 30.0),
+    (1, 1100, 1100, 8, 4, 128, True, 200, None),
+    (1, 1100, 1100, 48, 8, 64, True, 300, None),
+    (1, 1000, 1100, 56, 8, 64, False, None, None),
+    (1, 1100, 1100, 8, 2, 32, True, 100, None),
+    (1, 1000, 1000, 8, 4, 256, True, None, 50.0),
+    (1, 1100, 1000, 8, 4, 256, False, None, 30.0),
+    (1, 300, 300, 4, 2, 256, True, 100, 50.0),
+    (1, 60, 60, 4, 2, 128, True, None, None),
+    (1, 64, 200, 4, 2, 64, False, None, None),
+]
 BF16_BWD_TOL = 2e-2   # relative to each gradient's largest magnitude
 BF16_LSE_TOL = 1e-3
 
@@ -499,7 +525,7 @@ def _bf16_bwd_operands(card, case, seed=0):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("case", BF16_BWD_CASES)
+@pytest.mark.parametrize("case", BF16_BWD_CASES + BF16_BWD_EDGE_CASES)
 def test_bf16_flash_backward_matches_plain(card, case):
     """The bf16 forward with lse (o the same bits as without it, lse within
     1e-3 of the f32 one), then the bf16 backward: each gradient within 2e-2
@@ -525,7 +551,7 @@ def test_bf16_flash_backward_matches_plain(card, case):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("case", BF16_BWD_CASES[:4])
+@pytest.mark.parametrize("case", BF16_BWD_CASES[:4] + BF16_BWD_EDGE_CASES[:9:2])
 def test_bf16_flash_autograd_on_card(card, case):
     """ops.flash_attention on bf16 leaves with grad: the bf16 forward and
     backward kernels, one counted launch each, within 2e-2 of each
