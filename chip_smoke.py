@@ -4,7 +4,7 @@
     python3 chip_smoke.py
 
 Models, at full width with random weights from a seed, depth not cut
-except in phases 7, 8, 9, 10c and 11b: internlm2-1.8b (24 layers, d=2048, 16 heads, 8
+except in phases 7, 8, 9, 11b and 12: internlm2-1.8b (24 layers, d=2048, 16 heads, 8
 kv heads, dh=128, d_ff=8192, V=92544), falcon-mamba-7b (64 Mamba layers,
 d=4096, d_inner=8192, d_state=16, d_conv=4, dt_rank=256, V=65024),
 gemma2-9b (42 layers, alternating local (window 4096) and global attention,
@@ -69,21 +69,23 @@ non-causal). Phases:
    worker kill, whose losses and final state must equal, bit for bit, a run
    without kills;
 7. falcon-mamba ``make_train_step`` (mamba-train-f32) at full width in f32,
-   depth cut to MAMBA_TRAIN_LAYERS (4 of 64: device memory, reckoned on its
-   own line), tokens [1, 2, 2048]: the same checks and timings as phase 6,
-   with 4 forward (sequential variant) and 4 backward scan launches a step,
-   the scan pair's share of the step and the grads at depth 2 against
-   ``scan_impl="plain"`` (and whether they are bitwise equal);
+   at its train preset's remat ("block") and cut to the deepest depth whose
+   ``train_memory`` is within TRAIN_GB (``depth_for``; reckoned on its own
+   line), tokens [1, 2, 2048]: the same checks and timings as phase 6, with
+   2 x depth forward (sequential variant: the forward and its recompute)
+   and depth backward scan launches a step, the scan pair's share of the
+   step, the grads at depth 2 against ``scan_impl="plain"`` (and whether
+   they are bitwise equal), the peak at or below its reckoning, and one
+   step at depth 2 with remat bitwise equal to one without
+   (``remat_equal``);
    7b. (mamba-train-logio) phase 6b's pair of runs on falcon-mamba, reduced
    to d_model 512 and 4 layers (d_inner 1024, d_state 8);
 8. gemma2-9b ``make_train_step`` (gemma2-train-f32) at full width in f32,
-   depth cut to GEMMA_TRAIN_LAYERS (4 of 42, two (local, global) pairs:
-   device memory, reckoned on its own line), tokens [1, 2, 2048]: the same
-   checks and timings as phase 6, with 4 forward and 4 backward flash
-   launches a step recorded as the split-f32 kernels at dh = 256 (the
-   *_d256_* pair kernels) and none of another variant; its first loss is
-   held to the plain path's (a tied N(0, 1) embedding puts it far above
-   ln V, see ``phase_train``);
+   cut as phase 7 (remat "block"; an even depth: (local, global) pairs),
+   tokens [1, 2, 2048]: the checks of phase 7, its flash launches recorded
+   as the split-f32 kernels at dh = 256 (the *_d256_* pair kernels) and
+   none of another variant; its first loss is held to the plain path's (a
+   tied N(0, 1) embedding puts it far above ln V, see ``phase_train``);
 9. grok-1-314b ``forward`` (grok-forward-bf16) at full width, depth cut to
    GROK_LAYERS (2 of 64: device memory, reckoned by ``serve_memory``), as
    phase 3 (2 tensor-core flash launches a forward, none f32; the error
@@ -108,10 +110,11 @@ non-causal). Phases:
     phase 5's timings at seamless's shapes (flash non-causal at [2, 2048,
     16, 64] kv 16 in bf16 and the f32 pair; decode over the cross cache);
     10c. seamless ``make_train_step`` (seamless-train-f32) at full width,
-    encoder and decoder both cut to SEAMLESS_TRAIN_LAYERS (12 of 24: device
-    memory, reckoned on its own line), tokens and frames [1, 2, 2048]: the
-    checks of phase 6, with 36 forward and 36 backward split-f32 flash
-    launches a step and the grads at depth 2 + 2.
+    its preset's remat ("full": each encoder layer and each decoder block
+    checkpointed) at the depth ``depth_for`` gives (24 + 24 of 24 + 24),
+    tokens and frames [1, 2, 2048]: the checks of phase 7, with 2 x 72
+    forward and 72 backward split-f32 flash launches a step and the grads
+    at depth 2 + 2.
 11. internlm2 ``make_train_step`` (internlm2-train-bf16) at full width and
     depth with bf16 params (``init_train_state``'s default dtype) and the
     default optimizer (f32 moments and accumulation), tokens [1, 2, 2048]:
@@ -122,11 +125,22 @@ non-causal). Phases:
     within 2x / 1.25x of the plain bf16 path's max / mean error, phase 3's
     rule); then one step of each optimizer variant (bf16 moments with bf16
     accumulation, int8 moments, ``compress_grads``), each twice from the same
-    state and bitwise equal, with its time and peak memory;
-    11b. gemma2-9b the same way (gemma2-train-bf16), depth cut to
-    GEMMA_BF16_TRAIN_LAYERS (8 of 42) when ``train_memory`` reckons it
-    within BF16_TRAIN_GB, else 4: its launches recorded on the dh 256 bf16
-    kernels, its first loss held to the plain path's (bf16 tolerance).
+    state and bitwise equal, with its time and peak memory; then internlm2's
+    preset remat ("full") at full depth: its first step bitwise equal to
+    one without remat, its step time and peak beside phase 11's;
+    11b. gemma2-9b the same way (gemma2-train-bf16), cut as phase 8: its
+    launches recorded on the dh 256 bf16 kernels, its first loss held to
+    the plain path's (bf16 tolerance);
+12. grok-1-314b ``make_train_step`` (grok-train-bf16) at full width, bf16
+    params and JAX's grok preset (``_BIG``: bf16 moments and accumulation,
+    remat "full", ``expert_split`` 2), depth 1 of 64 (device memory: 6.531
+    B params x 8 bytes), tokens [1, 2, 2048]: the checks of phase 11, with
+    2 forward launches a step recorded as the bf16 forward that writes lse
+    (the forward and its recompute, head group 6) and 1 bf16 backward; the
+    repeat holds m and v bitwise too, one step runs under
+    ``torch.cuda.set_sync_debug_mode("error")`` (no host sync), and the
+    grads at depth 1 stand against the f32 grads of f32 copies (phase 11's
+    ratio rule; the f32 reference made first, in place, so that it fits).
 
 Phase 2 also holds the f32 flash backward (``csrc/flash_attention_f32tc.cu``)
 against its plain version at rtol = atol = 2e-5 relative to each
@@ -135,16 +149,17 @@ and the bf16 backward (``csrc/flash_attention_tc_bwd.cu``) at 2e-2 of each
 gradient's largest magnitude against the f32 backward of the f32 copies of
 its bf16 operands, bitwise repeatable, with the bf16 forward's o the same
 bits with and without lse and its lse within 1e-3 of the f32 one. Phase 5
-also times the bf16 backward at internlm2's, gemma2's and seamless's
-shapes beside its bound and SDPA's bf16 backward, and the bf16 forward's
-device time with and without lse; it prints each bf16 flash time beside the
-earlier design's (``EARLIER_BF16_FLASH_MS``), and the ``ptxas -v`` report
-(registers, spill bytes, serialised wgmma) and dynamic shared memory of each
-bf16 flash kernel on a main path (``BF16_FLASH_MAIN``).
+also times the bf16 backward at internlm2's, gemma2's, grok's (head group
+6, phase 12's) and seamless's shapes beside its bound and SDPA's bf16
+backward, and the bf16 forward's device time with and without lse; it
+prints each bf16 flash time beside the earlier design's
+(``EARLIER_BF16_FLASH_MS``), and the ``ptxas -v`` report (registers, spill
+bytes, serialised wgmma) and dynamic shared memory of each bf16 flash
+kernel on a main path (``BF16_FLASH_MAIN``).
 Training needs ``CUBLAS_WORKSPACE_CONFIG`` (set here before torch starts)
 and runs under ``torch.use_deterministic_algorithms(True)`` from phase 6 on,
-so phases 9-11b run under it too. The phases that drive a main path
-(3-4b, 6-11b) set the launch counts to 0 just before and read them just
+so phases 9-12 run under it too. The phases that drive a main path
+(3-4b, 6-12) set the launch counts to 0 just before and read them just
 after.
 
 Every breakdown prints the port's kernel launches the profiler recorded
@@ -185,9 +200,11 @@ from repro_torch.configs import get_config, reduced  # noqa: E402
 from repro_torch.kernels import build, ops, ref  # noqa: E402
 from repro_torch.models import layers as L, model as M  # noqa: E402
 from repro_torch.launch import train as train_driver  # noqa: E402
+from repro_torch.launch.presets import preset_for  # noqa: E402
 from repro_torch.serving import SlotServer, serve_step  # noqa: E402
 from repro_torch.training import loss_fn, make_train_step  # noqa: E402
 from repro_torch.training import OptHParams, init_train_state  # noqa: E402
+from repro_torch.training import optimizer  # noqa: E402
 from repro_torch.training.optimizer import moment_leaves  # noqa: E402
 from repro_torch.training.quant import is_qtensor  # noqa: E402
 
@@ -207,14 +224,15 @@ GRAD_LAYERS = 2          # depth of the kernel-vs-plain gradient check
 GRAD_TOL = 1e-4          # that check's tolerance, relative to each leaf's max
 LOGIO_RUN = dict(steps=10, ckpt_every=3, seq_len=128, batch_size=4,
                  d_model=512, n_layers=4, seed=3)   # phases 6b and 7b
-MAMBA_TRAIN_LAYERS = 4   # phase 7's depth (of 64): what device memory allows
-GEMMA_TRAIN_LAYERS = 4   # phase 8's depth (of 42): two (local, global) pairs
 GROK_ARCH = "grok-1-314b"
 GROK_LAYERS = 2          # phases 9 and 9b's depth (of 64): device memory
 SEAMLESS_ARCH = "seamless-m4t-large-v2"
-SEAMLESS_TRAIN_LAYERS = 12   # phase 10c's depth (of 24), encoder and decoder
-GEMMA_BF16_TRAIN_LAYERS = 8  # phase 11b's depth (of 42), if reckoned within
-BF16_TRAIN_GB = 75.0         # this many GB (``train_memory``); else 4
+# the train cells cut for device memory (phases 7, 8, 10c, 11b, 12) run at
+# their preset's remat, as deep as ``train_memory`` reckons within this
+TRAIN_GB = 75.0
+# and a train step's measured peak lies at most this share below its
+# reckoning (``train_memory``; the largest gap, falcon-mamba's, was 3.7%)
+TRAIN_MARGIN = 0.05
 BF16_LSE_TOL = 1e-3          # the bf16 forward's lse against the f32 one
 
 KERNELS = {
@@ -342,16 +360,21 @@ def _dev_time_us(ev) -> float:
     return 0.0
 
 
-def profile_kernels(fn, iters: int = 10) -> dict:
+def profile_kernels(fn, iters: int = 10, warm: bool = False) -> dict:
     """Device time of fn() by kernel name, from torch.profiler (CUPTI):
     {"kernels": {name: (launches recorded / iters, ms recorded / iters)},
     "counted": {wrapper: launches ``ops.LAUNCHES`` counted / iters}}.
-    "kernels" is empty when the profiler saw no device activity."""
+    "kernels" is empty when the profiler saw no device activity. One call
+    runs first, outside the profile, unless ``warm`` (fn has run at these
+    shapes just before). Only device activity is traced: the host's ops
+    are read nowhere, and tracing them took most of a train step's profile
+    (seamless's 24 + 24 layers: 20.7 s for one step)."""
     from torch.profiler import ProfilerActivity, profile
-    fn()
+    if not warm:
+        fn()
     sync()
     before = dict(ops.LAUNCHES)
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         for _ in range(iters):
             fn()
         sync()
@@ -367,7 +390,7 @@ def profile_kernels(fn, iters: int = 10) -> dict:
 
 
 def profile_recorded(fn, names, per_call: float, iters: int = 10,
-                     grow: int = 1, tries: int = 3) -> tuple:
+                     grow: int = 1, tries: int = 3, warm: bool = False) -> tuple:
     """(profile, calls of fn made): ``profile_kernels(fn, iters)``, made
     again (up to ``tries`` profiles, ``iters`` times ``grow`` each time)
     while it recorded fewer than ``per_call`` launches a call of a device
@@ -376,8 +399,8 @@ def profile_recorded(fn, names, per_call: float, iters: int = 10,
     follows holds the last profile to its counts all the same."""
     calls = 0
     for n in range(tries):
-        prof = profile_kernels(fn, iters)
-        calls += iters + 1
+        prof = profile_kernels(fn, iters, warm)
+        calls += iters + (0 if warm else 1)
         got = {x: recorded(prof, x) for x in names}
         if all(v >= per_call for v in got.values()) or n == tries - 1:
             return prof, calls
@@ -438,10 +461,11 @@ def log_breakdown(tag: str, prof: dict, wall_ms: float, top: int = 6) -> None:
         log(f"  {100 * ms / busy:5.1f}% {ms:8.4f} ms x{n:g} {key[:90]}")
 
 
-def log_memory(tag: str, reckoned_gb=None) -> None:
+def log_memory(tag: str, reckoned_gb=None):
     """Peak device memory since the last reset (beside what was reckoned
     for it, where given), then reset it; and the seconds since the script
-    started, which time each phase."""
+    started, which time each phase. Returns the peak in GB (None off the
+    card)."""
     if torch.device(DEVICE).type == "cuda":
         peak = torch.cuda.max_memory_allocated()
         log(f"memory {tag}: peak {peak / 2**30:.2f} GiB ({peak / 1e9:.2f} GB)"
@@ -449,11 +473,14 @@ def log_memory(tag: str, reckoned_gb=None) -> None:
                              if reckoned_gb is not None else "")
             + f" (at {time.perf_counter() - T_START:.1f} s)")
         torch.cuda.reset_peak_memory_stats()
+        return peak / 1e9
+    return None
 
 
-def runtime(impl: str) -> M.Runtime:
-    """The kernel path or the plain path, for attention and scan alike."""
-    return M.Runtime(attn_impl=impl, scan_impl=impl)
+def runtime(impl: str, remat: str = "none") -> M.Runtime:
+    """The kernel path or the plain path, for attention and scan alike,
+    with ``remat`` named (the port's default is JAX's "block")."""
+    return M.Runtime(attn_impl=impl, scan_impl=impl, remat=remat)
 
 
 def host_ms(fn, iters: int) -> float:
@@ -757,6 +784,7 @@ BF16_BWD_CASES = [
     # group 1) and cross-attention (Sq != Sk), head groups 6 and 7, ragged
     # Sq / Sk, D = 32
     (2, 2048, 2048, 16, 8, 128, True, None, None),
+    (2, 2048, 2048, 48, 8, 128, True, None, None),   # grok's train step
     (2, 2048, 2048, 16, 8, 256, True, None, 50.0),
     (1, 1024, 1024, 16, 8, 256, True, 256, 50.0),
     (2, 2048, 2048, 16, 16, 64, False, None, None),
@@ -2056,6 +2084,7 @@ def time_flash_set(shape, causal: bool, seed: int, tag: str) -> dict:
 # internlm2-1.8b's attention shape as its train step runs it: (B, S, H, KV, D,
 # softcap), causal
 TRAIN_SHAPE = (2, 2048, 16, 8, 128, None)
+GROK_TRAIN_SHAPE = (2, 2048, 48, 8, 128, None)   # phase 12's, head group 6
 
 
 def time_sdpa_bf16_backward(qt, kt, vt, dot, causal: bool, tag: str):
@@ -2237,72 +2266,206 @@ def state_bytes(dtype, hp) -> float:
     return p + acc + 2 * MOMENT_BYTES[hp.moment_dtype] + (p if p != acc else 0)
 
 
-def train_memory(cfg, depth: int, tokens: int, dtype=torch.float32,
-                 hp: OptHParams = OptHParams()) -> float:
-    """A train step's peak device memory in GB at ``depth`` layers, reckoned
-    from the code: the state (``state_bytes`` a param: 16 in f32), the
-    activations autograd keeps a layer (in the params' dtype), the logits and
-    their loss (f32), and the backward's transients. N = ``tokens``.
+def ffn_acts(cfg, tokens: int, e: int) -> float:
+    """Bytes autograd keeps of one layer's FFN (``e`` bytes an element):
+    dense, four [N, d_ff] (the gate, up, activation and product); MoE
+    (``layers._moe_block``), the dispatched slots and the experts' outputs
+    ([E C, d] each), four [E, C, d_ff / sp] in the experts, the K weighted
+    products of the combine ([N, d] each) and the router's f32 logits and
+    probs."""
+    if cfg.moe is None:
+        return tokens * 4 * cfg.d_ff * e
+    m = cfg.moe
+    E, K, f = m.n_experts * m.expert_split, m.top_k * m.expert_split, \
+        cfg.d_ff // m.expert_split
+    slots = E * L.moe_capacity(tokens, cfg)
+    return ((2 * slots * cfg.d_model + 4 * slots * f + K * tokens * cfg.d_model)
+            * e + 2 * tokens * m.n_experts * 4)
 
-    - mamba: per layer the two [N, DI, DS] f32 tensors autograd keeps (a,
-      saved by ``exp``; h, saved by the ``h.C`` einsum and by
-      ``ops.SelectiveScan``) and about a dozen [N, DI] ones; three [N, V]
-      for the logits and loss; four [N, DI, DS] transients (dh, da, db,
-      exp's gradient).
-    - attention: per layer six [N, d] (the inputs and norms of both halves,
-      the projections back), three [N, H dh] (q before and after rope, the
-      flash output) and four [N, KV dh] (k before and after rope, v), and
-      four [N, d_ff] (the MLP's gate, up, activation and product); five
-      [N, V] for the logits, the final softcap's tanh, the loss and its
-      gradient; a layer's activations again and the flash backward's
-      transients (f32: the hi/lo copies, eight of q's size and six of k's;
-      bf16: dq, dk and dv) beside them. An
-      encoder-decoder (its encoder cut to ``depth`` too) keeps as much for
-      each encoder layer, and for each decoder layer's cross half two [N, d]
-      (its input and norm), three [N, H dh] (q, the flash output, the
-      projection's input) and four [N, KV dh] (k and v, of the memory)."""
-    state = state_bytes(dtype, hp) * at_depth(cfg, depth).param_count()
-    V = cfg.eff_vocab
-    e = 4 if dtype == torch.float32 else 2
-    if cfg.family == "ssm":
-        big = tokens * cfg.d_inner * cfg.mamba.d_state * 4
-        acts = depth * (2 * big + 12 * tokens * cfg.d_inner * 4)
-        return (state + acts + 3 * tokens * V * 4 + 4 * big) / 1e9
+
+# bytes a train step holds beside what ``train_memory`` counts: cuBLAS's
+# workspaces, the batch, RoPE's tables, the loss and the metrics
+TRAIN_SLACK_GB = 0.25
+
+
+def layer_memory(cfg, tokens: int, dtype, enc: bool = False) -> dict:
+    """Bytes of one layer in a train step at N = ``tokens`` (``e`` bytes an
+    activation): ``layer``, what autograd keeps of it without remat;
+    ``saved``, what remat "block" keeps (``model._save_products``: the
+    outputs of the products with no batch dimension); ``work``, what its
+    backward adds beside them. ``enc``: an encoder layer. Each term is the
+    code's own tensors (``tools/train_memory_probe.py`` measures them):
+
+    - attention: four [N, d] (the inputs of both halves and their norms;
+      bf16 adds the two norms' f32 copies), q before and after RoPE and the
+      flash output [N, H dh], k before and after RoPE and v [N, KV dh], and
+      the FFN's (``ffn_acts``); "block" keeps q, k, v and o and the dense
+      MLP's gate, up and down (an MoE FFN's f32 router logits: its experts'
+      products have the expert as batch); the backward adds the flash
+      backward's dq, dk and dv (f32: and its hi/lo workspace, eight of q's
+      size and six of k's). A decoder layer of an encoder-decoder adds its
+      cross half: its input and norm [N, d], q and the flash output [N, H
+      dh], k and v of the memory [N, KV dh] ("block": q, k, v, o), and its
+      backward the memory's gradient [N, d] twice. An encoder layer is
+      checkpointed with nothing saved under either remat.
+    - mamba: the two [N, DI, DS] f32 tensors (a, saved by ``exp``; h, by
+      the ``h.C`` einsum and ``ops.SelectiveScan``), twelve [N, DI] f32 and
+      the input, dt and B/C rows; "block" keeps ``in_proj`` [N, 2 DI],
+      ``x_proj`` [N, dt_rank + 2 DS], ``dt_proj`` [N, DI] and ``out_proj``
+      [N, d]; the backward adds three [N, DI, DS] (dh, da, db) and twelve
+      [N, DI] f32."""
+    N, d, e = tokens, cfg.d_model, (4 if dtype == torch.float32 else 2)
+    if cfg.family == "ssm" and not enc:
+        di, ds, dr = cfg.d_inner, cfg.mamba.d_state, cfg.dt_rank
+        big = N * di * ds * 4
+        return {"layer": 2 * big + N * (12 * di + d + dr + 2 * ds) * 4,
+                "saved": N * (3 * di + dr + 2 * ds + d) * e,
+                "work": 3 * big + 12 * N * di * 4}
     hd, kvd = cfg.n_heads * cfg.d_head, cfg.n_kv_heads * cfg.d_head
-    layer = tokens * (6 * cfg.d_model + 3 * hd + 4 * kvd + 4 * cfg.d_ff) * e
-    flash = (tokens * (8 * hd + 6 * kvd) * 4 if dtype == torch.float32
-             else tokens * (hd + 2 * kvd) * 2)
-    if cfg.enc_dec:
-        cross = tokens * (2 * cfg.d_model + 3 * hd + 4 * kvd) * e
-        layer_all = 2 * layer + cross    # an encoder and a decoder layer
-    else:
-        layer_all = layer
-    return (state + depth * layer_all + 5 * tokens * V * 4 + layer
-            + flash) / 1e9
+    norms = 2 * N * d * 4 if e == 2 else 0
+    out = {"layer": N * (4 * d + 3 * hd + 4 * kvd) * e + ffn_acts(cfg, N, e)
+           + norms,
+           "saved": 0 if enc else N * (hd + 2 * kvd + d) * e + (
+               N * cfg.moe.n_experts * 4 if cfg.moe is not None
+               else N * (2 * cfg.d_ff + d) * e),
+           "work": N * (hd + 2 * kvd) * e
+           + (N * (8 * hd + 6 * kvd) * 4 if e == 4 else 0)}
+    if cfg.enc_dec and not enc:
+        out["layer"] += N * (2 * d + 2 * hd + 2 * kvd) * e
+        out["saved"] += N * (hd + 2 * kvd + d) * e
+        out["work"] += 2 * N * d * e
+    return out
+
+
+def train_units(cfg, depth: int, tokens: int, dtype, remat: str) -> list:
+    """The units of a train step's backward at ``depth`` layers (an
+    encoder-decoder's encoder cut to ``depth`` too), N = ``tokens``, in the
+    order it runs them: each block of ``len(cfg.block)`` layers from the top,
+    then each encoder layer. Each unit is (kept, over, params): the bytes
+    the forward keeps for it (all its layers' ``layer_memory`` "layer"
+    without remat; its input [N, d] and its layers' "saved" under "block";
+    its input under "full"; an encoder layer, its input under either
+    remat), the bytes its backward adds beside them (its recompute under
+    remat and its layers' "work"), and its parameter count."""
+    nb, N, d = len(cfg.block), tokens, cfg.d_model
+    e = 4 if dtype == torch.float32 else 2
+    cfg2 = at_depth(cfg, max(depth, nb))
+    sizes = {name: t.numel() for name, t in M.DecoderParams(
+        cfg2, torch.float32, "meta").named_parameters()}
+
+    def units(prefix, n, enc):
+        lm = layer_memory(cfg, N, dtype, enc)
+        per = sum(v for k, v in sizes.items() if k.startswith(prefix))
+        mode = "full" if enc and remat != "none" else remat
+        kept = {"none": n * lm["layer"], "block": N * d * e + n * lm["saved"],
+                "full": N * d * e}[mode]
+        over = lm["work"] + n * lm["layer"] + N * d * e - kept
+        return [(kept, over, per * n / cfg2.n_layers)] * (depth // n)
+    return units("layers.", nb, False) + (
+        units("encoder.layers.", 1, True) if cfg.enc_dec else [])
+
+
+def train_memory(cfg, depth: int, tokens: int, dtype=torch.float32,
+                 hp: OptHParams = OptHParams(), remat: str = "none") -> float:
+    """A train step's peak device memory in GB at ``depth`` layers (an
+    encoder-decoder's encoder cut to ``depth`` too) under ``remat``,
+    reckoned from the code, N = ``tokens``: the largest of
+
+    - the loss's backward: the params and m and v (no grad exists yet),
+      what the forward keeps for the backward, and five [N, V] f32 (the
+      logits autograd keeps and the cross-entropy backward's temporaries;
+      six under a final softcap: its tanh);
+    - each unit's backward (``train_units``, from the top): the params and
+      moments, the gradients made so far (the logits' weight's first), what
+      is still kept, and what the unit's backward adds;
+    - the gradients' cast to the accumulator (``state_bytes`` a param; a
+      tied embedding's second gradient beside its first);
+    - AdamW's: the state after the cast and the larger of
+      ``global_norm``'s f32 temporaries of the largest leaf (its square;
+      and its f32 copy where the accumulator is bf16) and the update's six
+      f32 temporaries of a slice of ``optimizer.ADAMW_CHUNK`` elements;
+
+    and TRAIN_SLACK_GB. Beside the units' and the loss's, the forward keeps
+    three [N, d] f32 outside the blocks (the embedding's output and the
+    final norm's; five with an encoder)."""
+    p = 4 if dtype == torch.float32 else 2
+    acc = ACCUM_BYTES[hp.grad_accum_dtype]
+    opt = p + 2 * MOMENT_BYTES[hp.moment_dtype]   # a param, its m and v
+    n_params = at_depth(cfg, depth).param_count()
+    V, d, N = cfg.eff_vocab, cfg.d_model, tokens
+    chain = train_units(cfg, depth, N, dtype, remat)
+    kept_all = sum(k for k, _, _ in chain) + (3 + 2 * cfg.enc_dec) * N * d * 4
+    logits = (5 + (cfg.final_softcap is not None)) * N * V * 4
+    peaks = [opt * n_params + kept_all + logits]
+    done, kept = V * d, kept_all
+    for k, over, n in chain:
+        peaks.append(opt * n_params + p * done + kept + over)
+        done, kept = done + n, kept - k
+    peaks.append(state_bytes(dtype, hp) * n_params
+                 + (p * V * d if cfg.tie_embeddings else 0))
+    largest = max(t.numel() for t in M.DecoderParams(
+        at_depth(cfg, len(cfg.block)), torch.float32, "meta").parameters())
+    norm_tmp = largest * 4 * (1 if acc == 4 else 2)
+    peaks.append((opt + acc) * n_params + max(
+        norm_tmp, 6 * min(largest, optimizer.ADAMW_CHUNK) * 4))
+    return max(peaks) / 1e9 + TRAIN_SLACK_GB
+
+
+def depth_for(tag: str, cfg, dtype, hp: OptHParams, remat: str) -> int:
+    """The deepest depth, a multiple of ``len(cfg.block)`` and at most
+    ``cfg.n_layers``, whose ``train_memory`` at ``tokens`` = FWD_B * FWD_S
+    under ``remat`` is within TRAIN_GB."""
+    tokens, nb = FWD_B * FWD_S, len(cfg.block)
+    fits = [x for x in range(nb, cfg.n_layers + 1, nb)
+            if train_memory(cfg, x, tokens, dtype, hp, remat) <= TRAIN_GB]
+    check(bool(fits), f"{tag}: no depth fits {TRAIN_GB} GB")
+    return fits[-1]
 
 
 def depth_cut(tag: str, cfg, depth: int, dtype=torch.float32,
-              hp: OptHParams = OptHParams()) -> float:
+              hp: OptHParams = OptHParams(), remat: str = "none") -> float:
     """Log why ``tag`` trains ``cfg`` at ``depth`` layers (device memory,
-    ``train_memory`` at that depth and at twice it, beside the card's) and
-    return the reckoning at ``depth``."""
+    ``train_memory`` under ``remat`` at that depth and one block deeper,
+    and without remat, beside TRAIN_GB and the card's memory) and return the
+    reckoning at ``depth``."""
     tokens = FWD_B * FWD_S
-    reckoned = train_memory(cfg, depth, tokens, dtype, hp)
+    reckoned = train_memory(cfg, depth, tokens, dtype, hp, remat)
+    deeper = depth + len(cfg.block)
     n = cfg.param_count()
     enc = (f" (and the encoder to {depth} of {cfg.n_enc_layers}; "
            f"{at_depth(cfg, depth).param_count() / 1e9:.3f} B params)"
            if cfg.enc_dec else "")
-    log(f"{tag}: depth cut to {depth} of {cfg.n_layers} layers{enc}, for device "
-        f"memory: full depth is {n / 1e9:.3f} B params, "
+    more = (f"at depth {deeper} "
+            f"{train_memory(cfg, deeper, tokens, dtype, hp, remat):.1f} GB"
+            if deeper <= cfg.n_layers else "full depth")
+    log(f"{tag}: depth {depth} of {cfg.n_layers} layers{enc}, remat "
+        f"{remat!r}: full depth is {n / 1e9:.3f} B params, "
         f"{state_bytes(dtype, hp) * n / 1e9:.1f} GB of {DTYPE_NAME[dtype]} "
         f"params, grads, m and v ({state_bytes(dtype, hp):g} bytes a param); "
-        f"reckoned peak at depth {depth} {reckoned:.1f} GB, at depth "
-        f"{2 * depth} {train_memory(cfg, 2 * depth, tokens, dtype, hp):.1f} "
-        f"GB (card: "
+        f"reckoned peak at depth {depth} {reckoned:.1f} GB ({more}; without "
+        f"remat {train_memory(cfg, depth, tokens, dtype, hp):.1f} GB), the "
+        f"limit {TRAIN_GB} GB (card: "
         f"{torch.cuda.get_device_properties(0).total_memory / 1e9:.1f} GB); "
-        f"the repeat check keeps its reference params on the host, so it "
-        f"adds no device memory")
+        f"the repeat check keeps its reference on the host, so it adds no "
+        f"device memory")
     return reckoned
+
+
+def train_preset(arch: str):
+    """(cfg, Runtime, OptHParams) of ``arch``'s train preset
+    (``repro_torch.launch.presets``), as the JAX dry-run maps one
+    (repro/launch/dryrun.py:57-63, 98-103): ``expert_split`` into
+    ``cfg.moe``, ``remat`` into the Runtime (the kernel path),
+    ``moment_dtype`` and ``grad_accum_dtype`` into the optimizer's
+    hyper-parameters."""
+    pre = preset_for(arch)
+    cfg = get_config(arch)
+    if pre.expert_split > 1 and cfg.moe is not None:
+        cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+            cfg.moe, expert_split=pre.expert_split))
+    return (cfg, runtime("kernel", pre.remat),
+            OptHParams(moment_dtype=pre.moment_dtype,
+                       grad_accum_dtype=pre.grad_accum_dtype))
 
 
 def serve_memory(cfg, depth: int) -> dict:
@@ -2376,15 +2539,32 @@ def encdec_memory(cfg) -> dict:
             "serve_gb": (4 * n + 3 * cache + V * cfg.d_model * 4) / 1e9}
 
 
+def _host_leaves(state, moments: bool) -> list:
+    """Host copies of a train state's params (and, with ``moments``, of its
+    m and v leaves) for a bitwise comparison that costs no device memory."""
+    leaves = (_state_leaves(state) if moments
+              else [t.detach() for t in state["params"].parameters()])
+    return [t.to("cpu", copy=True) for t in leaves]
+
+
 def phase_train(cfg, path: str, tag: str, reckoned_gb=None,
-                dtype=torch.float32) -> dict:
-    """``make_train_step`` at full width with ``dtype`` params and the
-    default optimizer (``cfg.n_layers`` deep), tokens [1, 2, 2048], under
-    the training's deterministic mode: the launches of ``TRAIN_PATHS[path]``
-    (counted and recorded), first loss, step time and breakdown with the
-    kernel pair's share, bitwise repeat, peak memory (beside ``reckoned_gb``
-    where given) and the grads at depth GRAD_LAYERS against the plain path
-    (``grad_check``).
+                dtype=torch.float32, hp: OptHParams = OptHParams(),
+                rt: M.Runtime = runtime("kernel"), grad_depth=GRAD_LAYERS,
+                lse_kernel=None, moe: bool = False) -> dict:
+    """``make_train_step`` at full width with ``dtype`` params, the
+    optimizer ``hp`` and the runtime ``rt`` (``cfg.n_layers`` deep), tokens
+    [1, 2, 2048], under the training's deterministic mode: the launches of
+    ``TRAIN_PATHS[path]`` (counted and recorded; under remat each forward
+    kernel twice a step, the forward and its recompute), first loss, step
+    time and breakdown with the kernel pair's share, bitwise repeat, peak
+    memory (beside ``reckoned_gb`` where given, and held at most
+    TRAIN_MARGIN below it and never above)
+    and the grads at depth ``grad_depth`` against the plain path
+    (``grad_check``). ``lse_kernel``: a device kernel name (the forward
+    variant that writes lse) that must be recorded as every forward launch
+    of a step. ``moe``: the repeat also holds m and v bitwise (on the host),
+    and one more step runs under ``torch.cuda.set_sync_debug_mode("error")``
+    (no host sync).
 
     The first loss is held within 1 of ln V, where the init predicts near
     uniformly. A tied embedding is drawn N(0, 1) (as the JAX init), so its
@@ -2394,13 +2574,17 @@ def phase_train(cfg, path: str, tag: str, reckoned_gb=None,
     state and batch, within GRAD_TOL relative (bf16: TOL[bf16], the two
     paths round bf16 activations at other points)."""
     spec = TRAIN_PATHS[path]
-    # launches of each wrapper a step: flash as many as a forward makes
+    # launches of each wrapper a step: flash as many as a forward makes,
+    # the forward's twice under remat
     per_step = (flash_per_forward(cfg) if spec["wrappers"][0] == "flash_attention"
                 else cfg.n_layers)
+    passes = 1 if rt.remat == "none" else 2
+    want = dict(zip(spec["wrappers"], (passes * per_step, per_step)))
+    want_rec = {**{x: passes * per_step for x in spec["forward"]},
+                **{x: per_step for x in spec["backward"]}}
     train_driver.deterministic(torch.device(DEVICE))
-    hp = OptHParams()
     batch = _train_batch(cfg, torch.Generator(device=DEVICE).manual_seed(SEED + 5))
-    step = make_train_step(cfg, hp)
+    step = make_train_step(cfg, hp, rt)
     tag = f"{tag} {cfg.name} {DTYPE_NAME[dtype]} [1,{FWD_B},{FWD_S}]"
     tokens = FWD_B * FWD_S
     state = _fresh_state(cfg, hp, dtype)
@@ -2409,7 +2593,7 @@ def phase_train(cfg, path: str, tag: str, reckoned_gb=None,
     log(f"{tag}: {cfg.n_layers} layers{enc}, {n / 1e9:.3f} B params; params + "
         f"grads + m + v {state_bytes(dtype, hp) * n / 1e9:.1f} GB "
         f"({DTYPE_NAME[dtype]} params, {state_bytes(dtype, hp):g} bytes a "
-        f"param); AdamW {hp}")
+        f"param); remat {rt.remat!r}; AdamW {hp}")
     mb = {key: val[0] for key, val in batch.items()}
     plain_loss = None
     if cfg.tie_embeddings:
@@ -2424,10 +2608,10 @@ def phase_train(cfg, path: str, tag: str, reckoned_gb=None,
         sync()
         first_s = time.perf_counter() - t0
     first = {k: ops.LAUNCHES[k] for k in spec["wrappers"]}
-    check(first == {k: per_step for k in spec["wrappers"]},
-          f"{tag}: launches in one step {first}, want {per_step} each")
+    check(first == want, f"{tag}: launches in one step {first}, want {want}")
     if path == "scan":   # S = 2048: every forward on the sequential kernel
-        check(ops.SCAN_VARIANTS == {"step": 0, "sequential": cfg.n_layers},
+        check(ops.SCAN_VARIANTS == {"step": 0,
+                                    "sequential": passes * cfg.n_layers},
               f"{tag}: scan launches by variant {ops.SCAN_VARIANTS}")
     nondet = [str(w.message)[:120] for w in caught
               if "determinis" in str(w.message).lower()]
@@ -2451,7 +2635,9 @@ def phase_train(cfg, path: str, tag: str, reckoned_gb=None,
         f"{math.log(cfg.vocab):.4f}{vs}), grad norm {gn:.4f}, launches {first}; "
         f"{len(caught)} warnings, none about determinism"
         + (f" (first: {str(caught[0].message)[:100]})" if caught else ""))
-    host = [t.detach().to("cpu", copy=True) for t in state["params"].parameters()]
+    t0 = time.perf_counter()
+    host = _host_leaves(state, moe)
+    host_s = time.perf_counter() - t0
     times, losses = [], [loss]
     for _ in range(TRAIN_STEPS):
         t0 = time.perf_counter()
@@ -2463,26 +2649,45 @@ def phase_train(cfg, path: str, tag: str, reckoned_gb=None,
     log(f"{tag}: steps {' / '.join(f'{x:.1f}' for x in times)} ms "
         f"({tokens / step_ms * 1e3:.0f} tok/s), losses {losses}")
     check(all(math.isfinite(x) for x in losses), f"{tag}: non-finite loss")
+    synced = 0
+    if moe:   # the step makes no host sync (the mode needs the deterministic one)
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            state, metrics = step(state, batch)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        sync()
+        synced = 1
+        log(f"{tag}: one step under set_sync_debug_mode(\"error\"): no host "
+            f"sync, loss {float(metrics['loss']):.6f}")
+    t0 = time.perf_counter()
     prof, profiled = profile_recorded(lambda: step(state, batch),
                                       spec["forward"] + spec["backward"],
-                                      per_step, iters=1)
+                                      per_step, iters=1, warm=True)
+    prof_s = time.perf_counter() - t0
     log_breakdown(f"{tag} step", prof, step_ms, top=10)
     rec = {x: recorded(prof, x) for x in spec["forward"] + spec["backward"]}
     other = {x: recorded(prof, x) for x in spec["others"]}
     check(not any(other.values()), f"{tag}: launches of another variant {other}")
-    check(all(x == per_step for x in rec.values()),
-          f"{tag}: recorded launches a step {rec}, want {per_step} each")
+    check(rec == want_rec, f"{tag}: recorded launches a step {rec}, want "
+          f"{want_rec}")
+    if lse_kernel is not None:
+        got = recorded(prof, lse_kernel)
+        check(got == passes * per_step, f"{tag}: {lse_kernel} recorded {got} "
+              f"a step, want {passes * per_step}")
+        log(f"{tag}: every forward launch recorded as {lse_kernel} (lse "
+            f"written): {got:g} a step")
     index = sorted({k[:50] for k in prof["kernels"] if "index" in k.lower()
                     or "sort" in k.lower()})
     fwd_ms = kernel_ms(prof, *spec["forward"])
     bwd_ms = kernel_ms(prof, *spec["backward"])
     busy = sum(ms for _, ms in prof["kernels"].values())
-    pair = (per_step * (fwd_ms + bwd_ms)
+    pair = (passes * per_step * fwd_ms + per_step * bwd_ms
             if None not in (fwd_ms, bwd_ms) else None)
     log(f"{tag}: recorded a step {rec} (none of {list(other)}); the "
         f"embedding's backward ran {index}; {' + '.join(spec['wrappers'])}: "
-        f"{per_step} x ({_fmt(fwd_ms)} + {_fmt(bwd_ms)}) ms = "
-        f"{_fmt(pair)} ms a step, "
+        f"{passes * per_step} x {_fmt(fwd_ms)} + {per_step} x {_fmt(bwd_ms)} "
+        f"ms = {_fmt(pair)} ms a step, "
         + ("not measured" if pair is None else
            f"{100 * pair / busy:.1f}% of device busy, "
            f"{100 * pair / step_ms:.1f}% of the step"))
@@ -2497,102 +2702,247 @@ def phase_train(cfg, path: str, tag: str, reckoned_gb=None,
             f"({100 * rest / busy:.1f}%)")
     del state, metrics
     torch.cuda.empty_cache()
-    log_memory(tag, reckoned_gb)
+    peak = log_memory(tag, reckoned_gb)
+    if None not in (peak, reckoned_gb):
+        check((1 - TRAIN_MARGIN) * reckoned_gb <= peak <= reckoned_gb,
+              f"{tag}: peak {peak:.2f} GB outside [{1 - TRAIN_MARGIN:g}, 1] "
+              f"x the reckoned {reckoned_gb:.2f} GB")
     # bitwise: the first step again from a fresh state of the same seed
     state = _fresh_state(cfg, hp, dtype)
     state, metrics = step(state, batch)
     sync()
     check(float(metrics["loss"]) == loss, f"{tag}: repeat loss differs")
-    same = all(bool(torch.equal(a.detach().cpu(), b))
-               for a, b in zip(state["params"].parameters(), host))
+    again = _state_leaves(state) if moe else list(state["params"].parameters())
+    t0 = time.perf_counter()
+    same = all(bool(torch.equal(a.detach(), b.to(a.device)))
+               for a, b in zip(again, host))
+    host_s += time.perf_counter() - t0
     check(same, f"{tag}: two steps from the same state differ")
     launches = {k: ops.LAUNCHES[k] for k in first}
-    steps_run = 1 + TRAIN_STEPS + profiled + 1   # first, timed, profiled, repeat
-    check(all(x == per_step * steps_run for x in launches.values()),
+    # first, timed, sync-checked, profiled, repeat
+    steps_run = 1 + TRAIN_STEPS + synced + profiled + 1
+    check(launches == {k: x * steps_run for k, x in want.items()},
           f"{tag}: launches {launches} over {steps_run} steps")
     log(f"{tag}: the repeated first step is bitwise equal (loss and all "
-        f"{len(host)} param leaves); launches over the phase's {steps_run} "
-        f"steps {launches}")
-    del state, metrics, host
+        f"{len(host)} param{' and moment' if moe else ''} leaves); launches "
+        f"over the phase's {steps_run} steps {launches}; seconds: the host "
+        f"copy and its comparison {host_s:.1f}, the profile {prof_s:.1f}")
+    del state, metrics, host, again
     torch.cuda.empty_cache()
-    grads_bitwise = grad_check(cfg, mb, tag, dtype)
+    grads_bitwise = grad_check(cfg, mb, tag, dtype, grad_depth)
     return {"launches": launches, "steps": steps_run, "step_ms": step_ms,
-            "per_step": per_step, "fwd_device_ms": fwd_ms,
-            "bwd_device_ms": bwd_ms, "grads_bitwise": grads_bitwise,
-            "first_loss": loss}
+            "per_step": per_step, "fwd_per_step": passes * per_step,
+            "fwd_device_ms": fwd_ms, "bwd_device_ms": bwd_ms,
+            "grads_bitwise": grads_bitwise, "first_loss": loss, "peak_gb": peak,
+            "depth": cfg.n_layers, "remat": rt.remat}
 
 
-def _leaf_errors(got, want) -> tuple:
-    """(max, mean) over all leaves of |got - want| / max|want| of each leaf,
-    the mean over every element."""
-    worst, total, count = 0.0, 0.0, 0
+def _leaf_errors(got, want) -> list:
+    """(max, sum, count) of |got - want| / max|want| for each leaf, a
+    slice of rows at a time (``optimizer._row_slices``), so an f32
+    temporary stays small."""
+    out = []
     for a, b in zip(got, want):
-        err = (a.float() - b).abs() / b.abs().max().clamp_min(1e-30)
-        worst = max(worst, err.max().item())
-        total += err.sum().item()
-        count += err.numel()
-    return worst, total / count
+        top = b.abs().max().clamp_min(1e-30)
+        worst, total, count = 0.0, 0.0, 0
+        for sl in optimizer._row_slices(b):
+            err = (a[sl].float() - b[sl]).abs() / top
+            worst = max(worst, err.max().item())
+            total += err.sum().item()
+            count += err.numel()
+        out.append((worst, total, count))
+    return out
 
 
-def grad_check(cfg, mb, tag: str, dtype) -> bool:
-    """The grads of one microbatch at full width, depth cut to GRAD_LAYERS,
-    kernel path against plain path; returns whether they are bitwise equal.
+def grad_check(cfg, mb, tag: str, dtype, depth: int = GRAD_LAYERS):
+    """The grads of one microbatch at full width, depth cut to ``depth``,
+    kernel path against plain path. f32: each leaf within GRAD_TOL of its
+    largest magnitude; returns whether they are bitwise equal.
 
-    f32: each leaf within GRAD_TOL of its largest magnitude. bf16: both
-    paths against the f32 grads of f32 copies of the same weights (plain
-    path); the kernel path's error, max and mean relative to each leaf's
-    largest magnitude, may be at most 2x and 1.25x the plain bf16 path's
-    (phase 3's rule for bf16 forwards: bf16 rounding alone moves two bf16
-    paths apart by about what it costs each)."""
-    cfg2 = at_depth(cfg, GRAD_LAYERS)
-    params = M.init_params(torch.Generator(device=DEVICE).manual_seed(SEED),
-                           cfg2, dtype, DEVICE).requires_grad_(True)
-    names = [name for name, _ in params.named_parameters()]
-    leaves = list(params.parameters())
-    grads, secs = {}, {}
-    for impl in ("kernel", "plain"):
+    bf16: both paths against the f32 grads of f32 copies of the same
+    weights (plain path); the kernel path's error, max and mean relative to
+    each leaf's largest magnitude, may be at most 2x and 1.25x the plain
+    bf16 path's (phase 3's rule for bf16 forwards: bf16 rounding alone
+    moves two bf16 paths apart by about what it costs each). With an MoE
+    FFN the 2x holds leaf by leaf (a token routed otherwise in bf16 than
+    in f32 sets the largest error of both paths alike); the worst leaves,
+    the attention's and the router's errors are logged. The f32
+    reference comes first, from the bf16 weights turned into f32 in place
+    leaf by leaf (``to_f32_``); then the bf16 weights are drawn again from
+    the same seed (the same bits) for each bf16 path in turn, so at most
+    the f32 grads and one bf16 path's weights and grads live at once (grok
+    at depth 1: 26.1 + 13.1 + 13.1 GB). Returns None (the two bf16 paths
+    round at other points, and are never held at once)."""
+    cfg2 = at_depth(cfg, depth)
+
+    def params(dt):
+        return M.init_params(torch.Generator(device=DEVICE).manual_seed(SEED),
+                             cfg2, dt, DEVICE).requires_grad_(True)
+
+    def grads(p, impl):
         t0 = time.perf_counter()
-        grads[impl] = torch.autograd.grad(
-            loss_fn(params, mb, cfg2, runtime(impl))[0], leaves)
+        out = torch.autograd.grad(loss_fn(p, mb, cfg2, runtime(impl))[0],
+                                  list(p.parameters()))
         sync()
         secs[impl] = time.perf_counter() - t0
-    bitwise = all(bool(torch.equal(a, b))
-                  for a, b in zip(grads["kernel"], grads["plain"]))
-    took = (f"bitwise equal: {bitwise}; seconds kernel {secs['kernel']:.2f}, "
-            f"plain {secs['plain']:.2f}")
+        return out
+    secs = {}
     if dtype == torch.float32:
+        p = params(dtype)
+        names = [name for name, _ in p.named_parameters()]
+        got = {impl: grads(p, impl) for impl in ("kernel", "plain")}
+        bitwise = all(bool(torch.equal(a, b))
+                      for a, b in zip(got["kernel"], got["plain"]))
         worst = max((assert_close_to_max(a, b, GRAD_TOL, f"{tag} grad {name}"),
                      name)
-                    for name, a, b in zip(names, grads["kernel"], grads["plain"]))
-        log(f"{tag}: grads at depth {GRAD_LAYERS}, kernel vs plain path: worst "
+                    for name, a, b in zip(names, got["kernel"], got["plain"]))
+        log(f"{tag}: grads at depth {depth}, kernel vs plain path: worst "
             f"leaf {worst[1]} error {worst[0]:.3e} of its max (tol {GRAD_TOL}); "
-            f"{took}")
+            f"bitwise equal: {bitwise}; seconds kernel {secs['kernel']:.2f}, "
+            f"plain {secs['plain']:.2f}")
+        del p, got
+        torch.cuda.empty_cache()
+        log_memory(f"{tag} grad check")
+        return bitwise
+    p = params(dtype)
+    to_f32_(p)
+    ref32 = grads(p, "plain")
+    secs["f32"] = secs.pop("plain")
+    del p
+    torch.cuda.empty_cache()
+    err = {}
+    for impl in ("kernel", "plain"):
+        p = params(dtype)
+        g = grads(p, impl)
+        err[impl] = _leaf_errors(g, ref32)
+        del p, g
+        torch.cuda.empty_cache()
+    del ref32
+    names = [name for name, _ in M.DecoderParams(cfg2, torch.float32,
+                                                 "meta").named_parameters()]
+    summary = {}
+    for impl, leaves in err.items():
+        worst = max(range(len(names)), key=lambda i: leaves[i][0])
+        summary[impl] = (leaves[worst][0], names[worst],
+                         sum(x[1] for x in leaves) / sum(x[2] for x in leaves))
+    (k_max, k_name, k_mean), (p_max, p_name, p_mean) = (summary["kernel"],
+                                                          summary["plain"])
+    log(f"{tag}: grads at depth {depth} against the f32 grads of "
+        f"f32 copies of the weights (plain path), relative to each leaf's "
+        f"max: kernel path max {k_max:.3e} ({k_name}) mean {k_mean:.3e}, "
+        f"plain bf16 path max {p_max:.3e} ({p_name}) mean {p_mean:.3e} "
+        f"(kernel/plain {k_max / p_max:.2f} / {k_mean / p_mean:.2f}, limits "
+        f"2 / 1.25); seconds f32 {secs['f32']:.2f}, kernel "
+        f"{secs['kernel']:.2f}, plain {secs['plain']:.2f}")
+    check(k_mean <= 1.25 * p_mean, f"{tag}: the kernel path's grads are less "
+          f"accurate on the mean than the plain bf16 path's beyond 1.25x")
+    if cfg.moe is None:
+        check(k_max <= 2 * p_max, f"{tag}: the kernel path's grads are less "
+              f"accurate than the plain bf16 path's beyond 2x")
     else:
-        p32 = M.init_params(torch.Generator(device=DEVICE).manual_seed(SEED),
-                            cfg2, torch.float32, DEVICE)
-        with torch.no_grad():
-            for a, b in zip(p32.parameters(), leaves):
-                a.copy_(b)
-        p32.requires_grad_(True)
-        ref32 = torch.autograd.grad(
-            loss_fn(p32, mb, cfg2, runtime("plain"))[0], list(p32.parameters()))
-        del p32
-        k_max, k_mean = _leaf_errors(grads["kernel"], ref32)
-        p_max, p_mean = _leaf_errors(grads["plain"], ref32)
-        del ref32
-        log(f"{tag}: grads at depth {GRAD_LAYERS} against the f32 grads of "
-            f"f32 copies of the weights (plain path), relative to each leaf's "
-            f"max: kernel path max {k_max:.3e} mean {k_mean:.3e}, plain bf16 "
-            f"path max {p_max:.3e} mean {p_mean:.3e} (kernel/plain "
-            f"{k_max / p_max:.2f} / {k_mean / p_mean:.2f}, limits 2 / 1.25); "
-            f"kernel vs plain {took}")
-        check(k_max <= 2 * p_max and k_mean <= 1.25 * p_mean,
-              f"{tag}: the kernel path's grads are less accurate than the "
-              f"plain bf16 path's beyond the stated tolerance")
-    del params, grads, leaves
+        # a token whose top-k differs between bf16 and f32 moves every
+        # gradient it reaches by a whole expert's share, on both bf16
+        # paths alike (they route the same tokens): the largest error
+        # overall is such a token's, whatever attention did. Each leaf is
+        # held to 2x the plain path's on that leaf instead, so a fault of
+        # the flash pair shows on the attention leaves beside theirs.
+        ratio = [(k[0] / max(q[0], 1e-30), name) for name, k, q in
+                 zip(names, err["kernel"], err["plain"])]
+        attn = [(k[0], q[0]) for name, k, q in
+                zip(names, err["kernel"], err["plain"]) if ".attn." in name]
+        router = [(k[0], q[0]) for name, k, q in
+                  zip(names, err["kernel"], err["plain"]) if ".router" in name]
+        log(f"{tag}: MoE, each leaf's max error held to 2x the plain bf16 "
+            f"path's on that leaf: worst ratio {max(ratio)[0]:.2f} "
+            f"({max(ratio)[1]}); the attention leaves' max kernel "
+            f"{max(k for k, _ in attn):.3e} / plain "
+            f"{max(q for _, q in attn):.3e}, the router's kernel "
+            f"{max(k for k, _ in router):.3e} / plain "
+            f"{max(q for _, q in router):.3e}; the worst leaves (plain "
+            f"path): " + ", ".join(
+                f"{names[i]} {err['plain'][i][0]:.3e}" for i in sorted(
+                    range(len(names)), key=lambda i: -err["plain"][i][0])[:4]))
+        check(max(ratio)[0] <= 2, f"{tag}: the kernel path's grads of "
+              f"{max(ratio)[1]} are less accurate than the plain bf16 "
+              f"path's beyond 2x")
     torch.cuda.empty_cache()
     log_memory(f"{tag} grad check")
-    return bitwise
+    return None
+
+
+def remat_equal(cfg, tag: str, dtype, hp: OptHParams, remat: str,
+                timed: bool = False) -> dict:
+    """One ``make_train_step`` from a fresh state (seed SEED) with
+    ``remat="none"`` and one with ``remat``: the loss, params and moments
+    bitwise equal (the first step's state kept on the card for the
+    comparison). With ``timed``, TRAIN_STEPS more steps with ``remat``
+    after it (their median) and the peak device memory of those steps."""
+    batch = _train_batch(cfg, torch.Generator(device=DEVICE).manual_seed(SEED + 5))
+    first = {}
+    state = _fresh_state(cfg, hp, dtype)
+    sync()
+    t0 = time.perf_counter()
+    state, metrics = make_train_step(cfg, hp, runtime("kernel"))(state, batch)
+    sync()
+    first["none"] = (time.perf_counter() - t0) * 1e3
+    loss = float(metrics["loss"])
+    want = [t.clone() for t in _state_leaves(state)]
+    del state, metrics
+    torch.cuda.empty_cache()
+    step = make_train_step(cfg, hp, runtime("kernel", remat))
+    state = _fresh_state(cfg, hp, dtype)
+    sync()
+    t0 = time.perf_counter()
+    state, metrics = step(state, batch)
+    sync()
+    first[remat] = (time.perf_counter() - t0) * 1e3
+    same = float(metrics["loss"]) == loss and all(
+        bool(torch.equal(a, b)) for a, b in zip(want, _state_leaves(state)))
+    check(same, f"{tag}: a step with remat {remat!r} differs from one with "
+          f"\"none\" at depth {cfg.n_layers}")
+    n_leaves = len(want)
+    del want
+    out = {"depth": cfg.n_layers, "bitwise": same, "loss": loss,
+           "first_ms": first}
+    if timed:
+        torch.cuda.empty_cache()
+        log_memory(f"{tag} remat {remat!r}, its bitwise check")
+        times = []
+        for _ in range(TRAIN_STEPS):
+            t0 = time.perf_counter()
+            state, metrics = step(state, batch)
+            sync()
+            times.append((time.perf_counter() - t0) * 1e3)
+        out["step_ms"] = statistics.median(times)
+    del state, metrics
+    torch.cuda.empty_cache()
+    out["peak_gb"] = log_memory(f"{tag} remat {remat!r}" + (
+        " steps" if timed else ""))
+    log(f"{tag}: depth {cfg.n_layers}, one step with remat {remat!r} bitwise "
+        f"equal to one with \"none\" (loss {loss:.6f} and {n_leaves} param "
+        f"and moment leaves); first steps {first[remat]:.1f} ms with it, "
+        f"{first['none']:.1f} ms without" + (f"; steps with remat "
+                                 f"{' / '.join(f'{x:.1f}' for x in times)} ms"
+                                 if timed else ""))
+    return out
+
+
+def phase_cut_train(arch: str, path: str, tag: str, dtype,
+                    equal: bool = True, **kw) -> tuple:
+    """A train cell cut for device memory: ``arch`` at its train preset
+    (``train_preset``: its remat and optimizer), at the deepest depth
+    ``train_memory`` reckons within TRAIN_GB (``depth_for``), through
+    ``phase_train`` (``kw``: its ``grad_depth``, ``lse_kernel`` and ``moe``);
+    then, with ``equal``, ``remat_equal`` at depth GRAD_LAYERS. Returns
+    (phase_train's result, remat_equal's or None)."""
+    cfg, rt, hp = train_preset(arch)
+    depth = depth_for(tag, cfg, dtype, hp, rt.remat)
+    reckoned = depth_cut(tag, cfg, depth, dtype, hp, rt.remat)
+    out = phase_train(at_depth(cfg, depth), path, tag, reckoned, dtype=dtype,
+                      hp=hp, rt=rt, **kw)
+    same = (remat_equal(at_depth(cfg, GRAD_LAYERS), tag, dtype, hp, rt.remat)
+            if equal else None)
+    return out, same
 
 
 # The optimizer-state variants of the JAX package's presets, each run at the
@@ -2630,7 +2980,8 @@ def phase_train_variants(cfg, tag: str, dtype=torch.bfloat16) -> dict:
     out = {}
     for name, (kw, compress) in TRAIN_VARIANTS.items():
         hp = OptHParams(**kw)
-        step = make_train_step(cfg, hp, compress_grads=compress)
+        step = make_train_step(cfg, hp, runtime("kernel"),
+                               compress_grads=compress)
         reckoned = train_memory(cfg, cfg.n_layers, FWD_B * FWD_S, dtype, hp)
         state, metrics = step(_fresh_state(cfg, hp, dtype), batch)
         loss, gn = float(metrics["loss"]), float(metrics["grad_norm"])
@@ -2745,6 +3096,9 @@ def main() -> int:
     bwd16_t = time_flash_backward_bf16(TRAIN_SHAPE, True, SEED + 11, "internlm2")
     bwd16_d256 = time_flash_backward_bf16(D256_SHAPE, True, SEED + 12,
                                           "gemma2 dh 256")
+    # and at grok's (phase 12), head group 6
+    bwd16_k = time_flash_backward_bf16(GROK_TRAIN_SHAPE, True, SEED + 14,
+                                       "grok group 6")
     bf16_ptxas = log_ptxas_bf16_flash()
     log_memory("attention timings")
     torch.cuda.empty_cache()
@@ -2769,20 +3123,19 @@ def main() -> int:
         del a, h, dh
     log_memory("scan timings")
     torch.cuda.empty_cache()
-    # internlm2 training: the f32 flash kernel and its backward
-    train = phase_train(cfg, "attention", "train-f32")
+    # internlm2 training: the f32 flash kernel and its backward (full
+    # depth, no remat)
+    train = phase_train(cfg, "attention", "train-f32",
+                        train_memory(cfg, cfg.n_layers, FWD_B * FWD_S))
     logio = phase_logio(cfg, "attention")
-    # falcon-mamba training: the scan kernel and its backward, depth cut
-    mcfg_cut = dataclasses.replace(mcfg, n_layers=MAMBA_TRAIN_LAYERS)
-    reckoned = depth_cut("mamba-train-f32", mcfg, MAMBA_TRAIN_LAYERS)
-    mtrain = phase_train(mcfg_cut, "scan", "mamba-train-f32", reckoned)
+    # falcon-mamba training: the scan kernel and its backward, at its
+    # preset's remat and the depth device memory allows
+    mtrain, mremat = phase_cut_train(MAMBA_ARCH, "scan", "mamba-train-f32",
+                                     torch.float32)
     mlogio = phase_logio(mcfg, "scan")
-    # gemma2-9b training: the split-f32 flash pair at dh = 256, depth cut
-    gcfg = get_config(GEMMA_ARCH)
-    gtrain = phase_train(
-        dataclasses.replace(gcfg, n_layers=GEMMA_TRAIN_LAYERS),
-        "attention_d256", "gemma2-train-f32",
-        depth_cut("gemma2-train-f32", gcfg, GEMMA_TRAIN_LAYERS))
+    # gemma2-9b training: the split-f32 flash pair at dh = 256, the same way
+    gtrain, gremat = phase_cut_train(GEMMA_ARCH, "attention_d256",
+                                     "gemma2-train-f32", torch.float32)
     torch.cuda.empty_cache()
     # grok-1-314b: the MoE FFN on the forward's flash kernel (head group 6)
     # and the server's decode kernel, depth cut
@@ -2836,10 +3189,8 @@ def main() -> int:
         "backward dh 64 non-causal (seamless)": bwd16_s["device_ms"]})
     log_memory("seamless timings")
     torch.cuda.empty_cache()
-    strain = phase_train(
-        at_depth(scfg, SEAMLESS_TRAIN_LAYERS), "attention",
-        "seamless-train-f32",
-        depth_cut("seamless-train-f32", scfg, SEAMLESS_TRAIN_LAYERS))
+    strain, sremat = phase_cut_train(SEAMLESS_ARCH, "attention",
+                                     "seamless-train-f32", torch.float32)
     torch.cuda.empty_cache()
     # bf16 training (phases 11, 11b): internlm2 at full width and depth, its
     # optimizer-state variants, then gemma2-9b at a depth cut, through the
@@ -2854,18 +3205,37 @@ def main() -> int:
     itrain = phase_train(cfg, "attention_bf16", "internlm2-train-bf16",
                          reckoned, dtype=bf16)
     ivariants = phase_train_variants(cfg, "internlm2-train-bf16")
+    # its preset's remat ("full") at full depth, beside the step without
+    _, irt, _ = train_preset(ARCH)
+    iremat = remat_equal(cfg, "internlm2-train-bf16", bf16, OptHParams(),
+                         irt.remat, timed=True)
+    ireck = train_memory(cfg, cfg.n_layers, FWD_B * FWD_S, bf16,
+                         remat=irt.remat)
+    log(f"internlm2-train-bf16: remat {irt.remat!r} steps "
+        f"{iremat['step_ms']:.1f} ms, peak {_fmt(iremat['peak_gb'])} GB "
+        f"(reckoned {ireck:.2f}); without remat {itrain['step_ms']:.1f} ms, "
+        f"peak {_fmt(itrain['peak_gb'])} GB (reckoned {reckoned:.2f})")
+    check(iremat["peak_gb"] is None
+          or (1 - TRAIN_MARGIN) * ireck <= iremat["peak_gb"] <= ireck,
+          f"internlm2-train-bf16 remat {irt.remat!r}: peak "
+          f"{_fmt(iremat['peak_gb'])} GB outside [{1 - TRAIN_MARGIN:g}, 1] x "
+          f"the reckoned {ireck:.2f} GB")
     torch.cuda.empty_cache()
-    gdepth = (GEMMA_BF16_TRAIN_LAYERS
-              if train_memory(gcfg, GEMMA_BF16_TRAIN_LAYERS, FWD_B * FWD_S,
-                              bf16) <= BF16_TRAIN_GB else 4)
-    gtrain16 = phase_train(
-        dataclasses.replace(gcfg, n_layers=gdepth), "attention_bf16_d256",
-        "gemma2-train-bf16",
-        depth_cut("gemma2-train-bf16", gcfg, gdepth, bf16), dtype=bf16)
+    gtrain16, gremat16 = phase_cut_train(GEMMA_ARCH, "attention_bf16_d256",
+                                         "gemma2-train-bf16", bf16)
+    gdepth = gtrain16["depth"]
+    torch.cuda.empty_cache()
+    # grok-1-314b training (phase 12): the MoE FFN's backward and the bf16
+    # flash pair at head group 6, at JAX's grok preset, depth cut
+    # (no remat_equal: grok at depth GRAD_LAYERS reckons 104.7 GB)
+    ktrain, _ = phase_cut_train(
+        GROK_ARCH, "attention_bf16", "grok-train-bf16", bf16, equal=False,
+        grad_depth=1, lse_kernel=f"{FLASH_TC}<128, false, true>", moe=True)
     torch.cuda.empty_cache()
     launches = {"flash_attention": fwd["launches"] + fwd_k["launches"]
                 + fwd_s["launches"] + itrain["launches"]["flash_attention"]
-                + gtrain16["launches"]["flash_attention"],
+                + gtrain16["launches"]["flash_attention"]
+                + ktrain["launches"]["flash_attention"],
                 "flash_attention_backward": train["launches"][
                     "flash_attention_backward"]
                 + gtrain["launches"]["flash_attention_backward"]
@@ -2878,7 +3248,8 @@ def main() -> int:
                     "selective_scan_backward"],
                 "flash_attention_backward_bf16": itrain["launches"][
                     "flash_attention_backward"]
-                + gtrain16["launches"]["flash_attention_backward"]}
+                + gtrain16["launches"]["flash_attention_backward"]
+                + ktrain["launches"]["flash_attention_backward"]}
     timed = {"flash_attention": flash_t,
              "flash_attention_backward": flash_bwd_t,
              "flash_attention_backward_bf16": bwd16_t,
@@ -2914,7 +3285,7 @@ def main() -> int:
            for key, val in d256_t["bf16_forward"].items()},
         bf16_d256_library_call="FLASH_ATTENTION (enable_gqa), no softcap",
         bf16_d256_launches_train=gtrain16["launches"]["flash_attention"],
-        bf16_d256_launches_per_step=gtrain16["per_step"],
+        bf16_d256_launches_per_step=gtrain16["fwd_per_step"],
         bf16_d256_device_ms_in_step=gtrain16["fwd_device_ms"],
         bf16_d256_train_depth=gdepth,
         bf16_d256_forward_lse_device_ms=bwd16_d256["forward_lse_device_ms"],
@@ -2925,6 +3296,9 @@ def main() -> int:
         forward_no_lse_device_ms=bwd16_t["forward_device_ms"],
         launches_internlm2_forward=fwd["launches"],
         launches_grok_forward=fwd_k["launches"],
+        launches_grok_train_bf16=ktrain["launches"]["flash_attention"],
+        grok_launches_per_train_step=ktrain["fwd_per_step"],
+        grok_device_ms_in_train_step=ktrain["fwd_device_ms"],
         **{f"grok_{key}": val for key, val in flash_k.items()},
         grok_shape=[FWD_B, FWD_S, kcfg.n_heads, kcfg.n_kv_heads, kcfg.d_head],
         grok_forward_ms=fwd_k["ms"],
@@ -2943,7 +3317,7 @@ def main() -> int:
         seamless_f32_library_call="EFFICIENT_ATTENTION on K/V repeated, "
                                   "non-causal",
         f32_launches_seamless_train=strain["launches"]["flash_attention"],
-        f32_seamless_launches_per_step=strain["per_step"],
+        f32_seamless_launches_per_step=strain["fwd_per_step"],
         f32_seamless_device_ms_in_step=strain["fwd_device_ms"])
     flash_row["max_abs_err"] = max(flash_row["max_abs_err"],
                                    flash_k["max_abs_err"],
@@ -2964,7 +3338,8 @@ def main() -> int:
         // gtrain["steps"],
         d256_device_ms_in_step=gtrain["bwd_device_ms"],
         d256_train_step_ms=gtrain["step_ms"],
-        d256_train_depth=GEMMA_TRAIN_LAYERS,
+        d256_train_depth=gtrain["depth"], d256_train_remat=gtrain["remat"],
+        d256_train_remat_check=gremat, seamless_train_remat_check=sremat,
         **{key: flash_bwd_t[key] for key in (
             "library_call", "library_max_err_to_max", "library_math_ms",
             "library_math_backend", "cuda_core_bound_ms")},
@@ -2976,7 +3351,8 @@ def main() -> int:
         seamless_launches_per_step=strain["per_step"],
         seamless_device_ms_in_step=strain["bwd_device_ms"],
         seamless_train_step_ms=strain["step_ms"],
-        seamless_train_depth=[SEAMLESS_TRAIN_LAYERS, SEAMLESS_TRAIN_LAYERS])
+        seamless_train_depth=[strain["depth"], strain["depth"]],
+        seamless_train_remat=strain["remat"])
     bwd_row["max_abs_err"] = max(bwd_row["max_abs_err"],
                                  flash_s["backward"]["max_abs_err"])
     # the bf16 backward: internlm2's shape above (phase 11's), gemma2's dh
@@ -3000,11 +3376,22 @@ def main() -> int:
         d256_train_step_ms=gtrain16["step_ms"],
         d256_train_depth=gdepth,
         d256_train_first_loss=gtrain16["first_loss"],
+        d256_train_remat=gtrain16["remat"], d256_train_remat_check=gremat16,
+        **{f"grok_{key}": val for key, val in bwd16_k.items()},
+        grok_launches_train=ktrain["launches"]["flash_attention_backward"],
+        grok_launches_per_step=ktrain["per_step"],
+        grok_device_ms_in_step=ktrain["bwd_device_ms"],
+        grok_train_step_ms=ktrain["step_ms"],
+        grok_train_depth=ktrain["depth"], grok_train_remat=ktrain["remat"],
+        grok_train_first_loss=ktrain["first_loss"],
+        grok_train_peak_gb=ktrain["peak_gb"],
+        train_remat_variant=iremat,
         ptxas=bf16_ptxas,
         **{f"seamless_{key}": val for key, val in bwd16_s.items()})
     bwd16_row["max_abs_err"] = max(bwd16_row["max_abs_err"],
                                    bwd16_d256["max_abs_err"],
-                                   bwd16_s["max_abs_err"])
+                                   bwd16_s["max_abs_err"],
+                                   bwd16_k["max_abs_err"])
     # decode attention: the serve shape above (the main path's), a full
     # cache beside it
     decode_row = next(r for r in rows if r["name"] == "decode_attention")
@@ -3055,7 +3442,8 @@ def main() -> int:
         launches_logio=mlogio["launches"]["selective_scan_backward"],
         device_ms_in_step=mtrain["bwd_device_ms"],
         train_step_ms=mtrain["step_ms"],
-        train_depth=MAMBA_TRAIN_LAYERS,
+        train_depth=mtrain["depth"], train_remat=mtrain["remat"],
+        train_remat_check=mremat,
         grads_bitwise_equal_to_plain=mtrain["grads_bitwise"],
         library_note="none: no PyTorch call computes a reverse linear "
                      "recurrence")

@@ -81,7 +81,7 @@ def run_training(*, arch: str = "internlm2-1.8b", use_reduced: bool = True,
         cfg = reduced(cfg, d_model=d_model, n_layers=nl, vocab=2048,
                       d_ff=4 * d_model, n_heads=4)
     hp = OptHParams(lr=lr, warmup=20)
-    rt = M.Runtime()
+    rt = M.Runtime(remat="none")
 
     # ---- data pipeline (LOG.io-protected) --------------------------------
     pipeline, feed_id = build_data_pipeline(

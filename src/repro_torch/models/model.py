@@ -19,15 +19,24 @@ The encoder-decoder (seamless) has ``params.encoder`` (its ``layers`` and
 ``final_norm``) and a cross-attention (``norm_cross``, ``cross``) in every
 decoder layer; ``forward`` reads the encoder's input from
 ``batch["frames"]`` [B, Ss, d], as the JAX code does.
+
+``Runtime.remat`` is the JAX package's rematerialisation of the layer scan:
+the unit is one block of ``len(cfg.block)`` consecutive layers, checkpointed
+with ``torch.utils.checkpoint`` ("full": only the block's inputs are kept;
+"block": the outputs of products with no batch dimension as well). It
+changes no value: a step with remat is bitwise equal to one without.
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 from typing import Dict, List, Optional, Tuple
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from repro_torch import resolve_device
 from repro_torch.configs.base import ArchConfig, LayerSpec
@@ -35,18 +44,23 @@ from repro_torch.models import layers as L
 
 Cache = List[Dict[str, torch.Tensor]]
 
+REMATS = ("none", "block", "full")
+
 
 @dataclasses.dataclass(frozen=True)
 class Runtime:
     """Runtime knobs. ``attn_impl`` (attention) and ``scan_impl`` (the Mamba
     recurrence): "kernel" (the hand-written CUDA kernels on the card, their
     plain versions on the CPU) or "plain" (the plain PyTorch versions
-    everywhere; an explicit request for references). ``aux_loss_weight``
-    weighs the MoE load-balance loss in ``loss_fn`` and ``cross_len`` sizes
-    the encoder-decoder's cross K/V cache in ``SlotServer``, as the JAX
+    everywhere; an explicit request for references). ``remat`` ("none",
+    "block" or "full", JAX's default "block") picks what a train forward
+    keeps of each block (``forward``). ``aux_loss_weight`` weighs the MoE
+    load-balance loss in ``loss_fn`` and ``cross_len`` sizes the
+    encoder-decoder's cross K/V cache in ``SlotServer``, as the JAX
     ``Runtime``'s fields do."""
     attn_impl: str = "kernel"
     scan_impl: str = "kernel"
+    remat: str = "block"
     aux_loss_weight: float = 0.01
     cross_len: int = 4096
 
@@ -57,6 +71,8 @@ class Runtime:
         if self.scan_impl not in L.SCAN_IMPLS:
             raise ValueError(f"scan_impl {self.scan_impl!r} not in "
                              f"{L.SCAN_IMPLS}")
+        if self.remat not in REMATS:
+            raise ValueError(f"remat {self.remat!r} not in {REMATS}")
 
 
 # ---------------------------------------------------------------------------
@@ -217,17 +233,86 @@ def _encode(params: DecoderParams, frames: torch.Tensor, cfg: ArchConfig,
     self-attention with RoPE -> rms_norm -> gated MLP), then the encoder's
     final norm. Attention goes through the flash kernel
     (``rt.attn_impl``); the JAX encoder always runs XLA attention, the same
-    function."""
+    function. Under ``rt.remat`` "block" or "full" each encoder layer is
+    checkpointed with nothing saved, as JAX's ``jax.checkpoint(enc_layer)``
+    with its default policy."""
     positions = torch.arange(frames.shape[1], device=frames.device)[None, :]
-    x = frames
-    for layer in params.encoder.layers:
+
+    def enc_layer(layer, x):
         h = L.rms_norm(x, layer.norm1, cfg.norm_eps)
         x = x + L.apply_attention(layer.attn, h, ENC_SPEC.attn, cfg,
                                   positions, causal=False,
                                   attn_impl=rt.attn_impl)
         h = L.rms_norm(x, layer.norm2, cfg.norm_eps)
-        x = x + L.apply_mlp(layer.mlp, h, cfg.act)
+        return x + L.apply_mlp(layer.mlp, h, cfg.act)
+
+    x = frames
+    for layer in params.encoder.layers:
+        x = _remat(functools.partial(enc_layer, layer),
+                   "none" if rt.remat == "none" else "full", x)
     return L.rms_norm(x, params.encoder.final_norm, cfg.norm_eps), positions
+
+
+def _save_products(ctx, op, *args, **kwargs) -> CheckpointPolicy:
+    """``remat="block"``'s policy, JAX's ``checkpoint_dots_with_no_batch_dims``:
+    keep the outputs of products with no batch dimension, recompute the rest.
+
+    Decided from what the port dispatches (a ``TorchDispatchMode`` over one
+    layer of each family): every projection einsum (``bsd,dhk->bshk``,
+    ``bsd,df->bsf``, the router's ``td,de->te``, Mamba's ``in_proj``,
+    ``x_proj``, ``dt_proj``, ``out_proj``) reaches ``aten.bmm`` with a batch
+    of 1, not ``aten.mm``; the MoE experts' ``torch.bmm`` has the expert as
+    its batch (JAX's ``ecd,edf``), Mamba's ``h.C`` einsum ``B * S``, plain
+    attention's ``B * kv``: those are recomputed. So the rule is ``aten.mm``,
+    or ``aten.bmm`` whose batch is 1. Everything else is recomputed: norms,
+    elementwise work, the gathers, and the flash and scan kernels, which run
+    through ``ctypes`` inside their ``autograd.Function``s: the dispatcher
+    sees only the ``torch.empty`` a kernel writes into, so no allocation is
+    ever saved, and the kernel runs again in the recompute."""
+    if op is torch.ops.aten.mm.default or (
+            op is torch.ops.aten.bmm.default and args[0].shape[0] == 1):
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _remat(fn, remat: str, *args):
+    """``fn(*args)`` checkpointed as ``remat`` says ("full": only ``args``
+    kept; "block": with ``_save_products``); "none", or no grad, runs it
+    as it is. The forward draws no random numbers, so no RNG state is kept
+    for the recompute."""
+    if remat == "none" or not torch.is_grad_enabled():
+        return fn(*args)
+    kw = ({} if remat == "full" else dict(context_fn=functools.partial(
+        create_selective_checkpoint_contexts, _save_products)))
+    return checkpoint(fn, *args, use_reentrant=False,
+                      preserve_rng_state=False, **kw)
+
+
+def _block(layers, specs, x: torch.Tensor, positions: torch.Tensor,
+           memory: Optional[torch.Tensor], mem_positions: Optional[torch.Tensor],
+           cfg: ArchConfig, rt: Runtime) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One block of ``len(cfg.block)`` layers (JAX's ``_block_fn``): returns
+    x and the block's MoE aux, summed from 0 over its layers. ``memory``
+    (an encoder-decoder's) feeds each layer's cross-attention."""
+    aux = torch.zeros((), device=x.device)
+    for layer, spec in zip(layers, specs):
+        h = L.rms_norm(x, layer.norm1, cfg.norm_eps)
+        if spec.mixer == "attn":
+            mix = L.apply_attention(layer.attn, h, spec.attn, cfg, positions,
+                                    attn_impl=rt.attn_impl)
+        else:
+            mix = L.apply_mamba(layer.mamba, h, cfg, scan_impl=rt.scan_impl)
+        x = x + mix
+        if memory is not None:
+            h = L.rms_norm(x, layer.norm_cross, cfg.norm_eps)
+            x = x + L.apply_attention(layer.cross, h, spec.attn, cfg,
+                                      positions,
+                                      kv_override=(memory, mem_positions),
+                                      causal=False, attn_impl=rt.attn_impl)
+        x, a = _ffn(layer, spec, x, cfg)
+        if a is not None:
+            aux = aux + a
+    return x, aux
 
 
 def forward(params: DecoderParams, batch: Dict[str, torch.Tensor],
@@ -244,6 +329,11 @@ def forward(params: DecoderParams, batch: Dict[str, torch.Tensor],
     encoder-decoder adds one flash call per encoder layer and a non-causal
     cross-attention per decoder layer (``x + cross(norm_cross(x), memory)``
     between the mixer and the FFN), without RoPE.
+
+    The layers run as ``cfg.n_blocks`` blocks (``_block``), each
+    checkpointed as ``rt.remat`` says when grad is on (JAX checkpoints its
+    scan body so). The recompute runs a block's kernels again: under either
+    remat mode a train step launches each forward kernel twice.
     """
     L.check_supported(cfg)
     dev = params.embed.device
@@ -252,26 +342,16 @@ def forward(params: DecoderParams, batch: Dict[str, torch.Tensor],
     S = tokens.shape[1]
     positions = torch.arange(S, device=dev)[None, :]
     x = _embed(params, tokens, cfg)
-    memory = None   # (encoder output, its positions): cross-attention's K/V
+    memory = (None, None)   # (encoder output, its positions): cross's K/V
     if cfg.enc_dec:
         memory = _encode(params, batch["frames"].to(dev, x.dtype), cfg, rt)
     aux = torch.zeros((), device=dev)
-    for layer, spec in zip(params.layers, cfg.layer_kinds()):
-        h = L.rms_norm(x, layer.norm1, cfg.norm_eps)
-        if spec.mixer == "attn":
-            mix = L.apply_attention(layer.attn, h, spec.attn, cfg, positions,
-                                    attn_impl=rt.attn_impl)
-        else:
-            mix = L.apply_mamba(layer.mamba, h, cfg, scan_impl=rt.scan_impl)
-        x = x + mix
-        if memory is not None:
-            h = L.rms_norm(x, layer.norm_cross, cfg.norm_eps)
-            x = x + L.apply_attention(layer.cross, h, spec.attn, cfg,
-                                      positions, kv_override=memory,
-                                      causal=False, attn_impl=rt.attn_impl)
-        x, a = _ffn(layer, spec, x, cfg)
-        if a is not None:
-            aux = aux + a
+    nb, layers = len(cfg.block), list(params.layers)
+    for n in range(cfg.n_blocks):
+        run = functools.partial(_block, layers[n * nb:(n + 1) * nb],
+                                cfg.block, cfg=cfg, rt=rt)
+        x, a = _remat(run, rt.remat, x, positions, *memory)
+        aux = aux + a
     return _logits(params, x, cfg), aux
 
 

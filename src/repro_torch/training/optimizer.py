@@ -104,11 +104,33 @@ def global_norm(grads: Sequence[torch.Tensor]) -> torch.Tensor:
     return total.sqrt()
 
 
+# AdamW updates a leaf larger than this many elements a slice of rows at a
+# time: the update is elementwise (int8 moments: per last-dim row), so the
+# slices give the same bits, and the f32 temporaries stay this small (an
+# MoE expert weight of grok-1 is 1.6e9 elements: 6.4 GB for each f32
+# temporary of it whole)
+ADAMW_CHUNK = 1 << 27
+
+
+def _row_slices(p: torch.Tensor):
+    """Slices of ``p``'s first dim, each at most ADAMW_CHUNK elements (one
+    row at least); the whole leaf when it is small or 1-d."""
+    if p.numel() <= ADAMW_CHUNK or p.dim() < 2:
+        return [slice(None)]
+    rows = max(1, ADAMW_CHUNK // (p.numel() // p.shape[0]))
+    return [slice(i, i + rows) for i in range(0, p.shape[0], rows)]
+
+
+def _moment_rows(x, sl: slice):
+    return quant.QTensor(x.q[sl], x.scale[sl]) if quant.is_qtensor(x) else x[sl]
+
+
 @torch.no_grad()
 def adamw_update(params: List[torch.Tensor], grads: List[torch.Tensor],
                  opt_state: Dict[str, Any], hp: OptHParams):
     """One AdamW step, in place on ``params`` (the parameter leaves, in
-    ``parameters()`` order) and ``opt_state``.
+    ``parameters()`` order) and ``opt_state``; a large leaf a slice of rows
+    at a time (``ADAMW_CHUNK``).
 
     Returns (params, opt_state, grad norm): the same objects, updated."""
     count = opt_state["count"] + 1
@@ -117,20 +139,23 @@ def adamw_update(params: List[torch.Tensor], grads: List[torch.Tensor],
     lr = schedule(count, hp)
     b1c = 1.0 - hp.b1 ** count.float()
     b2c = 1.0 - hp.b2 ** count.float()
-    for p, g, m, v in zip(params, grads, moment_leaves(opt_state["m"]),
-                          moment_leaves(opt_state["v"])):
-        # each f32 temporary is freed (or divided in place) as soon as it is
-        # written back: the largest leaf's temporaries set the update's peak
-        g = g.float() * scale
-        m32 = hp.b1 * _read_moment(m) + (1 - hp.b1) * g
-        _write_moment(m, m32)
-        mh = m32.div_(b1c)
-        v32 = hp.b2 * _read_moment(v) + (1 - hp.b2) * g.square()
-        del g
-        _write_moment(v, v32)
-        vh = v32.div_(b2c)
-        step = mh / (vh.sqrt() + hp.eps) + hp.weight_decay * p.float()
-        del mh, vh
-        p.copy_((p.float() - lr * step).to(p.dtype))
+    for p_all, g_all, m_all, v_all in zip(
+            params, grads, moment_leaves(opt_state["m"]),
+            moment_leaves(opt_state["v"])):
+        for sl in _row_slices(p_all):
+            p, m, v = p_all[sl], _moment_rows(m_all, sl), _moment_rows(v_all, sl)
+            # each f32 temporary is freed (or divided in place) as soon as
+            # it is written back
+            g = g_all[sl].float() * scale
+            m32 = hp.b1 * _read_moment(m) + (1 - hp.b1) * g
+            _write_moment(m, m32)
+            mh = m32.div_(b1c)
+            v32 = hp.b2 * _read_moment(v) + (1 - hp.b2) * g.square()
+            del g
+            _write_moment(v, v32)
+            vh = v32.div_(b2c)
+            step = mh / (vh.sqrt() + hp.eps) + hp.weight_decay * p.float()
+            del mh, vh
+            p.copy_((p.float() - lr * step).to(p.dtype))
     opt_state["count"] = count
     return params, opt_state, gn

@@ -65,7 +65,7 @@ def test_port_imports_no_jax_and_nothing_of_repro():
                 "repro_torch.core.transport.local", "repro_torch.data.pipeline",
                 "repro_torch.training.step", "repro_torch.training.optimizer",
                 "repro_torch.training.loss", "repro_torch.checkpoint.store",
-                "repro_torch.launch.train"):
+                "repro_torch.launch.train", "repro_torch.launch.presets"):
         assert mod in res["modules"]
 
 
@@ -201,7 +201,8 @@ def test_low_precision_options_run(what):
                              device="cpu")
     toks = torch.randint(0, cfg.vocab, (1, 2, 17),
                          generator=torch.Generator().manual_seed(1))
-    state, metrics = make_train_step(cfg, hp, compress_grads=compress)(
+    state, metrics = make_train_step(cfg, hp, M.Runtime(remat="none"),
+                                     compress_grads=compress)(
         state, {"tokens": toks[..., :-1], "labels": toks[..., 1:]})
     assert int(state["step"]) == 1 and bool(metrics["loss"].isfinite())
     with pytest.raises(ValueError):

@@ -665,13 +665,15 @@ def test_mamba_layer_grads_through_the_kernel_route(card):
     leaves = list(p.parameters())
     n = dict(ops.LAUNCHES)
     got = torch.autograd.grad(
-        loss_fn(p, batch, cfg, M.Runtime(scan_impl="kernel"))[0], leaves)
+        loss_fn(p, batch, cfg, M.Runtime(scan_impl="kernel", remat="none"))[0],
+        leaves)
     torch.cuda.synchronize()
     assert ops.LAUNCHES["selective_scan"] == n["selective_scan"] + cfg.n_layers
     assert (ops.LAUNCHES["selective_scan_backward"]
             == n["selective_scan_backward"] + cfg.n_layers)
     want = torch.autograd.grad(
-        loss_fn(p, batch, cfg, M.Runtime(scan_impl="plain"))[0], leaves)
+        loss_fn(p, batch, cfg, M.Runtime(scan_impl="plain", remat="none"))[0],
+        leaves)
     for (name, _), x, y in zip(p.named_parameters(), got, want):
         assert_close_to_max(x, y, BWD_TOL, name)
 
@@ -784,3 +786,152 @@ def test_moe_dispatch_on_card_is_repeatable_sync_free_and_right(card):
         assert not r["warnings"], r
         assert r["err"] <= 2e-5 + 2e-5 * r["scale"], r
         assert r["aux_err"] <= 1e-6, r
+
+
+def _on_card(script: str) -> list:
+    """Run ``script`` in a process of its own with the deterministic mode's
+    cuBLAS workspace set before CUDA starts; its last line of output, JSON."""
+    import json
+    import os
+    import subprocess
+    import sys
+    from pathlib import Path
+    root = Path(__file__).resolve().parents[1]
+    env = dict(os.environ, PYTHONPATH=str(root / "src"),
+               CUBLAS_WORKSPACE_CONFIG=":4096:8")
+    out = subprocess.run([sys.executable, "-c", script], cwd=root, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr[-4000:]
+    return json.loads(out.stdout.strip().splitlines()[-1])
+
+
+_REMAT_ON_CARD = r"""
+import dataclasses, json
+import torch
+from repro_torch.configs import get_config, reduced
+from repro_torch.kernels import ops
+from repro_torch.models import model as M
+from repro_torch.training import OptHParams, init_train_state, make_train_step
+from repro_torch.training.optimizer import moment_leaves
+
+torch.use_deterministic_algorithms(True)
+CASES = {   # reduced widths with head dims the kernels take
+    "internlm2-1.8b": dict(d_model=256, n_heads=4),
+    "gemma2-9b": dict(d_model=512, n_heads=2),
+    "falcon-mamba-7b": dict(d_model=128),
+    "grok-1-314b": dict(d_model=256, n_heads=4),
+    "seamless-m4t-large-v2": dict(d_model=256, n_heads=4, n_kv_heads=4),
+}
+res = []
+for name, kw in CASES.items():
+    for dtype in (torch.float32, torch.bfloat16):
+        if name == "falcon-mamba-7b" and dtype == torch.bfloat16:
+            continue   # the scan kernel is f32
+        cfg = reduced(get_config(name), n_layers=2 * len(get_config(name).block), **kw)
+        if name.startswith("grok"):
+            cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+                cfg.moe, expert_split=2))
+        hp = OptHParams(moment_dtype="bfloat16", grad_accum_dtype="bfloat16")
+        g = torch.Generator(device="cuda").manual_seed(1)
+        toks = torch.randint(0, cfg.vocab, (1, 2, 129), generator=g,
+                             device="cuda")
+        batch = {"tokens": toks[..., :-1], "labels": toks[..., 1:]}
+        if cfg.enc_dec:
+            batch["frames"] = torch.randn((1, 2, 128, cfg.d_model),
+                                          generator=g, device="cuda")
+        out = {}
+        for remat in ("none", "block", "full"):
+            state = init_train_state(torch.Generator(device="cuda").manual_seed(0),
+                                     cfg, hp, dtype, "cuda")
+            ops.reset_launches()
+            state, metrics = make_train_step(cfg, hp, M.Runtime(remat=remat))(
+                state, batch)
+            torch.cuda.synchronize()
+            leaves = [t.detach() for t in state["params"].parameters()]
+            leaves += [x for key in ("m", "v")
+                       for x in moment_leaves(state["opt"][key])]
+            out[remat] = (metrics["loss"], leaves, dict(ops.LAUNCHES))
+        want = out["none"]
+        for remat in ("block", "full"):
+            got = out[remat]
+            res.append({
+                "case": [name, str(dtype), remat],
+                "bitwise": bool(torch.equal(got[0], want[0])) and all(
+                    bool(torch.equal(a, b)) for a, b in zip(got[1], want[1])),
+                "launches": got[2], "launches_none": want[2]})
+print(json.dumps(res))
+"""
+
+
+@pytest.mark.cuda
+def test_remat_step_on_card_is_bitwise_none(card):
+    """A train step with remat "block" or "full" at a reduced width, f32
+    and bf16 params (bf16 moments and accumulation), gives the bits of one
+    with "none": loss, params and moments, for a dense, a gemma2 (local /
+    global, dh 256), a Mamba, an MoE (grok, experts split in two) and an
+    encoder-decoder model. Each forward kernel launches twice (the forward
+    and its recompute), each backward kernel once, as without remat."""
+    for r in _on_card(_REMAT_ON_CARD):
+        assert r["bitwise"], r
+        for key in ("flash_attention", "selective_scan"):
+            assert r["launches"][key] == 2 * r["launches_none"][key], r
+        for key in ("flash_attention_backward", "selective_scan_backward"):
+            assert r["launches"][key] == r["launches_none"][key], r
+
+
+_MOE_BACKWARD_ON_CARD = r"""
+import dataclasses, json, warnings
+import torch
+from repro_torch.configs import get_config, reduced
+from repro_torch.models import layers as L
+
+torch.use_deterministic_algorithms(True)
+torch.backends.cuda.matmul.allow_tf32 = False
+res = []
+for dtype, T in ((torch.float32, 256), (torch.bfloat16, 4096)):
+    cfg = reduced(get_config("grok-1-314b"), d_model=256)
+    cfg = dataclasses.replace(cfg, moe=dataclasses.replace(cfg.moe,
+                                                           expert_split=2))
+    g = torch.Generator(device="cuda").manual_seed(0)
+    p = L.MoEParams(cfg, dtype, "cuda")
+    L.init_moe(p, g, cfg)
+    p.requires_grad_(True)
+    x = torch.randn((1, T, cfg.d_model), generator=g,
+                    device="cuda").to(dtype).requires_grad_(True)
+    dy = torch.randn((1, T, cfg.d_model), generator=g, device="cuda")
+
+    def grads():
+        y, aux = L.apply_moe(p, x, cfg)
+        return torch.autograd.grad((y.float() * dy).sum() + aux,
+                                   [x] + list(p.parameters()))
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        a, b = grads(), grads()
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            c = grads()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        torch.cuda.synchronize()
+    res.append({
+        "case": [str(dtype), T],
+        "bitwise": all(bool(torch.equal(u, v)) for u, v in zip(a, b))
+        and all(bool(torch.equal(u, v)) for u, v in zip(a, c)),
+        "finite": all(bool(u.isfinite().all()) for u in a),
+        "warnings": [str(w.message)[:200] for w in caught
+                     if "determinis" in str(w.message).lower()]})
+print(json.dumps(res))
+"""
+
+
+@pytest.mark.cuda
+def test_moe_backward_on_card_is_repeatable_and_sync_free(card):
+    """The MoE FFN's backward (grok, experts split in two, reduced width),
+    whose gathers autograd turns into accumulating ``index_put_``s: under
+    ``use_deterministic_algorithms(True)`` two runs give the same bits and
+    no determinism warning, and a third under ``set_sync_debug_mode("error")``
+    makes no host sync that the mode detects."""
+    for r in _on_card(_MOE_BACKWARD_ON_CARD):
+        assert r["bitwise"] and r["finite"], r
+        assert not r["warnings"], r

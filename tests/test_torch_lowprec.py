@@ -45,6 +45,7 @@ from repro_torch import bridge  # noqa: E402
 from repro_torch.checkpoint import CheckpointStore  # noqa: E402
 from repro_torch.checkpoint.store import to_host  # noqa: E402
 from repro_torch.configs import ARCHS as T_ARCHS, reduced as t_reduced  # noqa: E402
+from repro_torch.models import model as TM  # noqa: E402
 from repro_torch.training import optimizer as TO, quant as TQ, step as TS  # noqa: E402
 
 pytestmark = pytest.mark.timeout(300)
@@ -166,6 +167,37 @@ def test_adamw_descends(moment_dtype):
     assert int(opt["count"]) == 30
 
 
+@pytest.mark.parametrize("moment_dtype", ["float32", "bfloat16", "int8"])
+def test_adamw_update_by_row_slices_is_bitwise_whole(moment_dtype,
+                                                     monkeypatch):
+    """A leaf above ``ADAMW_CHUNK`` elements is updated a slice of rows at
+    a time: the same bits as the whole leaf at once, for params and moments
+    of each dtype (a 3-d, a 2-d with a ragged last slice, and a 1-d leaf)."""
+    hp = TO.OptHParams(lr=0.1, warmup=1, moment_dtype=moment_dtype)
+    g = torch.Generator().manual_seed(0)
+    shapes = [(5, 6, 7), (13, 11), (50,)]
+    out = []
+    for chunk in (TO.ADAMW_CHUNK, 40):
+        monkeypatch.setattr(TO, "ADAMW_CHUNK", chunk)
+        g.manual_seed(0)
+        params = torch.nn.Module()
+        for i, shape in enumerate(shapes):
+            params.register_parameter(
+                f"w{i}", torch.nn.Parameter(torch.randn(shape, generator=g)))
+        opt = TO.init_opt_state(params, hp)
+        leaves = list(params.parameters())
+        for _ in range(3):
+            TO.adamw_update(leaves, [torch.randn(x.shape, generator=g)
+                                     for x in leaves], opt, hp)
+        moments = [y for key in ("m", "v")
+                   for x in TO.moment_leaves(opt[key])
+                   for y in ((x.q, x.scale) if TQ.is_qtensor(x) else (x,))]
+        out.append([x.detach() for x in leaves] + moments)
+    assert len(TO._row_slices(leaves[0])) == 5     # 42-element rows
+    assert len(TO._row_slices(leaves[1])) == 5     # 3 rows a slice, 13 rows
+    assert all(torch.equal(a, b) for a, b in zip(*out))
+
+
 @pytest.mark.parametrize("moment_dtype", ["bfloat16", "int8"])
 def test_adamw_update_matches_jax(moment_dtype):
     """One update from random moments stored in ``moment_dtype``: params at
@@ -216,7 +248,8 @@ def _run_both(name, hp_kw, accum, compress, dtype, steps=3):
     state = JS.init_train_state(jax.random.PRNGKey(0), cfg, hp, dtype)
     t_state = bridge.train_state_from_jax(_np_tree(state), tcfg, "cpu")
     step = jax.jit(JS.make_train_step(cfg, hp, RT, compress_grads=compress))
-    t_step = TS.make_train_step(tcfg, t_hp, compress_grads=compress)
+    t_step = TS.make_train_step(tcfg, t_hp, TM.Runtime(remat="none"),
+                                compress_grads=compress)
     rng = np.random.default_rng(3)
     for i in range(steps):
         batch = _batch(rng, cfg, accum)
@@ -272,7 +305,8 @@ def test_grad_compression_roundtrip_small_error():
     out = {}
     for compress in (False, True):
         state = TS.train_state_from_host(host, tcfg, "cpu")
-        state, metrics = TS.make_train_step(tcfg, hp, compress_grads=compress)(
+        state, metrics = TS.make_train_step(
+            tcfg, hp, TM.Runtime(remat="none"), compress_grads=compress)(
             state, batch)
         out[compress] = (list(state["params"].parameters())[1].detach(),
                          float(metrics["loss"]))

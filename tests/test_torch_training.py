@@ -94,7 +94,8 @@ def test_loss_reads_the_runtime_aux_weight(name):
     want, want_m = JLoss.loss_fn(params, {k: jnp.asarray(v) for k, v in batch.items()},
                                  cfg, JM.Runtime(aux_loss_weight=0.05, q_chunk=16))
     got, got_m = TLoss.loss_fn(tp, {k: torch.from_numpy(v) for k, v in batch.items()},
-                               tcfg, TM.Runtime(aux_loss_weight=0.05))
+                               tcfg, TM.Runtime(aux_loss_weight=0.05,
+                                                remat="none"))
     _close(got.numpy(), want, TOL)
     _close(got_m["ce"].numpy(), want_m["ce"], TOL)
     assert abs(float(got_m["moe_aux"]) - float(want_m["moe_aux"])) <= 1e-6
@@ -175,7 +176,7 @@ def test_train_step_matches_jax(name, accum):
     rt = JM.Runtime(attn_impl="xla", scan_impl="chunked", remat="none",
                     q_chunk=16, shard_activations=False)
     step = jax.jit(JS.make_train_step(cfg, HP, rt))
-    t_step = TS.make_train_step(tcfg, T_HP)
+    t_step = TS.make_train_step(tcfg, T_HP, TM.Runtime(remat="none"))
     for i in range(3):
         batch = _batch(rng, cfg, accum, 2, 16)
         state, metrics = step(state, {k: jnp.asarray(v) for k, v in batch.items()})
