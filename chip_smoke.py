@@ -141,6 +141,22 @@ non-causal). Phases:
     ``torch.cuda.set_sync_debug_mode("error")`` (no host sync), and the
     grads at depth 1 stand against the f32 grads of f32 copies (phase 11's
     ratio rule; the f32 reference made first, in place, so that it fits).
+13. the LOG.io engine (logio-engine; host code, no kernel): the paper's UC1
+    (``benchmarks/uc1.py:13-40``: OP1 source, OP2 map, OP3 count window of
+    2, OP4 count window of 100 with one external write per output, OP5
+    sink), 1,000 unpaced events of 10 KB, built from ``repro_torch.core``:
+    every store stack of the tests' "all" set under a crash of OP3 (at
+    ``post_log``) and of OP4 (at ``pre_write``), with wall ms, events/s,
+    failures and restarts per stack; a full-process crash (``store.crash()``
+    and a resumed engine) of sqlite+group and segment+group; ABS beside
+    LOG.io with one failure each; lineage capture from OP1 to OP4 beside the
+    memory run (best of 3 each), the backward query of an OP4 output (its
+    200 source events), the forward query of a source event (one OP4
+    output) and its replay (byte-identical); a dispatcher / replica / merger
+    pipeline scaled up and down mid-run; UC1 under a live
+    ``RecoveryController`` with its decisions. Every run's committed outputs
+    are the failure-free ones, each once. Its times are host times, printed
+    with the card's name and power limit and the host CPU.
 
 Phase 2 also holds the f32 flash backward (``csrc/flash_attention_f32tc.cu``)
 against its plain version at rtol = atol = 2e-5 relative to each
@@ -160,7 +176,7 @@ Training needs ``CUBLAS_WORKSPACE_CONFIG`` (set here before torch starts)
 and runs under ``torch.use_deterministic_algorithms(True)`` from phase 6 on,
 so phases 9-12 run under it too. The phases that drive a main path
 (3-4b, 6-12) set the launch counts to 0 just before and read them just
-after.
+after; phase 13 launches no kernel.
 
 Every breakdown prints the port's kernel launches the profiler recorded
 beside those the wrappers counted, and reads its device busy time as a lower
@@ -174,9 +190,11 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import functools
 import json
 import math
 import os
+import platform
 import re
 import statistics
 import subprocess
@@ -3065,6 +3083,320 @@ def phase_logio(cfg, path: str) -> dict:
     return {"launches": launches}
 
 
+# ---------------------------------------------------------------------------
+# phase 13: the LOG.io engine on the card's host (the paper's UC1)
+# ---------------------------------------------------------------------------
+
+# UC1 (benchmarks/uc1.py:13-40): OP1 source -> OP2 map -> OP3 count window
+# -> OP4 count window with one external write per output -> OP5 sink; 1,000
+# events of 10 KB (UC1's kb=10, the "1000ev" case of
+# benchmarks/lineage_overhead.py). Unpaced and without processing delays:
+# the phase times the protocols' own cost, not the paper's figures.
+ENGINE_EVENTS, ENGINE_KB = 1000, 10.0
+ENGINE_WINDOWS = (2, 100)                 # OP3's and OP4's windows
+# the "all" set of tests/conftest.py:27-35
+ENGINE_STACKS = ["memory", "memory+sharded", "memory+group",
+                 "memory+sharded+group", "sqlite", "sqlite+group", "segment",
+                 "segment+group", "sqlite+sharded+group",
+                 "segment+sharded+group"]
+ENGINE_PLAN = [("OP3", "post_log", 300), ("OP4", "pre_write", 2)]
+ENGINE_REPEATS = 3      # best of, for the lineage overhead
+# a full-process crash lands after the first run of this many step-mode
+# steps that leaves OP4 past half of its inputs
+ENGINE_CRASH_STEPS = 50
+
+
+def _uc1_ident(b):
+    return b
+
+
+def _uc1_op3(bs):
+    return {"n": len(bs), "i": sum(b["i"] for b in bs)}
+
+
+def _uc1_op4(bs):
+    return {"n": sum(b["n"] for b in bs), "i": sum(b["i"] for b in bs)}
+
+
+def uc1_pipeline(core, n_events: int = ENGINE_EVENTS):
+    """UC1's topology from ``core``, and its failure-free OP4 outputs: each
+    holds the count and the sum of the indices of the source events of its
+    window, so a lost or doubled event shows."""
+    blob = bytes(int(ENGINE_KB * 1024))
+    events = [{"i": i, "data": blob} for i in range(n_events)]
+    w3, w4 = ENGINE_WINDOWS
+    span = w3 * w4
+
+    def build():
+        p = core.Pipeline()
+        p.add(functools.partial(core.GeneratorSource, "OP1",
+                                core.ReadSource(events)))
+        p.add(functools.partial(core.MapOperator, "OP2", fn=_uc1_ident))
+        p.add(functools.partial(core.CountWindowOperator, "OP3", w3,
+                                agg=_uc1_op3))
+        p.add(functools.partial(core.CountWindowOperator, "OP4", w4,
+                                agg=_uc1_op4, writes_per_output=1))
+        p.add(functools.partial(core.TerminalSink, "OP5",
+                                target=n_events // span))
+        p.connect("OP1", "out", "OP2", "in")
+        p.connect("OP2", "out", "OP3", "in")
+        p.connect("OP3", "out", "OP4", "in")
+        p.connect("OP4", "out", "OP5", "in")
+        return p
+    expected = [{"n": span, "i": sum(range(k * span, (k + 1) * span))}
+                for k in range(n_events // span)]
+    return build, expected
+
+
+def exactly_once(eng, expected, what: str) -> None:
+    """The committed outputs are the failure-free ones, in order, each
+    once, and OP4 made one distinct external write per output."""
+    committed = eng.external.committed()
+    outs = [b for b in committed if not (isinstance(b, dict) and "inset" in b)]
+    writes = {b["inset"] for b in committed
+              if isinstance(b, dict) and "inset" in b}
+    check(outs == expected, f"engine {what}: outputs {outs} != {expected}")
+    check(len(writes) == len(expected),
+          f"engine {what}: {len(writes)} external writes for "
+          f"{len(expected)} outputs")
+
+
+def uc1_run(core, build, expected, what: str, *, store=None, plan=(),
+            mode: str = "thread", timeout: float = 120.0, **kw):
+    """One run of ``build``; returns (wall seconds, engine) after checking
+    exactly-once delivery."""
+    eng = core.Engine(build(), store=store if store is not None else "memory",
+                      mode=mode, injector=core.FailureInjector(list(plan)),
+                      restart_delay=0.01, **kw)
+    t0 = time.perf_counter()
+    if mode == "step":
+        ok = eng.run_to_completion()
+    else:
+        eng.start()
+        ok = eng.wait(timeout)
+        eng.stop()
+    wall = time.perf_counter() - t0
+    check(ok, f"engine {what}: the run did not complete")
+    check(eng.failures == len(plan),
+          f"engine {what}: {eng.failures} failures for a plan of {len(plan)}")
+    exactly_once(eng, expected, what)
+    return wall, eng
+
+
+def host_cpu() -> str:
+    """The host CPU as /proc/cpuinfo's first processor names it (its model
+    name, and its vendor, family, model and clock where the name is not
+    given, as under gVisor), and the core count."""
+    info = {}
+    with contextlib.suppress(OSError):
+        for line in Path("/proc/cpuinfo").read_text().splitlines():
+            if not line.strip():
+                break
+            key, _, val = line.partition(":")
+            info[key.strip()] = val.strip()
+    model = info.get("model name", "unknown")
+    if model == "unknown":
+        model = " ".join([platform.machine(), model] + [
+            f"{k} {info[k]}" for k in ("vendor_id", "cpu family", "model",
+                                       "cpu MHz") if k in info])
+    return f"{model}, {os.cpu_count()} cores"
+
+
+def phase_engine(smi: str) -> dict:
+    """The in-process LOG.io engine at UC1's size: every store stack of the
+    "all" set under a crash of OP3 and of OP4, a full-process crash of the
+    group-commit durable stacks, ABS beside LOG.io, lineage capture with
+    its queries and replay, scaling and the recovery controller. Host code:
+    its times are the host's, printed with the card and the host CPU."""
+    from repro_torch import core
+    from repro_torch.core import scaling
+    from repro_torch.core.controller import ControllerConfig, RecoveryController
+    t_phase = time.perf_counter()
+    n = ENGINE_EVENTS
+    build, expected = uc1_pipeline(core)
+    host = host_cpu()
+    where = f"card {smi}; host {host}"
+    log(f"engine: UC1 ({n} events of {ENGINE_KB:g} KB, windows "
+        f"{ENGINE_WINDOWS}, {len(expected)} OP4 outputs), unpaced; {where}")
+    out = {"host": host, "card": smi, "events": n, "stacks": {}}
+    with tempfile.TemporaryDirectory() as tmp:
+        # 1. every stack under the failure plan
+        for i, spec in enumerate(ENGINE_STACKS):
+            store = core.build_store(spec, path=f"{tmp}/s{i}") \
+                if spec.startswith(("sqlite", "segment")) \
+                else core.build_store(spec)
+            wall, eng = uc1_run(core, build, expected, spec, store=store,
+                                plan=ENGINE_PLAN)
+            store.close()
+            out["stacks"][spec] = {"wall_ms": wall * 1e3,
+                                   "events_per_s": n / wall,
+                                   "failures": eng.failures,
+                                   "restarts": eng.restarts}
+            log(f"engine {spec}: {wall * 1e3:.1f} ms, {n / wall:.0f} ev/s, "
+                f"failures {eng.failures}, restarts {eng.restarts}")
+        # 2. a full-process crash: step mode cut mid-run, store.crash(),
+        #    a resumed engine on the same store and external system
+        for spec in ("sqlite+group", "segment+group"):
+            store = core.build_store(spec, path=f"{tmp}/crash-{spec}",
+                                     interval=60.0)
+            eng = core.Engine(build(), mode="step", store=store)
+            steps, half = 0, n // ENGINE_WINDOWS[0] // 2
+            while eng.metrics().ops["OP4"].events_in < half:
+                check(not eng.run_to_completion(max_steps=ENGINE_CRASH_STEPS),
+                      f"engine crash {spec}: the run ended before the crash")
+                steps += ENGINE_CRASH_STEPS
+            before = len(eng.external.committed())
+            store.crash()
+            wall, eng2 = uc1_run(core, build, expected, f"{spec} resumed",
+                                 store=store, external=eng.external,
+                                 resume=True)
+            store.close()
+            out[f"crash_{spec}"] = {"committed_before": before,
+                                    "resume_ms": wall * 1e3}
+            log(f"engine {spec} full-process crash after {steps} steps "
+                f"(OP4 past {half} of its {2 * half} inputs, {before} of "
+                f"{2 * len(expected)} commits made): resumed in "
+                f"{wall * 1e3:.1f} ms, exactly once")
+    # 3. ABS beside LOG.io, one failure each, on the memory stack
+    abs_wall, abs_eng = uc1_run(core, build, expected, "abs",
+                                plan=[("OP3", "abs_input", 300)],
+                                protocol="abs")
+    log_wall, _ = uc1_run(core, build, expected, "logio",
+                          plan=[("OP3", "post_log", 300)])
+    out["abs_ms"], out["logio_ms"] = abs_wall * 1e3, log_wall * 1e3
+    log(f"engine abs (epoch_events {abs_eng._abs.epoch_events}): "
+        f"{abs_wall * 1e3:.1f} ms, restarts {abs_eng.restarts}; logio "
+        f"{log_wall * 1e3:.1f} ms; the same committed outputs")
+    # 4. lineage: capture overhead (failure-free memory runs with and
+    #    without it, in turns: the host's speed drifts), then the queries
+    #    and replay
+    scope = [core.LineageScope(("OP1", "out"), ("OP4", "out"))]
+    base, lin = [], []
+    for _ in range(ENGINE_REPEATS):
+        base.append(uc1_run(core, build, expected, "memory")[0])
+        wall, leng = uc1_run(core, build, expected, "lineage",
+                             lineage_scopes=scope)
+        lin.append(wall)
+    best, lbest = min(base), min(lin)
+    out.update(memory_ms=best * 1e3, lineage_ms=lbest * 1e3,
+               lineage_overhead=lbest / best - 1)
+    log(f"engine lineage: best of {ENGINE_REPEATS} {lbest * 1e3:.1f} ms "
+        f"against {best * 1e3:.1f} ms without, failure-free "
+        f"({100 * (lbest / best - 1):+.1f}%); runs in turns "
+        f"{[round(x * 1e3, 1) for x in lin]} and "
+        f"{[round(x * 1e3, 1) for x in base]} ms")
+    q = core.LineageQuery(leng.store)
+    span = ENGINE_WINDOWS[0] * ENGINE_WINDOWS[1]
+    k = 2
+    target = ("OP4", "out", k)
+    t0 = time.perf_counter()
+    srcs = sorted(e for e in q.backward(target).keys() if e[0] == "OP1")
+    back_ms = (time.perf_counter() - t0) * 1e3
+    check(srcs == [("OP1", "out", j) for j in range(k * span, (k + 1) * span)],
+          f"engine lineage: backward of {target} gives {len(srcs)} source "
+          f"events, not its window's {span}")
+    j = k * span + 17
+    t0 = time.perf_counter()
+    fwd = [e for e in q.forward(("OP1", "out", j), "OP2").keys()
+           if e[0] == "OP4"]
+    fwd_ms = (time.perf_counter() - t0) * 1e3
+    check(fwd == [target], f"engine lineage: forward of OP1 {j} gives {fwd}")
+    t0 = time.perf_counter()
+    rep = leng.replay([target], check=True)
+    replay_ms = (time.perf_counter() - t0) * 1e3
+    check(rep.ok and rep.matches[core.EventKey(*target)] is True
+          and rep.executed_ops == frozenset({"OP2", "OP3", "OP4"}),
+          f"engine replay of {target}: {rep}")
+    out.update(backward_ms=back_ms, forward_ms=fwd_ms, replay_ms=replay_ms)
+    log(f"engine lineage queries: backward of {target} {back_ms:.1f} ms "
+        f"({span} source events), forward of OP1 {j} {fwd_ms:.1f} ms (one "
+        f"OP4 output), replay {replay_ms:.1f} ms (executed "
+        f"{sorted(rep.executed_ops)}, byte-identical)")
+    # 5. scaling mid-run, then UC1 under a live recovery controller
+    out.update(phase_engine_scaling(core, scaling))
+    eng = core.Engine(build(), mode="thread", restart_delay=0.01,
+                      injector=core.FailureInjector([("OP3", "post_log", 300)]))
+    ctl = RecoveryController(eng, ControllerConfig(sample_interval=0.01,
+                                                   switch_hysteresis=2))
+    t0 = time.perf_counter()
+    eng.start()
+    ctl.start()
+    try:
+        ok = eng.wait(120)
+    finally:
+        ctl.stop()
+        eng.stop()
+    wall = time.perf_counter() - t0
+    check(ok and eng.failures == 1, "engine controller: the run did not "
+          f"complete with its one failure ({eng.failures})")
+    exactly_once(eng, expected, "controller")
+    decisions = [d[1:] for d in ctl.decisions]
+    check(not any(d[0] == "error" for d in decisions),
+          f"engine controller: sensing failed: {decisions}")
+    out.update(controller_ms=wall * 1e3, controller_decisions=decisions)
+    log(f"engine controller: {wall * 1e3:.1f} ms, decisions {decisions}, "
+        f"final modes {eng.metrics().recovery_modes}")
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"engine: phase {out['phase_s']:.1f} s; {where}")
+    return out
+
+
+def phase_engine_scaling(core, scaling) -> dict:
+    """A dispatcher / replica / merger pipeline (tests/test_scaling_abs.py's
+    shape) on UC1's events, scaled up and then down mid-run, each step
+    timed by the outputs committed so far."""
+    n = ENGINE_EVENTS
+    blob = bytes(int(ENGINE_KB * 1024))
+    p = core.Pipeline()
+    p.add(functools.partial(core.GeneratorSource, "src", core.ReadSource(
+        [{"i": i, "data": blob} for i in range(n)]), rate=0.0005))
+    p.add(functools.partial(scaling.DispatcherOperator, "disp", ["r0", "r1"]))
+    for r in ("r0", "r1"):
+        p.add(functools.partial(core.MapOperator, r, fn=_uc1_ident))
+    p.add(functools.partial(scaling.MergerOperator, "mrg", ["r0", "r1"]))
+    p.add(functools.partial(core.TerminalSink, "sink", target=n))
+    p.connect("src", "out", "disp", "in")
+    for r in ("r0", "r1"):
+        p.connect("disp", f"to_{r}", r, "in")
+        p.connect(r, "out", "mrg", f"from_{r}")
+    p.connect("mrg", "out", "sink", "in")
+    eng = core.Engine(p, mode="thread", restart_delay=0.01)
+    ctrl = scaling.Controller(eng, "disp", "mrg",
+                              replica_factory=lambda rid: functools.partial(
+                                  core.MapOperator, rid, fn=_uc1_ident))
+
+    def committed():
+        return len(eng.external.committed())
+
+    def reach(count):
+        deadline = time.monotonic() + 60
+        while committed() < count:
+            check(time.monotonic() < deadline,
+                  f"engine scaling: {committed()} of {count} outputs")
+            time.sleep(0.001)
+        return committed()
+
+    t0 = time.perf_counter()
+    eng.start()
+    at_up = reach(n // 4)
+    ctrl.scale_up("r2")
+    at_down = reach(n // 2)
+    check(at_down < n, "engine scaling: the run ended before the scale-down")
+    ctrl.scale_down("r0")
+    ok = eng.wait(120)
+    eng.stop()
+    wall = time.perf_counter() - t0
+    got = sorted(b["i"] for b in eng.external.committed())
+    check(ok and got == list(range(n)),
+          f"engine scaling: {len(got)} outputs, exactly once: "
+          f"{got == list(range(n))}")
+    log(f"engine scaling: {wall * 1e3:.1f} ms; r2 up after {at_up} outputs, "
+        f"r0 down after {at_down}; routes {eng.ops['disp'].routes}; "
+        f"{n} outputs exactly once")
+    return {"scaling_ms": wall * 1e3, "scale_up_at": at_up,
+            "scale_down_at": at_down}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3232,6 +3564,9 @@ def main() -> int:
         GROK_ARCH, "attention_bf16", "grok-train-bf16", bf16, equal=False,
         grad_depth=1, lse_kernel=f"{FLASH_TC}<128, false, true>", moe=True)
     torch.cuda.empty_cache()
+    # the LOG.io engine (phase 13): host code, no kernel
+    engine = phase_engine(dev["smi"])
+    log(f"engine json: {json.dumps(engine)}")
     launches = {"flash_attention": fwd["launches"] + fwd_k["launches"]
                 + fwd_s["launches"] + itrain["launches"]["flash_attention"]
                 + gtrain16["launches"]["flash_attention"]

@@ -1,17 +1,17 @@
 """Pipeline engine: graph wiring, group execution (threads ≈ pods),
 failure injection, warm restart + recovery, lineage configuration.
 
-Counterpart of ``repro.core.engine``, trimmed to the training slice:
-``protocol="logio"`` with ``mode="thread"`` or ``"step"``. The ABS baseline
-(``protocol="abs"``), process mode and partial replay (``Engine.replay``)
-raise ``NotImplementedError``: they arrive with later slices.
+Counterpart of ``repro.core.engine`` in ``mode="thread"`` and ``"step"``,
+under both protocols, with partial replay (``Engine.replay``). Process mode
+(``mode="process"``) raises ``NotImplementedError``: it arrives with the
+process-mode slice.
 
-Two protocols share the substrate in the JAX package:
+Two protocols share the substrate:
   * ``protocol="logio"`` — this paper (pessimistic logging, non-blocking
     recovery; only failed groups restart).
   * ``protocol="abs"``   — the baseline (Sec. 8.1): aligned barrier
     snapshotting, global restart from the last complete epoch
-    (see ``repro.core.abs``; not ported).
+    (see ``repro_torch.core.abs``).
 
 Three execution modes (process mode not ported):
   * ``mode="thread"``  — one thread per group, real back-pressure and timing
@@ -231,8 +231,6 @@ class Engine:
         assigns groups to cluster nodes; ``cluster`` is the node-agent
         harness (e.g. :class:`repro.core.cluster.LocalCluster`) that
         launches workers on those nodes."""
-        if protocol == "abs":
-            raise _later("protocol='abs' (the ABS baseline)", "ABS")
         if mode == "process":
             raise _later("mode='process'", "process-mode")
         self.pipeline = pipeline
@@ -564,6 +562,11 @@ class Engine:
         self._kill_requests.add(group)
 
     def start(self):
+        if self.protocol == "abs":
+            from repro_torch.core.abs import AbsEngineDriver
+            self._abs = AbsEngineDriver(self, **self.abs_options)
+            self._abs.start()
+            return
         for g in set(self.pipeline.groups.values()):
             self._start_group(g, recover=self._resume)
 
@@ -808,6 +811,8 @@ class Engine:
         return out
 
     def wait(self, timeout: float = 60.0) -> bool:
+        if self.protocol == "abs":
+            return self._abs.wait(timeout)
         if self._proc is not None:
             return self._proc.wait(timeout)
         deadline = time.time() + timeout
@@ -842,8 +847,12 @@ class Engine:
         run. Returns a :class:`repro.core.replay.ReplayReport`; with
         ``check=True`` raises :class:`repro.core.replay.ReplayMismatch`
         when a deterministic slice fails to reproduce byte-identically.
-        Not ported yet: raises ``NotImplementedError``."""
-        raise _later("Engine.replay", "lineage-replay")
+        ``mode="process"`` is not ported and raises
+        ``NotImplementedError``."""
+        from repro_torch.core.replay import replay_from_log
+        return replay_from_log(self, outputs, scope=scope, mode=mode,
+                               depth=depth, timeout=timeout,
+                               injector=injector, check=check)
 
     # ------------------------------------------------------------------
     # deterministic single-threaded mode (property tests)

@@ -1,16 +1,20 @@
-"""Data lineage: scopes and path enumeration (Sec. 3.1).
+"""Data lineage: scopes, path enumeration (Sec. 3.1), and queries (Sec. 7.3).
 
 A scope (start, target) of port ids implicitly defines the data lineage
 paths; for every (OP.in, OP.out) subsequence on a path, capture is enabled
-for those ports of OP. The queries of Sec. 7.3 (``repro.core.lineagequery``
-and the ``backward`` / ``forward`` shims) are not ported yet: they arrive
-with the lineage-query slice.
+for those ports of OP. Queries join EVENT_LINEAGE x EVENT_LOG:
+
+  backward(event)  : output event -> InSet_ID -> input events (recursively)
+  forward(event)   : input event -> InSet_IDs it joined -> output events
 """
 from __future__ import annotations
 
 import dataclasses
+import warnings
 from collections import defaultdict
 from typing import Dict, FrozenSet, List, Sequence, Set, Tuple
+
+from repro_torch.core.logstore import LogBackend
 
 
 @dataclasses.dataclass(frozen=True)
@@ -86,3 +90,32 @@ def enabled_ports(pipeline, scopes: Sequence[LineageScope]
         sop, sport = scope.start
         out[sop][1].add(sport)
     return dict(out)
+
+
+# ---------------------------------------------------------------------------
+# queries — deprecated free-function surface
+# ---------------------------------------------------------------------------
+# The walks moved to repro_torch.core.lineagequery.LineageQuery (typed EventKey
+# results, scan-time filtering, bounded growth). These shims keep the old
+# tuple-list signatures working one release longer.
+
+def backward(store: LogBackend, event_key: Tuple[str, str, int],
+             depth: int = 64) -> List[Tuple[str, str, int]]:
+    """Deprecated: use ``LineageQuery(store).backward(key)``."""
+    warnings.warn(
+        "repro_torch.core.lineage.backward is deprecated; use "
+        "repro_torch.core.LineageQuery(store).backward(key)",
+        DeprecationWarning, stacklevel=2)
+    from repro_torch.core.lineagequery import LineageQuery
+    return LineageQuery(store).backward(event_key, depth=depth).keys()
+
+
+def forward(store: LogBackend, event_key: Tuple[str, str, int],
+            rec_op: str, depth: int = 64) -> List[Tuple[str, str, int]]:
+    """Deprecated: use ``LineageQuery(store).forward(key, rec_op)``."""
+    warnings.warn(
+        "repro_torch.core.lineage.forward is deprecated; use "
+        "repro_torch.core.LineageQuery(store).forward(key, rec_op)",
+        DeprecationWarning, stacklevel=2)
+    from repro_torch.core.lineagequery import LineageQuery
+    return LineageQuery(store).forward(event_key, rec_op, depth=depth).keys()

@@ -3,8 +3,10 @@
 * it imports neither JAX nor anything of the ``repro`` package;
 * its entry points run on ``cuda`` and raise without a card unless the
   caller asks for ``device="cpu"``;
-* the parts of the LOG.io core the training slice left out (other log
-  stores, process mode, ABS, replay) raise ``NotImplementedError``; the
+* the parts of the LOG.io core that raised until the engine slice (the
+  sqlite, sharded and segment log stores, ABS, replay) build and run;
+  process mode and what depends on it (replay and scaling in process
+  mode) raise ``NotImplementedError`` naming the process-mode slice; the
   optimizer-state variants (bf16/int8 moments, bf16 accumulation, gradient
   compression) build;
 * the kernel wrappers pick the plain version by the tensors' device alone:
@@ -62,6 +64,14 @@ def test_port_imports_no_jax_and_nothing_of_repro():
                 "repro_torch.configs.base", "repro_torch.core.engine",
                 "repro_torch.core.operator", "repro_torch.core.recovery",
                 "repro_torch.core.logstore.memory",
+                "repro_torch.core.logstore.sqlite",
+                "repro_torch.core.logstore.segment",
+                "repro_torch.core.logstore.batched",
+                "repro_torch.core.logstore.sharded",
+                "repro_torch.core.logstore.epoch", "repro_torch.core.abs",
+                "repro_torch.core.api", "repro_torch.core.controller",
+                "repro_torch.core.lineagequery", "repro_torch.core.replay",
+                "repro_torch.core.scaling",
                 "repro_torch.core.transport.local", "repro_torch.data.pipeline",
                 "repro_torch.training.step", "repro_torch.training.optimizer",
                 "repro_torch.training.loss", "repro_torch.checkpoint.store",
@@ -154,31 +164,89 @@ def _linear_pipeline():
     return p
 
 
+def _replay_in_process_mode():
+    from repro_torch.core import Engine, LineageScope
+    eng = Engine(_linear_pipeline(), mode="step",
+                 lineage_scopes=[LineageScope(("src", "out"), ("win", "out"))])
+    assert eng.run_to_completion()
+    eng.replay([("win", "out", 0)], mode="process")
+
+
+def _scaling_on_a_process_mode_engine(direction):
+    from repro_torch.core import Engine
+    from repro_torch.core.scaling import Controller
+    eng = Engine(_linear_pipeline(), mode="thread")
+    eng.mode = "process"          # the mode no constructor accepts yet
+    ctrl = Controller(eng, "src", "sink", replica_factory=None)
+    getattr(ctrl, f"scale_{direction}")("r9")
+
+
 TRIMMED = {
-    "sqlite store": lambda: __import__(
-        "repro_torch.core.logstore", fromlist=["x"]).build_store("sqlite"),
-    "sharded store": lambda: __import__(
-        "repro_torch.core.logstore", fromlist=["x"]).build_store(
-            "memory+sharded+group"),
-    "segment config": lambda: __import__(
-        "repro_torch.core.logstore", fromlist=["x"]).StoreConfig(
-            base="segment"),
     "process mode": lambda: __import__(
         "repro_torch.core", fromlist=["x"]).Engine(_linear_pipeline(),
                                                    mode="process"),
-    "abs": lambda: __import__(
-        "repro_torch.core", fromlist=["x"]).Engine(_linear_pipeline(),
-                                                   protocol="abs"),
-    "replay": lambda: __import__(
-        "repro_torch.core", fromlist=["x"]).Engine(
-            _linear_pipeline(), mode="step").replay([("win", "out", 0)]),
+    "replay in process mode": _replay_in_process_mode,
+    "scale-up in process mode": lambda: _scaling_on_a_process_mode_engine(
+        "up"),
+    "scale-down in process mode": lambda: _scaling_on_a_process_mode_engine(
+        "down"),
 }
 
 
 @pytest.mark.parametrize("what", sorted(TRIMMED))
 def test_trimmed_paths_raise(what):
-    with pytest.raises(NotImplementedError, match="slice"):
+    with pytest.raises(NotImplementedError, match="process-mode slice"):
         TRIMMED[what]()
+
+
+def _runs_on(store):
+    from repro_torch.core import Engine
+    eng = Engine(_linear_pipeline(), mode="step", store=store)
+    assert eng.run_to_completion()
+    assert eng.external.committed() == [1]
+
+
+def _engine_part(what, tmp_path):
+    from repro_torch.core import (Engine, LineageScope, SegmentLogStore,
+                                  ShardedLogStore, SqliteLogStore,
+                                  StoreConfig, build_store)
+    if what == "sqlite store":
+        store = build_store("sqlite", path=str(tmp_path / "log.db"))
+        assert isinstance(store, SqliteLogStore)
+        _runs_on(store)
+    elif what == "sharded store":
+        store = build_store("memory+sharded+group")
+        assert isinstance(store, ShardedLogStore)
+        _runs_on(store)
+    elif what == "segment config":
+        cfg = StoreConfig(base="segment", path=str(tmp_path / "segs"))
+        assert str(cfg) == "segment"
+        store = build_store(cfg)
+        assert isinstance(store, SegmentLogStore)
+        _runs_on(store)
+    elif what == "abs":
+        eng = Engine(_linear_pipeline(), protocol="abs")
+        eng.start()
+        assert eng.wait(30)
+        assert eng.external.committed() == [1]
+    elif what == "replay":
+        eng = Engine(_linear_pipeline(), mode="step",
+                     lineage_scopes=[LineageScope(("src", "out"),
+                                                  ("win", "out"))])
+        assert eng.run_to_completion()
+        rep = eng.replay([("win", "out", 0)])
+        assert rep.ok and rep.executed_ops == frozenset({"win"})
+
+
+# The parts of the engine that raised until the engine slice: each builds
+# and runs a one-event pipeline on the CPU now.
+ENGINE_PARTS = ["abs", "replay", "segment config", "sharded store",
+                "sqlite store"]
+
+
+@pytest.mark.parametrize("what", ENGINE_PARTS)
+def test_engine_parts_run(what, tmp_path):
+    _engine_part(what, tmp_path)
 
 
 # The optimizer-state variants, which raised until the low-precision slice:
