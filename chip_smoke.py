@@ -157,6 +157,24 @@ non-causal). Phases:
     ``RecoveryController`` with its decisions. Every run's committed outputs
     are the failure-free ones, each once. Its times are host times, printed
     with the card's name and power limit and the host CPU.
+    13b. (logio-process) the same engine in process mode: a worker process
+    per operator group, every injected crash a real SIGKILL. After the
+    earlier phases' host copies are freed (the host RSS printed), UC1 under
+    phase 13's crash plan on each transport (routed, socket, tcp, shm),
+    forked from this process, on the memory and sqlite+sharded+group
+    stores, and on routed with ``ctx="spawn"``, each beside a thread-mode
+    run on the same store just before it (wall ms, events/s, failures,
+    restarts, the overhead); OP3 as a paced straggler SIGKILLed mid-run
+    (ms until it processes again, and the source events pushed meanwhile,
+    which must be > 0); a ``kill -9`` of a whole engine session mid-run,
+    resumed on sqlite+sharded+group and segment+group with a durable file
+    external system (no row of an uncommitted epoch left); a two-node
+    ``LocalCluster`` over tcp with node1 killed; ``replay(mode="process")``
+    byte-identical to the thread-mode replay; a scale-up and a scale-down
+    on live workers; a live ``RecoveryController`` switch, then a SIGKILL.
+    Every run is exactly once. The spawn runs and the killed session run
+    from ``chip_engine.py`` (its main script imports no torch). Host times,
+    printed as phase 13's.
 
 Phase 2 also holds the f32 flash backward (``csrc/flash_attention_f32tc.cu``)
 against its plain version at rtol = atol = 2e-5 relative to each
@@ -176,7 +194,7 @@ Training needs ``CUBLAS_WORKSPACE_CONFIG`` (set here before torch starts)
 and runs under ``torch.use_deterministic_algorithms(True)`` from phase 6 on,
 so phases 9-12 run under it too. The phases that drive a main path
 (3-4b, 6-12) set the launch counts to 0 just before and read them just
-after; phase 13 launches no kernel.
+after; phases 13 and 13b launch no kernel.
 
 Every breakdown prints the port's kernel launches the profiler recorded
 beside those the wrappers counted, and reads its device busy time as a lower
@@ -225,6 +243,12 @@ from repro_torch.training import OptHParams, init_train_state  # noqa: E402
 from repro_torch.training import optimizer  # noqa: E402
 from repro_torch.training.optimizer import moment_leaves  # noqa: E402
 from repro_torch.training.quant import is_qtensor  # noqa: E402
+sys.path.insert(0, str(ROOT))
+from chip_engine import (ENGINE_EVENTS, ENGINE_KB, ENGINE_PLAN,  # noqa: E402
+                         ENGINE_WINDOWS, PROC_RATE, _proc_store, _uc1_ident,
+                         _uc1_replica, crash_plan_run, exactly_once,
+                         host_memory, phase_engine_kill9, uc1_pipeline,
+                         uc1_run)
 
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM data sheet
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}  # dense; f32 off the tensor cores
@@ -3087,100 +3111,18 @@ def phase_logio(cfg, path: str) -> dict:
 # phase 13: the LOG.io engine on the card's host (the paper's UC1)
 # ---------------------------------------------------------------------------
 
-# UC1 (benchmarks/uc1.py:13-40): OP1 source -> OP2 map -> OP3 count window
-# -> OP4 count window with one external write per output -> OP5 sink; 1,000
-# events of 10 KB (UC1's kb=10, the "1000ev" case of
-# benchmarks/lineage_overhead.py). Unpaced and without processing delays:
-# the phase times the protocols' own cost, not the paper's figures.
-ENGINE_EVENTS, ENGINE_KB = 1000, 10.0
-ENGINE_WINDOWS = (2, 100)                 # OP3's and OP4's windows
+# UC1 (``chip_engine.uc1_pipeline``, benchmarks/uc1.py:13-40), 1,000 events
+# of 10 KB. Unpaced and without processing delays: the phase times the
+# protocols' own cost, not the paper's figures.
 # the "all" set of tests/conftest.py:27-35
 ENGINE_STACKS = ["memory", "memory+sharded", "memory+group",
                  "memory+sharded+group", "sqlite", "sqlite+group", "segment",
                  "segment+group", "sqlite+sharded+group",
                  "segment+sharded+group"]
-ENGINE_PLAN = [("OP3", "post_log", 300), ("OP4", "pre_write", 2)]
 ENGINE_REPEATS = 3      # best of, for the lineage overhead
 # a full-process crash lands after the first run of this many step-mode
 # steps that leaves OP4 past half of its inputs
 ENGINE_CRASH_STEPS = 50
-
-
-def _uc1_ident(b):
-    return b
-
-
-def _uc1_op3(bs):
-    return {"n": len(bs), "i": sum(b["i"] for b in bs)}
-
-
-def _uc1_op4(bs):
-    return {"n": sum(b["n"] for b in bs), "i": sum(b["i"] for b in bs)}
-
-
-def uc1_pipeline(core, n_events: int = ENGINE_EVENTS):
-    """UC1's topology from ``core``, and its failure-free OP4 outputs: each
-    holds the count and the sum of the indices of the source events of its
-    window, so a lost or doubled event shows."""
-    blob = bytes(int(ENGINE_KB * 1024))
-    events = [{"i": i, "data": blob} for i in range(n_events)]
-    w3, w4 = ENGINE_WINDOWS
-    span = w3 * w4
-
-    def build():
-        p = core.Pipeline()
-        p.add(functools.partial(core.GeneratorSource, "OP1",
-                                core.ReadSource(events)))
-        p.add(functools.partial(core.MapOperator, "OP2", fn=_uc1_ident))
-        p.add(functools.partial(core.CountWindowOperator, "OP3", w3,
-                                agg=_uc1_op3))
-        p.add(functools.partial(core.CountWindowOperator, "OP4", w4,
-                                agg=_uc1_op4, writes_per_output=1))
-        p.add(functools.partial(core.TerminalSink, "OP5",
-                                target=n_events // span))
-        p.connect("OP1", "out", "OP2", "in")
-        p.connect("OP2", "out", "OP3", "in")
-        p.connect("OP3", "out", "OP4", "in")
-        p.connect("OP4", "out", "OP5", "in")
-        return p
-    expected = [{"n": span, "i": sum(range(k * span, (k + 1) * span))}
-                for k in range(n_events // span)]
-    return build, expected
-
-
-def exactly_once(eng, expected, what: str) -> None:
-    """The committed outputs are the failure-free ones, in order, each
-    once, and OP4 made one distinct external write per output."""
-    committed = eng.external.committed()
-    outs = [b for b in committed if not (isinstance(b, dict) and "inset" in b)]
-    writes = {b["inset"] for b in committed
-              if isinstance(b, dict) and "inset" in b}
-    check(outs == expected, f"engine {what}: outputs {outs} != {expected}")
-    check(len(writes) == len(expected),
-          f"engine {what}: {len(writes)} external writes for "
-          f"{len(expected)} outputs")
-
-
-def uc1_run(core, build, expected, what: str, *, store=None, plan=(),
-            mode: str = "thread", timeout: float = 120.0, **kw):
-    """One run of ``build``; returns (wall seconds, engine) after checking
-    exactly-once delivery."""
-    eng = core.Engine(build(), store=store if store is not None else "memory",
-                      mode=mode, injector=core.FailureInjector(list(plan)),
-                      restart_delay=0.01, **kw)
-    t0 = time.perf_counter()
-    if mode == "step":
-        ok = eng.run_to_completion()
-    else:
-        eng.start()
-        ok = eng.wait(timeout)
-        eng.stop()
-    wall = time.perf_counter() - t0
-    check(ok, f"engine {what}: the run did not complete")
-    check(eng.failures == len(plan),
-          f"engine {what}: {eng.failures} failures for a plan of {len(plan)}")
-    exactly_once(eng, expected, what)
-    return wall, eng
 
 
 def host_cpu() -> str:
@@ -3341,10 +3283,12 @@ def phase_engine(smi: str) -> dict:
     return out
 
 
-def phase_engine_scaling(core, scaling) -> dict:
+def phase_engine_scaling(core, scaling, mode: str = "thread") -> dict:
     """A dispatcher / replica / merger pipeline (tests/test_scaling_abs.py's
     shape) on UC1's events, scaled up and then down mid-run, each step
-    timed by the outputs committed so far."""
+    timed by the outputs committed so far; in ``mode="process"`` on live
+    worker processes (the dispatcher and merger workers pause and
+    warm-restart around each step)."""
     n = ENGINE_EVENTS
     blob = bytes(int(ENGINE_KB * 1024))
     p = core.Pipeline()
@@ -3360,10 +3304,9 @@ def phase_engine_scaling(core, scaling) -> dict:
         p.connect("disp", f"to_{r}", r, "in")
         p.connect(r, "out", "mrg", f"from_{r}")
     p.connect("mrg", "out", "sink", "in")
-    eng = core.Engine(p, mode="thread", restart_delay=0.01)
+    eng = core.Engine(p, mode=mode, restart_delay=0.01)
     ctrl = scaling.Controller(eng, "disp", "mrg",
-                              replica_factory=lambda rid: functools.partial(
-                                  core.MapOperator, rid, fn=_uc1_ident))
+                              replica_factory=_uc1_replica)
 
     def committed():
         return len(eng.external.committed())
@@ -3388,13 +3331,230 @@ def phase_engine_scaling(core, scaling) -> dict:
     wall = time.perf_counter() - t0
     got = sorted(b["i"] for b in eng.external.committed())
     check(ok and got == list(range(n)),
-          f"engine scaling: {len(got)} outputs, exactly once: "
+          f"engine scaling {mode}: {len(got)} outputs, exactly once: "
           f"{got == list(range(n))}")
-    log(f"engine scaling: {wall * 1e3:.1f} ms; r2 up after {at_up} outputs, "
-        f"r0 down after {at_down}; routes {eng.ops['disp'].routes}; "
-        f"{n} outputs exactly once")
-    return {"scaling_ms": wall * 1e3, "scale_up_at": at_up,
-            "scale_down_at": at_down}
+    replicas = sorted(g for g in eng.pipeline.groups if g.startswith("r"))
+    log(f"engine scaling {mode}: {wall * 1e3:.1f} ms; r2 up after {at_up} "
+        f"outputs, r0 down after {at_down}; replicas {replicas}; {n} "
+        f"outputs exactly once")
+    tag = "" if mode == "thread" else f"_{mode}"
+    return {f"scaling{tag}_ms": wall * 1e3, f"scale_up_at{tag}": at_up,
+            f"scale_down_at{tag}": at_down}
+
+
+# ---------------------------------------------------------------------------
+# phase 13b: process mode on the card's host (``chip_engine.py`` holds UC1)
+# ---------------------------------------------------------------------------
+
+PROC_TRANSPORTS = ("routed", "socket", "tcp", "shm")
+PROC_STORES = ("memory", "sqlite+sharded+group")
+# the straggler: OP3 at 4 ms an output (2 ms an event, half the source's
+# rate), restarted after benchmarks/process_mode.py's warm-restart delay
+PROC_OP3_PT, PROC_RESTART_DELAY = 0.004, 0.25
+PROC_KILL_STACKS = ("sqlite+sharded+group", "segment+group")
+
+
+def engine_spawn_runs(tmp: str) -> dict:
+    """``chip_engine.py spawn-runs``: its lines are relayed, its result
+    parsed; it fails the phase if it fails."""
+    proc = subprocess.run([sys.executable, str(ROOT / "chip_engine.py"),
+                           "spawn-runs", tmp], capture_output=True,
+                          text=True, timeout=900)
+    lines = proc.stdout.splitlines()
+    for line in lines:
+        if not line.startswith("RESULT "):
+            log(line)
+    check(proc.returncode == 0 and lines and lines[-1].startswith("RESULT "),
+          f"engine spawn runs: exit {proc.returncode}: {proc.stderr[-4000:]}")
+    return json.loads(lines[-1][len("RESULT "):])
+
+
+def phase_engine_process(smi: str) -> dict:
+    """Process mode of the LOG.io engine at UC1's size: a worker process
+    per operator group, every injected crash a real SIGKILL. UC1 under the
+    crash plan on each transport and two stores beside thread mode (in
+    turns), a straggler's non-blocking recovery, a kill -9 of the whole
+    engine tree with its resume, a two-node ``LocalCluster`` with a node
+    killed, replay in process mode, scaling on live workers and a live
+    switch of the recovery controller followed by a SIGKILL. Host code: its
+    times are the host's, printed with the card and the host CPU."""
+    import gc
+    from repro_torch import core
+    from repro_torch.core import scaling
+    from repro_torch.core.controller import ControllerConfig, RecoveryController
+    t_phase = time.perf_counter()
+    gc.collect()          # the earlier phases' host copies go before forking
+    with contextlib.suppress(OSError, AttributeError):
+        import ctypes
+        ctypes.CDLL("libc.so.6").malloc_trim(0)
+    n = ENGINE_EVENTS
+    build, expected = uc1_pipeline(core)
+    host = host_cpu()
+    where = f"card {smi}; host {host}"
+    mem = host_memory()
+    log(f"engine process: UC1 ({n} events of {ENGINE_KB:g} KB), a worker "
+        f"process per group, crashes of OP3 and OP4 as real SIGKILLs; host "
+        f"{mem} at the start; {where}")
+    out = {"host": host, "card": smi, "host_memory": mem, "runs": {}}
+    with tempfile.TemporaryDirectory() as tmp:
+        # 1. the crash plan on each transport and store, thread mode in turns
+        for spec in PROC_STORES:
+            for transport in PROC_TRANSPORTS:
+                out["runs"][f"{spec} {transport} fork"] = crash_plan_run(
+                    core, spec, transport, "fork", tmp)
+        # 2. non-blocking recovery: OP3 the straggler, its worker SIGKILLed
+        #    mid-run; the source keeps pushing while OP3 is dead
+        sbuild, _ = uc1_pipeline(core, rate=PROC_RATE, op3_pt=PROC_OP3_PT)
+        eng = core.Engine(sbuild(), mode="process", transport="socket",
+                          store=_proc_store(core, "sqlite+sharded+group",
+                                            f"{tmp}/straggler"),
+                          restart_delay=PROC_RESTART_DELAY)
+        eng.start()
+        deadline = time.monotonic() + 60
+        while eng.metrics().op("OP3").processed < n // 8:
+            check(time.monotonic() < deadline,
+                  "engine process straggler: OP3 never reached n/8")
+            time.sleep(0.005)
+        at_kill = eng.metrics()
+        t_kill = time.perf_counter()
+        eng.kill_group("OP3")
+        recovered = None
+        while time.perf_counter() - t_kill < 60:
+            m = eng.metrics()
+            if m.op("OP3").processed > at_kill.op("OP3").processed:
+                recovered = time.perf_counter() - t_kill
+                src_during = m.op("OP1").processed - at_kill.op("OP1").processed
+                break
+            time.sleep(0.002)
+        ok = eng.wait(120)
+        eng.stop()
+        eng.store.close()
+        check(ok and recovered is not None and eng.failures >= 1,
+              f"engine process straggler: ok {ok}, recovered {recovered}, "
+              f"failures {eng.failures}")
+        check(src_during > 0, "engine process straggler: the source pushed "
+              "no event while OP3 was dead (recovery blocked the pipeline)")
+        exactly_once(eng, expected, "process straggler")
+        out.update(recovery_ms=recovered * 1e3, src_events_during=src_during)
+        log(f"engine process non-blocking recovery: OP3 (the straggler, "
+            f"{PROC_OP3_PT * 1e3:g} ms an output; source {PROC_RATE * 1e3:g} "
+            f"ms an event) SIGKILLed after {at_kill.op('OP3').processed} "
+            f"events, processing again {recovered * 1e3:.1f} ms later "
+            f"(restart delay {PROC_RESTART_DELAY * 1e3:g} ms); the source "
+            f"pushed {src_during} events meanwhile; exactly once")
+        # 3. kill -9 of the whole engine tree, resumed on the durable files
+        for spec in PROC_KILL_STACKS:
+            res = phase_engine_kill9(core, spec, tmp, build, expected)
+            out[f"kill9_{spec}"] = res
+            log(f"engine process kill -9 {spec}: the whole session killed "
+                f"with {res['committed_before']} of {2 * len(expected)} "
+                f"external records made"
+                + (f", {res['uncommitted_rows_at_kill']} WAL rows of "
+                   f"uncommitted epochs rolled back at the reopen, "
+                   f"{res['epoch_rows']} rows left, all in the "
+                   f"{res['epochs']} committed epochs"
+                   if "sharded" in spec else "")
+                + f"; resumed in {res['resume_ms']:.1f} ms, exactly once")
+        # 4. the spawn-context runs (ctx="spawn", then a two-node
+        #    LocalCluster over tcp with node1 killed mid-run) in an
+        #    interpreter whose main script is chip_engine.py: a spawned
+        #    process re-executes its parent's main script, and this one's
+        #    imports torch
+        res = engine_spawn_runs(tmp)
+        out["runs"]["sqlite+sharded+group routed spawn"] = res["run"]
+        cl = res["cluster"]
+        out["cluster"] = cl
+        log(f"engine process LocalCluster (2 nodes, tcp, spawn; node1 holds "
+            f"OP3-OP5): {cl['wall_ms']:.1f} ms, of which {cl['boot_ms']:.1f} "
+            f"ms until OP3 passed {n // 5} events (agents and workers boot); "
+            f"node1 killed at {cl['source_at_kill']} source events, "
+            f"{cl['failures']} groups warm-restarted on a fresh agent; "
+            f"exactly once")
+        # 5. lineage in process mode, and replay(mode="process") against the
+        #    thread-mode replay of the same output
+        scope = [core.LineageScope(("OP1", "out"), ("OP4", "out"))]
+        wall, leng = uc1_run(core, build, expected, "process lineage",
+                             mode="process", transport="routed",
+                             lineage_scopes=scope)
+        span = ENGINE_WINDOWS[0] * ENGINE_WINDOWS[1]
+        k = 2
+        target = ("OP4", "out", k)
+        srcs = sorted(e for e in core.LineageQuery(leng.store).backward(
+            target).keys() if e[0] == "OP1")
+        check(srcs == [("OP1", "out", j)
+                       for j in range(k * span, (k + 1) * span)],
+              f"engine process lineage: backward of {target} gives "
+              f"{len(srcs)} source events")
+        import pickle
+        t0 = time.perf_counter()
+        prep = leng.replay([target], mode="process", timeout=120)
+        preplay_ms = (time.perf_counter() - t0) * 1e3
+        t0 = time.perf_counter()
+        trep = leng.replay([target])
+        treplay_ms = (time.perf_counter() - t0) * 1e3
+        key = core.EventKey(*target)
+        check(prep.ok and prep.matches[key] is True and trep.ok
+              and pickle.dumps(prep.rederived[key])
+              == pickle.dumps(trep.rederived[key])
+              and prep.executed_ops == trep.executed_ops,
+              f"engine process replay of {target}: {prep} against {trep}")
+        out.update(lineage_process_ms=wall * 1e3, replay_process_ms=preplay_ms,
+                   replay_thread_ms=treplay_ms)
+        log(f"engine process lineage: UC1 with capture {wall * 1e3:.1f} ms; "
+            f"backward of {target} = its {span} source events; "
+            f"replay(mode='process') {preplay_ms:.1f} ms, byte-identical to "
+            f"the thread-mode replay ({treplay_ms:.1f} ms), executed "
+            f"{sorted(prep.executed_ops)}")
+        # 6. scaling on live workers: up at n/4 outputs, down at n/2
+        out.update(phase_engine_scaling(core, scaling, mode="process"))
+        # 7. a live switch of the recovery controller (OP3 from epoch to
+        #    log: a paced group is no high-rate group), then a SIGKILL of
+        #    OP3 under the mode it switched to
+        pbuild, _ = uc1_pipeline(core, rate=PROC_RATE)
+        eng = core.Engine(pbuild(), mode="process", transport="socket",
+                          store="memory", restart_delay=0.01,
+                          recovery_modes={"OP3": "epoch"}, epoch_interval=8)
+        ctl = RecoveryController(eng, ControllerConfig(
+            sample_interval=0.02, switch_hysteresis=2), mode_groups=("OP3",))
+        t0 = time.perf_counter()
+        eng.start()
+        ctl.start()
+        try:
+            # the decision is recorded once the switch (a warm restart of
+            # OP3's worker under the new mode) returned; the kill waits for
+            # the restarted worker's progress
+            deadline = time.monotonic() + 60
+            while not any(d[1] == "mode" for d in ctl.decisions):
+                check(time.monotonic() < deadline,
+                      f"engine controller: no switch ({ctl.decisions})")
+                time.sleep(0.002)
+            at_switch = eng.metrics().op("OP3").processed
+            while eng.metrics().op("OP3").processed < at_switch + 20:
+                check(time.monotonic() < deadline,
+                      "engine controller: OP3 stalled after the switch")
+                time.sleep(0.002)
+            check(eng.metrics().op("OP1").processed < n,
+                  "engine controller: the source ended before the kill")
+            eng.kill_group("OP3")
+            ok = eng.wait(120)
+        finally:
+            ctl.stop()
+            eng.stop()
+        wall = time.perf_counter() - t0
+        decisions = [d[1:] for d in ctl.decisions]
+        check(ok and eng.failures == 1 and eng.recovery_mode_of("OP3") == "log"
+              and not any(d[0] == "error" for d in decisions),
+              f"engine controller process: ok {ok}, failures {eng.failures}, "
+              f"mode {eng.recovery_mode_of('OP3')}, decisions {decisions}")
+        exactly_once(eng, expected, "process controller")
+        out.update(controller_ms=wall * 1e3, controller_decisions=decisions)
+        log(f"engine process controller: OP3 switched epoch -> log live "
+            f"after {at_switch} events ({decisions}), then SIGKILLed and "
+            f"recovered under log mode; {wall * 1e3:.1f} ms, exactly once")
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"engine process: phase {out['phase_s']:.1f} s; host "
+        f"{host_memory()} at the end; {where}")
+    return out
 
 
 def main() -> int:
@@ -3567,6 +3727,9 @@ def main() -> int:
     # the LOG.io engine (phase 13): host code, no kernel
     engine = phase_engine(dev["smi"])
     log(f"engine json: {json.dumps(engine)}")
+    # process mode of the engine (phase 13b): host code, no kernel
+    engine_proc = phase_engine_process(dev["smi"])
+    log(f"engine process json: {json.dumps(engine_proc)}")
     launches = {"flash_attention": fwd["launches"] + fwd_k["launches"]
                 + fwd_s["launches"] + itrain["launches"]["flash_attention"]
                 + gtrain16["launches"]["flash_attention"]

@@ -7,10 +7,17 @@ find. The port imports ``torch`` and numpy only: never ``jax`` and nothing of
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``; with
 no card and no explicit CPU request they raise (``resolve_device``).
+
+Importing the package loads no ``torch``: the engine (``repro_torch.core``)
+is pure Python, and its process-mode workers and node agents start without
+paying for torch's import. The modules that need torch import it themselves.
 """
 from __future__ import annotations
 
-import torch
+from typing import TYPE_CHECKING
+
+if TYPE_CHECKING:
+    import torch
 
 __all__ = ["resolve_device"]
 
@@ -21,6 +28,7 @@ def resolve_device(device=None) -> torch.device:
     ``None`` means ``cuda`` and raises when no card is present; a CPU run
     must be asked for by name. Nothing here falls back silently.
     """
+    import torch
     dev = torch.device("cuda" if device is None else device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(

@@ -5,21 +5,19 @@ numpy-free Python, the same modules under the same names).
 It runs every log store (memory, sqlite, segment, null; sharded and group
 commit), both protocols (``"logio"`` and the ABS baseline), the lineage
 queries, partial replay, the Protocol API, scaling and the recovery
-controller, in ``mode="thread"`` and ``"step"``.
+controller, in ``mode="thread"``, ``"step"`` and ``"process"`` (a worker
+process per operator group over the routed, socket/tcp or shm transport,
+``procmode``), and the multi-host harness ``LocalCluster``.
 
-Still trimmed: process mode (``procmode``, the routed, socket/tcp, shm and
-wire transports) and the cluster harness (``LocalCluster``). Every path
-that reaches them raises ``NotImplementedError`` naming the process-mode
-slice.
-
-``__all__`` below is the curated public surface of ``repro.core`` less
-``LocalCluster``. Everything else imported here remains reachable, but
-internal modules are not the documented way in.
+``__all__`` below is the curated public surface of ``repro.core``.
+Everything else imported here remains reachable, but internal modules are
+not the documented way in.
 """
 from repro_torch.core.api import LogioAPI
 from repro_torch.core.builtin import (CountWindowOperator, GeneratorSource,
                                       MapOperator, SyncJoinOperator,
                                       TerminalSink)
+from repro_torch.core.cluster import LocalCluster
 from repro_torch.core.controller import ControllerConfig, RecoveryController
 from repro_torch.core.metrics import (MetricsSnapshot, OpMetrics,
                                       StoreMetrics, TransportMetrics)
@@ -49,6 +47,7 @@ __all__ = [
     "LineageFilter",
     "LineageQuery",
     "LineageScope",
+    "LocalCluster",
     "LogioAPI",
     "MetricsSnapshot",
     "OpMetrics",

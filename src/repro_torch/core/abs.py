@@ -28,7 +28,13 @@ Counterpart of ``repro.core.abs`` with three fixes, at each of which
     before it sends the event's outputs: either moment reads as a drained
     pipeline beside exhausted sources;
   * the final flush commits the remaining epochs under the epoch lock, so
-    a snapshot thread still committing an earlier epoch finishes first.
+    a snapshot thread still committing an earlier epoch finishes first;
+  * every crash counts as a failure, also one whose thread reaches the
+    global restart only after the run ended (two crashes in one
+    generation: the first one's restart re-runs the pipeline to its end
+    while the second waits for the restart lock), and ``wait`` returns
+    only once every crash raised has been counted. ``repro.core.abs``
+    skips the count there, so a run can report one failure of two fired.
 """
 from __future__ import annotations
 
@@ -353,9 +359,12 @@ class AbsEngineDriver:
     # ------------------------------------------------------------------
     def _global_restart(self, exc):
         with self._restart_lock:
+            # a crash is a failure whether or not a restart follows: a run
+            # that ended meanwhile (the restart of another crash of the
+            # same generation re-ran it to its end) needs none
+            self.e.failures += 1
             if self._stop.is_set() or self._done.is_set():
                 return
-            self.e.failures += 1
             self._generation += 1
             gen = self._generation
             # quiesce: every other group thread must leave its step section
@@ -408,6 +417,7 @@ class AbsEngineDriver:
         while time.time() < deadline:
             if self._done.is_set():
                 self._stop.set()
+                self._settle(deadline)
                 self._final_flush()
                 return True
             # drained: no restart pending or in progress (a restart clears
@@ -425,6 +435,16 @@ class AbsEngineDriver:
             time.sleep(0.005)
         self._stop.set()
         return False
+
+    def _settle(self, deadline: float):
+        """After the end: let every group thread leave its step and every
+        crash raised in one reach ``_global_restart`` (which counts it and
+        returns, the run being over), so ``failures`` is final."""
+        while time.time() < deadline:
+            with self._active_lock:
+                if self._active == 0 and self._restarts_pending == 0:
+                    return
+            time.sleep(0.001)
 
     def _final_flush(self):
         """Drain shutdown: join pending snapshots, then commit every

@@ -1,11 +1,6 @@
 """Pipeline engine: graph wiring, group execution (threads ≈ pods),
 failure injection, warm restart + recovery, lineage configuration.
 
-Counterpart of ``repro.core.engine`` in ``mode="thread"`` and ``"step"``,
-under both protocols, with partial replay (``Engine.replay``). Process mode
-(``mode="process"``) raises ``NotImplementedError``: it arrives with the
-process-mode slice.
-
 Two protocols share the substrate:
   * ``protocol="logio"`` — this paper (pessimistic logging, non-blocking
     recovery; only failed groups restart).
@@ -13,14 +8,14 @@ Two protocols share the substrate:
     snapshotting, global restart from the last complete epoch
     (see ``repro_torch.core.abs``).
 
-Three execution modes (process mode not ported):
+Three execution modes:
   * ``mode="thread"``  — one thread per group, real back-pressure and timing
     (used by the benchmarks that reproduce Sec. 9).
   * ``mode="step"``    — deterministic single-threaded round-robin (used by
     the hypothesis property tests; failures injected at exact points).
   * ``mode="process"`` — one forked OS process per group, all workers
     sharing this process's log store; crash = real ``kill -9`` and only
-    the failed group warm-restarts (``repro.core.procmode``).  The event
+    the failed group warm-restarts (``repro_torch.core.procmode``).  The event
     transport is selectable (``transport="routed"`` keeps every
     authoritative buffer in the supervisor; ``transport="socket"`` runs
     direct worker-to-worker socket channels) — see
@@ -51,12 +46,6 @@ from repro_torch.core.metrics import MetricsSnapshot, build_snapshot
 from repro_torch.core.operator import (ExternalSystem, Operator, OperatorRuntime,
                                  SimulatedCrash)
 from repro_torch.core.recovery import recover_operator
-
-
-def _later(what: str, slice_name: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"repro_torch: {what} is not ported yet; it arrives with the "
-        f"{slice_name} slice")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -229,10 +218,8 @@ class Engine:
         inherited parent memory — group factories must then be picklable.
         ``placement`` (a :class:`Placement` or a ``{group: node}`` dict)
         assigns groups to cluster nodes; ``cluster`` is the node-agent
-        harness (e.g. :class:`repro.core.cluster.LocalCluster`) that
+        harness (e.g. :class:`repro_torch.core.cluster.LocalCluster`) that
         launches workers on those nodes."""
-        if mode == "process":
-            raise _later("mode='process'", "process-mode")
         self.pipeline = pipeline
         self._resume = resume
         if isinstance(transport, TransportConfig):
@@ -310,7 +297,7 @@ class Engine:
         # per-group recovery mode: "log" (per-event LOG.io logging, the
         # default) or "epoch" (interval state snapshotting on the same
         # log — the ABS-style amortization) — the adaptive controller's
-        # actuator (repro.core.controller).  The mode recorded in the log
+        # actuator (repro_torch.core.controller).  The mode recorded in the log
         # is authoritative across restarts: a resumed engine overrides the
         # constructor argument with what the log says.
         self.epoch_interval = int(epoch_interval)
@@ -566,6 +553,11 @@ class Engine:
             from repro_torch.core.abs import AbsEngineDriver
             self._abs = AbsEngineDriver(self, **self.abs_options)
             self._abs.start()
+            return
+        if self.mode == "process":
+            from repro_torch.core.procmode import ProcessEngineDriver
+            self._proc = ProcessEngineDriver(self)
+            self._proc.start()
             return
         for g in set(self.pipeline.groups.values()):
             self._start_group(g, recover=self._resume)
@@ -844,11 +836,9 @@ class Engine:
         ``scope`` (a LineageScope) bounds the walk at its start operator.
         Runs on a fresh in-memory store in ``mode`` ("thread" default, or
         "process"); ``injector`` installs a FailureInjector in the replay
-        run. Returns a :class:`repro.core.replay.ReplayReport`; with
-        ``check=True`` raises :class:`repro.core.replay.ReplayMismatch`
-        when a deterministic slice fails to reproduce byte-identically.
-        ``mode="process"`` is not ported and raises
-        ``NotImplementedError``."""
+        run. Returns a :class:`repro_torch.core.replay.ReplayReport`; with
+        ``check=True`` raises :class:`repro_torch.core.replay.ReplayMismatch`
+        when a deterministic slice fails to reproduce byte-identically."""
         from repro_torch.core.replay import replay_from_log
         return replay_from_log(self, outputs, scope=scope, mode=mode,
                                depth=depth, timeout=timeout,

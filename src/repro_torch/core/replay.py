@@ -16,10 +16,9 @@ outputs (time-travel debugging; cf. Bauplan/Nessie replayable pipelines).
      drew from that edge (per-edge injection keeps count-based InSet
      assignment aligned with the original run), the original factories for
      the slice operators, and one collector sink per target port.
-  4. The sub-pipeline runs on a fresh in-memory store in thread mode (the
-     replay run is itself recoverable: an injector's crashes inside it are
-     recovered). ``mode="process"`` is not ported and raises
-     ``NotImplementedError``; the process-mode slice brings it.
+  4. The sub-pipeline runs on a fresh in-memory store — thread mode or
+     ``mode="process"`` (real SIGKILL injection works during replay; the
+     replay run is itself recoverable).
   5. Rederived target outputs are matched positionally against the slice
      and compared byte-for-byte (``pickle.dumps``) with the logged
      payloads. Deterministic slices must reproduce exactly
@@ -87,11 +86,8 @@ def replay_from_log(engine, outputs, *, scope: Optional[LineageScope] = None,
                     timeout: float = 60.0, injector=None,
                     check: bool = True) -> ReplayReport:
     """See :meth:`repro_torch.core.engine.Engine.replay`."""
-    # circular at import time
-    from repro_torch.core.engine import Engine, Pipeline, _later
+    from repro_torch.core.engine import Engine, Pipeline   # circular at import time
 
-    if mode == "process":
-        raise _later("Engine.replay(mode='process')", "process-mode")
     store = engine.store
     pipeline = engine.pipeline
     if isinstance(outputs, (EventKey, tuple)) and (
@@ -187,8 +183,13 @@ def replay_from_log(engine, outputs, *, scope: Optional[LineageScope] = None,
             rp.connect(op, port, sink, "in", 256)
 
         # ---- run it -----------------------------------------------------
+        run_mode = mode or "thread"
+        kw: Dict[str, Any] = {}
+        if run_mode == "process":
+            kw["transport"] = "routed"
+            kw["ctx"] = engine.proc_ctx
         reng = Engine(rp, store=MemoryLogStore(), external=ExternalSystem(),
-                      mode=mode or "thread", injector=injector)
+                      mode=run_mode, injector=injector, **kw)
         reng.start()
         completed = reng.wait(timeout)
         reng.stop()

@@ -11,21 +11,26 @@ state — mutually exclusive with the replica's generation transaction (which
 marks InSets done with ``require_rows``), and (d) re-sends events of O that
 are still undone. Then the Merger drops the input and topology is updated.
 
-Counterpart of ``repro.core.scaling`` for thread and step mode, with one
-fix: in step mode ``scale_down`` steps the removed replica and the merger
-until the replica's channels are empty. ``repro.core.scaling`` waits for a
-group thread that step mode does not have, times out after 5 s, and drops
-the events left in those channels. Process mode is not ported:
-``scale_up`` / ``scale_down`` on an engine in ``mode="process"`` raise
-``NotImplementedError`` (the process-mode slice brings the paused-worker
-path).
+Process mode (``Engine(mode="process")``): the Dispatcher/Merger state
+lives in their worker processes, so the controller pauses those two
+workers, performs the state updates against STATE in the shared log (the
+same blobs recovery uses — "acknowledged" == persisted, exactly Alg 12's
+contract), rewires the supervisor's authoritative channels, and
+warm-restarts the workers, which recover the updated state. Replicas, the
+source and the sink keep processing throughout — only the two topology
+parties restart, on live worker processes.
+
+Counterpart of ``repro.core.scaling``, with one fix: in step mode
+``scale_down`` steps the removed replica and the merger until the
+replica's channels are empty. ``repro.core.scaling`` waits for a group
+thread that step mode does not have, times out after 5 s, and drops the
+events left in those channels.
 """
 from __future__ import annotations
 
 import threading
 from typing import Any, Callable, List, Optional, Tuple
 
-from repro_torch.core.engine import _later
 from repro_torch.core.transport import Channel
 from repro_torch.core.events import UNDONE, Event
 from repro_torch.core.operator import Operator, OperatorRuntime
@@ -215,6 +220,123 @@ class Controller:
                 continue
             _time.sleep(0.002)
 
+    # -- process-mode helpers (state updates against STATE in the log) ------
+    def _restored(self, op_id: str):
+        """Fresh operator instance + runtime with its global state and
+        LOG.io context restored from the shared log — the parent-side view
+        of a paused worker's state. Mirrors the worker's runtime config
+        (lineage ports, keep_state_history) so persisting through it
+        cannot truncate a lineage-keeping operator's STATE history."""
+        e = self.e
+        op = e.pipeline.factories[op_id]()
+        lin_in, lin_out = getattr(e, "_lineage_ports", {}).get(
+            op_id, (set(), set()))
+        rt = OperatorRuntime(op, e.store, lineage_in=lin_in,
+                             lineage_out=lin_out, external=e.external,
+                             keep_state_history=bool(lin_out))
+        rt.restore_state()
+        return op, rt
+
+    def _persist_rt(self, rt: OperatorRuntime):
+        txn = self.e.store.begin()
+        txn.put_state(rt.op.id, rt.new_state_id(), rt._state_blob(),
+                      keep_history=rt.keep_state_history)
+        txn.commit()
+
+    def _scale_up_process(self, replica_id: str):
+        e = self.e
+        drv = e._proc
+        disp_group = e.pipeline.groups[self.disp_id]
+        merger_group = e.pipeline.groups[self.merger_id]
+        # pause the two topology parties; their volatile state is exactly
+        # what recovery rebuilds from STATE + the log
+        drv.stop_group(disp_group)
+        if merger_group != disp_group:
+            drv.stop_group(merger_group)
+        # Step 1: deploy replica + create the two connections
+        factory = self.replica_factory(replica_id)
+        e.pipeline.factories[replica_id] = factory
+        e.pipeline.groups[replica_id] = replica_id
+        cap = self.capacity          # the new channels' credit windows
+        e.pipeline.connections.append(
+            (self.disp_id, f"to_{replica_id}", replica_id, self.rp_in, cap))
+        e.pipeline.connections.append(
+            (replica_id, self.rp_out, self.merger_id,
+             f"from_{replica_id}", cap))
+        e.channels.append(Channel(self.disp_id, f"to_{replica_id}",
+                                  replica_id, self.rp_in, cap))
+        e.channels.append(Channel(replica_id, self.rp_out, self.merger_id,
+                                  f"from_{replica_id}", cap))
+        e.group_state[replica_id] = "running"
+        # Step 2: Merger state update (ack = state persisted)
+        m_op, m_rt = self._restored(self.merger_id)
+        if replica_id not in m_op.inputs:
+            m_op.inputs.append(replica_id)
+        self._persist_rt(m_rt)
+        # Step 3: Dispatcher state update
+        d_op, d_rt = self._restored(self.disp_id)
+        if replica_id not in d_op.routes:
+            d_op.routes.append(replica_id)
+        self._persist_rt(d_rt)
+        # resume: replica fresh, dispatcher/merger recover the new state
+        drv.start_group(replica_id, recover=False)
+        drv.start_group(disp_group, recover=True)
+        if merger_group != disp_group:
+            drv.start_group(merger_group, recover=True)
+        drv.pump_all()
+
+    def _scale_down_process(self, replica_id: str):
+        e = self.e
+        drv = e._proc
+        disp_group = e.pipeline.groups[self.disp_id]
+        merger_group = e.pipeline.groups[self.merger_id]
+        drv.stop_group(disp_group)
+        # Step 1.a: dispatcher state update (remove route)
+        d_op, d_rt = self._restored(self.disp_id)
+        if replica_id in d_op.routes:
+            d_op.routes.remove(replica_id)
+            d_op._sync_ports()
+
+        def send_to_channel(ev):
+            # transport-dependent re-send: the routed supervisor absorbs
+            # the already-logged event into its authoritative buffer (the
+            # bounded reassignment set, not the stream, sizes this); the
+            # socket transport does nothing — the dispatcher is restarted
+            # with recover=True below and its log recovery resends every
+            # undone + unacknowledged output, reassigned ones included
+            drv.transport.reinject(ev)
+
+        # Steps 1.b-1.d; the replica keeps RUNNING — the reassignment
+        # transaction is mutually exclusive with its generation
+        # transactions by validation
+        self._reassign_undone(d_op, d_rt, replica_id, send_to_channel)
+        # drain: replica + merger keep running until the replica's channels
+        # are empty — its logged-and-sent outputs must reach the merger
+        # before the channels are deleted (step 3)
+        drv.wait_group_drained(replica_id)
+        # Step 2: merger update
+        drv.stop_group(replica_id, remove=True)
+        if merger_group != disp_group:
+            drv.stop_group(merger_group)
+        m_op, m_rt = self._restored(self.merger_id)
+        if replica_id in m_op.inputs:
+            m_op.inputs.remove(replica_id)
+        self._persist_rt(m_rt)
+        # Step 3: update topology — delete connections + replica
+        e.pipeline.connections = [
+            c for c in e.pipeline.connections
+            if c[0] != replica_id and c[2] != replica_id]
+        e.channels = [c for c in e.channels
+                      if c.send_op != replica_id and c.rec_op != replica_id]
+        e.group_state[replica_id] = "removed"
+        e.ops.pop(replica_id, None)
+        e.pipeline.factories.pop(replica_id, None)
+        e.pipeline.groups.pop(replica_id, None)
+        drv.start_group(disp_group, recover=True)
+        if merger_group != disp_group:
+            drv.start_group(merger_group, recover=True)
+        drv.pump_all()
+
     # -- Algorithm 12 -------------------------------------------------------
     def scale_up(self, replica_id: str):
         # compact first when due: the topology parties re-restore from the
@@ -222,7 +344,8 @@ class Controller:
         # image plus a bounded tail, not the full pipeline history
         self.e.store.maybe_checkpoint()
         if self.e.mode == "process":
-            raise _later("scale_up on a process-mode engine", "process-mode")
+            with self.lock:
+                return self._scale_up_process(replica_id)
         with self.lock:
             e = self.e
             # Step 1: deploy replica + create the two connections (warm start)
@@ -269,8 +392,8 @@ class Controller:
     def scale_down(self, replica_id: str):
         self.e.store.maybe_checkpoint()
         if self.e.mode == "process":
-            raise _later("scale_down on a process-mode engine",
-                         "process-mode")
+            with self.lock:
+                return self._scale_down_process(replica_id)
         with self.lock:
             e = self.e
             disp = e.ops[self.disp_id]

@@ -15,12 +15,12 @@ Three implementations satisfy the contract:
             :class:`Channel`: one shared buffer is both endpoints, capacity
             blocking *is* the credit window (used by thread and step mode,
             and for intra-group edges inside process-mode workers).
-``routed``  (:mod:`repro.core.transport.routed`) — the supervisor-pumped
+``routed``  (:mod:`repro_torch.core.transport.routed`) — the supervisor-pumped
             pipe transport of process mode: the authoritative buffer lives
             in the supervisor, workers hold replicas, and senders spend
             explicit credits granted by the supervisor (returned when an
             event leaves the authoritative buffer at ack/release time).
-``socket``  (:mod:`repro.core.transport.socketmode`) — direct worker-to-
+``socket``  (:mod:`repro_torch.core.transport.socketmode`) — direct worker-to-
             worker socket channels: the *sender-side worker* holds the
             reliable buffer (bounded at the credit window; acks returning
             over the socket are the credit grants) and event payloads
@@ -196,7 +196,7 @@ class WorkerBootstrap:
 class Placement:
     """Group -> node assignment for process mode.  ``None`` means "spawn a
     direct child of the supervisor" (the single-host default); a node name
-    means "launch via that node's agent" (:class:`repro.core.cluster`
+    means "launch via that node's agent" (:class:`repro_torch.core.cluster`
     resolves names to agent processes).  Mutable so dynamic scaling can
     place new replicas (`assign`) before ``start_group`` spawns them."""
 
@@ -261,7 +261,7 @@ class WorkerTransport(abc.ABC):
 class SupervisorTransport(abc.ABC):
     """Supervisor-process half of a process-mode transport.
 
-    The :class:`~repro.core.procmode.ProcessEngineDriver` owns worker
+    The :class:`~repro_torch.core.procmode.ProcessEngineDriver` owns worker
     lifecycle (fork, death detection, restart policy) and delegates every
     transport concern here.
     """
@@ -329,10 +329,7 @@ class SupervisorTransport(abc.ABC):
 # ---------------------------------------------------------------------------
 
 #: transport name -> (supervisor factory, worker factory); ``local`` has no
-#: process halves — thread/step mode use :class:`Channel` directly. The
-#: process transports of ``repro.core.transport`` (routed, socket, tcp, shm)
-#: register here once the process-mode slice ports them; until then it
-#: stays empty.
+#: process halves — thread/step mode use :class:`Channel` directly.
 _REGISTRY: Dict[str, Any] = {}
 
 
@@ -341,16 +338,28 @@ def register_transport(name: str, supervisor_factory, worker_factory):
 
 
 def transport_names():
+    _load()
     return sorted(_REGISTRY) + ["local"]
 
 
 def process_transport_names():
     """Names valid for ``Engine(mode="process", transport=...)`` — every
     registered process transport (``local`` has no process halves)."""
+    _load()
     return sorted(_REGISTRY)
 
 
+def _load():
+    # import side-effect registration; lazy so local-only users never pay
+    # (socketmode registers both "socket" and "tcp" — the AF_INET family;
+    # shmring registers "shm" — rings for co-located pairs, socket across)
+    if "routed" not in _REGISTRY:
+        from repro_torch.core.transport import (routed, shmring,  # noqa: F401
+                                          socketmode)
+
+
 def make_supervisor_transport(name: str, driver) -> SupervisorTransport:
+    _load()
     if name not in _REGISTRY:
         raise ValueError(f"unknown process transport {name!r} "
                          f"(have {transport_names()})")
@@ -359,6 +368,7 @@ def make_supervisor_transport(name: str, driver) -> SupervisorTransport:
 
 def make_worker_transport(name: str, bootstrap: "WorkerBootstrap",
                           group: str, tr_conn) -> WorkerTransport:
+    _load()
     if name not in _REGISTRY:
         raise ValueError(f"unknown process transport {name!r} "
                          f"(have {transport_names()})")

@@ -12,9 +12,14 @@ CPU.
 * the ABS ``wait`` fix: a run does not end while a global restart is in
   progress (``repro.core.abs`` can lose the outputs of the restart there).
 
-Process-mode cases (a SIGKILL of an epoch-mode worker, a live switch then a
-SIGKILL) are not copied: process mode is not ported yet.
+The process-mode cases of ``tests/test_controller.py`` (a SIGKILL of an
+epoch-mode worker, a live switch then a SIGKILL) are copied too. They time
+the switch and the kill by the map's processed count, where the JAX cases
+sleep fixed times (``tests/test_controller.py:238-244``). A switch inside
+a killed worker's restart delay keeps one worker of the group (the fix in
+``repro_torch.core.procmode``; the JAX package starts two).
 """
+import threading
 import time
 from functools import partial
 
@@ -211,6 +216,58 @@ def test_abs_wait_does_not_end_inside_a_global_restart():
     assert eng.wait(30)
     assert eng.failures == 1
     assert sink_outputs(eng) == expected
+
+
+def test_abs_crash_counted_after_the_run_ended(monkeypatch):
+    """The cause of ``test_abs_two_failures``'s rare count of one failure of
+    two: two crashes of one generation, the win's and the map's. The first
+    one's global restart re-runs the pipeline to its end while the second
+    waits for the restart lock; here the second is held until the sink
+    reached its target. ``repro.core.abs`` then returns without counting
+    it; the port counts it, and ``wait`` returns only once it is counted."""
+    from repro_torch.core import abs as abs_mod
+    build, expected = linear_pipeline(TC)
+    inj = FailureInjector([("win", "abs_input", 5), ("map", "abs_input", 9)])
+
+    map_at_9 = threading.Event()
+
+    class SameGeneration:
+        """The win's 5th input waits for the map's 9th, and the map's 9th for
+        the win's crash: both crashes fire in the first generation."""
+
+        def __call__(self, op_id, point):
+            if point == "abs_input":
+                n = inj.counts[(op_id, point)]
+                if op_id == "win" and n == 4:
+                    _wait_for(map_at_9.is_set, what="the map's 9th input")
+                if op_id == "map" and n == 8:
+                    map_at_9.set()
+                    _wait_for(lambda: any(f[0] == "win" for f in inj.fired),
+                              what="the win's crash")
+            return inj(op_id, point)
+
+    restart = abs_mod.AbsEngineDriver._global_restart
+    callers, lock = [], threading.Lock()
+
+    def second_after_the_end(self, exc):
+        with lock:
+            callers.append(exc)
+            second = len(callers) == 2
+        if second:
+            _wait_for(self._done.is_set, what="the end of the run")
+        return restart(self, exc)
+
+    monkeypatch.setattr(abs_mod.AbsEngineDriver, "_global_restart",
+                        second_after_the_end)
+    eng = Engine(build(), mode="thread", protocol="abs",
+                 injector=SameGeneration(), restart_delay=0.01,
+                 abs_options={"epoch_events": 5})
+    eng.start()
+    assert eng.wait(40)
+    assert len(inj.fired) == 2 and len(callers) == 2
+    assert sink_outputs(eng) == expected
+    assert eng.failures == 2
+    assert eng.restarts == 1
 
 
 def _slow_mid(b):
@@ -510,6 +567,91 @@ def test_abs_protocol_pins_every_group_to_epoch():
     assert eng.recovery_mode_of("map") == "epoch"
     with pytest.raises(ValueError, match="fixed under protocol"):
         eng.set_recovery_mode("map", "log")
+
+
+def _map_processed(eng):
+    return eng.metrics().op("map").processed
+
+
+def test_epoch_mode_sigkill_process_exactly_once(proc_ctx):
+    build, expected = linear_pipeline(TC, n_events=40, window=4,
+                                      sink_target=10, rate=0.03)
+    eng = Engine(build(), mode="process", store=mk_store(TC, "memory"),
+                 ctx=proc_ctx, restart_delay=0.01,
+                 recovery_modes={"map": "epoch"}, epoch_interval=5)
+    eng.start()
+    _wait_for(lambda: _map_processed(eng) >= 10, 60.0, "map progress")
+    eng.kill_group("map")
+    ok = eng.wait(90)
+    eng.stop()
+    assert ok
+    assert sink_outputs(eng) == expected
+    assert eng.failures >= 1
+
+
+def test_switch_then_sigkill_process_exactly_once(proc_ctx):
+    """Switch log->epoch live, SIGKILL the group while it runs under the
+    new mode, switch back after recovery: exactly-once throughout, and the
+    group recovers under the mode recorded in the log. Each step waits for
+    the map's progress, so each lands mid-run on a loaded host."""
+    build, expected = linear_pipeline(TC, n_events=60, window=4,
+                                      sink_target=15, rate=0.02)
+    eng = Engine(build(), mode="process", store=mk_store(TC, "memory"),
+                 ctx=proc_ctx, restart_delay=0.01, epoch_interval=4)
+    eng.start()
+    _wait_for(lambda: _map_processed(eng) >= 8, 60.0, "map progress")
+    eng.set_recovery_mode("map", "epoch")
+    assert eng.recovery_mode_of("map") == "epoch"
+    switched_at = _map_processed(eng)
+    _wait_for(lambda: _map_processed(eng) >= switched_at + 8, 60.0,
+              "map progress under epoch mode")
+    killed_at = _map_processed(eng)
+    assert killed_at < 60, "the run ended before the kill"
+    eng.kill_group("map")
+    _wait_for(lambda: eng.failures >= 1, 60.0, "the kill to be seen")
+    _wait_for(lambda: _map_processed(eng) > killed_at, 60.0,
+              "map progress after the restart")
+    eng.set_recovery_mode("map", "log")
+    ok = eng.wait(90)
+    eng.stop()
+    assert ok
+    assert sink_outputs(eng) == expected
+    assert eng.failures >= 1
+    assert eng.recovery_mode_of("map") == "log"
+
+
+def _map_workers(before=frozenset()):
+    import multiprocessing as mp
+    return {p.pid for p in mp.active_children()
+            if p.name == "logio-map"} - set(before)
+
+
+def test_mode_switch_during_a_warm_restart_keeps_one_worker(proc_ctx):
+    """ROADMAP C.1: a recovery-mode switch of a group whose SIGKILLed
+    worker waits out its restart delay. The switch restarts the group, and
+    ``repro.core.procmode``'s warm restart then starts a second worker of
+    it, orphaning the first: it can lose events (the pre-port test's
+    failure) and outlives ``stop()``. The port's warm restart yields."""
+    before = _map_workers()
+    build, expected = linear_pipeline(TC, n_events=60, window=4,
+                                      sink_target=15, rate=0.02)
+    eng = Engine(build(), mode="process", store=mk_store(TC, "memory"),
+                 ctx=proc_ctx, restart_delay=0.5, epoch_interval=4)
+    eng.start()
+    _wait_for(lambda: _map_processed(eng) >= 8, 60.0, "map progress")
+    eng.kill_group("map")
+    _wait_for(lambda: eng.failures >= 1, 60.0, "the kill to be seen")
+    eng.set_recovery_mode("map", "epoch")     # inside the restart delay
+    time.sleep(1.0)                           # the delay has run out
+    assert len(_map_workers(before)) == 1
+    ok = eng.wait(90)
+    eng.stop()
+    assert ok
+    assert sink_outputs(eng) == expected
+    assert eng.failures == 1
+    assert eng.restarts == 0        # the switch's restart took its place
+    _wait_for(lambda: not _map_workers(before), 10.0,
+              "the map's workers to end with the engine")
 
 
 # ---------------------------------------------------------------------------

@@ -4,11 +4,11 @@
 * its entry points run on ``cuda`` and raise without a card unless the
   caller asks for ``device="cpu"``;
 * the parts of the LOG.io core that raised until the engine slice (the
-  sqlite, sharded and segment log stores, ABS, replay) build and run;
-  process mode and what depends on it (replay and scaling in process
-  mode) raise ``NotImplementedError`` naming the process-mode slice; the
-  optimizer-state variants (bf16/int8 moments, bf16 accumulation, gradient
-  compression) build;
+  sqlite, sharded and segment log stores, ABS, replay) and until the
+  process-mode slice (process mode, replay and scaling in process mode)
+  build and run, and a spawned engine worker loads neither torch nor
+  anything of ``repro``; the optimizer-state variants (bf16/int8 moments,
+  bf16 accumulation, gradient compression) build;
 * the kernel wrappers pick the plain version by the tensors' device alone:
   a tensor on the card gets the kernel or an error, never the plain version.
 """
@@ -71,12 +71,33 @@ def test_port_imports_no_jax_and_nothing_of_repro():
                 "repro_torch.core.logstore.epoch", "repro_torch.core.abs",
                 "repro_torch.core.api", "repro_torch.core.controller",
                 "repro_torch.core.lineagequery", "repro_torch.core.replay",
-                "repro_torch.core.scaling",
-                "repro_torch.core.transport.local", "repro_torch.data.pipeline",
+                "repro_torch.core.scaling", "repro_torch.core.procmode",
+                "repro_torch.core.cluster", "repro_torch.core.channels",
+                "repro_torch.core.transport.local",
+                "repro_torch.core.transport.routed",
+                "repro_torch.core.transport.socketmode",
+                "repro_torch.core.transport.shmring",
+                "repro_torch.core.transport.wire", "repro_torch.data.pipeline",
                 "repro_torch.training.step", "repro_torch.training.optimizer",
                 "repro_torch.training.loss", "repro_torch.checkpoint.store",
                 "repro_torch.launch.train", "repro_torch.launch.presets"):
         assert mod in res["modules"]
+
+
+def test_engine_import_and_chip_engine_load_no_torch():
+    """``import repro_torch.core`` and ``chip_engine.py`` (the main script
+    of chip_smoke's spawn runs) load neither torch nor anything of
+    ``repro``: a spawned worker or node agent starts from them alone."""
+    probe = ("import json, sys; import repro_torch.core, "
+             "repro_torch.core.procmode, repro_torch.core.cluster, chip_engine; "
+             "print(json.dumps(sorted(m for m in sys.modules if m.split('.')[0] "
+             "in ('torch', 'repro', 'jax', 'jaxlib'))))")
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [str(ROOT / "src"), str(ROOT)]))
+    out = subprocess.run([sys.executable, "-c", probe], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert json.loads(out.stdout.strip().splitlines()[-1]) == []
 
 
 def test_chip_smoke_fails_without_the_repository(tmp_path):
@@ -164,39 +185,93 @@ def _linear_pipeline():
     return p
 
 
-def _replay_in_process_mode():
+def _process_mode(what):
+    """Run one process-mode path of the engine on a small pipeline."""
     from repro_torch.core import Engine, LineageScope
-    eng = Engine(_linear_pipeline(), mode="step",
-                 lineage_scopes=[LineageScope(("src", "out"), ("win", "out"))])
-    assert eng.run_to_completion()
-    eng.replay([("win", "out", 0)], mode="process")
-
-
-def _scaling_on_a_process_mode_engine(direction):
-    from repro_torch.core import Engine
     from repro_torch.core.scaling import Controller
-    eng = Engine(_linear_pipeline(), mode="thread")
-    eng.mode = "process"          # the mode no constructor accepts yet
-    ctrl = Controller(eng, "src", "sink", replica_factory=None)
-    getattr(ctrl, f"scale_{direction}")("r9")
+    from tests.torch_core_helpers import mk_replica, replica_pipeline
+    if what == "process mode":
+        eng = Engine(_linear_pipeline(), mode="process", transport="routed")
+        eng.start()
+        assert eng.wait(60)
+        eng.stop()
+        assert eng.external.committed() == [1]
+    elif what == "replay in process mode":
+        eng = Engine(_linear_pipeline(), mode="step",
+                     lineage_scopes=[LineageScope(("src", "out"),
+                                                  ("win", "out"))])
+        assert eng.run_to_completion()
+        rep = eng.replay([("win", "out", 0)], mode="process", timeout=60)
+        assert rep.ok and rep.executed_ops == frozenset({"win"})
+    else:
+        import repro_torch.core as TC
+        n = 40
+        eng = Engine(replica_pipeline(TC, n, rate=0.005)(), mode="process")
+        ctrl = Controller(eng, "disp", "mrg",
+                          replica_factory=functools.partial(mk_replica, TC))
+        eng.start()
+        if what == "scale-up in process mode":
+            ctrl.scale_up("r2")
+            assert eng.group_state["r2"] == "running"
+        else:
+            ctrl.scale_down("r1")
+            assert eng.group_state["r1"] == "removed"
+        assert eng.wait(60)
+        eng.stop()
+        assert sorted(b["v"] for b in eng.external.committed()) == \
+            [2 * i for i in range(n)]
 
 
-TRIMMED = {
-    "process mode": lambda: __import__(
-        "repro_torch.core", fromlist=["x"]).Engine(_linear_pipeline(),
-                                                   mode="process"),
-    "replay in process mode": _replay_in_process_mode,
-    "scale-up in process mode": lambda: _scaling_on_a_process_mode_engine(
-        "up"),
-    "scale-down in process mode": lambda: _scaling_on_a_process_mode_engine(
-        "down"),
-}
+# The paths that raised NotImplementedError until the process-mode slice
+# (the test keeps its name): each runs on the CPU now.
+TRIMMED = ["process mode", "replay in process mode",
+           "scale-down in process mode", "scale-up in process mode"]
 
 
-@pytest.mark.parametrize("what", sorted(TRIMMED))
+@pytest.mark.parametrize("what", TRIMMED)
 def test_trimmed_paths_raise(what):
-    with pytest.raises(NotImplementedError, match="process-mode slice"):
-        TRIMMED[what]()
+    _process_mode(what)
+
+
+def test_no_path_refuses_for_a_later_slice():
+    """No module of the port raises ``NotImplementedError`` for a slice
+    still to come: the process-mode paths were the last such refusals."""
+    src = ROOT / "src" / "repro_torch"
+    hits = [f"{p.relative_to(ROOT)}:{i}"
+            for p in sorted(src.rglob("*.py"))
+            for i, line in enumerate(p.read_text().splitlines(), 1)
+            if "process-mode" in line and ("slice" in line or "later" in line)
+            or "_later(" in line]
+    assert hits == []
+    from repro_torch.core import engine
+    assert not hasattr(engine, "_later")
+
+
+def test_spawned_engine_worker_loads_no_torch_and_nothing_of_repro():
+    """A ``ctx="spawn"`` worker starts from the bootstrap alone: its
+    ``sys.modules`` holds the port's engine and neither ``torch`` nor
+    anything of ``repro``, though the test process has both loaded."""
+    import repro.core  # noqa: F401
+    from repro_torch.core import (Engine, GeneratorSource, MapOperator,
+                                  Pipeline, ReadSource, TerminalSink)
+    from tests.torch_core_helpers import modules_probe
+    assert "torch" in sys.modules and "repro.core" in sys.modules
+    p = Pipeline()
+    p.add(functools.partial(GeneratorSource, "src",
+                            ReadSource([{"v": i} for i in range(4)])))
+    p.add(functools.partial(MapOperator, "probe", fn=modules_probe))
+    p.add(functools.partial(TerminalSink, "sink", target=4))
+    p.connect("src", "out", "probe", "in")
+    p.connect("probe", "out", "sink", "in")
+    eng = Engine(p, mode="process", ctx="spawn", transport="routed")
+    eng.start()
+    assert eng.wait(90)
+    eng.stop()
+    got = eng.external.committed()
+    assert [b["v"] for b in got] == [0, 1, 2, 3]
+    assert all(b["pid"] != os.getpid() for b in got)
+    assert not any(b["torch"] for b in got), got
+    assert not any(b["repro"] for b in got), got
 
 
 def _runs_on(store):

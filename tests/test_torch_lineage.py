@@ -9,14 +9,16 @@ and the Protocol API, on the CPU.
   packages from the same inputs gives the same ``LineageQuery`` backward,
   forward and slice results, the same ``ReplayReport``s, the same shim
   answers and the same outputs of an operator written against
-  ``LogioAPI`` (``==``).
-
-Not copied: replay in process mode (``Engine.replay(mode="process")``) and
-its ``kill -9`` inside the replay run; process mode is not ported yet. A
-thread-mode crash inside the replay run takes the latter's place.
+  ``LogioAPI`` (``==``);
+* replay in process mode (``Engine.replay(mode="process")``), copied with
+  its real ``kill -9`` inside the replay run; the process-mode report of
+  a target equals the port's thread-mode report and ``repro.core``'s
+  process-mode report (``==``), and its rederived bytes equal the
+  thread-mode replay's.
 """
 import dataclasses
 import json
+import pickle
 import threading
 import time
 from functools import partial
@@ -374,6 +376,26 @@ def test_replay_recovers_a_crash_inside_the_replay_run():
     rep = eng.replay(("win", "out", 1), injector=inj)
     assert rep.ok
     assert inj.fired, "the injected crash never hit the replay run"
+    assert rep.matches[EventKey("win", "out", 1)] is True
+
+
+def test_replay_process_mode(store_spec, tmp_path):
+    eng = _run_diamond(store_spec, root=tmp_path)
+    rep = eng.replay(("join", "out", 1), mode="process", timeout=90)
+    assert rep.ok, store_spec
+    assert rep.executed_ops == frozenset({"fast", "slow", "join"})
+    assert rep.matches[EventKey("join", "out", 1)] is True
+
+
+def test_replay_survives_sigkill_inside_replay_run():
+    """The replay run is itself a recoverable pipeline: a real kill -9 of a
+    replay worker warm-restarts it and the rederived bytes still match."""
+    eng = _run_linear()
+    inj = FailureInjector([("map", "post_log", 2)])
+    rep = eng.replay(("win", "out", 1), mode="process", timeout=90,
+                     injector=inj)
+    assert rep.ok
+    assert inj.fired, "the injected crash never hit the replay worker"
     assert rep.matches[EventKey("win", "out", 1)] is True
 
 
@@ -751,3 +773,31 @@ def test_plain_keeps_every_report_field():
     names = {f.name for f in dataclasses.fields(ReplayReport)}
     eng = _run_linear(mode="step")
     assert set(plain(eng.replay(("win", "out", 0)))[1]) == names
+
+
+def _process_reports(core, mode, root):
+    eng = _run_linear("sqlite+group", mode="step", root=root / "linear",
+                      core=core)
+    deng = _run_diamond("memory", mode="step", root=root / "diamond",
+                        core=core)
+    reps = [eng.replay(("win", "out", 1), mode=mode, timeout=90),
+            eng.replay([("win", "out", 0), ("win", "out", 4)], mode=mode,
+                       timeout=90),
+            deng.replay(("join", "out", 1), mode=mode, timeout=90)]
+    assert all(r.ok for r in reps)
+    return reps
+
+
+def test_process_replay_reports_match_thread_and_jax(tmp_path):
+    """``Engine.replay(mode="process")``: the report equals the port's
+    thread-mode report and ``repro.core``'s process-mode report, and the
+    rederived outputs are the thread-mode replay's bytes."""
+    proc = _process_reports(TC, "process", tmp_path / "tp")
+    thread = _process_reports(TC, "thread", tmp_path / "tt")
+    jproc = _process_reports(JC, "process", tmp_path / "jp")
+    got = [dict(plain(r)[1], ok=r.ok) for r in proc]
+    assert got == [dict(plain(r)[1], ok=r.ok) for r in thread]
+    assert got == [dict(plain(r)[1], ok=r.ok) for r in jproc]
+    for p, t in zip(proc, thread):
+        assert [pickle.dumps(p.rederived[k]) for k in p.targets] == \
+            [pickle.dumps(t.rederived[k]) for k in t.targets]

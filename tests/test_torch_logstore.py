@@ -10,8 +10,10 @@
   counts, and the same rows in the event, input-set, payload, lineage and
   read-action tables (``==``).
 
-Process-mode cases (the whole-engine ``kill -9`` of a process-mode run) are
-not copied: process mode is not ported yet.
+The whole-engine ``kill -9`` of a process-mode run on the segment stacks
+(``tests/test_segment_store.py``) is copied here too: the engine tree is
+SIGKILLed mid-run, with compaction running live, and a warm restart on the
+surviving files is exactly-once.
 """
 import json
 import os
@@ -597,6 +599,16 @@ def test_kill9_mid_rotation_keeps_every_acked_commit(tmp_path):
     store = SegmentLogStore(path)
     assert set(acked) <= {e.event_id for e, _ in store.fetch_resend_events("A")}
     store.close()
+
+
+@pytest.mark.parametrize("spec", ["segment+group", "segment+sharded+group"])
+def test_kill9_whole_engine_segment_exactly_once(spec, tmp_path,
+                                                 proc_transport, proc_ctx):
+    from tests.test_torch_process_mode import kill9_run, resume_exactly_once
+    db_path = str(tmp_path / "log.segs")
+    ext_path = str(tmp_path / "external.bin")
+    kill9_run(spec, db_path, ext_path, proc_transport, proc_ctx, 0.4)
+    resume_exactly_once(spec, db_path, ext_path, proc_transport, proc_ctx)
 
 
 # ---------------------------------------------------------------------------

@@ -3,12 +3,22 @@
 Every builder takes the core package it builds from (``repro.core`` or
 ``repro_torch.core``), so one scenario runs through both packages from the
 same inputs. The builders mirror ``tests/helpers.py``.
+
+The module imports neither torch nor anything of ``repro``, and every
+factory is a module-level callable or a ``functools.partial`` of one: a
+process-mode worker started by ``spawn`` (or by a ``LocalCluster`` node
+agent) unpickles its operators from here and loads only the package the
+test runs on.
 """
 from __future__ import annotations
 
 import dataclasses
 import os
+import pickle
+import sys
 import tempfile
+import threading
+import time
 from functools import partial
 
 #: The store stacks of the ``"all"`` set in ``tests/conftest.py``, listed
@@ -102,6 +112,103 @@ def diamond_pipeline(core, n_events: int = 30, n1: int = 6, n2: int = 3,
          "sb": sum(j * 10 for j in range(i * n2, (i + 1) * n2))}
         for i in range(sink_target)]
     return build, expected
+
+
+def mk_replica(core, rid):
+    """Picklable replica factory for the scaling cases."""
+    return partial(core.MapOperator, rid, fn=double_v, processing_time=0.004)
+
+
+def replica_pipeline(core, n, rate=0.002):
+    """src -> disp -> {r0, r1} -> mrg -> sink, as a picklable builder."""
+    from importlib import import_module
+    sc = import_module(core.__name__ + ".scaling")
+
+    def build():
+        p = core.Pipeline()
+        p.add(partial(core.GeneratorSource, "src",
+                      core.ReadSource([{"v": i} for i in range(n)]),
+                      rate=rate))
+        p.add(partial(sc.DispatcherOperator, "disp", ["r0", "r1"]))
+        p.add(mk_replica(core, "r0"))
+        p.add(mk_replica(core, "r1"))
+        p.add(partial(sc.MergerOperator, "mrg", ["r0", "r1"]))
+        p.add(partial(core.TerminalSink, "sink", target=n))
+        p.connect("src", "out", "disp", "in")
+        p.connect("disp", "to_r0", "r0", "in")
+        p.connect("disp", "to_r1", "r1", "in")
+        p.connect("r0", "out", "mrg", "from_r0")
+        p.connect("r1", "out", "mrg", "from_r1")
+        p.connect("mrg", "out", "sink", "in")
+        return p
+    return build
+
+
+def ident(b):
+    return b
+
+
+def modules_probe(b):
+    """A map function that reports what its process has imported."""
+    mods = list(sys.modules)
+    return {"v": b["v"],
+            "torch": any(m == "torch" or m.startswith("torch.")
+                         for m in mods),
+            "repro": any(m == "repro" or m.startswith("repro.")
+                         for m in mods),
+            "pid": os.getpid()}
+
+
+def wait_for(cond, timeout=60.0, what="progress"):
+    """Poll ``cond`` until it holds; fail loudly after ``timeout``."""
+    deadline = time.monotonic() + timeout
+    while not cond():
+        assert time.monotonic() < deadline, f"no {what} in {timeout}s"
+        time.sleep(0.002)
+
+
+class FileExternalSystem:
+    """Durable external system backed by an append-only file (a copy of
+    ``tests.helpers.FileExternalSystem`` that imports nothing of
+    ``repro``): it survives a ``kill -9`` of the whole engine. A torn final
+    record is ignored."""
+
+    def __init__(self, path: str):
+        self.path = path
+        self._lock = threading.Lock()
+        self.writes = {}
+        self.order = []
+        if os.path.exists(path):
+            with open(path, "rb") as f:
+                while True:
+                    try:
+                        k, body = pickle.load(f)
+                    except (EOFError, pickle.UnpicklingError):
+                        break
+                    if k not in self.writes:
+                        self.writes[k] = body
+                        self.order.append(k)
+
+    def execute(self, op_id, conn_id, event_id, body) -> bool:
+        k = (op_id, conn_id, event_id)
+        with self._lock:
+            if k not in self.writes:
+                with open(self.path, "ab") as f:
+                    pickle.dump((k, body), f)
+                    f.flush()
+                    os.fsync(f.fileno())
+                self.writes[k] = body
+                self.order.append(k)
+        return True
+
+    def status(self, op_id, conn_id, event_id) -> str:
+        with self._lock:
+            return "success" if (op_id, conn_id, event_id) in self.writes \
+                else "unknown"
+
+    def committed(self):
+        with self._lock:
+            return [self.writes[k] for k in self.order]
 
 
 def sink_outputs(engine):
