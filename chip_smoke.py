@@ -141,6 +141,19 @@ non-causal). Phases:
     ``torch.cuda.set_sync_debug_mode("error")`` (no host sync), and the
     grads at depth 1 stand against the f32 grads of f32 copies (phase 11's
     ratio rule; the f32 reference made first, in place, so that it fits).
+sharded. the sharded entry points (``Runtime(shard_activations=True)``,
+    state, batch and cache distributed by ``repro_torch.parallel.sharding``'s
+    default strategy) on a one-rank NCCL ``DeviceMesh`` (1, 1) ("data",
+    "model"), each bitwise equal to the unsharded path with its launch
+    counts: internlm2 train-f32 (one step, full width, depth
+    ``SHARD_TRAIN_DEPTH``: loss, params, m, v), internlm2 ``serve_step``
+    (f32, the serve shape, the cache's sequence on "model": 64 greedy
+    steps' logits and the cache), grok forward-bf16 at depth 1 with EP and
+    falcon-mamba forward-bf16 at depth ``SHARD_MAMBA_DEPTH`` with d_inner on
+    "model"; each step's ms beside the unsharded one's, each state's local
+    bytes (``bytes_of``) beside the device peak, within ``SHARD_PHASE_S``.
+    One rank shows the DTensor path and its host cost, not the traffic
+    between cards. Its process group is destroyed before phase 13 forks.
 13. the LOG.io engine (logio-engine; host code, no kernel): the paper's UC1
     (``benchmarks/uc1.py:13-40``: OP1 source, OP2 map, OP3 count window of
     2, OP4 count window of 100 with one external write per output, OP5
@@ -161,11 +174,13 @@ non-causal). Phases:
     per operator group, every injected crash a real SIGKILL. After the
     earlier phases' host copies are freed (the host RSS printed), UC1 under
     phase 13's crash plan on each transport (routed, socket, tcp, shm),
-    forked from this process, on the memory and sqlite+sharded+group
-    stores, and on routed with ``ctx="spawn"``, each beside a thread-mode
+    forked from this process, on the memory store, on routed and socket
+    with the sqlite+sharded+group store (the sharded phase's seconds came
+    out of its tcp and shm runs, which the CPU tests keep), and on routed
+    with ``ctx="spawn"`` (sqlite+sharded+group), each beside a thread-mode
     run on the same store just before it (wall ms, events/s, failures,
-    restarts, the overhead); OP3 as a paced straggler SIGKILLed mid-run
-    (ms until it processes again, and the source events pushed meanwhile,
+    restarts, the overhead); OP3 as a paced straggler SIGKILLed mid-run (ms
+    until it processes again, and the source events pushed meanwhile,
     which must be > 0); a ``kill -9`` of a whole engine session mid-run,
     resumed on sqlite+sharded+group and segment+group with a durable file
     external system (no row of an uncommitted epoch left); a two-node
@@ -176,6 +191,13 @@ non-causal). Phases:
     from ``chip_engine.py`` (its main script imports no torch). Host times,
     printed as phase 13's.
 
+Phase 2 also holds the decode kernel's lse output and key offset (the
+sequence-sharded cache's): at the serve shape, the full cache, grok's
+group 6 and seamless's cross cache, its o the same bits with lse as
+without, its lse within 1e-5 of the plain version's, and 2 and 4 key
+ranges, each run with its offset and merged by their lse
+(``ops.merge_attention_parts``), within 2e-5 of the uncut kernel and of
+the plain version; phase 5 times each decode row with lse beside it.
 Phase 2 also holds the f32 flash backward (``csrc/flash_attention_f32tc.cu``)
 against its plain version at rtol = atol = 2e-5 relative to each
 gradient's largest magnitude, bitwise repeatable, and the forward's lse;
@@ -194,7 +216,8 @@ Training needs ``CUBLAS_WORKSPACE_CONFIG`` (set here before torch starts)
 and runs under ``torch.use_deterministic_algorithms(True)`` from phase 6 on,
 so phases 9-12 run under it too. The phases that drive a main path
 (3-4b, 6-12) set the launch counts to 0 just before and read them just
-after; phases 13 and 13b launch no kernel.
+after (the sharded phase likewise, around each of its sharded runs);
+phases 13 and 13b launch no kernel.
 
 Every breakdown prints the port's kernel launches the profiler recorded
 beside those the wrappers counted, and reads its device busy time as a lower
@@ -235,6 +258,7 @@ import torch.nn.functional as F  # noqa: E402
 from repro_torch.configs import get_config, reduced  # noqa: E402
 from repro_torch.kernels import build, ops, ref  # noqa: E402
 from repro_torch.models import layers as L, model as M  # noqa: E402
+from repro_torch.parallel import sharding as PS  # noqa: E402
 from repro_torch.launch import train as train_driver  # noqa: E402
 from repro_torch.launch.presets import preset_for  # noqa: E402
 from repro_torch.serving import SlotServer, serve_step  # noqa: E402
@@ -276,6 +300,14 @@ TRAIN_GB = 75.0
 # reckoning (``train_memory``; the largest gap, falcon-mamba's, was 3.7%)
 TRAIN_MARGIN = 0.05
 BF16_LSE_TOL = 1e-3          # the bf16 forward's lse against the f32 one
+DECODE_LSE_TOL = 1e-5        # the decode kernel's lse against the plain one
+# the sharded phase (one-rank NCCL mesh): internlm2 train-f32's depth (all
+# 24 layers), falcon-mamba forward-bf16's depth cut (of 64) and the serve
+# steps
+SHARD_TRAIN_DEPTH = 24
+SHARD_MAMBA_DEPTH = 16
+SHARD_SERVE_STEPS = 64
+SHARD_PHASE_S = 60.0         # the phase's time budget
 
 KERNELS = {
     # bf16 (the forward path) runs on the tensor cores; f32 (the train path)
@@ -708,6 +740,17 @@ DECODE_CASES = [
     (4, 4096, 16, 16, 64, torch.bfloat16, None, None, None),
 ]
 
+# the decode kernel's lse and key offset (the sequence-sharded cache): each
+# shape cut into 2 and 4 key ranges, each range run with its offset and
+# its lse, merged (``ops.merge_attention_parts``): (tag, B, S, H, KV, D,
+# lengths); f32
+DECODE_SPLIT_CASES = [
+    ("serve shape", 4, 4096, 16, 8, 128, [64] * 4),
+    ("full cache", 4, 4096, 16, 8, 128, [4096] * 4),
+    ("grok group 6", 4, 4096, 48, 8, 128, [64] * 4),
+    ("seamless cross", 4, 4096, 16, 16, 64, [4096] * 4),
+]
+
 FLASH_CASES = [
     # (B, S, H, KV, D, dtype, causal, window, softcap)
     (2, 2048, 16, 8, 128, torch.bfloat16, True, None, None),
@@ -769,6 +812,53 @@ BWD_CASES = [
     (2, 2048, 2048, 16, 16, 64, False, None, None),
     (1, 700, 1000, 16, 16, 64, False, None, None),
 ]
+
+
+def check_decode_split(g) -> float:
+    """``DECODE_SPLIT_CASES``: the kernel's o the same bits with its lse as
+    without, the lse within ``DECODE_LSE_TOL`` of the plain version's, and
+    the merge of 2 and 4 key ranges (each launched with its key offset)
+    within 2e-5 of the uncut kernel and of the plain version. Returns the
+    largest error."""
+    worst = 0.0
+    for tag, B, S, H, KV, D, lens in DECODE_SPLIT_CASES:
+        q = _randn(g, (B, H, D), torch.float32)
+        k = _randn(g, (B, S, KV, D), torch.float32)
+        v = _randn(g, (B, S, KV, D), torch.float32)
+        lengths = torch.tensor(lens, device=DEVICE, dtype=torch.int32)
+        o = ops.decode_attention(q, k, v, lengths)
+        o2, lse = ops.decode_attention(q, k, v, lengths, return_lse=True)
+        sync()
+        check(bool(torch.equal(o, o2)),
+              f"decode lse {tag}: o is not the same bits with lse")
+        want, want_lse = ref.decode_attention_ref(q, k, v, lengths,
+                                                  return_lse=True)
+        lse_err = assert_close(lse, want_lse, DECODE_LSE_TOL,
+                               f"decode lse {tag}: lse")
+        errs = []
+        for parts in (2, 4):
+            n = S // parts
+            outs = [ops.decode_attention(
+                q, k[:, r * n:(r + 1) * n].contiguous(),
+                v[:, r * n:(r + 1) * n].contiguous(), lengths, offset=r * n,
+                return_lse=True) for r in range(parts)]
+            merged = ops.merge_attention_parts(
+                torch.stack([x for x, _ in outs]),
+                torch.stack([x for _, x in outs]))
+            sync()
+            e1 = assert_close(merged, o, TOL[torch.float32],
+                              f"decode split {tag} x{parts} vs the kernel")
+            e2 = assert_close(merged, want, TOL[torch.float32],
+                              f"decode split {tag} x{parts} vs plain")
+            errs.append((parts, e1, e2))
+            worst = max(worst, e1, e2)
+        log(f"decode lse/offset {tag} B={B} S={S} H={H} KV={KV} D={D} "
+            f"lengths={lens}: o bitwise the same with lse, lse max_abs_err "
+            f"{lse_err:.3e} (tol {DECODE_LSE_TOL}); "
+            + "; ".join(f"{p} key ranges merged: {e1:.3e} vs the uncut "
+                        f"kernel, {e2:.3e} vs plain" for p, e1, e2 in errs)
+            + f" (tol {TOL[torch.float32]})")
+    return worst
 
 
 def assert_close_to_max(got, want, tol, what) -> float:
@@ -1023,6 +1113,8 @@ def phase_kernels() -> dict:
         log(f"decode B={B} S={S} H={H} KV={KV} D={D} {str(dt)[6:]} "
             f"window={window} softcap={softcap} lengths={lengths.tolist()} "
             f"cluster {n_split}: max_abs_err {err:.3e} (tol {TOL[dt]})")
+    errs["decode_attention"] = max(errs["decode_attention"],
+                                   check_decode_split(g))
     cases = [(B, S, S, H, KV, D, dt, causal, window, softcap)
              for B, S, H, KV, D, dt, causal, window, softcap in FLASH_CASES]
     cases += [case + (False, None, None) for case in FLASH_CROSS_CASES]
@@ -1878,8 +1970,14 @@ def time_decode(q, k, v, lengths, tag: str) -> dict:
     lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
         qs, ks, vs, attn_mask=mask, enable_gqa=True), flush=flush)
     names = DEVICE_KERNELS["decode_attention"][0][0]
-    dev_ms = kernel_ms(profile_kernels(lambda: (flush(), ops.decode_attention(
-        q, k, v, lengths))), *names)
+    dev_ms = kernel_ms(profile_recorded(lambda: (flush(), ops.decode_attention(
+        q, k, v, lengths)), names, 1)[0], *names)
+    # the variant that writes lse (a rank's range of a sequence-sharded
+    # cache runs it), timed the same way
+    lse_ms = cuda_ms(lambda: ops.decode_attention(q, k, v, lengths,
+                                                  return_lse=True), flush=flush)
+    lse_dev = kernel_ms(profile_recorded(lambda: (flush(), ops.decode_attention(
+        q, k, v, lengths, return_lse=True)), names, 1)[0], *names)
     clean_ms, clean_dev = _clean_l2_times(
         lambda: ops.decode_attention(q, k, v, lengths), names)
     valid = lengths.clamp(max=S).sum().item()
@@ -1900,10 +1998,12 @@ def time_decode(q, k, v, lengths, tag: str) -> dict:
         f"({_fmt(dev_ms and nbytes / dev_ms / 1e6)} GB/s, "
         f"{_share(bound_ms, dev_ms)} of the bound); after a read flush "
         f"(clean L2): kernel {clean_ms:.4f} ms ({_share(bound_ms, clean_ms)}), "
-        f"device {_fmt(clean_dev)} ms ({_share(bound_ms, clean_dev)})")
+        f"device {_fmt(clean_dev)} ms ({_share(bound_ms, clean_dev)}); with "
+        f"lse: kernel {lse_ms:.4f} ms, device {_fmt(lse_dev)} ms")
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
                 bound_ms=bound_ms, bound_by=by, device_ms=dev_ms,
-                clean_l2_ms=clean_ms, clean_l2_device_ms=clean_dev)
+                clean_l2_ms=clean_ms, clean_l2_device_ms=clean_dev,
+                lse_ms=lse_ms, lse_device_ms=lse_dev)
 
 
 def time_scan(a, b, h0, tag: str, cold: bool) -> dict:
@@ -3108,6 +3208,233 @@ def phase_logio(cfg, path: str) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase sharded: the sharded entry points on a one-rank NCCL mesh
+# ---------------------------------------------------------------------------
+
+
+def _one_rank_mesh():
+    """A (1, 1) ("data", "model") mesh on this card: the process group
+    from the env this sets (a free localhost port, rank 0 of 1)."""
+    import socket
+    from torch.distributed.device_mesh import init_device_mesh
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    os.environ.update(MASTER_ADDR="localhost", MASTER_PORT=str(port),
+                      RANK="0", WORLD_SIZE="1", LOCAL_RANK="0")
+    return init_device_mesh(DEVICE, (1, 1), mesh_dim_names=("data", "model"))
+
+
+def _sharded_runtime(cfg, mesh):
+    """(rules, Runtime) of the default strategy on ``mesh``."""
+    strat = PS.ShardingStrategy.for_mesh(mesh)
+    return PS.make_rules(cfg, mesh, strat), PS.runtime(cfg, mesh, strat,
+                                                       remat="none")
+
+
+def _local(t):
+    return t.to_local() if type(t).__name__ == "DTensor" else t
+
+
+def _timed(fn):
+    """(fn(), its wall ms, the launches it counted), launch counts set to 0
+    just before."""
+    sync()
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    out = fn()
+    sync()
+    ms = (time.perf_counter() - t0) * 1e3
+    return out, ms, {k: v for k, v in ops.LAUNCHES.items() if v}
+
+
+def _same_launches(tag: str, plain: dict, sharded: dict, want) -> None:
+    check(sharded == plain and all(sharded.get(k, 0) > 0 for k in want),
+          f"sharded {tag}: launches {sharded} against the unsharded path's "
+          f"{plain} (each of {want} must launch)")
+
+
+def _state_leaves_of(state) -> list:
+    """params, m and v leaves of a train state (local shards)."""
+    return [_local(t) for t in list(state["params"].parameters())
+            + moment_leaves(state["opt"]["m"]) + moment_leaves(state["opt"]["v"])]
+
+
+def phase_sharded(smi: str) -> dict:
+    """The sharded entry points (``Runtime(shard_activations=True)``, params,
+    state, batch and cache distributed by ``repro_torch.parallel.sharding``'s
+    specs) on a one-rank NCCL ``DeviceMesh`` (1, 1), each held bitwise to
+    the unsharded path and to its kernel launch counts: internlm2 train-f32
+    (one step at full width, ``SHARD_TRAIN_DEPTH`` layers: loss, params, m,
+    v), internlm2 ``serve_step`` (the serve shape, f32, the cache's sequence
+    on "model": the logits of ``SHARD_SERVE_STEPS`` greedy steps and the
+    cache), grok forward-bf16 at depth 1 with EP (the experts on "model")
+    and falcon-mamba forward-bf16 at ``SHARD_MAMBA_DEPTH`` layers with
+    d_inner on "model". One rank exercises the DTensor path, its
+    collectives (each over one rank) and the decode kernel's lse and merge;
+    it shows nothing of the communication of more than one card."""
+    import torch.distributed as dist
+    t_phase = time.perf_counter()
+    mesh = _one_rank_mesh()
+    out = {"card": smi, "mesh": [list(mesh.mesh_dim_names),
+                                 list(mesh.shape)]}
+    try:
+        # 1. internlm2 train-f32, one step: the sharded step first, its
+        # state kept on the card, then the unsharded step beside it (22.7
+        # GB kept + phase 6's 50.6 GB peak), compared on the card
+        cfg = at_depth(get_config(ARCH), SHARD_TRAIN_DEPTH)
+        rules, rt = _sharded_runtime(cfg, mesh)
+        hp = OptHParams()
+        batch = _train_batch(cfg, torch.Generator(device=DEVICE).manual_seed(
+            SEED + 21))
+        state = PS.distribute(_fresh_state(cfg, hp),
+                              PS.state_pspecs(cfg, rules), mesh)
+        dp = PS.spec(None, rules["batch"], None)
+        sbatch = PS.distribute(batch, {k: dp for k in batch}, mesh)
+        torch.cuda.reset_peak_memory_stats()
+        sstep = make_train_step(cfg, hp, rt)
+        (state, met), ms_s, n_s = _timed(lambda: sstep(state, sbatch))
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        local_gb = PS.bytes_of(state) / 1e9
+        loss_s = _local(met["loss"]).item()
+        leaves = _state_leaves_of(state)
+        del state, sbatch, met
+        torch.cuda.empty_cache()
+        step = make_train_step(cfg, hp, runtime("kernel"))
+        (state, met), ms_u, n_u = _timed(lambda: step(_fresh_state(cfg, hp),
+                                                      batch))
+        loss_u = met["loss"].item()
+        plain = _state_leaves_of(state)
+        same = len(leaves) == len(plain) and all(
+            bool(torch.equal(a, b)) for a, b in zip(leaves, plain))
+        check(loss_s == loss_u and same,
+              f"sharded train-f32: loss {loss_s!r} against {loss_u!r}, "
+              f"params/m/v bitwise {same}")
+        _same_launches("train-f32", n_u, n_s,
+                       ("flash_attention", "flash_attention_backward"))
+        out["train"] = dict(depth=SHARD_TRAIN_DEPTH, loss=loss_s,
+                            ms=ms_s, plain_ms=ms_u, launches=n_s,
+                            local_state_gb=local_gb, peak_gb=peak)
+        log(f"sharded internlm2 train-f32 (depth {SHARD_TRAIN_DEPTH}, tokens "
+            f"[1, {FWD_B}, {FWD_S}]): loss {loss_s:.6f}, loss, params, m and "
+            f"v bitwise equal to the unsharded step; step {ms_s:.1f} ms "
+            f"sharded against {ms_u:.1f} ms unsharded (first step of each); "
+            f"launches {n_s}; local state {local_gb:.2f} GB (bytes_of), "
+            f"device peak {peak:.2f} GB; card {smi}")
+        del state, leaves, plain, met
+        torch.cuda.empty_cache()
+
+        # 2. internlm2 serve_step, the cache on kv_seq
+        cfg = get_config(ARCH)
+        rules, rt = _sharded_runtime(cfg, mesh)
+        params = M.init_params(torch.Generator(device=DEVICE).manual_seed(
+            SEED + 22), cfg, torch.float32, DEVICE)
+        g = torch.Generator(device=DEVICE).manual_seed(SEED + 23)
+        first = torch.randint(0, cfg.vocab, (SLOTS,), generator=g,
+                              device=DEVICE, dtype=torch.int32)
+
+        def serve(p, cache, tok, to_dt=lambda t: t):
+            logits = []
+            for i in range(SHARD_SERVE_STEPS):
+                pos = torch.full((SLOTS,), i, device=DEVICE, dtype=torch.int32)
+                tok, lg, cache = serve_step(p, cache, tok, to_dt(pos), cfg=cfg,
+                                            rt=srt)
+                logits.append(_local(lg))
+            return logits, cache
+
+        srt = runtime("kernel")
+        with torch.no_grad():
+            (lg_u, cache_u), sms_u, sn_u = _timed(lambda: serve(
+                params, M.init_cache(cfg, SLOTS, MAX_LEN, torch.float32,
+                                     DEVICE), first))
+        tok_spec = PS.spec(rules["batch"])
+        params = PS.distribute(params, PS.param_pspecs(cfg, rules), mesh)
+        cache = PS.distribute(M.init_cache(cfg, SLOTS, MAX_LEN, torch.float32,
+                                           DEVICE),
+                              PS.cache_pspecs(cfg, rules, True), mesh)
+        srt = rt
+        torch.cuda.reset_peak_memory_stats()
+        with torch.no_grad():
+            (lg_s, cache), sms_s, sn_s = _timed(lambda: serve(
+                params, cache, PS.distribute(first, tok_spec, mesh),
+                lambda t: PS.distribute(t, tok_spec, mesh)))
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        local_gb = (PS.bytes_of(params) + PS.bytes_of(cache)) / 1e9
+        same = all(bool(torch.equal(a, b)) for a, b in zip(lg_s, lg_u)) and \
+            all(bool(torch.equal(_local(c[k]), cu[k]))
+                for c, cu in zip(cache, cache_u) for k in c)
+        check(same, "sharded serve: logits or cache differ from the "
+              "unsharded steps'")
+        _same_launches("serve", sn_u, sn_s, ("decode_attention",))
+        out["serve"] = dict(steps=SHARD_SERVE_STEPS, ms_per_step=sms_s /
+                            SHARD_SERVE_STEPS,
+                            plain_ms_per_step=sms_u / SHARD_SERVE_STEPS,
+                            launches=sn_s, local_gb=local_gb, peak_gb=peak,
+                            kv_seq=rules["kv_seq"])
+        log(f"sharded internlm2 serve_step (f32, {SLOTS} slots, cache "
+            f"{MAX_LEN} on {rules['kv_seq']!r}): logits of "
+            f"{SHARD_SERVE_STEPS} greedy steps and the cache bitwise equal "
+            f"to the unsharded steps'; {sms_s / SHARD_SERVE_STEPS:.2f} ms a "
+            f"step sharded against {sms_u / SHARD_SERVE_STEPS:.2f} ms; "
+            f"launches {sn_s}; local params + cache {local_gb:.2f} GB, "
+            f"device peak {peak:.2f} GB")
+        del params, cache, cache_u, lg_u, lg_s
+        torch.cuda.empty_cache()
+
+        # 3. grok forward-bf16 at depth 1 under EP; 4. falcon-mamba
+        for arch, depth, want, key in (
+                (GROK_ARCH, 1, ("flash_attention",), "grok_forward"),
+                (MAMBA_ARCH, SHARD_MAMBA_DEPTH, ("selective_scan",),
+                 "mamba_forward")):
+            cfg = at_depth(get_config(arch), depth)
+            rules, rt = _sharded_runtime(cfg, mesh)
+            params = M.init_params(torch.Generator(device=DEVICE).manual_seed(
+                SEED + 24), cfg, torch.bfloat16, DEVICE)
+            toks = torch.randint(0, cfg.vocab, (FWD_B, FWD_S), device=DEVICE,
+                                 generator=torch.Generator(
+                                     device=DEVICE).manual_seed(SEED + 25))
+            with torch.no_grad():
+                (lg_u, _), fms_u, fn_u = _timed(lambda: M.forward(
+                    params, {"tokens": toks}, cfg, runtime("kernel")))
+                params = PS.distribute(params, PS.param_pspecs(cfg, rules),
+                                       mesh)
+                stoks = PS.distribute(toks, PS.spec(rules["batch"], None), mesh)
+                torch.cuda.reset_peak_memory_stats()
+                (lg_s, _), fms_s, fn_s = _timed(lambda: M.forward(
+                    params, {"tokens": stoks}, cfg, rt))
+            peak = torch.cuda.max_memory_allocated() / 1e9
+            local_gb = PS.bytes_of(params) / 1e9
+            check(bool(torch.equal(_local(lg_s), lg_u)),
+                  f"sharded {arch}: logits differ from the unsharded "
+                  f"forward's (max {max_err(_local(lg_s), lg_u):.3e})")
+            _same_launches(f"{arch} forward", fn_u, fn_s, want)
+            moe = ({"expert": rules["expert"],
+                    "expert_mlp": rules["expert_mlp"], "ep": rt.ep}
+                   if cfg.moe is not None else {"inner": rules["inner"]})
+            out[key] = dict(depth=depth, ms=fms_s, plain_ms=fms_u,
+                            launches=fn_s, local_params_gb=local_gb,
+                            peak_gb=peak, **moe)
+            log(f"sharded {arch} forward-bf16 (depth {depth}, tokens "
+                f"[{FWD_B}, {FWD_S}], {moe}): logits bitwise equal to the "
+                f"unsharded forward's; {fms_s:.1f} ms sharded against "
+                f"{fms_u:.1f} ms (first call of each); launches {fn_s}; "
+                f"local params {local_gb:.2f} GB, device peak {peak:.2f} GB")
+            del params, lg_u, lg_s
+            torch.cuda.empty_cache()
+    finally:
+        dist.destroy_process_group()   # before any fork (phases 13, 13b)
+        for key in ("MASTER_ADDR", "MASTER_PORT", "RANK", "WORLD_SIZE",
+                    "LOCAL_RANK"):
+            os.environ.pop(key, None)
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"sharded: phase {out['phase_s']:.1f} s (budget {SHARD_PHASE_S:g} s); "
+        f"card {smi}")
+    check(out["phase_s"] <= SHARD_PHASE_S,
+          f"sharded: phase {out['phase_s']:.1f} s over {SHARD_PHASE_S:g} s")
+    return out
+
+
+# ---------------------------------------------------------------------------
 # phase 13: the LOG.io engine on the card's host (the paper's UC1)
 # ---------------------------------------------------------------------------
 
@@ -3347,7 +3674,10 @@ def phase_engine_scaling(core, scaling, mode: str = "thread") -> dict:
 # ---------------------------------------------------------------------------
 
 PROC_TRANSPORTS = ("routed", "socket", "tcp", "shm")
-PROC_STORES = ("memory", "sqlite+sharded+group")
+# every transport on the memory stack; the durable stack on routed and
+# socket (its tcp and shm runs gave their seconds to the sharded phase)
+PROC_STORES = {"memory": PROC_TRANSPORTS,
+               "sqlite+sharded+group": ("routed", "socket")}
 # the straggler: OP3 at 4 ms an output (2 ms an event, half the source's
 # rate), restarted after benchmarks/process_mode.py's warm-restart delay
 PROC_OP3_PT, PROC_RESTART_DELAY = 0.004, 0.25
@@ -3398,8 +3728,8 @@ def phase_engine_process(smi: str) -> dict:
     out = {"host": host, "card": smi, "host_memory": mem, "runs": {}}
     with tempfile.TemporaryDirectory() as tmp:
         # 1. the crash plan on each transport and store, thread mode in turns
-        for spec in PROC_STORES:
-            for transport in PROC_TRANSPORTS:
+        for spec, transports in PROC_STORES.items():
+            for transport in transports:
                 out["runs"][f"{spec} {transport} fork"] = crash_plan_run(
                     core, spec, transport, "fork", tmp)
         # 2. non-blocking recovery: OP3 the straggler, its worker SIGKILLed
@@ -3724,12 +4054,19 @@ def main() -> int:
         GROK_ARCH, "attention_bf16", "grok-train-bf16", bf16, equal=False,
         grad_depth=1, lse_kernel=f"{FLASH_TC}<128, false, true>", moe=True)
     torch.cuda.empty_cache()
+    # the sharded entry points on a one-rank NCCL mesh (its process group
+    # destroyed before phases 13 and 13b fork)
+    sharded = phase_sharded(dev["smi"])
+    log(f"sharded json: {json.dumps(sharded)}")
+    torch.cuda.empty_cache()
     # the LOG.io engine (phase 13): host code, no kernel
     engine = phase_engine(dev["smi"])
     log(f"engine json: {json.dumps(engine)}")
     # process mode of the engine (phase 13b): host code, no kernel
     engine_proc = phase_engine_process(dev["smi"])
     log(f"engine process json: {json.dumps(engine_proc)}")
+    log(f"phase times: sharded {sharded['phase_s']:.1f} s, engine process "
+        f"(13b) {engine_proc['phase_s']:.1f} s")
     launches = {"flash_attention": fwd["launches"] + fwd_k["launches"]
                 + fwd_s["launches"] + itrain["launches"]["flash_attention"]
                 + gtrain16["launches"]["flash_attention"]
@@ -3890,9 +4227,24 @@ def main() -> int:
                                    bwd16_d256["max_abs_err"],
                                    bwd16_s["max_abs_err"],
                                    bwd16_k["max_abs_err"])
+    # the sharded phase's launches (its own main path), per kernel
+    for name, n in (
+            ("flash_attention", sharded["train"]["launches"]["flash_attention"]
+             + sharded["grok_forward"]["launches"]["flash_attention"]),
+            ("flash_attention_backward",
+             sharded["train"]["launches"]["flash_attention_backward"]),
+            ("decode_attention",
+             sharded["serve"]["launches"]["decode_attention"]),
+            ("selective_scan",
+             sharded["mamba_forward"]["launches"]["selective_scan"])):
+        next(r for r in rows if r["name"] == name)["launches_sharded"] = n
     # decode attention: the serve shape above (the main path's), a full
     # cache beside it
     decode_row = next(r for r in rows if r["name"] == "decode_attention")
+    decode_row.update(
+        lse_ms=decode_t["lse_ms"], lse_device_ms=decode_t["lse_device_ms"],
+        full_cache_lse_ms=decode_full["lse_ms"],
+        full_cache_lse_device_ms=decode_full["lse_device_ms"])
     decode_row.update(
         max_abs_err=max(decode_row["max_abs_err"], decode_full["max_abs_err"]),
         clean_l2_ms=decode_t["clean_l2_ms"],

@@ -26,7 +26,8 @@ def resolve_device(device=None) -> torch.device:
     """The device an entry point runs on: ``cuda`` unless told otherwise.
 
     ``None`` means ``cuda`` and raises when no card is present; a CPU run
-    must be asked for by name. Nothing here falls back silently.
+    must be asked for by name. Nothing here falls back silently. ``"meta"``
+    builds shapes without storage (``launch.input_specs``).
     """
     import torch
     dev = torch.device("cuda" if device is None else device)
@@ -34,6 +35,6 @@ def resolve_device(device=None) -> torch.device:
         raise RuntimeError(
             "repro_torch: no CUDA device is available; pass device='cpu' "
             "to run the plain PyTorch path on the CPU")
-    if dev.type not in ("cuda", "cpu"):
+    if dev.type not in ("cuda", "cpu", "meta"):
         raise ValueError(f"repro_torch: unsupported device {dev}")
     return dev

@@ -15,6 +15,10 @@ sides, so its leaves copy one to one (``k``/``v`` for attention,
 their dtype: a Mamba model's ``A_log``, ``D`` and ``dt_bias`` and an MoE
 layer's ``router`` are f32 in a bf16 model on both sides, and a leaf whose
 dtype differs from the port's parameter is refused, never cast.
+
+Spec trees and shape trees cross the same way (``specs_to_jax``,
+``shapes_to_jax``): the port keys them by parameter name, one layer a
+module; the JAX package stacks them, with a leading "layers" axis.
 """
 from __future__ import annotations
 
@@ -71,6 +75,16 @@ def _zip(a: Any, b: Any, fn) -> Any:
         return {key: _zip(a[key], b[key], fn) for key in a}
     if isinstance(a, (list, tuple)):
         return [_zip(x, y, fn) for x, y in zip(a, b)]
+    return fn(a, b)
+
+
+def _zip_dl(a: Any, b: Any, fn) -> Any:
+    """``_zip`` for trees whose leaves are tuples (specs, shapes): only dicts
+    and lists are walked."""
+    if isinstance(a, dict):
+        return {key: _zip_dl(a[key], b[key], fn) for key in a}
+    if isinstance(a, list):
+        return [_zip_dl(x, y, fn) for x, y in zip(a, b)]
     return fn(a, b)
 
 
@@ -137,15 +151,17 @@ def _put_stacked(tree: Dict[str, Any], path, n: int, count: int,
     tree.setdefault(path[-1], [None] * count)[n] = leaf
 
 
-def _stack(tree: Dict[str, Any]) -> Dict[str, Any]:
-    """``_put_stacked``'s lists of layers -> leaves stacked on axis 0."""
-    return {key: _stack(val) if isinstance(val, dict) else np.stack(val)
+def _stack(tree: Dict[str, Any], stack=np.stack) -> Dict[str, Any]:
+    """``_put_stacked``'s lists of layers -> leaves stacked on axis 0
+    (``stack`` of each list)."""
+    return {key: _stack(val, stack) if isinstance(val, dict) else stack(val)
             for key, val in tree.items()}
 
 
-def _to_jax_layout(named, cfg: ArchConfig) -> Dict[str, Any]:
+def _to_jax_layout(named, cfg: ArchConfig, stack=np.stack) -> Dict[str, Any]:
     """(port parameter name, numpy leaf) pairs -> a tree in the JAX params
-    layout (``_jax_named``'s inverse)."""
+    layout (``_jax_named``'s inverse); ``stack`` joins a block position's
+    layers (numpy leaves: ``np.stack``)."""
     out: Dict[str, Any] = {}
     nb = len(cfg.block)
     blocks: List[Dict[str, Any]] = [{} for _ in range(nb)]
@@ -162,10 +178,60 @@ def _to_jax_layout(named, cfg: ArchConfig) -> Dict[str, Any]:
             out.setdefault("encoder", {})[path[1]] = leaf
         else:
             out[name] = leaf
-    out["blocks"] = [_stack(block) for block in blocks]
+    out["blocks"] = [_stack(block, stack) for block in blocks]
     if cfg.enc_dec:
-        out["encoder"]["layers"] = _stack(enc_layers)
+        out["encoder"]["layers"] = _stack(enc_layers, stack)
     return out
+
+
+def _stack_same(lead):
+    """A ``stack`` for per-layer values that must agree across layers: the
+    layers' common value with ``lead`` in front."""
+    def stack(xs):
+        if any(x != xs[0] for x in xs):
+            raise ValueError(f"bridge: layers of one block position differ: "
+                             f"{xs}")
+        return lead(len(xs), xs[0])
+    return stack
+
+
+def specs_to_jax(specs: Dict[str, Any], cfg: ArchConfig, lead=None,
+                 qtensor=None) -> Dict[str, Any]:
+    """A spec tree keyed like the port's params ({parameter name: spec},
+    ``models.model.logical_specs`` or ``parallel.sharding.param_pspecs`` /
+    ``opt_pspecs``) -> the JAX package's stacked layout: a block position's
+    layers (and the encoder's) share one spec, with ``lead`` in front (JAX's
+    "layers" axis: "layers" for logical axes, None for mesh axes). An int8
+    moment's ``QTensor(q spec, scale spec)`` comes back as ``qtensor(q,
+    scale)`` (the JAX package's ``QTensor``, which the bridge never
+    imports)."""
+    stack = _stack_same(lambda n, x: (lead,) + tuple(x))
+    first = next(iter(specs.values()))
+    if not (hasattr(first, "q") and hasattr(first, "scale")):
+        return _to_jax_layout(specs.items(), cfg, stack)
+    q = _to_jax_layout(((n, x.q) for n, x in specs.items()), cfg, stack)
+    scale = _to_jax_layout(((n, x.scale) for n, x in specs.items()), cfg,
+                           stack)
+    return _zip_dl(q, scale, qtensor)
+
+
+def shapes_to_jax(module, cfg: ArchConfig) -> Dict[str, Any]:
+    """A parameter module's leaves (meta tensors of ``launch.input_specs``
+    too) -> the JAX stacked layout with (shape, dtype name) at its leaves,
+    stacked leaves with their layer count in front (as JAX's
+    ``eval_shape`` gives them). An int8 moment dict {name: ``QTensor``}
+    gives {"q", "scale"} pairs of those."""
+    stack = _stack_same(lambda n, x: ((n,) + x[0], x[1]))
+
+    def layout(named):
+        return _to_jax_layout(((n, (tuple(t.shape),
+                                    str(t.dtype).removeprefix("torch.")))
+                               for n, t in named), cfg, stack)
+    if isinstance(module, dict):
+        return _zip_dl(layout((n, x.q) for n, x in module.items()),
+                       layout((n, x.scale) for n, x in module.items()),
+                       lambda q, s: {"q": q, "scale": s})
+    return layout(module.named_parameters())
 
 
 def params_to_jax(params: DecoderParams, cfg: ArchConfig) -> Dict[str, Any]:

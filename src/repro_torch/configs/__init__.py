@@ -1,7 +1,7 @@
 """Architecture config registry + reduced-size variants for CPU tests.
 
-The port's own copy of ``repro.configs`` (registry, aliases, ``reduced``);
-the shape sets wait for the dry-run slice.
+The port's own copy of ``repro.configs`` (registry, aliases, ``reduced``,
+and the shape sets of ``configs.shapes``).
 """
 from __future__ import annotations
 
@@ -9,6 +9,9 @@ import dataclasses
 
 from repro_torch.configs.base import (ArchConfig, AttnSpec, LayerSpec,
                                       MambaSpec, MoESpec)
+from repro_torch.configs.shapes import (ALL_SHAPES, DECODE_32K, LONG_500K,
+                                        PREFILL_32K, TRAIN_4K, ShapeSpec,
+                                        shapes_for)
 
 from repro_torch.configs.chameleon_34b import CONFIG as CHAMELEON_34B
 from repro_torch.configs.starcoder2_7b import CONFIG as STARCODER2_7B
@@ -21,8 +24,10 @@ from repro_torch.configs.grok_1_314b import CONFIG as GROK_1_314B
 from repro_torch.configs.arctic_480b import CONFIG as ARCTIC_480B
 from repro_torch.configs.falcon_mamba_7b import CONFIG as FALCON_MAMBA_7B
 
-__all__ = ["ARCHS", "ALIASES", "ArchConfig", "AttnSpec", "LayerSpec",
-           "MambaSpec", "MoESpec", "get_config", "reduced"]
+__all__ = ["ARCHS", "ALIASES", "ALL_SHAPES", "ArchConfig", "AttnSpec",
+           "DECODE_32K", "LONG_500K", "LayerSpec", "MambaSpec", "MoESpec",
+           "PREFILL_32K", "ShapeSpec", "TRAIN_4K", "get_config", "reduced",
+           "shapes_for"]
 
 ARCHS = {c.name: c for c in (
     CHAMELEON_34B, STARCODER2_7B, INTERNLM2_1_8B, QWEN3_32B, GEMMA2_9B,

@@ -38,8 +38,8 @@ SIGNATURES = {
     "repro_flash_attention_f32tc_bwd": (_P, _P, _P, _P, _P, _P, _P, _P, _P,
                                         _P, _P, _I, _I, _I, _I, _I, _I, _I,
                                         _I, _F, _P),
-    "repro_decode_attention": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-                               _I, _F, _I, _P),
+    "repro_decode_attention": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                               _I, _I, _I, _F, _I, _P),
     "repro_selective_scan": (_P, _P, _P, _P, _I, _I, _L, _P),
     "repro_selective_scan_step": (_P, _P, _P, _P, _L, _I, _P),
     "repro_selective_scan_bwd": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _L, _P),

@@ -6,13 +6,18 @@
 // The JAX model path computes the same function with einsums
 // (src/repro/models/layers.py `apply_attention_decode`); the port sends it here.
 //
-// Function: q [B,H,D], k/v [B,S,KV,D], lengths [B] int32 -> out [B,H,D].
-//   q head h reads kv head h / (H/KV). Keys are valid where kpos < length and,
-//   with a window, kpos >= length - window. Scores are (q.k)/sqrt(D) in f32,
-//   optionally soft-capped (softcap * tanh(s / softcap)). If no key is valid
-//   every score is the same masked value, so the softmax is uniform over all S
-//   keys: the kernel then averages V over S, which is what the XLA path
-//   (softmax over scores that are all -1e30) gives.
+// Function: q [B,H,D], k/v [B,S,KV,D], lengths [B] int32 -> out [B,H,D], and
+//   optionally lse [B,H] f32, the row log-sum-exp of the scores.
+//   q head h reads kv head h / (H/KV). Key j stands for position offset + j
+//   (offset > 0 on a rank's range of a sequence-sharded cache). Keys are valid
+//   where kpos < length and, with a window, kpos >= length - window. Scores are
+//   (q.k)/sqrt(D) in f32, optionally soft-capped (softcap * tanh(s /
+//   softcap)). If no key is valid every score is the same masked value, so the
+//   softmax is uniform over all S keys: the kernel then averages V over S,
+//   which is what the XLA path (softmax over scores that are all -1e30) gives,
+//   and its lse is -1e30 (-1e30 + log S in f32). Ranges' (out, lse) merge by
+//   lse weights (ops.merge_attention_parts); the out bits do not depend on
+//   whether lse is written.
 //
 // What bounds it on the card: bytes. Each valid key costs 2*D*sizeof(T) bytes
 // of K and V and about 4*D flops per query head in its group, far below the
@@ -164,8 +169,8 @@ template <typename T, int D, int GMAX>
 __global__ void __launch_bounds__(kThreads)
 decode_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
                         const T* __restrict__ v, const int* __restrict__ lengths,
-                        T* __restrict__ out, int S, int H, int KV, int window,
-                        float softcap, float scale) {
+                        T* __restrict__ out, float* __restrict__ lse, int S, int H,
+                        int KV, int offset, int window, float softcap, float scale) {
   using Sh = Shape<T, D, GMAX>;
   constexpr int EPL = Sh::EPL, KEYS = Sh::KEYS, TILE = Sh::TILE;
   extern __shared__ __align__(128) unsigned char smem[];
@@ -175,8 +180,9 @@ decode_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int G = H / KV;
 
-  // this warp's contiguous piece [s0, s1) of the valid range [lo, hi)
-  const int length = lengths[b];
+  // this warp's contiguous piece [s0, s1) of the valid range [lo, hi), in
+  // local key indices (global position offset + j)
+  const int length = lengths[b] - offset;
   int hi = min(length, S);
   int lo = window > 0 ? max(length - window, 0) : 0;
   const bool uniform = hi <= lo;      // no valid key: softmax is uniform over S
@@ -339,12 +345,17 @@ decode_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const float o = merge_acc<D, GMAX, kMaxSplit>(inbox, n_split, g, d, w);
     out[((size_t)b * H + kvh * G + g) * D + d] = from_float<T>(L > 0.f ? o / L : 0.f);
   }
+  if (lse != nullptr && threadIdx.x < G) {
+    const float* w = wts + threadIdx.x * (kMaxSplit + 2);
+    lse[(size_t)b * H + kvh * G + threadIdx.x] =
+        uniform ? -1e30f : w[kMaxSplit] + logf(w[kMaxSplit + 1]);
+  }
 }
 
 template <typename T, int D, int GMAX>
 cudaError_t launch(const void* q, const void* k, const void* v, const int* lengths,
-                   void* out, int B, int S, int H, int KV, int window, float softcap,
-                   int n_split, cudaStream_t stream) {
+                   void* out, float* lse, int B, int S, int H, int KV, int offset,
+                   int window, float softcap, int n_split, cudaStream_t stream) {
   using Sh = Shape<T, D, GMAX>;
   auto* kernel = decode_attention_kernel<T, D, GMAX>;
   static std::atomic<uint64_t> smem_set{0};
@@ -364,18 +375,19 @@ cudaError_t launch(const void* q, const void* k, const void* v, const int* lengt
   cfg.numAttrs = 1;
   const cudaError_t err = cudaLaunchKernelEx(
       &cfg, kernel, static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), lengths, static_cast<T*>(out), S, H, KV, window, softcap,
-      1.0f / sqrtf(static_cast<float>(D)));
+      static_cast<const T*>(v), lengths, static_cast<T*>(out), lse, S, H, KV, offset,
+      window, softcap, 1.0f / sqrtf(static_cast<float>(D)));
   return err != cudaSuccess ? err : cudaGetLastError();
 }
 
 template <typename T, int D>
 cudaError_t dispatch_group(int G, const void* q, const void* k, const void* v,
-                           const int* lengths, void* out, int B, int S, int H, int KV,
-                           int window, float softcap, int n_split, cudaStream_t stream) {
-#define REPRO_DECODE(GM)                                                      \
-  return launch<T, D, GM>(q, k, v, lengths, out, B, S, H, KV, window, softcap, \
-                          n_split, stream)
+                           const int* lengths, void* out, float* lse, int B, int S,
+                           int H, int KV, int offset, int window, float softcap,
+                           int n_split, cudaStream_t stream) {
+#define REPRO_DECODE(GM)                                                          \
+  return launch<T, D, GM>(q, k, v, lengths, out, lse, B, S, H, KV, offset, window, \
+                          softcap, n_split, stream)
   if (G <= 1) REPRO_DECODE(1);
   if (G <= 2) REPRO_DECODE(2);
   if (G <= 4) REPRO_DECODE(4);
@@ -387,21 +399,22 @@ cudaError_t dispatch_group(int G, const void* q, const void* k, const void* v,
 
 template <typename T>
 cudaError_t dispatch_dim(int D, int G, const void* q, const void* k, const void* v,
-                         const int* lengths, void* out, int B, int S, int H, int KV,
-                         int window, float softcap, int n_split, cudaStream_t stream) {
+                         const int* lengths, void* out, float* lse, int B, int S, int H,
+                         int KV, int offset, int window, float softcap, int n_split,
+                         cudaStream_t stream) {
+#define REPRO_DECODE_D(DD)                                                       \
+  return dispatch_group<T, DD>(G, q, k, v, lengths, out, lse, B, S, H, KV, offset, \
+                               window, softcap, n_split, stream)
   switch (D) {
     case 32:
-      return dispatch_group<T, 32>(G, q, k, v, lengths, out, B, S, H, KV, window,
-                                   softcap, n_split, stream);
+      REPRO_DECODE_D(32);
     case 64:
-      return dispatch_group<T, 64>(G, q, k, v, lengths, out, B, S, H, KV, window,
-                                   softcap, n_split, stream);
+      REPRO_DECODE_D(64);
     case 128:
-      return dispatch_group<T, 128>(G, q, k, v, lengths, out, B, S, H, KV, window,
-                                    softcap, n_split, stream);
+      REPRO_DECODE_D(128);
     case 256:
-      return dispatch_group<T, 256>(G, q, k, v, lengths, out, B, S, H, KV, window,
-                                    softcap, n_split, stream);
+      REPRO_DECODE_D(256);
+#undef REPRO_DECODE_D
     default:
       return cudaErrorInvalidValue;
   }
@@ -410,25 +423,28 @@ cudaError_t dispatch_dim(int D, int G, const void* q, const void* k, const void*
 }  // namespace
 }  // namespace repro
 
-// C entry point. dtype: 0 = f32, 1 = bf16 (q, k, v and out share it).
+// C entry point. dtype: 0 = f32, 1 = bf16 (q, k, v and out share it). lse:
+// [B,H] f32 or null (not written). offset >= 0: key j is position offset + j.
 // window <= 0 means no window; softcap <= 0 means no softcap. n_split (1..8)
 // is the cluster size: the grid is (n_split, KV, B), one cluster per (kv head,
 // slot). Returns the launch's error (0 on success).
 extern "C" int repro_decode_attention(const void* q, const void* k, const void* v,
-                                      const void* lengths, void* out, int B, int S,
-                                      int H, int KV, int D, int dtype, int window,
-                                      float softcap, int n_split, void* stream) {
+                                      const void* lengths, void* out, void* lse, int B,
+                                      int S, int H, int KV, int D, int dtype, int offset,
+                                      int window, float softcap, int n_split,
+                                      void* stream) {
   using namespace repro;
   if (B <= 0 || B > 65535 || S <= 0 || KV <= 0 || KV > 65535 || H % KV != 0 ||
-      n_split <= 0 || n_split > kMaxSplit || (dtype != 0 && dtype != 1))
+      offset < 0 || n_split <= 0 || n_split > kMaxSplit || (dtype != 0 && dtype != 1))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int G = H / KV;
   const int* len = static_cast<const int*>(lengths);
+  float* ls = static_cast<float*>(lse);
   const cudaError_t err = dtype == 0
-      ? dispatch_dim<float>(D, G, q, k, v, len, out, B, S, H, KV, window, softcap,
-                            n_split, st)
-      : dispatch_dim<__nv_bfloat16>(D, G, q, k, v, len, out, B, S, H, KV, window,
-                                    softcap, n_split, st);
+      ? dispatch_dim<float>(D, G, q, k, v, len, out, ls, B, S, H, KV, offset, window,
+                            softcap, n_split, st)
+      : dispatch_dim<__nv_bfloat16>(D, G, q, k, v, len, out, ls, B, S, H, KV, offset,
+                                    window, softcap, n_split, st);
   return static_cast<int>(err);
 }

@@ -305,8 +305,14 @@ def decode_grid(B: int, KV: int, S: int, sms: int) -> int:
 
 def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                      lengths: torch.Tensor, *, softcap: Optional[float] = None,
-                     window: Optional[int] = None) -> torch.Tensor:
-    """q: [B,H,D]; k,v: [B,S,KV,D]; lengths: [B] int32 -> [B,H,D], q's dtype."""
+                     window: Optional[int] = None, offset: int = 0,
+                     return_lse: bool = False):
+    """q: [B,H,D]; k,v: [B,S,KV,D]; lengths: [B] int32 -> [B,H,D], q's dtype.
+
+    ``offset``: key j is position ``offset + j`` (a rank's key range of a
+    sequence-sharded cache; the lengths stay global). ``return_lse``: also
+    the row log-sum-exp [B,H] f32 (-1e30 for a row with no valid key), for
+    ``merge_attention_parts``; the output is the same bits either way."""
     if q.dim() != 3 or k.dim() != 4 or k.shape != v.shape:
         raise ValueError(f"decode_attention: bad shapes q{tuple(q.shape)} "
                          f"k{tuple(k.shape)} v{tuple(v.shape)}")
@@ -318,27 +324,47 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if not (q.dtype == k.dtype == v.dtype) or q.dtype not in _DTYPES:
         raise ValueError(f"decode_attention: dtypes {q.dtype}/{k.dtype}/"
                          f"{v.dtype}; need one of {list(_DTYPES)}")
+    if offset < 0:
+        raise ValueError(f"decode_attention: offset {offset} < 0")
     _check_heads(H, k.shape[2])
     if q.device.type == "cpu":
         return ref.decode_attention_ref(q, k, v, lengths, softcap=softcap,
-                                        window=window)
+                                        window=window, offset=offset,
+                                        return_lse=return_lse)
     _check_attention_limits("decode_attention", H, k.shape[2], D)
     _check_cuda_operands("decode_attention", q, k, v, lengths)
     out = torch.empty_like(q)
-    _launch_decode_attention(q, k, v, lengths, out, window, softcap)
+    lse = (q.new_empty((B, H), dtype=torch.float32) if return_lse else None)
+    _launch_decode_attention(q, k, v, lengths, out, lse, offset, window,
+                             softcap)
     LAUNCHES["decode_attention"] += 1
-    return out
+    return (out, lse) if return_lse else out
 
 
-def _launch_decode_attention(q, k, v, lengths, out, window, softcap) -> None:
+def _launch_decode_attention(q, k, v, lengths, out, lse, offset, window,
+                             softcap) -> None:
     B, H, D = q.shape
     S, KV = k.shape[1], k.shape[2]
     n_split = decode_grid(B, KV, S, sm_count(q.device.index))
     code = build.load().repro_decode_attention(
-        _ptr(q), _ptr(k), _ptr(v), _ptr(lengths), _ptr(out), B, S, H, KV, D,
-        _DTYPES[q.dtype], int(window or 0), float(softcap or 0.0), n_split,
-        _stream())
+        _ptr(q), _ptr(k), _ptr(v), _ptr(lengths), _ptr(out),
+        ctypes.c_void_p(None) if lse is None else _ptr(lse), B, S, H, KV, D,
+        _DTYPES[q.dtype], int(offset), int(window or 0), float(softcap or 0.0),
+        n_split, _stream())
     _raise_on(code, "decode_attention")
+
+
+def merge_attention_parts(o: torch.Tensor, lse: torch.Tensor) -> torch.Tensor:
+    """Softmax attention over several key ranges merged from each range's
+    result: o [n, B, H, D] (each range's normalised output), lse [n, B, H]
+    f32 -> [B, H, D] f32: ``sum_r w_r o_r / sum_r w_r`` with ``w_r =
+    exp(lse_r - max lse)``, in range order. A range with no valid key
+    (lse -1e30) weighs 0 beside one that has; when no range has one, all
+    weigh 1 and the result is the mean of the ranges' uniform means: the
+    uniform mean over all keys, for ranges of equal size. One range gives
+    its o back exactly (w = 1). Plain PyTorch, on either device."""
+    w = torch.exp(lse - lse.max(dim=0).values)
+    return (w[..., None] * o.float()).sum(0) / w.sum(0)[..., None]
 
 
 # ---------------------------------------------------------------------------

@@ -126,19 +126,24 @@ def row_error(got: torch.Tensor, exact: torch.Tensor) -> float:
 def decode_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          lengths: torch.Tensor, *,
                          softcap: Optional[float] = None,
-                         window: Optional[int] = None) -> torch.Tensor:
-    """q: [B,H,D]; k,v: [B,S,KV,D]; lengths: [B] -> [B,H,D] in q's dtype.
+                         window: Optional[int] = None, offset: int = 0,
+                         return_lse: bool = False):
+    """q: [B,H,D]; k,v: [B,S,KV,D]; lengths: [B] -> [B,H,D] in q's dtype
+    (and, with ``return_lse``, the row log-sum-exp [B,H] f32).
 
-    Keys are valid where ``kpos < length`` and, with a window,
-    ``kpos >= length - window``. A slot with no valid key gets the uniform
-    softmax over all S keys (every score is the same -1e30).
+    Key j stands for position ``offset + j`` (a rank's range of a
+    sequence-sharded cache). Keys are valid where ``kpos < length`` and,
+    with a window, ``kpos >= length - window``. A slot with no valid key gets
+    the uniform softmax over all S keys (every score is the same -1e30),
+    and its lse is -1e30: ``ops.merge_attention_parts`` then weighs equal
+    key ranges alike.
     """
     B, H, D = q.shape
     S, KV = k.shape[1], k.shape[2]
     qg = q.float().reshape(B, KV, H // KV, D)
     sc = torch.einsum("bkgd,bskd->bkgs", qg, k.float()) / math.sqrt(D)
     sc = _softcap(sc, softcap)
-    kpos = torch.arange(S, device=q.device)[None, :]
+    kpos = offset + torch.arange(S, device=q.device)[None, :]
     lens = lengths.to(torch.int64)[:, None]
     valid = kpos < lens
     if window is not None:
@@ -146,7 +151,10 @@ def decode_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     sc = torch.where(valid[:, None, None, :], sc, NEG_INF)
     pr = torch.softmax(sc, dim=-1)
     out = torch.einsum("bkgs,bskd->bkgd", pr, v.float())
-    return out.reshape(B, H, D).to(q.dtype)
+    out = out.reshape(B, H, D).to(q.dtype)
+    if not return_lse:
+        return out
+    return out, torch.logsumexp(sc, dim=-1).reshape(B, H)
 
 
 def selective_scan_ref(a: torch.Tensor, b: torch.Tensor,

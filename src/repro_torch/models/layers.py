@@ -10,11 +10,23 @@ Attention and the scan go through the hand-written kernels (``attn_impl`` /
 the CPU the kernel wrappers take the plain versions themselves. The MoE
 FFN runs no kernel of its own: its expert GEMMs are ``torch.bmm``, as the
 JAX code's are XLA einsums.
+
+Each parameter module carries ``AXES``, the logical axis names of its
+leaves (the tuples of the JAX ``init_*`` functions), which
+``model.logical_specs`` collects and ``repro_torch.parallel.sharding`` maps
+to a mesh. Sharded runs go through the same functions: with a shard context
+set (``set_shard_ctx``, by ``model.forward`` / ``decode_step`` from
+``Runtime.shard_ctx()``) and DTensor operands, projections are DTensor
+einsums on weights gathered on their FSDP dims (``gather_weight``), the
+JAX package's ``with_sharding_constraint`` sites are ``_cs``
+redistributes, and what DTensor has no rule for (RoPE, the kernels, the
+embedding lookup, the Mamba conv and scan, MoE routing) runs on each rank's
+local shards through ``local_map``.
 """
 from __future__ import annotations
 
 import math
-from typing import Optional, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -22,6 +34,10 @@ from torch import nn
 
 from repro_torch.configs.base import ArchConfig, AttnSpec
 from repro_torch.kernels import ops, ref
+from repro_torch.parallel.dtensor import (GatherRows, SumRows, all_gather,
+                                          axes_size, block_index,
+                                          gather_rows, is_dtensor, local_map,
+                                          redistribute, sharded_on)
 
 ATTN_IMPLS = ("kernel", "plain")
 SCAN_IMPLS = ("kernel", "plain")
@@ -32,7 +48,17 @@ SCAN_IMPLS = ("kernel", "plain")
 
 
 def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float) -> torch.Tensor:
-    """RMSNorm in f32, scaled by ``1 + scale``, cast back to x's dtype."""
+    """RMSNorm in f32, scaled by ``1 + scale``, cast back to x's dtype. A
+    DTensor x without grad (serving) is normalised on its local shard, one
+    dispatch in place of ten; with grad it runs as DTensor ops, whose
+    backward adds x's gradients in the unsharded path's order."""
+    if is_dtensor(x) and not torch.is_grad_enabled():
+        return local_map(lambda xl, sl: _rms_norm(xl, sl, eps), x.placements,
+                         x, scale)
+    return _rms_norm(x, scale, eps)
+
+
+def _rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float) -> torch.Tensor:
     xf = x.float()
     var = xf.square().mean(dim=-1, keepdim=True)
     out = xf * torch.rsqrt(var + eps)
@@ -45,7 +71,15 @@ def _act(name: str):
 
 
 def rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor:
-    """Rotary embedding on split halves. x: [..., S, H, D]; positions: [..., S]."""
+    """Rotary embedding on split halves. x: [..., S, H, D]; positions: [..., S].
+    A DTensor x (and positions, plain or a DTensor) runs on its local shard."""
+    if is_dtensor(x):
+        return local_map(lambda xl, pl: _rope(xl, pl, theta), x.placements,
+                         x, positions)
+    return _rope(x, positions, theta)
+
+
+def _rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor:
     half = x.shape[-1] // 2
     freqs = theta ** (-torch.arange(half, dtype=torch.float32,
                                     device=x.device) / half)
@@ -55,6 +89,68 @@ def rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor
     x1, x2 = x.float().split(half, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
     return out.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# activation-sharding context (the JAX package's ``set_shard_ctx`` /
+# ``_cs``): set by ``model.forward`` / ``decode_step`` from
+# ``Runtime.shard_ctx()`` plus the params' mesh, None otherwise. Tokens:
+# "dp" -> the data axes, "tp" -> the tensor axis, None -> unsharded. The
+# context's "ep" is read where the JAX code reads it, in the MoE block (the
+# JAX ``_cs_ep`` has no caller, so the port has none).
+# ---------------------------------------------------------------------------
+
+_SHARD_CTX: Optional[dict] = None
+
+
+def set_shard_ctx(ctx: Optional[dict]) -> None:
+    global _SHARD_CTX
+    _SHARD_CTX = ctx
+
+
+def _resolve(axes) -> tuple:
+    ctx = _SHARD_CTX
+    return tuple(ctx["dp"] if a == "dp" else (ctx["tp"] if a == "tp" else None)
+                 for a in axes)
+
+
+def _cs(x, *axes):
+    """Redistribute the DTensor ``x`` to the placements the tokens resolve to
+    (``with_sharding_constraint``'s counterpart; a Partial sum is reduced
+    here). A no-op without a context or for a tensor that is not a DTensor."""
+    if _SHARD_CTX is None or not is_dtensor(x):
+        return x
+    from repro_torch.parallel.sharding import placements
+    return redistribute(x, placements(_resolve(axes), _SHARD_CTX["mesh"]))
+
+
+def gather_weight(w):
+    """A weight as the sharded path uses it: a DTensor all-gathered on every
+    mesh dim but the tensor axis (FSDP's gather on use; autograd
+    reduce-scatters its gradient back), its TP shard kept. Anything else,
+    and everything without a context, as it is."""
+    if _SHARD_CTX is None or not is_dtensor(w):
+        return w
+    from torch.distributed.tensor import Replicate
+    names = list(w.device_mesh.mesh_dim_names)
+    tp = _SHARD_CTX["tp"]
+    return redistribute(w, [pl if names[i] == tp else Replicate()
+                            for i, pl in enumerate(w.placements)])
+
+
+def _tp_coord() -> Tuple[int, int]:
+    """(this rank's index on the tensor axis, the axis' size); (0, 1) when
+    the context has no tensor axis."""
+    ctx = _SHARD_CTX
+    if ctx is None or not ctx["tp"]:
+        return 0, 1
+    mesh = ctx["mesh"]
+    return mesh.get_local_rank(ctx["tp"]), axes_size(mesh, (ctx["tp"],))
+
+
+def _dp_axes() -> Tuple[str, ...]:
+    dp = _SHARD_CTX["dp"] if _SHARD_CTX is not None else None
+    return () if not dp else ((dp,) if isinstance(dp, str) else tuple(dp))
 
 
 def leaf(shape, dtype, device) -> nn.Parameter:
@@ -71,6 +167,11 @@ def leaf(shape, dtype, device) -> nn.Parameter:
 
 class AttentionParams(nn.Module):
     """Leaves of one attention mixer, in the JAX package's shapes."""
+    AXES = {"wq": ("embed", "heads", "head"),
+            "wk": ("embed", "kv_heads", "head"),
+            "wv": ("embed", "kv_heads", "head"),
+            "wo": ("heads", "head", "embed"),
+            "q_norm": (None,), "k_norm": (None,)}
 
     def __init__(self, cfg: ArchConfig, spec: AttnSpec, dtype, device):
         super().__init__()
@@ -105,15 +206,54 @@ def normal_(t: torch.Tensor, generator: torch.Generator, scale: float) -> None:
                             dtype=torch.float32).mul_(scale))
 
 
-def _head_mask(out: torch.Tensor, cfg: ArchConfig, head_dim: int) -> torch.Tensor:
-    """Zero the heads padded for tensor parallelism (heads on ``head_dim``)."""
-    h = out.shape[head_dim]
-    if h == cfg.n_heads:
+def _head_mask(out: torch.Tensor, cfg: ArchConfig, head_dim: int,
+               h0: int = 0) -> torch.Tensor:
+    """Zero the heads padded for tensor parallelism (heads on ``head_dim``;
+    ``out``'s first head is head ``h0`` of the model)."""
+    if cfg.eff_heads == cfg.n_heads:
         return out
-    keep = (torch.arange(h, device=out.device) < cfg.n_heads).to(out.dtype)
+    h = out.shape[head_dim]
+    keep = (h0 + torch.arange(h, device=out.device) < cfg.n_heads).to(out.dtype)
     shape = [1] * out.dim()
     shape[head_dim] = h
     return out * keep.view(shape)
+
+
+def _kv_slice(H_l: int, h0: int, cfg: ArchConfig) -> Tuple[int, int]:
+    """(first kv head, kv heads) that q heads [h0, h0 + H_l) read: q head h
+    reads kv head h // (H / KV). The local heads must hold whole groups or
+    lie within one group."""
+    G = cfg.eff_heads // cfg.n_kv_heads
+    if H_l % G == 0:
+        return h0 // G, H_l // G
+    if G % H_l == 0:
+        return h0 // G, 1
+    raise ValueError(f"{cfg.name}: {H_l} heads a rank and head group {G} "
+                     "do not divide one another")
+
+
+def _attend(q, k, v, attn_impl: str, kw: dict) -> torch.Tensor:
+    if attn_impl == "kernel":
+        return ops.flash_attention(q, k, v, **kw)
+    if attn_impl == "plain":
+        return ref.flash_attention_ref(q, k, v, **kw)
+    raise ValueError(f"attn_impl {attn_impl!r} not in {ATTN_IMPLS}")
+
+
+def _flash_sharded(q, k, v, cfg: ArchConfig, attn_impl: str, kw: dict):
+    """Flash attention on each rank's q heads (q sharded on heads over the
+    tensor axis, K/V at all kv heads): the rank's kv heads are cut out of
+    K/V, so the kernel runs unchanged on local tensors. K and V get Partial
+    gradients over the tensor axis (each rank's covers its kv heads)."""
+    r = _tp_coord()[0] if sharded_on(q, 2, _SHARD_CTX["tp"]) else 0
+
+    def local(ql, kl, vl):
+        h0 = r * ql.shape[2]
+        kv0, nkv = _kv_slice(ql.shape[2], h0, cfg)
+        out = _attend(ql, kl[:, :, kv0:kv0 + nkv].contiguous(),
+                      vl[:, :, kv0:kv0 + nkv].contiguous(), attn_impl, kw)
+        return _head_mask(out, cfg, head_dim=2, h0=h0)
+    return local_map(local, q.placements, q, k, v)
 
 
 def apply_attention(p: AttentionParams, x: torch.Tensor, spec: AttnSpec,
@@ -130,27 +270,88 @@ def apply_attention(p: AttentionParams, x: torch.Tensor, spec: AttnSpec,
     not. K/V stay at kv heads: the kernel (or its plain version) reads kv
     head ``h // groups`` for q head ``h``, so the JAX path's repeat is never
     made. Padded heads are zeroed after attention, as on the JAX XLA path.
+    Sharded, q and the output are split on heads over "tp" and K/V kept
+    whole (``_flash_sharded``).
     """
     xkv, k_pos = (x, positions) if kv_override is None else kv_override
-    q = torch.einsum("bsd,dhk->bshk", x, p.wq)
-    k = torch.einsum("bsd,dhk->bshk", xkv, p.wk)
-    v = torch.einsum("bsd,dhk->bshk", xkv, p.wv)
+    q = torch.einsum("bsd,dhk->bshk", x, gather_weight(p.wq))
+    k = torch.einsum("bsd,dhk->bshk", xkv, gather_weight(p.wk))
+    v = torch.einsum("bsd,dhk->bshk", xkv, gather_weight(p.wv))
     if spec.qk_norm:
-        q = rms_norm(q, p.q_norm, cfg.norm_eps)
-        k = rms_norm(k, p.k_norm, cfg.norm_eps)
+        q = rms_norm(q, gather_weight(p.q_norm), cfg.norm_eps)
+        k = rms_norm(k, gather_weight(p.k_norm), cfg.norm_eps)
     if causal or kv_override is None:
         q = rope(q, positions, cfg.rope_theta)
         k = rope(k, k_pos, cfg.rope_theta)
+    q = _cs(q, "dp", None, "tp", None)
+    k, v = _cs(k, "dp", None, None, None), _cs(v, "dp", None, None, None)
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
     kw = dict(causal=causal, window=spec.window, softcap=spec.softcap)
-    if attn_impl == "kernel":
-        out = ops.flash_attention(q, k, v, **kw)
-    elif attn_impl == "plain":
-        out = ref.flash_attention_ref(q, k, v, **kw)
+    if is_dtensor(q):
+        out = _flash_sharded(q, k, v, cfg, attn_impl, kw)
     else:
-        raise ValueError(f"attn_impl {attn_impl!r} not in {ATTN_IMPLS}")
-    out = _head_mask(out, cfg, head_dim=2)
-    return torch.einsum("bshk,hkd->bsd", out, p.wo)
+        out = _head_mask(_attend(q, k, v, attn_impl, kw), cfg, head_dim=2)
+    out = _cs(out, "dp", None, "tp", None)
+    return torch.einsum("bshk,hkd->bsd", out, gather_weight(p.wo))
+
+
+def _write_rows(cache: torch.Tensor, new: torch.Tensor, pos: torch.Tensor):
+    """cache[b, pos[b] % S] = new[b, 0] for every slot b, in place. A
+    sequence-sharded DTensor cache is written by the rank that holds that
+    key (a select by ``torch.where``: no host sync)."""
+    if not is_dtensor(cache):
+        B, S = cache.shape[0], cache.shape[1]
+        slots = torch.arange(B, device=cache.device)
+        cache[slots, (pos % S).long()] = new[:, 0].to(cache.dtype)
+        return
+    S = cache.shape[1]
+    cl, nl = cache.to_local(), new.to_local()
+    pl = pos.to_local() if is_dtensor(pos) else pos
+    tp = _SHARD_CTX["tp"]
+    r = _tp_coord()[0] if sharded_on(cache, 1, tp) else 0
+    S_l = cl.shape[1]
+    at = (pl % S).long() - r * S_l
+    own = (at >= 0) & (at < S_l)
+    idx = at.clamp(0, S_l - 1)
+    slots = torch.arange(cl.shape[0], device=cl.device)
+    cl[slots, idx] = torch.where(own[:, None, None], nl[:, 0].to(cl.dtype),
+                                 cl[slots, idx])
+
+
+def _decode(q, k, v, lengths, attn_impl: str, kw: dict, offset: int = 0,
+            want_lse: bool = False):
+    if attn_impl == "kernel":
+        return ops.decode_attention(q, k, v, lengths, offset=offset,
+                                    return_lse=want_lse, **kw)
+    if attn_impl == "plain":
+        return ref.decode_attention_ref(q, k, v, lengths, offset=offset,
+                                        return_lse=want_lse, **kw)
+    raise ValueError(f"attn_impl {attn_impl!r} not in {ATTN_IMPLS}")
+
+
+def _decode_sharded(q, k, v, lengths, S: int, attn_impl: str, kw: dict):
+    """Decode attention on a cache sequence-sharded over "tp": each rank runs
+    the kernel on its key range (key offset ``rank * S_local``, with the row
+    log-sum-exp), then the ranks' (o, lse) are all-gathered over the axis,
+    never the cache, and merged (``ops.merge_attention_parts``). lengths
+    None: every key valid (cross-attention)."""
+    tp = _SHARD_CTX["tp"]
+    seq = sharded_on(k, 1, tp)
+    r = _tp_coord()[0] if seq else 0
+    mesh = _SHARD_CTX["mesh"]
+
+    def local(ql, kl, vl, ll):
+        if ll is None:
+            ll = torch.full((ql.shape[0],), S, dtype=torch.int32,
+                            device=ql.device)
+        o, lse = _decode(ql, kl, vl, ll, attn_impl, kw,
+                         offset=r * kl.shape[1], want_lse=True)
+        if seq:
+            o = ops.merge_attention_parts(
+                all_gather(o[None].float(), 0, mesh, (tp,)),
+                all_gather(lse[None], 0, mesh, (tp,))).to(o.dtype)
+        return o
+    return local_map(local, q.placements, q, k, v, lengths)
 
 
 def apply_attention_decode(p: AttentionParams, x: torch.Tensor, spec: AttnSpec,
@@ -169,36 +370,36 @@ def apply_attention_decode(p: AttentionParams, x: torch.Tensor, spec: AttnSpec,
     ``pos >= S`` too. With ``cross=True`` the cache holds the encoder
     memory's K/V: no RoPE on q, no write, and every key valid (lengths S,
     made on the device, no host sync). q is cast to the cache's dtype
-    (exact when widening).
+    (exact when widening). Sharded, q is gathered to all heads (the JAX
+    ``_cs(q, "dp", None, None, None)``) and the cache stays split on its
+    sequence (``_decode_sharded``).
     """
     B, S = x.shape[0], cache_k.shape[1]
-    q = torch.einsum("bsd,dhk->bshk", x, p.wq)
+    q = torch.einsum("bsd,dhk->bshk", x, gather_weight(p.wq))
     if spec.qk_norm:
-        q = rms_norm(q, p.q_norm, cfg.norm_eps)
-    if cross:
-        lengths = torch.full((B,), S, dtype=torch.int32, device=x.device)
-    else:
-        k_new = torch.einsum("bsd,dhk->bshk", x, p.wk)
-        v_new = torch.einsum("bsd,dhk->bshk", x, p.wv)
+        q = rms_norm(q, gather_weight(p.q_norm), cfg.norm_eps)
+    lengths = None
+    if not cross:
+        k_new = torch.einsum("bsd,dhk->bshk", x, gather_weight(p.wk))
+        v_new = torch.einsum("bsd,dhk->bshk", x, gather_weight(p.wv))
         if spec.qk_norm:
-            k_new = rms_norm(k_new, p.k_norm, cfg.norm_eps)
+            k_new = rms_norm(k_new, gather_weight(p.k_norm), cfg.norm_eps)
         q = rope(q, pos[:, None], cfg.rope_theta)
         k_new = rope(k_new, pos[:, None], cfg.rope_theta)
-        slots = torch.arange(B, device=x.device)
-        at = (pos % S).long()
-        cache_k[slots, at] = k_new[:, 0].to(cache_k.dtype)
-        cache_v[slots, at] = v_new[:, 0].to(cache_v.dtype)
+        _write_rows(cache_k, k_new, pos)
+        _write_rows(cache_v, v_new, pos)
         lengths = (pos + 1).to(torch.int32)
-    qd = q[:, 0].to(cache_k.dtype).contiguous()                 # [B,h,dh]
+    qd = _cs(q, "dp", None, None, None)[:, 0].to(cache_k.dtype).contiguous()
     kw = dict(window=None if cross else spec.window, softcap=spec.softcap)
-    if attn_impl == "kernel":
-        out = ops.decode_attention(qd, cache_k, cache_v, lengths, **kw)
-    elif attn_impl == "plain":
-        out = ref.decode_attention_ref(qd, cache_k, cache_v, lengths, **kw)
+    if is_dtensor(qd):
+        out = _decode_sharded(qd, cache_k, cache_v, lengths, S, attn_impl, kw)
     else:
-        raise ValueError(f"attn_impl {attn_impl!r} not in {ATTN_IMPLS}")
+        if lengths is None:
+            lengths = torch.full((B,), S, dtype=torch.int32, device=x.device)
+        out = _decode(qd, cache_k, cache_v, lengths, attn_impl, kw)
     out = _head_mask(out, cfg, head_dim=1).to(x.dtype)[:, None]   # [B,1,h,dh]
-    return torch.einsum("bshk,hkd->bsd", out, p.wo), cache_k, cache_v
+    return (torch.einsum("bshk,hkd->bsd", out, gather_weight(p.wo)),
+            cache_k, cache_v)
 
 
 # ---------------------------------------------------------------------------
@@ -207,6 +408,9 @@ def apply_attention_decode(p: AttentionParams, x: torch.Tensor, spec: AttnSpec,
 
 
 class MLPParams(nn.Module):
+    AXES = {"w1": ("embed", "mlp"), "w3": ("embed", "mlp"),
+            "w2": ("mlp", "embed")}
+
     def __init__(self, cfg: ArchConfig, dtype, device):
         super().__init__()
         d, f = cfg.d_model, cfg.d_ff
@@ -223,9 +427,11 @@ def init_mlp(p: MLPParams, generator: torch.Generator, cfg: ArchConfig) -> None:
 
 
 def apply_mlp(p: MLPParams, x: torch.Tensor, act: str) -> torch.Tensor:
-    g = _act(act)(torch.einsum("bsd,df->bsf", x, p.w1))
-    u = torch.einsum("bsd,df->bsf", x, p.w3)
-    return torch.einsum("bsf,fd->bsd", g * u, p.w2)
+    g = _act(act)(_cs(torch.einsum("bsd,df->bsf", x, gather_weight(p.w1)),
+                      "dp", None, "tp"))
+    u = _cs(torch.einsum("bsd,df->bsf", x, gather_weight(p.w3)),
+            "dp", None, "tp")
+    return torch.einsum("bsf,fd->bsd", g * u, gather_weight(p.w2))
 
 
 # ---------------------------------------------------------------------------
@@ -238,6 +444,10 @@ class MoEParams(nn.Module):
     """Leaves of one MoE FFN, in the JAX package's shapes: ``router`` [d, E]
     in f32 whatever the model's dtype; ``w1`` / ``w3`` [E*sp, d, f/sp] and
     ``w2`` [E*sp, f/sp, d], sp = ``expert_split``."""
+    AXES = {"router": ("embed", None),
+            "w1": ("expert", "embed", "expert_mlp"),
+            "w3": ("expert", "embed", "expert_mlp"),
+            "w2": ("expert", "expert_mlp", "embed")}
 
     def __init__(self, cfg: ArchConfig, dtype, device):
         super().__init__()
@@ -269,6 +479,13 @@ def moe_capacity(n_tokens: int, cfg: ArchConfig) -> int:
 MOE_TOKEN_CHUNK = 65_536
 
 
+def _moe_chunk(T: int) -> int:
+    """The tokens of one capacity block out of T: ``MOE_TOKEN_CHUNK`` when T
+    exceeds it and divides by it, else all T."""
+    return (MOE_TOKEN_CHUNK if T > MOE_TOKEN_CHUNK and T % MOE_TOKEN_CHUNK == 0
+            else T)
+
+
 def apply_moe(p: MoEParams, x: torch.Tensor, cfg: ArchConfig
               ) -> Tuple[torch.Tensor, torch.Tensor]:
     """x: [B, S, d] -> (out [B, S, d], aux loss, f32 scalar).
@@ -276,16 +493,19 @@ def apply_moe(p: MoEParams, x: torch.Tensor, cfg: ArchConfig
     When T = B*S exceeds ``MOE_TOKEN_CHUNK`` and divides by it, the tokens
     run in chunks of that size, each with its own capacity, and aux is the
     mean of the chunks' (the JAX code's ``lax.map``). Decode calls this too,
-    on [B, 1, d], as the JAX ``decode_step`` does.
+    on [B, 1, d], as the JAX ``decode_step`` does. A DTensor x runs the
+    same blocks sharded (``_moe_sharded``).
     """
+    if is_dtensor(x):
+        return _moe_sharded(p, x, cfg)
     B, S, d = x.shape
     T = B * S
-    if T > MOE_TOKEN_CHUNK and T % MOE_TOKEN_CHUNK == 0:
-        parts = [_moe_block(p, xi[None], cfg)
-                 for xi in x.reshape(T // MOE_TOKEN_CHUNK, -1, d)]
-        out = torch.cat([o for o, _ in parts]).reshape(B, S, d)
-        return out, torch.stack([a for _, a in parts]).mean()
-    return _moe_block(p, x, cfg)
+    ch = _moe_chunk(T)
+    if ch == T:
+        return _moe_block(p, x, cfg)
+    parts = [_moe_block(p, xi[None], cfg) for xi in x.reshape(T // ch, -1, d)]
+    out = torch.cat([o for o, _ in parts]).reshape(B, S, d)
+    return out, torch.stack([a for _, a in parts]).mean()
 
 
 def moe_route(p: MoEParams, xf: torch.Tensor, cfg: ArchConfig):
@@ -310,8 +530,9 @@ def moe_route(p: MoEParams, xf: torch.Tensor, cfg: ArchConfig):
     top_w = top_w / (top_w.sum(-1, keepdim=True) + 1e-9)
     if sp > 1:
         top_e = (top_e[..., None] * sp
-                 + torch.arange(sp, device=xf.device)).reshape(T, -1)
-        top_w = top_w[..., None].expand(T, m.top_k, sp).reshape(T, -1)
+                 + torch.arange(sp, device=xf.device)).reshape(T, m.top_k * sp)
+        top_w = top_w[..., None].expand(T, m.top_k, sp).reshape(
+            T, m.top_k * sp)
     top_e, perm = torch.sort(top_e, dim=-1)
     return probs, torch.gather(top_w, -1, perm), top_e
 
@@ -356,7 +577,38 @@ def moe_experts(p: MoEParams, xe: torch.Tensor, act: str) -> torch.Tensor:
     return torch.bmm(g * u, p.w2)
 
 
-def _moe_block(p: MoEParams, x: torch.Tensor, cfg: ArchConfig
+def _moe_combine(ye: torch.Tensor, top_w: torch.Tensor, slot: torch.Tensor,
+                 kept: torch.Tensor) -> torch.Tensor:
+    """out[t] = sum_j (kept) ye[slot[t, j]] * w[t, j], from zero in
+    ascending expert id, each product with w rounded to ye's dtype first."""
+    w = top_w.to(ye.dtype)
+    out = torch.zeros((slot.shape[0], ye.shape[1]), dtype=ye.dtype,
+                      device=ye.device)
+    for j in range(slot.shape[1]):
+        out = out + torch.where(kept[:, j, None], ye[slot[:, j]] * w[:, j, None],
+                                0)
+    return out
+
+
+class _MoEComm(NamedTuple):
+    """How one capacity block is split over the ranks (``_moe_sharded``):
+    this rank holds the block's tokens ``lo ..`` of ``n``, which the mesh
+    axes ``dp`` split; it works on experts ``e0 ..`` (as many as its local
+    weights hold) and on its share, block ``i_dp`` of ``n_dp``, of each
+    expert's capacity; ``work`` are the mesh axes whose ranks hold other
+    experts or other parts of each expert's FFN."""
+    mesh: object
+    lo: int
+    n: int
+    dp: Tuple[str, ...]
+    work: Tuple[str, ...]
+    e0: int
+    i_dp: int
+    n_dp: int
+
+
+def _moe_block(p: MoEParams, x: torch.Tensor, cfg: ArchConfig,
+               comm: Optional[_MoEComm] = None
                ) -> Tuple[torch.Tensor, torch.Tensor]:
     """One capacity block of tokens, in the JAX code's order of operations.
 
@@ -366,27 +618,115 @@ def _moe_block(p: MoEParams, x: torch.Tensor, cfg: ArchConfig
     model dtype first. So bf16 rounds as in JAX step by step, and the card
     gives one answer bitwise every time. The aux loss is Switch's, on the
     un-split router.
+
+    Sharded (``comm``; ``p`` holds local weights), x is this rank's part of
+    the block: the ids, tokens and weights of the whole block are assembled
+    (``gather_rows``), every rank slots the whole block as the unsharded
+    block does, computes its own experts on its share of their slots, and
+    combines them into partial sums for the whole block, which are added
+    over the ranks and cut to this rank's tokens (``SumRows``). The aux
+    loss is this rank's tokens' share. Unsharded, the gathers and the sum
+    are identities and the share is all the experts and all the slots.
     """
     B, S, d = x.shape
     m = cfg.moe
     sp = m.expert_split
-    T, E, K = B * S, m.n_experts * sp, m.top_k * sp
+    T_l = B * S
+    T = T_l if comm is None else comm.n
+    E, K = m.n_experts * sp, m.top_k * sp
     C = moe_capacity(T, cfg)
-    xf = x.reshape(T, d)
+    xf = x.reshape(T_l, d)
     probs, top_w, top_e = moe_route(p, xf, cfg)
+    E_l, C_l, e0, c0 = E, C, 0, 0
+    if comm is not None:
+        top_e = gather_rows(top_e, comm.lo, T, comm.mesh, comm.dp)
+        xf, top_w = (GatherRows.apply(t, comm.lo, T, comm.mesh, comm.dp,
+                                      comm.work) for t in (xf, top_w))
+        E_l, C_l = p.w1.shape[0], C // comm.n_dp
+        e0, c0 = comm.e0, comm.i_dp * C_l
     counts, slot_tok, slot_valid, slot, kept = moe_slots(top_e, E, C)
 
-    xe = torch.where(slot_valid[:, None], xf[slot_tok], 0).reshape(E, C, d)
-    ye = moe_experts(p, xe, cfg.act).reshape(E * C, d)
-    w = top_w.to(ye.dtype)
-    out = torch.zeros((T, d), dtype=ye.dtype, device=x.device)
-    for j in range(K):
-        out = out + torch.where(kept[:, j, None], ye[slot[:, j]] * w[:, j, None],
-                                0)
+    mine = (slice(e0, e0 + E_l), slice(c0, c0 + C_l))
+    xe = torch.where(slot_valid.reshape(E, C)[mine][..., None],
+                     xf[slot_tok.reshape(E, C)[mine]], 0)
+    ye = moe_experts(p, xe, cfg.act).reshape(E_l * C_l, d)
+    if comm is None:
+        out = _moe_combine(ye, top_w, slot, kept)
+    else:   # the assignments in this rank's slots, at their local rows
+        e, c = slot // C, slot % C
+        held = kept & (e >= e0) & (e < e0 + E_l) & (c >= c0) & (c < c0 + C_l)
+        at = ((e - e0) * C_l + (c - c0)).clamp(0, E_l * C_l - 1)
+        out = SumRows.apply(_moe_combine(ye, top_w, at, held), comm.lo, T_l,
+                            comm.mesh, comm.dp + comm.work, comm.dp)
 
     frac = counts.reshape(m.n_experts, sp).sum(-1).float() / (T * K)
-    aux = m.n_experts * torch.sum(frac * probs.mean(dim=0))
+    share = probs.mean(dim=0)
+    if comm is not None:   # this rank's tokens' part of the block's mean
+        share = share * (T_l / T) if T_l else probs.new_zeros(probs.shape[1:])
+    aux = m.n_experts * torch.sum(frac * share)
     return out.reshape(B, S, d), aux
+
+
+def _moe_sharded(p: MoEParams, x: torch.Tensor, cfg: ArchConfig
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``apply_moe`` of x [B, S, d] split on B over the data axes: the same
+    capacity blocks (``MOE_TOKEN_CHUNK`` tokens of the global order) with
+    the same slots as unsharded, each run by every rank (``_moe_block``
+    with a ``_MoEComm``), so no rank holds more than one block's tokens.
+
+    The experts' layout is the context's "ep", as in the JAX code: whole
+    experts on "tp" (EP) or each expert's FFN dim on "tp" (``expert_mlp``);
+    weights laid out otherwise are redistributed to it (no data moves when
+    ``sharding.make_rules`` laid them out so, as ``sharding.runtime``'s ep
+    agrees with it). Each expert's capacity is split over the data axes
+    (the JAX ``_cs(xe, .., "dp", ..)``). The aux loss comes back as a
+    Partial sum over the data axes."""
+    from torch.distributed.tensor import Partial, Replicate
+    from types import SimpleNamespace
+    ctx = _SHARD_CTX
+    mesh, tp = ctx["mesh"], ctx["tp"]
+    ep = bool(ctx.get("ep")) and bool(tp)
+    m = cfg.moe
+    E, f = m.n_experts * m.expert_split, p.w1.shape[2]
+    r_tp, n_tp = _tp_coord()
+    if (E if ep else f) % n_tp:
+        raise ValueError(f"{cfg.name}: {'experts' if ep else 'expert FFN'} "
+                         f"{E if ep else f} do not split over {n_tp} ranks")
+    dp = tuple(a for a in _dp_axes() if sharded_on(x, 0, a))
+    lay = ("tp", None, None) if ep else (None, None, "tp")
+    router = gather_weight(p.router)
+    w1, w3 = (_cs(w, *lay) for w in (p.w1, p.w3))
+    w2 = _cs(p.w2, *(lay if ep else (None, "tp", None)))
+    B, S, d = x.shape
+    T = B * S
+    ch = _moe_chunk(T)
+    i_dp, n_dp = block_index(mesh, dp)
+    C = moe_capacity(ch, cfg)
+    if C % n_dp:
+        raise ValueError(f"MoE capacity {C} does not split over {n_dp} ranks")
+    work = (tp,) if tp else ()
+
+    def local(xl, router_l, w1_l, w3_l, w2_l):
+        T_l = xl.shape[0] * xl.shape[1]
+        lo = i_dp * T_l
+        xf = xl.reshape(T_l, d)
+        pl = SimpleNamespace(router=router_l, w1=w1_l, w3=w3_l, w2=w2_l)
+        outs, auxes = [], []
+        for a in range(0, T, ch):
+            s = max(a, lo)
+            e = max(s, min(a + ch, lo + T_l))
+            o, aux = _moe_block(pl, xf[s - lo:e - lo][None], cfg, _MoEComm(
+                mesh, s - a, ch, dp, work, r_tp * w1_l.shape[0] if ep else 0,
+                i_dp, n_dp))
+            outs.append(o[0])
+            auxes.append(aux)
+        aux = auxes[0] if len(auxes) == 1 else torch.stack(auxes).mean()
+        return torch.cat(outs).reshape(xl.shape), aux
+
+    names = list(mesh.mesh_dim_names)
+    partial = [Partial() if n in dp else Replicate() for n in names]
+    return local_map(local, (x.placements, partial), x, router, w1, w3, w2,
+                     grads={0: x.placements, 1: partial})
 
 
 # ---------------------------------------------------------------------------
@@ -397,6 +737,10 @@ def _moe_block(p: MoEParams, x: torch.Tensor, cfg: ArchConfig
 class MambaParams(nn.Module):
     """Leaves of one Mamba mixer, in the JAX package's shapes. ``dt_bias``,
     ``A_log`` and ``D`` are f32 whatever the model's dtype, as in JAX."""
+    AXES = {"in_proj": ("embed", "inner"), "conv_w": (None, "inner"),
+            "x_proj": ("inner", None), "dt_proj": (None, "inner"),
+            "dt_bias": ("inner",), "A_log": ("inner", None),
+            "D": ("inner",), "out_proj": ("inner", "embed")}
 
     def __init__(self, cfg: ArchConfig, dtype, device):
         super().__init__()
@@ -430,39 +774,62 @@ def init_mamba(p: MambaParams, generator: torch.Generator,
         p.D.fill_(1.0)
 
 
+def _conv(u: torch.Tensor, conv_w: torch.Tensor,
+          conv_state: Optional[torch.Tensor]):
+    """Causal depthwise conv (the JAX code's shifted adds in order i =
+    0..dc-1; no ``conv1d``: cuDNN would sum in another order, in TF32 by
+    default) and silu. u: [B,S,di] -> (silu(conv) [B,S,di], new conv tail
+    [B,dc-1,di] in u's dtype); the tail before u is ``conv_state`` or
+    zeros."""
+    dc, S = conv_w.shape[0], u.shape[1]
+    if conv_state is None:
+        pad = u.new_zeros((u.shape[0], dc - 1, u.shape[2]))
+    else:
+        pad = conv_state.to(u.dtype)
+    up = torch.cat([pad, u], dim=1)                          # [B,S+dc-1,di]
+    conv = up[:, 0:S] * conv_w[0]
+    for i in range(1, dc):
+        conv = conv + up[:, i:i + S] * conv_w[i]
+    return F.silu(conv), up[:, up.shape[1] - (dc - 1):]
+
+
+def _softplus(dt: torch.Tensor) -> torch.Tensor:
+    return torch.logaddexp(dt, dt.new_zeros(()))   # as jax.nn.softplus
+
+
 def _mamba_pre(p: MambaParams, x: torch.Tensor, cfg: ArchConfig,
                conv_state: Optional[torch.Tensor] = None):
     """In-projection, causal depthwise conv, silu, x/dt projections. x: [B,S,d].
 
     Returns (u [B,S,di] after conv and silu, z gate [B,S,di], dt [B,S,di]
     f32, Bc [B,S,ds], Cc [B,S,ds], new conv tail [B,dc-1,di] in u's dtype).
-    The conv is the JAX code's shifted adds in order i = 0..dc-1 (no
-    ``conv1d``: cuDNN would sum in another order, in TF32 by default).
+    Sharded, u, z, dt and the tail are split on d_inner over "tp" (the
+    conv runs on local channels), Bc and Cc are whole.
     """
-    di, ds, dc, dr = (cfg.d_inner, cfg.mamba.d_state, cfg.mamba.d_conv,
-                      cfg.dt_rank)
-    S = x.shape[1]
-    u, z = torch.einsum("bsd,de->bse", x, p.in_proj).split(di, dim=-1)
-    if conv_state is None:
-        pad = u.new_zeros((u.shape[0], dc - 1, di))
+    di, ds, dr = cfg.d_inner, cfg.mamba.d_state, cfg.dt_rank
+    xz = _cs(torch.einsum("bsd,de->bse", x, gather_weight(p.in_proj)),
+             "dp", None, "tp")
+    u, z = xz.split(di, dim=-1)
+    u, z = _cs(u, "dp", None, "tp"), _cs(z, "dp", None, "tp")
+    conv_w = gather_weight(p.conv_w)
+    if is_dtensor(u):
+        u, new_tail = local_map(_conv, (u.placements, u.placements), u,
+                                conv_w, conv_state)
     else:
-        pad = conv_state.to(u.dtype)
-    up = torch.cat([pad, u], dim=1)                          # [B,S+dc-1,di]
-    conv = up[:, 0:S] * p.conv_w[0]
-    for i in range(1, dc):
-        conv = conv + up[:, i:i + S] * p.conv_w[i]
-    new_tail = up[:, up.shape[1] - (dc - 1):]
-    u = F.silu(conv)
-    dt, Bc, Cc = torch.einsum("bsi,ie->bse", u, p.x_proj).split([dr, ds, ds],
-                                                               dim=-1)
-    dt = torch.einsum("bsr,ri->bsi", dt, p.dt_proj).float() + p.dt_bias
-    dt = torch.logaddexp(dt, dt.new_zeros(()))   # softplus, as jax.nn.softplus
-    return u, z, dt, Bc, Cc, new_tail
+        u, new_tail = _conv(u, conv_w, conv_state)
+    dt, Bc, Cc = torch.einsum("bsi,ie->bse", u, gather_weight(p.x_proj)
+                              ).split([dr, ds, ds], dim=-1)
+    dt = torch.einsum("bsr,ri->bsi", dt, gather_weight(p.dt_proj)).float() \
+        + gather_weight(p.dt_bias)
+    dt = (local_map(_softplus, dt.placements, dt) if is_dtensor(dt)
+          else _softplus(dt))
+    return (u, z, dt, _cs(Bc, "dp", None, None), _cs(Cc, "dp", None, None),
+            new_tail)
 
 
-def _scan_inputs(p: MambaParams, u, dt, Bc):
+def _scan_inputs(A_log, u, dt, Bc):
     """a = exp(dt * A) and b = dt * u * B, both [B,S,di,ds] f32."""
-    A = -torch.exp(p.A_log)                                  # [di,ds]
+    A = -torch.exp(A_log)                                    # [di,ds]
     a = (dt[..., None] * A).exp_()
     b = (dt * u.float())[..., None] * Bc.float()[:, :, None, :]
     return a, b
@@ -476,11 +843,20 @@ def _scan(a, b, h0, scan_impl: str):
     raise ValueError(f"scan_impl {scan_impl!r} not in {SCAN_IMPLS}")
 
 
-def _mamba_out(p: MambaParams, x, y, u, z) -> torch.Tensor:
-    """y + u * D, gated by silu(z) in f32, cast to x's dtype, out-projected."""
-    y = y + u.float() * p.D
-    y = (y * F.silu(z.float())).to(x.dtype)
-    return torch.einsum("...i,id->...d", y, p.out_proj)
+def _gate(y, u, z, D, dtype) -> torch.Tensor:
+    """y + u * D, gated by silu(z) in f32, cast to ``dtype``."""
+    y = y + u.float() * D
+    return (y * F.silu(z.float())).to(dtype)
+
+
+def _mamba_y(A_log, D, u, z, dt, Bc, Cc, scan_impl: str, dtype):
+    """The recurrence and its read-out on [B,S,di] channels: the gated y
+    before the out-projection (a and b live only in here)."""
+    a, b = _scan_inputs(A_log, u, dt, Bc)
+    h = _scan(a, b, None, scan_impl)
+    del a, b
+    y = torch.einsum("bsin,bsn->bsi", h, Cc.float())
+    return _gate(y, u, z, D, dtype)
 
 
 def apply_mamba(p: MambaParams, x: torch.Tensor, cfg: ArchConfig, *,
@@ -494,13 +870,28 @@ def apply_mamba(p: MambaParams, x: torch.Tensor, cfg: ArchConfig, *,
     backward is one reverse-scan kernel launch, from the saved a and h),
     the plain one through autograd of the loop. JAX differentiates its XLA
     scans (``scan_impl="chunked"``), which the tests hold the gradients to.
+    Sharded, the recurrence runs on each rank's d_inner channels (the JAX
+    ``_cs(a/b, "dp", None, "tp", None)``).
     """
     u, z, dt, Bc, Cc, _ = _mamba_pre(p, x, cfg)
-    a, b = _scan_inputs(p, u, dt, Bc)
-    h = _scan(a, b, None, scan_impl)
-    del a, b
-    y = torch.einsum("bsin,bsn->bsi", h, Cc.float())
-    return _mamba_out(p, x, y, u, z)
+    args = (gather_weight(p.A_log), gather_weight(p.D), u, z, dt, Bc, Cc)
+    if is_dtensor(u):
+        y = local_map(lambda *a: _mamba_y(*a, scan_impl, x.dtype),
+                      u.placements, *args)
+    else:
+        y = _mamba_y(*args, scan_impl, x.dtype)
+    return torch.einsum("...i,id->...d", y, gather_weight(p.out_proj))
+
+
+def _mamba_step(A_log, D, u, z, dt, Bc, Cc, ssm_state, scan_impl: str,
+                dtype):
+    """One recurrence step from ``ssm_state`` [B,di,ds], written back in
+    place; returns the gated y [B,di]."""
+    a, b = _scan_inputs(A_log, u, dt, Bc)                    # [B,1,di,ds]
+    h = _scan(a, b, ssm_state, scan_impl)[:, 0]              # [B,di,ds]
+    ssm_state.copy_(h)
+    y = torch.einsum("bin,bn->bi", h, Cc[:, 0].float())
+    return _gate(y, u[:, 0], z[:, 0], D, dtype)
 
 
 def apply_mamba_decode(p: MambaParams, x: torch.Tensor, cfg: ArchConfig,
@@ -514,16 +905,21 @@ def apply_mamba_decode(p: MambaParams, x: torch.Tensor, cfg: ArchConfig,
     new SSM state are written IN PLACE into the tensors passed in (the JAX
     code returns new arrays with the same values), so the returned states
     are those tensors. The state update ``h = a * ssm_state + b`` is one
-    step of the scan kernel with ``h0 = ssm_state``.
+    step of the scan kernel with ``h0 = ssm_state``. Sharded (states split
+    on d_inner over "tp"), each rank steps its own channels.
     """
     u, z, dt, Bc, Cc, new_tail = _mamba_pre(p, x, cfg, conv_state=conv_state)
-    a, b = _scan_inputs(p, u, dt, Bc)                        # [B,1,di,ds]
-    h = _scan(a, b, ssm_state, scan_impl)[:, 0]              # [B,di,ds]
-    conv_state.copy_(new_tail)
-    ssm_state.copy_(h)
-    y = torch.einsum("bin,bn->bi", h, Cc[:, 0].float())
-    out = _mamba_out(p, x, y, u[:, 0], z[:, 0])[:, None, :]
-    return out, conv_state, ssm_state
+    args = (gather_weight(p.A_log), gather_weight(p.D), u, z, dt, Bc, Cc,
+            ssm_state)
+    if is_dtensor(u):
+        y = local_map(lambda *a: _mamba_step(*a, scan_impl, x.dtype),
+                      u[:, 0].placements, *args)
+        conv_state.to_local().copy_(new_tail.to_local())
+    else:
+        y = _mamba_step(*args, scan_impl, x.dtype)
+        conv_state.copy_(new_tail)
+    out = torch.einsum("...i,id->...d", y, gather_weight(p.out_proj))
+    return out[:, None, :], conv_state, ssm_state
 
 
 def check_supported(cfg: ArchConfig) -> None:

@@ -14,6 +14,15 @@ Public API (the JAX signatures and layouts):
                                                      {"conv","ssm"} per block pos,
                                                      + {"xk","xv"} for enc-dec]
     decode_step(params, cache, tokens, pos, cfg, rt) -> (logits [B,V], cache)
+    logical_specs(cfg)                           -> {param name: logical axes}
+    cache_logical_specs(cfg)                     -> init_cache's list, axes at leaves
+
+Sharded runs: with ``Runtime(shard_activations=True)`` and params, batch and
+cache distributed as DTensors on a ``DeviceMesh``
+(``repro_torch.parallel.sharding``), ``forward`` and ``decode_step`` set the
+layers' shard context (``rt.shard_ctx()`` plus the params' mesh) and clear it
+on return, as the JAX ones do; the logits come back as a DTensor split on
+the batch (data axes) and the vocab ("tp").
 
 The encoder-decoder (seamless) has ``params.encoder`` (its ``layers`` and
 ``final_norm``) and a cross-attention (``norm_cross``, ``cross``) in every
@@ -41,6 +50,7 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
 from repro_torch import resolve_device
 from repro_torch.configs.base import ArchConfig, LayerSpec
 from repro_torch.models import layers as L
+from repro_torch.parallel.dtensor import is_dtensor, local_map, sharded_on
 
 Cache = List[Dict[str, torch.Tensor]]
 
@@ -57,12 +67,24 @@ class Runtime:
     keeps of each block (``forward``). ``aux_loss_weight`` weighs the MoE
     load-balance loss in ``loss_fn`` and ``cross_len`` sizes the
     encoder-decoder's cross K/V cache in ``SlotServer``, as the JAX
-    ``Runtime``'s fields do."""
+    ``Runtime``'s fields do. ``q_chunk`` is preset data only: the port's
+    attention never chunks its queries (the flash kernel streams keys).
+    ``shard_activations``, ``dp_axes``, ``tp_axis`` and ``ep`` are the JAX
+    fields of the activation-sharding context (``shard_ctx``); empty
+    ``dp_axes`` leaves the batch unsharded, and ``ep`` picks the MoE
+    experts' layout (whole experts on the tensor axis, else each expert's
+    FFN dim there; ``sharding.runtime`` sets it as the rules lay out the
+    weights)."""
     attn_impl: str = "kernel"
     scan_impl: str = "kernel"
     remat: str = "block"
+    q_chunk: int = 1024
     aux_loss_weight: float = 0.01
     cross_len: int = 4096
+    shard_activations: bool = False
+    dp_axes: Tuple[str, ...] = ("data",)
+    tp_axis: str = "model"
+    ep: bool = True
 
     def __post_init__(self):
         if self.attn_impl not in L.ATTN_IMPLS:
@@ -74,6 +96,12 @@ class Runtime:
         if self.remat not in REMATS:
             raise ValueError(f"remat {self.remat!r} not in {REMATS}")
 
+    def shard_ctx(self):
+        if not self.shard_activations:
+            return None
+        return {"dp": self.dp_axes if self.dp_axes else None,
+                "tp": self.tp_axis or None, "ep": self.ep}
+
 
 # ---------------------------------------------------------------------------
 # params
@@ -81,6 +109,8 @@ class Runtime:
 
 
 class LayerParams(nn.Module):
+    AXES = {"norm1": (None,), "norm_cross": (None,), "norm2": (None,)}
+
     def __init__(self, cfg: ArchConfig, spec: LayerSpec, dtype, device,
                  with_cross: bool = False):
         super().__init__()
@@ -107,6 +137,7 @@ ENC_SPEC = LayerSpec(mixer="attn", ffn="dense")
 class EncoderParams(nn.Module):
     """The encoder of an encoder-decoder: ``n_enc_layers`` layers (norm1,
     attn, norm2, mlp) and its ``final_norm``."""
+    AXES = {"final_norm": (None,)}
 
     def __init__(self, cfg: ArchConfig, dtype, device):
         super().__init__()
@@ -119,6 +150,8 @@ class EncoderParams(nn.Module):
 class DecoderParams(nn.Module):
     """All weights of a model, leaves in the JAX package's shapes (with
     ``encoder`` for an encoder-decoder)."""
+    AXES = {"embed": ("vocab", "embed"), "final_norm": (None,),
+            "unembed": ("embed", "vocab")}
 
     def __init__(self, cfg: ArchConfig, dtype, device):
         super().__init__()
@@ -168,6 +201,18 @@ def init_params(generator: torch.Generator, cfg: ArchConfig,
     return p
 
 
+def logical_specs(cfg: ArchConfig) -> Dict[str, tuple]:
+    """{parameter name (``DecoderParams.named_parameters()``): its logical
+    axes}, the tuples of the JAX init functions (each module's ``AXES``).
+    The JAX tree stacks a block position's layers and adds a leading
+    "layers" axis; the port keeps one module per layer, so it has none
+    (``repro_torch.bridge.specs_to_jax`` maps between the two)."""
+    p = DecoderParams(cfg, torch.float32, "meta")
+    return {(f"{mname}.{leaf}" if mname else leaf): type(mod).AXES[leaf]
+            for mname, mod in p.named_modules()
+            for leaf in mod._parameters}
+
+
 # ---------------------------------------------------------------------------
 # forward
 # ---------------------------------------------------------------------------
@@ -191,38 +236,82 @@ def _ffn(layer: LayerParams, spec: LayerSpec, x: torch.Tensor,
     """
     if spec.ffn == "none":
         return x, None
-    h = L.rms_norm(x, layer.norm2, cfg.norm_eps)
+    h = L.rms_norm(x, L.gather_weight(layer.norm2), cfg.norm_eps)
     f = aux = None
     if spec.ffn in ("moe", "moe_dense"):
         f, aux = L.apply_moe(layer.moe, h, cfg)
     if spec.ffn in ("dense", "moe_dense"):
-        mlp = L.apply_mlp(layer.mlp, h, cfg.act)
+        mlp = _reduced(L.apply_mlp(layer.mlp, h, cfg.act))
         f = mlp if f is None else f + mlp
     return x + f, aux
 
 
+def _reduced(mix: torch.Tensor) -> torch.Tensor:
+    """A mixer's or FFN's output before it joins the residual stream:
+    sharded, its Partial sum over "tp" reduced and the batch kept on the
+    data axes (a no-op otherwise)."""
+    return L._cs(mix, "dp", None, None)
+
+
 def _embed(params: DecoderParams, tokens: torch.Tensor,
            cfg: ArchConfig) -> torch.Tensor:
-    x = params.embed[tokens]
+    embed = L.gather_weight(params.embed)
+    x = _embed_sharded(embed, tokens) if is_dtensor(embed) else embed[tokens]
     if cfg.tie_embeddings:
         x = x * torch.tensor(math.sqrt(cfg.d_model), dtype=x.dtype,
                              device=x.device)
     return x
 
 
+def _embed_sharded(embed, tokens):
+    """The lookup on a vocab-split table (the tensor axis): each rank looks
+    up the tokens its rows hold and gives zeros for the rest, a Partial sum
+    over the axis that the caller's ``_cs`` reduces (one nonzero term per
+    token)."""
+    from torch.distributed.tensor import Partial
+    tp = L._SHARD_CTX["tp"]
+    split = sharded_on(embed, 0, tp)
+    r = L._tp_coord()[0] if split else 0
+
+    def local(el, tl):
+        ids = tl - r * el.shape[0]
+        inside = (ids >= 0) & (ids < el.shape[0])
+        x = el[ids.clamp(0, el.shape[0] - 1)]
+        return torch.where(inside[..., None], x, 0) if split else x
+
+    pl = [Partial() if (split and n == tp) else t_pl
+          for n, t_pl in zip(embed.device_mesh.mesh_dim_names,
+                             tokens.placements)]
+    return local_map(local, pl, embed, tokens)
+
+
+def _vocab_mask(logits: torch.Tensor, cfg: ArchConfig, v0: int = 0):
+    """Mask the vocab rows padded for TP (logits' first row is ``v0``)."""
+    keep = (v0 + torch.arange(logits.shape[-1], device=logits.device)
+            ) < cfg.vocab
+    return torch.where(keep, logits, -1e30)
+
+
 def _logits(params: DecoderParams, x: torch.Tensor,
             cfg: ArchConfig) -> torch.Tensor:
-    x = L.rms_norm(x, params.final_norm, cfg.norm_eps)
+    x = L.rms_norm(x, L.gather_weight(params.final_norm), cfg.norm_eps)
     if cfg.tie_embeddings:
-        logits = torch.einsum("bsd,vd->bsv", x, params.embed)
+        logits = torch.einsum("bsd,vd->bsv", x, L.gather_weight(params.embed))
     else:
-        logits = torch.einsum("bsd,dv->bsv", x, params.unembed)
+        logits = torch.einsum("bsd,dv->bsv", x,
+                              L.gather_weight(params.unembed))
     logits = logits.float()
     if cfg.final_softcap is not None:
         logits = cfg.final_softcap * torch.tanh(logits / cfg.final_softcap)
     if cfg.eff_vocab != cfg.vocab:   # mask TP-padded vocab rows
-        keep = torch.arange(cfg.eff_vocab, device=logits.device) < cfg.vocab
-        logits = torch.where(keep, logits, -1e30)
+        if is_dtensor(logits):
+            split = sharded_on(logits, logits.dim() - 1, L._SHARD_CTX["tp"])
+            r = L._tp_coord()[0] if split else 0
+            logits = local_map(
+                lambda t: _vocab_mask(t, cfg, r * t.shape[-1]),
+                logits.placements, logits)
+        else:
+            logits = _vocab_mask(logits, cfg)
     return logits
 
 
@@ -239,18 +328,20 @@ def _encode(params: DecoderParams, frames: torch.Tensor, cfg: ArchConfig,
     positions = torch.arange(frames.shape[1], device=frames.device)[None, :]
 
     def enc_layer(layer, x):
-        h = L.rms_norm(x, layer.norm1, cfg.norm_eps)
-        x = x + L.apply_attention(layer.attn, h, ENC_SPEC.attn, cfg,
-                                  positions, causal=False,
-                                  attn_impl=rt.attn_impl)
-        h = L.rms_norm(x, layer.norm2, cfg.norm_eps)
-        return x + L.apply_mlp(layer.mlp, h, cfg.act)
+        x = L._cs(x, "dp", None, None)
+        h = L.rms_norm(x, L.gather_weight(layer.norm1), cfg.norm_eps)
+        x = x + _reduced(L.apply_attention(layer.attn, h, ENC_SPEC.attn, cfg,
+                                           positions, causal=False,
+                                           attn_impl=rt.attn_impl))
+        h = L.rms_norm(x, L.gather_weight(layer.norm2), cfg.norm_eps)
+        return x + _reduced(L.apply_mlp(layer.mlp, h, cfg.act))
 
     x = frames
     for layer in params.encoder.layers:
-        x = _remat(functools.partial(enc_layer, layer),
+        x = _remat(_in_ctx(functools.partial(enc_layer, layer)),
                    "none" if rt.remat == "none" else "full", x)
-    return L.rms_norm(x, params.encoder.final_norm, cfg.norm_eps), positions
+    return (L.rms_norm(x, L.gather_weight(params.encoder.final_norm),
+                       cfg.norm_eps), positions)
 
 
 def _save_products(ctx, op, *args, **kwargs) -> CheckpointPolicy:
@@ -296,19 +387,20 @@ def _block(layers, specs, x: torch.Tensor, positions: torch.Tensor,
     (an encoder-decoder's) feeds each layer's cross-attention."""
     aux = torch.zeros((), device=x.device)
     for layer, spec in zip(layers, specs):
-        h = L.rms_norm(x, layer.norm1, cfg.norm_eps)
+        x = L._cs(x, "dp", None, None)
+        h = L.rms_norm(x, L.gather_weight(layer.norm1), cfg.norm_eps)
         if spec.mixer == "attn":
             mix = L.apply_attention(layer.attn, h, spec.attn, cfg, positions,
                                     attn_impl=rt.attn_impl)
         else:
             mix = L.apply_mamba(layer.mamba, h, cfg, scan_impl=rt.scan_impl)
-        x = x + mix
+        x = x + _reduced(mix)
         if memory is not None:
-            h = L.rms_norm(x, layer.norm_cross, cfg.norm_eps)
-            x = x + L.apply_attention(layer.cross, h, spec.attn, cfg,
-                                      positions,
-                                      kv_override=(memory, mem_positions),
-                                      causal=False, attn_impl=rt.attn_impl)
+            h = L.rms_norm(x, L.gather_weight(layer.norm_cross), cfg.norm_eps)
+            x = x + _reduced(L.apply_attention(
+                layer.cross, h, spec.attn, cfg, positions,
+                kv_override=(memory, mem_positions), causal=False,
+                attn_impl=rt.attn_impl))
         x, a = _ffn(layer, spec, x, cfg)
         if a is not None:
             aux = aux + a
@@ -333,26 +425,64 @@ def forward(params: DecoderParams, batch: Dict[str, torch.Tensor],
     The layers run as ``cfg.n_blocks`` blocks (``_block``), each
     checkpointed as ``rt.remat`` says when grad is on (JAX checkpoints its
     scan body so). The recompute runs a block's kernels again: under either
-    remat mode a train step launches each forward kernel twice.
+    remat mode a train step launches each forward kernel twice (and under
+    the shard context of the forward, ``_in_ctx``).
+
+    Sharded (``rt.shard_activations`` and DTensor params, tokens split on
+    the batch over the data axes): the logits come back split on the batch
+    and on the vocab over "tp" (the JAX ``_cs(logits, "dp", None, "tp")``)
+    and the aux loss as a DTensor.
     """
     L.check_supported(cfg)
     dev = params.embed.device
     _no_tf32(dev)
-    tokens = batch["tokens"].to(dev)
-    S = tokens.shape[1]
-    positions = torch.arange(S, device=dev)[None, :]
-    x = _embed(params, tokens, cfg)
-    memory = (None, None)   # (encoder output, its positions): cross's K/V
-    if cfg.enc_dec:
-        memory = _encode(params, batch["frames"].to(dev, x.dtype), cfg, rt)
-    aux = torch.zeros((), device=dev)
-    nb, layers = len(cfg.block), list(params.layers)
-    for n in range(cfg.n_blocks):
-        run = functools.partial(_block, layers[n * nb:(n + 1) * nb],
-                                cfg.block, cfg=cfg, rt=rt)
-        x, a = _remat(run, rt.remat, x, positions, *memory)
-        aux = aux + a
-    return _logits(params, x, cfg), aux
+    L.set_shard_ctx(_shard_ctx(params, rt))
+    try:
+        tokens = batch["tokens"].to(dev)
+        S = tokens.shape[1]
+        positions = torch.arange(S, device=dev)[None, :]
+        x = L._cs(_embed(params, tokens, cfg), "dp", None, None)
+        memory = (None, None)   # (encoder output, its positions): cross's K/V
+        if cfg.enc_dec:
+            memory = _encode(params, batch["frames"].to(dev, x.dtype), cfg,
+                             rt)
+        aux = torch.zeros((), device=dev)
+        nb, layers = len(cfg.block), list(params.layers)
+        for n in range(cfg.n_blocks):
+            run = functools.partial(_block, layers[n * nb:(n + 1) * nb],
+                                    cfg.block, cfg=cfg, rt=rt)
+            x, a = _remat(_in_ctx(run), rt.remat, x, positions, *memory)
+            aux = aux + a
+        return L._cs(_logits(params, x, cfg), "dp", None, "tp"), aux
+    finally:
+        L.set_shard_ctx(None)
+
+
+def _shard_ctx(params: DecoderParams, rt: Runtime) -> Optional[dict]:
+    """The layers' shard context: ``rt.shard_ctx()`` and the mesh of the
+    params (None when the params are not DTensors)."""
+    ctx = rt.shard_ctx()
+    if ctx is None or not is_dtensor(params.embed):
+        return None
+    return dict(ctx, mesh=params.embed.device_mesh)
+
+
+def _in_ctx(fn):
+    """``fn`` under the shard context that is set now: a checkpointed
+    block's recompute runs in the backward, after ``forward`` has cleared
+    it."""
+    ctx = L._SHARD_CTX
+    if ctx is None:
+        return fn
+
+    def run(*args):
+        prev = L._SHARD_CTX
+        L.set_shard_ctx(ctx)
+        try:
+            return fn(*args)
+        finally:
+            L.set_shard_ctx(prev)
+    return run
 
 
 # ---------------------------------------------------------------------------
@@ -410,13 +540,22 @@ def decode_step(params: DecoderParams, cache: Cache, tokens: torch.Tensor,
     L.check_supported(cfg)
     dev = params.embed.device
     _no_tf32(dev)
-    tokens, pos = tokens.to(dev), pos.to(dev)
+    L.set_shard_ctx(_shard_ctx(params, rt))
+    try:
+        return _decode_step(params, cache, tokens.to(dev), pos.to(dev), cfg,
+                            rt)
+    finally:
+        L.set_shard_ctx(None)
+
+
+def _decode_step(params, cache, tokens, pos, cfg, rt):
     x = _embed(params, tokens[:, None], cfg)                    # [B,1,d]
     nb = len(cfg.block)
     for idx, (layer, spec) in enumerate(zip(params.layers, cfg.layer_kinds())):
         c = cache[idx % nb]
         n = idx // nb
-        h = L.rms_norm(x, layer.norm1, cfg.norm_eps)
+        x = L._cs(x, "dp", None, None)
+        h = L.rms_norm(x, L.gather_weight(layer.norm1), cfg.norm_eps)
         if spec.mixer == "attn":
             mix, _, _ = L.apply_attention_decode(
                 layer.attn, h, spec.attn, cfg, c["k"][n], c["v"][n], pos,
@@ -425,12 +564,31 @@ def decode_step(params: DecoderParams, cache: Cache, tokens: torch.Tensor,
             mix, _, _ = L.apply_mamba_decode(
                 layer.mamba, h, cfg, c["conv"][n], c["ssm"][n],
                 scan_impl=rt.scan_impl)
-        x = x + mix
+        x = x + _reduced(mix)
         if cfg.enc_dec:
-            h = L.rms_norm(x, layer.norm_cross, cfg.norm_eps)
+            h = L.rms_norm(x, L.gather_weight(layer.norm_cross), cfg.norm_eps)
             cross, _, _ = L.apply_attention_decode(
                 layer.cross, h, spec.attn, cfg, c["xk"][n], c["xv"][n], pos,
                 cross=True, attn_impl=rt.attn_impl)
-            x = x + cross
+            x = x + _reduced(cross)
         x, _ = _ffn(layer, spec, x, cfg)
-    return _logits(params, x, cfg)[:, 0, :], cache
+    return L._cs(_logits(params, x, cfg)[:, 0, :], "dp", "tp"), cache
+
+
+def cache_logical_specs(cfg: ArchConfig):
+    """``init_cache``'s list with logical axes at its leaves: batch -> data,
+    kv seq -> model (SP), mamba inner -> model. The port's cache keeps the
+    JAX package's stacked layout, so its leading "layers" axis stays."""
+    specs = []
+    for spec in cfg.block:
+        if spec.mixer == "attn":
+            c = {"k": ("layers", "batch", "kv_seq", None, None),
+                 "v": ("layers", "batch", "kv_seq", None, None)}
+        else:
+            c = {"conv": ("layers", "batch", None, "inner"),
+                 "ssm": ("layers", "batch", "inner", None)}
+        if cfg.enc_dec:
+            c["xk"] = ("layers", "batch", "kv_seq", None, None)
+            c["xv"] = ("layers", "batch", "kv_seq", None, None)
+        specs.append(c)
+    return specs

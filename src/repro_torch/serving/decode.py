@@ -12,6 +12,7 @@ from typing import Dict, Optional
 import torch
 
 from repro_torch.models import model as M
+from repro_torch.parallel.dtensor import is_dtensor, redistribute
 
 
 def serve_step(params, cache, tokens: torch.Tensor, pos: torch.Tensor, *,
@@ -21,15 +22,36 @@ def serve_step(params, cache, tokens: torch.Tensor, pos: torch.Tensor, *,
 
     tokens: [B] current token per slot; pos: [B] positions.
     Returns (next_tokens [B] int32, logits [B,V], cache). Greedy unless a
-    temperature and a generator are given.
+    temperature and a generator are given. Sharded (``rt.shard_activations``,
+    DTensor params, cache, tokens and pos; ``launch.input_specs.decode_specs``
+    gives their specs), the cache is written in place on the ranks that hold
+    each slot's key and the tokens and logits come back as DTensors.
     """
     logits, cache = M.decode_step(params, cache, tokens, pos, cfg, rt)
+    if is_dtensor(logits):
+        return _pick_sharded(logits, temperature, generator), logits, cache
+    return _pick(logits, temperature, generator), logits, cache
+
+
+def _pick(logits, temperature: float, generator) -> torch.Tensor:
     if temperature > 0.0 and generator is not None:
         probs = torch.softmax(logits / temperature, dim=-1)
         nxt = torch.multinomial(probs, 1, generator=generator)[:, 0]
     else:
         nxt = torch.argmax(logits, dim=-1)
-    return nxt.to(torch.int32), logits, cache
+    return nxt.to(torch.int32)
+
+
+def _pick_sharded(logits, temperature: float, generator):
+    """``_pick`` on DTensor logits [B, V] (batch on the data axes, vocab on
+    "tp"): the vocab is gathered and each rank picks its own slots' tokens;
+    the tokens come back as a DTensor split like the batch."""
+    from torch.distributed.tensor import DTensor, Replicate
+    mesh = logits.device_mesh
+    full = redistribute(logits, [Replicate() if pl.is_shard(1) else pl
+                                 for pl in logits.placements])
+    return DTensor.from_local(_pick(full.to_local(), temperature, generator),
+                              mesh, full.placements, run_check=False)
 
 
 def make_serve_step(cfg, rt: M.Runtime, temperature: float = 0.0):

@@ -14,6 +14,13 @@ dtype; int8 moments are a dict {parameter name: ``QTensor``} in
 ``named_parameters()`` order. The update is written into the parameters and
 moments in place (the JAX package returns new arrays of the same values),
 which keeps one copy of the state on the card.
+
+Sharded state (DTensor leaves, ``repro_torch.parallel.sharding``): the
+update runs on each rank's local shards, which the elementwise update
+allows; the gradient norm sums every leaf's squares over its shards, and an
+int8 moment whose last axis is split takes its row maxima across the
+shards (``quant.quant``'s ``row_groups``), so both give the unsharded
+values up to the order of the sums.
 """
 from __future__ import annotations
 
@@ -24,6 +31,7 @@ from typing import Any, Dict, List, Sequence
 import torch
 from torch import nn
 
+from repro_torch.parallel.dtensor import all_reduce, is_dtensor
 from repro_torch.training import quant
 
 MOMENT_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
@@ -80,10 +88,27 @@ def _read_moment(x) -> torch.Tensor:
     return quant.dequant(x) if quant.is_qtensor(x) else x.float()
 
 
-def _write_moment(x, x32: torch.Tensor) -> None:
+def _local(x):
+    """A leaf's local shard (a ``QTensor``'s q and scale each): the tensor
+    itself when it is not a DTensor."""
+    if quant.is_qtensor(x):
+        return quant.QTensor(_local(x.q), _local(x.scale))
+    return x.to_local() if is_dtensor(x) else x
+
+
+def row_groups(t) -> tuple:
+    """The process groups over which DTensor ``t``'s last axis is split."""
+    if not is_dtensor(t):
+        return ()
+    mesh = t.device_mesh
+    return tuple(mesh.get_group(i) for i, pl in enumerate(t.placements)
+                 if pl.is_shard(t.dim() - 1))
+
+
+def _write_moment(x, x32: torch.Tensor, groups=()) -> None:
     """x32 into the moment leaf ``x``, in place, in x's own form."""
     if quant.is_qtensor(x):
-        new = quant.quant(x32, x)
+        new = quant.quant(x32, x, row_groups=groups)
         x.q.copy_(new.q)
         x.scale.copy_(new.scale)
     else:
@@ -97,10 +122,26 @@ def schedule(count: torch.Tensor, hp: OptHParams) -> torch.Tensor:
 
 def global_norm(grads: Sequence[torch.Tensor]) -> torch.Tensor:
     """sqrt of the sum of every leaf's sum of squares, in f32 (leaf order
-    differs from the JAX pytree's, so equal to it only up to rounding)."""
+    differs from the JAX pytree's, so equal to it only up to rounding).
+
+    DTensor leaves (in Shard / Replicate placements): each rank adds its
+    local shards' sums, a leaf's divided by the number of ranks that hold
+    the same shard, and one sum over the mesh follows; on a mesh of one
+    rank that is the unsharded sum bit for bit."""
     total = torch.zeros((), dtype=torch.float32, device=grads[0].device)
+    mesh = None
     for g in grads:
-        total = total + g.float().square().sum()
+        if is_dtensor(g):
+            mesh = g.device_mesh
+            copies = 1
+            for i, pl in enumerate(g.placements):
+                copies *= 1 if pl.is_shard() else mesh.size(i)
+            sq = g.to_local().float().square().sum()
+            total = total + (sq / copies if copies > 1 else sq)
+        else:
+            total = total + g.float().square().sum()
+    if mesh is not None:
+        total = all_reduce(total, mesh, mesh.mesh_dim_names, inplace=True)
     return total.sqrt()
 
 
@@ -133,7 +174,8 @@ def adamw_update(params: List[torch.Tensor], grads: List[torch.Tensor],
     at a time (``ADAMW_CHUNK``).
 
     Returns (params, opt_state, grad norm): the same objects, updated."""
-    count = opt_state["count"] + 1
+    count_t = opt_state["count"] + 1     # a DTensor in a sharded state
+    count = _local(count_t)
     gn = global_norm(grads)
     scale = torch.clamp(hp.clip_norm / (gn + 1e-9), max=1.0)
     lr = schedule(count, hp)
@@ -142,20 +184,23 @@ def adamw_update(params: List[torch.Tensor], grads: List[torch.Tensor],
     for p_all, g_all, m_all, v_all in zip(
             params, grads, moment_leaves(opt_state["m"]),
             moment_leaves(opt_state["v"])):
+        groups = row_groups(p_all)
+        p_all, g_all, m_all, v_all = (_local(p_all), _local(g_all),
+                                      _local(m_all), _local(v_all))
         for sl in _row_slices(p_all):
             p, m, v = p_all[sl], _moment_rows(m_all, sl), _moment_rows(v_all, sl)
             # each f32 temporary is freed (or divided in place) as soon as
             # it is written back
             g = g_all[sl].float() * scale
             m32 = hp.b1 * _read_moment(m) + (1 - hp.b1) * g
-            _write_moment(m, m32)
+            _write_moment(m, m32, groups)
             mh = m32.div_(b1c)
             v32 = hp.b2 * _read_moment(v) + (1 - hp.b2) * g.square()
             del g
-            _write_moment(v, v32)
+            _write_moment(v, v32, groups)
             vh = v32.div_(b2c)
             step = mh / (vh.sqrt() + hp.eps) + hp.weight_decay * p.float()
             del mh, vh
             p.copy_((p.float() - lr * step).to(p.dtype))
-    opt_state["count"] = count
+    opt_state["count"] = count_t
     return params, opt_state, gn

@@ -6,7 +6,8 @@ one f32 ``scale`` per last-dim row (``shape[:-1] + (1,)``): 1.25 bytes an
 element against 2 (bf16) or 4 (f32). ``quant`` gives the JAX package's bits
 on the same f32 input: the scale is one f32 division and one add
 (``max|x| / 127 + 1e-20``), and ``torch.round`` rounds half to even, as
-``jnp.round`` does.
+``jnp.round`` does. On a DTensor leaf the optimizer quantises each
+rank's shard with ``row_groups``, which gives the whole tensor's values.
 """
 from __future__ import annotations
 
@@ -29,11 +30,19 @@ def is_qtensor(x) -> bool:
     return isinstance(x, QTensor)
 
 
-def quant(x32: torch.Tensor, like: "QTensor | None" = None) -> QTensor:
+def quant(x32: torch.Tensor, like: "QTensor | None" = None,
+          row_groups=()) -> QTensor:
     """Per-row int8 of ``x32`` (``like`` is unused, as in JAX: the shape
-    comes from the input)."""
+    comes from the input). ``row_groups``: the process groups over which
+    this tensor's last axis is split (a rank's shard of a sharded leaf); the
+    row maxima are taken across them, so the scale is the whole row's."""
     x32 = x32.float()
-    scale = x32.abs().amax(dim=-1, keepdim=True) / 127.0 + 1e-20
+    amax = x32.abs().amax(dim=-1, keepdim=True)
+    if row_groups:
+        import torch.distributed as dist
+        for g in row_groups:
+            dist.all_reduce(amax, op=dist.ReduceOp.MAX, group=g)
+    scale = amax / 127.0 + 1e-20
     q = torch.clamp(torch.round(x32 / scale), -127, 127).to(torch.int8)
     return QTensor(q, scale)
 

@@ -19,6 +19,13 @@ reverse-scan backward kernel, ``ops.SelectiveScan``). The state is
 with the moments as ``optimizer.init_opt_state`` makes them (a copy of
 the parameter module in f32 or bf16, or {name: ``QTensor``} for int8); the
 update is written in place (``optimizer.adamw_update``).
+
+Sharded: a state distributed by ``parallel.sharding.distribute`` (DTensor
+leaves) and a batch split on its microbatch dim over the data axes, with
+``Runtime(shard_activations=True)``. The gradients come back as DTensors
+in the parameters' layout, already summed over the data axes (autograd
+reduce-scatters the FSDP gathers and reduces the Partial sums), and the
+microbatch loop is the same; the metrics are DTensors.
 """
 from __future__ import annotations
 
@@ -30,6 +37,7 @@ import torch
 from repro_torch import resolve_device
 from repro_torch.bridge import TORCH_DTYPES, to_torch
 from repro_torch.models import model as M
+from repro_torch.parallel.dtensor import is_dtensor, redistribute
 from repro_torch.training import quant
 from repro_torch.training.loss import loss_fn
 from repro_torch.training.optimizer import (ACCUM_DTYPES, OptHParams,
@@ -70,7 +78,8 @@ def train_step(state: State, batch: Dict[str, torch.Tensor], *, cfg,
         with torch.enable_grad():
             loss, metrics = loss_fn(params, {key: val[i] for key, val
                                              in batch.items()}, cfg, rt)
-            g = torch.autograd.grad(loss, leaves)
+            g = [_placed_like(x, p) for x, p in
+                 zip(torch.autograd.grad(loss, leaves), leaves)]
         if grads is None:   # 0 + g_1, rounded to the accumulator's dtype
             grads = [x.to(acc_dt) for x in g]
         else:
@@ -82,12 +91,32 @@ def train_step(state: State, batch: Dict[str, torch.Tensor], *, cfg,
     for acc in grads:
         acc.div_(accum)
     if compress_grads:
-        grads = [quant.dequant(quant.quant(x.float())) for x in grads]
+        grads = [_compress(x) for x in grads]
     _, _, gnorm = adamw_update(leaves, grads, state["opt"], hp)
     del grads
     state["step"] = state["step"] + 1
     return state, {"loss": loss_sum / accum, "ce": torch.stack(ces).mean(),
                    "grad_norm": gnorm}
+
+
+def _placed_like(g: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
+    """A DTensor gradient in its parameter's placements (a Partial sum left
+    by the backward is reduced here); anything else as it is."""
+    return redistribute(g, p.placements) if is_dtensor(g) else g
+
+
+def _compress(g: torch.Tensor) -> torch.Tensor:
+    """``dequant(quant(g))`` (per-row int8 and back); a DTensor gradient on
+    its local shard, with the row maxima across the shards of its last
+    axis."""
+    from repro_torch.training.optimizer import row_groups
+    if not is_dtensor(g):
+        return quant.dequant(quant.quant(g.float()))
+    from torch.distributed.tensor import DTensor
+    local = quant.dequant(quant.quant(g.to_local().float(),
+                                      row_groups=row_groups(g)))
+    return DTensor.from_local(local, g.device_mesh, g.placements,
+                              run_check=False)
 
 
 def make_train_step(cfg, hp: OptHParams, rt: M.Runtime = M.Runtime(),

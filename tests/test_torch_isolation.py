@@ -80,8 +80,26 @@ def test_port_imports_no_jax_and_nothing_of_repro():
                 "repro_torch.core.transport.wire", "repro_torch.data.pipeline",
                 "repro_torch.training.step", "repro_torch.training.optimizer",
                 "repro_torch.training.loss", "repro_torch.checkpoint.store",
-                "repro_torch.launch.train", "repro_torch.launch.presets"):
+                "repro_torch.launch.train", "repro_torch.launch.presets",
+                "repro_torch.parallel.sharding", "repro_torch.parallel.dtensor",
+                "repro_torch.launch.mesh",
+                "repro_torch.launch.input_specs",
+                "repro_torch.configs.shapes"):
         assert mod in res["modules"]
+
+
+def test_mesh_builders_run_on_the_card_by_default():
+    """The mesh builders ask for "cuda" unless the caller names the CPU, and
+    the production mesh refuses a world smaller than its shape."""
+    import inspect
+    from repro_torch.launch import make_local_mesh, make_production_mesh
+    for fn in (make_local_mesh, make_production_mesh):
+        assert inspect.signature(fn).parameters["device_type"].default == \
+            "cuda"
+    with pytest.raises(RuntimeError, match="needs 256 ranks"):
+        make_production_mesh()
+    with pytest.raises(RuntimeError, match="needs 512 ranks"):
+        make_production_mesh(multi_pod=True, device_type="cpu")
 
 
 def test_engine_import_and_chip_engine_load_no_torch():

@@ -211,6 +211,35 @@ def test_decode_attention_kernel_matches_plain(card, case):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("case", DECODE_CASES)
+def test_decode_attention_lse_and_key_ranges_on_card(card, case):
+    """The kernel's o is the same bits with its lse output as without; its
+    lse matches the plain version's; and 2 key ranges, each launched with
+    its key offset and merged by their lse, give the uncut result."""
+    B, S, H, KV, D, window, softcap, dt, lens = case
+    g = torch.Generator(device=card).manual_seed(2)
+    q = _randn(g, (B, H, D), dt, card)
+    k, v = (_randn(g, (B, S, KV, D), dt, card) for _ in range(2))
+    lengths = (torch.tensor(lens, device=card) if lens is not None else
+               torch.randint(1, S + 1, (B,), generator=g, device=card)
+               ).to(torch.int32)
+    kw = dict(window=window, softcap=softcap)
+    o = ops.decode_attention(q, k, v, lengths, **kw)
+    o2, lse = ops.decode_attention(q, k, v, lengths, return_lse=True, **kw)
+    assert torch.equal(o, o2)
+    _, want = ref.decode_attention_ref(q, k, v, lengths, return_lse=True, **kw)
+    torch.testing.assert_close(lse, want, rtol=1e-5, atol=1e-5)
+    cuts = (0, S // 2, S)
+    parts = [ops.decode_attention(q, k[:, a:b].contiguous(),
+                                  v[:, a:b].contiguous(), lengths, offset=a,
+                                  return_lse=True, **kw)
+             for a, b in zip(cuts, cuts[1:])]
+    merged = ops.merge_attention_parts(torch.stack([x for x, _ in parts]),
+                                       torch.stack([x for _, x in parts]))
+    torch.testing.assert_close(merged, o.float(), rtol=TOL[dt], atol=TOL[dt])
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("lens", [[1, 1000, 4096, 2500], [1, 1, 4096, 1]])
 def test_decode_attention_is_deterministic(card, lens):
     g = torch.Generator(device=card).manual_seed(1)
