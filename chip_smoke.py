@@ -131,6 +131,18 @@ non-causal). Phases:
     11b. gemma2-9b the same way (gemma2-train-bf16), cut as phase 8: its
     launches recorded on the dh 256 bf16 kernels, its first loss held to
     the plain path's (bf16 tolerance);
+    11c. the dry-run (``repro_torch.launch.dryrun``) held against phase 11's
+    step (no mesh, remat "none", the default optimizer): its trace on
+    ``meta`` tensors counts the GEMM FLOPs that ``torch.profiler(with_flops
+    =True)`` records for one step on the card, exactly; its kernel calls
+    by name equal ``ops.LAUNCHES`` of that step; its peak of live bytes
+    lies within ``DRYRUN_PEAK_TOL`` of the step's
+    ``torch.cuda.max_memory_allocated``; its roofline's lower bound (H100
+    constants) is at most the step's ms; and one production cell
+    (``DRYRUN_CELL``, on the fake (16, 16) mesh) runs ``ok`` as a
+    subprocess of the dry-run's command line within its timeout: the fake
+    process group and DTensor on ``meta`` under this machine's torch. The
+    phase within ``DRYRUN_PHASE_S``;
 12. grok-1-314b ``make_train_step`` (grok-train-bf16) at full width, bf16
     params and JAX's grok preset (``_BIG``: bf16 moments and accumulation,
     remat "full", ``expert_split`` 2), depth 1 of 64 (device memory: 6.531
@@ -256,11 +268,12 @@ import torch  # noqa: E402
 import torch.nn.functional as F  # noqa: E402
 
 from repro_torch.configs import get_config, reduced  # noqa: E402
+from repro_torch.configs.shapes import ShapeSpec  # noqa: E402
 from repro_torch.kernels import build, ops, ref  # noqa: E402
 from repro_torch.models import layers as L, model as M  # noqa: E402
 from repro_torch.parallel import sharding as PS  # noqa: E402
-from repro_torch.launch import train as train_driver  # noqa: E402
-from repro_torch.launch.presets import preset_for  # noqa: E402
+from repro_torch.launch import dryrun, train as train_driver  # noqa: E402
+from repro_torch.launch.presets import Preset, preset_for  # noqa: E402
 from repro_torch.serving import SlotServer, serve_step  # noqa: E402
 from repro_torch.training import loss_fn, make_train_step  # noqa: E402
 from repro_torch.training import OptHParams, init_train_state  # noqa: E402
@@ -308,6 +321,14 @@ SHARD_TRAIN_DEPTH = 24
 SHARD_MAMBA_DEPTH = 16
 SHARD_SERVE_STEPS = 64
 SHARD_PHASE_S = 60.0         # the phase's time budget
+# the dry-run phase (11c): its peak against the card's, its production cell
+# (a subprocess, with its timeout) and its time budget
+DRYRUN_PEAK_TOL = 0.10
+DRYRUN_CELL = ("internlm2-1.8b", "prefill_32k")
+DRYRUN_CELL_TIMEOUT = 120
+DRYRUN_PHASE_S = 45.0
+# the ops ``torch.profiler(with_flops=True)`` counts as matrix products
+PROFILER_GEMMS = ("aten::mm", "aten::addmm", "aten::bmm", "aten::baddbmm")
 
 KERNELS = {
     # bf16 (the forward path) runs on the tensor cores; f32 (the train path)
@@ -3159,6 +3180,122 @@ def phase_train_variants(cfg, tag: str, dtype=torch.bfloat16) -> dict:
     return out
 
 
+def _dryrun_against_card(cfg, dtype):
+    """(the trace of phase 11's step, its seconds, that step on the card:
+    {"step_ms", "peak", "launches", "prof_gemm": {op: (count, FLOPs)}})."""
+    hp, rt = OptHParams(), runtime("kernel")
+    t0 = time.perf_counter()
+    tr = dryrun.trace_cell(cfg, ShapeSpec("internlm2-train-bf16", "train",
+                                          FWD_S, FWD_B),
+                           preset=Preset(microbatch=FWD_B, remat=rt.remat),
+                           hp=hp, rt=rt)
+    trace_s = time.perf_counter() - t0
+    batch = _train_batch(cfg, torch.Generator(device=DEVICE).manual_seed(
+        SEED + 5))
+    step = make_train_step(cfg, hp, rt)
+    state = _fresh_state(cfg, hp, dtype)
+    state, metrics = step(state, batch)   # warm
+    sync()
+    ops.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    state, metrics = step(state, batch)
+    sync()
+    step_ms = (time.perf_counter() - t0) * 1e3
+    peak = torch.cuda.max_memory_allocated()
+    launches = {k: n for k, n in ops.LAUNCHES.items() if n}
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU],
+            record_shapes=True, with_flops=True) as prof:
+        state, metrics = step(state, batch)
+        sync()
+    prof_gemm = {ev.key: (ev.count, ev.flops) for ev in prof.key_averages()
+                 if ev.key in PROFILER_GEMMS}
+    del state, metrics
+    torch.cuda.empty_cache()
+    return tr, trace_s, {"step_ms": step_ms, "peak": peak,
+                         "launches": launches, "prof_gemm": prof_gemm}
+
+
+def phase_dryrun(cfg, dtype=torch.bfloat16) -> dict:
+    """Phase 11c: the dry-run's trace of phase 11's step (full width and
+    depth, bf16 params, the default optimizer, remat "none", tokens [1,
+    FWD_B, FWD_S], no mesh) against that step on the card: a warm step,
+    then one timed (launches, peak) and one profiled with FLOPs. Meanwhile
+    one production cell of the dry-run runs as a subprocess (its own fake
+    process group; no device)."""
+    t_phase = time.perf_counter()
+    tag = f"dry-run {cfg.name} {DTYPE_NAME[dtype]} [1,{FWD_B},{FWD_S}]"
+    arch, shape = DRYRUN_CELL
+    tmp = tempfile.TemporaryDirectory()
+    out = os.path.join(tmp.name, "cell.json")
+    cell_run = subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch,
+         "--shape", shape, "--out", out], cwd=ROOT,
+        env=dict(os.environ, PYTHONPATH=str(ROOT / "src"),
+                 CUDA_VISIBLE_DEVICES=""),
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    try:
+        tr, trace_s, card = _dryrun_against_card(cfg, dtype)
+    finally:   # the cell always ends here: waited for, or killed
+        try:
+            stdout, stderr = cell_run.communicate(
+                timeout=max(0.0, DRYRUN_CELL_TIMEOUT
+                            - (time.perf_counter() - t_phase)))
+        except subprocess.TimeoutExpired:
+            cell_run.kill()
+            stdout, stderr = cell_run.communicate()
+        cell_s = time.perf_counter() - t_phase
+        cell = json.loads(Path(out).read_text()) if os.path.exists(out) else {}
+        tmp.cleanup()
+    step_ms, peak, launches, prof_gemm = (card[k] for k in (
+        "step_ms", "peak", "launches", "prof_gemm"))
+    prof_flops = sum(f for _, f in prof_gemm.values())
+    roof = dryrun.roofline(tr, tr["model_flops"], 1)
+    lower_ms = roof["step_time_s_lower_bound"] * 1e3
+    log(f"{tag}: traced on meta in {trace_s:.1f} s: GEMM {tr['gemm_flops']:.6e}"
+        f" FLOP, kernels {tr['kernel_flops']:.6e} FLOP, bytes "
+        f"{tr['memory_bytes']:.6e}, kernel calls {tr['kernel_calls']}, peak "
+        f"{tr['peak_bytes'] / 1e9:.3f} GB (held {tr['argument_bytes'] / 1e9:.3f}"
+        f" + temp {tr['temp_bytes'] / 1e9:.3f}); roofline (H100 SXM5) compute "
+        f"{roof['compute_s'] * 1e3:.2f} ms, memory {roof['memory_s'] * 1e3:.2f}"
+        f" ms, dominant {roof['dominant']}")
+    log(f"{tag}: on the card: step {step_ms:.1f} ms, peak "
+        f"{peak / 1e9:.3f} GB, launches {launches}; the profiler's GEMM FLOPs "
+        f"{prof_flops:.6e} (by op: count, FLOP {prof_gemm})")
+    check(tr["gemm_flops"] == prof_flops,
+          f"{tag}: traced GEMM FLOPs {tr['gemm_flops']:.6e} != the "
+          f"profiler's {prof_flops:.6e}")
+    check(tr["kernel_calls"] == launches,
+          f"{tag}: traced kernel calls {tr['kernel_calls']} != launches "
+          f"{launches}")
+    check(abs(tr["peak_bytes"] - peak) <= DRYRUN_PEAK_TOL * peak,
+          f"{tag}: traced peak {tr['peak_bytes'] / 1e9:.3f} GB not within "
+          f"{DRYRUN_PEAK_TOL:g} of the card's {peak / 1e9:.3f} GB")
+    check(lower_ms <= step_ms, f"{tag}: lower bound {lower_ms:.2f} ms over "
+          f"the step's {step_ms:.1f} ms")
+    check(cell_run.returncode == 0 and cell.get("status") == "ok",
+          f"{tag}: the cell {arch} x {shape} @ 16x16 exited "
+          f"{cell_run.returncode} within {DRYRUN_CELL_TIMEOUT} s: "
+          f"{cell.get('error')} {stdout[-800:]} {stderr[-800:]}")
+    for line in stdout.splitlines():
+        log(f"dry-run cell: {line}")
+    phase_s = time.perf_counter() - t_phase
+    log(f"{tag}: the cell done {cell_s:.1f} s into the phase (traced in "
+        f"{cell.get('trace_s')} s); the phase {phase_s:.1f} s")
+    check(phase_s <= DRYRUN_PHASE_S, f"{tag}: the phase took {phase_s:.1f} s,"
+          f" over {DRYRUN_PHASE_S:g}")
+    return {"gemm_flops": tr["gemm_flops"], "profiler_gemm_flops": prof_flops,
+            "kernel_calls": tr["kernel_calls"], "launches": launches,
+            "peak_bytes": tr["peak_bytes"], "card_peak_bytes": peak,
+            "lower_bound_ms": lower_ms, "step_ms": step_ms,
+            "roofline": roof, "trace_s": trace_s,
+            "cell": {k: cell.get(k) for k in ("arch", "shape", "mesh",
+                                               "status", "trace_s",
+                                               "memory", "roofline")},
+            "cell_s": cell_s, "phase_s": phase_s}
+
+
 def phase_logio(cfg, path: str) -> dict:
     """``run_training(arch=cfg.name, device="cuda")`` twice, as
     tests/test_train_e2e.py does: without kills, and with a worker kill (at
@@ -4043,6 +4180,8 @@ def main() -> int:
           f"{_fmt(iremat['peak_gb'])} GB outside [{1 - TRAIN_MARGIN:g}, 1] x "
           f"the reckoned {ireck:.2f} GB")
     torch.cuda.empty_cache()
+    dry = phase_dryrun(cfg)
+    log(f"dry-run json: {json.dumps(dry)}")
     gtrain16, gremat16 = phase_cut_train(GEMMA_ARCH, "attention_bf16_d256",
                                          "gemma2-train-bf16", bf16)
     gdepth = gtrain16["depth"]
@@ -4065,8 +4204,9 @@ def main() -> int:
     # process mode of the engine (phase 13b): host code, no kernel
     engine_proc = phase_engine_process(dev["smi"])
     log(f"engine process json: {json.dumps(engine_proc)}")
-    log(f"phase times: sharded {sharded['phase_s']:.1f} s, engine process "
-        f"(13b) {engine_proc['phase_s']:.1f} s")
+    log(f"phase times: dry-run {dry['phase_s']:.1f} s, sharded "
+        f"{sharded['phase_s']:.1f} s, engine process (13b) "
+        f"{engine_proc['phase_s']:.1f} s")
     launches = {"flash_attention": fwd["launches"] + fwd_k["launches"]
                 + fwd_s["launches"] + itrain["launches"]["flash_attention"]
                 + gtrain16["launches"]["flash_attention"]

@@ -10,6 +10,12 @@ scratch (the flash backward's delta, the split-f32 kernels' workspace of
 hi/lo operand copies) are allocated here with ``torch.empty``, and the
 kernels run on ``torch.cuda.current_stream()``.
 
+A ``meta`` tensor (the dry-run's trace, ``repro_torch.launch.dryrun``)
+gets a shape-only route: the outputs the kernel route allocates, as
+``meta`` tensors, and nothing computed; the call is handed to ``COST_HOOK``
+(when set) with the work the card's kernel does (``_meta_call``). It takes
+the kernel route's checks, so the trace fails where the card would.
+
 ``LAUNCHES`` counts kernel launches per wrapper (one per call that reaches
 the card, however many device kernels the call runs: a split-f32 flash
 forward runs two, a flash backward three in either dtype),
@@ -44,6 +50,16 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _HEAD_DIMS = (32, 64, 128, 256)
 _MAX_GROUP = 16
 MAX_CLUSTER = 8   # the portable thread block cluster size
+
+
+# The dry-run's cost hook: None, or a callable that every call on ``meta``
+# operands reaches as COST_HOOK(name, flops, rate, read, written): the
+# wrapper's name, the arithmetic of its products (0 for the scan), the
+# units that do them ("bf16": bf16 tensor cores; "tf32x3": the split-f32
+# kernels' three TF32 products for each f32 one; "f32": CUDA cores), and the
+# bytes its operands and outputs take (each read or written once; never the
+# scores).
+COST_HOOK = None
 
 
 def reset_launches() -> None:
@@ -88,18 +104,48 @@ _GRAD_ROUTE = {
 def _check_cuda_operands(name: str, *ts: torch.Tensor, align: int = 16) -> None:
     """What the kernels take beyond the plain versions: one CUDA device,
     contiguous operands aligned to ``align`` bytes, no grad (the message
-    names the wrapper's own gradient route)."""
+    names the wrapper's own gradient route). The shape-only route takes
+    the same on ``meta`` operands, which have no address to align."""
     for t in ts:
-        if t.device.type != "cuda" or t.device != ts[0].device:
+        if t.device.type not in ("cuda", "meta") or t.device != ts[0].device:
             raise ValueError(f"{name}: all operands must be on one CUDA device")
         if not t.is_contiguous():
             raise ValueError(f"{name}: operands must be contiguous")
-        if t.data_ptr() % align:
+        if t.device.type == "cuda" and t.data_ptr() % align:
             raise ValueError(f"{name}: operands must be {align}-byte aligned")
     if torch.is_grad_enabled() and any(t.requires_grad for t in ts):
         route = _GRAD_ROUTE[name.removesuffix("_backward")]
         raise NotImplementedError(
             f"{name}: a kernel call takes no grad; {route}")
+
+
+def _nbytes(*ts) -> int:
+    return sum(t.numel() * t.element_size() for t in ts if t is not None)
+
+
+def _meta_call(name: str, flops: float, rate: str, reads, writes) -> None:
+    """Hand one shape-only call to ``COST_HOOK``."""
+    if COST_HOOK is not None:
+        COST_HOOK(name, float(flops), rate, _nbytes(*reads), _nbytes(*writes))
+
+
+@functools.cache
+def kept_pairs(Sq: int, Sk: int, causal: bool, window: Optional[int]) -> int:
+    """The (query, key) pairs the flash kernels compute: all Sq * Sk, or
+    causal key <= query (positions from 0 on both sides) and, with a
+    window, key > query - window."""
+    if not causal:
+        return Sq * Sk
+    total = 0
+    for i in range(Sq):
+        lo = 0 if window is None else max(0, i - window + 1)
+        total += max(0, min(Sk, i + 1) - lo)
+    return total
+
+
+def flash_rate(dtype: torch.dtype) -> str:
+    """The units the flash kernels of ``dtype`` multiply on."""
+    return "bf16" if dtype == torch.bfloat16 else "tf32x3"
 
 
 def _ptr(t: torch.Tensor) -> ctypes.c_void_p:
@@ -162,6 +208,11 @@ def flash_attention_forward(q, k, v, causal, window, softcap, *,
     _check_cuda_operands("flash_attention", q, k, v)
     out = torch.empty_like(q)
     lse = q.new_empty((B, H, Sq), dtype=torch.float32) if want_lse else None
+    if q.device.type == "meta":   # two products a kept pair
+        _meta_call("flash_attention",
+                   4 * B * H * D * kept_pairs(Sq, k.shape[1], causal, window),
+                   flash_rate(q.dtype), (q, k, v), (out, lse))
+        return out, lse
     _launch_flash_attention(q, k, v, out, lse, causal, window, softcap)
     LAUNCHES["flash_attention"] += 1
     return out, lse
@@ -215,10 +266,16 @@ def flash_attention_backward(q: torch.Tensor, k: torch.Tensor,
     if q.device.type == "cpu":
         return ref.flash_attention_backward_ref(q, k, v, out, lse, dout, **kw)
     _check_attention_limits("flash_attention_backward", H, k.shape[2], D)
-    _check_cuda_operands("flash_attention_backward", q, k, v, out, lse, dout)
+    ts = (q, k, v, out, lse, dout)
+    _check_cuda_operands("flash_attention_backward", *ts)
     variant = flash_variant(q.dtype, D)
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     delta = torch.empty_like(lse)
+    if q.device.type == "meta":   # five products a kept pair
+        _meta_call("flash_attention_backward",
+                   10 * B * H * D * kept_pairs(Sq, k.shape[1], causal, window),
+                   flash_rate(q.dtype), ts, (dq, dk, dv))
+        return dq, dk, dv
     lib = build.load()
     ptrs = (_ptr(q), _ptr(k), _ptr(v), _ptr(out), _ptr(dout), _ptr(lse),
             _ptr(delta), _ptr(dq), _ptr(dk), _ptr(dv))
@@ -335,6 +392,10 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     _check_cuda_operands("decode_attention", q, k, v, lengths)
     out = torch.empty_like(q)
     lse = (q.new_empty((B, H), dtype=torch.float32) if return_lse else None)
+    if q.device.type == "meta":   # two products a key of the whole cache
+        _meta_call("decode_attention", 4 * B * H * k.shape[1] * D, "f32",
+                   (q, k, v, lengths), (out, lse))
+        return (out, lse) if return_lse else out
     _launch_decode_attention(q, k, v, lengths, out, lse, offset, window,
                              softcap)
     LAUNCHES["decode_attention"] += 1
@@ -410,6 +471,9 @@ def selective_scan_forward(a: torch.Tensor, b: torch.Tensor,
         return ref.selective_scan_ref(a, b, h0)
     _check_cuda_operands("selective_scan", *ts, align=4)
     out = torch.empty_like(a)
+    if a.device.type == "meta":   # no product: its bytes only
+        _meta_call("selective_scan", 0, "f32", ts, (out,))
+        return out
     variant = scan_variant(a, b, h0)
     _launch_selective_scan(a, b, h0, out, variant)
     LAUNCHES["selective_scan"] += 1
@@ -453,6 +517,9 @@ def selective_scan_backward(a: torch.Tensor, h: torch.Tensor,
     B, S, DI, DS = a.shape
     da, db = torch.empty_like(a), torch.empty_like(a)
     dh0 = None if h0 is None else torch.empty_like(h0)
+    if a.device.type == "meta":
+        _meta_call("selective_scan_backward", 0, "f32", ts, (da, db, dh0))
+        return da, db, dh0
     none = ctypes.c_void_p(None)
     code = build.load().repro_selective_scan_bwd(
         _ptr(a), _ptr(h), none if h0 is None else _ptr(h0), _ptr(dh),

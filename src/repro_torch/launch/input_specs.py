@@ -51,8 +51,9 @@ def _meta_params(cfg: ArchConfig) -> M.DecoderParams:
 def train_specs(cfg: ArchConfig, shape: ShapeSpec, mesh,
                 strat: S.ShardingStrategy, preset: Preset, hp: OptHParams):
     """Returns (state_shapes, batch_shapes, state_specs, batch_specs): the
-    train state of ``training.step.init_train_state`` (bf16 params) and the
-    batch [accum, mb, S] with mb on the data axes."""
+    train state of ``training.step.init_train_state`` (bf16 params that
+    require grad, as it makes them) and the batch [accum, mb, S] with mb on
+    the data axes."""
     rules = S.make_rules(cfg, mesh, strat)
     accum, mb = train_batch_layout(shape, mesh, strat, preset)
     Ssq = shape.seq_len
@@ -63,7 +64,7 @@ def train_specs(cfg: ArchConfig, shape: ShapeSpec, mesh,
     if cfg.enc_dec:
         batch["frames"] = _meta((accum, mb, Ssq, cfg.d_model), torch.bfloat16)
         bspec["frames"] = S.spec(None, strat.dp_axes, None, None)
-    params = _meta_params(cfg)
+    params = _meta_params(cfg).requires_grad_(True)
     state = {"params": params, "opt": init_opt_state(params, hp),
              "step": _meta((), torch.int32)}
     return state, batch, S.state_pspecs(cfg, rules, hp.moment_dtype), bspec

@@ -209,9 +209,16 @@ def normal_(t: torch.Tensor, generator: torch.Generator, scale: float) -> None:
 def _head_mask(out: torch.Tensor, cfg: ArchConfig, head_dim: int,
                h0: int = 0) -> torch.Tensor:
     """Zero the heads padded for tensor parallelism (heads on ``head_dim``;
-    ``out``'s first head is head ``h0`` of the model)."""
+    ``out``'s first head is head ``h0`` of the model). A DTensor is masked
+    on its local heads (the rank's first head follows from its placement)."""
     if cfg.eff_heads == cfg.n_heads:
         return out
+    if is_dtensor(out):
+        split = sharded_on(out, head_dim, _SHARD_CTX["tp"])
+        r = _tp_coord()[0] if split else 0
+        return local_map(lambda o: _head_mask(o, cfg, head_dim,
+                                              r * o.shape[head_dim]),
+                         out.placements, out)
     h = out.shape[head_dim]
     keep = (h0 + torch.arange(h, device=out.device) < cfg.n_heads).to(out.dtype)
     shape = [1] * out.dim()

@@ -1,6 +1,7 @@
 """What the port promises about itself, checked on the CPU:
 
-* it imports neither JAX nor anything of the ``repro`` package;
+* it imports neither JAX nor anything of the ``repro`` package, and
+  importing every module (the dry-run's too) starts no process group;
 * its entry points run on ``cuda`` and raise without a card unless the
   caller asks for ``device="cpu"``;
 * the parts of the LOG.io core that raised until the engine slice (the
@@ -10,7 +11,8 @@
   anything of ``repro``; the optimizer-state variants (bf16/int8 moments,
   bf16 accumulation, gradient compression) build;
 * the kernel wrappers pick the plain version by the tensors' device alone:
-  a tensor on the card gets the kernel or an error, never the plain version.
+  a tensor on the card gets the kernel or an error, never the plain version;
+  a meta tensor gets the dry-run's shape-only route, any other an error.
 """
 import dataclasses
 import functools
@@ -45,7 +47,9 @@ spec = importlib.util.spec_from_file_location("chip_smoke", sys.argv[1])
 spec.loader.exec_module(importlib.util.module_from_spec(spec))
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] == "repro" or m.split(".")[0].startswith("jax"))
-print(json.dumps({"modules": names, "bad": bad}))
+import torch.distributed as dist
+print(json.dumps({"modules": names, "bad": bad,
+                  "process_group": dist.is_available() and dist.is_initialized()}))
 """
 
 
@@ -58,6 +62,7 @@ def test_port_imports_no_jax_and_nothing_of_repro():
     assert out.returncode == 0, out.stderr
     res = json.loads(out.stdout.strip().splitlines()[-1])
     assert res["bad"] == []
+    assert res["process_group"] is False   # the dry-run makes its own
     for mod in ("repro_torch.bridge", "repro_torch.kernels.ops",
                 "repro_torch.kernels.build", "repro_torch.models.model",
                 "repro_torch.serving.decode", "repro_torch.launch.serve",
@@ -84,7 +89,8 @@ def test_port_imports_no_jax_and_nothing_of_repro():
                 "repro_torch.parallel.sharding", "repro_torch.parallel.dtensor",
                 "repro_torch.launch.mesh",
                 "repro_torch.launch.input_specs",
-                "repro_torch.configs.shapes"):
+                "repro_torch.configs.shapes", "repro_torch.launch.dryrun",
+                "repro_torch.parallel.trace_analysis"):
         assert mod in res["modules"]
 
 
@@ -431,6 +437,15 @@ def _claims_cuda(t):
     return t.as_subclass(_ClaimsCuda)
 
 
+class _ClaimsXpu(torch.Tensor):
+    """A CPU tensor that reports a device of neither kind the wrappers
+    take."""
+
+    @property
+    def device(self):
+        return torch.device("xpu", 0)
+
+
 class _Launched(Exception):
     pass
 
@@ -460,9 +475,15 @@ def test_wrappers_choose_the_plain_version_only_by_device(monkeypatch, which):
     with pytest.raises(_Launched):
         wrapper(*(_claims_cuda(a) for a in args))
     assert ops.LAUNCHES == before          # a failed launch is not counted
-    # a tensor on neither device is refused before any launch
+    # meta tensors (the dry-run's trace): the shape-only route, the plain
+    # version's shapes, no launch
+    got = wrapper(*(a.to("meta") for a in args))
+    assert got.device.type == "meta" and got.shape == want.shape \
+        and got.dtype == want.dtype
+    assert ops.LAUNCHES == before
+    # a tensor on another device is refused before any launch
     with pytest.raises(ValueError):
-        wrapper(*(a.to("meta") for a in args))
+        wrapper(*(a.as_subclass(_ClaimsXpu) for a in args))
 
 
 @pytest.mark.parametrize("bad", ["dim", "group", "noncontiguous", "grad"])

@@ -566,7 +566,8 @@ def test_diamond_lineage_queries_end_to_end():
     build, _ = diamond_pipeline(TC, n_events=12, n1=6, n2=3, sink_target=2)
     eng = Engine(build(), mode="step", lineage_scopes=[
         LineageScope(("src", "out"), ("join", "out"))])
-    eng.start()
+    # step mode runs on this thread alone: ``start()`` would add the group
+    # threads, which step the same operators and race this loop
     assert eng.run_to_completion()
     eng.stop()
     q = LineageQuery(eng.store)

@@ -223,11 +223,19 @@ def kill9_run(spec, db_path, ext_path, transport, ctx, kill_after):
         proc.stdout.close()
 
 
-def resume_exactly_once(spec, db_path, ext_path, transport, ctx):
-    """Reopen the store, warm-restart on it with the surviving external
-    file, and hold the run to exactly-once."""
-    store = mk_store(TC, spec, path=db_path, shards=3, batch_size=4,
-                     interval=60.0)
+def reopen_store(spec, db_path):
+    """The store of a killed run reopened over its files. Opening runs the
+    restart half of the flush-epoch 2PC: each shard deletes the WAL rows of
+    every epoch that has no commit record."""
+    return mk_store(TC, spec, path=db_path, shards=3, batch_size=4,
+                    interval=60.0)
+
+
+def resume_exactly_once(spec, db_path, ext_path, transport, ctx, store=None):
+    """Warm-restart on the reopened store (``store``, else reopened here)
+    with the surviving external file, and hold the run to exactly-once."""
+    if store is None:
+        store = reopen_store(spec, db_path)
     build, expected = linear_pipeline(TC, writes=1, rate=0.01)
     eng = Engine(build(), mode="process", store=store,
                  external=FileExternalSystem(ext_path), resume=True,
@@ -249,9 +257,13 @@ def test_kill9_whole_engine_loses_exactly_unflushed_epoch(spec, kill_after,
     db_path = str(tmp_path / "log.db")
     ext_path = str(tmp_path / "external.bin")
     kill9_run(spec, db_path, ext_path, proc_transport, proc_ctx, kill_after)
-    # the unflushed epoch is lost atomically: every epoch-tagged WAL row
-    # that survived belongs to a committed epoch
+    # the unflushed epoch is lost atomically: after the store reopens (the
+    # restart rollback), every epoch-tagged WAL row that survived belongs to
+    # a committed epoch. Before it reopens, a kill that lands between the
+    # shards' prepare and the epoch's commit record leaves that epoch's rows
+    # on disk (test_kill_between_prepare_and_commit_record_rolls_back_at_reopen)
     committed = committed_epochs(db_path)
+    store = reopen_store(spec, db_path)
     for f in shard_files(db_path, spec):
         conn = sqlite3.connect(f)
         try:
@@ -260,7 +272,69 @@ def test_kill9_whole_engine_loses_exactly_unflushed_epoch(spec, kill_after,
         finally:
             conn.close()
         assert all(e in committed for e in leftover), (f, leftover, committed)
-    resume_exactly_once(spec, db_path, ext_path, proc_transport, proc_ctx)
+    resume_exactly_once(spec, db_path, ext_path, proc_transport, proc_ctx,
+                        store=store)
+
+
+@pytest.mark.parametrize("package", ["repro.core", "repro_torch.core"])
+def test_kill_between_prepare_and_commit_record_rolls_back_at_reopen(
+        package, tmp_path):
+    """The window the whole-engine kill can land in: every shard has
+    prepared (its epoch's WAL rows are committed to its SQLite file) and
+    the epoch's commit record is not written. The rows stay on disk until
+    the store reopens, whose rollback deletes them, and the epochs that
+    committed before survive. Both packages behave so."""
+    import importlib
+    core = importlib.import_module(package)
+    ls = importlib.import_module(package + ".logstore")
+    events = importlib.import_module(package + ".events")
+    path = str(tmp_path / "log.db")
+    kw = dict(shards=3, batch_size=100, interval=60.0, path=path)
+    store = ls.build_store("sqlite+sharded+group", **kw)
+
+    def log(ev):
+        txn = store.begin()
+        txn.log_event(ev, events.UNDONE)
+        txn.put_event_data(ev)
+        txn.commit()
+
+    for i, rec in enumerate(["B", "C", "D"]):
+        log(core.Event(i, "A", "out", rec, "in"))
+    store.flush()
+    for i, rec in enumerate(["B", "C", "D"], start=10):   # several shards
+        log(core.Event(i, "A", "out", rec, "in"))
+    eid = store.epoch_coord.next_epoch()
+    with store._epoch_barrier.write():
+        cut = [(s, s.cut_pending(eid)) for s in store._group_shards]
+    for s, batch in cut:
+        if batch:
+            s.persist_prepared(eid)
+    for s in store.shards:      # the kill: no commit record, no cleanup
+        s.inner.close()
+    store.epoch_coord.close()
+
+    def on_disk():
+        out = set()
+        for f in shard_files(path, "sharded"):
+            conn = sqlite3.connect(f)
+            try:
+                out |= {e for (e,) in conn.execute(
+                    "SELECT DISTINCT epoch FROM wal_ops "
+                    "WHERE epoch IS NOT NULL")}
+            finally:
+                conn.close()
+        return out
+
+    committed = committed_epochs(path)
+    assert eid not in committed
+    assert eid in on_disk()
+    store = ls.build_store("sqlite+sharded+group", **kw)
+    try:
+        assert on_disk() <= committed and on_disk()
+        got = sorted(e.event_id for e, _ in store.fetch_resend_events("A"))
+        assert got == [0, 1, 2], got
+    finally:
+        store.close()
 
 
 # ---------------------------------------------------------------------------

@@ -31,7 +31,10 @@ Cases, on a (2, 2) ("data", "model") mesh unless said:
     overflow rule hold sharded;
   * falcon-mamba: d_inner on model ("inner");
   * jamba: Mamba + attention + MoE in one block;
-  * seamless: the encoder-decoder, its cross cache on ``kv_seq``.
+  * seamless: the encoder-decoder, its cross cache on ``kv_seq``;
+  * internlm2-pad: 3 heads / 1 kv padded to 4 for model 2
+    (``padded_for_tp``): the padded head zeroed on each rank's heads, in
+    the forward and in decode, whose output holds every head.
 
 Tolerances. Against JAX: rtol = atol = 2e-5, those of the unsharded parity
 tests (``test_torch_model.py`` forward and decode, ``test_torch_training.py``
@@ -78,7 +81,7 @@ HP = dict(lr=1e-3, warmup=2, eps=1e-6)
 # name: (arch, reduced() kwargs, mesh shape, ep, moment dtype[, extras:
 # moe_chunk (MOE_TOKEN_CHUNK), fwd / train (the forward's tokens, the train
 # batch's shape), zero_router, flip_ep (a second forward with the runtime's
-# ep flipped)])
+# ep flipped), pad_tp (both configs padded for the mesh's model axis)])
 CASES = {
     "internlm2": ("internlm2-1.8b", {}, (2, 2), True, "int8"),
     "internlm2-kv1": ("internlm2-1.8b", dict(n_kv_heads=1), (1, 4), True,
@@ -95,6 +98,9 @@ CASES = {
     "jamba": ("jamba-1.5-large-398b", dict(d_model=64, d_ff=128), (2, 2),
               True, "float32"),
     "seamless": ("seamless-m4t-large-v2", {}, (2, 2), True, "float32"),
+    "internlm2-pad": ("internlm2-1.8b", dict(d_model=96, n_heads=3,
+                                             n_kv_heads=1), (2, 2), True,
+                      "float32", dict(pad_tp=True)),
 }
 FWD = (4, 8)             # forward tokens [B, S]
 TRAIN = (1, 2, 16)       # train batch [accum, mb, S]
@@ -143,8 +149,11 @@ def _np_tree(tree):
 
 
 def _configs(name):
-    arch, kw = CASES[name][:2]
-    return jreduced(jget(arch), **kw), treduced(tget(arch), **kw)
+    arch, kw, mesh = CASES[name][:3]
+    cfgs = jreduced(jget(arch), **kw), treduced(tget(arch), **kw)
+    if _extra(name).get("pad_tp"):
+        cfgs = tuple(c.padded_for_tp(mesh[1]) for c in cfgs)
+    return cfgs
 
 
 def _zeros_moment(np_params, moment: str):
