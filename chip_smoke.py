@@ -23,7 +23,10 @@ non-causal). Phases:
    its inputs, ``ref.BF16_ROW_TOL``; the scan, in both its variants,
    bit-identical to the plain loop, and its backward bit-identical to the
    plain reverse loop and bitwise repeatable); flash and decode also at the
-   head groups of grok (6: 48 / 8 heads) and arctic (7: 56 / 8);
+   head groups of grok (6: 48 / 8 heads) and arctic (7: 56 / 8), and at
+   the examples phase's shapes (the f32 flash pair at [4, 64, 4, 32] kv 2
+   causal, decode at D 32, head group 2, over 64 and 16 keys, the scan's
+   step kernel at [4, 1, 256, 8] with h0);
 3. internlm2 ``forward`` in bf16 on tokens [2, 2048] with the flash kernel
    (its tensor-core variant) against the plain path, and the flash launch
    count (one per layer, none of them an f32 variant);
@@ -153,6 +156,24 @@ non-causal). Phases:
     ``torch.cuda.set_sync_debug_mode("error")`` (no host sync), and the
     grads at depth 1 stand against the f32 grads of f32 copies (phase 11's
     ratio rule; the f32 reference made first, in place, so that it fits).
+examples. the port's examples (``examples/torch_*.py``, imported from this
+    checkout and run in this process): ``torch_quickstart`` and
+    ``torch_elastic_scaling`` with their own asserts (report #2's backward
+    lineage is sales batches 16-23, batch 11 flows into window 1; 120
+    committed values 2 i with one failure); ``torch_train_e2e`` at its
+    defaults (internlm2 reduced to d_model 128, 2 layers, 4 heads / 2 kv of
+    32 dims, 24 steps, a worker kill and a trainer kill at step 16): run B's
+    final state bitwise equal to run A's leaf by leaf, one split-f32 flash
+    forward and backward launch per layer for every step of the two runs
+    and no plain attention call, the runs' wall seconds;
+    ``torch_serve_batched`` for each of the ten archs of the configs
+    (reduced, d_model 128, 6 requests x 12 tokens on 4 slots): its loop on
+    the kernel path with a plain-path server of the same seeded weights
+    stepped in lockstep (logits within 2e-5 at every step, greedy tokens
+    equal or within 2e-5 of a plain top-2 tie), then the example's server
+    alone, its streams the lockstep run's, ``decode_per_step`` decode and
+    one step-kernel scan launch per Mamba layer a step, its ms a step. The
+    phase within ``EXAMPLES_PHASE_S``.
 sharded. the sharded entry points (``Runtime(shard_activations=True)``,
     state, batch and cache distributed by ``repro_torch.parallel.sharding``'s
     default strategy) on a one-rank NCCL ``DeviceMesh`` (1, 1) ("data",
@@ -228,7 +249,8 @@ Training needs ``CUBLAS_WORKSPACE_CONFIG`` (set here before torch starts)
 and runs under ``torch.use_deterministic_algorithms(True)`` from phase 6 on,
 so phases 9-12 run under it too. The phases that drive a main path
 (3-4b, 6-12) set the launch counts to 0 just before and read them just
-after (the sharded phase likewise, around each of its sharded runs);
+after (the sharded phase and the examples phase likewise, around each of
+their runs);
 phases 13 and 13b launch no kernel.
 
 Every breakdown prints the port's kernel launches the profiler recorded
@@ -244,6 +266,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import functools
+import importlib.util
 import json
 import math
 import os
@@ -267,7 +290,7 @@ os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
 import torch  # noqa: E402
 import torch.nn.functional as F  # noqa: E402
 
-from repro_torch.configs import get_config, reduced  # noqa: E402
+from repro_torch.configs import ARCHS, get_config, reduced  # noqa: E402
 from repro_torch.configs.shapes import ShapeSpec  # noqa: E402
 from repro_torch.kernels import build, ops, ref  # noqa: E402
 from repro_torch.models import layers as L, model as M  # noqa: E402
@@ -327,6 +350,9 @@ DRYRUN_PEAK_TOL = 0.10
 DRYRUN_CELL = ("internlm2-1.8b", "prefill_32k")
 DRYRUN_CELL_TIMEOUT = 120
 DRYRUN_PHASE_S = 45.0
+# the examples phase: its time budget and the examples it imports
+EXAMPLES_PHASE_S = 45.0
+EXAMPLE_NAMES = ("quickstart", "elastic_scaling", "train_e2e", "serve_batched")
 # the ops ``torch.profiler(with_flops=True)`` counts as matrix products
 PROFILER_GEMMS = ("aten::mm", "aten::addmm", "aten::bmm", "aten::baddbmm")
 
@@ -759,6 +785,12 @@ DECODE_CASES = [
     (4, 4096, 16, 16, 64, torch.bfloat16, None, None, [64] * 4),
     (4, 4096, 16, 16, 64, torch.bfloat16, None, None, [4096] * 4),
     (4, 4096, 16, 16, 64, torch.bfloat16, None, None, None),
+    # the examples phase's servers (reduced, d_model 128: 4 heads, 2 kv, D
+    # 32, a 64-position cache): ragged lengths; gemma2's window 8 and
+    # softcap 50; seamless's cross cache of 16 zero-filled keys
+    (4, 64, 4, 2, 32, torch.float32, None, None, [1, 17, 64, 40]),
+    (4, 64, 4, 2, 32, torch.float32, 8, 50.0, [1, 17, 64, 40]),
+    (4, 16, 4, 2, 32, torch.float32, None, None, [16] * 4),
 ]
 
 # the decode kernel's lse and key offset (the sequence-sharded cache): each
@@ -801,6 +833,9 @@ FLASH_CASES = [
     (1, 1000, 16, 8, 256, torch.bfloat16, True, None, 50.0),
     (1, 1100, 16, 8, 256, torch.bfloat16, True, 300, 50.0),
     (2, 1000, 16, 8, 256, torch.bfloat16, False, None, 30.0),
+    # the examples phase's trainer (run_training reduced to d_model 128:
+    # 4 heads, 2 kv, D 32), split-f32
+    (4, 64, 4, 2, 32, torch.float32, True, None, None),
 ]
 
 FLASH_CROSS_CASES = [
@@ -832,6 +867,8 @@ BWD_CASES = [
     # seamless's train step: its encoder's shape, and Sq != Sk at group 1
     (2, 2048, 2048, 16, 16, 64, False, None, None),
     (1, 700, 1000, 16, 16, 64, False, None, None),
+    # the examples phase's trainer: D 32, head group 2
+    (4, 64, 64, 4, 2, 32, True, None, None),
 ]
 
 
@@ -1026,6 +1063,8 @@ SCAN_CASES = [
     (2, 300, 7, 3, "fresh", "sequential"),
     (4, 1, 8191, 3, "fresh", "sequential"),
     (4, 1, 8192, 16, "offset", "sequential"),
+    # the examples phase's Mamba servers (reduced: d_inner 256, d_state 8)
+    (4, 1, 256, 8, "fresh", "step"),
 ]
 
 
@@ -3345,6 +3384,184 @@ def phase_logio(cfg, path: str) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase examples: the port's four examples on the card
+# ---------------------------------------------------------------------------
+
+
+def _example(name: str):
+    """``examples/torch_<name>.py`` of this checkout, as a module."""
+    spec = importlib.util.spec_from_file_location(
+        f"torch_{name}", ROOT / "examples" / f"torch_{name}.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _examples_train(ex) -> dict:
+    """``torch_train_e2e``'s pair of runs at its defaults on the card: run
+    B's final state bitwise equal to run A's leaf by leaf (the example's
+    ``identical``), its losses A's before the crash and from the last
+    checkpoint on, one flash forward and one flash backward launch per
+    layer for every step the two runs take (resumed steps included) and no
+    call of a plain attention version."""
+    steps = 24     # the example's default
+    plain_calls = {"flash_attention_ref": 0, "flash_attention_backward_ref": 0}
+
+    def counted(name):
+        inner = getattr(ref, name)
+
+        def call(*a, **kw):
+            plain_calls[name] += 1
+            return inner(*a, **kw)
+        return call
+
+    ops.reset_launches()
+    with tempfile.TemporaryDirectory() as tmp, \
+            mock.patch.object(ref, "flash_attention_ref",
+                              counted("flash_attention_ref")), \
+            mock.patch.object(ref, "flash_attention_backward_ref",
+                              counted("flash_attention_backward_ref")):
+        secs = []
+        runs = []
+        for kills in (False, True):
+            t0 = time.perf_counter()
+            runs.append(ex.train(steps, False, DEVICE, f"{tmp}/{int(kills)}",
+                                 kills=kills))
+            sync()
+            secs.append(time.perf_counter() - t0)
+    launches = dict(ops.LAUNCHES)
+    a, b = runs
+    kill = steps * 2 // 3
+    n_layers = len(a["final_state"]["params"].layers)
+    n_steps = len(a["losses"]) + len(b["losses"])
+    tag = "examples train_e2e"
+    check(ex.identical(a["final_state"], b["final_state"]),
+          f"{tag}: run B's final state is not run A's, bit for bit")
+    check(b["losses"][:kill] == a["losses"][:kill],
+          f"{tag}: pre-crash losses differ")
+    resumed = (kill // 6) * 6     # the last checkpoint (ckpt_every 6)
+    check(b["losses"][kill:] == a["losses"][resumed:],
+          f"{tag}: replayed losses differ")
+    check(b["engine"].failures >= 2, f"{tag}: {b['engine'].failures} failures")
+    want = {"flash_attention": n_layers * n_steps,
+            "flash_attention_backward": n_layers * n_steps}
+    check({k: launches[k] for k in want} == want
+          and launches["decode_attention"] == 0
+          and launches["selective_scan"] == 0,
+          f"{tag}: launches {launches}, want {want}")
+    check(not any(plain_calls.values()),
+          f"{tag}: plain attention ran: {plain_calls}")
+    log(f"{tag}: {len(a['losses'])} + {len(b['losses'])} steps (crash at "
+        f"{b['crash_steps']}, resumed from step {resumed}), "
+        f"{n_layers} layers, pipeline failures {b['engine'].failures}; "
+        f"final states bit-identical; launches {want}, plain attention "
+        f"calls 0; wall {secs[0]:.2f} s (A) and {secs[1]:.2f} s (B)")
+    return {"launches": want, "steps": n_steps, "wall_s": secs}
+
+
+def _examples_serve(ex, arch: str) -> dict:
+    """``torch_serve_batched``'s server for ``arch``: (a) its serve loop on
+    the kernel path with a server on the plain path (the example's runtime
+    with plain attention and scan, the same seeded weights) stepped beside it in lockstep, fed the same
+    tokens and positions: logits within TOL at every step, and each active
+    slot's greedy token the plain one's or within TOL of a plain top-2 tie;
+    (b) the example's server alone, timed and counted: its streams (a)'s,
+    decode launches ``decode_per_step`` a step, scan launches one per Mamba
+    layer a step, all on the step kernel."""
+    tag = f"examples serve {arch}"
+    tol = TOL[torch.float32]
+    plain_rt = dataclasses.replace(ex.RUNTIME, attn_impl="plain",
+                                   scan_impl="plain")
+    requests, tokens = 6, 12     # the example's defaults
+    with torch.inference_mode():
+        k = ex.build_server(arch, DEVICE)
+        p = ex.build_server(arch, DEVICE, plain_rt)
+        cfg = k.cfg
+        check(all(bool(torch.equal(x, y)) for x, y in
+                  zip(k.params.parameters(), p.params.parameters())),
+              f"{tag}: the two servers' weights differ")
+        seen = {"worst": 0.0, "ties": 0}
+        inner = k._step
+
+        def lockstep(params, cache, toks, pos):
+            nxt, logits, cache = inner(params, cache, toks, pos)
+            p_nxt, p_logits, p.cache = p._step(p.params, p.cache, toks, pos)
+            seen["worst"] = max(seen["worst"], assert_close(
+                logits, p_logits, tol, f"{tag} lockstep"))
+            top2 = p_logits.topk(2, dim=-1).values
+            gap = (top2[:, 0] - top2[:, 1]).tolist()
+            for s, (x, y) in enumerate(zip(nxt.tolist(), p_nxt.tolist())):
+                if k.active[s] and x != y:
+                    check(gap[s] < tol, f"{tag}: slot {s} picks {x}, the "
+                          f"plain path {y}, at a clear top-2 gap {gap[s]:.3e}")
+                    seen["ties"] += 1
+            return nxt, logits, cache
+
+        k._step = lockstep
+        locked, steps = ex.serve(k, requests, tokens)
+        k._step = inner
+        del k, p
+        server = ex.build_server(arch, DEVICE)
+        ops.reset_launches()
+        sync()
+        t0 = time.perf_counter()
+        done, steps_b = ex.serve(server, requests, tokens)
+        sync()
+        secs = time.perf_counter() - t0
+        launches = {name: ops.LAUNCHES[name]
+                    for name in ("decode_attention", "selective_scan")}
+        variants = dict(ops.SCAN_VARIANTS)
+    n_mamba = sum(spec.mixer == "mamba" for spec in cfg.layer_kinds())
+    want = {"decode_attention": decode_per_step(cfg) * steps_b,
+            "selective_scan": n_mamba * steps_b}
+    check(sorted(done) == list(range(requests))
+          and all(len(t) == tokens for t in done.values()),
+          f"{tag}: requests {sorted(done)} short of {tokens} tokens")
+    check(steps_b == steps and done == locked,
+          f"{tag}: the example's run differs from the lockstep run")
+    check(launches == want and variants["step"] == want["selective_scan"],
+          f"{tag}: launches {launches} (scan variants {variants}), want {want}")
+    ms = secs / steps_b * 1e3
+    log(f"{tag} ({cfg.n_layers} layers{', enc-dec' if cfg.enc_dec else ''}, "
+        f"{cfg.n_heads} heads / {cfg.n_kv_heads} kv, dh {cfg.d_head}): "
+        f"{requests} req x {tokens} tok in {steps_b} steps, {ms:.2f} ms a "
+        f"step; lockstep max|dlogit| {seen['worst']:.3e} (tol {tol}), "
+        f"greedy near-ties {seen['ties']}; launches {launches}")
+    return {"launches": launches, "steps": steps_b, "ms_per_step": ms,
+            "max_abs_err": seen["worst"]}
+
+
+def phase_examples() -> dict:
+    """The port's examples (``examples/torch_*.py``), imported from this
+    checkout and run in this process: the engine ones with their own
+    asserts and their answers checked; ``torch_train_e2e`` at its defaults
+    (``_examples_train``); ``torch_serve_batched`` for every arch of the
+    configs (``_examples_serve``). Within ``EXAMPLES_PHASE_S``."""
+    t0 = time.perf_counter()
+    ex = {name: _example(name) for name in EXAMPLE_NAMES}
+    q = ex["quickstart"].main()
+    check(q["contributors"] == list(range(16, 24)),
+          f"examples quickstart: report #2 from {q['contributors']}")
+    check(q["flowed"] == [("agg", "out", 1)],
+          f"examples quickstart: sales batch #11 flowed into {q['flowed']}")
+    e = ex["elastic_scaling"].main()
+    check(e["got"] == [2 * i for i in range(120)]
+          and e["engine"].failures == 1,
+          f"examples elastic_scaling: {len(e['got'])} values, "
+          f"{e['engine'].failures} failures")
+    log(f"examples quickstart and elastic_scaling: {q['engine'].failures} and"
+        f" {e['engine'].failures} failures, outputs and lineage as expected")
+    train = _examples_train(ex["train_e2e"])
+    serve = {arch: _examples_serve(ex["serve_batched"], arch)
+             for arch in sorted(ARCHS)}
+    phase_s = time.perf_counter() - t0
+    log(f"examples: phase {phase_s:.1f} s (budget {EXAMPLES_PHASE_S:g} s)")
+    check(phase_s <= EXAMPLES_PHASE_S,
+          f"examples: phase {phase_s:.1f} s over {EXAMPLES_PHASE_S:g} s")
+    return {"train": train, "serve": serve, "phase_s": phase_s}
+
+
+# ---------------------------------------------------------------------------
 # phase sharded: the sharded entry points on a one-rank NCCL mesh
 # ---------------------------------------------------------------------------
 
@@ -4193,6 +4410,10 @@ def main() -> int:
         GROK_ARCH, "attention_bf16", "grok-train-bf16", bf16, equal=False,
         grad_depth=1, lse_kernel=f"{FLASH_TC}<128, false, true>", moe=True)
     torch.cuda.empty_cache()
+    # the port's four examples, every arch's reduced server among them
+    examples = phase_examples()
+    log(f"examples json: {json.dumps(examples)}")
+    torch.cuda.empty_cache()
     # the sharded entry points on a one-rank NCCL mesh (its process group
     # destroyed before phases 13 and 13b fork)
     sharded = phase_sharded(dev["smi"])
@@ -4204,21 +4425,30 @@ def main() -> int:
     # process mode of the engine (phase 13b): host code, no kernel
     engine_proc = phase_engine_process(dev["smi"])
     log(f"engine process json: {json.dumps(engine_proc)}")
-    log(f"phase times: dry-run {dry['phase_s']:.1f} s, sharded "
-        f"{sharded['phase_s']:.1f} s, engine process (13b) "
-        f"{engine_proc['phase_s']:.1f} s")
+    log(f"phase times: dry-run {dry['phase_s']:.1f} s, examples "
+        f"{examples['phase_s']:.1f} s, sharded {sharded['phase_s']:.1f} s, "
+        f"engine process (13b) {engine_proc['phase_s']:.1f} s")
+    ex_train = examples["train"]["launches"]
+    ex_serve = {name: {arch: run["launches"][name]
+                       for arch, run in examples["serve"].items()
+                       if run["launches"][name]}
+                for name in ("decode_attention", "selective_scan")}
     launches = {"flash_attention": fwd["launches"] + fwd_k["launches"]
                 + fwd_s["launches"] + itrain["launches"]["flash_attention"]
                 + gtrain16["launches"]["flash_attention"]
-                + ktrain["launches"]["flash_attention"],
+                + ktrain["launches"]["flash_attention"]
+                + ex_train["flash_attention"],
                 "flash_attention_backward": train["launches"][
                     "flash_attention_backward"]
                 + gtrain["launches"]["flash_attention_backward"]
-                + strain["launches"]["flash_attention_backward"],
+                + strain["launches"]["flash_attention_backward"]
+                + ex_train["flash_attention_backward"],
                 "decode_attention": serve["launches"] + serve_k["launches"]
-                + serve_s["launches"],
+                + serve_s["launches"]
+                + sum(ex_serve["decode_attention"].values()),
                 "selective_scan": fwd_m["launches"] + serve_m["launches"]
-                + mtrain["launches"]["selective_scan"],
+                + mtrain["launches"]["selective_scan"]
+                + sum(ex_serve["selective_scan"].values()),
                 "selective_scan_backward": mtrain["launches"][
                     "selective_scan_backward"],
                 "flash_attention_backward_bf16": itrain["launches"][
@@ -4294,6 +4524,7 @@ def main() -> int:
         f32_launches_seamless_train=strain["launches"]["flash_attention"],
         f32_seamless_launches_per_step=strain["fwd_per_step"],
         f32_seamless_device_ms_in_step=strain["fwd_device_ms"])
+    flash_row["launches_examples_train"] = ex_train["flash_attention"]
     flash_row["max_abs_err"] = max(flash_row["max_abs_err"],
                                    flash_k["max_abs_err"],
                                    flash_s["bf16_forward"]["max_abs_err"],
@@ -4328,6 +4559,7 @@ def main() -> int:
         seamless_train_step_ms=strain["step_ms"],
         seamless_train_depth=[strain["depth"], strain["depth"]],
         seamless_train_remat=strain["remat"])
+    bwd_row["launches_examples_train"] = ex_train["flash_attention_backward"]
     bwd_row["max_abs_err"] = max(bwd_row["max_abs_err"],
                                  flash_s["backward"]["max_abs_err"])
     # the bf16 backward: internlm2's shape above (phase 11's), gemma2's dh
@@ -4400,6 +4632,7 @@ def main() -> int:
         launches_seamless_serve=serve_s["launches"],
         **{f"seamless_cross_{key}": val for key, val in decode_s.items()},
         seamless_random_cross_step_max_abs_err=serve_s["cross_err"])
+    decode_row["launches_examples_serve"] = ex_serve["decode_attention"]
     decode_row["max_abs_err"] = max(decode_row["max_abs_err"],
                                     decode_k["max_abs_err"],
                                     decode_s["max_abs_err"],
@@ -4408,6 +4641,7 @@ def main() -> int:
     # decode step's (and the variant it ran) and the launches of each path
     scan_row = next(r for r in rows if r["name"] == "selective_scan")
     scan_row.update(
+        launches_examples_serve=ex_serve["selective_scan"],
         launches_forward=fwd_m["launches"], launches_serve=serve_m["launches"],
         max_abs_err=max(scan_row["max_abs_err"], scan_dec["max_abs_err"]),
         variant=scan_t["variant"], decode_variant=scan_dec["variant"],

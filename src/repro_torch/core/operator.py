@@ -17,7 +17,7 @@ import threading
 import time
 from typing import Any, Callable, Dict, Iterable, List, Optional, Sequence, Tuple
 
-from repro_torch.core.events import DONE, REPLAY, UNDONE, Event, ReadAction
+from repro_torch.core.events import DONE, UNDONE, Event, ReadAction
 from repro_torch.core.logstore import LogBackend, TxnAborted
 
 
@@ -334,11 +334,15 @@ class OperatorRuntime:
         ch = self.op.in_channels[port]
         self.crash_point(self.op.id, "pre_filter")
         # Alg 11 step 4.a: while awaiting regenerated events on a port fed by
-        # a replay operator, non-replay events there are stale FIFO residue
-        # (the replay pred regenerates that whole suffix) — discard them.
-        if (not ev.is_replay
-                and getattr(self.op, "_awaiting_replay", None)
-                and port in getattr(self.op, "_replay_pred_ports", ())):
+        # a replay operator, every event there but an awaited one is stale
+        # FIFO residue (the replay pred regenerates that whole suffix) —
+        # discard it. That includes a regenerated event from the pred's own
+        # earlier restart: processed ahead of the awaited ones it would
+        # join their window out of order (repro.core lets it through; see
+        # test_replay_mode_recovers_where_repro_core_does_not).
+        if (getattr(self.op, "_awaiting_replay", None)
+                and port in getattr(self.op, "_replay_pred_ports", ())
+                and self._awaited(port, ev) is None):
             ch.ack()
             return True
         # Step 1: obsolete filter
@@ -410,8 +414,7 @@ class OperatorRuntime:
                 # scalar Example-10 path on the next engine pass
                 break
             self.crash_point(op.id, "pre_filter")
-            if (not ev.is_replay and awaiting
-                    and port in residue_ports):
+            if awaiting and port in residue_ports:
                 plan.append(("drop", ev))       # stale FIFO residue
                 continue
             if ev.event_id <= last:
@@ -517,10 +520,20 @@ class OperatorRuntime:
         return consumed
 
     def _awaited(self, port: str, ev: Event):
+        """The awaited (port, event id, Input Set) that ``ev`` fills, or
+        None. Only the lowest awaited id of a port is taken: the replay
+        predecessor regenerates the awaited events in id order, so a
+        higher one arriving first is residue of a replay round cut short
+        by this operator's crash, and its regeneration follows. Taken out
+        of order, it would advance the global-state guard past the ids
+        still to come (repro.core takes any awaited id; see
+        ``test_replay_mode_recovers_where_repro_core_does_not``)."""
+        first = None
         for t in getattr(self.op, "_awaiting_replay", ()):
-            if t[0] == port and t[1] == ev.event_id:
-                return t
-        return None
+            if t[0] == port and (first is None or t[1] < first[1]):
+                first = t
+        return first if first is not None and first[1] == ev.event_id \
+            else None
 
     def _obsolete(self, port: str, ev: Event) -> bool:
         # Example 10: a replay event the receiver never processed is handled
@@ -595,8 +608,11 @@ class OperatorRuntime:
         data_events: List[Event] = []
         for e in out_events:
             if replay_events and (e.send_port, e.event_id) in replay_events:
-                txn.set_status((e.send_op, e.send_port, e.event_id), UNDONE,
-                               only_status=REPLAY)
+                # the REPLAY mark stays until the consumer takes the event
+                # (it sets UNDONE then): cleared here, a crash between this
+                # commit and the send would lose an event the consumer
+                # awaits (repro.core clears it here; see
+                # test_replay_mode_recovers_where_repro_core_does_not)
                 e.header["replay"] = True
             else:
                 if not self.replay_mode and \

@@ -160,16 +160,20 @@ def _prepare_replay(rt: OperatorRuntime):
     store = rt.store
     replay_out: Dict[Tuple[str, int], str] = {}
     insets: Set[str] = set()
-    if op.state == "replay":
-        # outputs marked REPLAY by consumers + UNDONE ones sent after them
-        marked = store.fetch_replay_outputs(op.id)
-        min_per_port: Dict[str, int] = {}
-        for eid, port, _status in marked:
-            min_per_port[port] = min(min_per_port.get(port, eid), eid)
+    # outputs marked REPLAY by consumers + UNDONE ones sent after them.
+    # Also on a plain restart: a mark lives until the consumer takes the
+    # regenerated event, so one found here is awaited still, whatever
+    # interrupted the replay that was to fill it. repro.core scans only in
+    # state "replay" and strands the consumer (see
+    # test_replay_mode_recovers_where_repro_core_does_not).
+    marked = store.fetch_replay_outputs(op.id)
+    min_per_port: Dict[str, int] = {}
+    for eid, port, _status in marked:
+        min_per_port[port] = min(min_per_port.get(port, eid), eid)
+        replay_out[(port, eid)] = None
+    for port, mn in min_per_port.items():
+        for eid in store.undone_outputs_after(op.id, port, mn):
             replay_out[(port, eid)] = None
-        for port, mn in min_per_port.items():
-            for eid in store.undone_outputs_after(op.id, port, mn):
-                replay_out[(port, eid)] = None
     # restarted (or replay): also regenerate own unacked undone outputs
     rt.stats["recovery_scan_batches"] += 1      # one resend range scan
     for ev, status in store.fetch_resend_events(op.id):

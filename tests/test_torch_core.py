@@ -8,6 +8,7 @@ JAX package's, on the CPU.
   operator, and multi-failure plans), commits the same outputs, each exactly
   once: the failure-free expectation, with no duplicate and no loss.
 """
+import os
 import queue
 from functools import partial
 
@@ -139,3 +140,56 @@ def test_corpus_and_packing_match_jax():
         assert a["shard"] == b["shard"] and np.array_equal(a["tokens"], b["tokens"])
         pa, pb = TD.pack_fn(32)(a), JD.pack_fn(32)(b)
         assert np.array_equal(pa["seqs"], pb["seqs"])
+
+
+# ---------------------------------------------------------------------------
+# the training substrate's data and checkpoint units (copies of three cases
+# of tests/test_training_units.py on repro_torch.data and
+# repro_torch.checkpoint)
+# ---------------------------------------------------------------------------
+
+def test_synthetic_corpus_replayable():
+    c = TD.SyntheticCorpus(n_shards=8, shard_tokens=64, vocab=100, seed=5)
+    a = c.effect("read", 0)
+    b = c.effect("read", 3)
+    assert len(a) == 8 and len(b) == 5
+    np.testing.assert_array_equal(a[3]["tokens"], b[0]["tokens"])
+    want = JD.SyntheticCorpus(n_shards=8, shard_tokens=64, vocab=100,
+                              seed=5).effect("read", 0)
+    assert all(np.array_equal(x["tokens"], y["tokens"])
+               for x, y in zip(a, want))
+
+
+def test_pack_fn_shapes():
+    from repro.data.pipeline import pack_fn as jax_pack_fn
+    from repro_torch.data.pipeline import pack_fn
+    fn = pack_fn(seq_len=16)
+    body = {"shard": 0, "tokens": np.arange(100, dtype=np.int32)}
+    out = fn(body)
+    assert out["seqs"].shape == (100 // 17, 17)
+    assert np.array_equal(out["seqs"], jax_pack_fn(seq_len=16)(body)["seqs"])
+
+
+def test_checkpoint_store_checkable(tmp_path):
+    from repro.checkpoint import CheckpointStore as JaxCheckpointStore
+    from repro_torch.checkpoint import CheckpointStore
+    store = CheckpointStore(str(tmp_path / "port"))
+    state = {"w": np.arange(10.0), "step": np.int32(7)}
+    assert store.status(7) == "unknown"
+    store.save(state, 7)
+    assert store.status(7) == "success"          # checkable write action
+    step, back = store.latest()
+    assert step == 7
+    np.testing.assert_array_equal(back["w"], state["w"])
+    store.save(state, 14)
+    store.gc(keep=1)
+    assert store.status(7) == "unknown" and store.status(14) == "success"
+    # the same file names and contents as repro.checkpoint's store
+    jstore = JaxCheckpointStore(str(tmp_path / "jax"))
+    jstore.save(state, 14)
+    assert sorted(os.listdir(tmp_path / "port")) == \
+        sorted(os.listdir(tmp_path / "jax"))
+    jstep, jback = jstore.latest()
+    _, back = store.latest()
+    assert jstep == 14 and back.keys() == jback.keys()
+    assert all(np.array_equal(back[k], jback[k]) for k in back)

@@ -1,7 +1,8 @@
 """What the port promises about itself, checked on the CPU:
 
 * it imports neither JAX nor anything of the ``repro`` package, and
-  importing every module (the dry-run's too) starts no process group;
+  importing every module (the dry-run's too), ``chip_smoke.py`` and the
+  examples ``examples/torch_*.py`` starts no process group;
 * its entry points run on ``cuda`` and raise without a card unless the
   caller asks for ``device="cpu"``;
 * the parts of the LOG.io core that raised until the engine slice (the
@@ -43,8 +44,9 @@ names = ["repro_torch"]
 for info in pkgutil.walk_packages(repro_torch.__path__, "repro_torch."):
     names.append(info.name)
     importlib.import_module(info.name)
-spec = importlib.util.spec_from_file_location("chip_smoke", sys.argv[1])
-spec.loader.exec_module(importlib.util.module_from_spec(spec))
+for i, path in enumerate(sys.argv[1:]):
+    spec = importlib.util.spec_from_file_location(f"probe{i}", path)
+    spec.loader.exec_module(importlib.util.module_from_spec(spec))
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] == "repro" or m.split(".")[0].startswith("jax"))
 import torch.distributed as dist
@@ -55,8 +57,11 @@ print(json.dumps({"modules": names, "bad": bad,
 
 def test_port_imports_no_jax_and_nothing_of_repro():
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    examples = [str(ROOT / "examples" / f"torch_{name}.py")
+                for name in ("quickstart", "elastic_scaling", "train_e2e",
+                             "serve_batched")]
     out = subprocess.run([sys.executable, "-c", _PROBE,
-                          str(ROOT / "chip_smoke.py")],
+                          str(ROOT / "chip_smoke.py"), *examples],
                          cwd=ROOT, env=env, capture_output=True, text=True,
                          timeout=120)
     assert out.returncode == 0, out.stderr
