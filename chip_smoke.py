@@ -26,7 +26,15 @@ non-causal). Phases:
    head groups of grok (6: 48 / 8 heads) and arctic (7: 56 / 8), and at
    the examples phase's shapes (the f32 flash pair at [4, 64, 4, 32] kv 2
    causal, decode at D 32, head group 2, over 64 and 16 keys, the scan's
-   step kernel at [4, 1, 256, 8] with h0);
+   step kernel at [4, 1, 256, 8] with h0); at head dim 192 (the --big
+   trainer's [4, 64, 4, 192] kv 2 and [2, 2048, 16, 192] kv 8 causal with
+   and without softcap 50, flash forward and backward in f32 and bf16;
+   decode at B=4 S=4096 kv 8, head groups 2 and 6, 64 keys and a full
+   cache, both dtypes, with lse and key offsets, and at the d_model 768
+   server's [4, 128, 4, 2]); and on the padded route (head dims 16, 48
+   and 80, run on the next built width: each launch's width checked
+   against ``ops.built_head_dim``, each result held to the plain version
+   at the true head dim);
 3. internlm2 ``forward`` in bf16 on tokens [2, 2048] with the flash kernel
    (its tensor-core variant) against the plain path, and the flash launch
    count (one per layer, none of them an f32 variant);
@@ -59,7 +67,12 @@ non-causal). Phases:
    forward there (off the main paths) beside its bound and SDPA's flash
    backend; the scan's backward at phase 7's shape beside its bound; after
    phase 9b, bf16 flash at grok's forward shape and decode at grok's serve
-   shape, each beside its bound and SDPA;
+   shape, each beside its bound and SDPA; the flash set (f32 pair, bf16
+   forward, bf16 backward) at [2, 2048, 16, 192] kv 8 causal (head dim
+   192) and at [2, 2048, 16, 16] (the padded route, on the D = 32
+   instances), and decode at B=4 S=4096 H=16 kv 8 at D 192 and 16 (64
+   keys and a full cache), each beside its bound (the true head dim's
+   work) and SDPA, with the ptxas report of the D = 192 instances;
 6. internlm2 ``make_train_step`` at full width in f32 (24 layers, tokens
    [accum 1, mb 2, S 2048], 30.2 GB of params, grads and AdamW moments):
    step ms, tokens/s, the device breakdown, 24 forward and 24 backward
@@ -172,8 +185,14 @@ examples. the port's examples (``examples/torch_*.py``, imported from this
     stepped in lockstep (logits within 2e-5 at every step, greedy tokens
     equal or within 2e-5 of a plain top-2 tie), then the example's server
     alone, its streams the lockstep run's, ``decode_per_step`` decode and
-    one step-kernel scan launch per Mamba layer a step, its ms a step. The
-    phase within ``EXAMPLES_PHASE_S``.
+    one step-kernel scan launch per Mamba layer a step, its ms a step;
+    ``torch_train_e2e --big`` (d_model 768, 12 layers, head dim 192, 12
+    steps, the trainer killed at step 8 after the checkpoint of step 6) as
+    the default pair, with 12 + 12 split-f32 launches a step on the dh 192
+    pair kernels; and ``repro_torch.launch.serve``'s server at
+    ``--d-model 768`` (head dim 192, 8 requests x 16 tokens) as the
+    example servers, in lockstep with a plain-path server. The phase within
+    ``EXAMPLES_PHASE_S``, its seconds and the two new runs' printed.
 sharded. the sharded entry points (``Runtime(shard_activations=True)``,
     state, batch and cache distributed by ``repro_torch.parallel.sharding``'s
     default strategy) on a one-rank NCCL ``DeviceMesh`` (1, 1) ("data",
@@ -277,6 +296,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import types
 import warnings
 from pathlib import Path
 from unittest import mock
@@ -351,7 +371,10 @@ DRYRUN_CELL = ("internlm2-1.8b", "prefill_32k")
 DRYRUN_CELL_TIMEOUT = 120
 DRYRUN_PHASE_S = 45.0
 # the examples phase: its time budget and the examples it imports
-EXAMPLES_PHASE_S = 45.0
+# 45 s for the examples at their defaults (about 9-10 s on an H100), and
+# 60 s each for torch_train_e2e --big (four checkpoints of ~1.2 GB) and the
+# launch.serve --d-model 768 pair
+EXAMPLES_PHASE_S = 165.0
 EXAMPLE_NAMES = ("quickstart", "elastic_scaling", "train_e2e", "serve_batched")
 # the ops ``torch.profiler(with_flops=True)`` counts as matrix products
 PROFILER_GEMMS = ("aten::mm", "aten::addmm", "aten::bmm", "aten::baddbmm")
@@ -403,6 +426,10 @@ F32TC_BWD = (F32TC_BWD_PREP, "flash_f32tc_dkdv_kernel", "flash_f32tc_dq_kernel")
 F32TC_FWD_D256 = "flash_f32tc_fwd_d256_kernel"
 F32TC_BWD_D256 = (F32TC_BWD_PREP, "flash_f32tc_dkdv_d256_kernel",
                   "flash_f32tc_dq_d256_kernel")
+# and at D = 192, pairs of 96-column blocks
+F32TC_FWD_D192 = "flash_f32tc_fwd_d192_kernel"
+F32TC_BWD_D192 = (F32TC_BWD_PREP, "flash_f32tc_dkdv_d192_kernel",
+                  "flash_f32tc_dq_d192_kernel")
 SCAN_KERNEL = {"sequential": "selective_scan_kernel",
                "step": "selective_scan_step_kernel"}
 SCAN_BWD = "selective_scan_bwd_kernel"
@@ -410,13 +437,27 @@ SCAN_BWD = "selective_scan_bwd_kernel"
 # counted launch runs
 DEVICE_KERNELS = {
     "flash_attention": [((FLASH_TC,), 1),
-                        ((F32TC_FWD_PREP, F32TC_FWD, F32TC_FWD_D256), 2)],
-    "flash_attention_backward": [(F32TC_BWD + F32TC_BWD_D256[1:], 3),
+                        ((F32TC_FWD_PREP, F32TC_FWD, F32TC_FWD_D256,
+                          F32TC_FWD_D192), 2)],
+    "flash_attention_backward": [(F32TC_BWD + F32TC_BWD_D256[1:]
+                                  + F32TC_BWD_D192[1:], 3),
                                  (FLASH_TC_BWD, 3)],
     "decode_attention": [(("decode_attention_kernel",), 1)],
     "selective_scan": [(tuple(SCAN_KERNEL.values()), 1)],
     "selective_scan_backward": [((SCAN_BWD,), 1)],
 }
+
+
+def f32tc_names(D: int) -> tuple:
+    """The split-f32 device kernels of head dim D: (forward's, backward's),
+    those of the instance ``ops.built_head_dim`` picks (the pair kernels at
+    192 and 256)."""
+    built = ops.built_head_dim(torch.float32, D)
+    if built == 256:
+        return (F32TC_FWD_PREP, F32TC_FWD_D256), F32TC_BWD_D256
+    if built == 192:
+        return (F32TC_FWD_PREP, F32TC_FWD_D192), F32TC_BWD_D192
+    return (F32TC_FWD_PREP, F32TC_FWD), F32TC_BWD
 
 
 def sync() -> None:
@@ -664,21 +705,22 @@ def _kernel_key(mangled: str):
     return m.group(1), args
 
 
-def ptxas_kernels(text: str) -> dict:
+def ptxas_kernels(text: str, key=_kernel_key) -> dict:
     """The build's ``-Xptxas -v`` report by flash kernel: {(name, template
     arguments): {"registers", "stack", "spill_stores", "spill_loads",
-    "serialized"}} ("serialized": ptxas's C7512, wgmma serialised)."""
+    "serialized"}} ("serialized": ptxas's C7512, wgmma serialised); or by
+    ``key(mangled name)`` of any kernel it does not map to None."""
     out, cur = {}, None
     for line in text.splitlines():
         if "serialized" in line:   # C7512 names its function
             m = re.search(r"function '(\w+)'", line)
-            key = _kernel_key(m.group(1)) if m else None
-            if key:
-                out.setdefault(key, {})["serialized"] = True
+            k = key(m.group(1)) if m else None
+            if k:
+                out.setdefault(k, {})["serialized"] = True
             continue
         m = re.search(r"(?:Compiling entry function|Function properties for) '?(\w+)", line)
         if m:
-            cur = _kernel_key(m.group(1))
+            cur = key(m.group(1))
             if cur:
                 out.setdefault(cur, {}).setdefault("serialized", False)
             continue
@@ -695,14 +737,39 @@ def ptxas_kernels(text: str) -> dict:
     return out
 
 
-def log_ptxas_bf16_flash() -> dict:
+# the bf16 flash kernels at head dim 192 (native instances, off the main
+# paths: the --big trainer and the d_model 768 server run f32)
+BF16_FLASH_D192 = [
+    ("flash_fwd_tc_kernel", (192, False, True)),
+    ("flash_fwd_tc_kernel", (192, True, True)),
+    ("flash_bwd_tc_dkdv_kernel", (192, False)),
+    ("flash_bwd_tc_dq_kernel", (192, False)),
+    ("flash_bwd_tc_dkdv_kernel", (192, True)),
+    ("flash_bwd_tc_dq_kernel", (192, True)),
+]
+
+
+def log_ptxas_kernels(needle: str) -> dict:
+    """ptxas's registers and spill bytes of every kernel whose mangled name
+    contains ``needle`` (e.g. the split-f32 pair kernels at D = 192):
+    {mangled name: record of ``ptxas_kernels``}."""
+    out = ptxas_kernels(build.build_log(),
+                        key=lambda name: name if needle in name else None)
+    for name, rec in sorted(out.items()):
+        log(f"ptxas {name}: {rec.get('registers', 'not reported')} registers, "
+            f"{rec.get('spill_stores', 'not reported')} bytes spill stores, "
+            f"{rec.get('spill_loads', 'not reported')} bytes spill loads")
+    return out
+
+
+def log_ptxas_bf16_flash(kernels=None) -> dict:
     """ptxas's registers, spill bytes, stack, C7512 and the block's dynamic
     shared memory (from the library) of each bf16 flash kernel on a main
-    path ({"name<args>": record})."""
+    path, or of ``kernels`` ({"name<args>": record})."""
     report = ptxas_kernels(build.build_log())
     lib = build.load()
     rows = {}
-    for name, targs in BF16_FLASH_MAIN:
+    for name, targs in kernels or BF16_FLASH_MAIN:
         rec = dict(report.get((name, targs), {}))
         smem = (lib.repro_flash_tc_smem(targs[0]) if "fwd" in name
                 else lib.repro_flash_tc_bwd_smem(targs[0], int("dq" in name)))
@@ -791,6 +858,26 @@ DECODE_CASES = [
     (4, 64, 4, 2, 32, torch.float32, None, None, [1, 17, 64, 40]),
     (4, 64, 4, 2, 32, torch.float32, 8, 50.0, [1, 17, 64, 40]),
     (4, 16, 4, 2, 32, torch.float32, None, None, [16] * 4),
+    # D = 192 (launch.serve --d-model 768: 4 heads / 2 kv, max_len 128;
+    # then B=4 S=4096 kv 8 at head groups 2 and 6, 64 valid keys and a full
+    # cache) in f32 and bf16
+    (4, 128, 4, 2, 192, torch.float32, None, None, [1, 17, 128, 40]),
+    (4, 4096, 16, 8, 192, torch.float32, None, None, [64] * 4),
+    (4, 4096, 16, 8, 192, torch.float32, None, None, [4096] * 4),
+    (4, 4096, 48, 8, 192, torch.float32, None, None, [64] * 4),
+    (4, 4096, 48, 8, 192, torch.float32, None, None, [4096] * 4),
+    (4, 4096, 16, 8, 192, torch.bfloat16, None, None, [64] * 4),
+    (4, 4096, 16, 8, 192, torch.bfloat16, None, None, [4096] * 4),
+    (4, 4096, 48, 8, 192, torch.bfloat16, None, None, [64] * 4),
+    (4, 4096, 48, 8, 192, torch.bfloat16, 1000, 30.0, [4096] * 4),
+    # the padded route (``ops.built_head_dim``): D 16 (the tests'
+    # reduced(d_model=64)), 48 and 80, each run on the next built width
+    (4, 64, 4, 2, 16, torch.float32, None, None, [1, 17, 64, 40]),
+    (4, 64, 4, 2, 16, torch.bfloat16, 8, 50.0, [1, 17, 64, 40]),
+    (4, 4096, 16, 8, 48, torch.float32, None, None, None),
+    (4, 4096, 48, 8, 48, torch.bfloat16, None, None, [64] * 4),
+    (4, 4096, 16, 8, 80, torch.float32, 1000, 30.0, None),
+    (4, 4096, 16, 8, 80, torch.bfloat16, None, None, [4096] * 4),
 ]
 
 # the decode kernel's lse and key offset (the sequence-sharded cache): each
@@ -802,6 +889,10 @@ DECODE_SPLIT_CASES = [
     ("full cache", 4, 4096, 16, 8, 128, [4096] * 4),
     ("grok group 6", 4, 4096, 48, 8, 128, [64] * 4),
     ("seamless cross", 4, 4096, 16, 16, 64, [4096] * 4),
+    # D = 192 at head groups 2 and 6, and the padded D = 80
+    ("dh 192 serve shape", 4, 4096, 16, 8, 192, [64] * 4),
+    ("dh 192 group 6 full cache", 4, 4096, 48, 8, 192, [4096] * 4),
+    ("dh 80 (padded to 128)", 4, 4096, 16, 8, 80, [4096] * 4),
 ]
 
 FLASH_CASES = [
@@ -836,6 +927,24 @@ FLASH_CASES = [
     # the examples phase's trainer (run_training reduced to d_model 128:
     # 4 heads, 2 kv, D 32), split-f32
     (4, 64, 4, 2, 32, torch.float32, True, None, None),
+    # D = 192: torch_train_e2e --big's shape (d_model 768, 4 heads, 2 kv),
+    # then [2, 2048, 16, 192] kv 8 causal without and with softcap 50, in
+    # both dtypes
+    (4, 64, 4, 2, 192, torch.float32, True, None, None),
+    (4, 64, 4, 2, 192, torch.bfloat16, True, None, None),
+    (2, 2048, 16, 8, 192, torch.float32, True, None, None),
+    (2, 2048, 16, 8, 192, torch.float32, True, None, 50.0),
+    (2, 2048, 16, 8, 192, torch.bfloat16, True, None, None),
+    (2, 2048, 16, 8, 192, torch.bfloat16, True, None, 50.0),
+    (1, 1000, 16, 8, 192, torch.bfloat16, True, 300, 30.0),
+    # the padded route: D 16 (reduced(d_model=64)), 48 and 80
+    (4, 64, 4, 2, 16, torch.float32, True, None, None),
+    (4, 64, 4, 2, 16, torch.bfloat16, True, None, None),
+    (2, 1024, 16, 8, 16, torch.float32, True, None, None),
+    (1, 1000, 8, 2, 48, torch.float32, True, 128, 30.0),
+    (1, 1000, 8, 2, 48, torch.bfloat16, True, 128, 30.0),
+    (2, 1024, 16, 8, 80, torch.float32, False, None, None),
+    (2, 1024, 16, 8, 80, torch.bfloat16, True, None, None),
 ]
 
 FLASH_CROSS_CASES = [
@@ -869,6 +978,19 @@ BWD_CASES = [
     (1, 700, 1000, 16, 16, 64, False, None, None),
     # the examples phase's trainer: D 32, head group 2
     (4, 64, 64, 4, 2, 32, True, None, None),
+    # D = 192 (the pair kernels at 96 columns a block): torch_train_e2e
+    # --big's shape, [2, 2048, 16, 192] kv 8 causal with and without
+    # softcap 50, ragged S with a window, Sq != Sk without a mask
+    (4, 64, 64, 4, 2, 192, True, None, None),
+    (2, 2048, 2048, 16, 8, 192, True, None, None),
+    (2, 2048, 2048, 16, 8, 192, True, None, 50.0),
+    (1, 1000, 1000, 16, 8, 192, True, 300, 50.0),
+    (1, 700, 1000, 16, 4, 192, False, None, None),
+    # the padded route: D 16, 48 and 80 (odd widths of a row, masks)
+    (4, 64, 64, 4, 2, 16, True, None, None),
+    (1, 1000, 1000, 16, 8, 48, True, None, None),
+    (1, 700, 1000, 16, 4, 80, False, None, None),
+    (1, 1024, 1024, 16, 8, 80, True, 256, 50.0),
 ]
 
 
@@ -929,6 +1051,22 @@ def assert_close_to_max(got, want, tol, what) -> float:
     return max_err(got, want) / scale.item()
 
 
+def built_call(name: str, D: int, dtype, fn):
+    """fn()'s result, after checking that it launched the ``name`` kernel
+    once and recorded that launch at ``ops.built_head_dim(dtype, D)``: D
+    itself where a kernel instance is built for it, else the next built
+    head dim, the operands padded to it."""
+    built = ops.built_head_dim(dtype, D)
+    before = ops.BUILT_WIDTHS[name, D, built]
+    n = ops.LAUNCHES[name]
+    out = fn()
+    check(ops.LAUNCHES[name] == n + 1
+          and ops.BUILT_WIDTHS[name, D, built] == before + 1,
+          f"{name} D={D}: its launch was not recorded at the built head "
+          f"dim {built} ({dict(ops.BUILT_WIDTHS)})")
+    return out
+
+
 def check_flash_backward(g, case) -> float:
     """One backward case: the forward's o with and without lse (bitwise),
     its lse against the plain one, the backward kernel against the plain
@@ -947,7 +1085,9 @@ def check_flash_backward(g, case) -> float:
     lse_err = assert_close(lse, ref.flash_attention_lse_ref(q, k, **kw),
                            TOL[torch.float32], f"{what} lse")
     before = ops.LAUNCHES["flash_attention_backward"]
-    got = ops.flash_attention_backward(q, k, v, out, lse, dout, **kw)
+    got = built_call("flash_attention_backward", D, torch.float32,
+                     lambda: ops.flash_attention_backward(q, k, v, out, lse,
+                                                          dout, **kw))
     sync()
     check(ops.LAUNCHES["flash_attention_backward"] == before + 1,
           f"{what}: the backward kernel did not launch")
@@ -959,7 +1099,8 @@ def check_flash_backward(g, case) -> float:
     check(all(bool(torch.equal(a, b)) for a, b in zip(got, again)),
           f"{what}: two calls differ")
     log(f"flash backward B={B} Sq={Sq} Sk={Sk} H={H} KV={KV} D={D} "
-        f"({ops.flash_variant(torch.float32, D)}) "
+        f"({ops.flash_variant(torch.float32, D)}, built D "
+        f"{ops.built_head_dim(torch.float32, D)}) "
         f"causal={causal} window={window} softcap={softcap}: dq/dk/dv error "
         f"relative to max {errs[0]:.3e} / {errs[1]:.3e} / {errs[2]:.3e} "
         f"(tol {TOL[torch.float32]}), bitwise repeatable, o unchanged by lse, "
@@ -999,6 +1140,18 @@ BF16_BWD_CASES = [
     (1, 1000, 1000, 16, 8, 256, True, None, 50.0),
     (1, 1100, 1000, 16, 8, 256, False, None, 30.0),
     (1, 1100, 1100, 16, 8, 256, True, 200, 50.0),
+    # D = 192 (dk/dv and dq both splitting the products of 64 rows):
+    # torch_train_e2e --big's shape, [2, 2048, 16, 192] kv 8 causal with and
+    # without softcap 50, ragged S with a window, head group 6
+    (4, 64, 64, 4, 2, 192, True, None, None),
+    (2, 2048, 2048, 16, 8, 192, True, None, None),
+    (2, 2048, 2048, 16, 8, 192, True, None, 50.0),
+    (1, 1100, 1100, 48, 8, 192, True, 200, None),
+    (1, 1000, 1100, 16, 8, 192, False, None, 30.0),
+    # the padded route: D 16, 48 and 80
+    (4, 64, 64, 4, 2, 16, True, None, None),
+    (1, 1000, 1000, 16, 8, 48, True, None, None),
+    (1, 1100, 1000, 16, 8, 80, False, None, 30.0),
 ]
 
 
@@ -1024,7 +1177,9 @@ def check_flash_backward_bf16(g, case) -> float:
     lse_want = ref.flash_attention_lse_ref(f32[0], f32[1], **kw)
     lse_err = assert_close(lse, lse_want, BF16_LSE_TOL, f"{what} lse")
     before = ops.LAUNCHES["flash_attention_backward"]
-    got = ops.flash_attention_backward(q, k, v, out, lse, dout, **kw)
+    got = built_call("flash_attention_backward", D, dt,
+                     lambda: ops.flash_attention_backward(q, k, v, out, lse,
+                                                          dout, **kw))
     sync()
     check(ops.LAUNCHES["flash_attention_backward"] == before + 1,
           f"{what}: the backward kernel did not launch")
@@ -1041,7 +1196,7 @@ def check_flash_backward_bf16(g, case) -> float:
     check(all(bool(torch.equal(a, b)) for a, b in zip(got, again)),
           f"{what}: two calls differ")
     log(f"bf16 flash backward B={B} Sq={Sq} Sk={Sk} H={H} KV={KV} D={D} "
-        f"causal={causal} window={window} softcap={softcap}: dq/dk/dv error "
+        f"(built D {ops.built_head_dim(dt, D)}) causal={causal} window={window} softcap={softcap}: dq/dk/dv error "
         f"relative to max: max {errs[0]:.3e} / {errs[1]:.3e} / {errs[2]:.3e}, "
         f"mean {means[0]:.3e} / {means[1]:.3e} / {means[2]:.3e} (tol "
         f"{TOL[dt]}, against the f32 backward of the f32 copies), bitwise "
@@ -1162,8 +1317,10 @@ def phase_kernels() -> dict:
         else:
             lengths = torch.tensor(lens, device=DEVICE)
         lengths = lengths.to(torch.int32)
-        out = ops.decode_attention(q, k, v, lengths, window=window,
-                                   softcap=softcap)
+        out = built_call("decode_attention", D, dt,
+                         lambda: ops.decode_attention(q, k, v, lengths,
+                                                      window=window,
+                                                      softcap=softcap))
         sync()
         want = ref.decode_attention_ref(q, k, v, lengths, window=window,
                                         softcap=softcap)
@@ -1171,7 +1328,7 @@ def phase_kernels() -> dict:
         errs["decode_attention"] = max(errs["decode_attention"], err)
         n_split = ops.decode_grid(B, KV, S, ops.sm_count(0))
         log(f"decode B={B} S={S} H={H} KV={KV} D={D} {str(dt)[6:]} "
-            f"window={window} softcap={softcap} lengths={lengths.tolist()} "
+            f"(built D {ops.built_head_dim(dt, D)}) window={window} softcap={softcap} lengths={lengths.tolist()} "
             f"cluster {n_split}: max_abs_err {err:.3e} (tol {TOL[dt]})")
     errs["decode_attention"] = max(errs["decode_attention"],
                                    check_decode_split(g))
@@ -1183,7 +1340,8 @@ def phase_kernels() -> dict:
         k = _randn(g, (B, Sk, KV, D), dt)
         v = _randn(g, (B, Sk, KV, D), dt)
         kw = dict(causal=causal, window=window, softcap=softcap)
-        out = ops.flash_attention(q, k, v, **kw)
+        out = built_call("flash_attention", D, dt,
+                         lambda: ops.flash_attention(q, k, v, **kw))
         sync()
         want = ref.flash_attention_ref(q, k, v, **kw)
         what = f"flash {B,Sq,Sk,H,KV,D,dt,causal}"
@@ -1193,7 +1351,8 @@ def phase_kernels() -> dict:
         errs["flash_attention"] = max(errs["flash_attention"], err)
         log(f"flash B={B} S={Sq}" + (f" Sk={Sk}" if Sk != Sq else "")
             + f" H={H} KV={KV} D={D} {str(dt)[6:]} "
-            f"({ops.flash_variant(dt, D)}) causal={causal} "
+            f"({ops.flash_variant(dt, D)}, built D "
+            f"{ops.built_head_dim(dt, D)}) causal={causal} "
             f"window={window} softcap={softcap}: max_abs_err {err:.3e} "
             f"(tol {TOL[dt]}){rows}")
     for case in BWD_CASES:
@@ -1930,8 +2089,8 @@ def sdpa_accuracy() -> dict:
     g = torch.Generator(device=DEVICE).manual_seed(SEED + 6)
     tol = TOL[torch.float32]
     fwd = [(B, S, S, H, KV, D, c, w, cap) for B, S, H, KV, D, dt, c, w, cap
-           in FLASH_CASES if dt == torch.float32 and D <= 128]
-    bwd = [case for case in BWD_CASES if case[5] <= 128]
+           in FLASH_CASES if dt == torch.float32 and D in (32, 64, 128)]
+    bwd = [case for case in BWD_CASES if case[5] in (32, 64, 128)]
     worst = {"forward": None, "backward": None}   # None: no case measured
     within = True
     for kind, cases in (("forward", fwd), ("backward", bwd)):
@@ -2162,6 +2321,14 @@ def time_scan_backward(a, h, dh, tag: str) -> dict:
 # (B, S, H, KV, D, softcap), causal; the 4096-key window of its local layers
 # has no effect at S = 2048
 D256_SHAPE = (2, 2048, 16, 8, 256, 50.0)
+# head dim 192 (the pair kernels at 96 columns a block; d_model 768 over 4
+# heads: torch_train_e2e --big, launch.serve --d-model 768) at a train
+# step's shape, and the padded route at head dim 16 (the tests'
+# reduced(d_model=64), run on the D = 32 instances): causal, no softcap
+D192_SHAPE = (2, 2048, 16, 8, 192, None)
+D16_SHAPE = (2, 2048, 16, 8, 16, None)
+# decode at those head dims: (B, S, H, KV), f32
+DECODE_WIDE_SHAPE = (4, 4096, 16, 8)
 # seamless-m4t-large-v2's (dh = 64, head group 1), as its encoder runs it in
 # phases 10 and 10c: non-causal, no softcap
 SEAMLESS_SHAPE = (2, 2048, 16, 16, 64, None)
@@ -2170,7 +2337,9 @@ SEAMLESS_SHAPE = (2, 2048, 16, 16, 64, None)
 def time_flash_set(shape, causal: bool, seed: int, tag: str) -> dict:
     """The flash kernels at one attention shape (B, S, H, KV, D, softcap):
     the f32 pair of the train path (split-f32, ``ops.flash_variant``; at
-    D = 256 the pair's kernels form clusters of two) and the bf16 forward
+    D = 192 and 256 the pair's kernels form clusters of two; any other head
+    dim runs on the next built one, ``ops.built_head_dim``, and its bound
+    is that of the true D's work) and the bf16 forward
     (tensor cores). Event and device time, the plain versions, the bounds
     (operations: 4 flops a kept (q, k) pair and dim forward, 10 backward;
     f32 as three TF32 products at 495 TFLOP/s with the 67 TFLOP/s CUDA-core
@@ -2190,8 +2359,7 @@ def time_flash_set(shape, causal: bool, seed: int, tag: str) -> dict:
     out, lse = ops.flash_attention_forward(q, k, v, causal, None, softcap,
                                            want_lse=True)
     pairs = B * H * (S * (S + 1) // 2 if causal else S * S)
-    fwd_names = (F32TC_FWD_PREP, F32TC_FWD_D256 if D == 256 else F32TC_FWD)
-    bwd_names = F32TC_BWD_D256 if D == 256 else F32TC_BWD
+    fwd_names, bwd_names = f32tc_names(D)
     mask = "causal" if causal else "non-causal"
     no_cap = "" if softcap is None else ", no softcap"
     qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
@@ -3397,14 +3565,18 @@ def _example(name: str):
     return mod
 
 
-def _examples_train(ex) -> dict:
-    """``torch_train_e2e``'s pair of runs at its defaults on the card: run
-    B's final state bitwise equal to run A's leaf by leaf (the example's
+def _examples_train(ex, big: bool = False) -> dict:
+    """``torch_train_e2e``'s pair of runs on the card, at its defaults or
+    with ``--big`` (d_model 768, 12 layers, head dim 192; 12 steps, so the
+    trainer's kill at step 8 falls after the checkpoint of step 6): run B's
+    final state bitwise equal to run A's leaf by leaf (the example's
     ``identical``), its losses A's before the crash and from the last
     checkpoint on, one flash forward and one flash backward launch per
-    layer for every step the two runs take (resumed steps included) and no
-    call of a plain attention version."""
-    steps = 24     # the example's default
+    layer for every step the two runs take (resumed steps included), each
+    at the model's head dim on its own kernel instance, and no call of a
+    plain attention version."""
+    steps = 12 if big else 24     # --big: 4 checkpoints of ~1.2 GB
+    dh = (768 if big else 128) // 4   # the example's d_model over 4 heads
     plain_calls = {"flash_attention_ref": 0, "flash_attention_backward_ref": 0}
 
     def counted(name):
@@ -3425,16 +3597,17 @@ def _examples_train(ex) -> dict:
         runs = []
         for kills in (False, True):
             t0 = time.perf_counter()
-            runs.append(ex.train(steps, False, DEVICE, f"{tmp}/{int(kills)}",
+            runs.append(ex.train(steps, big, DEVICE, f"{tmp}/{int(kills)}",
                                  kills=kills))
             sync()
             secs.append(time.perf_counter() - t0)
     launches = dict(ops.LAUNCHES)
+    widths = dict(ops.BUILT_WIDTHS)
     a, b = runs
     kill = steps * 2 // 3
     n_layers = len(a["final_state"]["params"].layers)
     n_steps = len(a["losses"]) + len(b["losses"])
-    tag = "examples train_e2e"
+    tag = "examples train_e2e" + (" --big" if big else "")
     check(ex.identical(a["final_state"], b["final_state"]),
           f"{tag}: run B's final state is not run A's, bit for bit")
     check(b["losses"][:kill] == a["losses"][:kill],
@@ -3451,28 +3624,37 @@ def _examples_train(ex) -> dict:
           f"{tag}: launches {launches}, want {want}")
     check(not any(plain_calls.values()),
           f"{tag}: plain attention ran: {plain_calls}")
+    check(widths == {(name, dh, dh): n for name, n in want.items()},
+          f"{tag}: launches by head dim {widths}, want all at {dh}")
     log(f"{tag}: {len(a['losses'])} + {len(b['losses'])} steps (crash at "
         f"{b['crash_steps']}, resumed from step {resumed}), "
-        f"{n_layers} layers, pipeline failures {b['engine'].failures}; "
-        f"final states bit-identical; launches {want}, plain attention "
-        f"calls 0; wall {secs[0]:.2f} s (A) and {secs[1]:.2f} s (B)")
-    return {"launches": want, "steps": n_steps, "wall_s": secs}
+        f"{n_layers} layers, dh {dh}, pipeline failures "
+        f"{b['engine'].failures}; final states bit-identical; launches "
+        f"{want} ({want['flash_attention'] // n_steps} + "
+        f"{want['flash_attention_backward'] // n_steps} a step, all on the "
+        f"dh {dh} instances), plain attention calls 0; wall {secs[0]:.2f} s "
+        f"(A) and {secs[1]:.2f} s (B)")
+    return {"launches": want, "steps": n_steps, "wall_s": secs,
+            "head_dim": dh}
 
 
-def _examples_serve(ex, arch: str) -> dict:
-    """``torch_serve_batched``'s server for ``arch``: (a) its serve loop on
+def _examples_serve(ex, arch: str, requests: int = 6, tokens: int = 12,
+                    tag: str = "examples serve") -> dict:
+    """``torch_serve_batched``'s server for ``arch`` (or any module with its
+    ``RUNTIME``, ``build_server`` and ``serve``): (a) its serve loop on
     the kernel path with a server on the plain path (the example's runtime
     with plain attention and scan, the same seeded weights) stepped beside it in lockstep, fed the same
     tokens and positions: logits within TOL at every step, and each active
     slot's greedy token the plain one's or within TOL of a plain top-2 tie;
     (b) the example's server alone, timed and counted: its streams (a)'s,
-    decode launches ``decode_per_step`` a step, scan launches one per Mamba
-    layer a step, all on the step kernel."""
-    tag = f"examples serve {arch}"
+    decode launches ``decode_per_step`` a step, each on the instance of
+    ``ops.built_head_dim``, scan launches one per Mamba layer a step, all
+    on the step kernel. ``requests`` x ``tokens``: the example's
+    defaults."""
+    tag = f"{tag} {arch}"
     tol = TOL[torch.float32]
     plain_rt = dataclasses.replace(ex.RUNTIME, attn_impl="plain",
                                    scan_impl="plain")
-    requests, tokens = 6, 12     # the example's defaults
     with torch.inference_mode():
         k = ex.build_server(arch, DEVICE)
         p = ex.build_server(arch, DEVICE, plain_rt)
@@ -3511,6 +3693,7 @@ def _examples_serve(ex, arch: str) -> dict:
         launches = {name: ops.LAUNCHES[name]
                     for name in ("decode_attention", "selective_scan")}
         variants = dict(ops.SCAN_VARIANTS)
+        widths = dict(ops.BUILT_WIDTHS)
     n_mamba = sum(spec.mixer == "mamba" for spec in cfg.layer_kinds())
     want = {"decode_attention": decode_per_step(cfg) * steps_b,
             "selective_scan": n_mamba * steps_b}
@@ -3521,6 +3704,12 @@ def _examples_serve(ex, arch: str) -> dict:
           f"{tag}: the example's run differs from the lockstep run")
     check(launches == want and variants["step"] == want["selective_scan"],
           f"{tag}: launches {launches} (scan variants {variants}), want {want}")
+    dh = cfg.d_head   # 0 for an attention-free model (no decode launch)
+    built = ops.built_head_dim(torch.float32, dh) if dh else None
+    check(widths == ({("decode_attention", dh, built): want["decode_attention"]}
+                     if want["decode_attention"] else {}),
+          f"{tag}: decode launches by head dim {widths}, want all at "
+          f"{dh} on the {built} instance")
     ms = secs / steps_b * 1e3
     log(f"{tag} ({cfg.n_layers} layers{', enc-dec' if cfg.enc_dec else ''}, "
         f"{cfg.n_heads} heads / {cfg.n_kv_heads} kv, dh {cfg.d_head}): "
@@ -3528,15 +3717,17 @@ def _examples_serve(ex, arch: str) -> dict:
         f"step; lockstep max|dlogit| {seen['worst']:.3e} (tol {tol}), "
         f"greedy near-ties {seen['ties']}; launches {launches}")
     return {"launches": launches, "steps": steps_b, "ms_per_step": ms,
-            "max_abs_err": seen["worst"]}
+            "max_abs_err": seen["worst"], "head_dim": dh}
 
 
 def phase_examples() -> dict:
     """The port's examples (``examples/torch_*.py``), imported from this
     checkout and run in this process: the engine ones with their own
     asserts and their answers checked; ``torch_train_e2e`` at its defaults
-    (``_examples_train``); ``torch_serve_batched`` for every arch of the
-    configs (``_examples_serve``). Within ``EXAMPLES_PHASE_S``."""
+    and with ``--big`` (``_examples_train``); ``torch_serve_batched`` for
+    every arch of the configs (``_examples_serve``); the server of
+    ``repro_torch.launch.serve --d-model 768`` (head dim 192) at its
+    defaults, the same way. Within ``EXAMPLES_PHASE_S``."""
     t0 = time.perf_counter()
     ex = {name: _example(name) for name in EXAMPLE_NAMES}
     q = ex["quickstart"].main()
@@ -3552,13 +3743,36 @@ def phase_examples() -> dict:
     log(f"examples quickstart and elastic_scaling: {q['engine'].failures} and"
         f" {e['engine'].failures} failures, outputs and lineage as expected")
     train = _examples_train(ex["train_e2e"])
+    t_big = time.perf_counter()
+    train_big = _examples_train(ex["train_e2e"], big=True)
+    big_s = time.perf_counter() - t_big
     serve = {arch: _examples_serve(ex["serve_batched"], arch)
              for arch in sorted(ARCHS)}
+    t_768 = time.perf_counter()
+    serve_768 = _examples_serve(launch_serve_at(768), "internlm2-1.8b",
+                                requests=8, tokens=16,
+                                tag="launch.serve --d-model 768")
+    serve_768_s = time.perf_counter() - t_768
     phase_s = time.perf_counter() - t0
-    log(f"examples: phase {phase_s:.1f} s (budget {EXAMPLES_PHASE_S:g} s)")
+    log(f"examples: phase {phase_s:.1f} s (budget {EXAMPLES_PHASE_S:g} s), "
+        f"of which train_e2e --big {big_s:.1f} s and launch.serve --d-model "
+        f"768 {serve_768_s:.1f} s")
     check(phase_s <= EXAMPLES_PHASE_S,
           f"examples: phase {phase_s:.1f} s over {EXAMPLES_PHASE_S:g} s")
-    return {"train": train, "serve": serve, "phase_s": phase_s}
+    return {"train": train, "train_big": train_big, "serve": serve,
+            "serve_d768": serve_768, "phase_s": phase_s,
+            "train_big_s": big_s, "serve_d768_s": serve_768_s}
+
+
+def launch_serve_at(d_model: int):
+    """``repro_torch.launch.serve``'s server at ``--d-model d_model`` (its
+    other flags at their defaults: 4 slots, max_len 128), with the names
+    ``_examples_serve`` reads off an example module."""
+    from repro_torch.launch import serve as S
+    return types.SimpleNamespace(
+        RUNTIME=S.RUNTIME, serve=S.serve,
+        build_server=lambda arch, device, rt=S.RUNTIME: S.build_server(
+            arch, device, d_model=d_model, rt=rt))
 
 
 # ---------------------------------------------------------------------------
@@ -4276,6 +4490,34 @@ def main() -> int:
     bwd16_k = time_flash_backward_bf16(GROK_TRAIN_SHAPE, True, SEED + 14,
                                        "grok group 6")
     bf16_ptxas = log_ptxas_bf16_flash()
+    # head dim 192's instances (native: the split-f32 pair kernels, the
+    # bf16 pair, decode) and the padded route at 16, as phase 5 times the
+    # other head dims
+    d192_t = time_flash_set(D192_SHAPE, True, SEED + 15, "dh 192")
+    bwd16_d192 = time_flash_backward_bf16(D192_SHAPE, True, SEED + 16,
+                                          "dh 192")
+    d16_t = time_flash_set(D16_SHAPE, True, SEED + 17, "dh 16 (built 32)")
+    bwd16_d16 = time_flash_backward_bf16(D16_SHAPE, True, SEED + 18,
+                                         "dh 16 (built 32)")
+    with torch.inference_mode():
+        g = torch.Generator(device=DEVICE).manual_seed(SEED + 19)
+        B, S, H, KV = DECODE_WIDE_SHAPE
+        decode_wide = {}
+        for D in (192, 16):
+            q = _randn(g, (B, H, D), torch.float32)
+            k = _randn(g, (B, S, KV, D), torch.float32)
+            v = _randn(g, (B, S, KV, D), torch.float32)
+            for keys in (64, S):
+                lengths = torch.full((B,), keys, device=DEVICE,
+                                     dtype=torch.int32)
+                what = "serve shape" if keys == 64 else "full cache"
+                decode_wide[D, keys] = time_decode(
+                    q, k, v, lengths, tag=f"dh {D} {what}"
+                    + ("" if D == 192 else " (built 32)"))
+            del q, k, v
+    d192_ptxas = {"bf16": log_ptxas_bf16_flash(BF16_FLASH_D192),
+                  "split_f32": log_ptxas_kernels("d192"),
+                  "decode": log_ptxas_kernels("decode_attention_kernelIfLi192")}
     log_memory("attention timings")
     torch.cuda.empty_cache()
     # falcon-mamba: the selective scan, in forward and in each decode step
@@ -4429,6 +4671,8 @@ def main() -> int:
         f"{examples['phase_s']:.1f} s, sharded {sharded['phase_s']:.1f} s, "
         f"engine process (13b) {engine_proc['phase_s']:.1f} s")
     ex_train = examples["train"]["launches"]
+    ex_big = examples["train_big"]["launches"]
+    ex_768 = examples["serve_d768"]["launches"]["decode_attention"]
     ex_serve = {name: {arch: run["launches"][name]
                        for arch, run in examples["serve"].items()
                        if run["launches"][name]}
@@ -4437,15 +4681,16 @@ def main() -> int:
                 + fwd_s["launches"] + itrain["launches"]["flash_attention"]
                 + gtrain16["launches"]["flash_attention"]
                 + ktrain["launches"]["flash_attention"]
-                + ex_train["flash_attention"],
+                + ex_train["flash_attention"] + ex_big["flash_attention"],
                 "flash_attention_backward": train["launches"][
                     "flash_attention_backward"]
                 + gtrain["launches"]["flash_attention_backward"]
                 + strain["launches"]["flash_attention_backward"]
-                + ex_train["flash_attention_backward"],
+                + ex_train["flash_attention_backward"]
+                + ex_big["flash_attention_backward"],
                 "decode_attention": serve["launches"] + serve_k["launches"]
                 + serve_s["launches"]
-                + sum(ex_serve["decode_attention"].values()),
+                + sum(ex_serve["decode_attention"].values()) + ex_768,
                 "selective_scan": fwd_m["launches"] + serve_m["launches"]
                 + mtrain["launches"]["selective_scan"]
                 + sum(ex_serve["selective_scan"].values()),
@@ -4525,7 +4770,27 @@ def main() -> int:
         f32_seamless_launches_per_step=strain["fwd_per_step"],
         f32_seamless_device_ms_in_step=strain["fwd_device_ms"])
     flash_row["launches_examples_train"] = ex_train["flash_attention"]
+    # head dim 192 (the split-f32 pair kernels at 96 columns a block on the
+    # --big trainer's path; the bf16 forward beside it) and the padded
+    # route at 16 (built 32)
+    big_steps = examples["train_big"]["steps"]
+    flash_row.update(
+        **{f"f32_d192_{key}": val for key, val in d192_t["forward"].items()},
+        f32_d192_shape=list(D192_SHAPE[:5]),
+        f32_d192_launches_train_big=ex_big["flash_attention"],
+        f32_d192_launches_per_step=ex_big["flash_attention"] // big_steps,
+        **{f"bf16_d192_{key}": val
+           for key, val in d192_t["bf16_forward"].items()},
+        bf16_d192_forward_lse_device_ms=bwd16_d192["forward_lse_device_ms"],
+        **{f"f32_d16_{key}": val for key, val in d16_t["forward"].items()},
+        f32_d16_shape=list(D16_SHAPE[:5]), f32_d16_built_head_dim=32,
+        **{f"bf16_d16_{key}": val for key, val in d16_t["bf16_forward"].items()},
+        ptxas_d192=d192_ptxas)
     flash_row["max_abs_err"] = max(flash_row["max_abs_err"],
+                                   d192_t["forward"]["max_abs_err"],
+                                   d192_t["bf16_forward"]["max_abs_err"],
+                                   d16_t["forward"]["max_abs_err"],
+                                   d16_t["bf16_forward"]["max_abs_err"],
                                    flash_k["max_abs_err"],
                                    flash_s["bf16_forward"]["max_abs_err"],
                                    flash_s["forward"]["max_abs_err"])
@@ -4560,7 +4825,17 @@ def main() -> int:
         seamless_train_depth=[strain["depth"], strain["depth"]],
         seamless_train_remat=strain["remat"])
     bwd_row["launches_examples_train"] = ex_train["flash_attention_backward"]
+    bwd_row.update(
+        **{f"d192_{key}": val for key, val in d192_t["backward"].items()},
+        d192_shape=list(D192_SHAPE[:5]),
+        d192_launches_train_big=ex_big["flash_attention_backward"],
+        d192_launches_per_step=ex_big["flash_attention_backward"] // big_steps,
+        d192_train_big_wall_s=examples["train_big"]["wall_s"],
+        **{f"d16_{key}": val for key, val in d16_t["backward"].items()},
+        d16_shape=list(D16_SHAPE[:5]), d16_built_head_dim=32)
     bwd_row["max_abs_err"] = max(bwd_row["max_abs_err"],
+                                 d192_t["backward"]["max_abs_err"],
+                                 d16_t["backward"]["max_abs_err"],
                                  flash_s["backward"]["max_abs_err"])
     # the bf16 backward: internlm2's shape above (phase 11's), gemma2's dh
     # 256 (phase 11b's) and seamless's dh 64 non-causal beside it
@@ -4595,7 +4870,12 @@ def main() -> int:
         train_remat_variant=iremat,
         ptxas=bf16_ptxas,
         **{f"seamless_{key}": val for key, val in bwd16_s.items()})
+    bwd16_row.update(**{f"d192_{key}": val for key, val in bwd16_d192.items()},
+                     **{f"d16_{key}": val for key, val in bwd16_d16.items()},
+                     d16_built_head_dim=32)
     bwd16_row["max_abs_err"] = max(bwd16_row["max_abs_err"],
+                                   bwd16_d192["max_abs_err"],
+                                   bwd16_d16["max_abs_err"],
                                    bwd16_d256["max_abs_err"],
                                    bwd16_s["max_abs_err"],
                                    bwd16_k["max_abs_err"])
@@ -4633,6 +4913,16 @@ def main() -> int:
         **{f"seamless_cross_{key}": val for key, val in decode_s.items()},
         seamless_random_cross_step_max_abs_err=serve_s["cross_err"])
     decode_row["launches_examples_serve"] = ex_serve["decode_attention"]
+    # head dim 192 (launch.serve --d-model 768's server) and the padded
+    # route at 16 (built 32), at DECODE_WIDE_SHAPE
+    decode_row["launches_launch_serve_d768"] = ex_768
+    decode_row["launch_serve_d768"] = examples["serve_d768"]
+    for (D, keys), row in decode_wide.items():
+        tag = f"d{D}_" + ("serve_shape_" if keys == 64 else "full_cache_")
+        decode_row.update({tag + key: val for key, val in row.items()})
+        decode_row["max_abs_err"] = max(decode_row["max_abs_err"],
+                                        row["max_abs_err"])
+    decode_row["d192_shape"] = list(DECODE_WIDE_SHAPE) + [192]
     decode_row["max_abs_err"] = max(decode_row["max_abs_err"],
                                     decode_k["max_abs_err"],
                                     decode_s["max_abs_err"],

@@ -11,9 +11,10 @@ before CUDA starts):
     CUBLAS_WORKSPACE_CONFIG=:4096:8 PYTHONPATH=src python examples/torch_train_e2e.py
 On the CPU (the plain versions of the kernels):
     PYTHONPATH=src python examples/torch_train_e2e.py --device cpu
-Larger (~100M params, d_model 768, 12 layers). Its head dim is 192, which
-the card's attention kernels do not take (32, 64, 128 or 256), so it runs
-on the CPU only:
+Larger (~100M params, d_model 768, 12 layers, head dim 192: the split-f32
+flash kernels' pair instances at 192 on the card; each checkpoint, with
+AdamW's m and v, is ~1.2 GB):
+    CUBLAS_WORKSPACE_CONFIG=:4096:8 PYTHONPATH=src python examples/torch_train_e2e.py --big --steps 300
     PYTHONPATH=src python examples/torch_train_e2e.py --big --steps 300 --device cpu
 """
 import argparse

@@ -29,17 +29,19 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 # C entry points: name -> argtypes (every one returns a cudaError_t as int)
 SIGNATURES = {
+    # the attention entries take the true head dim, then the built one
     "repro_flash_attention_tc": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-                                 _I, _I, _F, _P),
+                                 _I, _I, _I, _F, _P),
     "repro_flash_attention_tc_bwd": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-                                     _I, _I, _I, _I, _I, _I, _I, _I, _F, _P),
+                                     _I, _I, _I, _I, _I, _I, _I, _I, _I, _F,
+                                     _P),
     "repro_flash_attention_f32tc": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
-                                    _I, _I, _I, _I, _F, _P),
+                                    _I, _I, _I, _I, _I, _F, _P),
     "repro_flash_attention_f32tc_bwd": (_P, _P, _P, _P, _P, _P, _P, _P, _P,
                                         _P, _P, _I, _I, _I, _I, _I, _I, _I,
-                                        _I, _F, _P),
+                                        _I, _I, _F, _P),
     "repro_decode_attention": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                               _I, _I, _I, _F, _I, _P),
+                               _I, _I, _I, _I, _F, _I, _P),
     "repro_selective_scan": (_P, _P, _P, _P, _I, _I, _L, _P),
     "repro_selective_scan_step": (_P, _P, _P, _P, _L, _I, _P),
     "repro_selective_scan_bwd": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _L, _P),

@@ -31,12 +31,14 @@ template <> struct RawVec<4> { using type = uint32_t; };
 template <> struct RawVec<8> { using type = uint2; };
 template <> struct RawVec<16> { using type = uint4; };
 
-// Load N consecutive elements starting at p (aligned to N * sizeof(T), up to
-// 16 bytes) into f32 registers, in chunks of at most 16 bytes.
+// Load N consecutive elements starting at p into f32 registers, in chunks of
+// the largest power of two that divides N * sizeof(T), at most 16 bytes
+// (p aligned to the chunk: 16 bytes for N = 4 f32, 8 for N = 6 f32).
 template <typename T, int N>
 __device__ __forceinline__ void load_row(const T* __restrict__ p, float (&out)[N]) {
   constexpr int kBytes = N * static_cast<int>(sizeof(T));
-  constexpr int kChunk = kBytes >= 16 ? 16 : kBytes;
+  constexpr int kLow = kBytes & -kBytes;   // the lowest set bit
+  constexpr int kChunk = kLow >= 16 ? 16 : kLow;
   constexpr int kChunks = kBytes / kChunk;
   constexpr int kPer = kChunk / static_cast<int>(sizeof(T));
   using V = typename RawVec<kChunk>::type;

@@ -11,7 +11,9 @@
 //   q head h reads kv head h / (H/KV). Key j stands for position offset + j
 //   (offset > 0 on a rank's range of a sequence-sharded cache). Keys are valid
 //   where kpos < length and, with a window, kpos >= length - window. Scores are
-//   (q.k)/sqrt(D) in f32, optionally soft-capped (softcap * tanh(s /
+//   (q.k)/sqrt(Dt) in f32, Dt the true head dim (D in {32, 64, 128, 192,
+//   256}; the wrapper pads any other Dt up to the next with zero columns),
+//   optionally soft-capped (softcap * tanh(s /
 //   softcap)). If no key is valid every score is the same masked value, so the
 //   softmax is uniform over all S keys: the kernel then averages V over S,
 //   which is what the XLA path (softmax over scores that are all -1e30) gives,
@@ -102,14 +104,17 @@ struct Part {
 
 // Compile-time shape of one instance: D dims, up to GMAX query heads per kv
 // head, KEYS keys scored together (independent shuffle chains), TILE keys per
-// ring stage.
+// ring stage (a whole number of key groups: at D = 192 a lane's EPL = 6 dims
+// are 24 or 12 bytes, loaded 8 or 4 bytes at a time, and 4096 bytes hold 2
+// f32 or 5 bf16 key pairs, 4 bf16 ones at KEYS 4 or 2).
 template <typename T, int D, int GMAX>
 struct Shape {
   static constexpr int EPL = D / 32;                                // dims per lane
   static constexpr int KEYS = GMAX <= 2 ? 4 : (GMAX == 4 ? 2 : 1);
   static constexpr int ROW_BYTES = D * static_cast<int>(sizeof(T));
   static constexpr int PAIR_BYTES = 2 * ROW_BYTES;
-  static constexpr int TILE = (kStageBytes / PAIR_BYTES > KEYS) ? kStageBytes / PAIR_BYTES : KEYS;
+  static constexpr int FIT = kStageBytes / PAIR_BYTES / KEYS * KEYS;
+  static constexpr int TILE = FIT > KEYS ? FIT : KEYS;
   static constexpr int CHUNKS = ROW_BYTES / 16;                     // 16-byte copies a row
   static constexpr int STAGE_ELEMS = TILE * 2 * D;                  // [TILE][K, V][D]
   static constexpr int RING_BYTES = kWarps * kStages * STAGE_ELEMS * static_cast<int>(sizeof(T));
@@ -355,7 +360,7 @@ decode_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
 template <typename T, int D, int GMAX>
 cudaError_t launch(const void* q, const void* k, const void* v, const int* lengths,
                    void* out, float* lse, int B, int S, int H, int KV, int offset,
-                   int window, float softcap, int n_split, cudaStream_t stream) {
+                   int window, float softcap, float scale, int n_split, cudaStream_t stream) {
   using Sh = Shape<T, D, GMAX>;
   auto* kernel = decode_attention_kernel<T, D, GMAX>;
   static std::atomic<uint64_t> smem_set{0};
@@ -376,7 +381,7 @@ cudaError_t launch(const void* q, const void* k, const void* v, const int* lengt
   const cudaError_t err = cudaLaunchKernelEx(
       &cfg, kernel, static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), lengths, static_cast<T*>(out), lse, S, H, KV, offset,
-      window, softcap, 1.0f / sqrtf(static_cast<float>(D)));
+      window, softcap, scale);
   return err != cudaSuccess ? err : cudaGetLastError();
 }
 
@@ -384,10 +389,10 @@ template <typename T, int D>
 cudaError_t dispatch_group(int G, const void* q, const void* k, const void* v,
                            const int* lengths, void* out, float* lse, int B, int S,
                            int H, int KV, int offset, int window, float softcap,
-                           int n_split, cudaStream_t stream) {
+                           float scale, int n_split, cudaStream_t stream) {
 #define REPRO_DECODE(GM)                                                          \
   return launch<T, D, GM>(q, k, v, lengths, out, lse, B, S, H, KV, offset, window, \
-                          softcap, n_split, stream)
+                          softcap, scale, n_split, stream)
   if (G <= 1) REPRO_DECODE(1);
   if (G <= 2) REPRO_DECODE(2);
   if (G <= 4) REPRO_DECODE(4);
@@ -400,11 +405,11 @@ cudaError_t dispatch_group(int G, const void* q, const void* k, const void* v,
 template <typename T>
 cudaError_t dispatch_dim(int D, int G, const void* q, const void* k, const void* v,
                          const int* lengths, void* out, float* lse, int B, int S, int H,
-                         int KV, int offset, int window, float softcap, int n_split,
-                         cudaStream_t stream) {
+                         int KV, int offset, int window, float softcap, float scale,
+                         int n_split, cudaStream_t stream) {
 #define REPRO_DECODE_D(DD)                                                       \
   return dispatch_group<T, DD>(G, q, k, v, lengths, out, lse, B, S, H, KV, offset, \
-                               window, softcap, n_split, stream)
+                               window, softcap, scale, n_split, stream)
   switch (D) {
     case 32:
       REPRO_DECODE_D(32);
@@ -412,6 +417,8 @@ cudaError_t dispatch_dim(int D, int G, const void* q, const void* k, const void*
       REPRO_DECODE_D(64);
     case 128:
       REPRO_DECODE_D(128);
+    case 192:
+      REPRO_DECODE_D(192);
     case 256:
       REPRO_DECODE_D(256);
 #undef REPRO_DECODE_D
@@ -423,28 +430,32 @@ cudaError_t dispatch_dim(int D, int G, const void* q, const void* k, const void*
 }  // namespace
 }  // namespace repro
 
-// C entry point. dtype: 0 = f32, 1 = bf16 (q, k, v and out share it). lse:
+// C entry point. dtype: 0 = f32, 1 = bf16 (q, k, v and out share it, [...,
+// D]). Dt <= D: the head dim the scores are scaled by (1 / sqrt(Dt)), the
+// columns from Dt on being zeros the wrapper padded them with. lse:
 // [B,H] f32 or null (not written). offset >= 0: key j is position offset + j.
 // window <= 0 means no window; softcap <= 0 means no softcap. n_split (1..8)
 // is the cluster size: the grid is (n_split, KV, B), one cluster per (kv head,
 // slot). Returns the launch's error (0 on success).
 extern "C" int repro_decode_attention(const void* q, const void* k, const void* v,
                                       const void* lengths, void* out, void* lse, int B,
-                                      int S, int H, int KV, int D, int dtype, int offset,
-                                      int window, float softcap, int n_split,
+                                      int S, int H, int KV, int Dt, int D, int dtype,
+                                      int offset, int window, float softcap, int n_split,
                                       void* stream) {
   using namespace repro;
   if (B <= 0 || B > 65535 || S <= 0 || KV <= 0 || KV > 65535 || H % KV != 0 ||
-      offset < 0 || n_split <= 0 || n_split > kMaxSplit || (dtype != 0 && dtype != 1))
+      offset < 0 || n_split <= 0 || n_split > kMaxSplit || (dtype != 0 && dtype != 1) ||
+      Dt <= 0 || Dt > D)
     return static_cast<int>(cudaErrorInvalidValue);
+  const float scale = 1.0f / sqrtf(static_cast<float>(Dt));
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int G = H / KV;
   const int* len = static_cast<const int*>(lengths);
   float* ls = static_cast<float*>(lse);
   const cudaError_t err = dtype == 0
       ? dispatch_dim<float>(D, G, q, k, v, len, out, ls, B, S, H, KV, offset, window,
-                            softcap, n_split, st)
+                            softcap, scale, n_split, st)
       : dispatch_dim<__nv_bfloat16>(D, G, q, k, v, len, out, ls, B, S, H, KV, offset,
-                                    window, softcap, n_split, st);
+                                    window, softcap, scale, n_split, st);
   return static_cast<int>(err);
 }

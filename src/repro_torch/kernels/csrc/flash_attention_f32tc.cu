@@ -3,9 +3,14 @@
 //
 // Replaces: src/repro/kernels/flash_attention.py, `_kernel` / `flash_attention`
 // (the Pallas TPU kernel, grid (B, H, S/bq, S/bk) with the k axis sequential)
-// for f32 operands at head dims 32, 64, 128 (internlm2's train path) and 256
-// (gemma2-9b's). The Pallas kernel has no backward (JAX differentiates XLA
-// attention); the backward here is that of this forward.
+// for f32 operands at head dims 32, 64, 128 (internlm2's train path), 192
+// (d_model 768 over 4 heads: examples/torch_train_e2e.py --big) and 256
+// (gemma2-9b's); any other head dim Dt up to 256 runs the instance of the
+// next of those (D), the prep launch writing zeros into the copies' columns
+// Dt .. D - 1 (no copy beyond the prep's own): they add nothing to a score,
+// their output columns are not stored, and the scale is 1 / sqrt(Dt). The
+// Pallas kernel has no backward (JAX differentiates XLA attention); the
+// backward here is that of this forward.
 //
 // Function: as ref.flash_attention_ref / ref.flash_attention_backward_ref.
 //   q [B,Sq,H,D], k/v [B,Sk,KV,D] f32; q head h reads kv head h / (H/KV).
@@ -94,7 +99,16 @@
 // step, not two); with its 16 KB the backward rings keep one stage of each
 // part in dk/dv, and in dq two of the K-major part and one transposed. The rest is the D = 128 code
 // at DH = 128: the pair shares the prep launch, the masks and the loop, and
-// the kernels are named *_d256_* in a profile. Two consumer warpgroups in
+// the kernels are named *_d256_* in a profile.
+// D = 192 takes the same pair at DH = 96 (*_d192_*): one block of 192
+// columns would hold the backward's fixed operands (4 x 48 KB) but not the
+// streamed tiles beside them, nor dk + dv (192 registers) beside the
+// products' parts. A pair of 96-column blocks reuses the exchange as it is:
+// three 128-byte boxes a row (NC = 3), 12 k8 steps a score product, wgmma's
+// m64n96k8 into the accumulators, and room for two transposed ring stages
+// (189.5 KB). 128 + 64 columns would leave the two blocks unequal work
+// behind one barrier a step; three blocks of 64 would add a second peer to
+// every exchange and a fixed order of three partial sums. Two consumer warpgroups in
 // one block, splitting D through its own shared memory, would fit the
 // forward but not the backward's fixed operands, so both take the cluster.
 // The prep's hi copy stays: reading the raw f32 as hi would truncate it
@@ -113,7 +127,7 @@ constexpr int kThreads = 128;
 // Tile sizes of a block that owns D columns of the head dim.
 template <int D>
 struct Geo {
-  static_assert(D == 32 || D == 64 || D == 128, "head-dim columns of a block");
+  static_assert(D == 32 || D == 64 || D == 96 || D == 128, "head-dim columns of a block");
   static constexpr int NC = D / 32;             // 128-byte boxes across D
   static constexpr int FIX = kRows * D * 4;     // one part (hi or lo) of a fixed operand
   static constexpr int STR = kBN * D * 4;       // one part of a streamed K-major tile
@@ -121,10 +135,11 @@ struct Geo {
 };
 
 // How a head dim D is split: N blocks (a cluster of N when N = 2) take one
-// (rows, head) tile, each the DH = D / N columns of its cluster rank.
+// (rows, head) tile, each the DH = D / N columns of its cluster rank: one
+// block up to D = 128, a pair at 192 (DH = 96) and 256 (DH = 128).
 template <int D>
 struct Split {
-  static constexpr int N = D == 256 ? 2 : 1;
+  static constexpr int N = D > 128 ? 2 : 1;
   static constexpr int DH = D / N;
 };
 
@@ -132,9 +147,11 @@ __host__ __device__ constexpr int round16(int s) { return (s + 15) / 16 * 16; }
 
 // ---- prep: hi/lo copies, as stored and transposed ----------------------------
 
-// One operand x [B, S, heads, D] of the prep launch. hi/lo (as stored) and
-// thi/tlo (transposed, [B, heads, D, S_pad]) are written when non-null;
-// with `dot` ([B, S, heads, D]), delta[b, head, s] = sum_d x * dot.
+// One operand x [B, S, heads, Dt] of the prep launch (Dt <= D, the built
+// head dim of the copies). hi/lo (as stored, [B, S, heads, D]) and thi/tlo
+// (transposed, [B, heads, D, S_pad]) are written when non-null, columns
+// Dt .. D - 1 as zeros; with `dot` ([B, S, heads, Dt]), delta[b, head, s] =
+// sum_d x * dot.
 struct PrepOp {
   const float* src;
   const float* dot;
@@ -144,7 +161,7 @@ struct PrepOp {
 
 struct PrepArgs {
   PrepOp op[4];
-  int n_ops, B, D;
+  int n_ops, B, D, Dt;
 };
 
 constexpr int kPrepThreads = 256;
@@ -155,21 +172,35 @@ __device__ __forceinline__ float tf32_hi(float x) { return __uint_as_float(sm90:
 // kPerm[s] = {0,2,4,6,1,3,5,7}[s]: the row stored at position s of a group of 8
 __device__ __forceinline__ int k_perm(int s) { return ((s & 3) << 1) | (s >> 2); }
 
-// One block: 32 rows of one head of one operand, all D columns.
+// Columns c and c + 1 of an output row of Dt floats (Dt <= the built head
+// dim; columns from Dt on are the padding's and are not stored): one float2
+// where Dt is even (the row and c then 8-byte aligned), else each column.
+__device__ __forceinline__ void store_cols(float* row, int c, int Dt, float x, float y) {
+  if (Dt % 2 == 0) {
+    if (c < Dt) *reinterpret_cast<float2*>(row + c) = make_float2(x, y);
+  } else {
+    if (c < Dt) row[c] = x;
+    if (c + 1 < Dt) row[c + 1] = y;
+  }
+}
+
+// One block: 32 rows of one head of one operand, all D columns (zeros from
+// Dt on: the padding of a head dim the kernels are not built for).
 __device__ __forceinline__ void prep_body(const PrepArgs& a) {
   extern __shared__ float tile[];   // [32][D + 1]
   int blk = blockIdx.x, i = 0;
   while (i + 1 < a.n_ops && blk >= a.op[i].blocks) blk -= a.op[i++].blocks;
   const PrepOp& p = a.op[i];
-  const int D = a.D, LD = D + 1, S = p.S, heads = p.heads;
+  const int D = a.D, Dt = a.Dt, LD = D + 1, S = p.S, heads = p.heads;
   const int n_st = (S + kPrepRows - 1) / kPrepRows;
   const int st = blk % n_st, head = (blk / n_st) % heads, b = blk / n_st / heads;
   const int s0 = st * kPrepRows;
   const int tid = threadIdx.x;
   for (int e = tid; e < kPrepRows * D; e += kPrepThreads) {
     const int r = e / D, d = e % D, s = s0 + r;
-    const size_t g = ((static_cast<size_t>(b) * S + s) * heads + head) * D + d;
-    const float x = s < S ? p.src[g] : 0.f;
+    const size_t row = (static_cast<size_t>(b) * S + s) * heads + head;
+    const size_t g = row * D + d;
+    const float x = s < S && d < Dt ? p.src[row * Dt + d] : 0.f;
     tile[r * LD + d] = x;
     if (p.hi != nullptr && s < S) {
       const float hi = tf32_hi(x);
@@ -195,9 +226,9 @@ __device__ __forceinline__ void prep_body(const PrepArgs& a) {
     for (int r = warp; r < kPrepRows; r += kPrepThreads / 32) {
       const int s = s0 + r;
       if (s >= S) break;
-      const float* o = p.dot + ((static_cast<size_t>(b) * S + s) * heads + head) * D;
+      const float* o = p.dot + ((static_cast<size_t>(b) * S + s) * heads + head) * Dt;
       float acc = 0.f;
-      for (int d = lane; d < D; d += 32) acc = fmaf(tile[r * LD + d], o[d], acc);
+      for (int d = lane; d < Dt; d += 32) acc = fmaf(tile[r * LD + d], o[d], acc);
       acc = warp_sum(acc);
       if (lane == 0) p.delta[(static_cast<size_t>(b) * heads + head) * S + s] = acc;
     }
@@ -355,12 +386,15 @@ struct FwdMaps {
   MapPair q, k, vt;   // Q and K as stored, V transposed
 };
 
-// The forward of one (64 q rows, head, batch) tile, or at D = 256 of its
-// DH = 128 head-dim columns of the cluster rank (see Split).
+// The forward of one (64 q rows, head, batch) tile, or at D = 192 and 256
+// of its DH head-dim columns of the cluster rank (see Split). o's rows hold
+// Dt <= D columns (D - Dt: the padding's zero columns, not stored); scale is
+// 1 / sqrt(Dt).
 template <int D, bool kCap>
 __device__ __forceinline__ void fwd_body(const FwdMaps& m, float* __restrict__ o,
                                          float* __restrict__ lse, int Sq, int Sk, int H, int KV,
-                                         int causal, int window, float softcap, float scale) {
+                                         int causal, int window, float softcap, float scale,
+                                         int Dt) {
   constexpr int NS = Split<D>::N, DH = Split<D>::DH;
   using G = Geo<DH>;
   extern __shared__ uint8_t smem_raw[];
@@ -512,20 +546,19 @@ __device__ __forceinline__ void fwd_body(const FwdMaps& m, float* __restrict__ o
   // lse from rank 0 only: both blocks of a pair hold the same m and l
   const bool write_lse = lse != nullptr && lane % 4 == 0 && rank == 0;
   if (qpos0 < Sq) {
-    float* dst = o + ((static_cast<size_t>(b) * Sq + qpos0) * H + h) * D + c0 + col;
+    float* dst = o + ((static_cast<size_t>(b) * Sq + qpos0) * H + h) * Dt;
 #pragma unroll
     for (int j = 0; j < DH / 8; ++j)
-      *reinterpret_cast<float2*>(dst + 8 * j) = make_float2(acc[4 * j] * inv0, acc[4 * j + 1] * inv0);
+      store_cols(dst, c0 + col + 8 * j, Dt, acc[4 * j] * inv0, acc[4 * j + 1] * inv0);
     if (write_lse)
       lse[(static_cast<size_t>(b) * H + h) * Sq + qpos0] =
           l0 == 0.f ? INFINITY : m0 * scale + logf(l0);
   }
   if (qpos1 < Sq) {
-    float* dst = o + ((static_cast<size_t>(b) * Sq + qpos1) * H + h) * D + c0 + col;
+    float* dst = o + ((static_cast<size_t>(b) * Sq + qpos1) * H + h) * Dt;
 #pragma unroll
     for (int j = 0; j < DH / 8; ++j)
-      *reinterpret_cast<float2*>(dst + 8 * j) =
-          make_float2(acc[4 * j + 2] * inv1, acc[4 * j + 3] * inv1);
+      store_cols(dst, c0 + col + 8 * j, Dt, acc[4 * j + 2] * inv1, acc[4 * j + 3] * inv1);
     if (write_lse)
       lse[(static_cast<size_t>(b) * H + h) * Sq + qpos1] =
           l1 == 0.f ? INFINITY : m1 * scale + logf(l1);
@@ -533,22 +566,30 @@ __device__ __forceinline__ void fwd_body(const FwdMaps& m, float* __restrict__ o
   if constexpr (NS == 2) sm90::cluster_wait();   // the peer is done reading ours: exit
 }
 
+#define REPRO_F32TC_FWD_ARGS                                                          \
+  const __grid_constant__ FwdMaps m, float* __restrict__ o, float* __restrict__ lse, int Sq, \
+      int Sk, int H, int KV, int causal, int window, float softcap, float scale, int Dt
+#define REPRO_F32TC_FWD_CALL m, o, lse, Sq, Sk, H, KV, causal, window, softcap, scale, Dt
+
 template <int D, bool kCap>
-__global__ void __launch_bounds__(kThreads, 2)
-flash_f32tc_fwd_kernel(const __grid_constant__ FwdMaps m, float* __restrict__ o,
-                       float* __restrict__ lse, int Sq, int Sk, int H, int KV, int causal,
-                       int window, float softcap, float scale) {
-  fwd_body<D, kCap>(m, o, lse, Sq, Sk, H, KV, causal, window, softcap, scale);
+__global__ void __launch_bounds__(kThreads, 2) flash_f32tc_fwd_kernel(REPRO_F32TC_FWD_ARGS) {
+  fwd_body<D, kCap>(REPRO_F32TC_FWD_CALL);
 }
 
-// D = 256: a cluster of two blocks a tile, one per half of the head dim.
+// D = 192 and 256: a cluster of two blocks a tile, one per half of the head dim.
 template <bool kCap>
 __global__ void __cluster_dims__(2, 1, 1) __launch_bounds__(kThreads, 2)
-flash_f32tc_fwd_d256_kernel(const __grid_constant__ FwdMaps m, float* __restrict__ o,
-                            float* __restrict__ lse, int Sq, int Sk, int H, int KV, int causal,
-                            int window, float softcap, float scale) {
-  fwd_body<256, kCap>(m, o, lse, Sq, Sk, H, KV, causal, window, softcap, scale);
+flash_f32tc_fwd_d192_kernel(REPRO_F32TC_FWD_ARGS) {
+  fwd_body<192, kCap>(REPRO_F32TC_FWD_CALL);
 }
+
+template <bool kCap>
+__global__ void __cluster_dims__(2, 1, 1) __launch_bounds__(kThreads, 2)
+flash_f32tc_fwd_d256_kernel(REPRO_F32TC_FWD_ARGS) {
+  fwd_body<256, kCap>(REPRO_F32TC_FWD_CALL);
+}
+#undef REPRO_F32TC_FWD_ARGS
+#undef REPRO_F32TC_FWD_CALL
 
 // ---- backward ----------------------------------------------------------------
 
@@ -562,32 +603,34 @@ struct BwdMaps {
 
 // The backward's rings of streamed tiles: NY stages of the K-major part
 // (y1, y2 hi/lo), NT of the transposed part (t1 and, in dk/dv, t2), each
-// refilled NY / NT steps ahead; as many as 227 KB hold at D = 128. At D = 256
-// a block of the pair holds the half-D copies (DH = 128) and its exchange
-// stages (s and dp), which leave room for one stage fewer: dk/dv keeps one
-// of each part, dq two K-major ones (its next scores' tiles then load
-// during this step's products) and one transposed.
+// refilled NY / NT steps ahead: dk/dv one K-major stage, dq two (its next
+// scores' tiles then load during this step's products), and two transposed
+// ones where 227 KB hold them. At D = 128 they do; at D = 256 a block of the
+// pair holds the half-D copies (DH = 128) and its exchange stages (s and
+// dp), which leave room for one transposed stage; at D = 192 (DH = 96) two.
 template <int D, bool kDQ>
 struct BwdRing {
   static constexpr int DH = Split<D>::DH;
-  static constexpr bool kPair = Split<D>::N == 2;
-  static constexpr int NY = kDQ ? 2 : 1, NT = kPair ? 1 : 2;
+  static constexpr int NY = kDQ ? 2 : 1;
   static constexpr int Y_BYTES = 4 * Geo<DH>::STR;                  // one stage
   static constexpr int T_BYTES = (kDQ ? 2 : 4) * Geo<DH>::TR;       // one stage
   static constexpr int XCH = xch_bytes<D, 16>();
-  static constexpr int SMEM = 1024 + 4 * Geo<DH>::FIX + NY * Y_BYTES + NT * T_BYTES + XCH + 64;
+  static constexpr int FIXED = 1024 + 4 * Geo<DH>::FIX + NY * Y_BYTES + XCH + 64;
+  static constexpr int NT = FIXED + 2 * T_BYTES <= 232448 ? 2 : 1;
+  static constexpr int SMEM = FIXED + NT * T_BYTES;
   static_assert(SMEM <= 232448, "tiles exceed a block's shared memory");
   static_assert(1 + NY + NT <= 8, "barriers");
 };
 
-// The dk/dv (kDQ false) or dq (kDQ true) launch; see BwdMaps. At D = 256 one
-// block of a pair, for the DH head-dim columns of its cluster rank.
+// The dk/dv (kDQ false) or dq (kDQ true) launch; see BwdMaps. At D = 192 and
+// 256 one block of a pair, for the DH head-dim columns of its cluster rank.
+// The outputs' rows hold Dt <= D columns (as fwd_body's o).
 template <int D, bool kDQ, bool kCap>
 __device__ __forceinline__ void bwd_body(const BwdMaps& m, const float* __restrict__ lse,
                                          const float* __restrict__ delta,
                                          float* __restrict__ out1, float* __restrict__ out2,
                                          int Sq, int Sk, int H, int KV, int causal, int window,
-                                         float softcap, float scale) {
+                                         float softcap, float scale, int Dt) {
   constexpr int NS = Split<D>::N, DH = Split<D>::DH;
   using G = Geo<DH>;
   using R = BwdRing<D, kDQ>;
@@ -794,27 +837,27 @@ __device__ __forceinline__ void bwd_body(const BwdMaps& m, const float* __restri
 #pragma unroll
   for (int e = 0; e < 2; ++e) {
     if (rows[e] >= S_out) continue;
-    const size_t base =
-        ((static_cast<size_t>(b) * S_out + rows[e]) * heads_out + xhead) * D + c0 + col;
+    const size_t base = ((static_cast<size_t>(b) * S_out + rows[e]) * heads_out + xhead) * Dt;
 #pragma unroll
     for (int j = 0; j < DH / 8; ++j) {
-      *reinterpret_cast<float2*>(out1 + base + 8 * j) =
-          make_float2(acc1[4 * j + 2 * e], acc1[4 * j + 2 * e + 1]);
+      const int c = c0 + col + 8 * j;
+      store_cols(out1 + base, c, Dt, acc1[4 * j + 2 * e], acc1[4 * j + 2 * e + 1]);
       if constexpr (!kDQ)
-        *reinterpret_cast<float2*>(out2 + base + 8 * j) =
-            make_float2(acc2[4 * j + 2 * e], acc2[4 * j + 2 * e + 1]);
+        store_cols(out2 + base, c, Dt, acc2[4 * j + 2 * e], acc2[4 * j + 2 * e + 1]);
     }
   }
   if constexpr (NS == 2) sm90::cluster_wait();   // the peer is done reading ours: exit
 }
 
 // Two names for the profile: the dk/dv launch (out1 = dv, out2 = dk) and
-// the dq launch (out1 = dq); at D = 256 two more, whose blocks form pairs.
+// the dq launch (out1 = dq); at D = 192 and 256 two more each, whose blocks
+// form pairs.
 #define REPRO_F32TC_BWD_ARGS                                                          \
   const __grid_constant__ BwdMaps m, const float* __restrict__ lse,                  \
       const float* __restrict__ delta, float* __restrict__ out1, float* __restrict__ out2, \
-      int Sq, int Sk, int H, int KV, int causal, int window, float softcap, float scale
-#define REPRO_F32TC_BWD_CALL m, lse, delta, out1, out2, Sq, Sk, H, KV, causal, window, softcap, scale
+      int Sq, int Sk, int H, int KV, int causal, int window, float softcap, float scale, int Dt
+#define REPRO_F32TC_BWD_CALL \
+  m, lse, delta, out1, out2, Sq, Sk, H, KV, causal, window, softcap, scale, Dt
 
 template <int D, bool kCap>
 __global__ void __launch_bounds__(kThreads, 1) flash_f32tc_dkdv_kernel(REPRO_F32TC_BWD_ARGS) {
@@ -824,6 +867,18 @@ __global__ void __launch_bounds__(kThreads, 1) flash_f32tc_dkdv_kernel(REPRO_F32
 template <int D, bool kCap>
 __global__ void __launch_bounds__(kThreads, 1) flash_f32tc_dq_kernel(REPRO_F32TC_BWD_ARGS) {
   bwd_body<D, true, kCap>(REPRO_F32TC_BWD_CALL);
+}
+
+template <bool kCap>
+__global__ void __cluster_dims__(2, 1, 1) __launch_bounds__(kThreads, 1)
+flash_f32tc_dkdv_d192_kernel(REPRO_F32TC_BWD_ARGS) {
+  bwd_body<192, false, kCap>(REPRO_F32TC_BWD_CALL);
+}
+
+template <bool kCap>
+__global__ void __cluster_dims__(2, 1, 1) __launch_bounds__(kThreads, 1)
+flash_f32tc_dq_d192_kernel(REPRO_F32TC_BWD_ARGS) {
+  bwd_body<192, true, kCap>(REPRO_F32TC_BWD_CALL);
 }
 
 template <bool kCap>
@@ -840,22 +895,26 @@ flash_f32tc_dq_d256_kernel(REPRO_F32TC_BWD_ARGS) {
 #undef REPRO_F32TC_BWD_ARGS
 #undef REPRO_F32TC_BWD_CALL
 
-// The kernels of head dim D: those of one block a tile, or of pairs at 256.
+// The kernels of head dim D: those of one block a tile, or of pairs at 192
+// and 256.
 template <int D, bool kCap>
 auto fwd_kernel() {
-  if constexpr (Split<D>::N == 2) return flash_f32tc_fwd_d256_kernel<kCap>;
+  if constexpr (D == 256) return flash_f32tc_fwd_d256_kernel<kCap>;
+  else if constexpr (D == 192) return flash_f32tc_fwd_d192_kernel<kCap>;
   else return flash_f32tc_fwd_kernel<D, kCap>;
 }
 
 template <int D, bool kCap>
 auto dkdv_kernel() {
-  if constexpr (Split<D>::N == 2) return flash_f32tc_dkdv_d256_kernel<kCap>;
+  if constexpr (D == 256) return flash_f32tc_dkdv_d256_kernel<kCap>;
+  else if constexpr (D == 192) return flash_f32tc_dkdv_d192_kernel<kCap>;
   else return flash_f32tc_dkdv_kernel<D, kCap>;
 }
 
 template <int D, bool kCap>
 auto dq_kernel() {
-  if constexpr (Split<D>::N == 2) return flash_f32tc_dq_d256_kernel<kCap>;
+  if constexpr (D == 256) return flash_f32tc_dq_d256_kernel<kCap>;
+  else if constexpr (D == 192) return flash_f32tc_dq_d192_kernel<kCap>;
   else return flash_f32tc_dq_kernel<D, kCap>;
 }
 
@@ -936,10 +995,12 @@ cudaError_t launch_prep(Kernel kernel, const PrepArgs& a, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
+// Dt: the operands' head dim, at most the kernels' D (the columns between
+// are the padding's, zeros in the prep launch's copies).
 struct Args {
   const float *q, *k, *v, *out, *dout, *lse;
   float *o, *lse_out, *delta, *dq, *dk, *dv, *work;
-  int B, Sq, Sk, H, KV, causal, window;
+  int B, Sq, Sk, H, KV, Dt, causal, window;
   float softcap;
 };
 
@@ -956,6 +1017,7 @@ cudaError_t launch_forward(const Args& a, cudaStream_t stream) {
   p.n_ops = 3;
   p.B = a.B;
   p.D = D;
+  p.Dt = a.Dt;
   p.op[0] = prep_op(a.q, a.B, a.Sq, a.H);
   p.op[0].hi = w + off[0];
   p.op[0].lo = w + off[1];
@@ -983,7 +1045,7 @@ cudaError_t launch_forward(const Args& a, cudaStream_t stream) {
   const dim3 grid(NS * a.H, a.B, (a.Sq + kRows - 1) / kRows);
   kernel<<<grid, kThreads, smem, stream>>>(
       m, a.o, a.lse_out, a.Sq, a.Sk, a.H, a.KV, a.causal, a.window, a.softcap,
-      1.0f / sqrtf(static_cast<float>(D)));
+      1.0f / sqrtf(static_cast<float>(a.Dt)), a.Dt);
   return cudaGetLastError();
 }
 
@@ -1003,6 +1065,7 @@ cudaError_t launch_backward(const Args& a, cudaStream_t stream) {
   p.n_ops = 4;
   p.B = a.B;
   p.D = D;
+  p.Dt = a.Dt;
   p.op[0] = prep_op(a.q, a.B, a.Sq, a.H);
   p.op[0].hi = qhi, p.op[0].lo = qlo, p.op[0].thi = qthi, p.op[0].tlo = qtlo;
   p.op[1] = prep_op(a.dout, a.B, a.Sq, a.H);
@@ -1038,15 +1101,16 @@ cudaError_t launch_backward(const Args& a, cudaStream_t stream) {
   if (err != cudaSuccess) return err;
   err = set_smem_once(dq_set, dq, dq_smem);
   if (err != cudaSuccess) return err;
-  const float scale = 1.0f / sqrtf(static_cast<float>(D));
+  const float scale = 1.0f / sqrtf(static_cast<float>(a.Dt));
   const dim3 grid_kv(NS * KV, B, (Sk + kRows - 1) / kRows);
   dkdv<<<grid_kv, kThreads, dkdv_smem, stream>>>(
-      kv, a.lse, a.delta, a.dv, a.dk, Sq, Sk, H, KV, a.causal, a.window, a.softcap, scale);
+      kv, a.lse, a.delta, a.dv, a.dk, Sq, Sk, H, KV, a.causal, a.window, a.softcap, scale, a.Dt);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   const dim3 grid_q(NS * H, B, (Sq + kRows - 1) / kRows);
   dq<<<grid_q, kThreads, dq_smem, stream>>>(
-      qd, a.lse, a.delta, a.dq, nullptr, Sq, Sk, H, KV, a.causal, a.window, a.softcap, scale);
+      qd, a.lse, a.delta, a.dq, nullptr, Sq, Sk, H, KV, a.causal, a.window, a.softcap, scale,
+      a.Dt);
   return cudaGetLastError();
 }
 
@@ -1063,14 +1127,16 @@ cudaError_t dispatch(const Args& a, int D, cudaStream_t st) {
     REPRO_F32TC_CASE(32)
     REPRO_F32TC_CASE(64)
     REPRO_F32TC_CASE(128)
+    REPRO_F32TC_CASE(192)
     REPRO_F32TC_CASE(256)
     default: return cudaErrorInvalidValue;
   }
 #undef REPRO_F32TC_CASE
 }
 
-bool shape_ok(int B, int Sq, int Sk, int H, int KV) {
+bool shape_ok(int B, int Sq, int Sk, int H, int KV, int Dt, int D) {
   return B > 0 && Sq > 0 && Sk > 0 && KV > 0 && H % KV == 0 && B <= 65535 && H <= 65535 &&
+         Dt > 0 && Dt <= D &&
          (Sq + kRows - 1) / kRows <= 65535 && (Sk + kRows - 1) / kRows <= 65535;
 }
 
@@ -1086,22 +1152,25 @@ extern "C" long long repro_flash_f32tc_workspace(int B, int Sq, int Sk, int H, i
       repro::workspace_parts(B, Sq, Sk, H, KV, D, backward != 0, off));
 }
 
-// C entry points, f32 only, D in {32, 64, 128, 256}. The forward writes out and,
-// when lse is non-null, lse [B,H,Sq]; the backward writes dq, dk, dv and
-// delta [B,H,Sq] (scratch). work: repro_flash_f32tc_workspace bytes, 256-byte
-// aligned. causal is 0 or 1; window <= 0 means none; softcap <= 0 means none.
+// C entry points, f32 only. Dt: the operands' head dim (q, k, v, out, dout,
+// dq, dk, dv are [..., Dt]); D in {32, 64, 128, 192, 256}, Dt <= D: the
+// kernels' head dim, the prep launch padding Dt up to it with zero columns;
+// the scale is 1 / sqrt(Dt). The forward writes out and, when lse is
+// non-null, lse [B,H,Sq]; the backward writes dq, dk, dv and delta [B,H,Sq]
+// (scratch). work: repro_flash_f32tc_workspace bytes at D, 256-byte aligned.
+// causal is 0 or 1; window <= 0 means none; softcap <= 0 means none.
 // Each launches its kernels on `stream` in order and returns the first error
 // (cudaGetLastError() after each launch; cudaErrorInvalidValue for a shape
 // it does not take or a tensor map cuTensorMapEncodeTiled refuses).
 extern "C" int repro_flash_attention_f32tc(const float* q, const float* k, const float* v,
                                            float* out, float* lse, float* work, int B, int Sq,
-                                           int Sk, int H, int KV, int D, int causal, int window,
-                                           float softcap, void* stream) {
+                                           int Sk, int H, int KV, int Dt, int D, int causal,
+                                           int window, float softcap, void* stream) {
   using namespace repro;
-  if (!shape_ok(B, Sq, Sk, H, KV)) return static_cast<int>(cudaErrorInvalidValue);
+  if (!shape_ok(B, Sq, Sk, H, KV, Dt, D)) return static_cast<int>(cudaErrorInvalidValue);
   Args a{};
   a.q = q, a.k = k, a.v = v, a.o = out, a.lse_out = lse, a.work = work;
-  a.B = B, a.Sq = Sq, a.Sk = Sk, a.H = H, a.KV = KV;
+  a.B = B, a.Sq = Sq, a.Sk = Sk, a.H = H, a.KV = KV, a.Dt = Dt;
   a.causal = causal, a.window = window, a.softcap = softcap;
   return static_cast<int>(dispatch<false>(a, D, static_cast<cudaStream_t>(stream)));
 }
@@ -1110,14 +1179,14 @@ extern "C" int repro_flash_attention_f32tc_bwd(const float* q, const float* k, c
                                                const float* out, const float* dout,
                                                const float* lse, float* delta, float* dq,
                                                float* dk, float* dv, float* work, int B, int Sq,
-                                               int Sk, int H, int KV, int D, int causal,
+                                               int Sk, int H, int KV, int Dt, int D, int causal,
                                                int window, float softcap, void* stream) {
   using namespace repro;
-  if (!shape_ok(B, Sq, Sk, H, KV)) return static_cast<int>(cudaErrorInvalidValue);
+  if (!shape_ok(B, Sq, Sk, H, KV, Dt, D)) return static_cast<int>(cudaErrorInvalidValue);
   Args a{};
   a.q = q, a.k = k, a.v = v, a.out = out, a.dout = dout, a.lse = lse;
   a.delta = delta, a.dq = dq, a.dk = dk, a.dv = dv, a.work = work;
-  a.B = B, a.Sq = Sq, a.Sk = Sk, a.H = H, a.KV = KV;
+  a.B = B, a.Sq = Sq, a.Sk = Sk, a.H = H, a.KV = KV, a.Dt = Dt;
   a.causal = causal, a.window = window, a.softcap = softcap;
   return static_cast<int>(dispatch<true>(a, D, static_cast<cudaStream_t>(stream)));
 }

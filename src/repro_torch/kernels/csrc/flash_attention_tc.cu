@@ -13,7 +13,9 @@
 //   f32, then the optional tanh softcap, then the causal mask kpos <= qpos
 //   with an optional window kpos > qpos - window (only when causal). Masked
 //   scores get no weight; running max, sum and output are f32; a row whose sum
-//   is 0 outputs 0. Any Sq and Sk; D in {32, 64, 128, 256}. When asked, lse
+//   is 0 outputs 0. Any Sq and Sk; D in {32, 64, 128, 192, 256} (the
+//   wrapper pads any other head dim Dt up to the next of those with zero
+//   columns, and the scale is 1 / sqrt(Dt), the true head dim's). When asked, lse
 //   [B,H,Sq] f32 = m + log(sum of P before its bf16 rounding) of each row
 //   (+inf for a row with no kept key), as ref.flash_attention_lse_ref, is
 //   written after the output, which stays the same bits (a template flag:
@@ -61,8 +63,10 @@
 //   * The q tile is the slowest grid axis, taken in reverse, so the heaviest
 //     causal tiles start first and the light ones fill the tail.
 //   * Tiles: BK = 128 keys and 3 stages for D <= 128 (Q 32 KB + 3 x (K + V)
-//     192 KB at D = 128), BK = 64 and 2 stages for D = 256 (Q 64 KB +
-//     2 x (K + V) 128 KB). At D = 256, 32-key tiles in 4 stages measured
+//     192 KB at D = 128), BK = 64 and 2 stages above (Q 64 KB + 2 x (K + V)
+//     128 KB at D = 256; 48 + 96 KB at 192, whose O of 96 registers takes
+//     the D = 256 block of two consumer warpgroups and no producer warp).
+//     At D = 256, 32-key tiles in 4 stages measured
 //     0.308 ms against 0.228 on an H100 at gemma2-9b's shape: O's rescale
 //     (128 registers), the row max shuffles and the barrier waits come once
 //     a tile, twice as often.
@@ -409,24 +413,23 @@ flash_fwd_tc_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constan
 template <int D, bool kCap, bool kLse>
 cudaError_t launch_kernel(const CUtensorMap& tq, const CUtensorMap& tk, const CUtensorMap& tv,
                       void* o, float* lse, int B, int Sq, int Sk, int H, int KV, int causal,
-                      int window, float softcap, cudaStream_t stream) {
+                      int window, float softcap, float scale, cudaStream_t stream) {
   using T = Tile<D>;
   static std::atomic<uint64_t> smem_set{0};
   const cudaError_t attr = set_smem_once(smem_set, flash_fwd_tc_kernel<D, kCap, kLse>, T::SMEM);
   if (attr != cudaSuccess) return attr;
   const dim3 grid(H, B, (Sq + kBQ - 1) / kBQ);
   flash_fwd_tc_kernel<D, kCap, kLse><<<grid, T::THREADS, T::SMEM, stream>>>(
-      tq, tk, tv, static_cast<bf16*>(o), lse, Sq, Sk, H, KV, causal, window, softcap,
-      1.0f / sqrtf(static_cast<float>(D)));
+      tq, tk, tv, static_cast<bf16*>(o), lse, Sq, Sk, H, KV, causal, window, softcap, scale);
   return cudaGetLastError();
 }
 
 // Tensor maps for q, k, v, then the kernel for D with or without a softcap
-// and an lse output.
+// and an lse output; scale = 1 / sqrt(Dt).
 template <int D>
 cudaError_t launch_tc(const void* q, const void* k, const void* v, void* o, float* lse, int B,
-                      int Sq, int Sk, int H, int KV, int causal, int window, float softcap,
-                      cudaStream_t stream) {
+                      int Sq, int Sk, int H, int KV, int Dt, int causal, int window,
+                      float softcap, cudaStream_t stream) {
   using T = Tile<D>;
   const cudaError_t bound = sm90::bind_context();
   if (bound != cudaSuccess) return bound;
@@ -440,33 +443,43 @@ cudaError_t launch_tc(const void* q, const void* k, const void* v, void* o, floa
                                             : launch_kernel<D, true, false>)
                           : (lse != nullptr ? launch_kernel<D, false, true>
                                             : launch_kernel<D, false, false>);
-  return kernel(tq, tk, tv, o, lse, B, Sq, Sk, H, KV, causal, window, softcap, stream);
+  return kernel(tq, tk, tv, o, lse, B, Sq, Sk, H, KV, causal, window, softcap,
+                1.0f / sqrtf(static_cast<float>(Dt)), stream);
 }
 
 }  // namespace
 }  // namespace repro
 
-// C entry point, bf16 only (q, k, v and out). lse [B,H,Sq] f32 is written
-// when non-null (the backward's input; out is the same bits either way).
+// C entry point, bf16 only (q, k, v and out, [..., D]). lse [B,H,Sq] f32 is
+// written when non-null (the backward's input; out is the same bits either
+// way). Dt <= D: the head dim the scores are scaled by (1 / sqrt(Dt)), the
+// operands' columns from Dt on being zeros the wrapper padded them with.
 // causal is 0 or 1; window <= 0 means no window; softcap <= 0 means none. Returns cudaGetLastError() after
 // the launch (0 on success), or cudaErrorInvalidValue for a shape it does not
 // take or a tensor map cuTensorMapEncodeTiled refuses.
 extern "C" int repro_flash_attention_tc(const void* q, const void* k, const void* v, void* out,
-                                        float* lse, int B, int Sq, int Sk, int H, int KV, int D,
-                                        int causal, int window, float softcap, void* stream) {
+                                        float* lse, int B, int Sq, int Sk, int H, int KV, int Dt,
+                                        int D, int causal, int window, float softcap,
+                                        void* stream) {
   using namespace repro;
   if (B <= 0 || Sq <= 0 || Sk <= 0 || KV <= 0 || H % KV != 0 || B > 65535 ||
-      (Sq + kBQ - 1) / kBQ > 65535)
+      (Sq + kBQ - 1) / kBQ > 65535 || Dt <= 0 || Dt > D)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t err;
+#define REPRO_TC_CASE(DD)                                                                     \
+  case DD:                                                                                    \
+    err = launch_tc<DD>(q, k, v, out, lse, B, Sq, Sk, H, KV, Dt, causal, window, softcap, st); \
+    break;
   switch (D) {
-    case 32: err = launch_tc<32>(q, k, v, out, lse, B, Sq, Sk, H, KV, causal, window, softcap, st); break;
-    case 64: err = launch_tc<64>(q, k, v, out, lse, B, Sq, Sk, H, KV, causal, window, softcap, st); break;
-    case 128: err = launch_tc<128>(q, k, v, out, lse, B, Sq, Sk, H, KV, causal, window, softcap, st); break;
-    case 256: err = launch_tc<256>(q, k, v, out, lse, B, Sq, Sk, H, KV, causal, window, softcap, st); break;
+    REPRO_TC_CASE(32)
+    REPRO_TC_CASE(64)
+    REPRO_TC_CASE(128)
+    REPRO_TC_CASE(192)
+    REPRO_TC_CASE(256)
     default: err = cudaErrorInvalidValue;
   }
+#undef REPRO_TC_CASE
   return static_cast<int>(err);
 }
 
@@ -478,6 +491,7 @@ extern "C" int repro_flash_tc_smem(int D) {
     case 32: return Tile<32>::SMEM;
     case 64: return Tile<64>::SMEM;
     case 128: return Tile<128>::SMEM;
+    case 192: return Tile<192>::SMEM;
     case 256: return Tile<256>::SMEM;
     default: return 0;
   }

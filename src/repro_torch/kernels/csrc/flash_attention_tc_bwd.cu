@@ -15,7 +15,9 @@
 //   Products take bf16 operands and sum in f32: S and dP from the bf16
 //   inputs, and P and dS rounded to bf16 before the products into dv, dk and
 //   dq (tests/test_torch_kernels.py emulates these roundings on the CPU).
-//   D in {32, 64, 128, 256}; any Sq and Sk; head groups up to 16.
+//   D in {32, 64, 128, 192, 256} (the wrapper pads any other head dim Dt up
+//   to the next of those with zero columns; the scale is 1 / sqrt(Dt), a
+//   kernel argument); any Sq and Sk; head groups up to 16.
 //
 // What bounds it on the card: operations. Five products of the kept pairs
 // (S recomputed, dP, dv, dk, dq): at [2,2048,16,128] kv 8 causal 85.94 GFLOP,
@@ -42,14 +44,14 @@
 //     a ring of NS stages, each with a full and an empty mbarrier
 //     (sm90::Ring), refilled as soon as all eight warps have released a
 //     stage, polled between the thread's own steps; no block-wide barrier.
-//   * Row split (dk/dv below D = 128, dq below D = 256): ROWS = 128, each
+//   * Row split (dk/dv below D = 128, dq below D = 192): ROWS = 128, each
 //     warpgroup owns 64 of them and all their outputs, and both read every
 //     streamed stage, so each tile feeds 128 rows of products. The two run
 //     unsynchronised beyond the ring. A step none of whose pairs a
 //     warpgroup keeps (the first q tile of the upper 64 keys under
 //     causality, tiles past a window) is skipped by it; its barriers are
 //     passed all the same.
-//   * Product split (dk/dv from D = 128, dq at D = 256): ROWS = 64 and the
+//   * Product split (dk/dv from D = 128, dq from D = 192): ROWS = 64 and the
 //     warpgroups split the work instead of duplicating it: warpgroup 0
 //     computes S (all of D, one chain of products, as in the row split), P
 //     and dV (dk/dv) or only S and P (dq); warpgroup 1 computes dP, dS and
@@ -91,7 +93,11 @@
 //   * Shared memory (fixed + ring + exchange + lse/delta): dk/dv at D = 64
 //     32 + 4 x 16 + 2 KB; D = 128 32 + 4 x 32 + 32 + 1 KB (194 KB); D = 256
 //     64 + 2 x 64 + 32 + 1 KB (226 KB of the 227 KB a block may take); dq
-//     at D = 128 64 + 4 x 32 KB, at D = 256 64 + 2 x 64 + 32 KB.
+//     at D = 128 64 + 4 x 32 KB, at D = 256 64 + 2 x 64 + 32 KB. D = 192
+//     takes D = 256's settings (two stages; dk/dv 48 + 2 x 48 + 32 + 1 KB,
+//     dq 48 + 2 x 48 + 32 KB): a row-split dq warpgroup there would hold a
+//     64 x 192 accumulator, S, dP, P and dS (192 registers before any
+//     address), where D = 128's row-split dk/dv at as many spilled.
 #include "common.cuh"
 #include "hopper.cuh"
 
@@ -124,10 +130,10 @@ struct Bwd {
   // the warpgroups split the products of 64 rows, not 128 rows between
   // them: dk/dv from D = 128 (a row-split warpgroup there holds two 64 x 128
   // f32 accumulators, S, dP, P and dS, 224 registers, and ptxas spilled the
-  // ring's and the masks' state past 255), dq at D = 256
-  static constexpr bool SPLIT = kDQ ? D == 256 : D >= 128;
+  // ring's and the masks' state past 255), dq from D = 192
+  static constexpr bool SPLIT = kDQ ? D >= 192 : D >= 128;
   static constexpr int ROWS = SPLIT ? kR : 2 * kR; // a block's own rows (keys, or queries)
-  static constexpr int NS = D == 256 ? 2 : 4;      // ring of streamed stages
+  static constexpr int NS = D > 128 ? 2 : 4;       // ring of streamed stages
   // the next step's score products issued right behind this step's output
   // products (dq at D <= 64 runs two blocks an SM, in 128 registers, and
   // waits for its output products first)
@@ -222,25 +228,24 @@ __device__ __forceinline__ void accumulate(float (&acc)[D / 2], const uint32_t (
 // tanh(raw scale / softcap) and z = t softcap log2 e; scale without one, and
 // z = raw scale log2 e. tanh(y) = 1 - 2 / (2^(2 y log2 e) + 1) on the fast
 // exp2 and reciprocal, within about 1e-7 of tanh; P's exp2 is the forward's.
-// scale = 1 / sqrt(D), the f32 value of 1.0f / sqrtf(D), as a constant of
-// the instance (no register holds it).
-template <int D>
-constexpr float kScale = D == 32 ? 0x1.6a09e6p-3f : D == 64 ? 0.125f
-                       : D == 128 ? 0x1.6a09e6p-4f : 0.0625f;
-
-template <bool kCap, int D>
+// scale = 1 / sqrt(Dt), the f32 value of 1.0f / sqrtf(Dt) for the true head
+// dim Dt, and zscale = scale * log2 e (its f32 product) are kernel
+// arguments, read where they are used (an instruction's constant operand,
+// not a register the loop holds).
+template <bool kCap>
 struct Score {
-  static constexpr float scale = kScale<D>;
+  float scale, zscale;
   float c_raw, c_cap;   // raw -> tanh's argument and t -> z (softcap only)
-  __device__ __forceinline__ explicit Score(float softcap)
-      : c_raw(kCap ? scale / softcap : 0.f), c_cap(softcap * kLog2e) {}
+  __device__ __forceinline__ Score(float softcap, float scale_, float zscale_)
+      : scale(scale_), zscale(zscale_), c_raw(kCap ? scale_ / softcap : 0.f),
+        c_cap(softcap * kLog2e) {}
   __device__ __forceinline__ void eval(float raw, float& z, float& chain) const {
     if constexpr (kCap) {
       const float t = 1.f - 2.f * rcp(ex2(raw * c_raw * (2.f * kLog2e)) + 1.f);
       z = t * c_cap;
       chain = (1.f - t * t) * scale;
     } else {
-      z = raw * (scale * kLog2e);
+      z = raw * zscale;
       chain = scale;
     }
   }
@@ -285,7 +290,7 @@ __device__ __forceinline__ bool all_kept(int q0, int k0, int Sq, int Sk, int cau
 // query; with `edge` each element is held to its row's range (r0: e < 2).
 template <bool kCap, int D, typename LL, typename DL>
 __device__ __forceinline__ void p_and_ds(const float (&s)[kR / 2], const float (&dp)[kR / 2],
-                                         const Score<kCap, D>& sc, bool edge, Range r0, Range r1,
+                                         const Score<kCap>& sc, bool edge, Range r0, Range r1,
                                          LL ll, DL dl, uint32_t (&pf)[kR / 16][4],
                                          uint32_t (&dsf)[kR / 16][4]) {
 #pragma unroll
@@ -311,7 +316,7 @@ __device__ __forceinline__ void p_and_ds(const float (&s)[kR / 2], const float (
 // j < 8), g = P (1 - tanh^2) scale, the factor dS = g (dP - delta) takes
 // from the scores.
 template <bool kCap, int D, typename LL>
-__device__ __forceinline__ void probs(const float (&s)[kR / 2], const Score<kCap, D>& sc,
+__device__ __forceinline__ void probs(const float (&s)[kR / 2], const Score<kCap>& sc,
                                       bool edge, Range r0, Range r1, LL ll,
                                       uint32_t (&pf)[kR / 16][4], float4* __restrict__ x) {
 #pragma unroll
@@ -529,7 +534,7 @@ __global__ void __launch_bounds__(kThreads, 1)
 flash_bwd_tc_dkdv_kernel(REPRO_TC_BWD_MAPS, const float* __restrict__ lse,
                          const float* __restrict__ delta, bf16* __restrict__ dk,
                          bf16* __restrict__ dv, int Sq, int Sk, int H, int KV, int causal,
-                         int window, float softcap) {
+                         int window, float softcap, float scale, float zscale) {
   using T = Bwd<D, false>;
   const Smem<D, false> sm(smem_raw);   // fixed: K (sA) and V (sB); a stage: Q, then dO
 
@@ -559,7 +564,7 @@ flash_bwd_tc_dkdv_kernel(REPRO_TC_BWD_MAPS, const float* __restrict__ lse,
   const int col = 2 * (lane % 4);   // this thread's first column in each group of 8
   const uint64_t y_k = kmajor_desc<D>(sm.sY), y_mn = mnmajor_desc<D>(sm.sY);   // stage 0's Q
   constexpr uint64_t kStage = (2 * T::TILE) >> 4, kSecond = T::TILE >> 4;      // dO = Q + kSecond
-  const Score<kCap, D> sc(softcap);
+  const Score<kCap> sc(softcap, scale, zscale);
 
   // lse (times log2 e) and delta of each step's queries, through shared
   // memory: thread t of a warpgroup loads query t % 64's (lse for t < 64 at
@@ -700,7 +705,8 @@ template <int D, bool kCap>
 __global__ void __launch_bounds__(kThreads, Bwd<D, true>::BLOCKS)
 flash_bwd_tc_dq_kernel(REPRO_TC_BWD_MAPS, const float* __restrict__ lse,
                        const float* __restrict__ delta, bf16* __restrict__ dq, int Sq, int Sk,
-                       int H, int KV, int causal, int window, float softcap) {
+                       int H, int KV, int causal, int window, float softcap, float scale,
+                       float zscale) {
   using T = Bwd<D, true>;
   const Smem<D, true> sm(smem_raw);   // fixed: Q (sA) and dO (sB); a stage: K, then V
 
@@ -728,7 +734,7 @@ flash_bwd_tc_dq_kernel(REPRO_TC_BWD_MAPS, const float* __restrict__ lse,
   const int col = 2 * (lane % 4);
   const uint64_t y_k = kmajor_desc<D>(sm.sY), y_mn = mnmajor_desc<D>(sm.sY);   // stage 0's K
   constexpr uint64_t kStage = (2 * T::TILE) >> 4, kSecond = T::TILE >> 4;      // V = K + kSecond
-  const Score<kCap, D> sc(softcap);
+  const Score<kCap> sc(softcap, scale, zscale);
   // this warpgroup's queries (row split) or the block's (product split)
   const int qw0 = x0 + (T::SPLIT ? 0 : wg * kR);
   const int row0 = qw0 + warp * 16 + lane / 4;   // this thread's queries: row0, row0 + 8
@@ -789,7 +795,7 @@ flash_bwd_tc_dq_kernel(REPRO_TC_BWD_MAPS, const float* __restrict__ lse,
     sm90::fence_regs(acc);
     store_rows<D>(dq, acc, b, Sq, H, h, row0, col);
   } else {
-    // product split (D = 256): warpgroup 0 computes S = Q K^T and P's
+    // product split (D >= 192): warpgroup 0 computes S = Q K^T and P's
     // factor g; warpgroup 1 dP = dO V^T, dS and dQ += dS K
     const uint64_t x_desc = kmajor_desc<D>(wg == 0 ? sm.sA : sm.sB);
     const uint64_t y_off = wg == 0 ? 0 : kSecond;
@@ -841,7 +847,7 @@ struct BwdArgs {
   float* delta;
   void *dq, *dk, *dv;
   int B, Sq, Sk, H, KV, causal, window;
-  float softcap;
+  float softcap, scale;   // scale = 1 / sqrt(Dt)
 };
 
 template <int D, bool kCap>
@@ -871,13 +877,13 @@ cudaError_t launch_bwd(const BwdArgs& a, cudaStream_t st) {
   flash_bwd_tc_dkdv_kernel<D, kCap><<<dim3(a.KV, a.B, (a.Sk + KV::ROWS - 1) / KV::ROWS),
                                       kThreads, KV::SMEM, st>>>(
       tq, tk, tv, tdo, a.lse, a.delta, static_cast<bf16*>(a.dk), static_cast<bf16*>(a.dv),
-      a.Sq, a.Sk, a.H, a.KV, a.causal, a.window, a.softcap);
+      a.Sq, a.Sk, a.H, a.KV, a.causal, a.window, a.softcap, a.scale, a.scale * kLog2e);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   flash_bwd_tc_dq_kernel<D, kCap><<<dim3(a.H, a.B, (a.Sq + Q::ROWS - 1) / Q::ROWS), kThreads,
                                     Q::SMEM, st>>>(
       tq, tk, tv, tdo, a.lse, a.delta, static_cast<bf16*>(a.dq), a.Sq, a.Sk, a.H, a.KV,
-      a.causal, a.window, a.softcap);
+      a.causal, a.window, a.softcap, a.scale, a.scale * kLog2e);
   return cudaGetLastError();
 }
 
@@ -889,8 +895,10 @@ cudaError_t dispatch_cap(const BwdArgs& a, cudaStream_t st) {
 }  // namespace
 }  // namespace repro
 
-// C entry point, bf16 q, k, v, out, dout, dq, dk, dv; f32 lse [B,H,Sq] (the
-// forward's) and delta [B,H,Sq] (scratch). causal is 0 or 1; window <= 0
+// C entry point, bf16 q, k, v, out, dout, dq, dk, dv ([..., D]); f32 lse
+// [B,H,Sq] (the forward's) and delta [B,H,Sq] (scratch). Dt <= D: the head
+// dim the scores are scaled by (1 / sqrt(Dt)), the operands' columns from Dt
+// on being zeros the wrapper padded them with. causal is 0 or 1; window <= 0
 // means none; softcap <= 0 means none. Launches delta, dk/dv and dq on
 // `stream` in order and returns the first error (cudaGetLastError() after
 // each launch; cudaErrorInvalidValue for a shape it does not take or a
@@ -898,20 +906,22 @@ cudaError_t dispatch_cap(const BwdArgs& a, cudaStream_t st) {
 extern "C" int repro_flash_attention_tc_bwd(const void* q, const void* k, const void* v,
                                             const void* out, const void* dout, const float* lse,
                                             float* delta, void* dq, void* dk, void* dv, int B,
-                                            int Sq, int Sk, int H, int KV, int D, int causal,
-                                            int window, float softcap, void* stream) {
+                                            int Sq, int Sk, int H, int KV, int Dt, int D,
+                                            int causal, int window, float softcap, void* stream) {
   using namespace repro;
   if (B <= 0 || Sq <= 0 || Sk <= 0 || KV <= 0 || H % KV != 0 || B > 65535 || H > 65535 ||
       (Sq + kR - 1) / kR > 65535 || (Sk + kR - 1) / kR > 65535 ||
-      static_cast<long long>(B) * Sq * H > 0x7fffffffLL)
+      static_cast<long long>(B) * Sq * H > 0x7fffffffLL || Dt <= 0 || Dt > D)
     return static_cast<int>(cudaErrorInvalidValue);
-  BwdArgs a{q, k, v, out, dout, lse, delta, dq, dk, dv, B, Sq, Sk, H, KV, causal, window, softcap};
+  BwdArgs a{q, k, v, out, dout, lse, delta, dq, dk, dv, B, Sq, Sk, H, KV, causal, window, softcap,
+            1.0f / sqrtf(static_cast<float>(Dt))};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   switch (D) {
     case 32: err = dispatch_cap<32>(a, st); break;
     case 64: err = dispatch_cap<64>(a, st); break;
     case 128: err = dispatch_cap<128>(a, st); break;
+    case 192: err = dispatch_cap<192>(a, st); break;
     case 256: err = dispatch_cap<256>(a, st); break;
     default: err = cudaErrorInvalidValue;
   }
@@ -927,6 +937,7 @@ extern "C" int repro_flash_tc_bwd_smem(int D, int dq) {
     case 32: return dq ? Bwd<32, true>::SMEM : Bwd<32, false>::SMEM;
     case 64: return dq ? Bwd<64, true>::SMEM : Bwd<64, false>::SMEM;
     case 128: return dq ? Bwd<128, true>::SMEM : Bwd<128, false>::SMEM;
+    case 192: return dq ? Bwd<192, true>::SMEM : Bwd<192, false>::SMEM;
     case 256: return dq ? Bwd<256, true>::SMEM : Bwd<256, false>::SMEM;
     default: return 0;
   }

@@ -16,11 +16,22 @@ gets a shape-only route: the outputs the kernel route allocates, as
 (when set) with the work the card's kernel does (``_meta_call``). It takes
 the kernel route's checks, so the trace fails where the card would.
 
+The attention kernels are built for head dims 32, 64, 128, 192 and 256
+(``HEAD_DIMS``). Any other head dim up to 256 runs the instance of the next
+of those (``built_head_dim``), chosen before any launch: its operands get
+zero columns up to that width, which add nothing to a score, and its
+outputs are cut back to the true width; the kernels scale the scores by
+1 / sqrt of the true head dim. The split-f32 flash kernels pad in their
+prep launch, which copies every operand anyway, and write their outputs at
+the true width; the bf16 flash pair and decode take operands padded here
+(``_pad_head``, a copy on the device) and give outputs sliced here.
+
 ``LAUNCHES`` counts kernel launches per wrapper (one per call that reaches
 the card, however many device kernels the call runs: a split-f32 flash
 forward runs two, a flash backward three in either dtype),
-``SCAN_VARIANTS`` the scan's launches by variant (``scan_variant``);
-``reset_launches()`` sets every count to 0.
+``SCAN_VARIANTS`` the scan's launches by variant (``scan_variant``),
+``BUILT_WIDTHS`` the attention launches by (wrapper, head dim, built head
+dim); ``reset_launches()`` sets every count to 0.
 
 Flash attention and the scan are differentiable: with grad on and an
 operand that needs it, ``flash_attention`` goes through ``FlashAttention``
@@ -34,6 +45,7 @@ versions of both.
 """
 from __future__ import annotations
 
+import collections
 import ctypes
 import functools
 from typing import Optional
@@ -46,8 +58,10 @@ LAUNCHES = {"flash_attention": 0, "flash_attention_backward": 0,
             "decode_attention": 0, "selective_scan": 0,
             "selective_scan_backward": 0}
 SCAN_VARIANTS = {"step": 0, "sequential": 0}
+# launches of the attention wrappers by (wrapper, head dim, built head dim)
+BUILT_WIDTHS: collections.Counter = collections.Counter()
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-_HEAD_DIMS = (32, 64, 128, 256)
+HEAD_DIMS = (32, 64, 128, 192, 256)   # the attention kernels' instances
 _MAX_GROUP = 16
 MAX_CLUSTER = 8   # the portable thread block cluster size
 
@@ -66,6 +80,7 @@ def reset_launches() -> None:
     for counts in (LAUNCHES, SCAN_VARIANTS):
         for name in counts:
             counts[name] = 0
+    BUILT_WIDTHS.clear()
 
 
 @functools.cache
@@ -80,12 +95,43 @@ def _check_heads(H: int, KV: int) -> None:
         raise ValueError(f"q heads {H} must be a multiple of kv heads {KV}")
 
 
-def _check_attention_limits(name: str, H: int, KV: int, D: int) -> None:
-    """Head dims and head groups the attention kernels are built for."""
+def built_head_dim(dtype: torch.dtype, head_dim: int) -> int:
+    """The head dim of the attention kernel instance that takes ``head_dim``
+    in ``dtype`` on the card: ``head_dim`` itself where it is one of
+    ``HEAD_DIMS``, else the smallest of them above it (the operands padded
+    with zero columns). The same in f32 and bf16, for flash (forward and
+    backward) and decode; a head dim above 256 raises."""
+    if dtype not in _DTYPES:
+        raise ValueError(f"attention: no kernel for {dtype}")
+    if not 1 <= head_dim <= HEAD_DIMS[-1]:
+        raise ValueError(f"attention: head dim {head_dim} outside 1..{HEAD_DIMS[-1]}"
+                         f" (the kernels are built for {HEAD_DIMS})")
+    return next(d for d in HEAD_DIMS if d >= head_dim)
+
+
+def _check_attention_limits(name: str, H: int, KV: int, D: int,
+                            dtype: torch.dtype) -> int:
+    """Head groups the attention kernels take, and the built head dim that
+    takes D (``built_head_dim``)."""
     if H // KV > _MAX_GROUP:
         raise ValueError(f"{name}: head group {H // KV} > {_MAX_GROUP}")
-    if D not in _HEAD_DIMS:
-        raise ValueError(f"{name}: head dim {D} not in {_HEAD_DIMS}")
+    try:
+        return built_head_dim(dtype, D)
+    except ValueError as e:
+        raise ValueError(f"{name}: {e}") from None
+
+
+def _pad_head(t: torch.Tensor, width: int) -> torch.Tensor:
+    """t [..., D] with zero columns up to ``width`` (t itself at D = width):
+    a new contiguous tensor on t's device."""
+    D = t.shape[-1]
+    return t if D == width else torch.nn.functional.pad(t, (0, width - D))
+
+
+def _cut_head(t: torch.Tensor, D: int) -> torch.Tensor:
+    """The first D columns of a padded output, contiguous (t itself when it
+    has D)."""
+    return t if t.shape[-1] == D else t[..., :D].contiguous()
 
 
 # How each wrapper's gradient is taken, for the message of a bare kernel call
@@ -204,17 +250,18 @@ def flash_attention_forward(q, k, v, causal, window, softcap, *,
     if q.device.type == "cpu":
         out = ref.flash_attention_ref(q, k, v, **kw)
         return out, ref.flash_attention_lse_ref(q, k, **kw) if want_lse else None
-    _check_attention_limits("flash_attention", H, k.shape[2], D)
+    Db = _check_attention_limits("flash_attention", H, k.shape[2], D, q.dtype)
     _check_cuda_operands("flash_attention", q, k, v)
-    out = torch.empty_like(q)
     lse = q.new_empty((B, H, Sq), dtype=torch.float32) if want_lse else None
-    if q.device.type == "meta":   # two products a kept pair
+    if q.device.type == "meta":   # two products a kept pair, at the built width
+        padded = [_pad_head(t, Db) for t in (q, k, v)]
         _meta_call("flash_attention",
-                   4 * B * H * D * kept_pairs(Sq, k.shape[1], causal, window),
-                   flash_rate(q.dtype), (q, k, v), (out, lse))
-        return out, lse
-    _launch_flash_attention(q, k, v, out, lse, causal, window, softcap)
+                   4 * B * H * Db * kept_pairs(Sq, k.shape[1], causal, window),
+                   flash_rate(q.dtype), padded, (padded[0], lse))
+        return torch.empty_like(q), lse
+    out = _launch_flash_attention(q, k, v, Db, lse, causal, window, softcap)
     LAUNCHES["flash_attention"] += 1
+    BUILT_WIDTHS["flash_attention", D, Db] += 1
     return out, lse
 
 
@@ -265,84 +312,100 @@ def flash_attention_backward(q: torch.Tensor, k: torch.Tensor,
     kw = dict(causal=causal, window=window, softcap=softcap)
     if q.device.type == "cpu":
         return ref.flash_attention_backward_ref(q, k, v, out, lse, dout, **kw)
-    _check_attention_limits("flash_attention_backward", H, k.shape[2], D)
+    Db = _check_attention_limits("flash_attention_backward", H, k.shape[2], D,
+                                 q.dtype)
     ts = (q, k, v, out, lse, dout)
     _check_cuda_operands("flash_attention_backward", *ts)
     variant = flash_variant(q.dtype, D)
-    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     delta = torch.empty_like(lse)
-    if q.device.type == "meta":   # five products a kept pair
+    if q.device.type == "meta":   # five products a kept pair, at the built width
+        padded = [_pad_head(t, Db) for t in (q, k, v, out, dout)]
         _meta_call("flash_attention_backward",
-                   10 * B * H * D * kept_pairs(Sq, k.shape[1], causal, window),
-                   flash_rate(q.dtype), ts, (dq, dk, dv))
-        return dq, dk, dv
+                   10 * B * H * Db * kept_pairs(Sq, k.shape[1], causal, window),
+                   flash_rate(q.dtype), padded + [lse], padded[:3])
+        return torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     lib = build.load()
-    ptrs = (_ptr(q), _ptr(k), _ptr(v), _ptr(out), _ptr(dout), _ptr(lse),
-            _ptr(delta), _ptr(dq), _ptr(dk), _ptr(dv))
-    args = (B, Sq, k.shape[1], H, k.shape[2], D, int(causal), int(window or 0),
-            float(softcap or 0.0), _stream())
-    if variant == "tensor_core":
-        code = lib.repro_flash_attention_tc_bwd(*ptrs, *args)
-    else:
-        work = _f32tc_workspace(q, k, backward=True)
-        code = lib.repro_flash_attention_f32tc_bwd(*ptrs, _ptr(work), *args)
+    args = (B, Sq, k.shape[1], H, k.shape[2], D, Db, int(causal),
+            int(window or 0), float(softcap or 0.0), _stream())
+    if variant == "tensor_core":   # operands padded to Db, grads cut back to D
+        padded = [_pad_head(t, Db) for t in (q, k, v, out, dout)]
+        grads = [torch.empty_like(t) for t in padded[:3]]
+        code = lib.repro_flash_attention_tc_bwd(
+            *map(_ptr, padded), _ptr(lse), _ptr(delta), *map(_ptr, grads),
+            *args)
+        grads = [_cut_head(t, D) for t in grads]
+    else:   # the prep launch pads; the grads are written at D
+        grads = [torch.empty_like(t) for t in (q, k, v)]
+        work = _f32tc_workspace(q, k, Db, backward=True)
+        code = lib.repro_flash_attention_f32tc_bwd(
+            _ptr(q), _ptr(k), _ptr(v), _ptr(out), _ptr(dout), _ptr(lse),
+            _ptr(delta), *map(_ptr, grads), _ptr(work), *args)
     _raise_on(code, "flash_attention_backward")
     LAUNCHES["flash_attention_backward"] += 1
-    return dq, dk, dv
+    BUILT_WIDTHS["flash_attention_backward", D, Db] += 1
+    return tuple(grads)
 
 
 def flash_variant(dtype: torch.dtype, head_dim: int) -> str:
     """The CUDA kernels that take flash attention in ``dtype`` at head dim
-    ``head_dim`` (one of ``_HEAD_DIMS``), chosen before any launch (never a
-    fallback):
+    ``head_dim`` (1 to 256: the instance of ``built_head_dim``), chosen
+    before any launch (never a fallback):
 
     - bf16: "tensor_core", ``csrc/flash_attention_tc.cu`` (wgmma + TMA; the
       forward, ``flash_fwd_tc_kernel``) and ``csrc/flash_attention_tc_bwd.cu``
       (its backward: ``flash_bwd_tc_delta_kernel``, ``flash_bwd_tc_dkdv_kernel``
       and ``flash_bwd_tc_dq_kernel``; two warpgroups a block, each owning 64
       of its 128 rows, or splitting the products of its 64 rows: dk/dv from
-      D = 128, dq at D = 256);
+      D = 128, dq from D = 192);
     - f32: "split_f32", ``csrc/flash_attention_f32tc.cu``, forward and
       backward on the tensor cores with split-f32 products (hi + lo tf32
       parts, three wgmma a product): one TF32 product keeps 10 mantissa bits
-      and misses the f32 tolerance (2e-5), three of them meet it. At D = 256
-      a tile takes a cluster of two blocks, one per half of the head dim."""
-    if head_dim not in _HEAD_DIMS:
-        raise ValueError(f"flash_attention: head dim {head_dim} not in "
-                         f"{_HEAD_DIMS}")
-    if dtype == torch.bfloat16:
-        return "tensor_core"
-    if dtype == torch.float32:
-        return "split_f32"
-    raise ValueError(f"flash_attention: no kernel for {dtype}")
+      and misses the f32 tolerance (2e-5), three of them meet it. At D = 192
+      and 256 a tile takes a cluster of two blocks, one per half of the head
+      dim."""
+    if dtype not in _DTYPES:
+        raise ValueError(f"flash_attention: no kernel for {dtype}")
+    try:
+        built_head_dim(dtype, head_dim)
+    except ValueError as e:
+        raise ValueError(f"flash_attention: {e}") from None
+    return "tensor_core" if dtype == torch.bfloat16 else "split_f32"
 
 
-def _f32tc_workspace(q, k, *, backward: bool) -> torch.Tensor:
+def _f32tc_workspace(q, k, Db: int, *, backward: bool) -> torch.Tensor:
     """The split-f32 kernels' workspace (the hi/lo operand copies their prep
-    launch writes), as many bytes as the C side asks for."""
-    B, Sq, H, D = q.shape
+    launch writes, at the built head dim Db), as many bytes as the C side
+    asks for."""
+    B, Sq, H, _ = q.shape
     nbytes = build.load().repro_flash_f32tc_workspace(
-        B, Sq, k.shape[1], H, k.shape[2], D, int(backward))
+        B, Sq, k.shape[1], H, k.shape[2], Db, int(backward))
     return torch.empty(nbytes // 4, dtype=torch.float32, device=q.device)
 
 
-def _launch_flash_attention(q, k, v, out, lse, causal, window, softcap) -> None:
+def _launch_flash_attention(q, k, v, Db, lse, causal, window,
+                            softcap) -> torch.Tensor:
+    """The forward kernel of q's dtype at built head dim Db; returns the
+    output [B, Sq, H, D]."""
     B, Sq, H, D = q.shape
     Sk, KV = k.shape[1], k.shape[2]
     lib = build.load()
-    args = (B, Sq, Sk, H, KV, D, int(causal), int(window or 0),
+    args = (B, Sq, Sk, H, KV, D, Db, int(causal), int(window or 0),
             float(softcap or 0.0), _stream())
-    variant = flash_variant(q.dtype, D)
     lse_p = ctypes.c_void_p(None) if lse is None else _ptr(lse)
-    if variant == "tensor_core":
-        code = lib.repro_flash_attention_tc(_ptr(q), _ptr(k), _ptr(v),
+    if flash_variant(q.dtype, D) == "tensor_core":   # padded to Db, cut back
+        qp, kp, vp = (_pad_head(t, Db) for t in (q, k, v))
+        out = torch.empty_like(qp)
+        code = lib.repro_flash_attention_tc(_ptr(qp), _ptr(kp), _ptr(vp),
                                             _ptr(out), lse_p, *args)
-    else:
-        work = _f32tc_workspace(q, k, backward=False)
+        out = _cut_head(out, D)
+    else:   # the prep launch pads; o is written at D
+        out = torch.empty_like(q)
+        work = _f32tc_workspace(q, k, Db, backward=False)
         code = lib.repro_flash_attention_f32tc(_ptr(q), _ptr(k), _ptr(v),
                                                _ptr(out), lse_p, _ptr(work),
                                                *args)
     _raise_on(code, "flash_attention")
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -388,31 +451,38 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         return ref.decode_attention_ref(q, k, v, lengths, softcap=softcap,
                                         window=window, offset=offset,
                                         return_lse=return_lse)
-    _check_attention_limits("decode_attention", H, k.shape[2], D)
+    Db = _check_attention_limits("decode_attention", H, k.shape[2], D, q.dtype)
     _check_cuda_operands("decode_attention", q, k, v, lengths)
-    out = torch.empty_like(q)
     lse = (q.new_empty((B, H), dtype=torch.float32) if return_lse else None)
     if q.device.type == "meta":   # two products a key of the whole cache
-        _meta_call("decode_attention", 4 * B * H * k.shape[1] * D, "f32",
-                   (q, k, v, lengths), (out, lse))
+        padded = [_pad_head(t, Db) for t in (q, k, v)]
+        _meta_call("decode_attention", 4 * B * H * k.shape[1] * Db, "f32",
+                   padded + [lengths], (padded[0], lse))
+        out = torch.empty_like(q)
         return (out, lse) if return_lse else out
-    _launch_decode_attention(q, k, v, lengths, out, lse, offset, window,
-                             softcap)
+    out = _launch_decode_attention(q, k, v, lengths, Db, lse, offset, window,
+                                   softcap)
     LAUNCHES["decode_attention"] += 1
+    BUILT_WIDTHS["decode_attention", D, Db] += 1
     return (out, lse) if return_lse else out
 
 
-def _launch_decode_attention(q, k, v, lengths, out, lse, offset, window,
-                             softcap) -> None:
+def _launch_decode_attention(q, k, v, lengths, Db, lse, offset, window,
+                             softcap) -> torch.Tensor:
+    """The decode kernel at built head dim Db (q, k, v padded to it here);
+    returns the output [B, H, D]."""
     B, H, D = q.shape
     S, KV = k.shape[1], k.shape[2]
     n_split = decode_grid(B, KV, S, sm_count(q.device.index))
+    qp, kp, vp = (_pad_head(t, Db) for t in (q, k, v))
+    out = torch.empty_like(qp)
     code = build.load().repro_decode_attention(
-        _ptr(q), _ptr(k), _ptr(v), _ptr(lengths), _ptr(out),
+        _ptr(qp), _ptr(kp), _ptr(vp), _ptr(lengths), _ptr(out),
         ctypes.c_void_p(None) if lse is None else _ptr(lse), B, S, H, KV, D,
-        _DTYPES[q.dtype], int(offset), int(window or 0), float(softcap or 0.0),
-        n_split, _stream())
+        Db, _DTYPES[q.dtype], int(offset), int(window or 0),
+        float(softcap or 0.0), n_split, _stream())
     _raise_on(code, "decode_attention")
+    return _cut_head(out, D)
 
 
 def merge_attention_parts(o: torch.Tensor, lse: torch.Tensor) -> torch.Tensor:

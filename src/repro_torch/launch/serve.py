@@ -9,9 +9,12 @@ Same flags as ``repro.launch.serve`` plus ``--device`` (default ``cuda``;
     PYTHONPATH=src python -m repro_torch.launch.serve --arch grok-1-314b
     PYTHONPATH=src python -m repro_torch.launch.serve --arch seamless
     PYTHONPATH=src python -m repro_torch.launch.serve --device cpu
-The model is the reduced same-family config of ``--arch`` at ``--d-model``,
-with seeded random f32 weights; grok-1-314b, arctic-480b and
-jamba-1.5-large-398b serve their MoE FFNs. The runtime's ``cross_len`` is
+The model is the reduced same-family config of ``--arch`` at ``--d-model``
+(head dim d_model / 4; any head dim up to 256 runs on the card), with
+seeded random f32 weights (``build_server``, driven by ``serve``);
+grok-1-314b, arctic-480b and jamba-1.5-large-398b serve their MoE FFNs.
+    PYTHONPATH=src python -m repro_torch.launch.serve --d-model 768   # dh 192
+The runtime's ``cross_len`` is
 16, as in ``repro.launch.serve``: the encoder-decoder (seamless) decodes
 with a cross K/V cache of 16 zero keys a slot (nothing fills it, as in the
 JAX server).
@@ -29,6 +32,41 @@ from repro_torch.models import model as M
 from repro_torch.serving import SlotServer
 
 
+RUNTIME = M.Runtime(cross_len=16)
+
+
+def build_server(arch: str, device, d_model: int = 128, slots: int = 4,
+                 max_len: int = 128, rt: M.Runtime = RUNTIME) -> SlotServer:
+    """The server ``main`` runs: the reduced ``arch`` at ``d_model`` (head
+    dim d_model / 4: 192 at d_model 768), seeded f32 weights, ``slots``
+    slots of ``max_len`` positions on ``device``, decoding under ``rt``."""
+    dev = resolve_device(device)
+    full = get_config(arch)
+    cfg = reduced(full, d_model=d_model,
+                  n_layers=2 * len(full.block) if len(full.block) == 1
+                  else len(full.block))
+    gen = torch.Generator(device=dev).manual_seed(0)
+    params = M.init_params(gen, cfg, torch.float32, dev)
+    return SlotServer(params, cfg, rt, n_slots=slots, max_len=max_len)
+
+
+def serve(server: SlotServer, requests: int, tokens: int):
+    """Requests 0..requests-1 (prompt token request + 2) through the slots
+    until each has ``tokens`` tokens; returns ({request: tokens}, steps)."""
+    pending = list(range(requests))
+    active, done, steps = {}, {}, 0
+    while pending or active:
+        while pending and len(active) < server.n_slots:
+            req = pending.pop(0)
+            active[server.submit(prompt_token=req + 2)] = req
+        server.step()
+        steps += 1
+        for rid in list(active):
+            if len(server.outputs.get(rid, [])) >= tokens:
+                done[active.pop(rid)] = server.finish(rid)
+    return done, steps
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="internlm2-1.8b")
@@ -42,27 +80,11 @@ def main(argv=None):
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
 
+    server = build_server(args.arch, args.device, args.d_model, args.slots,
+                          args.max_len)
     dev = resolve_device(args.device)
-    full = get_config(args.arch)
-    cfg = reduced(full, d_model=args.d_model,
-                  n_layers=2 * len(full.block) if len(full.block) == 1
-                  else len(full.block))
-    gen = torch.Generator(device=dev).manual_seed(0)
-    params = M.init_params(gen, cfg, torch.float32, dev)
-    server = SlotServer(params, cfg, M.Runtime(cross_len=16),
-                        n_slots=args.slots, max_len=args.max_len)
-
     t0 = time.time()
-    pending = list(range(args.requests))
-    active, done = {}, {}
-    while pending or active:
-        while pending and len(active) < server.n_slots:
-            req = pending.pop(0)
-            active[server.submit(prompt_token=req + 2)] = req
-        server.step()
-        for rid in list(active):
-            if len(server.outputs.get(rid, [])) >= args.tokens:
-                done[active.pop(rid)] = server.finish(rid)
+    done, _ = serve(server, args.requests, args.tokens)
     if dev.type == "cuda":
         torch.cuda.synchronize()
     dt = time.time() - t0

@@ -498,8 +498,8 @@ def test_kernel_limits_are_checked_before_launch(monkeypatch, bad):
     monkeypatch.setattr(ops, "_launch_decode_attention", _refuse)
     monkeypatch.setattr(ops, "_launch_flash_attention", _refuse)
     H, KV, D = 4, 2, 32
-    if bad == "dim":
-        D = 48
+    if bad == "dim":   # above 256 (any head dim up to it is built or padded)
+        D = 320
     elif bad == "group":
         H, KV = 34, 2
     q, k = torch.randn(1, H, D), torch.randn(1, 8, KV, D)

@@ -322,9 +322,11 @@ def test_wrappers_reject_bad_operands_on_any_device(bad):
 
 
 def test_plain_versions_take_any_head_dim():
-    """Only the CUDA kernels are limited to head dims 32/64/128/256 and head
-    groups up to 16: on the CPU the wrappers take what the plain versions do
-    (reduced configs have 16-dim heads)."""
+    """On the CPU the wrappers take any head dim and head group, as the plain
+    versions do (reduced configs have 16-dim heads). On the card the
+    attention kernels take head dims up to 256 (instances at 32, 64, 128,
+    192 and 256, any other width padded to the next: ``ops.built_head_dim``)
+    and head groups up to 16."""
     q, k = torch.randn(1, 5, 6, 16), torch.randn(1, 5, 1, 16)
     out = ops.flash_attention(q, k, k)
     assert out.shape == q.shape
@@ -335,12 +337,17 @@ def test_plain_versions_take_any_head_dim():
 @pytest.mark.parametrize("dtype, head_dim, variant", [
     (torch.bfloat16, 128, "tensor_core"), (torch.bfloat16, 256, "tensor_core"),
     (torch.float32, 32, "split_f32"), (torch.float32, 64, "split_f32"),
-    (torch.float32, 128, "split_f32"), (torch.float32, 256, "split_f32")])
+    (torch.float32, 128, "split_f32"), (torch.float32, 256, "split_f32"),
+    (torch.bfloat16, 192, "tensor_core"), (torch.float32, 192, "split_f32"),
+    (torch.bfloat16, 16, "tensor_core"), (torch.float32, 16, "split_f32"),
+    (torch.bfloat16, 48, "tensor_core"), (torch.float32, 48, "split_f32"),
+    (torch.bfloat16, 80, "tensor_core"), (torch.float32, 80, "split_f32")])
 def test_flash_variant_follows_dtype(dtype, head_dim, variant):
     """bf16 goes to the tensor-core kernel (flash_attention_tc.cu); f32 at
     every head dim to the split-f32 tensor-core kernels
-    (flash_attention_f32tc.cu; at D = 256 their cluster-pair kernels); the
-    choice is by dtype alone, before any launch."""
+    (flash_attention_f32tc.cu; at D = 192 and 256 their cluster-pair
+    kernels); the choice is by dtype alone, before any launch, at the built
+    head dims and at the padded ones (16, 48, 80) alike."""
     assert ops.flash_variant(dtype, head_dim) == variant
 
 
@@ -348,7 +355,7 @@ def test_flash_variant_refuses_other_dtypes():
     with pytest.raises(ValueError):
         ops.flash_variant(torch.float16, 128)
     with pytest.raises(ValueError):
-        ops.flash_variant(torch.float32, 96)
+        ops.flash_variant(torch.float32, 320)
 
 
 def test_row_error_sees_a_dropped_key_tile():

@@ -67,6 +67,23 @@ FLASH_CASES = [
     (1, 1100, 1100, 8, 4, 256, True, 300, 50.0, "bf16"),
     (1, 1000, 1100, 4, 2, 256, False, None, 30.0, "bf16"),
     (1, 33, 33, 2, 1, 256, True, None, None, "bf16"),
+    # D = 192 (the split-f32 pair kernels at 96 columns a block; the bf16
+    # instances at 192): torch_train_e2e --big's shape, [2, 2048, 16, 192]
+    # kv 8 causal with and without softcap 50 (chip_smoke.py phase 2's)
+    (4, 64, 64, 4, 2, 192, True, None, None, "f32"),
+    (4, 64, 64, 4, 2, 192, True, None, None, "bf16"),
+    (2, 2048, 2048, 16, 8, 192, True, None, None, "f32"),
+    (2, 2048, 2048, 16, 8, 192, True, None, 50.0, "f32"),
+    (2, 2048, 2048, 16, 8, 192, True, None, None, "bf16"),
+    (2, 2048, 2048, 16, 8, 192, True, None, 50.0, "bf16"),
+    (1, 333, 200, 4, 2, 192, False, None, 30.0, "f32"),
+    # the padded route (ops.built_head_dim): D 16, 48 and 80
+    (4, 64, 64, 4, 2, 16, True, None, None, "f32"),
+    (4, 64, 64, 4, 2, 16, True, None, None, "bf16"),
+    (1, 1000, 1000, 8, 2, 48, True, 128, 30.0, "f32"),
+    (1, 1000, 1000, 8, 2, 48, True, 128, 30.0, "bf16"),
+    (2, 1024, 1024, 16, 8, 80, False, None, None, "f32"),
+    (2, 1024, 1024, 16, 8, 80, True, None, None, "bf16"),
 ]
 # bf16 also per output row (b, q, h): its error over D relative to that row
 # of the f32 result may be at most ref.BF16_ROW_TOL. rtol=atol 2e-2 alone
@@ -106,6 +123,16 @@ DECODE_CASES = [
     # whole cross cache, and self-attention at 64 keys a slot
     (4, 4096, 16, 16, 64, None, None, "f32", [4096] * 4),
     (4, 4096, 16, 16, 64, None, None, "bf16", [64] * 4),
+    # D = 192 (launch.serve --d-model 768's server, then head groups 2 and
+    # 6 at 64 keys and a full cache) and the padded D 16, 48 and 80
+    (4, 128, 4, 2, 192, None, None, "f32", [1, 17, 128, 40]),
+    (4, 4096, 16, 8, 192, None, None, "f32", [64] * 4),
+    (4, 4096, 48, 8, 192, None, None, "f32", [4096] * 4),
+    (4, 4096, 16, 8, 192, None, None, "bf16", [4096] * 4),
+    (4, 4096, 48, 8, 192, 1000, 30.0, "bf16", [64] * 4),
+    (4, 64, 4, 2, 16, 8, 50.0, "f32", [1, 17, 64, 40]),
+    (4, 4096, 48, 8, 48, None, None, "bf16", [64] * 4),
+    (4, 4096, 16, 8, 80, 1000, 30.0, "f32", None),
 ]
 
 # f32 flash backward against its plain version (csrc/flash_attention_f32tc.cu):
@@ -129,6 +156,15 @@ BWD_CASES = [
     # seamless's train step (D = 64, group 1, non-causal; cross: Sq != Sk)
     (2, 2048, 2048, 16, 16, 64, False, None, None),
     (1, 700, 1000, 16, 16, 64, False, None, None),
+    # D = 192 (the cluster pairs at 96 columns a block) and the padded D 16,
+    # 48 and 80
+    (4, 64, 64, 4, 2, 192, True, None, None),
+    (2, 2048, 2048, 16, 8, 192, True, None, 50.0),
+    (1, 1000, 1000, 16, 8, 192, True, 300, 50.0),
+    (1, 700, 1000, 16, 4, 192, False, None, None),
+    (4, 64, 64, 4, 2, 16, True, None, None),
+    (1, 1000, 1000, 16, 8, 48, True, None, None),
+    (1, 700, 1000, 16, 4, 80, False, None, None),
 ]
 BWD_TOL = 2e-5   # relative to each gradient's largest magnitude
 
@@ -452,18 +488,22 @@ def test_bare_flash_kernel_call_refuses_grad(card):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("D, variant", [(64, "split_f32"), (128, "split_f32"),
-                                        (256, "split_f32")])
+                                        (256, "split_f32"), (192, "split_f32"),
+                                        (48, "split_f32"), (200, "split_f32")])
 def test_f32_flash_runs_the_variant_of_its_head_dim(card, D, variant):
     """The f32 forward and backward at head dim D run the kernels of
-    ops.flash_variant (before the launch): their device kernels are the
-    ones the profiler records, the cluster-pair kernels at D = 256 and the
-    one-block kernels below it, never the other set."""
+    ops.flash_variant (before the launch) at ops.built_head_dim: their
+    device kernels are the ones the profiler records, the cluster-pair
+    kernels of 192 or 256 columns there and the one-block kernels below
+    them, never another set."""
     from torch.profiler import ProfilerActivity, profile
-    single = ("flash_f32tc_fwd_kernel", "flash_f32tc_dkdv_kernel",
-              "flash_f32tc_dq_kernel")
-    pairs = ("flash_f32tc_fwd_d256_kernel", "flash_f32tc_dkdv_d256_kernel",
-             "flash_f32tc_dq_d256_kernel")
-    names, other = (pairs, single) if D == 256 else (single, pairs)
+    sets = {w: tuple(f"flash_f32tc_{k}_d{w}_kernel" for k in ("fwd", "dkdv", "dq"))
+            for w in (192, 256)}
+    sets[0] = ("flash_f32tc_fwd_kernel", "flash_f32tc_dkdv_kernel",
+               "flash_f32tc_dq_kernel")
+    built = ops.built_head_dim(torch.float32, D)
+    names = sets.pop(built if built in sets else 0)
+    other = [n for rest in sets.values() for n in rest]
     assert ops.flash_variant(torch.float32, D) == variant
     q, k, v, dout, kw = _bwd_operands(card, (1, 128, 128, 4, 2, D, True, None,
                                              None))
@@ -536,6 +576,15 @@ BF16_BWD_EDGE_CASES = [
     (1, 300, 300, 4, 2, 256, True, 100, 50.0),
     (1, 60, 60, 4, 2, 128, True, None, None),
     (1, 64, 200, 4, 2, 64, False, None, None),
+    # D = 192 (dk/dv and dq both splitting the products of 64 rows) and the
+    # padded D 16, 48 and 80
+    (4, 64, 64, 4, 2, 192, True, None, None),
+    (2, 2048, 2048, 16, 8, 192, True, None, 50.0),
+    (1, 1100, 1100, 48, 8, 192, True, 200, None),
+    (1, 1000, 1100, 16, 8, 192, False, None, 30.0),
+    (4, 64, 64, 4, 2, 16, True, None, None),
+    (1, 1000, 1000, 16, 8, 48, True, None, None),
+    (1, 1100, 1000, 16, 8, 80, False, None, 30.0),
 ]
 BF16_BWD_TOL = 2e-2   # relative to each gradient's largest magnitude
 BF16_LSE_TOL = 1e-3
@@ -964,3 +1013,38 @@ def test_moe_backward_on_card_is_repeatable_and_sync_free(card):
     for r in _on_card(_MOE_BACKWARD_ON_CARD):
         assert r["bitwise"] and r["finite"], r
         assert not r["warnings"], r
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+@pytest.mark.parametrize("D", [16, 48, 80, 192, 200])
+def test_attention_launches_record_their_built_head_dim(card, D, dt):
+    """Flash (forward and backward) and decode at a head dim D launch the
+    kernel instance of ops.built_head_dim (D itself at 192, else the next
+    built width, the operands padded with zero columns) and count it in
+    ops.BUILT_WIDTHS; each result holds to the plain version at the true D."""
+    g = torch.Generator(device=card).manual_seed(1)
+    q = _randn(g, (2, 100, 4, D), dt, card)
+    k, v, dout = (_randn(g, s, dt, card) for s in ((2, 100, 2, D),) * 2
+                  + ((2, 100, 4, D),))
+    built = ops.built_head_dim(TDT[dt], D)
+    ops.reset_launches()
+    out, lse = ops.flash_attention_forward(q, k, v, True, None, None,
+                                           want_lse=True)
+    grads = ops.flash_attention_backward(q, k, v, out, lse, dout)
+    lengths = torch.tensor([37, 100], dtype=torch.int32, device=card)
+    dec = ops.decode_attention(q[:, 0].contiguous(), k, v, lengths)
+    torch.cuda.synchronize()
+    assert dict(ops.BUILT_WIDTHS) == {(name, D, built): 1 for name in (
+        "flash_attention", "flash_attention_backward", "decode_attention")}
+    assert out.shape == q.shape and dec.shape == (2, 4, D)
+    assert all(a.shape == b.shape for a, b in zip(grads, (q, k, v)))
+    torch.testing.assert_close(out.float(), ref.flash_attention_ref(
+        q, k, v).float(), rtol=TOL[dt], atol=TOL[dt])
+    torch.testing.assert_close(dec.float(), ref.decode_attention_ref(
+        q[:, 0].contiguous(), k, v, lengths).float(), rtol=TOL[dt],
+        atol=TOL[dt])
+    if dt == "f32":
+        want = ref.flash_attention_backward_ref(q, k, v, out, lse, dout)
+        for a, b in zip(grads, want):
+            assert_close_to_max(a, b, BWD_TOL)

@@ -19,7 +19,8 @@ memory, serialised ``wgmma``) of every bf16 flash kernel of each library.
 Each ``--other DIR`` is the root of another checkout (for example the parent
 commit unpacked with ``git archive``), named by its directory; its kernels
 are built there by its own ``build.py`` and called through their C entry
-points. Needs one card and
+points, with this tree's arguments (the operands' head dim, then the built
+one): another tree needs the same C signature. Needs one card and
 ``nvcc``; exits non-zero without a card. Writes
 ``chiprun_out/flash_bf16_bench.json``.
 """
@@ -131,7 +132,8 @@ class Pair:
     def __init__(self, lib, q, k, v, dout, causal, softcap):
         self.lib, self.q, self.k, self.v, self.dout = lib, q, k, v, dout
         B, Sq, H, D = q.shape
-        self.args = (B, Sq, k.shape[1], H, k.shape[2], D, int(causal), 0,
+        # the head dim twice: the operands' and the built instance's
+        self.args = (B, Sq, k.shape[1], H, k.shape[2], D, D, int(causal), 0,
                      float(softcap or 0.0))
         self.out = torch.empty_like(q)
         self.lse = torch.empty((B, H, Sq), device=q.device, dtype=torch.float32)

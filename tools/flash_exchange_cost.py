@@ -44,8 +44,9 @@ VARIANTS = {
 }
 VARIANTS["none"] = [(a, b.replace("cluster_sync();", "__syncthreads();"))
                     for a, b in VARIANTS["barrier"]]
+# without the exchange's 16 KB, BwdRing's rule gives the pair two transposed
+# stages (NT), as at D = 128
 VARIANTS["rings"] = VARIANTS["none"] + [
-    ("NT = kPair ? 1 : 2;", "NT = 2;"),
     ("static constexpr int XCH = xch_bytes<D, 16>();", "static constexpr int XCH = 0;"),
 ]
 
