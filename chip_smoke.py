@@ -34,7 +34,15 @@ non-causal). Phases:
    server's [4, 128, 4, 2]); and on the padded route (head dims 16, 48
    and 80, run on the next built width: each launch's width checked
    against ``ops.built_head_dim``, each result held to the plain version
-   at the true head dim);
+   at the true head dim); on the wide route (head dims above 256, built
+   at the next multiple of 64, ``ops.flash_variant`` "wide": flash
+   forward and backward in f32 and bf16 at [2, 256, 4, 512] kv 2 causal,
+   with and without softcap 50 and a window, [1, 128, 4, 320] and 300 kv
+   2, [1, 128, 2, 1024] kv 1 non-causal, head group 24; decode at B=4
+   S=4096 H=4 kv 2, D 512 (64 keys and a full cache), 320, 1024 and 300,
+   with lse and key ranges); and at head groups above 16 (decode in
+   chunks at groups 24, 32, 48 and 71 over one kv head, D 64, and 32 at
+   D 512, 17 at D 192; flash at groups 17 and 24);
 3. internlm2 ``forward`` in bf16 on tokens [2, 2048] with the flash kernel
    (its tensor-core variant) against the plain path, and the flash launch
    count (one per layer, none of them an f32 variant);
@@ -72,7 +80,15 @@ non-causal). Phases:
    192) and at [2, 2048, 16, 16] (the padded route, on the D = 32
    instances), and decode at B=4 S=4096 H=16 kv 8 at D 192 and 16 (64
    keys and a full cache), each beside its bound (the true head dim's
-   work) and SDPA, with the ptxas report of the D = 192 instances;
+   work) and SDPA, with the ptxas report of the D = 192 instances; the
+   wide route at [2, 2048, 4, 512] kv 2 causal (internlm2's width over
+   the launchers' four heads), forward and backward in f32 and bf16,
+   beside the true head dim's bound (f32: 3xTF32 and CUDA-core), the work
+   the kernels do (the scores once per slice), the plain version and
+   SDPA (``enable_gqa``, its fastest backend named), and decode at B=4
+   S=4096 H=4 kv 2 D 512 (64 keys and a full cache) and at H 32 kv 1 D 64
+   (a multi-query group of 32) over a full cache, with the ptxas report
+   of the wide kernels;
 6. internlm2 ``make_train_step`` at full width in f32 (24 layers, tokens
    [accum 1, mb 2, S 2048], 30.2 GB of params, grads and AdamW moments):
    step ms, tokens/s, the device breakdown, 24 forward and 24 backward
@@ -191,8 +207,15 @@ examples. the port's examples (``examples/torch_*.py``, imported from this
     the default pair, with 12 + 12 split-f32 launches a step on the dh 192
     pair kernels; and ``repro_torch.launch.serve``'s server at
     ``--d-model 768`` (head dim 192, 8 requests x 16 tokens) as the
-    example servers, in lockstep with a plain-path server. The phase within
-    ``EXAMPLES_PHASE_S``, its seconds and the two new runs' printed.
+    example servers, in lockstep with a plain-path server; the wide route:
+    ``repro_torch.launch.train`` at ``--d-model 2048`` (head dim 512,
+    ``LAUNCH_TRAIN_WIDE``: 2 layers, 6 steps, a checkpoint every 3) with a
+    worker kill and the trainer killed at step 4, bitwise equal to the run
+    without (losses, params, m, v), 2 + 2 wide launches a step and no
+    plain attention call; ``launch.serve --d-model 2048`` and ``1280`` and
+    a multi-query server (``--d-model 2048``, 32 heads over one kv head)
+    as the example servers. The phase within ``EXAMPLES_PHASE_S``, its
+    seconds and the new runs' printed.
 sharded. the sharded entry points (``Runtime(shard_activations=True)``,
     state, batch and cache distributed by ``repro_torch.parallel.sharding``'s
     default strategy) on a one-rank NCCL ``DeviceMesh`` (1, 1) ("data",
@@ -373,8 +396,10 @@ DRYRUN_PHASE_S = 45.0
 # the examples phase: its time budget and the examples it imports
 # 45 s for the examples at their defaults (about 9-10 s on an H100), and
 # 60 s each for torch_train_e2e --big (four checkpoints of ~1.2 GB) and the
-# launch.serve --d-model 768 pair
-EXAMPLES_PHASE_S = 165.0
+# launch.serve --d-model 768 pair; 60 s for the wide route's runs
+# (launch.train --d-model 2048's pair, four checkpoints of ~1.6 GB, and
+# three servers)
+EXAMPLES_PHASE_S = 225.0
 EXAMPLE_NAMES = ("quickstart", "elastic_scaling", "train_e2e", "serve_batched")
 # the ops ``torch.profiler(with_flops=True)`` counts as matrix products
 PROFILER_GEMMS = ("aten::mm", "aten::addmm", "aten::bmm", "aten::baddbmm")
@@ -411,6 +436,23 @@ KERNELS = {
     "selective_scan_backward": dict(
         route="cuda", source="src/repro_torch/kernels/csrc/selective_scan.cu",
         replaces="src/repro/kernels/selective_scan.py:49"),
+    # head dims above 256 (``ops.flash_variant`` "wide", either dtype): the
+    # flash pair on the launch.train --d-model 2048 path (f32; bf16 timed
+    # beside it), decode's wide instance on the launch.serve --d-model 2048
+    # and 1280 servers. They count in ops.LAUNCHES under their wrappers'
+    # names; their rows read the launches recorded above head dim 256
+    # (``ops.BUILT_WIDTHS``)
+    "flash_attention_wide": dict(
+        route="cuda",
+        source="src/repro_torch/kernels/csrc/flash_attention_wide.cu",
+        replaces="src/repro/kernels/flash_attention.py:93"),
+    "flash_attention_backward_wide": dict(
+        route="cuda",
+        source="src/repro_torch/kernels/csrc/flash_attention_wide.cu",
+        replaces="src/repro/kernels/flash_attention.py:93"),
+    "decode_attention_wide": dict(
+        route="cuda", source="src/repro_torch/kernels/csrc/decode_attention.cu",
+        replaces="src/repro/kernels/decode_attention.py:79"),
 }
 # flash's device kernels by variant (``ops.flash_variant``: dtype and head
 # dim), the scan's by ``ops.scan_variant``. Names are matched as substrings;
@@ -430,6 +472,11 @@ F32TC_BWD_D256 = (F32TC_BWD_PREP, "flash_f32tc_dkdv_d256_kernel",
 F32TC_FWD_D192 = "flash_f32tc_fwd_d192_kernel"
 F32TC_BWD_D192 = (F32TC_BWD_PREP, "flash_f32tc_dkdv_d192_kernel",
                   "flash_f32tc_dq_d192_kernel")
+# the wide route (head dims above 256): its forward, its backward's two
+# launches, and decode's wide instance beside the decode kernel
+WIDE_FWD = "flash_wide_fwd_kernel"
+WIDE_BWD = ("flash_wide_dkdv_kernel", "flash_wide_dq_kernel")
+DECODE_KERNEL, DECODE_WIDE = "decode_attention_kernel", "decode_wide_kernel"
 SCAN_KERNEL = {"sequential": "selective_scan_kernel",
                "step": "selective_scan_step_kernel"}
 SCAN_BWD = "selective_scan_bwd_kernel"
@@ -438,11 +485,12 @@ SCAN_BWD = "selective_scan_bwd_kernel"
 DEVICE_KERNELS = {
     "flash_attention": [((FLASH_TC,), 1),
                         ((F32TC_FWD_PREP, F32TC_FWD, F32TC_FWD_D256,
-                          F32TC_FWD_D192), 2)],
+                          F32TC_FWD_D192), 2),
+                        ((WIDE_FWD,), 1)],
     "flash_attention_backward": [(F32TC_BWD + F32TC_BWD_D256[1:]
                                   + F32TC_BWD_D192[1:], 3),
-                                 (FLASH_TC_BWD, 3)],
-    "decode_attention": [(("decode_attention_kernel",), 1)],
+                                 (FLASH_TC_BWD, 3), (WIDE_BWD, 2)],
+    "decode_attention": [((DECODE_KERNEL,), 1), ((DECODE_WIDE,), 1)],
     "selective_scan": [(tuple(SCAN_KERNEL.values()), 1)],
     "selective_scan_backward": [((SCAN_BWD,), 1)],
 }
@@ -458,6 +506,12 @@ def f32tc_names(D: int) -> tuple:
     if built == 192:
         return (F32TC_FWD_PREP, F32TC_FWD_D192), F32TC_BWD_D192
     return (F32TC_FWD_PREP, F32TC_FWD), F32TC_BWD
+
+
+def decode_names(D: int) -> tuple:
+    """The decode device kernel of head dim D (the wide instance above
+    256)."""
+    return (DECODE_WIDE,) if D > ops.HEAD_DIMS[-1] else (DECODE_KERNEL,)
 
 
 def sync() -> None:
@@ -878,6 +932,25 @@ DECODE_CASES = [
     (4, 4096, 48, 8, 48, torch.bfloat16, None, None, [64] * 4),
     (4, 4096, 16, 8, 80, torch.float32, 1000, 30.0, None),
     (4, 4096, 16, 8, 80, torch.bfloat16, None, None, [4096] * 4),
+    # the wide instance (head dims above 256, a cluster per slice of 256
+    # columns): B=4 S=4096 H=4 kv 2 at D 512 (64 keys and a full cache,
+    # both dtypes), 320 (window, softcap), 1024 and a padded 300; head
+    # groups above 16 in chunks: 24, 32, 48 and 71 over one kv head at D
+    # 64 (Falcon-7B's layout), 32 at D 512, 17 at D 192
+    (4, 4096, 4, 2, 512, torch.float32, None, None, [64] * 4),
+    (4, 4096, 4, 2, 512, torch.float32, None, None, [4096] * 4),
+    (4, 4096, 4, 2, 512, torch.bfloat16, None, None, [64] * 4),
+    (4, 4096, 4, 2, 512, torch.bfloat16, 1000, 30.0, [4096] * 4),
+    (4, 4096, 4, 2, 320, torch.float32, 1000, 30.0, None),
+    (4, 4096, 4, 2, 1024, torch.float32, None, None, [64, 4096, 3, 1000]),
+    (4, 1024, 4, 2, 300, torch.float32, None, None, None),
+    (4, 4096, 24, 1, 64, torch.float32, None, None, None),
+    (4, 4096, 32, 1, 64, torch.float32, None, None, [4096] * 4),
+    (4, 4096, 48, 1, 64, torch.bfloat16, 1000, 30.0, None),
+    (4, 4096, 71, 1, 64, torch.float32, None, None, [64, 4096, 3, 1000]),
+    (4, 4096, 71, 1, 64, torch.bfloat16, None, None, [4096] * 4),
+    (4, 4096, 32, 1, 512, torch.float32, None, None, None),
+    (2, 1024, 34, 2, 192, torch.float32, None, None, [1000, 64]),
 ]
 
 # the decode kernel's lse and key offset (the sequence-sharded cache): each
@@ -893,6 +966,15 @@ DECODE_SPLIT_CASES = [
     ("dh 192 serve shape", 4, 4096, 16, 8, 192, [64] * 4),
     ("dh 192 group 6 full cache", 4, 4096, 48, 8, 192, [4096] * 4),
     ("dh 80 (padded to 128)", 4, 4096, 16, 8, 80, [4096] * 4),
+    # the wide instance at D 512, 320 and 1024, and head groups 32 and 71
+    # over one kv head (in chunks), 32 at D 512
+    ("dh 512 serve shape", 4, 4096, 4, 2, 512, [64] * 4),
+    ("dh 512 full cache", 4, 4096, 4, 2, 512, [4096] * 4),
+    ("dh 320", 4, 4096, 4, 2, 320, [1, 17, 4096, 2000]),
+    ("dh 1024", 4, 4096, 4, 2, 1024, [64, 4096, 3, 1000]),
+    ("group 32", 4, 4096, 32, 1, 64, [4096] * 4),
+    ("group 71", 4, 4096, 71, 1, 64, [64, 4096, 3, 1000]),
+    ("group 32 dh 512", 4, 4096, 32, 1, 512, [64, 4096, 3, 1000]),
 ]
 
 FLASH_CASES = [
@@ -945,6 +1027,26 @@ FLASH_CASES = [
     (1, 1000, 8, 2, 48, torch.bfloat16, True, 128, 30.0),
     (2, 1024, 16, 8, 80, torch.float32, False, None, None),
     (2, 1024, 16, 8, 80, torch.bfloat16, True, None, None),
+    # the wide route (head dims above 256): [2, 256, 4, 512] kv 2 causal,
+    # plain, with softcap 50 and with a window; [1, 128, 4, 320] kv 2 and a
+    # padded 300 (built 320); [1, 128, 2, 1024] kv 1 non-causal; each in
+    # f32 and bf16; head groups 24 and 17 (the wide route, tensor_core,
+    # split_f32)
+    (2, 256, 4, 2, 512, torch.float32, True, None, None),
+    (2, 256, 4, 2, 512, torch.float32, True, None, 50.0),
+    (2, 256, 4, 2, 512, torch.float32, True, 100, None),
+    (2, 256, 4, 2, 512, torch.bfloat16, True, None, None),
+    (2, 256, 4, 2, 512, torch.bfloat16, True, None, 50.0),
+    (2, 256, 4, 2, 512, torch.bfloat16, True, 100, None),
+    (1, 128, 4, 2, 320, torch.float32, True, None, None),
+    (1, 128, 4, 2, 320, torch.bfloat16, True, None, None),
+    (1, 128, 4, 2, 300, torch.float32, True, 40, 30.0),
+    (1, 128, 4, 2, 300, torch.bfloat16, True, None, None),
+    (1, 128, 2, 1, 1024, torch.float32, False, None, None),
+    (1, 128, 2, 1, 1024, torch.bfloat16, False, None, None),
+    (1, 300, 48, 2, 320, torch.float32, True, None, None),
+    (1, 300, 34, 2, 128, torch.bfloat16, True, None, None),
+    (1, 300, 34, 2, 64, torch.float32, True, None, None),
 ]
 
 FLASH_CROSS_CASES = [
@@ -991,6 +1093,16 @@ BWD_CASES = [
     (1, 1000, 1000, 16, 8, 48, True, None, None),
     (1, 700, 1000, 16, 4, 80, False, None, None),
     (1, 1024, 1024, 16, 8, 80, True, 256, 50.0),
+    # the wide route (dk/dv and dq): phase 2's forward shapes, head group
+    # 24, Sq != Sk
+    (2, 256, 256, 4, 2, 512, True, None, None),
+    (2, 256, 256, 4, 2, 512, True, None, 50.0),
+    (2, 256, 256, 4, 2, 512, True, 100, None),
+    (1, 128, 128, 4, 2, 320, True, None, None),
+    (1, 128, 128, 4, 2, 300, True, 40, 30.0),
+    (1, 128, 128, 2, 1, 1024, False, None, None),
+    (1, 200, 200, 48, 2, 320, True, None, None),
+    (1, 100, 150, 4, 2, 512, False, None, None),
 ]
 
 
@@ -999,8 +1111,8 @@ def check_decode_split(g) -> float:
     without, the lse within ``DECODE_LSE_TOL`` of the plain version's, and
     the merge of 2 and 4 key ranges (each launched with its key offset)
     within 2e-5 of the uncut kernel and of the plain version. Returns the
-    largest error."""
-    worst = 0.0
+    largest error of each kernel row (``decode_row``)."""
+    worst = {"decode_attention": 0.0, "decode_attention_wide": 0.0}
     for tag, B, S, H, KV, D, lens in DECODE_SPLIT_CASES:
         q = _randn(g, (B, H, D), torch.float32)
         k = _randn(g, (B, S, KV, D), torch.float32)
@@ -1031,7 +1143,7 @@ def check_decode_split(g) -> float:
             e2 = assert_close(merged, want, TOL[torch.float32],
                               f"decode split {tag} x{parts} vs plain")
             errs.append((parts, e1, e2))
-            worst = max(worst, e1, e2)
+            worst[decode_row(D)] = max(worst[decode_row(D)], e1, e2)
         log(f"decode lse/offset {tag} B={B} S={S} H={H} KV={KV} D={D} "
             f"lengths={lens}: o bitwise the same with lse, lse max_abs_err "
             f"{lse_err:.3e} (tol {DECODE_LSE_TOL}); "
@@ -1039,6 +1151,21 @@ def check_decode_split(g) -> float:
                         f"kernel, {e2:.3e} vs plain" for p, e1, e2 in errs)
             + f" (tol {TOL[torch.float32]})")
     return worst
+
+
+def decode_row(D: int) -> str:
+    """The kernel row of decode at head dim D."""
+    return "decode_attention_wide" if D > ops.HEAD_DIMS[-1] else "decode_attention"
+
+
+def flash_row_of(name: str, D: int) -> str:
+    """The kernel row of a flash wrapper's launch at head dim D in
+    ``errs``: the f32 and bf16 backward rows are the caller's; above 256 the
+    wide route's."""
+    if D <= ops.HEAD_DIMS[-1]:
+        return name
+    return ("flash_attention_wide" if name == "flash_attention"
+            else "flash_attention_backward_wide")
 
 
 def assert_close_to_max(got, want, tol, what) -> float:
@@ -1057,6 +1184,9 @@ def built_call(name: str, D: int, dtype, fn):
     itself where a kernel instance is built for it, else the next built
     head dim, the operands padded to it."""
     built = ops.built_head_dim(dtype, D)
+    if name.startswith("flash") and D > ops.HEAD_DIMS[-1]:
+        check(ops.flash_variant(dtype, D) == "wide",
+              f"{name} D={D}: variant {ops.flash_variant(dtype, D)}, not wide")
     before = ops.BUILT_WIDTHS[name, D, built]
     n = ops.LAUNCHES[name]
     out = fn()
@@ -1152,6 +1282,14 @@ BF16_BWD_CASES = [
     (4, 64, 64, 4, 2, 16, True, None, None),
     (1, 1000, 1000, 16, 8, 48, True, None, None),
     (1, 1100, 1000, 16, 8, 80, False, None, 30.0),
+    # the wide route in bf16: the f32 cases' shapes
+    (2, 256, 256, 4, 2, 512, True, None, None),
+    (2, 256, 256, 4, 2, 512, True, None, 50.0),
+    (2, 256, 256, 4, 2, 512, True, 100, None),
+    (1, 128, 128, 4, 2, 320, True, None, None),
+    (1, 128, 128, 4, 2, 300, True, 40, 30.0),
+    (1, 128, 128, 2, 1, 1024, False, None, None),
+    (1, 200, 200, 48, 2, 320, True, None, None),
 ]
 
 
@@ -1196,7 +1334,8 @@ def check_flash_backward_bf16(g, case) -> float:
     check(all(bool(torch.equal(a, b)) for a, b in zip(got, again)),
           f"{what}: two calls differ")
     log(f"bf16 flash backward B={B} Sq={Sq} Sk={Sk} H={H} KV={KV} D={D} "
-        f"(built D {ops.built_head_dim(dt, D)}) causal={causal} window={window} softcap={softcap}: dq/dk/dv error "
+        f"({ops.flash_variant(dt, D)}, built D {ops.built_head_dim(dt, D)}) "
+        f"causal={causal} window={window} softcap={softcap}: dq/dk/dv error "
         f"relative to max: max {errs[0]:.3e} / {errs[1]:.3e} / {errs[2]:.3e}, "
         f"mean {means[0]:.3e} / {means[1]:.3e} / {means[2]:.3e} (tol "
         f"{TOL[dt]}, against the f32 backward of the f32 copies), bitwise "
@@ -1325,13 +1464,13 @@ def phase_kernels() -> dict:
         want = ref.decode_attention_ref(q, k, v, lengths, window=window,
                                         softcap=softcap)
         err = assert_close(out, want, TOL[dt], f"decode {B,S,H,KV,D,dt}")
-        errs["decode_attention"] = max(errs["decode_attention"], err)
+        errs[decode_row(D)] = max(errs[decode_row(D)], err)
         n_split = ops.decode_grid(B, KV, S, ops.sm_count(0))
         log(f"decode B={B} S={S} H={H} KV={KV} D={D} {str(dt)[6:]} "
             f"(built D {ops.built_head_dim(dt, D)}) window={window} softcap={softcap} lengths={lengths.tolist()} "
             f"cluster {n_split}: max_abs_err {err:.3e} (tol {TOL[dt]})")
-    errs["decode_attention"] = max(errs["decode_attention"],
-                                   check_decode_split(g))
+    for name, err in check_decode_split(g).items():
+        errs[name] = max(errs[name], err)
     cases = [(B, S, S, H, KV, D, dt, causal, window, softcap)
              for B, S, H, KV, D, dt, causal, window, softcap in FLASH_CASES]
     cases += [case + (False, None, None) for case in FLASH_CROSS_CASES]
@@ -1348,7 +1487,8 @@ def phase_kernels() -> dict:
         err = assert_close(out, want, TOL[dt], what)
         rows = (f", row error {check_flash_rows(out, q, k, v, kw, what):.3e} "
                 f"(tol {ref.BF16_ROW_TOL})" if dt == torch.bfloat16 else "")
-        errs["flash_attention"] = max(errs["flash_attention"], err)
+        key = flash_row_of("flash_attention", D)
+        errs[key] = max(errs[key], err)
         log(f"flash B={B} S={Sq}" + (f" Sk={Sk}" if Sk != Sq else "")
             + f" H={H} KV={KV} D={D} {str(dt)[6:]} "
             f"({ops.flash_variant(dt, D)}, built D "
@@ -1356,12 +1496,11 @@ def phase_kernels() -> dict:
             f"window={window} softcap={softcap}: max_abs_err {err:.3e} "
             f"(tol {TOL[dt]}){rows}")
     for case in BWD_CASES:
-        errs["flash_attention_backward"] = max(
-            errs["flash_attention_backward"], check_flash_backward(g, case))
+        key = flash_row_of("flash_attention_backward", case[5])
+        errs[key] = max(errs[key], check_flash_backward(g, case))
     for case in BF16_BWD_CASES:
-        errs["flash_attention_backward_bf16"] = max(
-            errs["flash_attention_backward_bf16"],
-            check_flash_backward_bf16(g, case))
+        key = flash_row_of("flash_attention_backward_bf16", case[5])
+        errs[key] = max(errs[key], check_flash_backward_bf16(g, case))
     return errs
 
 
@@ -2188,7 +2327,7 @@ def time_decode(q, k, v, lengths, tag: str) -> dict:
                        flush=flush)
     lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
         qs, ks, vs, attn_mask=mask, enable_gqa=True), flush=flush)
-    names = DEVICE_KERNELS["decode_attention"][0][0]
+    names = decode_names(D)
     dev_ms = kernel_ms(profile_recorded(lambda: (flush(), ops.decode_attention(
         q, k, v, lengths)), names, 1)[0], *names)
     # the variant that writes lse (a rank's range of a sequence-sharded
@@ -2448,6 +2587,131 @@ def time_flash_set(shape, causal: bool, seed: int, tag: str) -> dict:
                          cuda_core_bound_ms=cc_bound_ms, device_ms=dev_ms,
                          device_ms_by_kernel=by_kernel)
     res["bf16_forward"].pop("cuda_core_bound_ms")
+    return res
+
+
+# the wide route (head dims above 256): internlm2-1.8b's width over the
+# launchers' four heads (d_model 2048, head dim 512, kv 2) at the forward's
+# shape, causal: (B, S, H, KV, D, softcap); decode at B=4 S=4096 H=4 kv 2 at
+# head dim 512 (64 keys and a full cache), and a multi-query group of 32
+# (H 32 kv 1 D 64) over a full cache: (B, S, H, KV, D)
+WIDE_SHAPE = (2, 2048, 4, 2, 512, None)
+DECODE_D512_SHAPE = (4, 4096, 4, 2, 512)
+DECODE_GROUP32_SHAPE = (4, 4096, 32, 1, 64)
+
+
+def time_wide_flash(shape, seed: int) -> dict:
+    """The wide route's flash kernels (``csrc/flash_attention_wide.cu``) at
+    one causal shape (B, S, H, KV, D, softcap), forward and backward, in f32
+    (the launch.train --d-model 2048 path's) and bf16: event and device
+    time (each launch of the backward), the plain versions' times, the
+    error (f32 against the plain version at 2e-5; bf16 against the plain
+    f32 result of the f32 copies at 2e-2; gradients relative to each
+    one's max), and the bound at the true head dim's work (4 flops a kept
+    pair and dim forward, 10 backward): f32 as three TF32 products at 495
+    TFLOP/s with the 67 TFLOP/s CUDA-core bound beside it, bf16 at 989
+    TFLOP/s; or q, k, v (o, dO, lse) read and the outputs written once.
+    The work the kernels do (``ops.attention_work``: the scores once per column
+    slice) is printed beside it. The library call: SDPA with ``enable_gqa``
+    (``time_sdpa``: the fastest backend that takes the head dim, named;
+    MATH where no other does). {"f32_forward": row, "f32_backward": row,
+    "bf16_forward": row, "bf16_backward": row}."""
+    g = torch.Generator(device=DEVICE).manual_seed(seed)
+    B, S, H, KV, D, softcap = shape
+    kw = dict(causal=True, window=None, softcap=softcap)
+    pairs = B * H * (S * (S + 1) // 2)
+    res = {}
+    for dt in (torch.float32, torch.bfloat16):
+        check(ops.flash_variant(dt, D) == "wide", f"dh {D} {dt} is not wide")
+        q = _randn(g, (B, S, H, D), dt)
+        k, v = _randn(g, (B, S, KV, D), dt), _randn(g, (B, S, KV, D), dt)
+        dout = _randn(g, (B, S, H, D), dt)
+        out, lse = ops.flash_attention_forward(q, k, v, True, None, softcap,
+                                               want_lse=True)
+        f32 = [t.float() for t in (q, k, v, dout)]
+        want_o = ref.flash_attention_ref(*f32[:3], **kw)
+        want_lse = ref.flash_attention_lse_ref(*f32[:2], **kw)
+        qt, kt, vt, dot = (t.transpose(1, 2).contiguous()
+                           for t in (q, k, v, dout))
+        name = DTYPE_NAME[dt]
+        for kind in ("forward", "backward"):
+            if kind == "forward":
+                fn = lambda: ops.flash_attention(q, k, v, **kw)  # noqa: E731
+                plain = lambda: ref.flash_attention_ref(  # noqa: E731
+                    q, k, v, **kw)
+                names, flops = (WIDE_FWD,), 4 * pairs * D
+                work = ops.attention_work("flash_attention", D) * pairs
+                nbytes = (2 * q.numel() + k.numel() + v.numel()) \
+                    * q.element_size()
+                err = assert_close(fn(), want_o, TOL[dt],
+                                   f"time wide {name} forward")
+
+                def make_lib():
+                    return lambda: _sdpa_flash(qt, kt, vt, True)
+            else:
+                fn = lambda: ops.flash_attention_backward(  # noqa: E731
+                    q, k, v, out, lse, dout, **kw)
+                plain = lambda: ref.flash_attention_backward_ref(  # noqa: E731
+                    q, k, v, out, lse, dout, **kw)
+                names, flops = WIDE_BWD, 10 * pairs * D
+                work = ops.attention_work("flash_attention_backward", D) * pairs
+                nbytes = (4 * q.numel() + 2 * k.numel() + 2 * v.numel()) \
+                    * q.element_size() + lse.numel() * 4
+                want = ref.flash_attention_backward_ref(
+                    *f32[:3], want_o, want_lse, f32[3], **kw)
+                got = fn()
+                err = max(assert_close_to_max(a.float(), b, TOL[dt],
+                                              f"time wide {name} backward {n}")
+                          for n, a, b in zip(("dq", "dk", "dv"), got, want))
+                again = fn()
+                check(all(bool(torch.equal(a, b)) for a, b in zip(got, again)),
+                      f"time wide {name} backward: two calls differ")
+                del got, again, want
+
+                def make_lib():
+                    leaves = [t.detach().requires_grad_(True)
+                              for t in (qt, kt, vt)]
+                    o = _sdpa_flash(*leaves, True)
+                    return lambda: torch.autograd.grad(o, leaves, dot,
+                                                       retain_graph=True)
+            ms = cuda_ms(fn, iters=10 if kind == "forward" else 5)
+            plain_ms = cuda_ms(plain, iters=3, warmup=1)
+            prof, _ = profile_recorded(fn, names, 1, iters=5, grow=2)
+            dev_ms = kernel_ms(prof, *names)
+            by_kernel = {n: kernel_ms(prof, n) for n in names}
+            lib_ms, backend = time_sdpa(make_lib, f"wide {name} {kind} "
+                                        f"[{B},{S},{H},{D}] kv {KV}")
+            t_bytes = nbytes / HBM_BYTES_PER_S
+            t_ops = (flops / PEAK_FLOPS[dt] if dt == torch.bfloat16
+                     else 3 * flops / TF32_FLOPS)
+            bound_ms = max(t_ops, t_bytes) * 1e3
+            by = "operations" if t_ops >= t_bytes else "bytes"
+            cc_bound_ms = max(flops / PEAK_FLOPS[torch.float32], t_bytes) * 1e3
+            log(f"time wide flash {kind} {name} (wide, {', '.join(names)}) "
+                f"[{B},{S},{H},{D}] kv {KV} causal softcap {softcap}: kernel "
+                f"{ms:.4f} ms ({flops / ms / 1e9:.1f} TFLOP/s of the true "
+                f"work, {work / ms / 1e9:.1f} of the work done: "
+                f"{work / 1e9:.2f} GFLOP, {work / flops:.2f}x), plain "
+                f"{plain_ms:.4f} ms, sdpa (enable_gqa, {backend}) "
+                f"{lib_ms:.4f} ms (kernel/sdpa {ms / lib_ms:.2f}), bound "
+                f"{bound_ms * 1e3:.2f} us ({by}: {flops / 1e9:.2f} GFLOP "
+                + (f"at {PEAK_FLOPS[dt] / 1e12:.0f} TFLOP/s"
+                   if dt == torch.bfloat16 else
+                   f"x 3 TF32 products at {TF32_FLOPS / 1e12:.0f} TFLOP/s")
+                + f", {nbytes / 1e6:.2f} MB); CUDA-core bound "
+                f"{cc_bound_ms * 1e3:.2f} us; kernel device time "
+                f"{_fmt(dev_ms)} ms ("
+                + ", ".join(f"{n} {_fmt(t)}" for n, t in by_kernel.items())
+                + f"), {_share(bound_ms, dev_ms)} of the bound, "
+                f"{_share(cc_bound_ms, dev_ms)} of the CUDA-core bound; "
+                f"max error {err:.3e} (tol {TOL[dt]})")
+            res[f"{name}_{kind}"] = dict(
+                max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                library_backend=backend, bound_ms=bound_ms, bound_by=by,
+                cuda_core_bound_ms=cc_bound_ms, device_ms=dev_ms,
+                device_ms_by_kernel=by_kernel, gflop=flops / 1e9,
+                gflop_done=work / 1e9, shape=list(shape[:5]), causal=True)
+        del q, k, v, dout, out, lse, f32, qt, kt, vt, dot, want_o, want_lse
     return res
 
 
@@ -3565,6 +3829,27 @@ def _example(name: str):
     return mod
 
 
+@contextlib.contextmanager
+def plain_attention_calls():
+    """{name: calls} of the plain flash versions (``ref.flash_attention_ref``
+    and its backward) made inside the block."""
+    calls = {"flash_attention_ref": 0, "flash_attention_backward_ref": 0}
+
+    def counted(name):
+        inner = getattr(ref, name)
+
+        def call(*a, **kw):
+            calls[name] += 1
+            return inner(*a, **kw)
+        return call
+
+    with mock.patch.object(ref, "flash_attention_ref",
+                           counted("flash_attention_ref")), \
+            mock.patch.object(ref, "flash_attention_backward_ref",
+                              counted("flash_attention_backward_ref")):
+        yield calls
+
+
 def _examples_train(ex, big: bool = False) -> dict:
     """``torch_train_e2e``'s pair of runs on the card, at its defaults or
     with ``--big`` (d_model 768, 12 layers, head dim 192; 12 steps, so the
@@ -3577,22 +3862,9 @@ def _examples_train(ex, big: bool = False) -> dict:
     plain attention version."""
     steps = 12 if big else 24     # --big: 4 checkpoints of ~1.2 GB
     dh = (768 if big else 128) // 4   # the example's d_model over 4 heads
-    plain_calls = {"flash_attention_ref": 0, "flash_attention_backward_ref": 0}
-
-    def counted(name):
-        inner = getattr(ref, name)
-
-        def call(*a, **kw):
-            plain_calls[name] += 1
-            return inner(*a, **kw)
-        return call
-
     ops.reset_launches()
     with tempfile.TemporaryDirectory() as tmp, \
-            mock.patch.object(ref, "flash_attention_ref",
-                              counted("flash_attention_ref")), \
-            mock.patch.object(ref, "flash_attention_backward_ref",
-                              counted("flash_attention_backward_ref")):
+            plain_attention_calls() as plain_calls:
         secs = []
         runs = []
         for kills in (False, True):
@@ -3720,6 +3992,83 @@ def _examples_serve(ex, arch: str, requests: int = 6, tokens: int = 12,
             "max_abs_err": seen["worst"], "head_dim": dh}
 
 
+# repro_torch.launch.train at --d-model 2048 (internlm2-1.8b's width over
+# the launcher's four heads: head dim 512, the wide route), its depth, steps
+# and checkpoint cadence cut so that the pair of runs fits the examples
+# phase (at its defaults, 4 layers, a checkpoint is ~3.1 GB: ~260 M f32
+# params, m and v; at 2 layers ~1.6 GB, four of them a pair), and the step
+# at which the second run's trainer is killed (after the checkpoint of
+# step 3) and its worker killed (batch 2)
+LAUNCH_TRAIN_WIDE = dict(d_model=2048, n_layers=2, steps=6, ckpt_every=3,
+                         seq_len=128, batch_size=4, seed=5)
+LAUNCH_TRAIN_KILL = 4
+
+
+def launch_train_wide() -> dict:
+    """``repro_torch.launch.train.run_training`` at ``LAUNCH_TRAIN_WIDE``
+    (--d-model 2048: head dim 512, f32) twice: without kills, and with a
+    worker kill and the trainer killed at step ``LAUNCH_TRAIN_KILL`` (after
+    a checkpoint); run B's losses A's before the crash and from the last
+    checkpoint on, its final state (params, m, v) bitwise A's; one flash
+    forward and one backward launch per layer for every step of the two
+    runs, all on the wide route at head dim 512, and no plain attention
+    call."""
+    run = LAUNCH_TRAIN_WIDE
+    tag = f"launch.train --d-model {run['d_model']}"
+    ops.reset_launches()
+    secs, runs = [], []
+    with tempfile.TemporaryDirectory() as tmp, plain_attention_calls() as plain:
+        for kills in (False, True):
+            extra = (dict(kill_trainer_at=LAUNCH_TRAIN_KILL, kill_worker_at=2)
+                     if kills else {})
+            t0 = time.perf_counter()
+            runs.append(train_driver.run_training(
+                **run, ckpt_dir=f"{tmp}/{int(kills)}", verbose=False,
+                device=DEVICE, **extra))
+            sync()
+            secs.append(time.perf_counter() - t0)
+    launches = {k: ops.LAUNCHES[k] for k in ("flash_attention",
+                                             "flash_attention_backward")}
+    widths = dict(ops.BUILT_WIDTHS)
+    a, b = runs
+    kill = LAUNCH_TRAIN_KILL
+    resumed = kill // run["ckpt_every"] * run["ckpt_every"]
+    check(b["losses"][:kill] == a["losses"][:kill],
+          f"{tag}: pre-crash losses differ")
+    check(b["losses"][kill:] == a["losses"][resumed:],
+          f"{tag}: replayed losses differ")
+    check(b["engine"].failures >= 2, f"{tag}: {b['engine'].failures} failures")
+    sa, sb = a["final_state"], b["final_state"]
+    mods = [(sa["params"], sb["params"]), (sa["opt"]["m"], sb["opt"]["m"]),
+            (sa["opt"]["v"], sb["opt"]["v"])]
+    check(all(bool(torch.equal(x, y)) for ma, mb in mods
+              for x, y in zip(ma.parameters(), mb.parameters()))
+          and int(sa["step"]) == int(sb["step"]),
+          f"{tag}: final states differ")
+    n_layers = len(sa["params"].layers)
+    dh = run["d_model"] // 4
+    n_steps = len(a["losses"]) + len(b["losses"])
+    want = {name: n_layers * n_steps for name in launches}
+    check(launches == want and ops.LAUNCHES["decode_attention"] == 0,
+          f"{tag}: launches {launches}, want {want}")
+    check(widths == {(name, dh, ops.built_head_dim(torch.float32, dh)): n
+                     for name, n in want.items()}
+          and ops.flash_variant(torch.float32, dh) == "wide",
+          f"{tag}: launches by head dim {widths}, want all at {dh} (wide)")
+    check(not any(plain.values()), f"{tag}: plain attention ran: {plain}")
+    params = sum(p.numel() for p in sa["params"].parameters())
+    log(f"{tag}: {n_layers} layers, dh {dh} (wide), {params / 1e6:.1f} M "
+        f"params (a checkpoint {12 * params / 1e9:.2f} GB); {len(a['losses'])}"
+        f" + {len(b['losses'])} steps (crash at {b['crash_steps']}, resumed "
+        f"from step {resumed}), pipeline failures {b['engine'].failures}; "
+        f"losses and final state (params, m, v) bit-identical; launches "
+        f"{want} ({n_layers} + {n_layers} a step, all wide at dh {dh}), "
+        f"plain attention calls 0; wall {secs[0]:.2f} s (A) and "
+        f"{secs[1]:.2f} s (B); losses {a['losses']}")
+    return {"launches": want, "steps": n_steps, "wall_s": secs,
+            "head_dim": dh, "layers": n_layers, "params": params}
+
+
 def phase_examples() -> dict:
     """The port's examples (``examples/torch_*.py``), imported from this
     checkout and run in this process: the engine ones with their own
@@ -3753,26 +4102,46 @@ def phase_examples() -> dict:
                                 requests=8, tokens=16,
                                 tag="launch.serve --d-model 768")
     serve_768_s = time.perf_counter() - t_768
+    # the wide route: launch.train and launch.serve at --d-model 2048 (head
+    # dim 512), launch.serve at 1280 (320), and a multi-query server (32
+    # heads over one kv head: decode's group chunks)
+    t_wide = time.perf_counter()
+    train_2048 = launch_train_wide()
+    serve_wide = {
+        d: _examples_serve(launch_serve_at(d), "internlm2-1.8b", requests=8,
+                           tokens=16, tag=f"launch.serve --d-model {d}")
+        for d in (2048, 1280)}
+    serve_mqa = _examples_serve(
+        launch_serve_at(2048, n_heads=32, n_kv_heads=1), "internlm2-1.8b",
+        requests=8, tokens=16,
+        tag="launch.serve --d-model 2048, 32 heads / 1 kv head")
+    wide_s = time.perf_counter() - t_wide
     phase_s = time.perf_counter() - t0
     log(f"examples: phase {phase_s:.1f} s (budget {EXAMPLES_PHASE_S:g} s), "
-        f"of which train_e2e --big {big_s:.1f} s and launch.serve --d-model "
-        f"768 {serve_768_s:.1f} s")
+        f"of which train_e2e --big {big_s:.1f} s, launch.serve --d-model "
+        f"768 {serve_768_s:.1f} s and the wide route's runs (launch.train "
+        f"--d-model 2048, launch.serve --d-model 2048 and 1280, the "
+        f"multi-query server) {wide_s:.1f} s")
     check(phase_s <= EXAMPLES_PHASE_S,
           f"examples: phase {phase_s:.1f} s over {EXAMPLES_PHASE_S:g} s")
     return {"train": train, "train_big": train_big, "serve": serve,
             "serve_d768": serve_768, "phase_s": phase_s,
-            "train_big_s": big_s, "serve_d768_s": serve_768_s}
+            "train_big_s": big_s, "serve_d768_s": serve_768_s,
+            "train_d2048": train_2048, "serve_d2048": serve_wide[2048],
+            "serve_d1280": serve_wide[1280], "serve_mqa": serve_mqa,
+            "wide_s": wide_s}
 
 
-def launch_serve_at(d_model: int):
+def launch_serve_at(d_model: int, **heads):
     """``repro_torch.launch.serve``'s server at ``--d-model d_model`` (its
-    other flags at their defaults: 4 slots, max_len 128), with the names
+    other flags at their defaults: 4 slots, max_len 128; ``heads``:
+    ``build_server``'s n_heads / n_kv_heads), with the names
     ``_examples_serve`` reads off an example module."""
     from repro_torch.launch import serve as S
     return types.SimpleNamespace(
         RUNTIME=S.RUNTIME, serve=S.serve,
         build_server=lambda arch, device, rt=S.RUNTIME: S.build_server(
-            arch, device, d_model=d_model, rt=rt))
+            arch, device, d_model=d_model, rt=rt, **heads))
 
 
 # ---------------------------------------------------------------------------
@@ -4518,6 +4887,27 @@ def main() -> int:
     d192_ptxas = {"bf16": log_ptxas_bf16_flash(BF16_FLASH_D192),
                   "split_f32": log_ptxas_kernels("d192"),
                   "decode": log_ptxas_kernels("decode_attention_kernelIfLi192")}
+    # the wide route (head dims above 256: internlm2's width over the
+    # launchers' four heads) and decode at a multi-query group of 32
+    wide_t = time_wide_flash(WIDE_SHAPE, SEED + 20)
+    with torch.inference_mode():
+        g = torch.Generator(device=DEVICE).manual_seed(SEED + 21)
+        decode_d512 = {}
+        for shape, tag in ((DECODE_D512_SHAPE, "dh 512"),
+                           (DECODE_GROUP32_SHAPE, "group 32")):
+            B, S, H, KV, D = shape
+            q = _randn(g, (B, H, D), torch.float32)
+            k = _randn(g, (B, S, KV, D), torch.float32)
+            v = _randn(g, (B, S, KV, D), torch.float32)
+            for keys in ((64, S) if D > 256 else (S,)):
+                lengths = torch.full((B,), keys, device=DEVICE,
+                                     dtype=torch.int32)
+                what = "serve shape" if keys == 64 else "full cache"
+                decode_d512[tag, keys] = time_decode(q, k, v, lengths,
+                                                     tag=f"{tag} {what}")
+            del q, k, v
+    decode_g32 = decode_d512.pop(("group 32", DECODE_GROUP32_SHAPE[1]))
+    wide_ptxas = log_ptxas_kernels("wide")
     log_memory("attention timings")
     torch.cuda.empty_cache()
     # falcon-mamba: the selective scan, in forward and in each decode step
@@ -4673,6 +5063,10 @@ def main() -> int:
     ex_train = examples["train"]["launches"]
     ex_big = examples["train_big"]["launches"]
     ex_768 = examples["serve_d768"]["launches"]["decode_attention"]
+    ex_wide = examples["train_d2048"]["launches"]
+    ex_wide_serve = {d: examples[f"serve_d{d}"]["launches"]["decode_attention"]
+                     for d in (2048, 1280)}
+    ex_mqa = examples["serve_mqa"]["launches"]["decode_attention"]
     ex_serve = {name: {arch: run["launches"][name]
                        for arch, run in examples["serve"].items()
                        if run["launches"][name]}
@@ -4690,7 +5084,8 @@ def main() -> int:
                 + ex_big["flash_attention_backward"],
                 "decode_attention": serve["launches"] + serve_k["launches"]
                 + serve_s["launches"]
-                + sum(ex_serve["decode_attention"].values()) + ex_768,
+                + sum(ex_serve["decode_attention"].values()) + ex_768
+                + ex_mqa,
                 "selective_scan": fwd_m["launches"] + serve_m["launches"]
                 + mtrain["launches"]["selective_scan"]
                 + sum(ex_serve["selective_scan"].values()),
@@ -4699,12 +5094,19 @@ def main() -> int:
                 "flash_attention_backward_bf16": itrain["launches"][
                     "flash_attention_backward"]
                 + gtrain16["launches"]["flash_attention_backward"]
-                + ktrain["launches"]["flash_attention_backward"]}
+                + ktrain["launches"]["flash_attention_backward"],
+                "flash_attention_wide": ex_wide["flash_attention"],
+                "flash_attention_backward_wide": ex_wide[
+                    "flash_attention_backward"],
+                "decode_attention_wide": sum(ex_wide_serve.values())}
     timed = {"flash_attention": flash_t,
              "flash_attention_backward": flash_bwd_t,
              "flash_attention_backward_bf16": bwd16_t,
              "decode_attention": decode_t, "selective_scan": scan_t,
-             "selective_scan_backward": scan_bwd_t}
+             "selective_scan_backward": scan_bwd_t,
+             "flash_attention_wide": wide_t["f32_forward"],
+             "flash_attention_backward_wide": wide_t["f32_backward"],
+             "decode_attention_wide": decode_d512["dh 512", 64]}
     rows = []
     for name, meta in KERNELS.items():
         t = timed[name]
@@ -4927,6 +5329,45 @@ def main() -> int:
                                     decode_k["max_abs_err"],
                                     decode_s["max_abs_err"],
                                     serve_s["cross_err"])
+    # decode at a multi-query group of 32 (the decode kernel's group
+    # chunks): its full-cache timing and the multi-query server's launches
+    decode_row.update(
+        **{f"group32_full_cache_{key}": val for key, val in decode_g32.items()},
+        group32_shape=list(DECODE_GROUP32_SHAPE),
+        launches_launch_serve_mqa=ex_mqa,
+        launch_serve_mqa=examples["serve_mqa"])
+    decode_row["max_abs_err"] = max(decode_row["max_abs_err"],
+                                    decode_g32["max_abs_err"])
+    # the wide route: f32 (launch.train --d-model 2048's) in the rows, bf16
+    # beside it; decode's wide instance at the serve shape, a full cache
+    # beside it, and the launches of the servers at --d-model 2048 and 1280
+    train_wide = examples["train_d2048"]
+    for name, kind in (("flash_attention_wide", "forward"),
+                       ("flash_attention_backward_wide", "backward")):
+        row = next(r for r in rows if r["name"] == name)
+        f32, bf16 = wide_t[f"f32_{kind}"], wide_t[f"bf16_{kind}"]
+        row.update(
+            dtype="float32", shape=f32["shape"], causal=True,
+            library_call=f"sdpa (enable_gqa, {f32['library_backend']})",
+            cuda_core_bound_ms=f32["cuda_core_bound_ms"],
+            gflop=f32["gflop"], gflop_done=f32["gflop_done"],
+            device_ms_by_kernel=f32["device_ms_by_kernel"],
+            **{f"bf16_{key}": val for key, val in bf16.items()},
+            launches_per_step=row["launches"] // train_wide["steps"],
+            launch_train_d2048=train_wide, ptxas=wide_ptxas)
+        row["max_abs_err"] = max(row["max_abs_err"], bf16["max_abs_err"])
+    dwide_row = next(r for r in rows if r["name"] == "decode_attention_wide")
+    dwide_row.update(
+        shape=list(DECODE_D512_SHAPE),
+        **{f"full_cache_{key}": val for key, val in
+           decode_d512["dh 512", DECODE_D512_SHAPE[1]].items()},
+        launches_launch_serve_d2048=ex_wide_serve[2048],
+        launches_launch_serve_d1280=ex_wide_serve[1280],
+        launch_serve_d2048=examples["serve_d2048"],
+        launch_serve_d1280=examples["serve_d1280"])
+    dwide_row["max_abs_err"] = max(
+        dwide_row["max_abs_err"],
+        decode_d512["dh 512", DECODE_D512_SHAPE[1]]["max_abs_err"])
     # the scan runs on both paths: its forward-shape numbers above, the
     # decode step's (and the variant it ran) and the launches of each path
     scan_row = next(r for r in rows if r["name"] == "selective_scan")

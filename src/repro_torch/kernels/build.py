@@ -40,6 +40,11 @@ SIGNATURES = {
     "repro_flash_attention_f32tc_bwd": (_P, _P, _P, _P, _P, _P, _P, _P, _P,
                                         _P, _P, _I, _I, _I, _I, _I, _I, _I,
                                         _I, _I, _F, _P),
+    "repro_flash_attention_wide": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                                   _I, _I, _I, _I, _F, _P),
+    "repro_flash_attention_wide_bwd": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I,
+                                       _I, _I, _I, _I, _I, _I, _I, _I, _I, _F,
+                                       _P),
     "repro_decode_attention": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                                _I, _I, _I, _I, _F, _I, _P),
     "repro_selective_scan": (_P, _P, _P, _P, _I, _I, _L, _P),

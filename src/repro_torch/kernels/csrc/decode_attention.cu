@@ -12,7 +12,8 @@
 //   (offset > 0 on a rank's range of a sequence-sharded cache). Keys are valid
 //   where kpos < length and, with a window, kpos >= length - window. Scores are
 //   (q.k)/sqrt(Dt) in f32, Dt the true head dim (D in {32, 64, 128, 192,
-//   256}; the wrapper pads any other Dt up to the next with zero columns),
+//   256}, or above 256 a multiple of 64 on the wide kernel below; the
+//   wrapper pads any other Dt up to the next with zero columns),
 //   optionally soft-capped (softcap * tanh(s /
 //   softcap)). If no key is valid every score is the same masked value, so the
 //   softmax is uniform over all S keys: the kernel then averages V over S,
@@ -41,6 +42,10 @@
 //     to run.
 //   * K/V are read once per kv head: the G = H/KV query heads of a group live
 //     in the same warp's registers, so the cache is never expanded to H heads.
+//     A group above 16 (multi-query layouts: Falcon-7B's 71 heads over one kv
+//     head) is cut into chunks of at most 2 heads (group_chunks), a cluster
+//     each on the grid's y axis (KV x chunks), in the same launch; each
+//     chunk reads the kv head's K/V once.
 //   * Work follows the valid range, not S: each block derives [lo, hi) from
 //     lengths[b] and the window on the device and cuts it into one contiguous
 //     piece per warp of the cluster (n_split * 4 pieces), so with 64 valid
@@ -175,15 +180,18 @@ __global__ void __launch_bounds__(kThreads)
 decode_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
                         const T* __restrict__ v, const int* __restrict__ lengths,
                         T* __restrict__ out, float* __restrict__ lse, int S, int H,
-                        int KV, int offset, int window, float softcap, float scale) {
+                        int KV, int offset, int window, float softcap, float scale, int Gc) {
   using Sh = Shape<T, D, GMAX>;
   constexpr int EPL = Sh::EPL, KEYS = Sh::KEYS, TILE = Sh::TILE;
   extern __shared__ __align__(128) unsigned char smem[];
   cg::cluster_group cluster = cg::this_cluster();
   const int n_split = gridDim.x;                 // = the cluster's size
-  const int split = blockIdx.x, kvh = blockIdx.y, b = blockIdx.z;
+  const int split = blockIdx.x, b = blockIdx.z;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int G = H / KV;
+  // this cluster's chunk of the kv head's group: query heads h0 .. h0 + G - 1
+  const int chunks = gridDim.y / KV, Gt = H / KV;
+  const int kvh = blockIdx.y / chunks, g0 = (blockIdx.y % chunks) * Gc;
+  const int G = min(Gc, Gt - g0), h0 = kvh * Gt + g0;
 
   // this warp's contiguous piece [s0, s1) of the valid range [lo, hi), in
   // local key indices (global position offset + j)
@@ -231,7 +239,7 @@ decode_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
     l[g] = 0.f;
 #pragma unroll
     for (int e = 0; e < EPL; ++e) { acc[g][e] = 0.f; qr[g][e] = 0.f; }
-    if (g < G) load_row<T, EPL>(q + ((size_t)b * H + kvh * G + g) * D + lane * EPL, qr[g]);
+    if (g < G) load_row<T, EPL>(q + ((size_t)b * H + h0 + g) * D + lane * EPL, qr[g]);
   }
 
   for (int i = 0; i < n_tiles; ++i) {
@@ -348,28 +356,210 @@ decode_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const float* w = wts + g * (kMaxSplit + 2);
     const float L = w[kMaxSplit + 1];
     const float o = merge_acc<D, GMAX, kMaxSplit>(inbox, n_split, g, d, w);
-    out[((size_t)b * H + kvh * G + g) * D + d] = from_float<T>(L > 0.f ? o / L : 0.f);
+    out[((size_t)b * H + h0 + g) * D + d] = from_float<T>(L > 0.f ? o / L : 0.f);
   }
   if (lse != nullptr && threadIdx.x < G) {
     const float* w = wts + threadIdx.x * (kMaxSplit + 2);
-    lse[(size_t)b * H + kvh * G + threadIdx.x] =
+    lse[(size_t)b * H + h0 + threadIdx.x] =
         uniform ? -1e30f : w[kMaxSplit] + logf(w[kMaxSplit + 1]);
   }
 }
 
-template <typename T, int D, int GMAX>
-cudaError_t launch(const void* q, const void* k, const void* v, const int* lengths,
-                   void* out, float* lse, int B, int S, int H, int KV, int offset,
-                   int window, float softcap, float scale, int n_split, cudaStream_t stream) {
-  using Sh = Shape<T, D, GMAX>;
-  auto* kernel = decode_attention_kernel<T, D, GMAX>;
-  static std::atomic<uint64_t> smem_set{0};
-  const cudaError_t attr = set_smem_once(smem_set, kernel, Sh::SMEM);
+// The wide route (head dims above 256, D a multiple of 64): each cluster
+// takes one slice of kWideW columns of V and of the output, and computes
+// the scores over the whole K row, in chunks of kWideW columns read straight
+// from device memory (a lane's 8 consecutive elements a chunk; q, small and
+// read by every key, through the L1). One K+V row pair is 4 KB at D 512 in
+// f32 and grows with D, past what a ring stage of the kernel above holds,
+// and its registers (q and acc over the whole row) grow with D too; a slice
+// keeps acc at 8 floats a lane and head at any D. The price is K, read once
+// per slice (ceil(D / 256) times; the slices of a kv head run side by side,
+// so the repeats mostly hit the L2), and its scores, computed once per
+// slice. The warps' pieces of the valid range, the merges and the cluster
+// exchange are the kernel's above.
+constexpr int kWideW = 256;
+
+template <int GMAX>
+struct WideShape {
+  static constexpr int EPL = kWideW / 32;                            // 8 columns a lane
+  static constexpr int KEYS = 4;
+  static constexpr int PART_FLOATS = Part<kWideW, GMAX>::FLOATS;
+  static constexpr int MERGE_OFFSET = kWarps * PART_FLOATS * 4;      // the warps' partials
+  static constexpr int SMEM = MERGE_OFFSET + (kMaxSplit * PART_FLOATS + GMAX * (kMaxSplit + 2)) * 4;
+};
+
+template <typename T, int GMAX>
+__global__ void __launch_bounds__(kThreads)
+decode_wide_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+                   const int* __restrict__ lengths, T* __restrict__ out, float* __restrict__ lse,
+                   int S, int H, int KV, int D, int offset, int window, float softcap,
+                   float scale, int Gc, int n_slices) {
+  using Sh = WideShape<GMAX>;
+  constexpr int EPL = Sh::EPL, KEYS = Sh::KEYS;
+  extern __shared__ __align__(128) unsigned char smem[];
+  cg::cluster_group cluster = cg::this_cluster();
+  const int n_split = gridDim.x;                 // = the cluster's size
+  const int split = blockIdx.x, b = blockIdx.z;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  // grid y: (kv head, chunk of its group, slice of the columns)
+  const int Gt = H / KV, per_kv = gridDim.y / KV;
+  const int kvh = blockIdx.y / per_kv, rest = blockIdx.y % per_kv;
+  const int g0 = (rest / n_slices) * Gc, slice = rest % n_slices;
+  const int G = min(Gc, Gt - g0), h0 = kvh * Gt + g0;
+  const int c0 = slice * kWideW, width = min(kWideW, D - c0);
+
+  const int length = lengths[b] - offset;
+  int hi = min(length, S);
+  int lo = window > 0 ? max(length - window, 0) : 0;
+  const bool uniform = hi <= lo;      // no valid key: softmax is uniform over S
+  if (uniform) { lo = 0; hi = S; }
+  const int pieces = n_split * kWarps;
+  const int per = (hi - lo + pieces - 1) / pieces;
+  const int s0 = min(hi, lo + (split * kWarps + warp) * per);
+  const int s1 = min(hi, s0 + per);
+  cluster_arrive_relaxed();   // phase 0: this block runs (waited for before the merge)
+
+  const size_t row = static_cast<size_t>(KV) * D;
+  const T* kb = k + (static_cast<size_t>(b) * S * KV + kvh) * D + lane * EPL;
+  const T* vb = v + (static_cast<size_t>(b) * S * KV + kvh) * D + c0 + lane * EPL;
+  const T* qb = q + (static_cast<size_t>(b) * H + h0) * D + lane * EPL;
+  const bool vlane = lane * EPL < width;   // this lane holds columns of the slice
+
+  float m[GMAX], l[GMAX], acc[GMAX][EPL];
+#pragma unroll
+  for (int g = 0; g < GMAX; ++g) {
+    m[g] = -INFINITY;
+    l[g] = 0.f;
+#pragma unroll
+    for (int e = 0; e < EPL; ++e) acc[g][e] = 0.f;
+  }
+  for (int key0 = s0; key0 < s1; key0 += KEYS) {
+    bool ok[KEYS];
+    float part[KEYS][GMAX], vr[KEYS][EPL];
+#pragma unroll
+    for (int j = 0; j < KEYS; ++j) {
+      ok[j] = key0 + j < s1;
+#pragma unroll
+      for (int g = 0; g < GMAX; ++g) part[j][g] = 0.f;
+#pragma unroll
+      for (int e = 0; e < EPL; ++e) vr[j][e] = 0.f;
+      if (ok[j] && vlane) load_row<T, EPL>(vb + static_cast<size_t>(key0 + j) * row, vr[j]);
+    }
+    // this lane's share of q.k over the whole row, chunk by chunk in order
+    for (int c = 0; c < D; c += kWideW) {
+      if (lane * EPL >= D - c) continue;   // past the last chunk's width
+      float kr[KEYS][EPL];
+#pragma unroll
+      for (int j = 0; j < KEYS; ++j) {
+#pragma unroll
+        for (int e = 0; e < EPL; ++e) kr[j][e] = 0.f;
+        if (ok[j]) load_row<T, EPL>(kb + static_cast<size_t>(key0 + j) * row + c, kr[j]);
+      }
+#pragma unroll
+      for (int g = 0; g < GMAX; ++g) {
+        if (g >= G) continue;
+        float qv[EPL];
+        load_row<T, EPL>(qb + static_cast<size_t>(g) * D + c, qv);
+#pragma unroll
+        for (int j = 0; j < KEYS; ++j)
+#pragma unroll
+          for (int e = 0; e < EPL; ++e) part[j][g] = fmaf(qv[e], kr[j][e], part[j][g]);
+      }
+    }
+#pragma unroll
+    for (int g = 0; g < GMAX; ++g) {
+      if (g >= G) continue;
+      float sc[KEYS];
+#pragma unroll
+      for (int j = 0; j < KEYS; ++j) {
+        float x = warp_sum(part[j][g]) * scale;
+        if (softcap > 0.f) x = softcap * tanhf(x / softcap);
+        if (uniform) x = 0.f;
+        sc[j] = ok[j] ? x : -INFINITY;
+      }
+      float mx = sc[0];
+#pragma unroll
+      for (int j = 1; j < KEYS; ++j) mx = fmaxf(mx, sc[j]);
+      const float m_new = fmaxf(m[g], mx);      // finite: key key0 is always valid
+      const float alpha = expf(m[g] - m_new);   // exp(-inf) = 0 on the first key
+      float p[KEYS];
+      float psum = 0.f;
+#pragma unroll
+      for (int j = 0; j < KEYS; ++j) {
+        p[j] = ok[j] ? expf(sc[j] - m_new) : 0.f;
+        psum += p[j];
+      }
+      l[g] = l[g] * alpha + psum;
+#pragma unroll
+      for (int e = 0; e < EPL; ++e) {
+        float a = acc[g][e] * alpha;
+#pragma unroll
+        for (int j = 0; j < KEYS; ++j) a = fmaf(p[j], vr[j][e], a);
+        acc[g][e] = a;
+      }
+      m[g] = m_new;
+    }
+  }
+
+  // each warp's partial into shared memory
+  float* parts = reinterpret_cast<float*>(smem);
+  const Part<kWideW, GMAX> mine{parts + warp * Sh::PART_FLOATS};
+#pragma unroll
+  for (int g = 0; g < GMAX; ++g) {
+    if (g >= G) continue;
+#pragma unroll
+    for (int e = 0; e < EPL; ++e) mine.acc(g, lane * EPL + e) = acc[g][e];
+    if (lane == 0) { mine.m(g) = m[g]; mine.l(g) = l[g]; }
+  }
+  __syncthreads();
+  float* inbox = reinterpret_cast<float*>(smem + Sh::MERGE_OFFSET);
+  float* wts = inbox + kMaxSplit * Sh::PART_FLOATS;   // [GMAX][kMaxSplit + 2]
+  if (threadIdx.x < G)
+    merge_weights<kWideW, GMAX, kWarps>(parts, kWarps, threadIdx.x,
+                                        wts + threadIdx.x * (kMaxSplit + 2));
+  __syncthreads();
+  cluster_wait();   // phase 0: every block of the cluster runs, rank 0's inbox exists
+
+  const Part<kWideW, GMAX> slot{cluster.map_shared_rank(inbox, 0) + split * Sh::PART_FLOATS};
+  for (int idx = threadIdx.x; idx < G * width; idx += kThreads) {
+    const int g = idx / width, d = idx % width;
+    const float* w = wts + g * (kMaxSplit + 2);
+    slot.acc(g, d) = merge_acc<kWideW, GMAX, kWarps>(parts, kWarps, g, d, w);
+    if (d == 0) { slot.m(g) = w[kWarps]; slot.l(g) = w[kWarps + 1]; }
+  }
+  cluster_arrive_release();   // phase 1: this block's record is in the inbox
+  if (split != 0) return;     // no block reads the shared memory of another rank
+  cluster_wait();             // phase 1: every rank's record has arrived
+
+  if (threadIdx.x < G)
+    merge_weights<kWideW, GMAX, kMaxSplit>(inbox, n_split, threadIdx.x,
+                                           wts + threadIdx.x * (kMaxSplit + 2));
+  __syncthreads();
+  for (int idx = threadIdx.x; idx < G * width; idx += kThreads) {
+    const int g = idx / width, d = idx % width;
+    const float* w = wts + g * (kMaxSplit + 2);
+    const float L = w[kMaxSplit + 1];
+    const float o = merge_acc<kWideW, GMAX, kMaxSplit>(inbox, n_split, g, d, w);
+    out[(static_cast<size_t>(b) * H + h0 + g) * D + c0 + d] = from_float<T>(L > 0.f ? o / L : 0.f);
+  }
+  if (lse != nullptr && slice == 0 && threadIdx.x < G) {
+    const float* w = wts + threadIdx.x * (kMaxSplit + 2);
+    lse[static_cast<size_t>(b) * H + h0 + threadIdx.x] =
+        uniform ? -1e30f : w[kMaxSplit] + logf(w[kMaxSplit + 1]);
+  }
+}
+
+// Launch `kernel` with `smem` bytes of dynamic shared memory on the grid
+// (n_split, gy, B), a cluster of n_split blocks along x.
+template <typename... Params, typename... Args>
+cudaError_t launch_cluster(void (*kernel)(Params...), std::atomic<uint64_t>& smem_set, int smem,
+                           int n_split, int gy, int B, cudaStream_t stream, Args... args) {
+  const cudaError_t attr = set_smem_once(smem_set, kernel, smem);
   if (attr != cudaSuccess) return attr;
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(n_split, KV, B);
+  cfg.gridDim = dim3(n_split, gy, B);
   cfg.blockDim = dim3(kThreads);
-  cfg.dynamicSmemBytes = Sh::SMEM;
+  cfg.dynamicSmemBytes = smem;
   cfg.stream = stream;
   cudaLaunchAttribute cluster[1];
   cluster[0].id = cudaLaunchAttributeClusterDimension;
@@ -378,52 +568,90 @@ cudaError_t launch(const void* q, const void* k, const void* v, const int* lengt
   cluster[0].val.clusterDim.z = 1;
   cfg.attrs = cluster;
   cfg.numAttrs = 1;
-  const cudaError_t err = cudaLaunchKernelEx(
-      &cfg, kernel, static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), lengths, static_cast<T*>(out), lse, S, H, KV, offset,
-      window, softcap, scale);
+  const cudaError_t err = cudaLaunchKernelEx(&cfg, kernel, args...);
   return err != cudaSuccess ? err : cudaGetLastError();
 }
 
+// The arguments every instance takes, as the C entry gets them.
+struct Call {
+  const void *q, *k, *v;
+  const int* lengths;
+  void* out;
+  float* lse;
+  int B, S, H, KV, D, offset, window;
+  float softcap, scale;
+  int n_split;
+  cudaStream_t stream;
+};
+
+// How a kv head's group of G query heads is cut for the grid's y axis:
+// chunks of at most Gc heads, a cluster each, all in one launch. A group up
+// to 16 is one chunk on the kernel above (the instance of its size, as
+// always). A larger group, and any group above 2 on the wide kernel, takes
+// chunks of at most 2 heads: a multi-query layout has few kv heads, so one
+// cluster a kv head would leave most SMs idle over a long cache, and each
+// (key, head) costs a warp-wide reduction; small chunks spread that work
+// over many clusters, each reading K/V again (mostly from L2). On an H100
+// over a full 4096-key cache, chunks of 1, 2, 4 and 8 heads took 61.9,
+// 53.1, 66.5 and 99.1 us at group 32, head dim 64 (100.3 us at 2 for group
+// 71), and the wide kernel 418.7, 287.6, 510.2 and 821.0 us at group 32,
+// head dim 512 (where each head's q is read through the L1 a key).
+inline void group_chunks(int G, bool wide, int& chunks, int& Gc) {
+  const int cap = !wide && G <= 16 ? 16 : 2;
+  chunks = (G + cap - 1) / cap;
+  Gc = (G + chunks - 1) / chunks;
+}
+
+template <typename T, int D, int GMAX>
+cudaError_t launch(const Call& a, int Gc, int chunks) {
+  static std::atomic<uint64_t> smem_set{0};
+  return launch_cluster(decode_attention_kernel<T, D, GMAX>, smem_set, Shape<T, D, GMAX>::SMEM,
+                        a.n_split, a.KV * chunks, a.B, a.stream, static_cast<const T*>(a.q),
+                        static_cast<const T*>(a.k), static_cast<const T*>(a.v), a.lengths,
+                        static_cast<T*>(a.out), a.lse, a.S, a.H, a.KV, a.offset, a.window,
+                        a.softcap, a.scale, Gc);
+}
+
+template <typename T, int GMAX>
+cudaError_t launch_wide(const Call& a, int Gc, int chunks) {
+  static std::atomic<uint64_t> smem_set{0};
+  const int n_slices = (a.D + kWideW - 1) / kWideW;
+  if (static_cast<long long>(a.KV) * chunks * n_slices > 65535) return cudaErrorInvalidValue;
+  return launch_cluster(decode_wide_kernel<T, GMAX>, smem_set, WideShape<GMAX>::SMEM, a.n_split,
+                        a.KV * chunks * n_slices, a.B, a.stream, static_cast<const T*>(a.q),
+                        static_cast<const T*>(a.k), static_cast<const T*>(a.v), a.lengths,
+                        static_cast<T*>(a.out), a.lse, a.S, a.H, a.KV, a.D, a.offset, a.window,
+                        a.softcap, a.scale, Gc, n_slices);
+}
+
 template <typename T, int D>
-cudaError_t dispatch_group(int G, const void* q, const void* k, const void* v,
-                           const int* lengths, void* out, float* lse, int B, int S,
-                           int H, int KV, int offset, int window, float softcap,
-                           float scale, int n_split, cudaStream_t stream) {
-#define REPRO_DECODE(GM)                                                          \
-  return launch<T, D, GM>(q, k, v, lengths, out, lse, B, S, H, KV, offset, window, \
-                          softcap, scale, n_split, stream)
-  if (G <= 1) REPRO_DECODE(1);
-  if (G <= 2) REPRO_DECODE(2);
-  if (G <= 4) REPRO_DECODE(4);
-  if (G <= 8) REPRO_DECODE(8);
-  if (G <= 16) REPRO_DECODE(16);
-#undef REPRO_DECODE
-  return cudaErrorInvalidValue;
+cudaError_t dispatch_group(const Call& a) {
+  int chunks, Gc;
+  group_chunks(a.H / a.KV, false, chunks, Gc);
+  if (static_cast<long long>(a.KV) * chunks > 65535) return cudaErrorInvalidValue;
+  if (Gc <= 1) return launch<T, D, 1>(a, Gc, chunks);
+  if (Gc <= 2) return launch<T, D, 2>(a, Gc, chunks);
+  if (Gc <= 4) return launch<T, D, 4>(a, Gc, chunks);
+  if (Gc <= 8) return launch<T, D, 8>(a, Gc, chunks);
+  return launch<T, D, 16>(a, Gc, chunks);   // group_chunks keeps Gc <= 16
 }
 
 template <typename T>
-cudaError_t dispatch_dim(int D, int G, const void* q, const void* k, const void* v,
-                         const int* lengths, void* out, float* lse, int B, int S, int H,
-                         int KV, int offset, int window, float softcap, float scale,
-                         int n_split, cudaStream_t stream) {
-#define REPRO_DECODE_D(DD)                                                       \
-  return dispatch_group<T, DD>(G, q, k, v, lengths, out, lse, B, S, H, KV, offset, \
-                               window, softcap, scale, n_split, stream)
-  switch (D) {
-    case 32:
-      REPRO_DECODE_D(32);
-    case 64:
-      REPRO_DECODE_D(64);
-    case 128:
-      REPRO_DECODE_D(128);
-    case 192:
-      REPRO_DECODE_D(192);
-    case 256:
-      REPRO_DECODE_D(256);
-#undef REPRO_DECODE_D
-    default:
-      return cudaErrorInvalidValue;
+cudaError_t dispatch_wide(const Call& a) {
+  int chunks, Gc;
+  group_chunks(a.H / a.KV, true, chunks, Gc);
+  return Gc <= 1 ? launch_wide<T, 1>(a, Gc, chunks) : launch_wide<T, 2>(a, Gc, chunks);
+}
+
+template <typename T>
+cudaError_t dispatch_dim(const Call& a) {
+  switch (a.D) {
+    case 32: return dispatch_group<T, 32>(a);
+    case 64: return dispatch_group<T, 64>(a);
+    case 128: return dispatch_group<T, 128>(a);
+    case 192: return dispatch_group<T, 192>(a);
+    case 256: return dispatch_group<T, 256>(a);
+    default: return a.D > 256 && a.D % 64 == 0 ? dispatch_wide<T>(a) : cudaErrorInvalidValue;
   }
 }
 
@@ -431,31 +659,25 @@ cudaError_t dispatch_dim(int D, int G, const void* q, const void* k, const void*
 }  // namespace repro
 
 // C entry point. dtype: 0 = f32, 1 = bf16 (q, k, v and out share it, [...,
-// D]). Dt <= D: the head dim the scores are scaled by (1 / sqrt(Dt)), the
-// columns from Dt on being zeros the wrapper padded them with. lse:
+// D]). D: 32, 64, 128, 192, 256, or a multiple of 64 above 256 (the wide
+// kernel). Dt <= D: the head dim the scores are scaled by (1 / sqrt(Dt)),
+// the columns from Dt on being zeros the wrapper padded them with. lse:
 // [B,H] f32 or null (not written). offset >= 0: key j is position offset + j.
 // window <= 0 means no window; softcap <= 0 means no softcap. n_split (1..8)
-// is the cluster size: the grid is (n_split, KV, B), one cluster per (kv head,
-// slot). Returns the launch's error (0 on success).
+// is the cluster size: the grid is (n_split, KV x chunks [x slices], B), one
+// cluster per (slot, kv head, chunk of its group [, slice]). Returns the
+// launch's error (0 on success).
 extern "C" int repro_decode_attention(const void* q, const void* k, const void* v,
                                       const void* lengths, void* out, void* lse, int B,
                                       int S, int H, int KV, int Dt, int D, int dtype,
                                       int offset, int window, float softcap, int n_split,
                                       void* stream) {
   using namespace repro;
-  if (B <= 0 || B > 65535 || S <= 0 || KV <= 0 || KV > 65535 || H % KV != 0 ||
-      offset < 0 || n_split <= 0 || n_split > kMaxSplit || (dtype != 0 && dtype != 1) ||
-      Dt <= 0 || Dt > D)
+  if (B <= 0 || B > 65535 || S <= 0 || KV <= 0 || H % KV != 0 || offset < 0 ||
+      n_split <= 0 || n_split > kMaxSplit || (dtype != 0 && dtype != 1) || Dt <= 0 || Dt > D)
     return static_cast<int>(cudaErrorInvalidValue);
-  const float scale = 1.0f / sqrtf(static_cast<float>(Dt));
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int G = H / KV;
-  const int* len = static_cast<const int*>(lengths);
-  float* ls = static_cast<float*>(lse);
-  const cudaError_t err = dtype == 0
-      ? dispatch_dim<float>(D, G, q, k, v, len, out, ls, B, S, H, KV, offset, window,
-                            softcap, scale, n_split, st)
-      : dispatch_dim<__nv_bfloat16>(D, G, q, k, v, len, out, ls, B, S, H, KV, offset,
-                                    window, softcap, scale, n_split, st);
-  return static_cast<int>(err);
+  const Call a{q, k, v, static_cast<const int*>(lengths), out, static_cast<float*>(lse),
+               B, S, H, KV, D, offset, window, softcap, 1.0f / sqrtf(static_cast<float>(Dt)),
+               n_split, static_cast<cudaStream_t>(stream)};
+  return static_cast<int>(dtype == 0 ? dispatch_dim<float>(a) : dispatch_dim<__nv_bfloat16>(a));
 }

@@ -21,10 +21,16 @@ The attention kernels are built for head dims 32, 64, 128, 192 and 256
 of those (``built_head_dim``), chosen before any launch: its operands get
 zero columns up to that width, which add nothing to a score, and its
 outputs are cut back to the true width; the kernels scale the scores by
-1 / sqrt of the true head dim. The split-f32 flash kernels pad in their
-prep launch, which copies every operand anyway, and write their outputs at
-the true width; the bf16 flash pair and decode take operands padded here
-(``_pad_head``, a copy on the device) and give outputs sliced here.
+1 / sqrt of the true head dim. Above 256 the wide route takes any head dim,
+rounded up to a multiple of ``WIDE_ALIGN`` (64): flash attention on its own
+kernels (``flash_variant`` "wide", ``csrc/flash_attention_wide.cu``), decode
+on the decode kernel's wide instance. The split-f32 flash kernels pad in
+their prep launch, which copies every operand anyway, and write their
+outputs at the true width; the bf16 flash pair, the wide route and decode
+take operands padded here (``_pad_head``, a copy on the device, none where
+the head dim is already a built width) and give outputs sliced here. Every
+head group runs (decode cuts a group above 16 into chunks, one cluster
+each, in its one launch); only ``H % KV != 0`` raises among the shapes.
 
 ``LAUNCHES`` counts kernel launches per wrapper (one per call that reaches
 the card, however many device kernels the call runs: a split-f32 flash
@@ -62,7 +68,7 @@ SCAN_VARIANTS = {"step": 0, "sequential": 0}
 BUILT_WIDTHS: collections.Counter = collections.Counter()
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_DIMS = (32, 64, 128, 192, 256)   # the attention kernels' instances
-_MAX_GROUP = 16
+WIDE_ALIGN = 64   # above 256, head dims are built at a multiple of this
 MAX_CLUSTER = 8   # the portable thread block cluster size
 
 
@@ -72,7 +78,8 @@ MAX_CLUSTER = 8   # the portable thread block cluster size
 # units that do them ("bf16": bf16 tensor cores; "tf32x3": the split-f32
 # kernels' three TF32 products for each f32 one; "f32": CUDA cores), and the
 # bytes its operands and outputs take (each read or written once; never the
-# scores).
+# scores). The arithmetic is what the card's kernels do
+# (``attention_work``: on the wide route the scores once per column slice).
 COST_HOOK = None
 
 
@@ -98,27 +105,46 @@ def _check_heads(H: int, KV: int) -> None:
 def built_head_dim(dtype: torch.dtype, head_dim: int) -> int:
     """The head dim of the attention kernel instance that takes ``head_dim``
     in ``dtype`` on the card: ``head_dim`` itself where it is one of
-    ``HEAD_DIMS``, else the smallest of them above it (the operands padded
-    with zero columns). The same in f32 and bf16, for flash (forward and
-    backward) and decode; a head dim above 256 raises."""
+    ``HEAD_DIMS``, else the smallest of them above it; above 256 (the wide
+    route) ``head_dim`` rounded up to a multiple of ``WIDE_ALIGN``. The
+    operands are padded with zero columns up to it. The same in f32 and
+    bf16, for flash (forward and backward) and decode; a head dim below 1
+    raises."""
     if dtype not in _DTYPES:
         raise ValueError(f"attention: no kernel for {dtype}")
-    if not 1 <= head_dim <= HEAD_DIMS[-1]:
-        raise ValueError(f"attention: head dim {head_dim} outside 1..{HEAD_DIMS[-1]}"
-                         f" (the kernels are built for {HEAD_DIMS})")
+    if head_dim < 1:
+        raise ValueError(f"attention: head dim {head_dim} below 1")
+    if head_dim > HEAD_DIMS[-1]:
+        return -(-head_dim // WIDE_ALIGN) * WIDE_ALIGN
     return next(d for d in HEAD_DIMS if d >= head_dim)
 
 
-def _check_attention_limits(name: str, H: int, KV: int, D: int,
-                            dtype: torch.dtype) -> int:
-    """Head groups the attention kernels take, and the built head dim that
-    takes D (``built_head_dim``)."""
-    if H // KV > _MAX_GROUP:
-        raise ValueError(f"{name}: head group {H // KV} > {_MAX_GROUP}")
+def _built(name: str, D: int, dtype: torch.dtype) -> int:
+    """``built_head_dim`` with the wrapper's name in its message."""
     try:
         return built_head_dim(dtype, D)
     except ValueError as e:
         raise ValueError(f"{name}: {e}") from None
+
+
+# the wide route's column slices: flash's of 128 columns, decode's of 256
+WIDE_FLASH_SLICE, WIDE_DECODE_SLICE = 128, 256
+
+
+def attention_work(name: str, Db: int) -> int:
+    """Flops the card's kernels spend on a kept (query, key) pair and q head
+    (decode: a key and q head) at built head dim Db: 4 Db (two products)
+    forward and in decode, 10 Db (five) backward; on the wide route (Db
+    above 256) the scores are recomputed once per column slice (n of
+    them): the flash forward (2 n + 2) Db (S per slice, then P V), its
+    backward (8 n + 6) Db (dk/dv: S and dP per slice, then dV and dK; dq:
+    S and dP per slice, then dQ), decode (2 n + 2) Db."""
+    backward = name == "flash_attention_backward"
+    if Db <= HEAD_DIMS[-1]:
+        return (10 if backward else 4) * Db
+    n = -(-Db // (WIDE_DECODE_SLICE if name == "decode_attention"
+                  else WIDE_FLASH_SLICE))
+    return ((8 * n + 6) if backward else (2 * n + 2)) * Db
 
 
 def _pad_head(t: torch.Tensor, width: int) -> torch.Tensor:
@@ -189,8 +215,11 @@ def kept_pairs(Sq: int, Sk: int, causal: bool, window: Optional[int]) -> int:
     return total
 
 
-def flash_rate(dtype: torch.dtype) -> str:
-    """The units the flash kernels of ``dtype`` multiply on."""
+def flash_rate(dtype: torch.dtype, head_dim: int) -> str:
+    """The units the flash kernels of ``dtype`` at ``head_dim`` multiply
+    on (the wide route: CUDA cores in f32, in both dtypes)."""
+    if head_dim > HEAD_DIMS[-1]:
+        return "f32"
     return "bf16" if dtype == torch.bfloat16 else "tf32x3"
 
 
@@ -250,14 +279,14 @@ def flash_attention_forward(q, k, v, causal, window, softcap, *,
     if q.device.type == "cpu":
         out = ref.flash_attention_ref(q, k, v, **kw)
         return out, ref.flash_attention_lse_ref(q, k, **kw) if want_lse else None
-    Db = _check_attention_limits("flash_attention", H, k.shape[2], D, q.dtype)
+    Db = _built("flash_attention", D, q.dtype)
     _check_cuda_operands("flash_attention", q, k, v)
     lse = q.new_empty((B, H, Sq), dtype=torch.float32) if want_lse else None
-    if q.device.type == "meta":   # two products a kept pair, at the built width
+    if q.device.type == "meta":   # the work of the built width (attention_work)
         padded = [_pad_head(t, Db) for t in (q, k, v)]
-        _meta_call("flash_attention",
-                   4 * B * H * Db * kept_pairs(Sq, k.shape[1], causal, window),
-                   flash_rate(q.dtype), padded, (padded[0], lse))
+        _meta_call("flash_attention", attention_work("flash_attention", Db)
+                   * B * H * kept_pairs(Sq, k.shape[1], causal, window),
+                   flash_rate(q.dtype, D), padded, (padded[0], lse))
         return torch.empty_like(q), lse
     out = _launch_flash_attention(q, k, v, Db, lse, causal, window, softcap)
     LAUNCHES["flash_attention"] += 1
@@ -296,8 +325,9 @@ def flash_attention_backward(q: torch.Tensor, k: torch.Tensor,
     the card the backward of the forward's variant (``flash_variant``): bf16
     ``csrc/flash_attention_tc_bwd.cu`` (delta, dk/dv and dq launches on the
     tensor cores), f32 ``csrc/flash_attention_f32tc.cu`` (prep, dk/dv and
-    dq); neither has atomics, so every call gives the same bits. The plain
-    version on the CPU."""
+    dq), above head dim 256 ``csrc/flash_attention_wide.cu`` (dk/dv and dq,
+    either dtype); none has atomics, so every call gives the same bits. The
+    plain version on the CPU."""
     _check_flash(q, k, v)
     B, Sq, H, D = q.shape
     if out.shape != q.shape or dout.shape != q.shape:
@@ -312,29 +342,35 @@ def flash_attention_backward(q: torch.Tensor, k: torch.Tensor,
     kw = dict(causal=causal, window=window, softcap=softcap)
     if q.device.type == "cpu":
         return ref.flash_attention_backward_ref(q, k, v, out, lse, dout, **kw)
-    Db = _check_attention_limits("flash_attention_backward", H, k.shape[2], D,
-                                 q.dtype)
+    Db = _built("flash_attention_backward", D, q.dtype)
     ts = (q, k, v, out, lse, dout)
     _check_cuda_operands("flash_attention_backward", *ts)
     variant = flash_variant(q.dtype, D)
-    delta = torch.empty_like(lse)
-    if q.device.type == "meta":   # five products a kept pair, at the built width
+    if q.device.type == "meta":   # the work of the built width (attention_work)
         padded = [_pad_head(t, Db) for t in (q, k, v, out, dout)]
         _meta_call("flash_attention_backward",
-                   10 * B * H * Db * kept_pairs(Sq, k.shape[1], causal, window),
-                   flash_rate(q.dtype), padded + [lse], padded[:3])
+                   attention_work("flash_attention_backward", Db)
+                   * B * H * kept_pairs(Sq, k.shape[1], causal, window),
+                   flash_rate(q.dtype, D), padded + [lse], padded[:3])
         return torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     lib = build.load()
     args = (B, Sq, k.shape[1], H, k.shape[2], D, Db, int(causal),
             int(window or 0), float(softcap or 0.0), _stream())
-    if variant == "tensor_core":   # operands padded to Db, grads cut back to D
+    if variant != "split_f32":   # operands padded to Db, grads cut back to D
         padded = [_pad_head(t, Db) for t in (q, k, v, out, dout)]
         grads = [torch.empty_like(t) for t in padded[:3]]
-        code = lib.repro_flash_attention_tc_bwd(
-            *map(_ptr, padded), _ptr(lse), _ptr(delta), *map(_ptr, grads),
-            *args)
+        if variant == "wide":
+            code = lib.repro_flash_attention_wide_bwd(
+                *map(_ptr, padded), _ptr(lse), *map(_ptr, grads), *args[:7],
+                _DTYPES[q.dtype], *args[7:])
+        else:
+            delta = torch.empty_like(lse)
+            code = lib.repro_flash_attention_tc_bwd(
+                *map(_ptr, padded), _ptr(lse), _ptr(delta), *map(_ptr, grads),
+                *args)
         grads = [_cut_head(t, D) for t in grads]
     else:   # the prep launch pads; the grads are written at D
+        delta = torch.empty_like(lse)
         grads = [torch.empty_like(t) for t in (q, k, v)]
         work = _f32tc_workspace(q, k, Db, backward=True)
         code = lib.repro_flash_attention_f32tc_bwd(
@@ -348,8 +384,8 @@ def flash_attention_backward(q: torch.Tensor, k: torch.Tensor,
 
 def flash_variant(dtype: torch.dtype, head_dim: int) -> str:
     """The CUDA kernels that take flash attention in ``dtype`` at head dim
-    ``head_dim`` (1 to 256: the instance of ``built_head_dim``), chosen
-    before any launch (never a fallback):
+    ``head_dim`` (the instance of ``built_head_dim``), chosen before any
+    launch (never a fallback):
 
     - bf16: "tensor_core", ``csrc/flash_attention_tc.cu`` (wgmma + TMA; the
       forward, ``flash_fwd_tc_kernel``) and ``csrc/flash_attention_tc_bwd.cu``
@@ -362,13 +398,15 @@ def flash_variant(dtype: torch.dtype, head_dim: int) -> str:
       parts, three wgmma a product): one TF32 product keeps 10 mantissa bits
       and misses the f32 tolerance (2e-5), three of them meet it. At D = 192
       and 256 a tile takes a cluster of two blocks, one per half of the head
-      dim."""
-    if dtype not in _DTYPES:
-        raise ValueError(f"flash_attention: no kernel for {dtype}")
-    try:
-        built_head_dim(dtype, head_dim)
-    except ValueError as e:
-        raise ValueError(f"flash_attention: {e}") from None
+      dim;
+    - above head dim 256, either dtype: "wide", ``csrc/flash_attention_wide.cu``
+      (``flash_wide_fwd_kernel``; its backward ``flash_wide_dkdv_kernel`` and
+      ``flash_wide_dq_kernel``): f32 products on the CUDA cores, one block
+      per (64 rows, head, slice of 128 output columns), the scores over the
+      whole head dim recomputed by each slice."""
+    _built("flash_attention", head_dim, dtype)
+    if head_dim > HEAD_DIMS[-1]:
+        return "wide"
     return "tensor_core" if dtype == torch.bfloat16 else "split_f32"
 
 
@@ -392,11 +430,16 @@ def _launch_flash_attention(q, k, v, Db, lse, causal, window,
     args = (B, Sq, Sk, H, KV, D, Db, int(causal), int(window or 0),
             float(softcap or 0.0), _stream())
     lse_p = ctypes.c_void_p(None) if lse is None else _ptr(lse)
-    if flash_variant(q.dtype, D) == "tensor_core":   # padded to Db, cut back
+    variant = flash_variant(q.dtype, D)
+    if variant != "split_f32":   # padded to Db, cut back
         qp, kp, vp = (_pad_head(t, Db) for t in (q, k, v))
         out = torch.empty_like(qp)
-        code = lib.repro_flash_attention_tc(_ptr(qp), _ptr(kp), _ptr(vp),
-                                            _ptr(out), lse_p, *args)
+        ptrs = (_ptr(qp), _ptr(kp), _ptr(vp), _ptr(out), lse_p)
+        if variant == "wide":
+            code = lib.repro_flash_attention_wide(*ptrs, *args[:7],
+                                                  _DTYPES[q.dtype], *args[7:])
+        else:
+            code = lib.repro_flash_attention_tc(*ptrs, *args)
         out = _cut_head(out, D)
     else:   # the prep launch pads; o is written at D
         out = torch.empty_like(q)
@@ -451,12 +494,14 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         return ref.decode_attention_ref(q, k, v, lengths, softcap=softcap,
                                         window=window, offset=offset,
                                         return_lse=return_lse)
-    Db = _check_attention_limits("decode_attention", H, k.shape[2], D, q.dtype)
+    Db = _built("decode_attention", D, q.dtype)
     _check_cuda_operands("decode_attention", q, k, v, lengths)
     lse = (q.new_empty((B, H), dtype=torch.float32) if return_lse else None)
-    if q.device.type == "meta":   # two products a key of the whole cache
+    if q.device.type == "meta":   # the whole cache's keys, at the built width
         padded = [_pad_head(t, Db) for t in (q, k, v)]
-        _meta_call("decode_attention", 4 * B * H * k.shape[1] * Db, "f32",
+        _meta_call("decode_attention",
+                   attention_work("decode_attention", Db) * B * H * k.shape[1],
+                   "f32",
                    padded + [lengths], (padded[0], lse))
         out = torch.empty_like(q)
         return (out, lse) if return_lse else out
@@ -469,8 +514,10 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 def _launch_decode_attention(q, k, v, lengths, Db, lse, offset, window,
                              softcap) -> torch.Tensor:
-    """The decode kernel at built head dim Db (q, k, v padded to it here);
-    returns the output [B, H, D]."""
+    """The decode kernel at built head dim Db (q, k, v padded to it here;
+    above 256 its wide instance, a cluster per slice of 256 columns); the C
+    entry cuts a head group above 16 (above 2 on the wide instance) into
+    chunks of at most 2 heads. Returns the output [B, H, D]."""
     B, H, D = q.shape
     S, KV = k.shape[1], k.shape[2]
     n_split = decode_grid(B, KV, S, sm_count(q.device.index))

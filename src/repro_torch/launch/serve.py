@@ -10,10 +10,12 @@ Same flags as ``repro.launch.serve`` plus ``--device`` (default ``cuda``;
     PYTHONPATH=src python -m repro_torch.launch.serve --arch seamless
     PYTHONPATH=src python -m repro_torch.launch.serve --device cpu
 The model is the reduced same-family config of ``--arch`` at ``--d-model``
-(head dim d_model / 4; any head dim up to 256 runs on the card), with
+(head dim d_model / 4; every head dim runs on the card, above 256 on
+the wide route), with
 seeded random f32 weights (``build_server``, driven by ``serve``);
 grok-1-314b, arctic-480b and jamba-1.5-large-398b serve their MoE FFNs.
     PYTHONPATH=src python -m repro_torch.launch.serve --d-model 768   # dh 192
+    PYTHONPATH=src python -m repro_torch.launch.serve --d-model 2048  # dh 512
 The runtime's ``cross_len`` is
 16, as in ``repro.launch.serve``: the encoder-decoder (seamless) decodes
 with a cross K/V cache of 16 zero keys a slot (nothing fills it, as in the
@@ -36,15 +38,18 @@ RUNTIME = M.Runtime(cross_len=16)
 
 
 def build_server(arch: str, device, d_model: int = 128, slots: int = 4,
-                 max_len: int = 128, rt: M.Runtime = RUNTIME) -> SlotServer:
+                 max_len: int = 128, rt: M.Runtime = RUNTIME,
+                 n_heads: int = 4, n_kv_heads=None) -> SlotServer:
     """The server ``main`` runs: the reduced ``arch`` at ``d_model`` (head
-    dim d_model / 4: 192 at d_model 768), seeded f32 weights, ``slots``
+    dim d_model / n_heads: 192 at d_model 768, 512 at 2048; ``n_heads`` /
+    ``n_kv_heads`` as ``reduced`` takes them), seeded f32 weights, ``slots``
     slots of ``max_len`` positions on ``device``, decoding under ``rt``."""
     dev = resolve_device(device)
     full = get_config(arch)
     cfg = reduced(full, d_model=d_model,
                   n_layers=2 * len(full.block) if len(full.block) == 1
-                  else len(full.block))
+                  else len(full.block), n_heads=n_heads,
+                  n_kv_heads=n_kv_heads)
     gen = torch.Generator(device=dev).manual_seed(0)
     params = M.init_params(gen, cfg, torch.float32, dev)
     return SlotServer(params, cfg, rt, n_slots=slots, max_len=max_len)

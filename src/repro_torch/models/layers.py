@@ -597,6 +597,29 @@ def _moe_combine(ye: torch.Tensor, top_w: torch.Tensor, slot: torch.Tensor,
     return out
 
 
+def apply_moe_decode(p: MoEParams, x: torch.Tensor, cfg: ArchConfig
+                     ) -> torch.Tensor:
+    """x: [B, S, d] -> [B, S, d]: the MoE FFN for a few tokens with no
+    capacity, each token through its own top k experts' weights gathered
+    densely ([T, k, d, f]), as ``repro.models.layers.apply_moe_decode``
+    (router in f32, the top k renormalised, ties toward the lower expert
+    id; the expert ids index ``w1`` / ``w3`` / ``w2`` as they are, whatever
+    ``expert_split``). Plain PyTorch. No path calls it: ``decode_step``
+    calls ``apply_moe``, as the JAX package's does."""
+    B, S, d = x.shape
+    m = cfg.moe
+    xf = x.reshape(B * S, d)
+    probs = torch.softmax(torch.einsum("td,de->te", xf.float(), p.router), -1)
+    top_w, top_e = torch.sort(probs, dim=-1, descending=True, stable=True)
+    top_w, top_e = top_w[:, :m.top_k], top_e[:, :m.top_k]
+    top_w = top_w / (top_w.sum(-1, keepdim=True) + 1e-9)
+    g = _act(cfg.act)(torch.einsum("td,tkdf->tkf", xf, p.w1[top_e]))
+    u = torch.einsum("td,tkdf->tkf", xf, p.w3[top_e])
+    y = torch.einsum("tkf,tkfd->tkd", g * u, p.w2[top_e])
+    out = torch.einsum("tkd,tk->td", y, top_w.to(y.dtype))
+    return out.reshape(B, S, d)
+
+
 class _MoEComm(NamedTuple):
     """How one capacity block is split over the ranks (``_moe_sharded``):
     this rank holds the block's tokens ``lo ..`` of ``n``, which the mesh

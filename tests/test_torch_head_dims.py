@@ -12,11 +12,14 @@ give it): ``forward``, the loss's gradients and decode steps of
 from JAX (``repro_torch.bridge``), at the tolerances of
 ``tests/test_torch_model.py`` and ``tests/test_torch_training.py`` (2e-5).
 Then what the kernel route decides before any launch: the built width for
-every head dim 1..256 in both dtypes, the limits that still raise (head dim
-above 256, head group above 16), and the shape-only route's outputs and
-reported work at a padded width. The kernels themselves are held at these
-head dims on the card by ``tests/test_torch_kernels_cuda.py`` and
-``chip_smoke.py`` phase 2.
+every head dim 1..256 in both dtypes and above it (the wide route, at the
+next multiple of 64), what the route takes on the card (a head dim above
+256, a head group above 16) and what still raises (head dim 0, ``H % KV !=
+0``, float16), and the shape-only route's outputs and reported work at a
+padded width. The kernels themselves are held at these head dims on the
+card by ``tests/test_torch_kernels_cuda.py`` and ``chip_smoke.py`` phase 2;
+``tests/test_torch_wide_heads.py`` holds the wide route's head dims and the
+large groups against JAX.
 """
 import numpy as np
 import pytest
@@ -32,7 +35,7 @@ from repro.models import model as JM  # noqa: E402
 from repro.training import loss as JLoss  # noqa: E402
 from repro_torch import bridge  # noqa: E402
 from repro_torch.configs import ARCHS as T_ARCHS, reduced as t_reduced  # noqa: E402
-from repro_torch.kernels import ops  # noqa: E402
+from repro_torch.kernels import build, ops  # noqa: E402
 from repro_torch.models import model as TM  # noqa: E402
 from repro_torch.training import loss as TLoss  # noqa: E402
 from tests.test_torch_isolation import _claims_cuda  # noqa: E402
@@ -248,7 +251,8 @@ def test_wide_decode_steps_match_jax():
 def test_built_head_dim_for_every_head_dim(dtype):
     """1..32 -> 32, 33..64 -> 64, 65..128 -> 128, 129..192 -> 192,
     193..256 -> 256, the same in both dtypes, and every flash variant by
-    dtype alone; 0 and anything above 256 raise."""
+    dtype alone; above 256 the next multiple of 64 on the "wide" variant
+    (257 -> 320, 320 -> 320, 512 -> 512); 0 raises."""
     want = {range(1, 33): 32, range(33, 65): 64, range(65, 129): 128,
             range(129, 193): 192, range(193, 257): 256}
     for dims, built in want.items():
@@ -257,7 +261,10 @@ def test_built_head_dim_for_every_head_dim(dtype):
             assert ops.flash_variant(dtype, D) == (
                 "tensor_core" if dtype == torch.bfloat16 else "split_f32")
     assert ops.HEAD_DIMS == (32, 64, 128, 192, 256)
-    for D in (0, 257, 320, 512):
+    for D, built in ((257, 320), (320, 320), (512, 512)):
+        assert ops.built_head_dim(dtype, D) == built
+        assert ops.flash_variant(dtype, D) == "wide"
+    for D in (0, -1):
         with pytest.raises(ValueError, match="head dim"):
             ops.built_head_dim(dtype, D)
         with pytest.raises(ValueError, match="head dim"):
@@ -266,24 +273,45 @@ def test_built_head_dim_for_every_head_dim(dtype):
         ops.built_head_dim(torch.float16, 64)
 
 
-@pytest.mark.parametrize("H, KV, D, match", [
-    (4, 2, 320, "head dim 320"),     # above 256
-    (34, 2, 192, "head group 17"),   # above 16
-    (34, 2, 48, "head group 17"),
+class _Launched(Exception):
+    pass
+
+
+def _refuse(*args, **kwargs):
+    raise _Launched("launcher reached")
+
+
+@pytest.mark.parametrize("H, KV, D, dtype, match", [
+    # what the route takes now: a head dim above 256, a head group above 16
+    (4, 2, 320, torch.float32, None),
+    (34, 2, 192, torch.float32, None),
+    (34, 2, 48, torch.bfloat16, None),
+    # what still raises, its message naming the limit
+    (4, 2, 0, torch.float32, "head dim 0"),
+    (6, 4, 64, torch.float32, "multiple of kv heads"),
+    (4, 2, 64, torch.float16, "float16"),
 ])
-def test_kernel_route_still_refuses_past_its_limits(H, KV, D, match):
-    """On the card (a tensor that claims CUDA) the wrappers raise before any
-    launch for a head dim above 256 or a head group above 16; their
-    messages name the limit."""
-    q4, k = torch.randn(1, 8, H, D), torch.randn(1, 8, KV, D)
-    q3, lengths = torch.randn(1, H, D), torch.tensor([5], dtype=torch.int32)
+def test_kernel_route_still_refuses_past_its_limits(monkeypatch, H, KV, D,
+                                                    dtype, match):
+    """On the card (a tensor that claims CUDA) the wrappers take every
+    head dim from 1 and every head group (the call reaches the launch),
+    and raise before any launch only for head dim 0, a q head count that is
+    not a multiple of the kv heads', or a dtype without a kernel."""
+    monkeypatch.setattr(ops, "_launch_flash_attention", _refuse)
+    monkeypatch.setattr(ops, "_launch_decode_attention", _refuse)
+    monkeypatch.setattr(build, "load", _refuse)
+    q4, k = torch.randn(1, 8, H, D).to(dtype), torch.randn(1, 8, KV, D).to(dtype)
+    q3, lengths = torch.randn(1, H, D).to(dtype), torch.tensor([5], dtype=torch.int32)
     cuda = [_claims_cuda(t) for t in (q4, k, q3, lengths)]
     before = dict(ops.LAUNCHES)
-    with pytest.raises(ValueError, match=match):
+    def raises():
+        return (pytest.raises(_Launched) if match is None
+                else pytest.raises(ValueError, match=match))
+    with raises():
         ops.flash_attention(cuda[0], cuda[1], cuda[1])
-    with pytest.raises(ValueError, match=match):
+    with raises():
         ops.decode_attention(cuda[2], cuda[1], cuda[1], cuda[3])
-    with pytest.raises(ValueError, match=match):
+    with raises():
         ops.flash_attention_backward(cuda[0], cuda[1], cuda[1], cuda[0],
                                      _claims_cuda(torch.zeros(1, H, 8)),
                                      cuda[0])

@@ -494,14 +494,17 @@ def test_wrappers_choose_the_plain_version_only_by_device(monkeypatch, which):
 @pytest.mark.parametrize("bad", ["dim", "group", "noncontiguous", "grad"])
 def test_kernel_limits_are_checked_before_launch(monkeypatch, bad):
     """On the card the wrapper refuses what the kernels do not take before
-    it launches anything (the launcher here would raise _Launched)."""
+    it launches anything (the launcher here would raise _Launched): head
+    dim 0 (every head dim from 1 is built, padded or on the wide route), q
+    heads that are not a multiple of the kv heads (every whole group
+    runs), non-contiguous operands, grad on a bare kernel call."""
     monkeypatch.setattr(ops, "_launch_decode_attention", _refuse)
     monkeypatch.setattr(ops, "_launch_flash_attention", _refuse)
     H, KV, D = 4, 2, 32
-    if bad == "dim":   # above 256 (any head dim up to it is built or padded)
-        D = 320
+    if bad == "dim":
+        D = 0
     elif bad == "group":
-        H, KV = 34, 2
+        H, KV = 6, 4
     q, k = torch.randn(1, H, D), torch.randn(1, 8, KV, D)
     lengths = torch.tensor([5], dtype=torch.int32)
     q4 = torch.randn(1, 8, H, D)

@@ -341,21 +341,25 @@ def test_plain_versions_take_any_head_dim():
     (torch.bfloat16, 192, "tensor_core"), (torch.float32, 192, "split_f32"),
     (torch.bfloat16, 16, "tensor_core"), (torch.float32, 16, "split_f32"),
     (torch.bfloat16, 48, "tensor_core"), (torch.float32, 48, "split_f32"),
-    (torch.bfloat16, 80, "tensor_core"), (torch.float32, 80, "split_f32")])
+    (torch.bfloat16, 80, "tensor_core"), (torch.float32, 80, "split_f32"),
+    (torch.bfloat16, 257, "wide"), (torch.float32, 320, "wide"),
+    (torch.bfloat16, 512, "wide"), (torch.float32, 1024, "wide")])
 def test_flash_variant_follows_dtype(dtype, head_dim, variant):
     """bf16 goes to the tensor-core kernel (flash_attention_tc.cu); f32 at
-    every head dim to the split-f32 tensor-core kernels
+    every head dim up to 256 to the split-f32 tensor-core kernels
     (flash_attention_f32tc.cu; at D = 192 and 256 their cluster-pair
     kernels); the choice is by dtype alone, before any launch, at the built
-    head dims and at the padded ones (16, 48, 80) alike."""
+    head dims and at the padded ones (16, 48, 80) alike. Above 256 both
+    dtypes take the wide route (flash_attention_wide.cu)."""
     assert ops.flash_variant(dtype, head_dim) == variant
 
 
 def test_flash_variant_refuses_other_dtypes():
+    """float16 has no kernel at any head dim, the wide route's included."""
     with pytest.raises(ValueError):
         ops.flash_variant(torch.float16, 128)
     with pytest.raises(ValueError):
-        ops.flash_variant(torch.float32, 320)
+        ops.flash_variant(torch.float16, 320)
 
 
 def test_row_error_sees_a_dropped_key_tile():

@@ -84,6 +84,18 @@ FLASH_CASES = [
     (1, 1000, 1000, 8, 2, 48, True, 128, 30.0, "bf16"),
     (2, 1024, 1024, 16, 8, 80, False, None, None, "f32"),
     (2, 1024, 1024, 16, 8, 80, True, None, None, "bf16"),
+    # the wide route (csrc/flash_attention_wide.cu; head dims above 256 at
+    # the next multiple of 64): launch.train --d-model 2048's head dim 512,
+    # 320 (d_model 1280), a padded 300, 1024 non-causal; head groups 24 and
+    # 17 (above the old limit of 16) on every variant
+    (2, 256, 256, 4, 2, 512, True, None, None, "f32"),
+    (2, 256, 256, 4, 2, 512, True, 100, 50.0, "bf16"),
+    (1, 128, 128, 4, 2, 320, True, None, None, "f32"),
+    (1, 100, 150, 4, 2, 300, False, None, 30.0, "f32"),
+    (1, 128, 128, 2, 1, 1024, False, None, None, "bf16"),
+    (1, 200, 200, 48, 2, 320, True, None, None, "bf16"),
+    (1, 300, 300, 34, 2, 128, True, None, None, "bf16"),
+    (1, 300, 300, 34, 2, 64, True, None, None, "f32"),
 ]
 # bf16 also per output row (b, q, h): its error over D relative to that row
 # of the f32 result may be at most ref.BF16_ROW_TOL. rtol=atol 2e-2 alone
@@ -133,6 +145,20 @@ DECODE_CASES = [
     (4, 64, 4, 2, 16, 8, 50.0, "f32", [1, 17, 64, 40]),
     (4, 4096, 48, 8, 48, None, None, "bf16", [64] * 4),
     (4, 4096, 16, 8, 80, 1000, 30.0, "f32", None),
+    # the wide instance (head dims above 256: a cluster per slice of 256
+    # columns) at 512 (64 keys and a full cache), 320 with a window and
+    # softcap, 1024; head groups above 16 in chunks (24, 32, 48 and
+    # Falcon-7B's 71 over one kv head; 17 at D 192; 32 at D 512)
+    (4, 4096, 4, 2, 512, None, None, "f32", [64] * 4),
+    (4, 4096, 4, 2, 512, None, None, "f32", [4096] * 4),
+    (4, 1024, 4, 2, 320, 300, 30.0, "f32", [1100, 600, 64, 1024]),
+    (4, 1024, 4, 2, 1024, None, None, "bf16", [64, 1024, 3, 1000]),
+    (4, 1024, 24, 1, 64, None, None, "f32", None),
+    (4, 1024, 32, 1, 64, None, None, "f32", None),
+    (4, 1024, 48, 1, 64, 100, 50.0, "bf16", None),
+    (4, 1024, 71, 1, 64, None, None, "f32", None),
+    (2, 1024, 34, 2, 192, None, None, "f32", [1000, 64]),
+    (2, 1024, 32, 1, 512, None, None, "f32", [1000, 64]),
 ]
 
 # f32 flash backward against its plain version (csrc/flash_attention_f32tc.cu):
@@ -165,6 +191,13 @@ BWD_CASES = [
     (4, 64, 64, 4, 2, 16, True, None, None),
     (1, 1000, 1000, 16, 8, 48, True, None, None),
     (1, 700, 1000, 16, 4, 80, False, None, None),
+    # the wide route (dk/dv and dq kernels) at head dims 512, 320 (window,
+    # softcap), a padded 300 (Sq != Sk), 1024, and head group 24
+    (2, 256, 256, 4, 2, 512, True, None, None),
+    (1, 128, 128, 4, 2, 320, True, 40, 50.0),
+    (1, 100, 150, 4, 2, 300, False, None, 30.0),
+    (1, 128, 128, 2, 1, 1024, False, None, None),
+    (1, 200, 200, 48, 2, 320, True, None, None),
 ]
 BWD_TOL = 2e-5   # relative to each gradient's largest magnitude
 
@@ -585,6 +618,11 @@ BF16_BWD_EDGE_CASES = [
     (4, 64, 64, 4, 2, 16, True, None, None),
     (1, 1000, 1000, 16, 8, 48, True, None, None),
     (1, 1100, 1000, 16, 8, 80, False, None, 30.0),
+    # the wide route in bf16: head dims 512 (softcap), 320 (a window, head
+    # group 24) and a padded 300 (Sq != Sk)
+    (2, 256, 256, 4, 2, 512, True, None, 50.0),
+    (1, 200, 200, 48, 2, 320, True, 50, None),
+    (1, 100, 150, 4, 2, 300, False, None, None),
 ]
 BF16_BWD_TOL = 2e-2   # relative to each gradient's largest magnitude
 BF16_LSE_TOL = 1e-3
@@ -1017,11 +1055,12 @@ def test_moe_backward_on_card_is_repeatable_and_sync_free(card):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dt", ["f32", "bf16"])
-@pytest.mark.parametrize("D", [16, 48, 80, 192, 200])
+@pytest.mark.parametrize("D", [16, 48, 80, 192, 200, 300, 512])
 def test_attention_launches_record_their_built_head_dim(card, D, dt):
     """Flash (forward and backward) and decode at a head dim D launch the
-    kernel instance of ops.built_head_dim (D itself at 192, else the next
-    built width, the operands padded with zero columns) and count it in
+    kernel instance of ops.built_head_dim (D itself at 192 and 512, else
+    the next built width, above 256 the next multiple of 64 on the wide
+    route, the operands padded with zero columns) and count it in
     ops.BUILT_WIDTHS; each result holds to the plain version at the true D."""
     g = torch.Generator(device=card).manual_seed(1)
     q = _randn(g, (2, 100, 4, D), dt, card)

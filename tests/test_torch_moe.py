@@ -224,3 +224,21 @@ def test_moe_block_is_bitwise_repeatable_and_differentiable():
     grads = torch.autograd.grad(out.square().sum() + aux,
                                 [x] + list(tp.parameters()))
     assert all(bool(g.abs().sum() > 0) for g in grads)
+
+
+@pytest.mark.parametrize("name", ["grok-1-314b", "arctic-480b"])
+def test_moe_decode_matches_jax(name):
+    """``apply_moe_decode`` (each token through its top-k experts' weights,
+    gathered densely, no capacity) on 4 tokens of one step and on 2 x 3
+    tokens, in f32; with a zero row (uniform probs: ties toward the lower
+    expert id)."""
+    cfg, tcfg = _configs(name)
+    p, tp = _params(cfg, tcfg, "float32")
+    rng = np.random.default_rng(7)
+    for shape in ((4, 1, cfg.d_model), (2, 3, cfg.d_model)):
+        x = rng.standard_normal(shape).astype(np.float32)
+        x[0, 0] = 0.0
+        want = JL.apply_moe_decode(p, jnp.asarray(x), cfg)
+        got = TL.apply_moe_decode(tp, torch.from_numpy(x), tcfg)
+        assert got.dtype == torch.float32 and got.shape == x.shape
+        _close(got.numpy(), np.asarray(want), TOL["float32"])
