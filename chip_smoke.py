@@ -34,11 +34,16 @@ non-causal). Phases:
    server's [4, 128, 4, 2]); and on the padded route (head dims 16, 48
    and 80, run on the next built width: each launch's width checked
    against ``ops.built_head_dim``, each result held to the plain version
-   at the true head dim); on the wide route (head dims above 256, built
-   at the next multiple of 64, ``ops.flash_variant`` "wide": flash
+   at the true head dim); on the wide route (head dims above 256: flash
+   up to 1024 on the cluster route, ``ops.flash_variant`` "cluster", at
+   ``ops.flash_built_head_dim``, above it on the CUDA-core route; decode
+   at the next multiple of 64: flash
    forward and backward in f32 and bf16 at [2, 256, 4, 512] kv 2 causal,
    with and without softcap 50 and a window, [1, 128, 4, 320] and 300 kv
-   2, [1, 128, 2, 1024] kv 1 non-causal, head group 24; decode at B=4
+   2, [1, 128, 2, 1024] kv 1 non-causal, head group 24, and at small S
+   576 (ranks of 96 columns), a padded 704, head groups 17 at 512 and 24
+   at 576, and 1088 on the CUDA-core route, the seconds these cases take
+   printed; decode at B=4
    S=4096 H=4 kv 2, D 512 (64 keys and a full cache), 320, 1024 and 300,
    with lse and key ranges); and at head groups above 16 (decode in
    chunks at groups 24, 32, 48 and 71 over one kv head, D 64, and 32 at
@@ -82,13 +87,16 @@ non-causal). Phases:
    keys and a full cache), each beside its bound (the true head dim's
    work) and SDPA, with the ptxas report of the D = 192 instances; the
    wide route at [2, 2048, 4, 512] kv 2 causal (internlm2's width over
-   the launchers' four heads), forward and backward in f32 and bf16,
-   beside the true head dim's bound (f32: 3xTF32 and CUDA-core), the work
-   the kernels do (the scores once per slice), the plain version and
-   SDPA (``enable_gqa``, its fastest backend named), and decode at B=4
+   the launchers' four heads: the cluster route, 4 ranks of 128 columns),
+   forward and backward in f32 and bf16, beside the true head dim's bound
+   (f32: 3xTF32 and CUDA-core; bf16: the bf16 peak and one TF32 product's
+   ceiling), the same-call parent (the CUDA-core kernels, which compute
+   the scores once per slice of 128 columns), the plain version and SDPA
+   (``enable_gqa``, its fastest backend named), the cluster kernels'
+   occupancy at head dims 320, 512, 576 and 1024, and decode at B=4
    S=4096 H=4 kv 2 D 512 (64 keys and a full cache) and at H 32 kv 1 D 64
    (a multi-query group of 32) over a full cache, with the ptxas report
-   of the wide kernels;
+   of the cluster and CUDA-core kernels;
 6. internlm2 ``make_train_step`` at full width in f32 (24 layers, tokens
    [accum 1, mb 2, S 2048], 30.2 GB of params, grads and AdamW moments):
    step ms, tokens/s, the device breakdown, 24 forward and 24 backward
@@ -211,7 +219,8 @@ examples. the port's examples (``examples/torch_*.py``, imported from this
     ``repro_torch.launch.train`` at ``--d-model 2048`` (head dim 512,
     ``LAUNCH_TRAIN_WIDE``: 2 layers, 6 steps, a checkpoint every 3) with a
     worker kill and the trainer killed at step 4, bitwise equal to the run
-    without (losses, params, m, v), 2 + 2 wide launches a step and no
+    without (losses, params, m, v), 2 + 2 launches a step, all on the
+    cluster route (``ops.FLASH_VARIANTS``), and no
     plain attention call; ``launch.serve --d-model 2048`` and ``1280`` and
     a multi-query server (``--d-model 2048``, 32 heads over one kv head)
     as the example servers. The phase within ``EXAMPLES_PHASE_S``, its
@@ -436,19 +445,24 @@ KERNELS = {
     "selective_scan_backward": dict(
         route="cuda", source="src/repro_torch/kernels/csrc/selective_scan.cu",
         replaces="src/repro/kernels/selective_scan.py:49"),
-    # head dims above 256 (``ops.flash_variant`` "wide", either dtype): the
-    # flash pair on the launch.train --d-model 2048 path (f32; bf16 timed
-    # beside it), decode's wide instance on the launch.serve --d-model 2048
-    # and 1280 servers. They count in ops.LAUNCHES under their wrappers'
-    # names; their rows read the launches recorded above head dim 256
-    # (``ops.BUILT_WIDTHS``)
+    # head dims above 256 (either dtype): the flash pair on the
+    # launch.train --d-model 2048 path (f32; bf16 timed beside it), on the
+    # cluster route up to 1024 (``ops.flash_variant`` "cluster": the
+    # split-f32 kernels over a cluster of N ranks, one TF32 product in
+    # bf16), decode's wide instance on the launch.serve --d-model 2048 and
+    # 1280 servers. They count in ops.LAUNCHES under their wrappers' names;
+    # their rows read the launches recorded above head dim 256
+    # (``ops.BUILT_WIDTHS``). Above 1024 flash takes the CUDA-core route
+    # (``csrc/flash_attention_wide.cu``), which no model runs: phase 2
+    # holds it to its plain version and phase 5 times it beside the cluster
+    # route as the same-call parent
     "flash_attention_wide": dict(
         route="cuda",
-        source="src/repro_torch/kernels/csrc/flash_attention_wide.cu",
+        source="src/repro_torch/kernels/csrc/flash_attention_f32tc_cluster.cu",
         replaces="src/repro/kernels/flash_attention.py:93"),
     "flash_attention_backward_wide": dict(
         route="cuda",
-        source="src/repro_torch/kernels/csrc/flash_attention_wide.cu",
+        source="src/repro_torch/kernels/csrc/flash_attention_f32tc_cluster.cu",
         replaces="src/repro/kernels/flash_attention.py:93"),
     "decode_attention_wide": dict(
         route="cuda", source="src/repro_torch/kernels/csrc/decode_attention.cu",
@@ -472,10 +486,17 @@ F32TC_BWD_D256 = (F32TC_BWD_PREP, "flash_f32tc_dkdv_d256_kernel",
 F32TC_FWD_D192 = "flash_f32tc_fwd_d192_kernel"
 F32TC_BWD_D192 = (F32TC_BWD_PREP, "flash_f32tc_dkdv_d192_kernel",
                   "flash_f32tc_dq_d192_kernel")
-# the wide route (head dims above 256): its forward, its backward's two
-# launches, and decode's wide instance beside the decode kernel
-WIDE_FWD = "flash_wide_fwd_kernel"
-WIDE_BWD = ("flash_wide_dkdv_kernel", "flash_wide_dq_kernel")
+# above 256 and up to 1024 (the cluster route): the same prep launches, then
+# kernels whose blocks form clusters of N ranks, in f32 and bf16 (the wide
+# route's forward and backward)
+F32TC_FWD_CLUSTER = "flash_f32tc_fwd_cluster_kernel"
+WIDE_FWD = (F32TC_FWD_PREP, F32TC_FWD_CLUSTER)
+WIDE_BWD = (F32TC_BWD_PREP, "flash_f32tc_dkdv_cluster_kernel",
+            "flash_f32tc_dq_cluster_kernel")
+# above 1024 (the CUDA-core route): its forward and its backward's two
+# launches; and decode's wide instance beside the decode kernel
+CUDA_CORE_FWD = "flash_wide_fwd_kernel"
+CUDA_CORE_BWD = ("flash_wide_dkdv_kernel", "flash_wide_dq_kernel")
 DECODE_KERNEL, DECODE_WIDE = "decode_attention_kernel", "decode_wide_kernel"
 SCAN_KERNEL = {"sequential": "selective_scan_kernel",
                "step": "selective_scan_step_kernel"}
@@ -485,11 +506,11 @@ SCAN_BWD = "selective_scan_bwd_kernel"
 DEVICE_KERNELS = {
     "flash_attention": [((FLASH_TC,), 1),
                         ((F32TC_FWD_PREP, F32TC_FWD, F32TC_FWD_D256,
-                          F32TC_FWD_D192), 2),
-                        ((WIDE_FWD,), 1)],
+                          F32TC_FWD_D192, F32TC_FWD_CLUSTER), 2),
+                        ((CUDA_CORE_FWD,), 1)],
     "flash_attention_backward": [(F32TC_BWD + F32TC_BWD_D256[1:]
-                                  + F32TC_BWD_D192[1:], 3),
-                                 (FLASH_TC_BWD, 3), (WIDE_BWD, 2)],
+                                  + F32TC_BWD_D192[1:] + WIDE_BWD[1:], 3),
+                                 (FLASH_TC_BWD, 3), (CUDA_CORE_BWD, 2)],
     "decode_attention": [((DECODE_KERNEL,), 1), ((DECODE_WIDE,), 1)],
     "selective_scan": [(tuple(SCAN_KERNEL.values()), 1)],
     "selective_scan_backward": [((SCAN_BWD,), 1)],
@@ -498,9 +519,11 @@ DEVICE_KERNELS = {
 
 def f32tc_names(D: int) -> tuple:
     """The split-f32 device kernels of head dim D: (forward's, backward's),
-    those of the instance ``ops.built_head_dim`` picks (the pair kernels at
-    192 and 256)."""
-    built = ops.built_head_dim(torch.float32, D)
+    those of the instance ``ops.flash_built_head_dim`` picks (the pair
+    kernels at 192 and 256, the cluster kernels above)."""
+    built = ops.flash_built_head_dim(torch.float32, D)
+    if built > 256:
+        return WIDE_FWD, WIDE_BWD
     if built == 256:
         return (F32TC_FWD_PREP, F32TC_FWD_D256), F32TC_BWD_D256
     if built == 192:
@@ -1027,11 +1050,14 @@ FLASH_CASES = [
     (1, 1000, 8, 2, 48, torch.bfloat16, True, 128, 30.0),
     (2, 1024, 16, 8, 80, torch.float32, False, None, None),
     (2, 1024, 16, 8, 80, torch.bfloat16, True, None, None),
-    # the wide route (head dims above 256): [2, 256, 4, 512] kv 2 causal,
-    # plain, with softcap 50 and with a window; [1, 128, 4, 320] kv 2 and a
-    # padded 300 (built 320); [1, 128, 2, 1024] kv 1 non-causal; each in
-    # f32 and bf16; head groups 24 and 17 (the wide route, tensor_core,
-    # split_f32)
+    # above head dim 256, on the cluster route (ranks of 128 columns at 512
+    # and 1024, 64 at 320, 96 at 576): [2, 256, 4, 512] kv 2 causal, plain,
+    # with softcap 50 and with a window; [1, 128, 4, 320] kv 2 and a padded
+    # 300 (built 320); [1, 128, 2, 1024] kv 1 non-causal; each in f32 and
+    # bf16; head groups 24 and 17 (the cluster route, tensor_core,
+    # split_f32); then at small S: 576 in both dtypes, a padded 704 (built
+    # 768), head groups 17 at 512 and 24 at 576, and the CUDA-core route at
+    # 1088 (above the cluster's reach)
     (2, 256, 4, 2, 512, torch.float32, True, None, None),
     (2, 256, 4, 2, 512, torch.float32, True, None, 50.0),
     (2, 256, 4, 2, 512, torch.float32, True, 100, None),
@@ -1047,6 +1073,14 @@ FLASH_CASES = [
     (1, 300, 48, 2, 320, torch.float32, True, None, None),
     (1, 300, 34, 2, 128, torch.bfloat16, True, None, None),
     (1, 300, 34, 2, 64, torch.float32, True, None, None),
+    (1, 128, 4, 2, 576, torch.float32, True, 40, 30.0),
+    (1, 128, 4, 2, 576, torch.bfloat16, True, None, None),
+    (1, 100, 4, 2, 704, torch.float32, False, None, None),
+    (1, 100, 4, 2, 704, torch.bfloat16, True, None, 50.0),
+    (1, 130, 34, 2, 512, torch.float32, True, None, None),
+    (1, 130, 48, 2, 576, torch.bfloat16, True, 50, None),
+    (1, 96, 2, 1, 1088, torch.float32, True, None, None),
+    (1, 96, 2, 1, 1088, torch.bfloat16, True, None, 30.0),
 ]
 
 FLASH_CROSS_CASES = [
@@ -1093,8 +1127,9 @@ BWD_CASES = [
     (1, 1000, 1000, 16, 8, 48, True, None, None),
     (1, 700, 1000, 16, 4, 80, False, None, None),
     (1, 1024, 1024, 16, 8, 80, True, 256, 50.0),
-    # the wide route (dk/dv and dq): phase 2's forward shapes, head group
-    # 24, Sq != Sk
+    # above 256 (dk/dv and dq): phase 2's forward shapes on the cluster
+    # route, head groups 24 and 17, Sq != Sk, 576 and a padded 704; the
+    # CUDA-core route at 1088
     (2, 256, 256, 4, 2, 512, True, None, None),
     (2, 256, 256, 4, 2, 512, True, None, 50.0),
     (2, 256, 256, 4, 2, 512, True, 100, None),
@@ -1103,6 +1138,10 @@ BWD_CASES = [
     (1, 128, 128, 2, 1, 1024, False, None, None),
     (1, 200, 200, 48, 2, 320, True, None, None),
     (1, 100, 150, 4, 2, 512, False, None, None),
+    (1, 128, 128, 4, 2, 576, True, 40, 30.0),
+    (1, 100, 100, 4, 2, 704, True, None, None),
+    (1, 130, 130, 34, 2, 512, True, None, None),
+    (1, 96, 96, 2, 1, 1088, True, None, None),
 ]
 
 
@@ -1158,14 +1197,23 @@ def decode_row(D: int) -> str:
     return "decode_attention_wide" if D > ops.HEAD_DIMS[-1] else "decode_attention"
 
 
-def flash_row_of(name: str, D: int) -> str:
+def flash_row_of(name: str, D: int):
     """The kernel row of a flash wrapper's launch at head dim D in
     ``errs``: the f32 and bf16 backward rows are the caller's; above 256 the
-    wide route's."""
+    wide route's (the cluster kernels); None on the CUDA-core route (above
+    1024), which no model runs and which has no row."""
     if D <= ops.HEAD_DIMS[-1]:
         return name
+    if ops.flash_variant(torch.float32, D) == "cuda_core":
+        return None
     return ("flash_attention_wide" if name == "flash_attention"
             else "flash_attention_backward_wide")
+
+
+def note_err(errs: dict, key, err: float) -> None:
+    """The largest error of the kernel row ``key`` (none: no row)."""
+    if key is not None:
+        errs[key] = max(errs[key], err)
 
 
 def assert_close_to_max(got, want, tol, what) -> float:
@@ -1180,20 +1228,28 @@ def assert_close_to_max(got, want, tol, what) -> float:
 
 def built_call(name: str, D: int, dtype, fn):
     """fn()'s result, after checking that it launched the ``name`` kernel
-    once and recorded that launch at ``ops.built_head_dim(dtype, D)``: D
-    itself where a kernel instance is built for it, else the next built
-    head dim, the operands padded to it."""
-    built = ops.built_head_dim(dtype, D)
-    if name.startswith("flash") and D > ops.HEAD_DIMS[-1]:
-        check(ops.flash_variant(dtype, D) == "wide",
-              f"{name} D={D}: variant {ops.flash_variant(dtype, D)}, not wide")
+    once and recorded that launch at ``ops.built_head_dim(dtype, D)``
+    (``ops.flash_built_head_dim`` for flash): D itself where a kernel
+    instance is built for it, else the next built head dim, the operands
+    padded to it; a flash launch also under its variant, above 256 the
+    cluster route up to 1024 and the CUDA-core route above."""
+    flash = name.startswith("flash")
+    built = (ops.flash_built_head_dim if flash else ops.built_head_dim)(dtype, D)
+    variant = ops.flash_variant(dtype, D) if flash else None
+    if flash and D > ops.HEAD_DIMS[-1]:
+        want = "cluster" if built <= ops.CLUSTER_WIDTHS[-1] else "cuda_core"
+        check(variant == want, f"{name} D={D}: variant {variant}, not {want}")
     before = ops.BUILT_WIDTHS[name, D, built]
+    by_variant = ops.FLASH_VARIANTS[name, variant]
     n = ops.LAUNCHES[name]
     out = fn()
     check(ops.LAUNCHES[name] == n + 1
           and ops.BUILT_WIDTHS[name, D, built] == before + 1,
           f"{name} D={D}: its launch was not recorded at the built head "
           f"dim {built} ({dict(ops.BUILT_WIDTHS)})")
+    check(not flash or ops.FLASH_VARIANTS[name, variant] == by_variant + 1,
+          f"{name} D={D}: its launch was not recorded as {variant} "
+          f"({dict(ops.FLASH_VARIANTS)})")
     return out
 
 
@@ -1230,7 +1286,7 @@ def check_flash_backward(g, case) -> float:
           f"{what}: two calls differ")
     log(f"flash backward B={B} Sq={Sq} Sk={Sk} H={H} KV={KV} D={D} "
         f"({ops.flash_variant(torch.float32, D)}, built D "
-        f"{ops.built_head_dim(torch.float32, D)}) "
+        f"{ops.flash_built_head_dim(torch.float32, D)}) "
         f"causal={causal} window={window} softcap={softcap}: dq/dk/dv error "
         f"relative to max {errs[0]:.3e} / {errs[1]:.3e} / {errs[2]:.3e} "
         f"(tol {TOL[torch.float32]}), bitwise repeatable, o unchanged by lse, "
@@ -1282,7 +1338,8 @@ BF16_BWD_CASES = [
     (4, 64, 64, 4, 2, 16, True, None, None),
     (1, 1000, 1000, 16, 8, 48, True, None, None),
     (1, 1100, 1000, 16, 8, 80, False, None, 30.0),
-    # the wide route in bf16: the f32 cases' shapes
+    # above 256 in bf16: the f32 cases' shapes (the cluster route with one
+    # TF32 product; the CUDA-core route at 1088)
     (2, 256, 256, 4, 2, 512, True, None, None),
     (2, 256, 256, 4, 2, 512, True, None, 50.0),
     (2, 256, 256, 4, 2, 512, True, 100, None),
@@ -1290,6 +1347,10 @@ BF16_BWD_CASES = [
     (1, 128, 128, 4, 2, 300, True, 40, 30.0),
     (1, 128, 128, 2, 1, 1024, False, None, None),
     (1, 200, 200, 48, 2, 320, True, None, None),
+    (1, 128, 128, 4, 2, 576, True, None, 30.0),
+    (1, 100, 100, 4, 2, 704, False, None, None),
+    (1, 130, 130, 34, 2, 512, True, None, None),
+    (1, 96, 96, 2, 1, 1088, True, None, None),
 ]
 
 
@@ -1334,7 +1395,7 @@ def check_flash_backward_bf16(g, case) -> float:
     check(all(bool(torch.equal(a, b)) for a, b in zip(got, again)),
           f"{what}: two calls differ")
     log(f"bf16 flash backward B={B} Sq={Sq} Sk={Sk} H={H} KV={KV} D={D} "
-        f"({ops.flash_variant(dt, D)}, built D {ops.built_head_dim(dt, D)}) "
+        f"({ops.flash_variant(dt, D)}, built D {ops.flash_built_head_dim(dt, D)}) "
         f"causal={causal} window={window} softcap={softcap}: dq/dk/dv error "
         f"relative to max: max {errs[0]:.3e} / {errs[1]:.3e} / {errs[2]:.3e}, "
         f"mean {means[0]:.3e} / {means[1]:.3e} / {means[2]:.3e} (tol "
@@ -1474,7 +1535,9 @@ def phase_kernels() -> dict:
     cases = [(B, S, S, H, KV, D, dt, causal, window, softcap)
              for B, S, H, KV, D, dt, causal, window, softcap in FLASH_CASES]
     cases += [case + (False, None, None) for case in FLASH_CROSS_CASES]
+    wide_s = {"forward": 0.0, "backward": 0.0}   # the cases above 256
     for B, Sq, Sk, H, KV, D, dt, causal, window, softcap in cases:
+        t0 = time.perf_counter()
         q = _randn(g, (B, Sq, H, D), dt)
         k = _randn(g, (B, Sk, KV, D), dt)
         v = _randn(g, (B, Sk, KV, D), dt)
@@ -1487,20 +1550,30 @@ def phase_kernels() -> dict:
         err = assert_close(out, want, TOL[dt], what)
         rows = (f", row error {check_flash_rows(out, q, k, v, kw, what):.3e} "
                 f"(tol {ref.BF16_ROW_TOL})" if dt == torch.bfloat16 else "")
-        key = flash_row_of("flash_attention", D)
-        errs[key] = max(errs[key], err)
+        note_err(errs, flash_row_of("flash_attention", D), err)
         log(f"flash B={B} S={Sq}" + (f" Sk={Sk}" if Sk != Sq else "")
             + f" H={H} KV={KV} D={D} {str(dt)[6:]} "
             f"({ops.flash_variant(dt, D)}, built D "
-            f"{ops.built_head_dim(dt, D)}) causal={causal} "
+            f"{ops.flash_built_head_dim(dt, D)}) causal={causal} "
             f"window={window} softcap={softcap}: max_abs_err {err:.3e} "
             f"(tol {TOL[dt]}){rows}")
-    for case in BWD_CASES:
-        key = flash_row_of("flash_attention_backward", case[5])
-        errs[key] = max(errs[key], check_flash_backward(g, case))
-    for case in BF16_BWD_CASES:
-        key = flash_row_of("flash_attention_backward_bf16", case[5])
-        errs[key] = max(errs[key], check_flash_backward_bf16(g, case))
+        if D > ops.HEAD_DIMS[-1]:
+            sync()
+            wide_s["forward"] += time.perf_counter() - t0
+    for check_case, cases, row in (
+            (check_flash_backward, BWD_CASES, "flash_attention_backward"),
+            (check_flash_backward_bf16, BF16_BWD_CASES,
+             "flash_attention_backward_bf16")):
+        for case in cases:
+            t0 = time.perf_counter()
+            note_err(errs, flash_row_of(row, case[5]), check_case(g, case))
+            if case[5] > ops.HEAD_DIMS[-1]:
+                sync()
+                wide_s["backward"] += time.perf_counter() - t0
+    log(f"phase 2: the flash cases above head dim 256 (the cluster and "
+        f"CUDA-core routes) took {wide_s['forward'] + wide_s['backward']:.1f}"
+        f" s: forward {wide_s['forward']:.1f} s, backward "
+        f"{wide_s['backward']:.1f} s")
     return errs
 
 
@@ -2601,28 +2674,48 @@ DECODE_GROUP32_SHAPE = (4, 4096, 32, 1, 64)
 
 
 def time_wide_flash(shape, seed: int) -> dict:
-    """The wide route's flash kernels (``csrc/flash_attention_wide.cu``) at
-    one causal shape (B, S, H, KV, D, softcap), forward and backward, in f32
-    (the launch.train --d-model 2048 path's) and bf16: event and device
-    time (each launch of the backward), the plain versions' times, the
-    error (f32 against the plain version at 2e-5; bf16 against the plain
-    f32 result of the f32 copies at 2e-2; gradients relative to each
-    one's max), and the bound at the true head dim's work (4 flops a kept
-    pair and dim forward, 10 backward): f32 as three TF32 products at 495
-    TFLOP/s with the 67 TFLOP/s CUDA-core bound beside it, bf16 at 989
-    TFLOP/s; or q, k, v (o, dO, lse) read and the outputs written once.
-    The work the kernels do (``ops.attention_work``: the scores once per column
-    slice) is printed beside it. The library call: SDPA with ``enable_gqa``
+    """The wide route's flash kernels at one causal shape (B, S, H, KV, D,
+    softcap): the cluster route (``csrc/flash_attention_f32tc_cluster.cu``:
+    the prep launch and the N-rank cluster kernels), forward and backward,
+    in f32 (the launch.train --d-model 2048 path's: split-f32) and bf16 (one
+    TF32 product): event and device time (each launch), the plain versions'
+    times, the error (f32 against the plain version at 2e-5; bf16 against
+    the plain f32 result of the f32 copies at 2e-2; gradients relative to
+    each one's max), and the bound at the true head dim's work (4 flops a
+    kept pair and dim forward, 10 backward, each score once: what the
+    cluster kernels do, ``ops.attention_work``): f32 as three TF32 products
+    at 495 TFLOP/s with the 67 TFLOP/s CUDA-core bound beside it, bf16 at
+    989 TFLOP/s with its one TF32 product's 495 TFLOP/s ceiling beside it;
+    or q, k, v (o, dO, lse) read and the outputs written once. Beside them
+    the same-call parent: the CUDA-core kernels (``csrc/flash_attention_wide.cu``,
+    the route above 1024) called directly on the same inputs, uncounted,
+    timed parent, kernel, kernel, parent; the work they do (the scores once
+    per slice of 128 columns). The library call: SDPA with ``enable_gqa``
     (``time_sdpa``: the fastest backend that takes the head dim, named;
-    MATH where no other does). {"f32_forward": row, "f32_backward": row,
-    "bf16_forward": row, "bf16_backward": row}."""
+    MATH where no other does). Also the cluster kernels' occupancy
+    (``cudaOccupancyMaxActiveClusters``) at head dims 320, 512, 576 and
+    1024. {"f32_forward": row, "f32_backward": row, "bf16_forward": row,
+    "bf16_backward": row}."""
     g = torch.Generator(device=DEVICE).manual_seed(seed)
     B, S, H, KV, D, softcap = shape
     kw = dict(causal=True, window=None, softcap=softcap)
     pairs = B * H * (S * (S + 1) // 2)
+    lib = build.load()
+    for Dc in (320, 512, 576, 1024):
+        ranks = lib.repro_flash_cluster_ranks(Dc)
+        occ = {(dt, bwd): lib.repro_flash_cluster_occupancy(Dc, dt, bwd)
+               for dt in (0, 1) for bwd in (0, 1)}
+        log(f"cluster occupancy dh {Dc} ({ranks} ranks of {Dc // ranks} "
+            f"columns): clusters the card holds at once, f32 forward "
+            f"{occ[0, 0]} backward {occ[0, 1]}, bf16 forward {occ[1, 0]} "
+            f"backward {occ[1, 1]}")
+        check(all(n > 0 for n in occ.values()),
+              f"cluster dh {Dc}: a kernel's cluster cannot be scheduled {occ}")
+    n_slices = -(-D // ops.WIDE_FLASH_SLICE)
     res = {}
     for dt in (torch.float32, torch.bfloat16):
-        check(ops.flash_variant(dt, D) == "wide", f"dh {D} {dt} is not wide")
+        check(ops.flash_variant(dt, D) == "cluster",
+              f"dh {D} {dt} is not on the cluster route")
         q = _randn(g, (B, S, H, D), dt)
         k, v = _randn(g, (B, S, KV, D), dt), _randn(g, (B, S, KV, D), dt)
         dout = _randn(g, (B, S, H, D), dt)
@@ -2634,17 +2727,31 @@ def time_wide_flash(shape, seed: int) -> dict:
         qt, kt, vt, dot = (t.transpose(1, 2).contiguous()
                            for t in (q, k, v, dout))
         name = DTYPE_NAME[dt]
+        # the same-call parent's outputs (the CUDA-core kernels, uncounted)
+        p_out, p_lse = torch.empty_like(q), torch.empty_like(lse)
+        p_grads = [torch.empty_like(t) for t in (q, k, v)]
+        p_args = (B, S, S, H, KV, D, D, ops._DTYPES[dt], 1, 0,
+                  float(softcap or 0.0))
         for kind in ("forward", "backward"):
             if kind == "forward":
                 fn = lambda: ops.flash_attention(q, k, v, **kw)  # noqa: E731
                 plain = lambda: ref.flash_attention_ref(  # noqa: E731
                     q, k, v, **kw)
-                names, flops = (WIDE_FWD,), 4 * pairs * D
-                work = ops.attention_work("flash_attention", D) * pairs
+
+                def parent():
+                    ops._raise_on(lib.repro_flash_attention_wide(
+                        *map(ops._ptr, (q, k, v, p_out, p_lse)), *p_args,
+                        ops._stream()),
+                        "CUDA-core forward")
+                names, flops = WIDE_FWD, 4 * pairs * D
+                parent_work = (2 * n_slices + 2) * pairs * D
                 nbytes = (2 * q.numel() + k.numel() + v.numel()) \
                     * q.element_size()
                 err = assert_close(fn(), want_o, TOL[dt],
                                    f"time wide {name} forward")
+                parent()
+                p_err = assert_close(p_out, want_o, TOL[dt],
+                                     f"time wide {name} parent forward")
 
                 def make_lib():
                     return lambda: _sdpa_flash(qt, kt, vt, True)
@@ -2653,8 +2760,14 @@ def time_wide_flash(shape, seed: int) -> dict:
                     q, k, v, out, lse, dout, **kw)
                 plain = lambda: ref.flash_attention_backward_ref(  # noqa: E731
                     q, k, v, out, lse, dout, **kw)
+
+                def parent():
+                    ops._raise_on(lib.repro_flash_attention_wide_bwd(
+                        *map(ops._ptr, (q, k, v, out, dout)), ops._ptr(lse),
+                        *map(ops._ptr, p_grads), *p_args, ops._stream()),
+                        "CUDA-core backward")
                 names, flops = WIDE_BWD, 10 * pairs * D
-                work = ops.attention_work("flash_attention_backward", D) * pairs
+                parent_work = (8 * n_slices + 6) * pairs * D
                 nbytes = (4 * q.numel() + 2 * k.numel() + 2 * v.numel()) \
                     * q.element_size() + lse.numel() * 4
                 want = ref.flash_attention_backward_ref(
@@ -2666,6 +2779,10 @@ def time_wide_flash(shape, seed: int) -> dict:
                 again = fn()
                 check(all(bool(torch.equal(a, b)) for a, b in zip(got, again)),
                       f"time wide {name} backward: two calls differ")
+                parent()
+                p_err = max(assert_close_to_max(
+                    a.float(), b, TOL[dt], f"time wide {name} parent {n}")
+                    for n, a, b in zip(("dq", "dk", "dv"), p_grads, want))
                 del got, again, want
 
                 def make_lib():
@@ -2674,7 +2791,16 @@ def time_wide_flash(shape, seed: int) -> dict:
                     o = _sdpa_flash(*leaves, True)
                     return lambda: torch.autograd.grad(o, leaves, dot,
                                                        retain_graph=True)
-            ms = cuda_ms(fn, iters=10 if kind == "forward" else 5)
+            work = ops.attention_work(
+                "flash_attention" if kind == "forward"
+                else "flash_attention_backward", D) * pairs
+            iters = 10 if kind == "forward" else 5
+            p_iters = 3 if kind == "forward" else 2
+            parent_ms = [cuda_ms(parent, iters=p_iters, warmup=1)]
+            ms_runs = [cuda_ms(fn, iters=iters), cuda_ms(fn, iters=iters)]
+            parent_ms.append(cuda_ms(parent, iters=p_iters, warmup=1))
+            ms = statistics.median(ms_runs)
+            parent_med = statistics.median(parent_ms)
             plain_ms = cuda_ms(plain, iters=3, warmup=1)
             prof, _ = profile_recorded(fn, names, 1, iters=5, grow=2)
             dev_ms = kernel_ms(prof, *names)
@@ -2687,31 +2813,44 @@ def time_wide_flash(shape, seed: int) -> dict:
             bound_ms = max(t_ops, t_bytes) * 1e3
             by = "operations" if t_ops >= t_bytes else "bytes"
             cc_bound_ms = max(flops / PEAK_FLOPS[torch.float32], t_bytes) * 1e3
-            log(f"time wide flash {kind} {name} (wide, {', '.join(names)}) "
-                f"[{B},{S},{H},{D}] kv {KV} causal softcap {softcap}: kernel "
-                f"{ms:.4f} ms ({flops / ms / 1e9:.1f} TFLOP/s of the true "
-                f"work, {work / ms / 1e9:.1f} of the work done: "
-                f"{work / 1e9:.2f} GFLOP, {work / flops:.2f}x), plain "
+            tf32_bound_ms = max(flops / TF32_FLOPS, t_bytes) * 1e3
+            log(f"time wide flash {kind} {name} (cluster, "
+                f"{', '.join(names)}) [{B},{S},{H},{D}] kv {KV} causal "
+                f"softcap {softcap}: kernel {ms:.4f} ms (runs "
+                + ", ".join(f"{x:.4f}" for x in ms_runs)
+                + f"; {flops / ms / 1e9:.1f} TFLOP/s of the true work, "
+                f"which it does: {work / 1e9:.2f} GFLOP, {work / flops:.2f}x),"
+                f" same-call parent (the CUDA-core kernels) {parent_med:.4f} "
+                f"ms (runs " + ", ".join(f"{x:.4f}" for x in parent_ms)
+                + f"; {parent_work / 1e9:.2f} GFLOP done, "
+                f"{parent_work / flops:.2f}x; max error {p_err:.3e}; "
+                f"parent/kernel {parent_med / ms:.2f}), plain "
                 f"{plain_ms:.4f} ms, sdpa (enable_gqa, {backend}) "
                 f"{lib_ms:.4f} ms (kernel/sdpa {ms / lib_ms:.2f}), bound "
                 f"{bound_ms * 1e3:.2f} us ({by}: {flops / 1e9:.2f} GFLOP "
-                + (f"at {PEAK_FLOPS[dt] / 1e12:.0f} TFLOP/s"
+                + (f"at {PEAK_FLOPS[dt] / 1e12:.0f} TFLOP/s; one TF32 "
+                   f"product's ceiling {tf32_bound_ms * 1e3:.2f} us"
                    if dt == torch.bfloat16 else
                    f"x 3 TF32 products at {TF32_FLOPS / 1e12:.0f} TFLOP/s")
                 + f", {nbytes / 1e6:.2f} MB); CUDA-core bound "
                 f"{cc_bound_ms * 1e3:.2f} us; kernel device time "
                 f"{_fmt(dev_ms)} ms ("
                 + ", ".join(f"{n} {_fmt(t)}" for n, t in by_kernel.items())
-                + f"), {_share(bound_ms, dev_ms)} of the bound, "
-                f"{_share(cc_bound_ms, dev_ms)} of the CUDA-core bound; "
+                + f"), {_share(bound_ms, dev_ms)} of the bound"
+                + (f", {_share(tf32_bound_ms, dev_ms)} of the TF32 ceiling"
+                   if dt == torch.bfloat16 else "")
+                + f", {_share(cc_bound_ms, dev_ms)} of the CUDA-core bound; "
                 f"max error {err:.3e} (tol {TOL[dt]})")
             res[f"{name}_{kind}"] = dict(
                 max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
                 library_backend=backend, bound_ms=bound_ms, bound_by=by,
-                cuda_core_bound_ms=cc_bound_ms, device_ms=dev_ms,
-                device_ms_by_kernel=by_kernel, gflop=flops / 1e9,
-                gflop_done=work / 1e9, shape=list(shape[:5]), causal=True)
+                cuda_core_bound_ms=cc_bound_ms, tf32_bound_ms=tf32_bound_ms,
+                device_ms=dev_ms, device_ms_by_kernel=by_kernel,
+                gflop=flops / 1e9, gflop_done=work / 1e9,
+                parent_ms=parent_med, parent_gflop_done=parent_work / 1e9,
+                parent_max_abs_err=p_err, shape=list(shape[:5]), causal=True)
         del q, k, v, dout, out, lse, f32, qt, kt, vt, dot, want_o, want_lse
+        del p_out, p_lse, p_grads
     return res
 
 
@@ -3993,7 +4132,7 @@ def _examples_serve(ex, arch: str, requests: int = 6, tokens: int = 12,
 
 
 # repro_torch.launch.train at --d-model 2048 (internlm2-1.8b's width over
-# the launcher's four heads: head dim 512, the wide route), its depth, steps
+# the launcher's four heads: head dim 512, the cluster route), its depth, steps
 # and checkpoint cadence cut so that the pair of runs fits the examples
 # phase (at its defaults, 4 layers, a checkpoint is ~3.1 GB: ~260 M f32
 # params, m and v; at 2 layers ~1.6 GB, four of them a pair), and the step
@@ -4011,7 +4150,7 @@ def launch_train_wide() -> dict:
     a checkpoint); run B's losses A's before the crash and from the last
     checkpoint on, its final state (params, m, v) bitwise A's; one flash
     forward and one backward launch per layer for every step of the two
-    runs, all on the wide route at head dim 512, and no plain attention
+    runs, all on the cluster route at head dim 512, and no plain attention
     call."""
     run = LAUNCH_TRAIN_WIDE
     tag = f"launch.train --d-model {run['d_model']}"
@@ -4030,6 +4169,7 @@ def launch_train_wide() -> dict:
     launches = {k: ops.LAUNCHES[k] for k in ("flash_attention",
                                              "flash_attention_backward")}
     widths = dict(ops.BUILT_WIDTHS)
+    variants = dict(ops.FLASH_VARIANTS)
     a, b = runs
     kill = LAUNCH_TRAIN_KILL
     resumed = kill // run["ckpt_every"] * run["ckpt_every"]
@@ -4051,18 +4191,22 @@ def launch_train_wide() -> dict:
     want = {name: n_layers * n_steps for name in launches}
     check(launches == want and ops.LAUNCHES["decode_attention"] == 0,
           f"{tag}: launches {launches}, want {want}")
-    check(widths == {(name, dh, ops.built_head_dim(torch.float32, dh)): n
+    check(widths == {(name, dh, ops.flash_built_head_dim(torch.float32, dh)): n
                      for name, n in want.items()}
-          and ops.flash_variant(torch.float32, dh) == "wide",
-          f"{tag}: launches by head dim {widths}, want all at {dh} (wide)")
+          and variants == {(name, "cluster"): n for name, n in want.items()},
+          f"{tag}: launches by head dim {widths} and by variant {variants}, "
+          f"want all at {dh} on the cluster route")
     check(not any(plain.values()), f"{tag}: plain attention ran: {plain}")
     params = sum(p.numel() for p in sa["params"].parameters())
-    log(f"{tag}: {n_layers} layers, dh {dh} (wide), {params / 1e6:.1f} M "
+    log(f"{tag}: {n_layers} layers, dh {dh} (cluster route, "
+        f"{build.load().repro_flash_cluster_ranks(dh)} ranks), "
+        f"{params / 1e6:.1f} M "
         f"params (a checkpoint {12 * params / 1e9:.2f} GB); {len(a['losses'])}"
         f" + {len(b['losses'])} steps (crash at {b['crash_steps']}, resumed "
         f"from step {resumed}), pipeline failures {b['engine'].failures}; "
         f"losses and final state (params, m, v) bit-identical; launches "
-        f"{want} ({n_layers} + {n_layers} a step, all wide at dh {dh}), "
+        f"{want} ({n_layers} + {n_layers} a step, all on the cluster route "
+        f"at dh {dh}), "
         f"plain attention calls 0; wall {secs[0]:.2f} s (A) and "
         f"{secs[1]:.2f} s (B); losses {a['losses']}")
     return {"launches": want, "steps": n_steps, "wall_s": secs,
@@ -4907,7 +5051,8 @@ def main() -> int:
                                                      tag=f"{tag} {what}")
             del q, k, v
     decode_g32 = decode_d512.pop(("group 32", DECODE_GROUP32_SHAPE[1]))
-    wide_ptxas = log_ptxas_kernels("wide")
+    wide_ptxas = {"cluster": log_ptxas_kernels("cluster"),
+                  "cuda_core": log_ptxas_kernels("flash_wide")}
     log_memory("attention timings")
     torch.cuda.empty_cache()
     # falcon-mamba: the selective scan, in forward and in each decode step
@@ -5338,9 +5483,11 @@ def main() -> int:
         launch_serve_mqa=examples["serve_mqa"])
     decode_row["max_abs_err"] = max(decode_row["max_abs_err"],
                                     decode_g32["max_abs_err"])
-    # the wide route: f32 (launch.train --d-model 2048's) in the rows, bf16
-    # beside it; decode's wide instance at the serve shape, a full cache
-    # beside it, and the launches of the servers at --d-model 2048 and 1280
+    # the wide route (the cluster kernels): f32 (launch.train --d-model
+    # 2048's) in the rows, bf16 beside it, and the same-call parent (the
+    # CUDA-core kernels); decode's wide instance at the serve shape, a full
+    # cache beside it, and the launches of the servers at --d-model 2048
+    # and 1280
     train_wide = examples["train_d2048"]
     for name, kind in (("flash_attention_wide", "forward"),
                        ("flash_attention_backward_wide", "backward")):
@@ -5352,6 +5499,9 @@ def main() -> int:
             cuda_core_bound_ms=f32["cuda_core_bound_ms"],
             gflop=f32["gflop"], gflop_done=f32["gflop_done"],
             device_ms_by_kernel=f32["device_ms_by_kernel"],
+            parent="the CUDA-core kernels (csrc/flash_attention_wide.cu)",
+            parent_ms=f32["parent_ms"],
+            parent_gflop_done=f32["parent_gflop_done"],
             **{f"bf16_{key}": val for key, val in bf16.items()},
             launches_per_step=row["launches"] // train_wide["steps"],
             launch_train_d2048=train_wide, ptxas=wide_ptxas)

@@ -40,6 +40,12 @@ SIGNATURES = {
     "repro_flash_attention_f32tc_bwd": (_P, _P, _P, _P, _P, _P, _P, _P, _P,
                                         _P, _P, _I, _I, _I, _I, _I, _I, _I,
                                         _I, _I, _F, _P),
+    # the cluster route (head dims 320 to 1024) takes a dtype after D
+    "repro_flash_attention_cluster": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                                      _I, _I, _I, _I, _I, _I, _F, _P),
+    "repro_flash_attention_cluster_bwd": (_P, _P, _P, _P, _P, _P, _P, _P, _P,
+                                          _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                                          _I, _I, _I, _F, _P),
     "repro_flash_attention_wide": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                                    _I, _I, _I, _I, _F, _P),
     "repro_flash_attention_wide_bwd": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I,
@@ -133,13 +139,21 @@ def load() -> ctypes.CDLL:
         fn = getattr(lib, name)
         fn.argtypes = list(argtypes)
         fn.restype = ctypes.c_int
-    # bytes of the split-f32 flash kernels' workspace (not a launch)
+    # bytes of the split-f32 flash kernels' workspace (not a launch), up to
+    # head dim 256 and on the cluster route (which also takes the dtype)
     lib.repro_flash_f32tc_workspace.argtypes = [_I] * 7
-    lib.repro_flash_f32tc_workspace.restype = ctypes.c_longlong
+    lib.repro_flash_cluster_workspace.argtypes = [_I] * 8
+    for name in ("repro_flash_f32tc_workspace", "repro_flash_cluster_workspace"):
+        getattr(lib, name).restype = ctypes.c_longlong
+    # the cluster route's ranks at a head dim, and how many of its clusters
+    # the card holds at once (queries, not launches)
+    lib.repro_flash_cluster_ranks.argtypes = [_I]
+    lib.repro_flash_cluster_occupancy.argtypes = [_I] * 3
     # dynamic shared memory a block of the bf16 flash forward / backward
     # takes at a head dim (not launches)
     lib.repro_flash_tc_smem.argtypes = [_I]
     lib.repro_flash_tc_bwd_smem.argtypes = [_I, _I]
-    for name in ("repro_flash_tc_smem", "repro_flash_tc_bwd_smem"):
+    for name in ("repro_flash_tc_smem", "repro_flash_tc_bwd_smem",
+                 "repro_flash_cluster_ranks", "repro_flash_cluster_occupancy"):
         getattr(lib, name).restype = ctypes.c_int
     return lib

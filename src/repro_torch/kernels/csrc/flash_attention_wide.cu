@@ -1,13 +1,18 @@
-// Flash attention at head dims above 256 (the "wide" route), f32 and bf16:
-// the forward and its deterministic backward, on CUDA cores in f32.
+// Flash attention at head dims above 1024 (ops.flash_variant "cuda_core"),
+// f32 and bf16: the forward and its deterministic backward, on CUDA cores
+// in f32. Head dims 257 to 1024 run on the tensor cores instead, in
+// flash_attention_f32tc_cluster.cu (a tile's head dim over a cluster of up
+// to 8 ranks of at most 128 columns); these kernels take any head dim and
+// serve the widths past a cluster's reach. No model of the repository has
+// such a head dim; chip_smoke.py holds them to their plain versions and
+// times them beside the cluster route at head dim 512 (the same-call
+// parent: they carried the route above 256 before it).
 //
 // Replaces: src/repro/kernels/flash_attention.py, `_kernel` / `flash_attention`
 // (the Pallas TPU kernel, grid (B, H, S/bq, S/bk) with the k axis
-// sequential, which blocks over any head dim) for head dims above 256:
-// internlm2-1.8b's width over the launchers' four heads (d_model 2048, head
-// dim 512; repro_torch.launch.train / serve --d-model 2048). The Pallas
-// kernel has no backward (JAX differentiates XLA attention); the backward
-// here is that of this forward.
+// sequential, which blocks over any head dim) for head dims above 1024.
+// The Pallas kernel has no backward (JAX differentiates XLA attention);
+// the backward here is that of this forward.
 //
 // Function: as ref.flash_attention_ref / ref.flash_attention_backward_ref.
 //   q [B,Sq,H,D], k/v [B,Sk,KV,D] (f32, or bf16 loaded as bf16 and turned
@@ -21,11 +26,12 @@
 //   and `o` is the same bits either way. The backward takes q, k, v, o,
 //   lse, dO and gives dq, dk, dv (dk, dv summed over the group's q heads).
 //
-// What bounds it on the card: operations. At [2,2048,4,512] kv 2 causal the
-// forward's two products of the kept pairs are 34.4 GFLOP, 0.51 ms at the
-// 67 TFLOP/s of f32 off the tensor cores; the backward's five 85.9 GFLOP,
-// 1.28 ms. The design below does more than that (the scores once per
-// column slice), and a simple CUDA-core tile does not reach the peak.
+// What bounds it on the card: operations. At [2,2048,4,512] kv 2 causal (its
+// timing shape, the cluster route's main one) the forward's two products
+// of the kept pairs are 34.4 GFLOP, 0.51 ms at the 67 TFLOP/s of f32 off
+// the tensor cores; the backward's five 85.9 GFLOP, 1.28 ms. The design
+// below does more than that (the scores once per column slice), and a
+// simple CUDA-core tile does not reach the peak.
 //
 // Design. A block of the split-f32 or bf16 pair holds its 64 rows' operands
 // and accumulators over the whole head dim; at D = 512 that is 128 KB of f32
@@ -64,8 +70,10 @@
 //     forward and dq grids (the heaviest tiles start first); in dk/dv the
 //     k tile runs in order (k tile 0 sees every query). Tiles that
 //     causality or the window rule out are never visited.
-// Tensor cores (wgmma on split-f32 or bf16 operands) or sharing the scores
-// between the blocks of a cluster are later work.
+// The cluster route does both for head dims up to 1024 (wgmma, and the
+// scores shared between the ranks of a cluster); above that a cluster
+// would need more than 8 ranks of 128 columns (the non-portable size 16)
+// or ranks of more columns than a block's registers and shared memory hold.
 #include "common.cuh"
 
 namespace repro {

@@ -141,6 +141,13 @@ __device__ __forceinline__ uint32_t cluster_rank() {
   return r;
 }
 
+// The number of blocks in this block's cluster (1 outside a cluster).
+__device__ __forceinline__ uint32_t cluster_nranks() {
+  uint32_t n;
+  asm volatile("mov.u32 %0, %%cluster_nctarank;\n" : "=r"(n));
+  return n;
+}
+
 // The shared::cluster address, in block `rank` of the cluster, of the byte
 // that p points to in this block's shared memory.
 __device__ __forceinline__ uint32_t cluster_addr(const void* p, uint32_t rank) {

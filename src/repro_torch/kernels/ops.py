@@ -2,8 +2,8 @@
 
 Each wrapper checks what it is given and picks its path by the tensors'
 device alone: a CPU tensor gets the plain version from ``ref``; a CUDA
-tensor gets the kernel (for flash attention, the variant of its dtype:
-``flash_variant``; for the scan, the variant of its shape and alignment:
+tensor gets the kernel (for flash attention, the variant of its dtype and
+head dim: ``flash_variant``; for the scan, the variant of its shape and alignment:
 ``scan_variant``) or an exception. Nothing falls back from the
 card to the plain version, nor from one kernel to another. Outputs and
 scratch (the flash backward's delta, the split-f32 kernels' workspace of
@@ -21,21 +21,26 @@ The attention kernels are built for head dims 32, 64, 128, 192 and 256
 of those (``built_head_dim``), chosen before any launch: its operands get
 zero columns up to that width, which add nothing to a score, and its
 outputs are cut back to the true width; the kernels scale the scores by
-1 / sqrt of the true head dim. Above 256 the wide route takes any head dim,
-rounded up to a multiple of ``WIDE_ALIGN`` (64): flash attention on its own
-kernels (``flash_variant`` "wide", ``csrc/flash_attention_wide.cu``), decode
-on the decode kernel's wide instance. The split-f32 flash kernels pad in
-their prep launch, which copies every operand anyway, and write their
-outputs at the true width; the bf16 flash pair, the wide route and decode
-take operands padded here (``_pad_head``, a copy on the device, none where
-the head dim is already a built width) and give outputs sliced here. Every
-head group runs (decode cuts a group above 16 into chunks, one cluster
-each, in its one launch); only ``H % KV != 0`` raises among the shapes.
+1 / sqrt of the true head dim. Above 256 every head dim runs too, rounded
+up to a multiple of ``WIDE_ALIGN`` (64): decode on the decode kernel's wide
+instance; flash attention up to 1024 on the split-f32 kernels with a tile's
+head dim over a cluster of N ranks (``flash_variant`` "cluster", at
+``CLUSTER_WIDTHS``: ``flash_built_head_dim`` takes 704, 832 and 960 to the
+next of them), above 1024 on CUDA-core kernels (``flash_variant``
+"cuda_core", ``csrc/flash_attention_wide.cu``). The split-f32 flash
+kernels (up to 256 and on the cluster route) pad in their prep launch,
+which copies every operand anyway, and write their outputs at the true
+width; the bf16 flash pair, the CUDA-core route and decode take operands
+padded here (``_pad_head``, a copy on the device, none where the head dim
+is already a built width) and give outputs sliced here. Every head group
+runs (decode cuts a group above 16 into chunks, one cluster each, in its
+one launch); only ``H % KV != 0`` raises among the shapes.
 
 ``LAUNCHES`` counts kernel launches per wrapper (one per call that reaches
 the card, however many device kernels the call runs: a split-f32 flash
 forward runs two, a flash backward three in either dtype),
 ``SCAN_VARIANTS`` the scan's launches by variant (``scan_variant``),
+``FLASH_VARIANTS`` the flash launches by (wrapper, ``flash_variant``),
 ``BUILT_WIDTHS`` the attention launches by (wrapper, head dim, built head
 dim); ``reset_launches()`` sets every count to 0.
 
@@ -64,22 +69,31 @@ LAUNCHES = {"flash_attention": 0, "flash_attention_backward": 0,
             "decode_attention": 0, "selective_scan": 0,
             "selective_scan_backward": 0}
 SCAN_VARIANTS = {"step": 0, "sequential": 0}
+# flash launches by (wrapper, flash_variant)
+FLASH_VARIANTS: collections.Counter = collections.Counter()
 # launches of the attention wrappers by (wrapper, head dim, built head dim)
 BUILT_WIDTHS: collections.Counter = collections.Counter()
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_DIMS = (32, 64, 128, 192, 256)   # the attention kernels' instances
 WIDE_ALIGN = 64   # above 256, head dims are built at a multiple of this
 MAX_CLUSTER = 8   # the portable thread block cluster size
+# flash's cluster route: head dims N x DH, DH in (128, 96, 64), N <= 8
+CLUSTER_WIDTHS = tuple(D for D in range(HEAD_DIMS[-1] + WIDE_ALIGN, 1025,
+                                        WIDE_ALIGN)
+                       if any(D % dh == 0 and D // dh <= MAX_CLUSTER
+                              for dh in (128, 96, 64)))
 
 
 # The dry-run's cost hook: None, or a callable that every call on ``meta``
 # operands reaches as COST_HOOK(name, flops, rate, read, written): the
 # wrapper's name, the arithmetic of its products (0 for the scan), the
 # units that do them ("bf16": bf16 tensor cores; "tf32x3": the split-f32
-# kernels' three TF32 products for each f32 one; "f32": CUDA cores), and the
-# bytes its operands and outputs take (each read or written once; never the
-# scores). The arithmetic is what the card's kernels do
-# (``attention_work``: on the wide route the scores once per column slice).
+# kernels' three TF32 products for each f32 one; "tf32": one TF32 product,
+# the cluster route's in bf16; "f32": CUDA cores), and the bytes its
+# operands and outputs take (each read or written once; never the scores).
+# The arithmetic is what the card's kernels do (``attention_work``: on
+# flash's CUDA-core route and decode's wide instance the scores once per
+# column slice).
 COST_HOOK = None
 
 
@@ -88,6 +102,7 @@ def reset_launches() -> None:
         for name in counts:
             counts[name] = 0
     BUILT_WIDTHS.clear()
+    FLASH_VARIANTS.clear()
 
 
 @functools.cache
@@ -105,11 +120,11 @@ def _check_heads(H: int, KV: int) -> None:
 def built_head_dim(dtype: torch.dtype, head_dim: int) -> int:
     """The head dim of the attention kernel instance that takes ``head_dim``
     in ``dtype`` on the card: ``head_dim`` itself where it is one of
-    ``HEAD_DIMS``, else the smallest of them above it; above 256 (the wide
-    route) ``head_dim`` rounded up to a multiple of ``WIDE_ALIGN``. The
-    operands are padded with zero columns up to it. The same in f32 and
-    bf16, for flash (forward and backward) and decode; a head dim below 1
-    raises."""
+    ``HEAD_DIMS``, else the smallest of them above it; above 256 (decode's
+    wide instance) ``head_dim`` rounded up to a multiple of ``WIDE_ALIGN``.
+    The operands are padded with zero columns up to it. The same in f32 and
+    bf16; decode's width, and flash's except where ``flash_built_head_dim``
+    says otherwise; a head dim below 1 raises."""
     if dtype not in _DTYPES:
         raise ValueError(f"attention: no kernel for {dtype}")
     if head_dim < 1:
@@ -119,28 +134,47 @@ def built_head_dim(dtype: torch.dtype, head_dim: int) -> int:
     return next(d for d in HEAD_DIMS if d >= head_dim)
 
 
+def flash_built_head_dim(dtype: torch.dtype, head_dim: int) -> int:
+    """The head dim of the flash kernel instance that takes ``head_dim`` in
+    ``dtype`` on the card: ``built_head_dim``'s, except that from 257 to
+    1024 (the cluster route) it is the smallest of ``CLUSTER_WIDTHS`` at or
+    above that: 704 runs at 768, 832 at 896 and 960 at 1024 (no cluster of
+    at most 8 ranks of 64, 96 or 128 columns takes them)."""
+    built = built_head_dim(dtype, head_dim)
+    if HEAD_DIMS[-1] < built <= CLUSTER_WIDTHS[-1]:
+        return next(d for d in CLUSTER_WIDTHS if d >= built)
+    return built
+
+
 def _built(name: str, D: int, dtype: torch.dtype) -> int:
-    """``built_head_dim`` with the wrapper's name in its message."""
+    """``built_head_dim`` (``flash_built_head_dim`` for the flash wrappers)
+    with the wrapper's name in its message."""
+    rule = built_head_dim if name == "decode_attention" else flash_built_head_dim
     try:
-        return built_head_dim(dtype, D)
+        return rule(dtype, D)
     except ValueError as e:
         raise ValueError(f"{name}: {e}") from None
 
 
-# the wide route's column slices: flash's of 128 columns, decode's of 256
+# the column slices of flash's CUDA-core route (128) and of decode's wide
+# instance (256)
 WIDE_FLASH_SLICE, WIDE_DECODE_SLICE = 128, 256
 
 
 def attention_work(name: str, Db: int) -> int:
     """Flops the card's kernels spend on a kept (query, key) pair and q head
     (decode: a key and q head) at built head dim Db: 4 Db (two products)
-    forward and in decode, 10 Db (five) backward; on the wide route (Db
-    above 256) the scores are recomputed once per column slice (n of
-    them): the flash forward (2 n + 2) Db (S per slice, then P V), its
-    backward (8 n + 6) Db (dk/dv: S and dP per slice, then dV and dK; dq:
-    S and dP per slice, then dQ), decode (2 n + 2) Db."""
+    forward and in decode, 10 Db (five) backward, each score computed once,
+    flash's cluster route (Db 320 to 1024) included. Where a kernel cuts
+    the head dim into column slices (n of them) it recomputes the scores
+    once per slice: flash's CUDA-core route (Db above 1024) forward (2 n +
+    2) Db (S per slice, then P V), backward (8 n + 6) Db (dk/dv: S and dP
+    per slice, then dV and dK; dq: S and dP per slice, then dQ); decode's
+    wide instance (Db above 256) (2 n + 2) Db."""
     backward = name == "flash_attention_backward"
-    if Db <= HEAD_DIMS[-1]:
+    sliced = (Db > HEAD_DIMS[-1] if name == "decode_attention"
+              else Db > CLUSTER_WIDTHS[-1])
+    if not sliced:
         return (10 if backward else 4) * Db
     n = -(-Db // (WIDE_DECODE_SLICE if name == "decode_attention"
                   else WIDE_FLASH_SLICE))
@@ -217,10 +251,15 @@ def kept_pairs(Sq: int, Sk: int, causal: bool, window: Optional[int]) -> int:
 
 def flash_rate(dtype: torch.dtype, head_dim: int) -> str:
     """The units the flash kernels of ``dtype`` at ``head_dim`` multiply
-    on (the wide route: CUDA cores in f32, in both dtypes)."""
-    if head_dim > HEAD_DIMS[-1]:
+    on: "bf16" (the bf16 pair), "tf32x3" (split-f32: f32 up to 1024), "tf32"
+    (one TF32 product: bf16 on the cluster route), "f32" (CUDA cores: the
+    CUDA-core route above 1024, in both dtypes)."""
+    variant = flash_variant(dtype, head_dim)
+    if variant == "cuda_core":
         return "f32"
-    return "bf16" if dtype == torch.bfloat16 else "tf32x3"
+    if variant == "tensor_core":
+        return "bf16"
+    return "tf32" if dtype == torch.bfloat16 else "tf32x3"
 
 
 def _ptr(t: torch.Tensor) -> ctypes.c_void_p:
@@ -290,6 +329,7 @@ def flash_attention_forward(q, k, v, causal, window, softcap, *,
         return torch.empty_like(q), lse
     out = _launch_flash_attention(q, k, v, Db, lse, causal, window, softcap)
     LAUNCHES["flash_attention"] += 1
+    FLASH_VARIANTS["flash_attention", flash_variant(q.dtype, D)] += 1
     BUILT_WIDTHS["flash_attention", D, Db] += 1
     return out, lse
 
@@ -325,9 +365,11 @@ def flash_attention_backward(q: torch.Tensor, k: torch.Tensor,
     the card the backward of the forward's variant (``flash_variant``): bf16
     ``csrc/flash_attention_tc_bwd.cu`` (delta, dk/dv and dq launches on the
     tensor cores), f32 ``csrc/flash_attention_f32tc.cu`` (prep, dk/dv and
-    dq), above head dim 256 ``csrc/flash_attention_wide.cu`` (dk/dv and dq,
-    either dtype); none has atomics, so every call gives the same bits. The
-    plain version on the CPU."""
+    dq), from head dim 257 to 1024 ``csrc/flash_attention_f32tc_cluster.cu``
+    (prep, dk/dv and dq, either dtype), above 1024
+    ``csrc/flash_attention_wide.cu`` (dk/dv and dq, either dtype); none has
+    atomics, so every call gives the same bits. The plain version on the
+    CPU."""
     _check_flash(q, k, v)
     B, Sq, H, D = q.shape
     if out.shape != q.shape or dout.shape != q.shape:
@@ -356,10 +398,10 @@ def flash_attention_backward(q: torch.Tensor, k: torch.Tensor,
     lib = build.load()
     args = (B, Sq, k.shape[1], H, k.shape[2], D, Db, int(causal),
             int(window or 0), float(softcap or 0.0), _stream())
-    if variant != "split_f32":   # operands padded to Db, grads cut back to D
+    if variant in ("cuda_core", "tensor_core"):   # padded to Db, cut back
         padded = [_pad_head(t, Db) for t in (q, k, v, out, dout)]
         grads = [torch.empty_like(t) for t in padded[:3]]
-        if variant == "wide":
+        if variant == "cuda_core":
             code = lib.repro_flash_attention_wide_bwd(
                 *map(_ptr, padded), _ptr(lse), *map(_ptr, grads), *args[:7],
                 _DTYPES[q.dtype], *args[7:])
@@ -369,23 +411,28 @@ def flash_attention_backward(q: torch.Tensor, k: torch.Tensor,
                 *map(_ptr, padded), _ptr(lse), _ptr(delta), *map(_ptr, grads),
                 *args)
         grads = [_cut_head(t, D) for t in grads]
-    else:   # the prep launch pads; the grads are written at D
+    else:   # split-f32 and cluster: the prep launch pads, grads written at D
         delta = torch.empty_like(lse)
         grads = [torch.empty_like(t) for t in (q, k, v)]
         work = _f32tc_workspace(q, k, Db, backward=True)
-        code = lib.repro_flash_attention_f32tc_bwd(
-            _ptr(q), _ptr(k), _ptr(v), _ptr(out), _ptr(dout), _ptr(lse),
-            _ptr(delta), *map(_ptr, grads), _ptr(work), *args)
+        ptrs = (_ptr(q), _ptr(k), _ptr(v), _ptr(out), _ptr(dout), _ptr(lse),
+                _ptr(delta), *map(_ptr, grads), _ptr(work))
+        if variant == "cluster":
+            code = lib.repro_flash_attention_cluster_bwd(
+                *ptrs, *args[:7], _DTYPES[q.dtype], *args[7:])
+        else:
+            code = lib.repro_flash_attention_f32tc_bwd(*ptrs, *args)
     _raise_on(code, "flash_attention_backward")
     LAUNCHES["flash_attention_backward"] += 1
+    FLASH_VARIANTS["flash_attention_backward", variant] += 1
     BUILT_WIDTHS["flash_attention_backward", D, Db] += 1
     return tuple(grads)
 
 
 def flash_variant(dtype: torch.dtype, head_dim: int) -> str:
     """The CUDA kernels that take flash attention in ``dtype`` at head dim
-    ``head_dim`` (the instance of ``built_head_dim``), chosen before any
-    launch (never a fallback):
+    ``head_dim`` (the instance of ``flash_built_head_dim``), chosen by dtype
+    and head dim before any launch (never a fallback):
 
     - bf16: "tensor_core", ``csrc/flash_attention_tc.cu`` (wgmma + TMA; the
       forward, ``flash_fwd_tc_kernel``) and ``csrc/flash_attention_tc_bwd.cu``
@@ -399,24 +446,39 @@ def flash_variant(dtype: torch.dtype, head_dim: int) -> str:
       and misses the f32 tolerance (2e-5), three of them meet it. At D = 192
       and 256 a tile takes a cluster of two blocks, one per half of the head
       dim;
-    - above head dim 256, either dtype: "wide", ``csrc/flash_attention_wide.cu``
+    - from head dim 257 to 1024, either dtype: "cluster",
+      ``csrc/flash_attention_f32tc_cluster.cu`` (the kernels of
+      ``csrc/flash_attention_f32tc.cuh``: ``flash_f32tc_fwd_cluster_kernel``;
+      its backward ``flash_f32tc_dkdv_cluster_kernel`` and
+      ``flash_f32tc_dq_cluster_kernel``): a tile's head dim over a cluster
+      of N ranks of 64, 96 or 128 columns that sum their partial scores in
+      rank order, so each score is computed once; split-f32 products in
+      f32, one TF32 product in bf16 (exact on bf16 operands);
+    - above 1024, either dtype: "cuda_core", ``csrc/flash_attention_wide.cu``
       (``flash_wide_fwd_kernel``; its backward ``flash_wide_dkdv_kernel`` and
       ``flash_wide_dq_kernel``): f32 products on the CUDA cores, one block
       per (64 rows, head, slice of 128 output columns), the scores over the
       whole head dim recomputed by each slice."""
-    _built("flash_attention", head_dim, dtype)
-    if head_dim > HEAD_DIMS[-1]:
-        return "wide"
+    built = _built("flash_attention", head_dim, dtype)
+    if built > CLUSTER_WIDTHS[-1]:
+        return "cuda_core"
+    if built > HEAD_DIMS[-1]:
+        return "cluster"
     return "tensor_core" if dtype == torch.bfloat16 else "split_f32"
 
 
 def _f32tc_workspace(q, k, Db: int, *, backward: bool) -> torch.Tensor:
     """The split-f32 kernels' workspace (the hi/lo operand copies their prep
-    launch writes, at the built head dim Db), as many bytes as the C side
-    asks for."""
+    launch writes, at the built head dim Db; on the cluster route in bf16
+    the hi copies alone), as many bytes as the C side asks for."""
     B, Sq, H, _ = q.shape
-    nbytes = build.load().repro_flash_f32tc_workspace(
-        B, Sq, k.shape[1], H, k.shape[2], Db, int(backward))
+    lib = build.load()
+    shape = (B, Sq, k.shape[1], H, k.shape[2], Db)
+    if Db > HEAD_DIMS[-1]:
+        nbytes = lib.repro_flash_cluster_workspace(*shape, _DTYPES[q.dtype],
+                                                   int(backward))
+    else:
+        nbytes = lib.repro_flash_f32tc_workspace(*shape, int(backward))
     return torch.empty(nbytes // 4, dtype=torch.float32, device=q.device)
 
 
@@ -431,22 +493,25 @@ def _launch_flash_attention(q, k, v, Db, lse, causal, window,
             float(softcap or 0.0), _stream())
     lse_p = ctypes.c_void_p(None) if lse is None else _ptr(lse)
     variant = flash_variant(q.dtype, D)
-    if variant != "split_f32":   # padded to Db, cut back
+    if variant in ("cuda_core", "tensor_core"):   # padded to Db, cut back
         qp, kp, vp = (_pad_head(t, Db) for t in (q, k, v))
         out = torch.empty_like(qp)
         ptrs = (_ptr(qp), _ptr(kp), _ptr(vp), _ptr(out), lse_p)
-        if variant == "wide":
+        if variant == "cuda_core":
             code = lib.repro_flash_attention_wide(*ptrs, *args[:7],
                                                   _DTYPES[q.dtype], *args[7:])
         else:
             code = lib.repro_flash_attention_tc(*ptrs, *args)
         out = _cut_head(out, D)
-    else:   # the prep launch pads; o is written at D
+    else:   # split-f32 and cluster: the prep launch pads; o is written at D
         out = torch.empty_like(q)
         work = _f32tc_workspace(q, k, Db, backward=False)
-        code = lib.repro_flash_attention_f32tc(_ptr(q), _ptr(k), _ptr(v),
-                                               _ptr(out), lse_p, _ptr(work),
-                                               *args)
+        ptrs = (_ptr(q), _ptr(k), _ptr(v), _ptr(out), lse_p, _ptr(work))
+        if variant == "cluster":
+            code = lib.repro_flash_attention_cluster(
+                *ptrs, *args[:7], _DTYPES[q.dtype], *args[7:])
+        else:
+            code = lib.repro_flash_attention_f32tc(*ptrs, *args)
     _raise_on(code, "flash_attention")
     return out
 

@@ -49,9 +49,11 @@ NODE_GPUS = 8
 HBM_BYTES = 80e9
 
 # seconds a flop takes on the units ``parallel.trace_analysis`` files it
-# under: the split-f32 flash kernels do three TF32 products for each f32 one
+# under: the split-f32 flash kernels do three TF32 products for each f32 one,
+# the cluster route's bf16 kernels one
 SECONDS_PER_FLOP = {"bf16": 1 / PEAK_FLOPS["bf16"],
                     "tf32x3": 3 / PEAK_FLOPS["tf32"],
+                    "tf32": 1 / PEAK_FLOPS["tf32"],
                     "f32": 1 / PEAK_FLOPS["f32"]}
 
 

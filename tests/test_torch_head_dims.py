@@ -251,7 +251,7 @@ def test_wide_decode_steps_match_jax():
 def test_built_head_dim_for_every_head_dim(dtype):
     """1..32 -> 32, 33..64 -> 64, 65..128 -> 128, 129..192 -> 192,
     193..256 -> 256, the same in both dtypes, and every flash variant by
-    dtype alone; above 256 the next multiple of 64 on the "wide" variant
+    dtype alone; above 256 the next multiple of 64 on the "cluster" variant
     (257 -> 320, 320 -> 320, 512 -> 512); 0 raises."""
     want = {range(1, 33): 32, range(33, 65): 64, range(65, 129): 128,
             range(129, 193): 192, range(193, 257): 256}
@@ -263,7 +263,7 @@ def test_built_head_dim_for_every_head_dim(dtype):
     assert ops.HEAD_DIMS == (32, 64, 128, 192, 256)
     for D, built in ((257, 320), (320, 320), (512, 512)):
         assert ops.built_head_dim(dtype, D) == built
-        assert ops.flash_variant(dtype, D) == "wide"
+        assert ops.flash_variant(dtype, D) == "cluster"
     for D in (0, -1):
         with pytest.raises(ValueError, match="head dim"):
             ops.built_head_dim(dtype, D)

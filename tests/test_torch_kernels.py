@@ -342,15 +342,19 @@ def test_plain_versions_take_any_head_dim():
     (torch.bfloat16, 16, "tensor_core"), (torch.float32, 16, "split_f32"),
     (torch.bfloat16, 48, "tensor_core"), (torch.float32, 48, "split_f32"),
     (torch.bfloat16, 80, "tensor_core"), (torch.float32, 80, "split_f32"),
-    (torch.bfloat16, 257, "wide"), (torch.float32, 320, "wide"),
-    (torch.bfloat16, 512, "wide"), (torch.float32, 1024, "wide")])
+    (torch.bfloat16, 257, "cluster"), (torch.float32, 320, "cluster"),
+    (torch.bfloat16, 512, "cluster"), (torch.float32, 1024, "cluster"),
+    (torch.float32, 704, "cluster"), (torch.bfloat16, 1025, "cuda_core"),
+    (torch.float32, 2048, "cuda_core")])
 def test_flash_variant_follows_dtype(dtype, head_dim, variant):
     """bf16 goes to the tensor-core kernel (flash_attention_tc.cu); f32 at
     every head dim up to 256 to the split-f32 tensor-core kernels
     (flash_attention_f32tc.cu; at D = 192 and 256 their cluster-pair
     kernels); the choice is by dtype alone, before any launch, at the built
-    head dims and at the padded ones (16, 48, 80) alike. Above 256 both
-    dtypes take the wide route (flash_attention_wide.cu)."""
+    head dims and at the padded ones (16, 48, 80) alike. From 257 to 1024
+    both dtypes take the split-f32 kernels over a cluster of N ranks
+    (flash_attention_f32tc_cluster.cu), above 1024 the CUDA-core kernels
+    (flash_attention_wide.cu)."""
     assert ops.flash_variant(dtype, head_dim) == variant
 
 
@@ -541,9 +545,10 @@ def test_flash_attention_grad_on_cpu_takes_the_plain_backward(case,
 # (round to nearest, ties away from zero); a tf32 x tf32 product is exact in
 # f32 and the sums are f32. "3xtf32" splits x = hi + lo, hi = tf32(x),
 # lo = tf32(x - hi), and sums lo.hi + hi.lo + hi.hi; "tf32" is one product.
-# At D = 256 the products over the head dim (the scores q.k and dO.v) are
-# summed as the kernels' cluster pairs sum them: each half of D apart, then
-# half 0 + half 1.
+# Above D = 128 the products over the head dim (the scores q.k and dO.v) are
+# summed as the kernels' clusters sum them: each rank's columns apart, then
+# the partials in rank order: half 0 + half 1 at D = 256, ((p0 + p1) + p2)
+# + ... at D = 320 (5 ranks of 64) and 512 (4 of 128).
 SPLIT_CASES = [
     # (B, Sq, Sk, H, KV, D, causal, window, softcap)
     (2, 128, 128, 4, 2, 128, True, None, None),   # the train path's form
@@ -553,6 +558,9 @@ SPLIT_CASES = [
     (2, 64, 64, 4, 2, 256, True, None, 50.0),     # gemma2's form
     (1, 96, 96, 4, 2, 256, True, 24, 50.0),       # a window that bites
     (1, 100, 100, 4, 2, 256, True, None, 50.0),   # ragged S
+    (1, 64, 64, 4, 2, 320, True, None, None),     # 5 ranks of 64 columns
+    (1, 64, 64, 2, 1, 512, True, 24, 50.0),       # 4 of 128, window, softcap
+    (1, 40, 56, 2, 2, 512, False, None, None),    # Sq != Sk, no mask
 ]
 
 
@@ -573,17 +581,31 @@ def _matmul(a: torch.Tensor, b: torch.Tensor, mode: str) -> torch.Tensor:
     return alo @ bhi + ahi @ blo + ahi @ bhi
 
 
+def _cluster_ranks(D: int) -> int:
+    """The ranks of a tile's cluster at built head dim D in the split-f32
+    kernels (flash_attention_f32tc.cuh, split_of): 1 up to 128, a pair up
+    to 256, above that N ranks of 128, else 96, else 64 columns, N <= 8."""
+    if D <= 128:
+        return 1
+    if D <= 256:
+        return 2
+    return next(D // dh for dh in (128, 96, 64)
+                if D % dh == 0 and D // dh <= ops.MAX_CLUSTER)
+
+
 def _head_dim_matmul(a: torch.Tensor, b: torch.Tensor, mode: str) -> torch.Tensor:
     """a @ b over the head dim (a's last axis), summed as the kernels sum
-    it: at D = 256 each block of a split-f32 cluster pair sums its half of
-    D, and the two partial sums are added, half 0 + half 1; the bf16 kernel
-    sums all of D in one chain of products."""
+    it: above D = 128 each rank of a split-f32 cluster sums its columns,
+    and the partial sums are added in rank order, ((p0 + p1) + p2) + ...;
+    the bf16 kernel sums all of D in one chain of products."""
     D = a.shape[-1]
-    if D != 256 or mode == "bf16":
-        return _matmul(a, b, mode)
-    h = D // 2
-    return (_matmul(a[..., :h], b[..., :h, :], mode)
-            + _matmul(a[..., h:], b[..., h:, :], mode))
+    n = 1 if mode == "bf16" else _cluster_ranks(D)
+    w = D // n
+    out = _matmul(a[..., :w], b[..., :w, :], mode)
+    for r in range(1, n):
+        out = out + _matmul(a[..., r * w:(r + 1) * w],
+                            b[..., r * w:(r + 1) * w, :], mode)
+    return out
 
 
 def _split_inputs(case, seed=6):
@@ -753,6 +775,38 @@ def test_bf16_backward_emulation_meets_the_bf16_tolerance(case):
         _close_to_max(g.bfloat16().float().numpy(), w.numpy(), TOL["bf16"])
         # the roundings are there: the f32 tolerance is missed
         assert _misses(g.bfloat16().float(), w, to_max=True)
+
+
+# The bf16 cluster route (head dims 320 to 1024, the kernels of
+# csrc/flash_attention_f32tc.cuh with one TF32 product) emulated: a bf16
+# value is exact in tf32, so Q K^T and dO V^T are one exact TF32 product
+# with f32 sums, summed over the head dim in rank order; P and dS round to
+# tf32 before the products into o, dv, dk and dq; o and the gradients round
+# to bf16 once. Held against the f32 result of the f32 copies of the same
+# operands as the card's bf16 checks hold it: the output at 2e-2 and row by
+# row at ref.BF16_ROW_TOL, each gradient at 2e-2 of its largest magnitude.
+BF16_CLUSTER_CASES = [
+    # (B, Sq, Sk, H, KV, D, causal, window, softcap)
+    (1, 64, 64, 4, 2, 320, True, None, None),
+    (1, 64, 64, 2, 1, 512, True, 24, 50.0),
+    (1, 40, 56, 2, 2, 576, False, None, 30.0),
+]
+
+
+@pytest.mark.parametrize("case", BF16_CLUSTER_CASES)
+def test_bf16_one_tf32_product_meets_the_bf16_tolerance(case):
+    q, k, v, do, kw = _split_inputs(case)
+    q, k, v, do = (t.bfloat16().float() for t in (q, k, v, do))
+    assert all(torch.equal(_tf32(t), t) for t in (q, k, v, do))
+    exact = ref.flash_attention_ref(q, k, v, **kw)
+    got = _emulated_forward(q, k, v, "tf32", **kw).bfloat16()
+    _close(got.float().numpy(), exact.numpy(), "bf16")
+    assert ref.row_error(got, exact) <= ref.BF16_ROW_TOL
+    lse = ref.flash_attention_lse_ref(q, k, **kw)
+    want = ref.flash_attention_backward_ref(q, k, v, exact, lse, do, **kw)
+    grads = _emulated_backward(q, k, v, got.float(), lse, do, "tf32", **kw)
+    for g, w in zip(grads, want):
+        _close_to_max(g.bfloat16().float().numpy(), w.numpy(), TOL["bf16"])
 
 
 # Where the bf16 kernel's warpgroups split the products (dk and dv from

@@ -84,10 +84,12 @@ FLASH_CASES = [
     (1, 1000, 1000, 8, 2, 48, True, 128, 30.0, "bf16"),
     (2, 1024, 1024, 16, 8, 80, False, None, None, "f32"),
     (2, 1024, 1024, 16, 8, 80, True, None, None, "bf16"),
-    # the wide route (csrc/flash_attention_wide.cu; head dims above 256 at
-    # the next multiple of 64): launch.train --d-model 2048's head dim 512,
-    # 320 (d_model 1280), a padded 300, 1024 non-causal; head groups 24 and
-    # 17 (above the old limit of 16) on every variant
+    # above head dim 256 (the cluster route, csrc/flash_attention_f32tc_cluster.cu,
+    # up to 1024; above it the CUDA-core route, csrc/flash_attention_wide.cu):
+    # launch.train --d-model 2048's head dim 512 (4 ranks of 128), 320
+    # (d_model 1280: 5 ranks of 64), 576 (6 of 96), 1024 (8 of 128), a
+    # padded 300 and 704 (run at 320 and 768), 1088 on the CUDA-core route;
+    # head groups 24 and 17 (above the old limit of 16) on every variant
     (2, 256, 256, 4, 2, 512, True, None, None, "f32"),
     (2, 256, 256, 4, 2, 512, True, 100, 50.0, "bf16"),
     (1, 128, 128, 4, 2, 320, True, None, None, "f32"),
@@ -96,6 +98,15 @@ FLASH_CASES = [
     (1, 200, 200, 48, 2, 320, True, None, None, "bf16"),
     (1, 300, 300, 34, 2, 128, True, None, None, "bf16"),
     (1, 300, 300, 34, 2, 64, True, None, None, "f32"),
+    (1, 128, 128, 4, 2, 320, True, 40, 50.0, "bf16"),
+    (1, 150, 150, 4, 2, 576, True, 60, 30.0, "f32"),
+    (1, 150, 150, 4, 2, 576, True, None, None, "bf16"),
+    (1, 128, 128, 2, 1, 1024, True, None, 50.0, "f32"),
+    (1, 100, 130, 2, 1, 704, False, None, None, "f32"),
+    (1, 130, 130, 34, 2, 512, True, None, None, "f32"),
+    (1, 130, 130, 48, 2, 512, True, 50, None, "bf16"),
+    (1, 96, 96, 2, 1, 1088, True, None, None, "f32"),
+    (1, 96, 96, 2, 1, 1088, True, None, 30.0, "bf16"),
 ]
 # bf16 also per output row (b, q, h): its error over D relative to that row
 # of the f32 result may be at most ref.BF16_ROW_TOL. rtol=atol 2e-2 alone
@@ -191,13 +202,17 @@ BWD_CASES = [
     (4, 64, 64, 4, 2, 16, True, None, None),
     (1, 1000, 1000, 16, 8, 48, True, None, None),
     (1, 700, 1000, 16, 4, 80, False, None, None),
-    # the wide route (dk/dv and dq kernels) at head dims 512, 320 (window,
-    # softcap), a padded 300 (Sq != Sk), 1024, and head group 24
+    # above 256 (dk/dv and dq kernels): the cluster route at head dims 512,
+    # 320 (window, softcap), a padded 300 (Sq != Sk), 1024, 576, head groups
+    # 24 and 17; the CUDA-core route at 1088
     (2, 256, 256, 4, 2, 512, True, None, None),
     (1, 128, 128, 4, 2, 320, True, 40, 50.0),
     (1, 100, 150, 4, 2, 300, False, None, 30.0),
     (1, 128, 128, 2, 1, 1024, False, None, None),
     (1, 200, 200, 48, 2, 320, True, None, None),
+    (1, 150, 150, 4, 2, 576, True, 60, 30.0),
+    (1, 130, 130, 34, 2, 512, True, None, None),
+    (1, 96, 96, 2, 1, 1088, True, None, None),
 ]
 BWD_TOL = 2e-5   # relative to each gradient's largest magnitude
 
@@ -522,20 +537,28 @@ def test_bare_flash_kernel_call_refuses_grad(card):
 @pytest.mark.cuda
 @pytest.mark.parametrize("D, variant", [(64, "split_f32"), (128, "split_f32"),
                                         (256, "split_f32"), (192, "split_f32"),
-                                        (48, "split_f32"), (200, "split_f32")])
+                                        (48, "split_f32"), (200, "split_f32"),
+                                        (320, "cluster"), (512, "cluster"),
+                                        (300, "cluster"), (1088, "cuda_core")])
 def test_f32_flash_runs_the_variant_of_its_head_dim(card, D, variant):
     """The f32 forward and backward at head dim D run the kernels of
-    ops.flash_variant (before the launch) at ops.built_head_dim: their
+    ops.flash_variant (before the launch) at ops.flash_built_head_dim: their
     device kernels are the ones the profiler records, the cluster-pair
-    kernels of 192 or 256 columns there and the one-block kernels below
-    them, never another set."""
+    kernels of 192 or 256 columns there, the one-block kernels below them,
+    the N-rank cluster kernels from 257 to 1024 and the CUDA-core kernels
+    above, never another set."""
     from torch.profiler import ProfilerActivity, profile
     sets = {w: tuple(f"flash_f32tc_{k}_d{w}_kernel" for k in ("fwd", "dkdv", "dq"))
             for w in (192, 256)}
     sets[0] = ("flash_f32tc_fwd_kernel", "flash_f32tc_dkdv_kernel",
                "flash_f32tc_dq_kernel")
-    built = ops.built_head_dim(torch.float32, D)
-    names = sets.pop(built if built in sets else 0)
+    sets["cluster"] = tuple(f"flash_f32tc_{k}_cluster_kernel"
+                            for k in ("fwd", "dkdv", "dq"))
+    sets["cuda_core"] = ("flash_wide_fwd_kernel", "flash_wide_dkdv_kernel",
+                         "flash_wide_dq_kernel")
+    built = ops.flash_built_head_dim(torch.float32, D)
+    names = sets.pop(variant if variant in sets
+                     else built if built in sets else 0)
     other = [n for rest in sets.values() for n in rest]
     assert ops.flash_variant(torch.float32, D) == variant
     q, k, v, dout, kw = _bwd_operands(card, (1, 128, 128, 4, 2, D, True, None,
@@ -566,6 +589,36 @@ def test_f32_flash_d256_is_bitwise_repeatable(card):
     torch.cuda.synchronize()
     assert all(torch.equal(a, b) for a, b in zip(*runs))
     assert torch.equal(runs[0][0], runs[0][1])   # o unchanged by lse
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+@pytest.mark.parametrize("D", [320, 512, 576, 1024])
+def test_cluster_flash_is_bitwise_repeatable(card, D, dt):
+    """Above 256 every rank of a cluster (ranks of 64, 128, 96 and 128
+    columns here) sums the partial scores in rank order: the forward (with
+    and without lse) and the backward give the same bits on every call, and
+    every rank's columns of o hold to the plain version (ranks that
+    disagreed on a score would weigh their column slices differently)."""
+    q, k, v, dout, kw = _bwd_operands(card, (1, 200, 200, 4, 2, D, True, 90,
+                                             30.0))
+    q, k, v, dout = (t.to(TDT[dt]) for t in (q, k, v, dout))
+    assert ops.flash_variant(q.dtype, D) == "cluster"
+    runs = []
+    for _ in range(2):
+        out, lse = ops.flash_attention_forward(q, k, v, True, 90, 30.0,
+                                               want_lse=True)
+        grads = ops.flash_attention_backward(q, k, v, out, lse, dout, **kw)
+        runs.append((ops.flash_attention(q, k, v, **kw), out, lse, *grads))
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(*runs))
+    assert torch.equal(runs[0][0], runs[0][1])   # o unchanged by lse
+    want = ref.flash_attention_ref(q.float(), k.float(), v.float(), **kw)
+    dh = D // ops.build.load().repro_flash_cluster_ranks(D)
+    for r in range(D // dh):   # each rank's columns
+        cols = slice(r * dh, (r + 1) * dh)
+        torch.testing.assert_close(runs[0][0][..., cols].float(),
+                                   want[..., cols], rtol=TOL[dt], atol=TOL[dt])
 
 
 # bf16 flash backward (csrc/flash_attention_tc_bwd.cu) against the plain
@@ -618,11 +671,16 @@ BF16_BWD_EDGE_CASES = [
     (4, 64, 64, 4, 2, 16, True, None, None),
     (1, 1000, 1000, 16, 8, 48, True, None, None),
     (1, 1100, 1000, 16, 8, 80, False, None, 30.0),
-    # the wide route in bf16: head dims 512 (softcap), 320 (a window, head
-    # group 24) and a padded 300 (Sq != Sk)
+    # above 256 in bf16: the cluster route at head dims 512 (softcap), 320
+    # (a window, head group 24), a padded 300 (Sq != Sk), 576, 1024 and head
+    # group 17; the CUDA-core route at 1088
     (2, 256, 256, 4, 2, 512, True, None, 50.0),
     (1, 200, 200, 48, 2, 320, True, 50, None),
     (1, 100, 150, 4, 2, 300, False, None, None),
+    (1, 150, 150, 4, 2, 576, True, None, 30.0),
+    (1, 128, 128, 2, 1, 1024, True, 40, None),
+    (1, 130, 130, 34, 2, 512, True, None, None),
+    (1, 96, 96, 2, 1, 1088, True, None, None),
 ]
 BF16_BWD_TOL = 2e-2   # relative to each gradient's largest magnitude
 BF16_LSE_TOL = 1e-3
@@ -1055,18 +1113,20 @@ def test_moe_backward_on_card_is_repeatable_and_sync_free(card):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dt", ["f32", "bf16"])
-@pytest.mark.parametrize("D", [16, 48, 80, 192, 200, 300, 512])
+@pytest.mark.parametrize("D", [16, 48, 80, 192, 200, 300, 512, 704])
 def test_attention_launches_record_their_built_head_dim(card, D, dt):
     """Flash (forward and backward) and decode at a head dim D launch the
-    kernel instance of ops.built_head_dim (D itself at 192 and 512, else
-    the next built width, above 256 the next multiple of 64 on the wide
-    route, the operands padded with zero columns) and count it in
+    kernel instance of ops.flash_built_head_dim and ops.built_head_dim (D
+    itself at 192 and 512, else the next built width: above 256 the next
+    multiple of 64 in decode, the next cluster width in flash, 768 at 704;
+    the operands padded with zero columns) and count it in
     ops.BUILT_WIDTHS; each result holds to the plain version at the true D."""
     g = torch.Generator(device=card).manual_seed(1)
     q = _randn(g, (2, 100, 4, D), dt, card)
     k, v, dout = (_randn(g, s, dt, card) for s in ((2, 100, 2, D),) * 2
                   + ((2, 100, 4, D),))
     built = ops.built_head_dim(TDT[dt], D)
+    flash_built = ops.flash_built_head_dim(TDT[dt], D)
     ops.reset_launches()
     out, lse = ops.flash_attention_forward(q, k, v, True, None, None,
                                            want_lse=True)
@@ -1074,8 +1134,10 @@ def test_attention_launches_record_their_built_head_dim(card, D, dt):
     lengths = torch.tensor([37, 100], dtype=torch.int32, device=card)
     dec = ops.decode_attention(q[:, 0].contiguous(), k, v, lengths)
     torch.cuda.synchronize()
-    assert dict(ops.BUILT_WIDTHS) == {(name, D, built): 1 for name in (
-        "flash_attention", "flash_attention_backward", "decode_attention")}
+    assert dict(ops.BUILT_WIDTHS) == {
+        ("flash_attention", D, flash_built): 1,
+        ("flash_attention_backward", D, flash_built): 1,
+        ("decode_attention", D, built): 1}
     assert out.shape == q.shape and dec.shape == (2, 4, D)
     assert all(a.shape == b.shape for a, b in zip(grads, (q, k, v)))
     torch.testing.assert_close(out.float(), ref.flash_attention_ref(

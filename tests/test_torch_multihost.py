@@ -23,9 +23,10 @@ import repro_torch.core as TC  # noqa: E402
 from repro_torch.core import (Engine, FailureInjector,  # noqa: E402
                               LocalCluster, Placement)
 from repro_torch.core.scaling import Controller  # noqa: E402
-from tests.torch_core_helpers import (linear_pipeline,  # noqa: E402
-                                      mk_replica, mk_store, replica_pipeline,
-                                      sink_outputs, wait_for)
+from tests.torch_core_helpers import (gated_delay,  # noqa: E402
+                                      linear_pipeline, mk_replica, mk_store,
+                                      replica_pipeline, sink_outputs,
+                                      wait_for)
 
 # cluster boots + eng.wait budgets exceed the global 120s pytest-timeout
 pytestmark = pytest.mark.timeout(300)
@@ -219,14 +220,23 @@ def test_localcluster_kill_node_nonblocking(tmp_path):
     assert sink_outputs(eng) == expected       # exactly-once across nodes
 
 
-def test_localcluster_scale_up_across_nodes():
+def test_localcluster_scale_up_across_nodes(tmp_path):
     """Dynamic scaling lands new replicas on other nodes: place r2 on
-    node1 before scale_up, then scale r1 away."""
+    node1 before scale_up, then scale r1 away. The source (a spawned
+    process on node0) holds after the events the scale-down waits for
+    until the scale-down has run (a gate file), so the run cannot reach
+    its n outputs first, however the processes are scheduled."""
     n = 60
+    gate = tmp_path / "scaled_down"
+    # 25 outputs before the scale-down, and one more event: the batched
+    # source looks one event ahead of the one it emits
+    hold = 26
     placement = {"src": "node0", "disp": "node0", "r0": "node0",
                  "r1": "node1", "mrg": "node1", "sink": "node1"}
     cluster = LocalCluster(2)
-    eng = Engine(replica_pipeline(TC, n)(), mode="process", ctx="spawn",
+    eng = Engine(replica_pipeline(TC, n, rate_fn=partial(
+                     gated_delay, str(gate), hold, 0.002))(),
+                 mode="process", ctx="spawn",
                  transport="tcp", cluster=cluster, placement=placement,
                  restart_delay=0.02)
     ctrl = Controller(eng, "disp", "mrg",
@@ -241,6 +251,7 @@ def test_localcluster_scale_up_across_nodes():
     wait_for(lambda: committed() >= 25, 60.0, "outputs after scale-up")
     assert committed() < n, "the run ended before the scale-down"
     ctrl.scale_down("r1")
+    gate.touch()
     ok = eng.wait(150)
     eng.stop()
     assert ok

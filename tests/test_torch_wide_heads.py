@@ -1,9 +1,12 @@
 """Head dims above 256 and head groups above 16, on the CPU.
 
-The card takes them: flash attention on its wide route (``flash_variant``
-"wide": ``csrc/flash_attention_wide.cu``, the head dim rounded up to a
-multiple of 64), decode on the decode kernel's wide instance, and decode
-cuts a head group above 16 into chunks, one cluster each. Here the port's
+The card takes them: flash attention up to head dim 1024 on the split-f32
+kernels over a cluster of N ranks (``flash_variant`` "cluster":
+``csrc/flash_attention_f32tc_cluster.cu``, at the next of
+``ops.CLUSTER_WIDTHS``), above it on CUDA-core kernels (``flash_variant``
+"cuda_core": ``csrc/flash_attention_wide.cu``, the head dim rounded up to a
+multiple of 64), decode on the decode kernel's wide instance (a multiple of
+64), and decode cuts a head group above 16 into chunks, one cluster each. Here the port's
 plain versions (what the wrappers run for CPU tensors) stand against the
 JAX package: its Pallas flash and decode kernels in interpret mode and its
 oracles at head dims 320 and 512 and at groups 1 to 48, ``jax.vjp`` for the
@@ -13,7 +16,7 @@ flash backward; then the model at ``reduced(internlm2-1.8b)`` with head dim
 then ``repro_torch.launch.train.run_training`` at d_model 1280 beside
 ``repro.launch.train.run_training`` from the same initial state. Last, what
 the kernel route decides before any launch: the built widths above 256, the
-"wide" variant, every group accepted, what still raises (head dim 0,
+"cluster" and "cuda_core" variants, every group accepted, what still raises (head dim 0,
 ``H % KV != 0``, float16), and the shape-only route's outputs and reported
 work. The kernels are held to their plain versions on the card by
 ``tests/test_torch_kernels_cuda.py`` and ``chip_smoke.py`` phase 2.
@@ -288,16 +291,30 @@ def test_run_training_at_d_model_1280_matches_jax(tmp_path, monkeypatch):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_built_head_dims_above_256_are_wide(dtype):
-    """Above 256 every head dim is built at the next multiple of 64, on the
-    "wide" flash variant, in both dtypes; up to 256 the instances stay."""
+    """Above 256 every head dim is built at the next multiple of 64 for
+    decode, in both dtypes; flash takes it to the next width a cluster of
+    at most 8 ranks of 128, 96 or 64 columns splits ("cluster", up to 1024:
+    704, 832 and 960 run at 768, 896 and 1024) and above 1024 to the next
+    multiple of 64 on the "cuda_core" variant; up to 256 the instances
+    stay."""
+    assert ops.CLUSTER_WIDTHS == (320, 384, 448, 512, 576, 640, 768, 896,
+                                  1024)
     for D in range(257, 1100):
         built = ops.built_head_dim(dtype, D)
         assert built % 64 == 0 and D <= built < D + 64, D
-        assert ops.flash_variant(dtype, D) == "wide"
-    assert [ops.built_head_dim(dtype, D) for D in (320, 512, 1024, 4097)] \
-        == [320, 512, 1024, 4160]
-    assert ops.flash_variant(dtype, 256) != "wide"
-    assert ops.built_head_dim(dtype, 256) == 256
+        flash = ops.flash_built_head_dim(dtype, D)
+        if D <= 1024:
+            assert flash == min(w for w in ops.CLUSTER_WIDTHS if w >= built), D
+            assert ops.flash_variant(dtype, D) == "cluster"
+        else:
+            assert flash == built and ops.flash_variant(dtype, D) == "cuda_core"
+    assert [ops.built_head_dim(dtype, D) for D in (320, 512, 704, 1024, 4097)] \
+        == [320, 512, 704, 1024, 4160]
+    assert [ops.flash_built_head_dim(dtype, D)
+            for D in (300, 512, 576, 704, 832, 960, 1024, 4097)] \
+        == [320, 512, 576, 768, 896, 1024, 1024, 4160]
+    assert ops.flash_variant(dtype, 256) not in ("cluster", "cuda_core")
+    assert ops.built_head_dim(dtype, 256) == ops.flash_built_head_dim(dtype, 256) == 256
 
 
 class _Launched(Exception):
@@ -356,22 +373,33 @@ def test_what_still_raises(H, KV, D, dtype, match):
 
 
 def test_meta_route_reports_the_wide_work(monkeypatch):
-    """On ``meta`` operands at D = 320 (built 320: three flash slices of
-    128 columns, two decode slices of 256) the wrappers give outputs at D
-    and report the wide route's work, the scores counted once per slice, on
-    the CUDA cores; at group 32 over one kv head (D = 64) the kernels'
-    usual work."""
+    """On ``meta`` operands at D = 320 (built 320) the wrappers give
+    outputs at D and report the work: flash on the cluster route computes
+    each score once (4 D a kept pair forward, 10 D backward) as split-f32
+    ("tf32x3") in f32 and one TF32 product ("tf32") in bf16; decode's wide
+    instance counts the scores once per slice of 256 columns (two) on the
+    CUDA cores. At D = 1088 flash's CUDA-core route counts them once per
+    slice of 128 columns (nine), decode once per slice of 256 (five). At
+    group 32 over one kv head (D = 64) the kernels' usual work."""
     seen = []
     monkeypatch.setattr(ops, "COST_HOOK", lambda *a: seen.append(a))
     B, S = 2, 16
     pairs = ops.kept_pairs(S, S, True, None)
-    for H, KV, D, fwd, bwd, dec, rate in (
-            (4, 2, 320, (2 * 3 + 2) * 320, (8 * 3 + 6) * 320,
-             (2 * 2 + 2) * 320, "f32"),
-            (32, 1, 64, 4 * 64, 10 * 64, 4 * 64, "tf32x3")):
+    for dtype, H, KV, D, fwd, bwd, dec, rate in (
+            (torch.float32, 4, 2, 320, 4 * 320, 10 * 320, (2 * 2 + 2) * 320,
+             "tf32x3"),
+            (torch.bfloat16, 4, 2, 320, 4 * 320, 10 * 320, (2 * 2 + 2) * 320,
+             "tf32"),
+            (torch.float32, 2, 1, 1088, (2 * 9 + 2) * 1088,
+             (8 * 9 + 6) * 1088, (2 * 5 + 2) * 1088, "f32"),
+            (torch.bfloat16, 2, 1, 1088, (2 * 9 + 2) * 1088,
+             (8 * 9 + 6) * 1088, (2 * 5 + 2) * 1088, "f32"),
+            (torch.float32, 32, 1, 64, 4 * 64, 10 * 64, 4 * 64, "tf32x3"),
+            (torch.bfloat16, 32, 1, 64, 4 * 64, 10 * 64, 4 * 64, "bf16")):
+        f32 = dtype == torch.float32
         seen.clear()
-        q = torch.empty(B, S, H, D, device="meta")
-        k = torch.empty(B, S, KV, D, device="meta")
+        q = torch.empty(B, S, H, D, device="meta", dtype=dtype)
+        k = torch.empty(B, S, KV, D, device="meta", dtype=dtype)
         out, lse = ops.flash_attention_forward(q, k, k, True, None, None,
                                                want_lse=True)
         assert out.shape == q.shape and out.device.type == "meta"
@@ -382,7 +410,7 @@ def test_meta_route_reports_the_wide_work(monkeypatch):
             q[:, 0].contiguous(), k, k,
             torch.empty(B, dtype=torch.int32, device="meta"))
         assert dec_out.shape == (B, H, D)
-        f = 4 * B   # bytes of an f32 element times the batch
+        f = (4 if f32 else 2) * B   # bytes of an element times the batch
         qb, kb = f * S * H * D, f * S * KV * D
         assert seen == [
             ("flash_attention", fwd * B * H * pairs, rate, qb + 2 * kb,
@@ -390,5 +418,5 @@ def test_meta_route_reports_the_wide_work(monkeypatch):
             ("flash_attention_backward", bwd * B * H * pairs, rate,
              3 * qb + 2 * kb + 4 * B * H * S, qb + 2 * kb),
             ("decode_attention", dec * B * H * S, "f32",
-             4 * B * H * D + 2 * kb + 4 * B, 4 * B * H * D),
+             f * H * D + 2 * kb + 4 * B, f * H * D),
         ]

@@ -119,8 +119,19 @@ def mk_replica(core, rid):
     return partial(core.MapOperator, rid, fn=double_v, processing_time=0.004)
 
 
-def replica_pipeline(core, n, rate=0.002):
-    """src -> disp -> {r0, r1} -> mrg -> sink, as a picklable builder."""
+def gated_delay(gate: str, hold: int, rate: float, offset: int) -> float:
+    """A ``GeneratorSource`` ``rate_fn``: ``rate`` for every event, but from
+    offset ``hold`` on only once the file ``gate`` exists (until then it
+    waits), so a test can hold a source, in whatever process it runs,
+    until the test has done what must come before the rest of the stream."""
+    while offset >= hold and not os.path.exists(gate):
+        time.sleep(0.002)
+    return rate
+
+
+def replica_pipeline(core, n, rate=0.002, rate_fn=None):
+    """src -> disp -> {r0, r1} -> mrg -> sink, as a picklable builder
+    (``rate_fn``: the source's, e.g. a ``partial`` of ``gated_delay``)."""
     from importlib import import_module
     sc = import_module(core.__name__ + ".scaling")
 
@@ -128,7 +139,7 @@ def replica_pipeline(core, n, rate=0.002):
         p = core.Pipeline()
         p.add(partial(core.GeneratorSource, "src",
                       core.ReadSource([{"v": i} for i in range(n)]),
-                      rate=rate))
+                      rate=rate, rate_fn=rate_fn))
         p.add(partial(sc.DispatcherOperator, "disp", ["r0", "r1"]))
         p.add(mk_replica(core, "r0"))
         p.add(mk_replica(core, "r1"))
