@@ -43,11 +43,13 @@ non-causal). Phases:
    2, [1, 128, 2, 1024] kv 1 non-causal, head group 24, and at small S
    576 (ranks of 96 columns), a padded 704, head groups 17 at 512 and 24
    at 576, and 1088 on the CUDA-core route, the seconds these cases take
-   printed; decode at B=4
+   printed; decode's group route at B=4
    S=4096 H=4 kv 2, D 512 (64 keys and a full cache), 320, 1024 and 300,
-   with lse and key ranges); and at head groups above 16 (decode in
-   chunks at groups 24, 32, 48 and 71 over one kv head, D 64, and 32 at
-   D 512, 17 at D 192; flash at groups 17 and 24);
+   with lse and key ranges); and at head groups above 16 (decode's group
+   route at groups 24, 32, 48 and 71 over one kv head, D 64, and 32 at
+   D 512, 17 at D 192; flash at groups 17 and 24); every decode launch at
+   a group above 16 or a head dim above 256 recorded on the group route
+   (``ops.DECODE_ROUTES``), bitwise repeatable and the same bits with lse;
 3. internlm2 ``forward`` in bf16 on tokens [2, 2048] with the flash kernel
    (its tensor-core variant) against the plain path, and the flash launch
    count (one per layer, none of them an f32 variant);
@@ -93,10 +95,11 @@ non-causal). Phases:
    ceiling), the same-call parent (the CUDA-core kernels, which compute
    the scores once per slice of 128 columns), the plain version and SDPA
    (``enable_gqa``, its fastest backend named), the cluster kernels'
-   occupancy at head dims 320, 512, 576 and 1024, and decode at B=4
-   S=4096 H=4 kv 2 D 512 (64 keys and a full cache) and at H 32 kv 1 D 64
-   (a multi-query group of 32) over a full cache, with the ptxas report
-   of the cluster and CUDA-core kernels;
+   occupancy at head dims 320, 512, 576 and 1024, and decode's group
+   route at B=4 S=4096 H=4 kv 2 D 512 (64 keys and a full cache) and at H
+   32 and 71 kv 1 D 64 (multi-query groups of 32 and 71) over a full
+   cache, with the ptxas report of the cluster and CUDA-core kernels and
+   of the group route's;
 6. internlm2 ``make_train_step`` at full width in f32 (24 layers, tokens
    [accum 1, mb 2, S 2048], 30.2 GB of params, grads and AdamW moments):
    step ms, tokens/s, the device breakdown, 24 forward and 24 backward
@@ -449,7 +452,7 @@ KERNELS = {
     # launch.train --d-model 2048 path (f32; bf16 timed beside it), on the
     # cluster route up to 1024 (``ops.flash_variant`` "cluster": the
     # split-f32 kernels over a cluster of N ranks, one TF32 product in
-    # bf16), decode's wide instance on the launch.serve --d-model 2048 and
+    # bf16), decode's group route on the launch.serve --d-model 2048 and
     # 1280 servers. They count in ops.LAUNCHES under their wrappers' names;
     # their rows read the launches recorded above head dim 256
     # (``ops.BUILT_WIDTHS``). Above 1024 flash takes the CUDA-core route
@@ -494,10 +497,13 @@ WIDE_FWD = (F32TC_FWD_PREP, F32TC_FWD_CLUSTER)
 WIDE_BWD = (F32TC_BWD_PREP, "flash_f32tc_dkdv_cluster_kernel",
             "flash_f32tc_dq_cluster_kernel")
 # above 1024 (the CUDA-core route): its forward and its backward's two
-# launches; and decode's wide instance beside the decode kernel
+# launches; and decode's group route (head groups above 16, head dims above
+# 256: ``ops.decode_plan``) beside the decode kernel, with its second merge
+# where the plan has several clusters per (slot, kv head, chunk)
 CUDA_CORE_FWD = "flash_wide_fwd_kernel"
 CUDA_CORE_BWD = ("flash_wide_dkdv_kernel", "flash_wide_dq_kernel")
-DECODE_KERNEL, DECODE_WIDE = "decode_attention_kernel", "decode_wide_kernel"
+DECODE_KERNEL, DECODE_GROUP = "decode_attention_kernel", "decode_group_kernel"
+DECODE_GROUP_MERGE = "decode_group_merge_kernel"
 SCAN_KERNEL = {"sequential": "selective_scan_kernel",
                "step": "selective_scan_step_kernel"}
 SCAN_BWD = "selective_scan_bwd_kernel"
@@ -511,7 +517,7 @@ DEVICE_KERNELS = {
     "flash_attention_backward": [(F32TC_BWD + F32TC_BWD_D256[1:]
                                   + F32TC_BWD_D192[1:] + WIDE_BWD[1:], 3),
                                  (FLASH_TC_BWD, 3), (CUDA_CORE_BWD, 2)],
-    "decode_attention": [((DECODE_KERNEL,), 1), ((DECODE_WIDE,), 1)],
+    "decode_attention": [((DECODE_KERNEL,), 1), ((DECODE_GROUP,), 1)],
     "selective_scan": [(tuple(SCAN_KERNEL.values()), 1)],
     "selective_scan_backward": [((SCAN_BWD,), 1)],
 }
@@ -531,10 +537,21 @@ def f32tc_names(D: int) -> tuple:
     return (F32TC_FWD_PREP, F32TC_FWD), F32TC_BWD
 
 
-def decode_names(D: int) -> tuple:
-    """The decode device kernel of head dim D (the wide instance above
-    256)."""
-    return (DECODE_WIDE,) if D > ops.HEAD_DIMS[-1] else (DECODE_KERNEL,)
+def decode_plan(B: int, H: int, KV: int, S: int, D: int, dtype):
+    """``ops.decode_plan`` of a decode call on this card, at the built head
+    dim of D."""
+    return ops.decode_plan(B, H, KV, S, ops.built_head_dim(dtype, D),
+                           ops.sm_count(0), dtype)
+
+
+def decode_names(B: int, H: int, KV: int, S: int, D: int, dtype) -> tuple:
+    """The device kernels of a decode call (``ops.decode_plan``): the narrow
+    kernel, or the group kernel and, with several clusters per (slot, kv
+    head, chunk), its second merge; each launched once a call."""
+    plan = decode_plan(B, H, KV, S, D, dtype)
+    if plan.route == "narrow":
+        return (DECODE_KERNEL,)
+    return (DECODE_GROUP,) + ((DECODE_GROUP_MERGE,) if plan.clusters > 1 else ())
 
 
 def sync() -> None:
@@ -839,6 +856,47 @@ def log_ptxas_kernels(needle: str) -> dict:
     return out
 
 
+def log_decode_group() -> dict:
+    """ptxas's registers and spill bytes of the decode group route's
+    kernels (every instance), and the dynamic shared memory a block of the
+    group kernel takes at phase 5's shapes in f32 (the C side's
+    ``repro_decode_group_smem`` of their plans). Fails unless the plan's
+    copy of the layout (``ops.group_smem``) gives the same bytes over the
+    plans of a grid of shapes, in both dtypes."""
+    lib = build.load()
+    grid = 0
+    for dtype, code in ((torch.float32, 0), (torch.bfloat16, 1)):
+        el = torch.empty((), dtype=dtype).element_size()
+        for B in (1, 4, 64):
+            for H, KV in ((17, 1), (32, 1), (71, 1), (4, 2), (48, 8)):
+                for D in (64, 128, 256, 320, 512, 1024, 16384):
+                    p = ops.group_plan(B, H, KV, 4096, D, ops.sm_count(0),
+                                       dtype)
+                    for n in range(1, p.cluster + 1):
+                        c = lib.repro_decode_group_smem(
+                            p.head_chunk, D, p.tile_keys, p.panel_cols, n,
+                            code)
+                        check(c == ops.group_smem(p.head_chunk, D,
+                                                  p.tile_keys, p.panel_cols,
+                                                  n, el),
+                              f"decode group layout: C {c} bytes against "
+                              f"ops.group_smem at {p}, cluster {n}")
+                        grid += 1
+    log(f"decode group route: the plan's layout copy equals the C side's at "
+        f"{grid} (plan, cluster) points")
+    smem = {}
+    for B, S, H, KV, D in (DECODE_D512_SHAPE, DECODE_GROUP32_SHAPE,
+                           DECODE_GROUP71_SHAPE):
+        p = decode_plan(B, H, KV, S, D, torch.float32)
+        key = f"[{B},{S},{H},{KV},{D}]"
+        smem[key] = lib.repro_decode_group_smem(
+            p.head_chunk, D, p.tile_keys, p.panel_cols, p.cluster, 0)
+        log(f"decode group route {key} f32: {p}, {smem[key]} bytes of "
+            f"dynamic shared memory a block")
+    return {"ptxas": log_ptxas_kernels("decode_group"),
+            "dynamic_smem_bytes": smem, "layout_points": grid}
+
+
 def log_ptxas_bf16_flash(kernels=None) -> dict:
     """ptxas's registers, spill bytes, stack, C7512 and the block's dynamic
     shared memory (from the library) of each bf16 flash kernel on a main
@@ -955,11 +1013,11 @@ DECODE_CASES = [
     (4, 4096, 48, 8, 48, torch.bfloat16, None, None, [64] * 4),
     (4, 4096, 16, 8, 80, torch.float32, 1000, 30.0, None),
     (4, 4096, 16, 8, 80, torch.bfloat16, None, None, [4096] * 4),
-    # the wide instance (head dims above 256, a cluster per slice of 256
-    # columns): B=4 S=4096 H=4 kv 2 at D 512 (64 keys and a full cache,
-    # both dtypes), 320 (window, softcap), 1024 and a padded 300; head
-    # groups above 16 in chunks: 24, 32, 48 and 71 over one kv head at D
-    # 64 (Falcon-7B's layout), 32 at D 512, 17 at D 192
+    # the group route (head dims above 256, head groups above 16): B=4
+    # S=4096 H=4 kv 2 at D 512 (64 keys and a full cache, both dtypes), 320
+    # (window, softcap), 1024 and a padded 300; head groups 24, 32, 48 and
+    # 71 over one kv head at D 64 (Falcon-7B's layout), 32 at D 512, 17 at
+    # D 192
     (4, 4096, 4, 2, 512, torch.float32, None, None, [64] * 4),
     (4, 4096, 4, 2, 512, torch.float32, None, None, [4096] * 4),
     (4, 4096, 4, 2, 512, torch.bfloat16, None, None, [64] * 4),
@@ -989,8 +1047,8 @@ DECODE_SPLIT_CASES = [
     ("dh 192 serve shape", 4, 4096, 16, 8, 192, [64] * 4),
     ("dh 192 group 6 full cache", 4, 4096, 48, 8, 192, [4096] * 4),
     ("dh 80 (padded to 128)", 4, 4096, 16, 8, 80, [4096] * 4),
-    # the wide instance at D 512, 320 and 1024, and head groups 32 and 71
-    # over one kv head (in chunks), 32 at D 512
+    # the group route at D 512, 320 and 1024, and head groups 32 and 71
+    # over one kv head, 32 at D 512
     ("dh 512 serve shape", 4, 4096, 4, 2, 512, [64] * 4),
     ("dh 512 full cache", 4, 4096, 4, 2, 512, [4096] * 4),
     ("dh 320", 4, 4096, 4, 2, 320, [1, 17, 4096, 2000]),
@@ -1149,10 +1207,13 @@ def check_decode_split(g) -> float:
     """``DECODE_SPLIT_CASES``: the kernel's o the same bits with its lse as
     without, the lse within ``DECODE_LSE_TOL`` of the plain version's, and
     the merge of 2 and 4 key ranges (each launched with its key offset)
-    within 2e-5 of the uncut kernel and of the plain version. Returns the
-    largest error of each kernel row (``decode_row``)."""
+    within 2e-5 of the uncut kernel and of the plain version; every launch
+    on the case's route (``decode_route``). Returns the largest error of
+    each kernel row (``decode_row``)."""
     worst = {"decode_attention": 0.0, "decode_attention_wide": 0.0}
     for tag, B, S, H, KV, D, lens in DECODE_SPLIT_CASES:
+        route = decode_route(H, KV, D)
+        on_route = ops.DECODE_ROUTES[route]
         q = _randn(g, (B, H, D), torch.float32)
         k = _randn(g, (B, S, KV, D), torch.float32)
         v = _randn(g, (B, S, KV, D), torch.float32)
@@ -1183,6 +1244,9 @@ def check_decode_split(g) -> float:
                               f"decode split {tag} x{parts} vs plain")
             errs.append((parts, e1, e2))
             worst[decode_row(D)] = max(worst[decode_row(D)], e1, e2)
+        check(ops.DECODE_ROUTES[route] == on_route + 8,
+              f"decode split {tag}: not every launch on the {route} route "
+              f"({dict(ops.DECODE_ROUTES)})")
         log(f"decode lse/offset {tag} B={B} S={S} H={H} KV={KV} D={D} "
             f"lengths={lens}: o bitwise the same with lse, lse max_abs_err "
             f"{lse_err:.3e} (tol {DECODE_LSE_TOL}); "
@@ -1226,13 +1290,15 @@ def assert_close_to_max(got, want, tol, what) -> float:
     return max_err(got, want) / scale.item()
 
 
-def built_call(name: str, D: int, dtype, fn):
+def built_call(name: str, D: int, dtype, fn, route=None):
     """fn()'s result, after checking that it launched the ``name`` kernel
     once and recorded that launch at ``ops.built_head_dim(dtype, D)``
     (``ops.flash_built_head_dim`` for flash): D itself where a kernel
     instance is built for it, else the next built head dim, the operands
     padded to it; a flash launch also under its variant, above 256 the
-    cluster route up to 1024 and the CUDA-core route above."""
+    cluster route up to 1024 and the CUDA-core route above; a decode launch
+    under ``route`` (``ops.DECODE_ROUTES``), where given."""
+    before_route = ops.DECODE_ROUTES[route]
     flash = name.startswith("flash")
     built = (ops.flash_built_head_dim if flash else ops.built_head_dim)(dtype, D)
     variant = ops.flash_variant(dtype, D) if flash else None
@@ -1250,7 +1316,16 @@ def built_call(name: str, D: int, dtype, fn):
     check(not flash or ops.FLASH_VARIANTS[name, variant] == by_variant + 1,
           f"{name} D={D}: its launch was not recorded as {variant} "
           f"({dict(ops.FLASH_VARIANTS)})")
+    check(route is None or ops.DECODE_ROUTES[route] == before_route + 1,
+          f"{name} D={D}: its launch was not recorded on the {route} route "
+          f"({dict(ops.DECODE_ROUTES)})")
     return out
+
+
+def decode_route(H: int, KV: int, D: int) -> str:
+    """The decode route a call must take: the group route at a head group
+    above 16 or a head dim above 256, else the narrow kernel."""
+    return "group" if H // KV > 16 or D > ops.HEAD_DIMS[-1] else "narrow"
 
 
 def check_flash_backward(g, case) -> float:
@@ -1517,19 +1592,29 @@ def phase_kernels() -> dict:
         else:
             lengths = torch.tensor(lens, device=DEVICE)
         lengths = lengths.to(torch.int32)
+        kw = dict(window=window, softcap=softcap)
+        route = decode_route(H, KV, D)
         out = built_call("decode_attention", D, dt,
-                         lambda: ops.decode_attention(q, k, v, lengths,
-                                                      window=window,
-                                                      softcap=softcap))
+                         lambda: ops.decode_attention(q, k, v, lengths, **kw),
+                         route)
+        if route == "group":   # bitwise repeatable, the same bits with lse
+            again = ops.decode_attention(q, k, v, lengths, **kw)
+            with_lse, _ = ops.decode_attention(q, k, v, lengths, **kw,
+                                               return_lse=True)
+            sync()
+            check(bool(torch.equal(out, again))
+                  and bool(torch.equal(out, with_lse)),
+                  f"decode {B,S,H,KV,D,dt}: not the same bits on a second "
+                  f"call or with lse")
         sync()
-        want = ref.decode_attention_ref(q, k, v, lengths, window=window,
-                                        softcap=softcap)
+        want = ref.decode_attention_ref(q, k, v, lengths, **kw)
         err = assert_close(out, want, TOL[dt], f"decode {B,S,H,KV,D,dt}")
         errs[decode_row(D)] = max(errs[decode_row(D)], err)
-        n_split = ops.decode_grid(B, KV, S, ops.sm_count(0))
         log(f"decode B={B} S={S} H={H} KV={KV} D={D} {str(dt)[6:]} "
             f"(built D {ops.built_head_dim(dt, D)}) window={window} softcap={softcap} lengths={lengths.tolist()} "
-            f"cluster {n_split}: max_abs_err {err:.3e} (tol {TOL[dt]})")
+            f"{decode_plan(B, H, KV, S, D, dt)}: max_abs_err {err:.3e} "
+            f"(tol {TOL[dt]})" + ("; bitwise repeatable, the same bits with "
+                                  "lse" if route == "group" else ""))
     for name, err in check_decode_split(g).items():
         errs[name] = max(errs[name], err)
     cases = [(B, S, S, H, KV, D, dt, causal, window, softcap)
@@ -2400,7 +2485,7 @@ def time_decode(q, k, v, lengths, tag: str) -> dict:
                        flush=flush)
     lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
         qs, ks, vs, attn_mask=mask, enable_gqa=True), flush=flush)
-    names = decode_names(D)
+    names = decode_names(B, H, KV, S, D, q.dtype)
     dev_ms = kernel_ms(profile_recorded(lambda: (flush(), ops.decode_attention(
         q, k, v, lengths)), names, 1)[0], *names)
     # the variant that writes lse (a rank's range of a sequence-sharded
@@ -2419,9 +2504,9 @@ def time_decode(q, k, v, lengths, tag: str) -> dict:
     t_bytes = nbytes / HBM_BYTES_PER_S
     bound_ms = max(t_ops, t_bytes) * 1e3
     by = "operations" if t_ops >= t_bytes else "bytes"
-    n_split = ops.decode_grid(B, KV, S, ops.sm_count(0))
+    plan = decode_plan(B, H, KV, S, D, q.dtype)
     log(f"time decode {tag} {str(q.dtype)[6:]} B={B} S={S} H={H} KV={KV} D={D} "
-        f"valid keys {valid}, cluster {n_split}: kernel {ms:.4f} ms, plain "
+        f"valid keys {valid}, {plan}: kernel {ms:.4f} ms, plain "
         f"{plain_ms:.4f} ms, sdpa(mask, enable_gqa) {lib_ms:.4f} ms, bound "
         f"{bound_ms * 1e3:.2f} us ({by}: {nbytes / 1e6:.3f} MB), "
         f"{nbytes / ms / 1e6:.1f} GB/s achieved, {100 * bound_ms / ms:.1f}% of "
@@ -2434,7 +2519,8 @@ def time_decode(q, k, v, lengths, tag: str) -> dict:
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
                 bound_ms=bound_ms, bound_by=by, device_ms=dev_ms,
                 clean_l2_ms=clean_ms, clean_l2_device_ms=clean_dev,
-                lse_ms=lse_ms, lse_device_ms=lse_dev)
+                lse_ms=lse_ms, lse_device_ms=lse_dev,
+                plan=dataclasses.asdict(plan), kernels=list(names))
 
 
 def time_scan(a, b, h0, tag: str, cold: bool) -> dict:
@@ -2666,11 +2752,13 @@ def time_flash_set(shape, causal: bool, seed: int, tag: str) -> dict:
 # the wide route (head dims above 256): internlm2-1.8b's width over the
 # launchers' four heads (d_model 2048, head dim 512, kv 2) at the forward's
 # shape, causal: (B, S, H, KV, D, softcap); decode at B=4 S=4096 H=4 kv 2 at
-# head dim 512 (64 keys and a full cache), and a multi-query group of 32
-# (H 32 kv 1 D 64) over a full cache: (B, S, H, KV, D)
+# head dim 512 (64 keys and a full cache), and multi-query groups of 32
+# and 71 (Falcon-7B's 71 heads over one kv head; H kv 1 D 64) over a full
+# cache: (B, S, H, KV, D)
 WIDE_SHAPE = (2, 2048, 4, 2, 512, None)
 DECODE_D512_SHAPE = (4, 4096, 4, 2, 512)
 DECODE_GROUP32_SHAPE = (4, 4096, 32, 1, 64)
+DECODE_GROUP71_SHAPE = (4, 4096, 71, 1, 64)
 
 
 def time_wide_flash(shape, seed: int) -> dict:
@@ -4059,8 +4147,8 @@ def _examples_serve(ex, arch: str, requests: int = 6, tokens: int = 12,
     slot's greedy token the plain one's or within TOL of a plain top-2 tie;
     (b) the example's server alone, timed and counted: its streams (a)'s,
     decode launches ``decode_per_step`` a step, each on the instance of
-    ``ops.built_head_dim``, scan launches one per Mamba layer a step, all
-    on the step kernel. ``requests`` x ``tokens``: the example's
+    ``ops.built_head_dim`` and on its route (``decode_route``), scan
+    launches one per Mamba layer a step, all on the step kernel. ``requests`` x ``tokens``: the example's
     defaults."""
     tag = f"{tag} {arch}"
     tol = TOL[torch.float32]
@@ -4105,6 +4193,7 @@ def _examples_serve(ex, arch: str, requests: int = 6, tokens: int = 12,
                     for name in ("decode_attention", "selective_scan")}
         variants = dict(ops.SCAN_VARIANTS)
         widths = dict(ops.BUILT_WIDTHS)
+        routes = dict(ops.DECODE_ROUTES)
     n_mamba = sum(spec.mixer == "mamba" for spec in cfg.layer_kinds())
     want = {"decode_attention": decode_per_step(cfg) * steps_b,
             "selective_scan": n_mamba * steps_b}
@@ -4121,6 +4210,10 @@ def _examples_serve(ex, arch: str, requests: int = 6, tokens: int = 12,
                      if want["decode_attention"] else {}),
           f"{tag}: decode launches by head dim {widths}, want all at "
           f"{dh} on the {built} instance")
+    route = decode_route(cfg.eff_heads, cfg.n_kv_heads, dh) if dh else None
+    check(routes == ({route: want["decode_attention"]}
+                     if want["decode_attention"] else {}),
+          f"{tag}: decode launches by route {routes}, want all on {route}")
     ms = secs / steps_b * 1e3
     log(f"{tag} ({cfg.n_layers} layers{', enc-dec' if cfg.enc_dec else ''}, "
         f"{cfg.n_heads} heads / {cfg.n_kv_heads} kv, dh {cfg.d_head}): "
@@ -4248,7 +4341,7 @@ def phase_examples() -> dict:
     serve_768_s = time.perf_counter() - t_768
     # the wide route: launch.train and launch.serve at --d-model 2048 (head
     # dim 512), launch.serve at 1280 (320), and a multi-query server (32
-    # heads over one kv head: decode's group chunks)
+    # heads over one kv head: decode's group route)
     t_wide = time.perf_counter()
     train_2048 = launch_train_wide()
     serve_wide = {
@@ -5032,13 +5125,15 @@ def main() -> int:
                   "split_f32": log_ptxas_kernels("d192"),
                   "decode": log_ptxas_kernels("decode_attention_kernelIfLi192")}
     # the wide route (head dims above 256: internlm2's width over the
-    # launchers' four heads) and decode at a multi-query group of 32
+    # launchers' four heads) and decode's group route at head dim 512 and at
+    # multi-query groups of 32 and 71
     wide_t = time_wide_flash(WIDE_SHAPE, SEED + 20)
     with torch.inference_mode():
         g = torch.Generator(device=DEVICE).manual_seed(SEED + 21)
         decode_d512 = {}
         for shape, tag in ((DECODE_D512_SHAPE, "dh 512"),
-                           (DECODE_GROUP32_SHAPE, "group 32")):
+                           (DECODE_GROUP32_SHAPE, "group 32"),
+                           (DECODE_GROUP71_SHAPE, "group 71")):
             B, S, H, KV, D = shape
             q = _randn(g, (B, H, D), torch.float32)
             k = _randn(g, (B, S, KV, D), torch.float32)
@@ -5051,8 +5146,10 @@ def main() -> int:
                                                      tag=f"{tag} {what}")
             del q, k, v
     decode_g32 = decode_d512.pop(("group 32", DECODE_GROUP32_SHAPE[1]))
+    decode_g71 = decode_d512.pop(("group 71", DECODE_GROUP71_SHAPE[1]))
     wide_ptxas = {"cluster": log_ptxas_kernels("cluster"),
                   "cuda_core": log_ptxas_kernels("flash_wide")}
+    decode_group_ptxas = log_decode_group()
     log_memory("attention timings")
     torch.cuda.empty_cache()
     # falcon-mamba: the selective scan, in forward and in each decode step
@@ -5474,20 +5571,23 @@ def main() -> int:
                                     decode_k["max_abs_err"],
                                     decode_s["max_abs_err"],
                                     serve_s["cross_err"])
-    # decode at a multi-query group of 32 (the decode kernel's group
-    # chunks): its full-cache timing and the multi-query server's launches
+    # decode at multi-query groups of 32 and 71 (the group route): their
+    # full-cache timings and the multi-query server's launches
     decode_row.update(
         **{f"group32_full_cache_{key}": val for key, val in decode_g32.items()},
         group32_shape=list(DECODE_GROUP32_SHAPE),
+        **{f"group71_full_cache_{key}": val for key, val in decode_g71.items()},
+        group71_shape=list(DECODE_GROUP71_SHAPE),
         launches_launch_serve_mqa=ex_mqa,
         launch_serve_mqa=examples["serve_mqa"])
     decode_row["max_abs_err"] = max(decode_row["max_abs_err"],
-                                    decode_g32["max_abs_err"])
+                                    decode_g32["max_abs_err"],
+                                    decode_g71["max_abs_err"])
     # the wide route (the cluster kernels): f32 (launch.train --d-model
     # 2048's) in the rows, bf16 beside it, and the same-call parent (the
-    # CUDA-core kernels); decode's wide instance at the serve shape, a full
-    # cache beside it, and the launches of the servers at --d-model 2048
-    # and 1280
+    # CUDA-core kernels); decode's group route at head dim 512 at the serve
+    # shape, a full cache beside it, the launches of the servers at
+    # --d-model 2048 and 1280, and the group kernels' ptxas report
     train_wide = examples["train_d2048"]
     for name, kind in (("flash_attention_wide", "forward"),
                        ("flash_attention_backward_wide", "backward")):
@@ -5514,7 +5614,8 @@ def main() -> int:
         launches_launch_serve_d2048=ex_wide_serve[2048],
         launches_launch_serve_d1280=ex_wide_serve[1280],
         launch_serve_d2048=examples["serve_d2048"],
-        launch_serve_d1280=examples["serve_d1280"])
+        launch_serve_d1280=examples["serve_d1280"],
+        group_route=decode_group_ptxas)
     dwide_row["max_abs_err"] = max(
         dwide_row["max_abs_err"],
         decode_d512["dh 512", DECODE_D512_SHAPE[1]]["max_abs_err"])

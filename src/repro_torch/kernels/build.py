@@ -53,6 +53,8 @@ SIGNATURES = {
                                        _P),
     "repro_decode_attention": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                                _I, _I, _I, _I, _F, _I, _P),
+    "repro_decode_group": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                           _I, _I, _I, _I, _F, _I, _I, _I, _I, _I, _I, _P),
     "repro_selective_scan": (_P, _P, _P, _P, _I, _I, _L, _P),
     "repro_selective_scan_step": (_P, _P, _P, _P, _L, _I, _P),
     "repro_selective_scan_bwd": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _L, _P),
@@ -153,7 +155,12 @@ def load() -> ctypes.CDLL:
     # takes at a head dim (not launches)
     lib.repro_flash_tc_smem.argtypes = [_I]
     lib.repro_flash_tc_bwd_smem.argtypes = [_I, _I]
+    # the decode group route's layout: a block's dynamic shared memory and
+    # the floats of a cluster's record in its scratch (not launches)
+    lib.repro_decode_group_smem.argtypes = [_I] * 6
+    lib.repro_decode_group_record.argtypes = [_I] * 2
     for name in ("repro_flash_tc_smem", "repro_flash_tc_bwd_smem",
-                 "repro_flash_cluster_ranks", "repro_flash_cluster_occupancy"):
+                 "repro_flash_cluster_ranks", "repro_flash_cluster_occupancy",
+                 "repro_decode_group_smem", "repro_decode_group_record"):
         getattr(lib, name).restype = ctypes.c_int
     return lib

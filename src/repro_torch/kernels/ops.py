@@ -33,8 +33,10 @@ which copies every operand anyway, and write their outputs at the true
 width; the bf16 flash pair, the CUDA-core route and decode take operands
 padded here (``_pad_head``, a copy on the device, none where the head dim
 is already a built width) and give outputs sliced here. Every head group
-runs (decode cuts a group above 16 into chunks, one cluster each, in its
-one launch); only ``H % KV != 0`` raises among the shapes.
+runs (decode takes a group above 16, and every head dim above 256, on its
+group route: ``decode_plan``); among the shapes only ``H % KV != 0`` and
+decode at a head dim above 16384 (``GROUP_ACC_FLOATS``: a head's
+accumulators fill a block's budget) raise.
 
 ``LAUNCHES`` counts kernel launches per wrapper (one per call that reaches
 the card, however many device kernels the call runs: a split-f32 flash
@@ -42,7 +44,8 @@ forward runs two, a flash backward three in either dtype),
 ``SCAN_VARIANTS`` the scan's launches by variant (``scan_variant``),
 ``FLASH_VARIANTS`` the flash launches by (wrapper, ``flash_variant``),
 ``BUILT_WIDTHS`` the attention launches by (wrapper, head dim, built head
-dim); ``reset_launches()`` sets every count to 0.
+dim), ``DECODE_ROUTES`` the decode launches by ``decode_plan`` route;
+``reset_launches()`` sets every count to 0.
 
 Flash attention and the scan are differentiable: with grad on and an
 operand that needs it, ``flash_attention`` goes through ``FlashAttention``
@@ -58,6 +61,7 @@ from __future__ import annotations
 
 import collections
 import ctypes
+import dataclasses
 import functools
 from typing import Optional
 
@@ -73,6 +77,8 @@ SCAN_VARIANTS = {"step": 0, "sequential": 0}
 FLASH_VARIANTS: collections.Counter = collections.Counter()
 # launches of the attention wrappers by (wrapper, head dim, built head dim)
 BUILT_WIDTHS: collections.Counter = collections.Counter()
+# decode launches by route ("narrow", "group": ``decode_plan``)
+DECODE_ROUTES: collections.Counter = collections.Counter()
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_DIMS = (32, 64, 128, 192, 256)   # the attention kernels' instances
 WIDE_ALIGN = 64   # above 256, head dims are built at a multiple of this
@@ -92,8 +98,7 @@ CLUSTER_WIDTHS = tuple(D for D in range(HEAD_DIMS[-1] + WIDE_ALIGN, 1025,
 # the cluster route's in bf16; "f32": CUDA cores), and the bytes its
 # operands and outputs take (each read or written once; never the scores).
 # The arithmetic is what the card's kernels do (``attention_work``: on
-# flash's CUDA-core route and decode's wide instance the scores once per
-# column slice).
+# flash's CUDA-core route the scores once per column slice).
 COST_HOOK = None
 
 
@@ -103,6 +108,7 @@ def reset_launches() -> None:
             counts[name] = 0
     BUILT_WIDTHS.clear()
     FLASH_VARIANTS.clear()
+    DECODE_ROUTES.clear()
 
 
 @functools.cache
@@ -121,10 +127,11 @@ def built_head_dim(dtype: torch.dtype, head_dim: int) -> int:
     """The head dim of the attention kernel instance that takes ``head_dim``
     in ``dtype`` on the card: ``head_dim`` itself where it is one of
     ``HEAD_DIMS``, else the smallest of them above it; above 256 (decode's
-    wide instance) ``head_dim`` rounded up to a multiple of ``WIDE_ALIGN``.
+    group route) ``head_dim`` rounded up to a multiple of ``WIDE_ALIGN``.
     The operands are padded with zero columns up to it. The same in f32 and
     bf16; decode's width, and flash's except where ``flash_built_head_dim``
-    says otherwise; a head dim below 1 raises."""
+    says otherwise; a head dim below 1 raises, and decode raises above
+    16384 (``group_plan``)."""
     if dtype not in _DTYPES:
         raise ValueError(f"attention: no kernel for {dtype}")
     if head_dim < 1:
@@ -156,28 +163,23 @@ def _built(name: str, D: int, dtype: torch.dtype) -> int:
         raise ValueError(f"{name}: {e}") from None
 
 
-# the column slices of flash's CUDA-core route (128) and of decode's wide
-# instance (256)
-WIDE_FLASH_SLICE, WIDE_DECODE_SLICE = 128, 256
+# the column slices of flash's CUDA-core route
+WIDE_FLASH_SLICE = 128
 
 
 def attention_work(name: str, Db: int) -> int:
     """Flops the card's kernels spend on a kept (query, key) pair and q head
     (decode: a key and q head) at built head dim Db: 4 Db (two products)
-    forward and in decode, 10 Db (five) backward, each score computed once,
-    flash's cluster route (Db 320 to 1024) included. Where a kernel cuts
-    the head dim into column slices (n of them) it recomputes the scores
-    once per slice: flash's CUDA-core route (Db above 1024) forward (2 n +
-    2) Db (S per slice, then P V), backward (8 n + 6) Db (dk/dv: S and dP
-    per slice, then dV and dK; dq: S and dP per slice, then dQ); decode's
-    wide instance (Db above 256) (2 n + 2) Db."""
+    forward and in decode at every width, 10 Db (five) backward, each score
+    computed once, flash's cluster route (Db 320 to 1024) included. Above
+    1024 flash's CUDA-core route cuts the head dim into column slices (n of
+    them) and recomputes the scores once per slice: forward (2 n + 2) Db (S
+    per slice, then P V), backward (8 n + 6) Db (dk/dv: S and dP per slice,
+    then dV and dK; dq: S and dP per slice, then dQ)."""
     backward = name == "flash_attention_backward"
-    sliced = (Db > HEAD_DIMS[-1] if name == "decode_attention"
-              else Db > CLUSTER_WIDTHS[-1])
-    if not sliced:
+    if name == "decode_attention" or Db <= CLUSTER_WIDTHS[-1]:
         return (10 if backward else 4) * Db
-    n = -(-Db // (WIDE_DECODE_SLICE if name == "decode_attention"
-                  else WIDE_FLASH_SLICE))
+    n = -(-Db // WIDE_FLASH_SLICE)
     return ((8 * n + 6) if backward else (2 * n + 2)) * Db
 
 
@@ -531,6 +533,145 @@ def decode_grid(B: int, KV: int, S: int, sms: int) -> int:
     return max(1, min(want, -(-S // 256), MAX_CLUSTER))
 
 
+# The group route's sizes (``csrc/decode_attention.cu``, kGroup*): threads a
+# block; a chunk's f32 accumulators (heads x D) at most; the ring's panels,
+# a score's column groups and a block's shared memory at most, and what
+# two blocks an SM leave; the panel's bytes the tile's keys aim for; a
+# panel's columns; a cluster's blocks at most (``kGroupMaxCluster``; clusters
+# of 4 and of up to 16 were measured slower over a full cache: ``PERF.md``
+# §6, PR 32); blocks wanted per SM; keys of S a block at least.
+GROUP_THREADS = 256
+GROUP_ACC_FLOATS = 16384
+GROUP_STAGES = 5          # panels of the ring
+GROUP_MAX_CS = 16         # column groups of a score at most
+GROUP_MAX_SMEM = 232448   # a block's shared memory at most (227 KB)
+GROUP_TWO_SMEM = 115712   # two blocks an SM (228 KB less 1 KB a block)
+GROUP_PANEL_BYTES = 16384
+GROUP_PANEL_COLS = 256
+GROUP_CLUSTER = 2
+GROUP_BLOCKS_PER_SM = 2
+GROUP_MIN_KEYS = 128
+
+
+@dataclasses.dataclass(frozen=True)
+class DecodePlan:
+    """How one decode call runs on the card (``decode_plan``)."""
+    route: str        # "narrow" (decode_attention_kernel) or "group"
+    head_chunk: int   # query heads a block takes (the whole group: narrow)
+    chunks: int       # chunks of a group, on grid y
+    cluster: int      # blocks a cluster
+    clusters: int     # clusters per (slot, kv head, chunk): > 1 merges twice
+    tile_keys: int    # group route: keys a tile (TK); 0 on the narrow one
+    panel_cols: int   # group route: columns a ring panel (DC); 0 narrow
+
+    @property
+    def pieces(self) -> int:
+        """Blocks per (slot, kv head, chunk): the key range's pieces."""
+        return self.cluster * self.clusters
+
+
+def _group_units(Gc: int) -> int:
+    """Heads a thread of the group kernel takes at once (HU)."""
+    return 1 if Gc <= 2 else 4
+
+
+def group_smem(Gc: int, D: int, tk: int, cols: int, cluster: int,
+               el: int) -> int:
+    """Dynamic shared memory of a group-route block, for the plan: a copy of
+    ``GroupLayout`` in ``csrc/decode_attention.cu``, which owns it (the
+    launch takes ``repro_decode_group_smem``'s bytes; the tests on the card
+    hold the two equal). q (as stored) and acc (f32) of the chunk's Gc
+    heads padded to whole thread tiles, the tile's scores and the column
+    groups' partials (at least a partial a thread: row mode's), m, l and
+    alpha, the inbox of ``cluster`` - 1 records (acc, m, l) that rank 0 of a
+    cluster receives, and the ring of ``GROUP_STAGES`` panels of tk rows
+    (cols elements of el bytes and 16 of pad)."""
+    hu = _group_units(Gc)
+    gp = -(-Gc // hu) * hu
+    tiles = gp // hu * (tk // 4)
+    cs = 1
+    while (cs * 2 * tiles <= GROUP_THREADS and cs * 2 <= GROUP_MAX_CS
+           and cs * 2 <= cols // 4):
+        cs *= 2
+    up4 = lambda n: -(-n // 4) * 4   # noqa: E731
+    floats = (gp * (D * el + 16) // 4 + up4(gp * D) + up4(tk * gp)
+              + max(up4(cs * tk * gp), GROUP_THREADS) + 3 * up4(gp)
+              + (cluster - 1) * up4(gp * (D + 2)))
+    return 4 * floats + GROUP_STAGES * tk * (cols * el + 16)
+
+
+def decode_plan(B: int, H: int, KV: int, S: int, D: int, sms: int,
+                dtype: torch.dtype = torch.float32) -> DecodePlan:
+    """The decode launch for q [B,H,D] and a cache [B,S,KV,D] at built head
+    dim D in ``dtype`` on a card of ``sms`` SMs, from shapes alone (the
+    lengths are never read: that would sync), handed to the C entry as it
+    is: a group up to 16 at D <= 256 on the narrow kernel, one cluster of
+    ``decode_grid`` blocks per (slot, kv head); any other on the group route
+    (``group_plan``)."""
+    _check_heads(H, KV)
+    G = H // KV
+    if G <= 16 and D <= HEAD_DIMS[-1]:
+        return DecodePlan("narrow", G, 1, decode_grid(B, KV, S, sms), 1, 0, 0)
+    return group_plan(B, H, KV, S, D, sms, dtype)
+
+
+def group_plan(B: int, H: int, KV: int, S: int, D: int, sms: int,
+               dtype: torch.dtype = torch.float32) -> DecodePlan:
+    """The group route's launch (any group; D a multiple of 32 up to
+    ``GROUP_ACC_FLOATS``, 16384, else ValueError): the group in chunks only
+    where its accumulators exceed ``GROUP_ACC_FLOATS`` (Gc D <= 16384,
+    balanced chunks); panels of min(D, ``GROUP_PANEL_COLS``) columns and TK
+    keys (64 down to 4: within ``GROUP_PANEL_BYTES``, one score tile of up
+    to 4 heads x 4 keys a thread and a block's shared memory); clusters of
+    ``GROUP_CLUSTER`` blocks, fewer where rank 0's inbox of the others'
+    records would not fit two blocks an SM (``GROUP_TWO_SMEM``, where one
+    block fits that); the key range of each (slot, kv head, chunk) cut into
+    pieces, a block each, for ``GROUP_BLOCKS_PER_SM`` blocks an SM in one
+    wave and at least ``GROUP_MIN_KEYS`` keys of S a block, in whole
+    clusters, and never fewer than one cluster's blocks (a cache of at
+    most a cluster's ``GROUP_MIN_KEYS`` keys takes one cluster, no second
+    merge). The kernel gives each piece at least a tile of keys, so a short
+    valid range takes the first pieces only (and where those lie in cluster
+    0 the second merge has nothing to do)."""
+    _check_heads(H, KV)
+    if D % 32 or not 0 < D <= GROUP_ACC_FLOATS:
+        raise ValueError(f"decode_attention: built head dim {D} is not a "
+                         f"multiple of 32 up to {GROUP_ACC_FLOATS}")
+    G = H // KV
+    cols = min(D, GROUP_PANEL_COLS)
+    el = torch.empty((), dtype=dtype).element_size()
+    chunks = -(-G // (GROUP_ACC_FLOATS // D))
+    while True:   # more chunks only where a block's shared memory overflows
+        Gc = -(-G // chunks)
+        chunks = -(-G // Gc)                     # none of them empty
+        heads = -(-Gc // _group_units(Gc))      # score tiles of a key group
+        tk = 64
+        while tk > 4 and (tk * cols * el > GROUP_PANEL_BYTES
+                          or heads * tk // 4 > GROUP_THREADS
+                          or group_smem(Gc, D, tk, cols, 1, el)
+                          > GROUP_MAX_SMEM):
+            tk //= 2
+        if group_smem(Gc, D, tk, cols, 1, el) <= GROUP_MAX_SMEM:
+            break
+        if Gc == 1:
+            raise ValueError(f"decode_attention: head dim {D} does not fit "
+                             f"a block")
+        chunks += 1
+    # a cluster as large as rank 0's inbox (its other ranks' records)
+    # lets: within two blocks an SM where one block fits that, else one
+    limit = (GROUP_TWO_SMEM if group_smem(Gc, D, tk, cols, 1, el)
+             <= GROUP_TWO_SMEM else GROUP_MAX_SMEM)
+    cap = max(n for n in range(1, GROUP_CLUSTER + 1)
+              if group_smem(Gc, D, tk, cols, n, el) <= limit)
+    want = GROUP_BLOCKS_PER_SM * sms // (B * KV * chunks)   # one wave
+    pieces = max(1, min(want, max(cap, -(-S // GROUP_MIN_KEYS))))
+    if pieces > cap:
+        pieces -= pieces % cap   # whole clusters
+    clusters = -(-pieces // cap)
+    return DecodePlan("group", Gc, chunks, -(-pieces // clusters), clusters,
+                      tk, cols)
+
+
 def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                      lengths: torch.Tensor, *, softcap: Optional[float] = None,
                      window: Optional[int] = None, offset: int = 0,
@@ -563,6 +704,7 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     _check_cuda_operands("decode_attention", q, k, v, lengths)
     lse = (q.new_empty((B, H), dtype=torch.float32) if return_lse else None)
     if q.device.type == "meta":   # the whole cache's keys, at the built width
+        decode_plan(B, H, k.shape[2], k.shape[1], Db, 1, q.dtype)   # its checks
         padded = [_pad_head(t, Db) for t in (q, k, v)]
         _meta_call("decode_attention",
                    attention_work("decode_attention", Db) * B * H * k.shape[1],
@@ -579,21 +721,37 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 def _launch_decode_attention(q, k, v, lengths, Db, lse, offset, window,
                              softcap) -> torch.Tensor:
-    """The decode kernel at built head dim Db (q, k, v padded to it here;
-    above 256 its wide instance, a cluster per slice of 256 columns); the C
-    entry cuts a head group above 16 (above 2 on the wide instance) into
-    chunks of at most 2 heads. Returns the output [B, H, D]."""
+    """The decode launch of ``decode_plan`` at built head dim Db (q, k, v
+    padded to it here): the narrow kernel, or the group route with its
+    scratch of the clusters' records when it has several clusters per
+    (slot, kv head, chunk). Returns the output [B, H, D]."""
     B, H, D = q.shape
     S, KV = k.shape[1], k.shape[2]
-    n_split = decode_grid(B, KV, S, sm_count(q.device.index))
+    plan = decode_plan(B, H, KV, S, Db, sm_count(q.device.index), q.dtype)
     qp, kp, vp = (_pad_head(t, Db) for t in (q, k, v))
     out = torch.empty_like(qp)
-    code = build.load().repro_decode_attention(
-        _ptr(qp), _ptr(kp), _ptr(vp), _ptr(lengths), _ptr(out),
-        ctypes.c_void_p(None) if lse is None else _ptr(lse), B, S, H, KV, D,
-        Db, _DTYPES[q.dtype], int(offset), int(window or 0),
-        float(softcap or 0.0), n_split, _stream())
+    none = ctypes.c_void_p(None)
+    ptrs = (_ptr(qp), _ptr(kp), _ptr(vp), _ptr(lengths), _ptr(out),
+            none if lse is None else _ptr(lse))
+    args = (S, H, KV, D, Db, _DTYPES[q.dtype], int(offset), int(window or 0),
+            float(softcap or 0.0))
+    lib = build.load()
+    if plan.route == "narrow":
+        code = lib.repro_decode_attention(*ptrs, B, *args, plan.cluster,
+                                          _stream())
+    else:
+        # the C side owns the record's layout (its floats: group_rec)
+        part = (torch.empty(B * KV * plan.chunks * plan.clusters
+                            * lib.repro_decode_group_record(plan.head_chunk,
+                                                            Db),
+                            dtype=torch.float32, device=q.device)
+                if plan.clusters > 1 else None)
+        code = lib.repro_decode_group(
+            *ptrs, none if part is None else _ptr(part), B, *args,
+            plan.head_chunk, plan.chunks, plan.cluster, plan.clusters,
+            plan.tile_keys, plan.panel_cols, _stream())
     _raise_on(code, "decode_attention")
+    DECODE_ROUTES[plan.route] += 1
     return _cut_head(out, D)
 
 

@@ -407,6 +407,150 @@ def test_decode_grid_split_counts(B, KV, S, sms, n_split):
     assert ops.decode_grid(B, KV, S, sms) == n_split
 
 
+# (H, KV) and head dims of the plan's grid: groups 1 to 2048, head dims
+# from 32 to the accumulator budget
+_PLAN_HEADS = [(1, 1), (16, 8), (16, 1), (17, 1), (48, 8), (32, 1), (71, 1),
+               (34, 2), (130, 2), (512, 1), (2048, 1), (64, 64)]
+_PLAN_DIMS = (32, 64, 128, 192, 256, 320, 512, 1024, 1088, 4096, 16384)
+
+
+def _pieces(S: int, n: int, least: int = 1) -> list:
+    """The kernels' cut of the valid range [0, S) into n pieces, a block
+    (narrow: a warp) each, of at least ``least`` keys (the group route's
+    tile): [s0, s1) of piece i."""
+    per = max(-(-S // n), least)
+    return [(min(S, i * per), min(S, min(S, i * per) + per)) for i in range(n)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("sms", [16, 114, 132])
+def test_decode_plan_routes_and_covers(sms, dtype):
+    """``ops.decode_plan`` over a grid of shapes: the narrow kernel exactly
+    when the group is at most 16 and the head dim at most 256; on the group
+    route the chunks cover the group exactly once, each within the
+    accumulator budget and a block's shared memory (the cluster's inbox
+    included); the key pieces cover [0, S) in order without overlap; grid
+    y (kv heads x chunks) stays within 65535 and the cluster within 8
+    blocks."""
+    el = torch.empty((), dtype=dtype).element_size()
+    for B in (1, 4, 64, 300):
+        for H, KV in _PLAN_HEADS:
+            G = H // KV
+            for D in _PLAN_DIMS:
+                for S in (1, 64, 4096, 131072):
+                    plan = ops.decode_plan(B, H, KV, S, D, sms, dtype)
+                    narrow = G <= 16 and D <= 256
+                    assert (plan.route == "narrow") == narrow, (B, H, KV, D)
+                    assert 1 <= plan.cluster <= 8 and KV * plan.chunks <= 65535
+                    assert plan.pieces <= 65535
+                    least = 1
+                    if narrow:
+                        assert plan == ops.DecodePlan(
+                            "narrow", G, 1, ops.decode_grid(B, KV, S, sms), 1,
+                            0, 0)
+                        pieces = 4 * plan.cluster   # four warps a block
+                    else:
+                        Gc, n = plan.head_chunk, plan.chunks
+                        heads = [min(Gc, G - c * Gc) for c in range(n)]
+                        assert all(h >= 1 for h in heads) and sum(heads) == G
+                        assert Gc * D <= ops.GROUP_ACC_FLOATS
+                        assert plan.tile_keys in (4, 8, 16, 32, 64)
+                        assert plan.panel_cols == min(D, ops.GROUP_PANEL_COLS)
+                        assert ops.group_smem(Gc, D, plan.tile_keys,
+                                              plan.panel_cols, plan.cluster,
+                                              el) <= ops.GROUP_MAX_SMEM
+                        pieces, least = plan.pieces, plan.tile_keys
+                        assert plan.cluster * (plan.clusters - 1) < pieces
+                        assert plan.cluster <= ops.GROUP_CLUSTER == 2
+                    cut = _pieces(S, pieces, least)
+                    assert cut[0][0] == 0 and cut[-1][1] == S
+                    assert all(a[1] == b[0] for a, b in zip(cut, cut[1:]))
+                    assert all(lo <= hi for lo, hi in cut)
+
+
+@pytest.mark.parametrize("B, H, KV, S, D, dtype, plan", [
+    # the timed shapes: D 512 over two kv heads (32 pieces of 128 keys in
+    # clusters of 2: 256 blocks, one wave of two an SM), groups 32 and 71
+    # over one kv head (71 heads' inbox leaves one-block clusters in f32)
+    (4, 4, 2, 4096, 512, torch.float32, ("group", 2, 1, 2, 16, 16, 256)),
+    (4, 32, 1, 4096, 64, torch.float32, ("group", 32, 1, 2, 16, 64, 64)),
+    (4, 71, 1, 4096, 64, torch.float32, ("group", 71, 1, 1, 32, 32, 64)),
+    (4, 71, 1, 4096, 64, torch.bfloat16, ("group", 71, 1, 2, 16, 32, 64)),
+    # group 32 at D 512: 16384 accumulators, one chunk; 8 keys a tile for
+    # shared memory in f32
+    (4, 32, 1, 4096, 512, torch.float32, ("group", 32, 1, 1, 32, 8, 256)),
+    # D 1024: a group of 17 cut into two chunks of 9 and 8 heads
+    (1, 17, 1, 4096, 1024, torch.float32, ("group", 9, 2, 1, 32, 16, 256)),
+    # the examples' servers (4 slots, max_len 128): one cluster a kv head,
+    # no second merge
+    (4, 4, 2, 128, 512, torch.float32, ("group", 2, 1, 2, 1, 16, 256)),
+    (4, 4, 2, 128, 320, torch.float32, ("group", 2, 1, 2, 1, 16, 256)),
+    (4, 32, 1, 128, 64, torch.float32, ("group", 32, 1, 2, 1, 64, 64)),
+    # the serve shape stays on the narrow kernel
+    (4, 16, 8, 4096, 128, torch.float32, ("narrow", 2, 1, 8, 1, 0, 0)),
+])
+def test_decode_plan_counts(B, H, KV, S, D, dtype, plan):
+    assert ops.decode_plan(B, H, KV, S, D, 132, dtype) == ops.DecodePlan(*plan)
+
+
+@pytest.mark.parametrize("B, H, KV, S, D", [
+    (4, 4, 2, 128, 512), (4, 32, 1, 128, 64), (1, 17, 1, 128, 256),
+    (4, 4, 2, 64, 320), (2, 24, 1, 1, 64), (16, 4, 2, 256, 512)])
+def test_group_plan_short_cache_takes_one_cluster(B, H, KV, S, D):
+    """A cache of at most a cluster's ``GROUP_MIN_KEYS`` keys runs one
+    cluster per (slot, kv head, chunk), so no call at that cache needs the
+    second merge, of as many blocks as the cluster may hold and one wave
+    leaves."""
+    plan = ops.group_plan(B, H, KV, S, D, 132)
+    assert plan.clusters == 1 and S <= plan.cluster * ops.GROUP_MIN_KEYS
+    assert plan.cluster == min(ops.GROUP_CLUSTER, 2 * 132 // (B * KV))
+
+
+@pytest.mark.parametrize("n, pieces, tk, used", [
+    (64, 32, 16, 4), (16, 32, 16, 1), (1, 32, 16, 1), (17, 2, 16, 2),
+    (100, 32, 32, 4), (128, 2, 64, 2), (300, 32, 16, 19)])
+def test_short_range_takes_the_first_pieces(n, pieces, tk, used):
+    """A valid range shorter than its pieces' tiles takes the first pieces
+    only, a tile each (the last one the range's end), and covers the range
+    once: the later blocks (and clusters) have no key."""
+    cut = _pieces(n, pieces, tk)
+    busy = [(a, b) for a, b in cut if b > a]
+    assert len(busy) == used and busy == cut[:used]
+    assert busy[0][0] == 0 and busy[-1][1] == n
+    assert all(b - a == tk for a, b in busy[:-1]) or used == 1 or \
+        -(-n // pieces) > tk
+
+
+@pytest.mark.parametrize("n, pieces, tk, used", [
+    (4096, 32, 16, 32), (257, 32, 4, 29), (1000, 30, 32, 30),
+    (4096, 16, 64, 16)])
+def test_long_range_spreads_over_clusters(n, pieces, tk, used):
+    """A longer valid range keeps every block it can (pieces of at least a
+    tile) and the second merge."""
+    assert sum(b > a for a, b in _pieces(n, pieces, tk)) == used
+
+
+@pytest.mark.parametrize("D", [16448, 16416, 32768])
+def test_decode_head_dim_limit(D):
+    """Decode's group route holds a head's f32 accumulators in one block:
+    a built head dim above 16384 (``GROUP_ACC_FLOATS``), or one that is not
+    a multiple of 32, raises, on the plan and on the meta route alike."""
+    with pytest.raises(ValueError, match="multiple of 32 up to 16384"):
+        ops.decode_plan(4, 4, 2, 128, D, 132)
+    if D % 64 == 0:   # a built width: the meta route reaches the plan
+        q = torch.empty(1, 2, D, device="meta")
+        k = torch.empty(1, 8, 1, D, device="meta")
+        with pytest.raises(ValueError, match="multiple of 32 up to 16384"):
+            ops.decode_attention(q, k, k, torch.empty(1, dtype=torch.int32,
+                                                      device="meta"))
+
+
+def test_decode_head_dim_16384_plans():
+    """The largest head dim decode takes: one head a chunk."""
+    plan = ops.decode_plan(1, 2, 1, 4096, 16384, 132)
+    assert plan.route == "group" and plan.head_chunk == 1 and plan.chunks == 2
+
+
 @pytest.mark.parametrize("S, DI, DS, h0, variant", [
     (1, 64, 16, "fresh", "step"),
     (1, 64, 16, None, "step"),

@@ -156,10 +156,10 @@ DECODE_CASES = [
     (4, 64, 4, 2, 16, 8, 50.0, "f32", [1, 17, 64, 40]),
     (4, 4096, 48, 8, 48, None, None, "bf16", [64] * 4),
     (4, 4096, 16, 8, 80, 1000, 30.0, "f32", None),
-    # the wide instance (head dims above 256: a cluster per slice of 256
-    # columns) at 512 (64 keys and a full cache), 320 with a window and
-    # softcap, 1024; head groups above 16 in chunks (24, 32, 48 and
-    # Falcon-7B's 71 over one kv head; 17 at D 192; 32 at D 512)
+    # the group route (head dims above 256 and head groups above 16) at
+    # 512 (64 keys and a full cache), 320 with a window and softcap, 1024;
+    # groups 24, 32, 48 and Falcon-7B's 71 over one kv head; 17 at D 192;
+    # 32 at D 512
     (4, 4096, 4, 2, 512, None, None, "f32", [64] * 4),
     (4, 4096, 4, 2, 512, None, None, "f32", [4096] * 4),
     (4, 1024, 4, 2, 320, 300, 30.0, "f32", [1100, 600, 64, 1024]),
@@ -333,6 +333,32 @@ def test_decode_attention_is_deterministic(card, lens):
     first = ops.decode_attention(q, k, v, lengths)
     for _ in range(3):
         assert torch.equal(ops.decode_attention(q, k, v, lengths), first)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+def test_decode_group_layout_matches_the_plans_copy(card, dt):
+    """The C side owns the group route's layout: the plan's copy
+    (``ops.group_smem``) gives the same bytes of shared memory as
+    ``repro_decode_group_smem`` over the plans of a grid of shapes, and the
+    scratch the wrapper sizes holds ``repro_decode_group_record`` floats a
+    cluster."""
+    from repro_torch.kernels import build
+    lib, el = build.load(), TDT[dt].itemsize
+    seen = 0
+    for B in (1, 4, 64):
+        for H, KV in ((17, 1), (32, 1), (71, 1), (4, 2), (48, 8), (512, 1)):
+            for D in (32, 64, 128, 192, 256, 320, 512, 1024, 4096, 16384):
+                plan = ops.group_plan(B, H, KV, 4096, D, 132, TDT[dt])
+                Gc, tk, dc = plan.head_chunk, plan.tile_keys, plan.panel_cols
+                for n in range(1, plan.cluster + 1):
+                    assert lib.repro_decode_group_smem(
+                        Gc, D, tk, dc, n, 0 if dt == "f32" else 1) == \
+                        ops.group_smem(Gc, D, tk, dc, n, el), (plan, n)
+                assert lib.repro_decode_group_record(Gc, D) == \
+                    -(-Gc * (D + 2) // 4) * 4
+                seen += 1
+    assert seen == 180
 
 
 @pytest.mark.cuda

@@ -376,24 +376,22 @@ def test_meta_route_reports_the_wide_work(monkeypatch):
     """On ``meta`` operands at D = 320 (built 320) the wrappers give
     outputs at D and report the work: flash on the cluster route computes
     each score once (4 D a kept pair forward, 10 D backward) as split-f32
-    ("tf32x3") in f32 and one TF32 product ("tf32") in bf16; decode's wide
-    instance counts the scores once per slice of 256 columns (two) on the
-    CUDA cores. At D = 1088 flash's CUDA-core route counts them once per
-    slice of 128 columns (nine), decode once per slice of 256 (five). At
-    group 32 over one kv head (D = 64) the kernels' usual work."""
+    ("tf32x3") in f32 and one TF32 product ("tf32") in bf16; decode's group
+    route computes each score once (4 D a key) on the CUDA cores. At D =
+    1088 flash's CUDA-core route counts the scores once per slice of 128
+    columns (nine), decode still once. At group 32 over one kv head (D =
+    64) the kernels' usual work."""
     seen = []
     monkeypatch.setattr(ops, "COST_HOOK", lambda *a: seen.append(a))
     B, S = 2, 16
     pairs = ops.kept_pairs(S, S, True, None)
     for dtype, H, KV, D, fwd, bwd, dec, rate in (
-            (torch.float32, 4, 2, 320, 4 * 320, 10 * 320, (2 * 2 + 2) * 320,
-             "tf32x3"),
-            (torch.bfloat16, 4, 2, 320, 4 * 320, 10 * 320, (2 * 2 + 2) * 320,
-             "tf32"),
+            (torch.float32, 4, 2, 320, 4 * 320, 10 * 320, 4 * 320, "tf32x3"),
+            (torch.bfloat16, 4, 2, 320, 4 * 320, 10 * 320, 4 * 320, "tf32"),
             (torch.float32, 2, 1, 1088, (2 * 9 + 2) * 1088,
-             (8 * 9 + 6) * 1088, (2 * 5 + 2) * 1088, "f32"),
+             (8 * 9 + 6) * 1088, 4 * 1088, "f32"),
             (torch.bfloat16, 2, 1, 1088, (2 * 9 + 2) * 1088,
-             (8 * 9 + 6) * 1088, (2 * 5 + 2) * 1088, "f32"),
+             (8 * 9 + 6) * 1088, 4 * 1088, "f32"),
             (torch.float32, 32, 1, 64, 4 * 64, 10 * 64, 4 * 64, "tf32x3"),
             (torch.bfloat16, 32, 1, 64, 4 * 64, 10 * 64, 4 * 64, "bf16")):
         f32 = dtype == torch.float32
