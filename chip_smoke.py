@@ -50,11 +50,19 @@ non-causal). Phases:
    D 512, 17 at D 192; flash at groups 17 and 24); every decode launch at
    a group above 16 or a head dim above 256 recorded on the group route
    (``ops.DECODE_ROUTES``), bitwise repeatable and the same bits with lse;
+   the fused scan (``csrc/selective_scan_fused.cu``: a and b built and h.C
+   taken in the kernel) at falcon-mamba's train shape [2, 2048, 8192, 16]
+   with u, Bc and Cc in f32 and in bf16, at a ragged S of 1000 and at a
+   reduced width [2, 512, 1024, 8]: y and the chunk states within 2e-5 of
+   the plain chunked loop, its backward's five gradients within 2e-5 of
+   each one's largest magnitude (2e-2 for the bf16 ones), every output
+   bitwise equal on a second call (``FUSED_CASES``);
 3. internlm2 ``forward`` in bf16 on tokens [2, 2048] with the flash kernel
    (its tensor-core variant) against the plain path, and the flash launch
    count (one per layer, none of them an f32 variant);
-   3b. falcon-mamba ``forward`` the same way through the scan kernel (one
-   launch per layer);
+   3b. falcon-mamba ``forward`` the same way through the fused scan (S =
+   2048 takes JAX's chunked branch: one launch per layer, and no launch of
+   the materialised route's scan);
 4. internlm2 ``SlotServer`` with f32 weights and its f32 cache (4 slots,
    max_len 4096, 8 requests x 64 tokens) through the decode kernel: every
    request gets its tokens, a lockstep kernel/plain ``serve_step`` run holds
@@ -99,7 +107,14 @@ non-causal). Phases:
    route at B=4 S=4096 H=4 kv 2 D 512 (64 keys and a full cache) and at H
    32 and 71 kv 1 D 64 (multi-query groups of 32 and 71) over a full
    cache, with the ptxas report of the cluster and CUDA-core kernels and
-   of the group route's;
+   of the group route's; decode at the examples' group-route servers'
+   caches (S 128, 16 keys a slot: D 512 and 320 over 4 / 2 heads, 32
+   heads over one kv head at D 64) beside the plain version and SDPA; the
+   fused scan pair at falcon-mamba's train shape in f32 (and its forward
+   in bf16) beside its bound, its plain chunked loop and the same-call
+   parent: the materialised route's whole scan part (a and b built at
+   [B,S,DI,DS], the sequential kernel, the h.C einsum; its backward
+   through autograd), by event and device time;
 6. internlm2 ``make_train_step`` at full width in f32 (24 layers, tokens
    [accum 1, mb 2, S 2048], 30.2 GB of params, grads and AdamW moments):
    step ms, tokens/s, the device breakdown, 24 forward and 24 backward
@@ -115,14 +130,17 @@ non-causal). Phases:
    at its train preset's remat ("block") and cut to the deepest depth whose
    ``train_memory`` is within TRAIN_GB (``depth_for``; reckoned on its own
    line), tokens [1, 2, 2048]: the same checks and timings as phase 6, with
-   2 x depth forward (sequential variant: the forward and its recompute)
-   and depth backward scan launches a step, the scan pair's share of the
-   step, the grads at depth 2 against ``scan_impl="plain"`` (and whether
-   they are bitwise equal), the peak at or below its reckoning, and one
-   step at depth 2 with remat bitwise equal to one without
-   (``remat_equal``);
+   2 x depth fused forward launches (the forward and its recompute) and
+   depth fused backward launches a step, none of the materialised route's
+   scan kernels, the fused pair's share of the step, the grads at depth 2
+   against ``scan_impl="plain"`` (and whether they are bitwise equal), the
+   peak at or below its reckoning, one step at depth 2 with remat bitwise
+   equal to one without (``remat_equal``), and the step and peak at
+   ``MAMBA_EARLIER_DEPTH`` (29, the depth the materialised route's memory
+   allowed) held to their reckoning the same way (``step_at_depth``);
    7b. (mamba-train-logio) phase 6b's pair of runs on falcon-mamba, reduced
-   to d_model 512 and 4 layers (d_inner 1024, d_state 8);
+   to d_model 512 and 4 layers (d_inner 1024, d_state 8); S = 128 takes
+   the materialised route (the scan kernel and its backward);
 8. gemma2-9b ``make_train_step`` (gemma2-train-f32) at full width in f32,
    cut as phase 7 (remat "block"; an even depth: (local, global) pairs),
    tokens [1, 2, 2048]: the checks of phase 7, its flash launches recorded
@@ -399,6 +417,9 @@ SHARD_TRAIN_DEPTH = 24
 SHARD_MAMBA_DEPTH = 16
 SHARD_SERVE_STEPS = 64
 SHARD_PHASE_S = 60.0         # the phase's time budget
+# mamba-train-f32's depth when its Mamba layers built a and b at [N, DI, DS]
+# (the materialised route): phase 7 also times its step there
+MAMBA_EARLIER_DEPTH = 29
 # the dry-run phase (11c): its peak against the card's, its production cell
 # (a subprocess, with its timeout) and its time budget
 DRYRUN_PEAK_TOL = 0.10
@@ -448,6 +469,23 @@ KERNELS = {
     "selective_scan_backward": dict(
         route="cuda", source="src/repro_torch/kernels/csrc/selective_scan.cu",
         replaces="src/repro/kernels/selective_scan.py:49"),
+    # JAX's default Mamba path, its chunked branch (models/layers.py:539, an
+    # XLA lax.scan that builds a and b and takes h.C per chunk): the fused
+    # scan keeps the blocking of the Pallas scan it names (the carried
+    # state on chip, a chunk at a time), so that kernel is what it replaces
+    # on the TPU side. Its backward has no counterpart (JAX differentiates
+    # the XLA scan). Both on every full-sequence Mamba path at S > 256 with
+    # S % 256 == 0 (phases 3b, 7, the sharded phase)
+    "selective_scan_fused": dict(
+        route="cuda",
+        source="src/repro_torch/kernels/csrc/selective_scan_fused.cu",
+        replaces="src/repro/kernels/selective_scan.py:49",
+        replaces_branch="src/repro/models/layers.py:539"),
+    "selective_scan_fused_backward": dict(
+        route="cuda",
+        source="src/repro_torch/kernels/csrc/selective_scan_fused.cu",
+        replaces="src/repro/kernels/selective_scan.py:49",
+        replaces_branch="src/repro/models/layers.py:539"),
     # head dims above 256 (either dtype): the flash pair on the
     # launch.train --d-model 2048 path (f32; bf16 timed beside it), on the
     # cluster route up to 1024 (``ops.flash_variant`` "cluster": the
@@ -507,6 +545,9 @@ DECODE_GROUP_MERGE = "decode_group_merge_kernel"
 SCAN_KERNEL = {"sequential": "selective_scan_kernel",
                "step": "selective_scan_step_kernel"}
 SCAN_BWD = "selective_scan_bwd_kernel"
+# the fused scan's forward, and its backward's two launches
+SSF_FWD = "ssf_fwd_kernel"
+SSF_BWD = ("ssf_bwd_kernel", "ssf_reduce_kernel")
 # per wrapper, per variant: its device kernels and how many of them one
 # counted launch runs
 DEVICE_KERNELS = {
@@ -520,6 +561,8 @@ DEVICE_KERNELS = {
     "decode_attention": [((DECODE_KERNEL,), 1), ((DECODE_GROUP,), 1)],
     "selective_scan": [(tuple(SCAN_KERNEL.values()), 1)],
     "selective_scan_backward": [((SCAN_BWD,), 1)],
+    "selective_scan_fused": [((SSF_FWD,), 1)],
+    "selective_scan_fused_backward": [(SSF_BWD, 2)],
 }
 
 
@@ -1556,6 +1599,78 @@ def check_scan_backward(g, case) -> float:
     return err
 
 
+FUSED_CASES = [
+    # (B, S, DI, DS, dtype of u, Bc and Cc): falcon-mamba's train shape in
+    # f32 (phase 7's) and bf16 (phase 3b's), a ragged S (not a multiple of
+    # the kernels' 64-step chunks) and a reduced width (the reduced
+    # configs' d_state 8, the 8-lane instance)
+    (2, 2048, 8192, 16, torch.float32),
+    (2, 2048, 8192, 16, torch.bfloat16),
+    (2, 1000, 8192, 16, torch.float32),
+    (2, 512, 1024, 8, torch.bfloat16),
+]
+
+
+def _fused_operands(g, B, S, DI, DS, dtype, dt_rank: int = 256):
+    """u, dt, A, Bc, Cc and dy of the fused scan as the mixer hands them
+    over: u and the rows in ``dtype``, Bc and Cc views of one [B, S, dt_rank
+    + 2 DS] row (x_proj's split), dt in [0, 0.1), A = -exp(normal)."""
+    u = torch.randn((B, S, DI), generator=g, device=DEVICE).to(dtype)
+    rows = torch.randn((B, S, dt_rank + 2 * DS), generator=g,
+                       device=DEVICE).to(dtype)
+    Bc, Cc = rows[..., dt_rank:dt_rank + DS], rows[..., dt_rank + DS:]
+    dt = torch.rand((B, S, DI), generator=g, device=DEVICE) * 0.1
+    A = -torch.exp(torch.randn((DI, DS), generator=g, device=DEVICE))
+    dy = torch.randn((B, S, DI), generator=g, device=DEVICE)
+    return u, dt, A, Bc, Cc, dy
+
+
+def check_fused(g, case) -> tuple:
+    """One fused case: the forward (y and the chunk states) within 2e-5 of
+    its plain version, the backward's five gradients within 2e-5 of each
+    one's largest magnitude (2e-2 for a bf16 gradient: du, dB and dC in
+    bf16 round after the sums), one counted launch each, and every output
+    bitwise equal on a second call. Returns (forward, backward) errors."""
+    B, S, DI, DS, dtype = case
+    t0 = time.perf_counter()
+    u, dt, A, Bc, Cc, dy = _fused_operands(g, *case)
+    what = f"fused scan {B, S, DI, DS, DTYPE_NAME[dtype]}"
+    before = dict(ops.LAUNCHES)
+    y, states = ops.selective_scan_fused_forward(u, dt, A, Bc, Cc,
+                                                 want_states=True)
+    grads = ops.selective_scan_fused_backward(u, dt, A, Bc, Cc, states, dy)
+    sync()
+    check(ops.LAUNCHES["selective_scan_fused"]
+          == before["selective_scan_fused"] + 1
+          and ops.LAUNCHES["selective_scan_fused_backward"]
+          == before["selective_scan_fused_backward"] + 1,
+          f"{what}: the kernels did not launch once each")
+    want_y, want_states = ref.selective_scan_fused_ref(u, dt, A, Bc, Cc,
+                                                       want_states=True)
+    f32 = TOL[torch.float32]
+    err_f = max(assert_close(y, want_y, f32, f"{what} y"),
+                assert_close(states, want_states, f32, f"{what} states"))
+    want = ref.selective_scan_fused_backward_ref(u, dt, A, Bc, Cc, states, dy)
+    err_b = 0.0
+    for name, x, w in zip(("du", "ddt", "dA", "dB", "dC"), grads, want):
+        check(x.dtype == w.dtype and x.shape == w.shape,
+              f"{what}: {name} {x.dtype} {tuple(x.shape)}")
+        err_b = max(err_b, assert_close_to_max(
+            x.float(), w.float(), TOL[x.dtype], f"{what} {name}"))
+    y2, states2 = ops.selective_scan_fused_forward(u, dt, A, Bc, Cc,
+                                                   want_states=True)
+    again = ops.selective_scan_fused_backward(u, dt, A, Bc, Cc, states, dy)
+    check(bool(torch.equal(y, y2)) and bool(torch.equal(states, states2))
+          and all(bool(torch.equal(x, w)) for x, w in zip(grads, again)),
+          f"{what}: two calls differ")
+    sync()
+    log(f"{what}: y and states max_abs_err {err_f:.3e} (tol {f32}), "
+        f"du/ddt/dA/dB/dC {err_b:.3e} of each one's max (tol {f32}, "
+        f"{TOL[torch.bfloat16]} in bf16); bitwise repeatable "
+        f"({time.perf_counter() - t0:.1f} s)")
+    return err_f, err_b
+
+
 def phase_kernels() -> dict:
     g = torch.Generator(device=DEVICE).manual_seed(SEED)
     errs = {name: 0.0 for name in KERNELS}
@@ -1582,6 +1697,11 @@ def phase_kernels() -> dict:
     for case in SCAN_BWD_CASES:
         errs["selective_scan_backward"] = max(
             errs["selective_scan_backward"], check_scan_backward(g, case))
+    for case in FUSED_CASES:
+        err_f, err_b = check_fused(g, case)
+        errs["selective_scan_fused"] = max(errs["selective_scan_fused"], err_f)
+        errs["selective_scan_fused_backward"] = max(
+            errs["selective_scan_fused_backward"], err_b)
     for B, S, H, KV, D, dt, window, softcap, lens in DECODE_CASES:
         q = _randn(g, (B, H, D), dt)
         k = _randn(g, (B, S, KV, D), dt)
@@ -1727,15 +1847,20 @@ def phase_forward(cfg, kernel: str, reckoned_gb=None) -> dict:
     if kernel == "selective_scan":
         check(variants["sequential"] == launches,
               f"forward scan launches by variant {variants}")
+    if kernel == "selective_scan_fused":   # S = 2048: JAX's chunked branch
+        check(variants == {"step": 0, "sequential": 0},
+              f"forward: materialised scan launches by variant {variants}")
     check(tuple(logits_k.shape) == (FWD_B, FWD_S, cfg.vocab), "logits shape")
     check(bool(torch.isfinite(logits_k).all()), "non-finite logits")
     with torch.inference_mode():
         fwd_ms = cuda_ms(lambda: M.forward(params, batch, cfg,
                                            runtime("kernel")), iters=5,
                          warmup=1)
+        # one timed call: the plain path ran just above, so it is warm, and
+        # falcon-mamba's plain scan loops take ~6.4 s a forward on an H100
         fwd_plain_ms = cuda_ms(lambda: M.forward(params, batch, cfg,
-                                                 runtime("plain")), iters=3,
-                               warmup=1)
+                                                 runtime("plain")), iters=1,
+                               warmup=0)
         prof = profile_kernels(
             lambda: M.forward(params, batch, cfg, runtime("kernel")), 2)
         log_breakdown(f"{tag} kernel", prof, fwd_ms)
@@ -2615,6 +2740,123 @@ def time_scan_backward(a, h, dh, tag: str) -> dict:
                 bound_ms=bound_ms, bound_by=by, device_ms=dev_ms)
 
 
+# the SFUs' exponentials a second on an H100 SXM: 16 a clock on each of 132
+# SMs at the 1.98 GHz boost clock (data sheet)
+SFU_EXP_PER_S = 16 * 132 * 1.98e9
+
+
+def time_fused(cfg) -> dict:
+    """The fused scan pair at ``cfg``'s Mamba train shape ([FWD_B, FWD_S,
+    d_inner, d_state] in f32, phase 7's), each kernel beside its plain
+    version, its bound and the same-call parent: the materialised route's
+    whole scan part (a and b built at [B,S,DI,DS], the sequential scan
+    kernel, the h.C einsum; its backward through autograd, the reverse-scan
+    kernel among it), by event and device time. The bound is the larger of
+    the bytes the function moves (forward: u, dt, A, Bc, Cc read, y and the
+    chunk states written; backward: those, the states and dy read, du, ddt,
+    dA, dB and dC written) and its f32 operations (``ops.FUSED_FLOPS`` a
+    state element); the SFUs' exponentials (one an element forward, 1.75
+    backward) are printed beside it. No PyTorch call computes a linear
+    recurrence, so there is no library time. Also the bf16 forward (phase
+    3b's operands)."""
+    g = torch.Generator(device=DEVICE).manual_seed(SEED + 22)
+    B, S, DI, DS = FWD_B, FWD_S, cfg.d_inner, cfg.mamba.d_state
+    out = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        u, dt, A, Bc, Cc, dy = _fused_operands(g, B, S, DI, DS, dtype,
+                                               cfg.dt_rank)
+        fwd = lambda: ops.selective_scan_fused_forward(  # noqa: E731
+            u, dt, A, Bc, Cc, want_states=True)
+        y, states = fwd()
+        bwd = lambda: ops.selective_scan_fused_backward(  # noqa: E731
+            u, dt, A, Bc, Cc, states, dy)
+        e, n, nc = u.element_size(), B * S * DI * DS, ref.fused_chunks(S)
+        rows = 2 * B * S * DS * e
+        read_f = B * S * DI * (e + 4) + DI * DS * 4 + rows
+        bytes_f = read_f + B * S * DI * 4 + B * nc * DI * DS * 4
+        bytes_b = (read_f + B * nc * DI * DS * 4 + B * S * DI * 4
+                   + B * S * DI * (e + 4) + DI * DS * 4 + rows)
+        kinds = [("forward", fwd, bytes_f, (SSF_FWD,), 1.0)]
+        if dtype == torch.float32:
+            kinds.append(("backward", bwd, bytes_b, SSF_BWD, 1.75))
+        for kind, fn, nbytes, names, exps in kinds:
+            name = ("selective_scan_fused" if kind == "forward"
+                    else "selective_scan_fused_backward")
+            if kind == "forward":
+                plain = lambda: ref.selective_scan_fused_ref(  # noqa: E731
+                    u, dt, A, Bc, Cc, want_states=True)
+                err = max_err(y, plain()[0])
+            else:
+                plain = lambda: ref.selective_scan_fused_backward_ref(  # noqa: E731
+                    u, dt, A, Bc, Cc, states, dy)
+                err = max(max_err(x, w) / w.abs().max().item()
+                          for x, w in zip(fn(), plain()))
+            ms = cuda_ms(fn)
+            plain_ms = cuda_ms(plain, iters=2, warmup=1)
+            prof = profile_recorded(fn, names, 1, iters=10)[0]
+            dev_ms = kernel_ms(prof, *names)
+            by_kernel = {x: kernel_ms(prof, x) for x in names}
+            t_ops = ops.FUSED_FLOPS[name] * n / PEAK_FLOPS[torch.float32]
+            t_bytes = nbytes / HBM_BYTES_PER_S
+            bound_ms = max(t_ops, t_bytes) * 1e3
+            by = "operations" if t_ops >= t_bytes else "bytes"
+            sfu_ms = exps * n / SFU_EXP_PER_S * 1e3
+            out[f"{DTYPE_NAME[dtype]}_{kind}"] = dict(
+                max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=None,
+                bound_ms=bound_ms, bound_by=by, device_ms=dev_ms,
+                device_ms_by_kernel=by_kernel, sfu_ms=sfu_ms,
+                shape=[B, S, DI, DS], dtype=DTYPE_NAME[dtype])
+            log(f"time fused scan {kind} {DTYPE_NAME[dtype]} [{B},{S},{DI},"
+                f"{DS}] ({', '.join(names)}): kernel {ms:.4f} ms, plain "
+                f"{plain_ms:.1f} ms, library none (no PyTorch call computes a "
+                f"linear recurrence), bound {bound_ms * 1e3:.1f} us ({by}: "
+                f"{nbytes / 1e6:.1f} MB, {ops.FUSED_FLOPS[name] * n / 1e9:.2f}"
+                f" GFLOP f32), the SFUs' {exps:g} exponentials an element "
+                f"{sfu_ms * 1e3:.1f} us; kernel device time {_fmt(dev_ms)} ms "
+                f"({_share(bound_ms, dev_ms)} of the bound; by kernel "
+                f"{ {k: _fmt(v) for k, v in by_kernel.items()} }); "
+                f"max err {err:.3e}" + (" (of each gradient's max)"
+                                        if kind == "backward" else ""))
+        if dtype == torch.float32:
+            # the same-call parent: the materialised route's scan part
+            A_log = torch.log(-A)
+            leaves = [t.detach().requires_grad_(True)
+                      for t in (u, dt, A_log, Bc, Cc)]
+
+            def mat(u_, dt_, A_log_, Bc_, Cc_):
+                a, b = L._scan_inputs(A_log_, u_, dt_, Bc_)
+                return torch.einsum("bsin,bsn->bsi", ops.selective_scan(a, b),
+                                    Cc_.float())
+            with torch.no_grad():
+                pf_ms = cuda_ms(lambda: mat(u, dt, A_log, Bc, Cc), iters=5)
+                prof = profile_kernels(lambda: mat(u, dt, A_log, Bc, Cc), 3)
+            pf_dev = sum(ms for _, ms in prof["kernels"].values()) or None
+            ym = mat(*leaves)
+            grad = lambda: torch.autograd.grad(  # noqa: E731
+                ym, leaves, dy, retain_graph=True)
+            pb_ms = cuda_ms(grad, iters=3, warmup=1)
+            prof = profile_kernels(grad, 2, warm=True)
+            pb_dev = sum(ms for _, ms in prof["kernels"].values()) or None
+            del ym, leaves
+            torch.cuda.empty_cache()
+            fk, bk = out["f32_forward"], out["f32_backward"]
+            fk.update(parent="the materialised route: a and b built, "
+                      "ops.selective_scan, the h.C einsum",
+                      parent_ms=pf_ms, parent_device_ms=pf_dev)
+            bk.update(parent="the materialised route's backward through "
+                      "autograd (ops.SelectiveScan's reverse scan among it)",
+                      parent_ms=pb_ms, parent_device_ms=pb_dev)
+            log(f"time fused scan f32: same-call parent (the materialised "
+                f"route's scan part) forward {pf_ms:.3f} ms (device "
+                f"{_fmt(pf_dev)} ms), backward {pb_ms:.3f} ms (device "
+                f"{_fmt(pb_dev)} ms); the fused pair {fk['ms']:.3f} + "
+                f"{bk['ms']:.3f} ms (device {_fmt(fk['device_ms'])} + "
+                f"{_fmt(bk['device_ms'])} ms)")
+        del u, dt, A, Bc, Cc, dy, y, states
+        torch.cuda.empty_cache()
+    return out
+
+
 # gemma2-9b's attention shape (dh = 256), as in phase 8's train step:
 # (B, S, H, KV, D, softcap), causal; the 4096-key window of its local layers
 # has no effect at S = 2048
@@ -2759,6 +3001,13 @@ WIDE_SHAPE = (2, 2048, 4, 2, 512, None)
 DECODE_D512_SHAPE = (4, 4096, 4, 2, 512)
 DECODE_GROUP32_SHAPE = (4, 4096, 32, 1, 64)
 DECODE_GROUP71_SHAPE = (4, 4096, 71, 1, 64)
+# the examples phase's group-route servers' own caches, 16 valid keys a
+# slot of 128: launch.serve --d-model 2048 and 1280, and 32 heads over one
+# kv head at d_model 2048
+DECODE_SERVER_SHAPES = {"d2048": (4, 128, 4, 2, 512),
+                        "d1280": (4, 128, 4, 2, 320),
+                        "mqa": (4, 128, 32, 1, 64)}
+DECODE_SERVER_KEYS = 16
 
 
 def time_wide_flash(shape, seed: int) -> dict:
@@ -3111,9 +3360,17 @@ TRAIN_PATHS = {
                            forward=(F32TC_FWD_PREP, F32TC_FWD_D256),
                            backward=F32TC_BWD_D256,
                            others=(FLASH_TC, F32TC_FWD, *F32TC_BWD[1:])),
-    "scan": dict(wrappers=("selective_scan", "selective_scan_backward"),
-                 forward=(SCAN_KERNEL["sequential"],), backward=(SCAN_BWD,),
-                 others=(SCAN_KERNEL["step"],)),
+    # the Mamba train path at S > 256, S % 256 == 0 (phase 7): the fused
+    # scan pair, none of the materialised route's kernels
+    "scan": dict(wrappers=("selective_scan_fused",
+                           "selective_scan_fused_backward"),
+                 forward=(SSF_FWD,), backward=SSF_BWD,
+                 others=(*SCAN_KERNEL.values(), SCAN_BWD)),
+    # and at S = 128 (phase 7b's reduced runs): the materialised route
+    "scan_materialised": dict(
+        wrappers=("selective_scan", "selective_scan_backward"),
+        forward=(SCAN_KERNEL["sequential"],), backward=(SCAN_BWD,),
+        others=(SCAN_KERNEL["step"], SSF_FWD, *SSF_BWD)),
 }
 
 
@@ -3149,7 +3406,8 @@ def ffn_acts(cfg, tokens: int, e: int) -> float:
 TRAIN_SLACK_GB = 0.25
 
 
-def layer_memory(cfg, tokens: int, dtype, enc: bool = False) -> dict:
+def layer_memory(cfg, tokens: int, dtype, enc: bool = False,
+                 seq: int = FWD_S) -> dict:
     """Bytes of one layer in a train step at N = ``tokens`` (``e`` bytes an
     activation): ``layer``, what autograd keeps of it without remat;
     ``saved``, what remat "block" keeps (``model._save_products``: the
@@ -3169,19 +3427,35 @@ def layer_memory(cfg, tokens: int, dtype, enc: bool = False) -> dict:
       dh], k and v of the memory [N, KV dh] ("block": q, k, v, o), and its
       backward the memory's gradient [N, d] twice. An encoder layer is
       checkpointed with nothing saved under either remat.
-    - mamba: the two [N, DI, DS] f32 tensors (a, saved by ``exp``; h, by
-      the ``h.C`` einsum and ``ops.SelectiveScan``), twelve [N, DI] f32 and
-      the input, dt and B/C rows; "block" keeps ``in_proj`` [N, 2 DI],
-      ``x_proj`` [N, dt_rank + 2 DS], ``dt_proj`` [N, DI] and ``out_proj``
-      [N, d]; the backward adds three [N, DI, DS] (dh, da, db) and twelve
-      [N, DI] f32."""
+    - mamba, at a sequence of ``seq`` (``layers.chunked``: JAX's chunked
+      branch, the fused scan): eleven [N, DI] (seven f32, four in the
+      activations' dtype), the input and the dt and B/C rows, and the
+      fused scan's chunk states ([N / 64, DI, DS] f32, saved by
+      ``ops.SelectiveScanFused``); the backward adds nothing beside what
+      its recompute rebuilds in f32 (the fused backward's outputs and its
+      partials take the place of the forward tensors it frees), one and a
+      half [N, DI] of the dtype's difference from f32 in bf16 (du in f32
+      beside its bf16 copy; ``tools/train_memory_probe.py`` at S 512 and
+      1024: 0.06 of an [N, DI] f32 less in f32, 1.37 [N, DI] bf16 in bf16
+      under "block"). Otherwise (the materialised route): the two [N, DI,
+      DS] f32 tensors (a, saved by ``exp``; h, by the ``h.C`` einsum and
+      ``ops.SelectiveScan``), twelve [N, DI] f32 and the input, dt and B/C
+      rows; the backward adds three [N, DI, DS] (dh, da, db) and twelve
+      [N, DI] f32. "block" keeps ``in_proj`` [N, 2 DI], ``x_proj`` [N,
+      dt_rank + 2 DS], ``dt_proj`` [N, DI] and ``out_proj`` [N, d] on either
+      route."""
     N, d, e = tokens, cfg.d_model, (4 if dtype == torch.float32 else 2)
     if cfg.family == "ssm" and not enc:
         di, ds, dr = cfg.d_inner, cfg.mamba.d_state, cfg.dt_rank
+        saved = N * (3 * di + dr + 2 * ds + d) * e
+        if L.chunked(seq):
+            states = N * di * ds * 4 // ref.FUSED_CHUNK
+            return {"layer": N * ((7 * 4 + 4 * e) * di + (d + dr + 2 * ds) * e)
+                    + states, "saved": saved,
+                    "work": 3 * N * di * (4 - e) // 2}
         big = N * di * ds * 4
         return {"layer": 2 * big + N * (12 * di + d + dr + 2 * ds) * 4,
-                "saved": N * (3 * di + dr + 2 * ds + d) * e,
-                "work": 3 * big + 12 * N * di * 4}
+                "saved": saved, "work": 3 * big + 12 * N * di * 4}
     hd, kvd = cfg.n_heads * cfg.d_head, cfg.n_kv_heads * cfg.d_head
     norms = 2 * N * d * 4 if e == 2 else 0
     out = {"layer": N * (4 * d + 3 * hd + 4 * kvd) * e + ffn_acts(cfg, N, e)
@@ -3198,7 +3472,8 @@ def layer_memory(cfg, tokens: int, dtype, enc: bool = False) -> dict:
     return out
 
 
-def train_units(cfg, depth: int, tokens: int, dtype, remat: str) -> list:
+def train_units(cfg, depth: int, tokens: int, dtype, remat: str,
+                seq: int = FWD_S) -> list:
     """The units of a train step's backward at ``depth`` layers (an
     encoder-decoder's encoder cut to ``depth`` too), N = ``tokens``, in the
     order it runs them: each block of ``len(cfg.block)`` layers from the top,
@@ -3215,7 +3490,7 @@ def train_units(cfg, depth: int, tokens: int, dtype, remat: str) -> list:
         cfg2, torch.float32, "meta").named_parameters()}
 
     def units(prefix, n, enc):
-        lm = layer_memory(cfg, N, dtype, enc)
+        lm = layer_memory(cfg, N, dtype, enc, seq)
         per = sum(v for k, v in sizes.items() if k.startswith(prefix))
         mode = "full" if enc and remat != "none" else remat
         kept = {"none": n * lm["layer"], "block": N * d * e + n * lm["saved"],
@@ -3470,10 +3745,12 @@ def phase_train(cfg, path: str, tag: str, reckoned_gb=None,
         first_s = time.perf_counter() - t0
     first = {k: ops.LAUNCHES[k] for k in spec["wrappers"]}
     check(first == want, f"{tag}: launches in one step {first}, want {want}")
-    if path == "scan":   # S = 2048: every forward on the sequential kernel
-        check(ops.SCAN_VARIANTS == {"step": 0,
-                                    "sequential": passes * cfg.n_layers},
-              f"{tag}: scan launches by variant {ops.SCAN_VARIANTS}")
+    if path == "scan":   # S = 2048: the fused route, no materialised scan
+        check(ops.SCAN_VARIANTS == {"step": 0, "sequential": 0}
+              and ops.LAUNCHES["selective_scan"] == 0
+              and ops.LAUNCHES["selective_scan_backward"] == 0,
+              f"{tag}: materialised scan launches {ops.SCAN_VARIANTS}, "
+              f"backward {ops.LAUNCHES['selective_scan_backward']}")
     nondet = [str(w.message)[:120] for w in caught
               if "determinis" in str(w.message).lower()]
     check(not nondet, f"{tag}: determinism warnings {nondet}")
@@ -3785,6 +4062,46 @@ def remat_equal(cfg, tag: str, dtype, hp: OptHParams, remat: str,
         f"{first['none']:.1f} ms without" + (f"; steps with remat "
                                  f"{' / '.join(f'{x:.1f}' for x in times)} ms"
                                  if timed else ""))
+    return out
+
+
+def step_at_depth(arch: str, tag: str, depth: int, dtype) -> dict:
+    """``arch``'s train preset (``train_preset``) at ``depth`` layers: a
+    first step, then TRAIN_STEPS timed ones (their median ms) and the peak
+    device memory of the steps, held as phase 7 holds its own: at most
+    TRAIN_MARGIN below ``train_memory``'s reckoning at that depth and never
+    above it."""
+    cfg, rt, hp = train_preset(arch)
+    cfg = at_depth(cfg, depth)
+    reckoned = train_memory(cfg, depth, FWD_B * FWD_S, dtype, hp, rt.remat)
+    batch = _train_batch(cfg, torch.Generator(device=DEVICE).manual_seed(SEED + 5))
+    step = make_train_step(cfg, hp, rt)
+    torch.cuda.empty_cache()
+    log_memory(f"{tag} before the steps at depth {depth}")
+    state = _fresh_state(cfg, hp, dtype)
+    state, metrics = step(state, batch)
+    sync()
+    times = []
+    for _ in range(TRAIN_STEPS):
+        t0 = time.perf_counter()
+        state, metrics = step(state, batch)
+        sync()
+        times.append((time.perf_counter() - t0) * 1e3)
+    loss = float(metrics["loss"])
+    del state, metrics
+    torch.cuda.empty_cache()
+    peak = log_memory(f"{tag} at depth {depth}", reckoned)
+    check(math.isfinite(loss), f"{tag} at depth {depth}: non-finite loss")
+    if peak is not None:
+        check((1 - TRAIN_MARGIN) * reckoned <= peak <= reckoned,
+              f"{tag} at depth {depth}: peak {peak:.2f} GB outside "
+              f"[{1 - TRAIN_MARGIN:g}, 1] x the reckoned {reckoned:.2f} GB")
+    out = {"depth": depth, "step_ms": statistics.median(times),
+           "peak_gb": peak, "reckoned_gb": reckoned, "remat": rt.remat}
+    log(f"{tag} at depth {depth} (remat {rt.remat!r}): steps "
+        f"{' / '.join(f'{x:.1f}' for x in times)} ms, median "
+        f"{out['step_ms']:.1f} ms ({FWD_B * FWD_S / out['step_ms'] * 1e3:.0f}"
+        f" tok/s), peak {_fmt(peak)} GB (reckoned {reckoned:.2f} GB)")
     return out
 
 
@@ -4444,7 +4761,7 @@ def phase_sharded(smi: str) -> dict:
     on "model": the logits of ``SHARD_SERVE_STEPS`` greedy steps and the
     cache), grok forward-bf16 at depth 1 with EP (the experts on "model")
     and falcon-mamba forward-bf16 at ``SHARD_MAMBA_DEPTH`` layers with
-    d_inner on "model". One rank exercises the DTensor path, its
+    d_inner on "model" (the fused scan on each rank's channels). One rank exercises the DTensor path, its
     collectives (each over one rank) and the decode kernel's lse and merge;
     it shows nothing of the communication of more than one card."""
     import torch.distributed as dist
@@ -4558,7 +4875,7 @@ def phase_sharded(smi: str) -> dict:
         # 3. grok forward-bf16 at depth 1 under EP; 4. falcon-mamba
         for arch, depth, want, key in (
                 (GROK_ARCH, 1, ("flash_attention",), "grok_forward"),
-                (MAMBA_ARCH, SHARD_MAMBA_DEPTH, ("selective_scan",),
+                (MAMBA_ARCH, SHARD_MAMBA_DEPTH, ("selective_scan_fused",),
                  "mamba_forward")):
             cfg = at_depth(get_config(arch), depth)
             rules, rt = _sharded_runtime(cfg, mesh)
@@ -5145,6 +5462,16 @@ def main() -> int:
                 decode_d512[tag, keys] = time_decode(q, k, v, lengths,
                                                      tag=f"{tag} {what}")
             del q, k, v
+        decode_servers = {}
+        for tag, (B, S, H, KV, D) in DECODE_SERVER_SHAPES.items():
+            q = _randn(g, (B, H, D), torch.float32)
+            k = _randn(g, (B, S, KV, D), torch.float32)
+            v = _randn(g, (B, S, KV, D), torch.float32)
+            lengths = torch.full((B,), DECODE_SERVER_KEYS, device=DEVICE,
+                                 dtype=torch.int32)
+            decode_servers[tag] = time_decode(q, k, v, lengths,
+                                              tag=f"server {tag} S {S}")
+            del q, k, v
     decode_g32 = decode_d512.pop(("group 32", DECODE_GROUP32_SHAPE[1]))
     decode_g71 = decode_d512.pop(("group 71", DECODE_GROUP71_SHAPE[1]))
     wide_ptxas = {"cluster": log_ptxas_kernels("cluster"),
@@ -5153,7 +5480,7 @@ def main() -> int:
     log_memory("attention timings")
     torch.cuda.empty_cache()
     # falcon-mamba: the selective scan, in forward and in each decode step
-    fwd_m = phase_forward(mcfg, "selective_scan")
+    fwd_m = phase_forward(mcfg, "selective_scan_fused")
     serve_m = phase_serve(mcfg, "selective_scan")
     with torch.inference_mode():
         g = torch.Generator(device=DEVICE).manual_seed(SEED + 3)
@@ -5171,6 +5498,8 @@ def main() -> int:
         dh = torch.randn(a.shape, generator=g, device=DEVICE)
         scan_bwd_t = time_scan_backward(a, h, dh, "train shape")
         del a, h, dh
+    # the fused pair at the train shape, the materialised route beside it
+    fused_t = time_fused(mcfg)
     log_memory("scan timings")
     torch.cuda.empty_cache()
     # internlm2 training: the f32 flash kernel and its backward (full
@@ -5178,11 +5507,16 @@ def main() -> int:
     train = phase_train(cfg, "attention", "train-f32",
                         train_memory(cfg, cfg.n_layers, FWD_B * FWD_S))
     logio = phase_logio(cfg, "attention")
-    # falcon-mamba training: the scan kernel and its backward, at its
-    # preset's remat and the depth device memory allows
+    # falcon-mamba training: the fused scan pair (S = 2048, JAX's chunked
+    # branch), at its preset's remat and the depth device memory allows
     mtrain, mremat = phase_cut_train(MAMBA_ARCH, "scan", "mamba-train-f32",
                                      torch.float32)
-    mlogio = phase_logio(mcfg, "scan")
+    # and at the depth the materialised route's memory allowed, its step
+    # beside that route's
+    m_earlier = step_at_depth(MAMBA_ARCH, "mamba-train-f32",
+                              MAMBA_EARLIER_DEPTH, torch.float32)
+    # its reduced LOG.io runs (S = 128): the materialised route
+    mlogio = phase_logio(mcfg, "scan_materialised")
     # gemma2-9b training: the split-f32 flash pair at dh = 256, the same way
     gtrain, gremat = phase_cut_train(GEMMA_ARCH, "attention_d256",
                                      "gemma2-train-f32", torch.float32)
@@ -5328,11 +5662,15 @@ def main() -> int:
                 + serve_s["launches"]
                 + sum(ex_serve["decode_attention"].values()) + ex_768
                 + ex_mqa,
-                "selective_scan": fwd_m["launches"] + serve_m["launches"]
-                + mtrain["launches"]["selective_scan"]
+                "selective_scan": serve_m["launches"]
+                + mlogio["launches"]["selective_scan"]
                 + sum(ex_serve["selective_scan"].values()),
-                "selective_scan_backward": mtrain["launches"][
+                "selective_scan_backward": mlogio["launches"][
                     "selective_scan_backward"],
+                "selective_scan_fused": fwd_m["launches"]
+                + mtrain["launches"]["selective_scan_fused"],
+                "selective_scan_fused_backward": mtrain["launches"][
+                    "selective_scan_fused_backward"],
                 "flash_attention_backward_bf16": itrain["launches"][
                     "flash_attention_backward"]
                 + gtrain16["launches"]["flash_attention_backward"]
@@ -5346,6 +5684,8 @@ def main() -> int:
              "flash_attention_backward_bf16": bwd16_t,
              "decode_attention": decode_t, "selective_scan": scan_t,
              "selective_scan_backward": scan_bwd_t,
+             "selective_scan_fused": fused_t["f32_forward"],
+             "selective_scan_fused_backward": fused_t["f32_backward"],
              "flash_attention_wide": wide_t["f32_forward"],
              "flash_attention_backward_wide": wide_t["f32_backward"],
              "decode_attention_wide": decode_d512["dh 512", 64]}
@@ -5531,8 +5871,8 @@ def main() -> int:
              sharded["train"]["launches"]["flash_attention_backward"]),
             ("decode_attention",
              sharded["serve"]["launches"]["decode_attention"]),
-            ("selective_scan",
-             sharded["mamba_forward"]["launches"]["selective_scan"])):
+            ("selective_scan_fused",
+             sharded["mamba_forward"]["launches"]["selective_scan_fused"])):
         next(r for r in rows if r["name"] == name)["launches_sharded"] = n
     # decode attention: the serve shape above (the main path's), a full
     # cache beside it
@@ -5615,7 +5955,11 @@ def main() -> int:
         launches_launch_serve_d1280=ex_wide_serve[1280],
         launch_serve_d2048=examples["serve_d2048"],
         launch_serve_d1280=examples["serve_d1280"],
-        group_route=decode_group_ptxas)
+        group_route=decode_group_ptxas,
+        **{f"server_{tag}_{key}": val for tag, row in decode_servers.items()
+           for key, val in row.items()},
+        server_shapes={tag: list(shape) + [DECODE_SERVER_KEYS]
+                       for tag, shape in DECODE_SERVER_SHAPES.items()})
     dwide_row["max_abs_err"] = max(
         dwide_row["max_abs_err"],
         decode_d512["dh 512", DECODE_D512_SHAPE[1]]["max_abs_err"])
@@ -5624,7 +5968,7 @@ def main() -> int:
     scan_row = next(r for r in rows if r["name"] == "selective_scan")
     scan_row.update(
         launches_examples_serve=ex_serve["selective_scan"],
-        launches_forward=fwd_m["launches"], launches_serve=serve_m["launches"],
+        launches_serve=serve_m["launches"],
         max_abs_err=max(scan_row["max_abs_err"], scan_dec["max_abs_err"]),
         variant=scan_t["variant"], decode_variant=scan_dec["variant"],
         decode_kernel=SCAN_KERNEL[scan_dec["variant"]],
@@ -5638,21 +5982,47 @@ def main() -> int:
         decode_library_clean_l2_device_ms=scan_dec[
             "library_clean_l2_device_ms"],
         decode_in_serve_step_device_ms=serve_m["scan_in_step"],
-        launches_train=mtrain["launches"]["selective_scan"],
-        launches_train_logio=mlogio["launches"]["selective_scan"],
-        device_ms_in_train_step=mtrain["fwd_device_ms"])
+        launches_train_logio=mlogio["launches"]["selective_scan"])
     scan_bwd_row = next(r for r in rows if r["name"] == "selective_scan_backward")
     scan_bwd_row.update(
-        launches_per_step=mtrain["launches"]["selective_scan_backward"]
-        // mtrain["steps"],
         launches_logio=mlogio["launches"]["selective_scan_backward"],
+        library_note="none: no PyTorch call computes a reverse linear "
+                     "recurrence")
+    # the fused pair: phase 3b's forward and phase 7's train step, the bf16
+    # forward's timing, the materialised route as the same-call parent, and
+    # the step at the materialised route's depth
+    fused_row = next(r for r in rows if r["name"] == "selective_scan_fused")
+    fused_row.update(
+        shape=fused_t["f32_forward"]["shape"], dtype="float32",
+        launches_forward=fwd_m["launches"],
+        launches_train=mtrain["launches"]["selective_scan_fused"],
+        launches_per_train_step=mtrain["fwd_per_step"],
+        device_ms_in_train_step=mtrain["fwd_device_ms"],
+        sfu_ms=fused_t["f32_forward"]["sfu_ms"],
+        parent=fused_t["f32_forward"]["parent"],
+        parent_ms=fused_t["f32_forward"]["parent_ms"],
+        parent_device_ms=fused_t["f32_forward"]["parent_device_ms"],
+        **{f"bf16_{key}": val for key, val in fused_t["bf16_forward"].items()
+           if key != "dtype"})
+    fused_row["max_abs_err"] = max(fused_row["max_abs_err"],
+                                   fused_t["bf16_forward"]["max_abs_err"])
+    fused_bwd_row = next(r for r in rows
+                         if r["name"] == "selective_scan_fused_backward")
+    fused_bwd_row.update(
+        shape=fused_t["f32_backward"]["shape"], dtype="float32",
+        device_ms_by_kernel=fused_t["f32_backward"]["device_ms_by_kernel"],
+        sfu_ms=fused_t["f32_backward"]["sfu_ms"],
+        parent=fused_t["f32_backward"]["parent"],
+        parent_ms=fused_t["f32_backward"]["parent_ms"],
+        parent_device_ms=fused_t["f32_backward"]["parent_device_ms"],
+        launches_per_step=mtrain["per_step"],
         device_ms_in_step=mtrain["bwd_device_ms"],
-        train_step_ms=mtrain["step_ms"],
+        train_step_ms=mtrain["step_ms"], train_peak_gb=mtrain["peak_gb"],
         train_depth=mtrain["depth"], train_remat=mtrain["remat"],
         train_remat_check=mremat,
         grads_bitwise_equal_to_plain=mtrain["grads_bitwise"],
-        library_note="none: no PyTorch call computes a reverse linear "
-                     "recurrence")
+        train_at_earlier_depth=m_earlier,
+        library_note="none: no PyTorch call computes a linear recurrence")
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": rows}))
     print(f"card: {dev['smi']}")

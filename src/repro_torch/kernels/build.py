@@ -58,6 +58,11 @@ SIGNATURES = {
     "repro_selective_scan": (_P, _P, _P, _P, _I, _I, _L, _P),
     "repro_selective_scan_step": (_P, _P, _P, _P, _L, _I, _P),
     "repro_selective_scan_bwd": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _L, _P),
+    # the fused scan (a and b built and h.C taken in the kernel): operands,
+    # then B, S, DI, DS, Bc's and Cc's strides, the dtype
+    "repro_selective_scan_fused": (_P,) * 7 + (_I,) * 4 + (_L,) * 4 + (_I, _P),
+    "repro_selective_scan_fused_bwd": (_P,) * 15 + (_I,) * 5 + (_L,) * 4
+    + (_I, _P),
 }
 
 
@@ -159,7 +164,10 @@ def load() -> ctypes.CDLL:
     # the floats of a cluster's record in its scratch (not launches)
     lib.repro_decode_group_smem.argtypes = [_I] * 6
     lib.repro_decode_group_record.argtypes = [_I] * 2
+    # the fused scan's channel blocks (its backward's partials; not a launch)
+    lib.repro_selective_scan_fused_blocks.argtypes = [_I] * 2
     for name in ("repro_flash_tc_smem", "repro_flash_tc_bwd_smem",
+                 "repro_selective_scan_fused_blocks",
                  "repro_flash_cluster_ranks", "repro_flash_cluster_occupancy",
                  "repro_decode_group_smem", "repro_decode_group_record"):
         getattr(lib, name).restype = ctypes.c_int

@@ -40,7 +40,8 @@ accumulators fill a block's budget) raise.
 
 ``LAUNCHES`` counts kernel launches per wrapper (one per call that reaches
 the card, however many device kernels the call runs: a split-f32 flash
-forward runs two, a flash backward three in either dtype),
+forward runs two, a flash backward three in either dtype, the fused scan's
+backward two),
 ``SCAN_VARIANTS`` the scan's launches by variant (``scan_variant``),
 ``FLASH_VARIANTS`` the flash launches by (wrapper, ``flash_variant``),
 ``BUILT_WIDTHS`` the attention launches by (wrapper, head dim, built head
@@ -54,8 +55,12 @@ log-sum-exp (the forward kernels write it) and whose backward is the
 backward kernel of the forward's variant (``flash_attention_backward``);
 ``selective_scan`` goes through ``SelectiveScan``, whose forward saves a, h
 and h0 and whose backward is the reverse-scan kernel
-(``selective_scan_backward``). On the CPU each Function takes the plain
-versions of both.
+(``selective_scan_backward``); ``selective_scan_fused`` (the Mamba scan
+with a and b built and h.C taken in the kernel: JAX's chunked branch) goes
+through ``SelectiveScanFused``, whose forward saves its operands and the
+state entering each chunk and whose backward recomputes each chunk from it
+(``selective_scan_fused_backward``). On the CPU each Function takes the
+plain versions of both.
 """
 from __future__ import annotations
 
@@ -71,7 +76,8 @@ from repro_torch.kernels import build, ref
 
 LAUNCHES = {"flash_attention": 0, "flash_attention_backward": 0,
             "decode_attention": 0, "selective_scan": 0,
-            "selective_scan_backward": 0}
+            "selective_scan_backward": 0, "selective_scan_fused": 0,
+            "selective_scan_fused_backward": 0}
 SCAN_VARIANTS = {"step": 0, "sequential": 0}
 # flash launches by (wrapper, flash_variant)
 FLASH_VARIANTS: collections.Counter = collections.Counter()
@@ -206,22 +212,32 @@ _GRAD_ROUTE = {
     "selective_scan": "gradients of the selective scan go through "
                       "ops.SelectiveScan (the torch.autograd.Function that "
                       "ops.selective_scan applies)",
+    "selective_scan_fused": "gradients of the fused scan go through "
+                            "ops.SelectiveScanFused (the "
+                            "torch.autograd.Function that "
+                            "ops.selective_scan_fused applies)",
 }
 
 
-def _check_cuda_operands(name: str, *ts: torch.Tensor, align: int = 16) -> None:
+def _check_cuda_operands(name: str, *ts: torch.Tensor, align: int = 16,
+                         rows: tuple = ()) -> None:
     """What the kernels take beyond the plain versions: one CUDA device,
-    contiguous operands aligned to ``align`` bytes, no grad (the message
+    contiguous operands aligned to ``align`` bytes (``rows``: operands that
+    need only a unit stride over their last axis), no grad (the message
     names the wrapper's own gradient route). The shape-only route takes
     the same on ``meta`` operands, which have no address to align."""
-    for t in ts:
+    for t in ts + rows:
         if t.device.type not in ("cuda", "meta") or t.device != ts[0].device:
             raise ValueError(f"{name}: all operands must be on one CUDA device")
+    for t in ts:
         if not t.is_contiguous():
             raise ValueError(f"{name}: operands must be contiguous")
         if t.device.type == "cuda" and t.data_ptr() % align:
             raise ValueError(f"{name}: operands must be {align}-byte aligned")
-    if torch.is_grad_enabled() and any(t.requires_grad for t in ts):
+    if any(t.stride(-1) != 1 for t in rows):
+        raise ValueError(f"{name}: Bc and Cc need unit stride over their "
+                         f"last axis")
+    if torch.is_grad_enabled() and any(t.requires_grad for t in ts + rows):
         route = _GRAD_ROUTE[name.removesuffix("_backward")]
         raise NotImplementedError(
             f"{name}: a kernel call takes no grad; {route}")
@@ -894,3 +910,169 @@ def _launch_selective_scan(a, b, h0, out, variant: str) -> None:
         code = lib.repro_selective_scan(_ptr(a), _ptr(b), h0p, _ptr(out), B,
                                         S, DI * DS, _stream())
     _raise_on(code, "selective_scan")
+
+
+# ---------------------------------------------------------------------------
+# the fused selective scan (a and b built, h.C taken, in the kernel)
+# ---------------------------------------------------------------------------
+
+FUSED_THREADS = 256   # a block of the fused kernels (kThreads)
+# the kernels' f32 operations a state element (b, t, i, n), the exponential
+# counted as one: forward a = exp(dt A), b = (dt u) B, h = a h + b, y += h C
+# (7); backward pass A and pass B's recompute (5 each, pass A over 3/4 of
+# the steps), g, dx, dA, the two sums over n and the two over the channels
+# (16)
+FUSED_FLOPS = {"selective_scan_fused": 7, "selective_scan_fused_backward": 25}
+
+
+def fused_lanes(DS: int) -> int:
+    """Lanes the fused kernels give one channel: DS rounded up to 8, 16 or
+    32 (a lane a state element); DS outside 1..32 raises."""
+    for lanes in (8, 16, 32):
+        if 1 <= DS <= lanes:
+            return lanes
+    raise ValueError(f"selective_scan_fused: d_state {DS} not in 1..32")
+
+
+def fused_blocks(DI: int, DS: int) -> int:
+    """The fused kernels' channel blocks (``FUSED_THREADS`` / lanes channels
+    each): the first axis of the backward's partials of dB and dC."""
+    return -(-DI // (FUSED_THREADS // fused_lanes(DS)))
+
+
+def _check_fused(u, dt, A, Bc, Cc) -> tuple:
+    """(B, S, DI, DS) after the checks every device shares."""
+    if u.dim() != 3 or dt.shape != u.shape or A.dim() != 2 \
+            or A.shape[0] != u.shape[2] or Bc.dim() != 3 \
+            or Bc.shape != Cc.shape or Bc.shape[:2] != u.shape[:2] \
+            or Bc.shape[2] != A.shape[1]:
+        raise ValueError(
+            f"selective_scan_fused: bad shapes u{tuple(u.shape)} "
+            f"dt{tuple(dt.shape)} A{tuple(A.shape)} Bc{tuple(Bc.shape)} "
+            f"Cc{tuple(Cc.shape)}")
+    if dt.dtype != torch.float32 or A.dtype != torch.float32:
+        raise ValueError("selective_scan_fused: dt and A must be float32")
+    if not (u.dtype == Bc.dtype == Cc.dtype) or u.dtype not in _DTYPES:
+        raise ValueError(f"selective_scan_fused: u, Bc, Cc dtypes {u.dtype}/"
+                         f"{Bc.dtype}/{Cc.dtype}; need one of {list(_DTYPES)}")
+    B, S, DI = u.shape
+    fused_lanes(A.shape[1])
+    return B, S, DI, A.shape[1]
+
+
+def selective_scan_fused(u: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+                         Bc: torch.Tensor, Cc: torch.Tensor) -> torch.Tensor:
+    """The Mamba recurrence with its inputs built and its read-out taken in
+    the kernel: ``h_t = exp(dt_t A) h_{t-1} + (dt_t u_t) B_t`` from 0 and
+    ``y_t = sum_n h_t[n] C_t[n]``. u: [B,S,DI] f32 or bf16; dt: [B,S,DI]
+    f32; A: [DI,DS] f32; Bc, Cc: [B,S,DS] in u's dtype -> y [B,S,DI] f32.
+
+    Differentiable through ``SelectiveScanFused`` when grad is on and an
+    operand needs it."""
+    _check_fused(u, dt, A, Bc, Cc)
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in (u, dt, A, Bc, Cc)):
+        return SelectiveScanFused.apply(u, dt, A, Bc, Cc)
+    return selective_scan_fused_forward(u, dt, A, Bc, Cc,
+                                        want_states=False)[0]
+
+
+def selective_scan_fused_forward(u, dt, A, Bc, Cc, *, want_states: bool):
+    """(y, states or None): the fused forward kernel
+    (``csrc/selective_scan_fused.cu``) on the card, the plain chunked loop
+    (``ref.selective_scan_fused_ref``) on the CPU, without autograd (a call
+    with grad raises; ``SelectiveScanFused`` is the differentiable route).
+    states [B, ceil(S / ref.FUSED_CHUNK), DI, DS] f32, the state entering
+    each chunk, is what the backward starts its chunks from; y is the same
+    bits with it or without. u, dt and A contiguous; Bc and Cc with unit
+    stride over DS (the x_proj split's views)."""
+    B, S, DI, DS = _check_fused(u, dt, A, Bc, Cc)
+    if u.device.type == "cpu":
+        if want_states:
+            return ref.selective_scan_fused_ref(u, dt, A, Bc, Cc,
+                                                want_states=True)
+        return ref.selective_scan_fused_ref(u, dt, A, Bc, Cc), None
+    _check_cuda_operands("selective_scan_fused", u, dt, A, align=4,
+                         rows=(Bc, Cc))
+    y = u.new_empty((B, S, DI), dtype=torch.float32)
+    states = (u.new_empty((B, ref.fused_chunks(S), DI, DS),
+                          dtype=torch.float32) if want_states else None)
+    if u.device.type == "meta":
+        _meta_call("selective_scan_fused",
+                   FUSED_FLOPS["selective_scan_fused"] * B * S * DI * DS,
+                   "f32", (u, dt, A, Bc, Cc), (y, states))
+        return y, states
+    code = build.load().repro_selective_scan_fused(
+        _ptr(u), _ptr(dt), _ptr(A), _ptr(Bc), _ptr(Cc), _ptr(y),
+        ctypes.c_void_p(None) if states is None else _ptr(states), B, S, DI,
+        DS, Bc.stride(0), Bc.stride(1), Cc.stride(0), Cc.stride(1),
+        _DTYPES[u.dtype], _stream())
+    _raise_on(code, "selective_scan_fused")
+    LAUNCHES["selective_scan_fused"] += 1
+    return y, states
+
+
+class SelectiveScanFused(torch.autograd.Function):
+    """The fused scan with its backward kernels: the forward saves its
+    operands (the caller's tensors, no copies) and the chunk states; the
+    backward recomputes each chunk from its state
+    (``selective_scan_fused_backward``)."""
+
+    @staticmethod
+    def forward(ctx, u, dt, A, Bc, Cc):
+        y, states = selective_scan_fused_forward(u, dt, A, Bc, Cc,
+                                                 want_states=True)
+        ctx.save_for_backward(u, dt, A, Bc, Cc, states)
+        return y
+
+    @staticmethod
+    def backward(ctx, dy):
+        u, dt, A, Bc, Cc, states = ctx.saved_tensors
+        grads = selective_scan_fused_backward(u, dt, A, Bc, Cc, states,
+                                              dy.contiguous())
+        return tuple(g if need else None
+                     for g, need in zip(grads, ctx.needs_input_grad))
+
+
+def selective_scan_fused_backward(u, dt, A, Bc, Cc, states, dy):
+    """(du, ddt, dA, dB, dC) of the fused scan, in the dtypes of u, dt, A,
+    Bc, Cc, from its operands, the forward's ``states`` and dy [B,S,DI] f32.
+    On the card the backward kernel and the reduce of its per-block
+    partials (``csrc/selective_scan_fused.cu``: no atomics, the same bits
+    on every call); the plain version
+    (``ref.selective_scan_fused_backward_ref``) on the CPU."""
+    B, S, DI, DS = _check_fused(u, dt, A, Bc, Cc)
+    if states.shape != (B, ref.fused_chunks(S), DI, DS) \
+            or states.dtype != torch.float32:
+        raise ValueError(f"selective_scan_fused_backward: states must be "
+                         f"f32 of shape {(B, ref.fused_chunks(S), DI, DS)}")
+    if dy.shape != u.shape or dy.dtype != torch.float32:
+        raise ValueError(f"selective_scan_fused_backward: dy must be f32 of "
+                         f"shape {tuple(u.shape)}")
+    if u.device.type == "cpu":
+        return ref.selective_scan_fused_backward_ref(u, dt, A, Bc, Cc,
+                                                     states, dy)
+    _check_cuda_operands("selective_scan_fused_backward", u, dt, A, states,
+                         dy, align=4, rows=(Bc, Cc))
+    f32 = dict(dtype=torch.float32)
+    du, ddt = u.new_empty((B, S, DI), **f32), u.new_empty((B, S, DI), **f32)
+    dB, dC = u.new_empty((B, S, DS), **f32), u.new_empty((B, S, DS), **f32)
+    dA = u.new_empty((DI, DS), **f32)
+    if u.device.type == "meta":
+        _meta_call("selective_scan_fused_backward",
+                   FUSED_FLOPS["selective_scan_fused_backward"]
+                   * B * S * DI * DS, "f32", (u, dt, A, Bc, Cc, states, dy),
+                   (du, ddt, dA, dB, dC))
+    else:
+        blocks = fused_blocks(DI, DS)
+        part_b = u.new_empty((blocks, B, S, DS), **f32)
+        part_c = torch.empty_like(part_b)
+        dA_part = u.new_empty((B, DI, DS), **f32)
+        code = build.load().repro_selective_scan_fused_bwd(
+            *map(_ptr, (u, dt, A, Bc, Cc, states, dy, du, ddt, part_b, part_c,
+                        dA_part, dB, dC, dA)), blocks, B, S, DI, DS,
+            Bc.stride(0), Bc.stride(1), Cc.stride(0), Cc.stride(1),
+            _DTYPES[u.dtype], _stream())
+        _raise_on(code, "selective_scan_fused_backward")
+        LAUNCHES["selective_scan_fused_backward"] += 1
+    return du.to(u.dtype), ddt, dA, dB.to(Bc.dtype), dC.to(Cc.dtype)

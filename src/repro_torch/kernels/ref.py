@@ -5,7 +5,9 @@ reads kv head ``h // (H // KV)``) and any sequence length. Flash attention's
 backward is written out as well (``flash_attention_backward_ref``), from the
 row log-sum-exp the forward saves (``flash_attention_lse_ref``). Scores are f32
 and the full score matrix is built, as in ``repro.kernels.ref``. The scan is
-a loop over the sequence. The tests use these, and ``ops`` uses them for
+a loop over the sequence; the fused scan (``selective_scan_fused_ref`` and
+its written-out backward) the same loop a chunk of ``FUSED_CHUNK`` steps at
+a time, with a, b and h.C built and taken per chunk. The tests use these, and ``ops`` uses them for
 tensors on the CPU; on the card the model only reaches them when
 ``Runtime(attn_impl="plain")`` or ``Runtime(scan_impl="plain")`` asks.
 """
@@ -197,3 +199,112 @@ def selective_scan_backward_ref(a: torch.Tensor, h: torch.Tensor,
         db[:, t] = g
         da[:, t] = g * (h[:, t - 1] if t > 0 else hprev0)
     return da, db, None if h0 is None else a[:, 0] * g
+
+
+# The fused scan's state interval: the kernels (``csrc/selective_scan_fused.cu``,
+# kChunk) save the state entering every FUSED_CHUNK-th step for the backward,
+# and the plain versions walk the sequence in chunks of this many steps.
+FUSED_CHUNK = 64
+
+
+def fused_chunks(S: int) -> int:
+    """Chunks of ``FUSED_CHUNK`` steps over a sequence of S (the last may be
+    shorter): the states' second axis."""
+    return -(-S // FUSED_CHUNK)
+
+
+def _fused_chunk(u, dt, A, Bc, t0: int, t1: int):
+    """a = exp(dt * A), w = dt * u and b = w * B of steps [t0, t1), rounded as
+    JAX's ``expand`` rounds them (every product in f32): a, b [B,T,DI,DS],
+    w [B,T,DI]."""
+    dtc = dt[:, t0:t1]
+    a = torch.exp(dtc[..., None] * A)
+    w = dtc * u[:, t0:t1].float()
+    b = w[..., None] * Bc[:, t0:t1].float()[:, :, None, :]
+    return a, b, w
+
+
+def selective_scan_fused_ref(u: torch.Tensor, dt: torch.Tensor,
+                             A: torch.Tensor, Bc: torch.Tensor,
+                             Cc: torch.Tensor, *, want_states: bool = False):
+    """The Mamba recurrence with its inputs built and its read-out taken per
+    chunk: ``h_t = a_t * h_{t-1} + b_t`` from h_{-1} = 0 with a_t = exp(dt_t
+    A) and b_t = dt_t u_t B_t, and ``y_t = sum_n h_t[n] C_t[n]``.
+
+    u: [B,S,DI] (f32 or bf16); dt: [B,S,DI] f32; A: [DI,DS] f32; Bc, Cc:
+    [B,S,DS] in u's dtype -> y [B,S,DI] f32 (and, with ``want_states``, the
+    state entering each chunk, [B, fused_chunks(S), DI, DS] f32, the first
+    zeros). JAX's chunk body (``repro.models.layers.apply_mamba``) run one
+    chunk of ``FUSED_CHUNK`` steps at a time, so no more than a [B, chunk,
+    DI, DS] working set exists; the recurrence in each chunk is the plain
+    loop (a rounded product, then a rounded sum). Differentiable by
+    autograd (without ``want_states``).
+    """
+    B, S, DI = u.shape
+    n = fused_chunks(S)
+    y = u.new_empty((B, S, DI), dtype=torch.float32)
+    h = u.new_zeros((B, DI, A.shape[1]), dtype=torch.float32)
+    states = (u.new_empty((B, n, DI, A.shape[1]), dtype=torch.float32)
+              if want_states else None)
+    for c in range(n):
+        t0, t1 = c * FUSED_CHUNK, min(S, (c + 1) * FUSED_CHUNK)
+        if states is not None:
+            states[:, c] = h
+        a, b, _ = _fused_chunk(u, dt, A, Bc, t0, t1)
+        hs = torch.empty_like(a)
+        for t in range(t1 - t0):
+            h = a[:, t] * h + b[:, t]
+            hs[:, t] = h
+        y[:, t0:t1] = torch.einsum("btin,btn->bti", hs, Cc[:, t0:t1].float())
+    return (y, states) if want_states else y
+
+
+def selective_scan_fused_backward_ref(u: torch.Tensor, dt: torch.Tensor,
+                                      A: torch.Tensor, Bc: torch.Tensor,
+                                      Cc: torch.Tensor, states: torch.Tensor,
+                                      dy: torch.Tensor):
+    """The gradient of ``selective_scan_fused_ref`` written out: (du, ddt,
+    dA, dB, dC) in the dtypes of u, dt, A, Bc, Cc, from the forward's inputs,
+    its chunk states and dy [B,S,DI] f32.
+
+    Each chunk, last first, is recomputed from its saved state (a, b and h),
+    then walked backwards with g, the gradient reaching h_t: ``g_t = dy_t C_t
+    + a_{t+1} g_{t+1}``; with ``dx = g_t h_{t-1} a_t`` (through a = exp(x),
+    x = dt A) and w = dt u: ``ddt = sum_n dx A + u sum_n g B``, ``du = dt
+    sum_n g B``, ``dA = sum_{b,t} dx dt`` (over t last to first, then over
+    b in order), ``dB_t = sum_i g w``, ``dC_t = sum_i dy h_t``. The
+    products and their order are the kernel's; only the sums over n and i
+    may run in another order.
+    """
+    B, S, DI = u.shape
+    DS = A.shape[1]
+    f32 = dict(dtype=torch.float32)
+    du, ddt = u.new_empty((B, S, DI), **f32), u.new_empty((B, S, DI), **f32)
+    dB, dC = u.new_empty((B, S, DS), **f32), u.new_empty((B, S, DS), **f32)
+    dA = u.new_zeros((B, DI, DS), **f32)
+    g = u.new_zeros((B, DI, DS), **f32)
+    a_next = torch.zeros_like(g)
+    for c in range(fused_chunks(S) - 1, -1, -1):
+        t0, t1 = c * FUSED_CHUNK, min(S, (c + 1) * FUSED_CHUNK)
+        a, b, w = _fused_chunk(u, dt, A, Bc, t0, t1)
+        hs = torch.empty_like(a)
+        h = states[:, c]
+        for t in range(t1 - t0):
+            h = a[:, t] * h + b[:, t]
+            hs[:, t] = h
+        Bf, Cf = Bc[:, t0:t1].float(), Cc[:, t0:t1].float()
+        dtc, uc, dyc = dt[:, t0:t1], u[:, t0:t1].float(), dy[:, t0:t1]
+        for t in range(t1 - t0 - 1, -1, -1):
+            g = dyc[:, t, :, None] * Cf[:, t, None, :] + a_next * g
+            dx = (g * (hs[:, t - 1] if t > 0 else states[:, c])) * a[:, t]
+            dA = dA + dx * dtc[:, t, :, None]
+            dw = (g * Bf[:, t, None, :]).sum(-1)
+            ddt[:, t0 + t] = (dx * A).sum(-1) + dw * uc[:, t]
+            du[:, t0 + t] = dw * dtc[:, t]
+            dB[:, t0 + t] = (g * w[:, t, :, None]).sum(1)
+            dC[:, t0 + t] = (dyc[:, t, :, None] * hs[:, t]).sum(1)
+            a_next = a[:, t]
+    dA_sum = dA[0]
+    for i in range(1, B):
+        dA_sum = dA_sum + dA[i]
+    return (du.to(u.dtype), ddt, dA_sum, dB.to(Bc.dtype), dC.to(Cc.dtype))

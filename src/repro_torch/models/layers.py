@@ -879,9 +879,30 @@ def _gate(y, u, z, D, dtype) -> torch.Tensor:
     return (y * F.silu(z.float())).to(dtype)
 
 
+# JAX's chunk of its default Mamba branch (``repro.models.layers.MAMBA_CHUNK``)
+MAMBA_CHUNK = 256
+
+
+def chunked(S: int) -> bool:
+    """Whether a sequence of S takes the fused route: JAX's rule for its
+    chunked branch, S > MAMBA_CHUNK and S % MAMBA_CHUNK == 0."""
+    return S > MAMBA_CHUNK and S % MAMBA_CHUNK == 0
+
+
 def _mamba_y(A_log, D, u, z, dt, Bc, Cc, scan_impl: str, dtype):
     """The recurrence and its read-out on [B,S,di] channels: the gated y
-    before the out-projection (a and b live only in here)."""
+    before the out-projection. Where ``chunked(S)``, the fused scan (a, b
+    and h.C inside it); else a and b built at [B,S,di,ds] and scanned, then
+    contracted with C (they live only in here)."""
+    if chunked(u.shape[1]):
+        A = -torch.exp(A_log)
+        if scan_impl == "kernel":
+            y = ops.selective_scan_fused(u, dt, A, Bc, Cc)
+        elif scan_impl == "plain":
+            y = ref.selective_scan_fused_ref(u, dt, A, Bc, Cc)
+        else:
+            raise ValueError(f"scan_impl {scan_impl!r} not in {SCAN_IMPLS}")
+        return _gate(y, u, z, D, dtype)
     a, b = _scan_inputs(A_log, u, dt, Bc)
     h = _scan(a, b, None, scan_impl)
     del a, b
@@ -893,15 +914,21 @@ def apply_mamba(p: MambaParams, x: torch.Tensor, cfg: ArchConfig, *,
                 scan_impl: str = "kernel") -> torch.Tensor:
     """Full-sequence Mamba mixer. x: [B,S,d] -> [B,S,d].
 
-    The ``scan_impl="pallas"`` branch of the JAX code: a and b are built at
-    [B,S,di,ds] in f32 and the recurrence runs in one scan-kernel launch
-    (``scan_impl="kernel"``) or the plain loop (``"plain"``). Both
-    differentiate: the kernel route through ``ops.SelectiveScan`` (its
-    backward is one reverse-scan kernel launch, from the saved a and h),
-    the plain one through autograd of the loop. JAX differentiates its XLA
-    scans (``scan_impl="chunked"``), which the tests hold the gradients to.
-    Sharded, the recurrence runs on each rank's d_inner channels (the JAX
-    ``_cs(a/b, "dp", None, "tp", None)``).
+    JAX's branch rule (``chunked``): a sequence of S > 256 with S % 256 == 0
+    takes JAX's default chunked branch, here the fused scan: a and b built,
+    the recurrence run and y = h.C taken inside one kernel launch
+    (``ops.selective_scan_fused``, ``csrc/selective_scan_fused.cu``; its
+    plain chunked loop with ``scan_impl="plain"``), so no [B,S,di,ds]
+    tensor exists. Any other S takes the counterpart of JAX's associative
+    branch: a and b built at [B,S,di,ds] in f32, the recurrence in one
+    scan-kernel launch (``ops.selective_scan``; the plain loop with
+    "plain"), then the h.C einsum. Both differentiate: the kernel routes
+    through ``ops.SelectiveScanFused`` (its backward recomputes each chunk
+    from the state saved at its start) and ``ops.SelectiveScan`` (one
+    reverse-scan launch from the saved a and h), the plain ones through
+    autograd of the loops. JAX differentiates its XLA scans, which the
+    tests hold the gradients to. Sharded, the recurrence runs on each
+    rank's d_inner channels (the JAX ``_cs(a/b, "dp", None, "tp", None)``).
     """
     u, z, dt, Bc, Cc, _ = _mamba_pre(p, x, cfg)
     args = (gather_weight(p.A_log), gather_weight(p.D), u, z, dt, Bc, Cc)

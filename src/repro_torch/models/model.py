@@ -353,13 +353,15 @@ def _save_products(ctx, op, *args, **kwargs) -> CheckpointPolicy:
     ``bsd,df->bsf``, the router's ``td,de->te``, Mamba's ``in_proj``,
     ``x_proj``, ``dt_proj``, ``out_proj``) reaches ``aten.bmm`` with a batch
     of 1, not ``aten.mm``; the MoE experts' ``torch.bmm`` has the expert as
-    its batch (JAX's ``ecd,edf``), Mamba's ``h.C`` einsum ``B * S``, plain
-    attention's ``B * kv``: those are recomputed. So the rule is ``aten.mm``,
-    or ``aten.bmm`` whose batch is 1. Everything else is recomputed: norms,
-    elementwise work, the gathers, and the flash and scan kernels, which run
-    through ``ctypes`` inside their ``autograd.Function``s: the dispatcher
-    sees only the ``torch.empty`` a kernel writes into, so no allocation is
-    ever saved, and the kernel runs again in the recompute."""
+    its batch (JAX's ``ecd,edf``), the materialised Mamba route's ``h.C``
+    einsum ``B * S`` (the fused route, at S > 256 with S % 256 == 0, takes
+    h.C inside its kernel and has no einsum), plain attention's ``B * kv``:
+    those are recomputed. So the rule is ``aten.mm``, or ``aten.bmm`` whose
+    batch is 1. Everything else is recomputed: norms, elementwise work, the
+    gathers, and the flash and scan kernels (the fused scan's too), which
+    run through ``ctypes`` inside their ``autograd.Function``s: the
+    dispatcher sees only the ``torch.empty`` a kernel writes into, so no
+    allocation is ever saved, and the kernel runs again in the recompute."""
     if op is torch.ops.aten.mm.default or (
             op is torch.ops.aten.bmm.default and args[0].shape[0] == 1):
         return CheckpointPolicy.MUST_SAVE

@@ -10,8 +10,10 @@ accumulated gradient then goes through ``quant.dequant(quant.quant(g))``
 (per-row int8 and back), as the JAX code does; like it, no error-feedback
 buffer is kept. Attention runs through ``ops.flash_attention`` (the flash
 kernel of the params' dtype and its backward kernel on the card), the Mamba
-recurrence through ``ops.selective_scan`` (the scan kernel and its
-reverse-scan backward kernel, ``ops.SelectiveScan``). The state is
+recurrence through ``ops.selective_scan_fused`` where JAX chunks (S > 256,
+S % 256 == 0: the fused scan pair, ``ops.SelectiveScanFused``) and through
+``ops.selective_scan`` elsewhere (the scan kernel and its reverse-scan
+backward kernel, ``ops.SelectiveScan``). The state is
 
     {"params": DecoderParams, "opt": {"m": moments, "v": moments,
      "count": int32}, "step": int32}

@@ -199,8 +199,8 @@ def test_sharded_forward_counts_a_quarter_per_rank():
 # ---------------------------------------------------------------------------
 
 def _calls(gen):
-    """The flash, decode and scan wrapper calls on tensors from ``gen``
-    (``gen(shape, dtype)``): (name, call)."""
+    """The flash, decode, scan and fused scan wrapper calls on tensors from
+    ``gen`` (``gen(shape, dtype)``): (name, call)."""
     B, Sq, Sk, H, KV, D = 2, 48, 64, 4, 2, 32
     bf = torch.bfloat16
     q, k, v = gen((B, Sq, H, D), bf), gen((B, Sk, KV, D), bf), \
@@ -212,6 +212,9 @@ def _calls(gen):
     h0 = gen((B, 6, 4), torch.float32)
     lens = torch.full((B,), 40, dtype=torch.int32, device=q.device)
     kw = dict(causal=True, window=24, softcap=None)
+    u, Bc, Cc = gen((B, 70, 6), bf), gen((B, 70, 4), bf), gen((B, 70, 4), bf)
+    dt, dy = gen((B, 70, 6), torch.float32), gen((B, 70, 6), torch.float32)
+    A, st = gen((6, 4), torch.float32), gen((B, 2, 6, 4), torch.float32)
     return [
         ("flash_attention", lambda: ops.flash_attention_forward(
             q, k, v, True, 24, None, want_lse=True)),
@@ -222,6 +225,10 @@ def _calls(gen):
         ("selective_scan", lambda: ops.selective_scan_forward(a, b, h0)),
         ("selective_scan_backward", lambda: ops.selective_scan_backward(
             a, b, h0, a)),
+        ("selective_scan_fused", lambda: ops.selective_scan_fused_forward(
+            u, dt, A, Bc, Cc, want_states=True)),
+        ("selective_scan_fused_backward",
+         lambda: ops.selective_scan_fused_backward(u, dt, A, Bc, Cc, st, dy)),
     ]
 
 
@@ -251,13 +258,24 @@ def test_meta_route_matches_the_kernel_outputs_and_reports_the_work(monkeypatch)
         ("flash_attention_backward", 10 * 2 * 4 * 32 * pairs, "bf16"),
         ("decode_attention", 4 * 2 * 4 * 64 * 32, "f32"),
         ("selective_scan", 0, "f32"),
-        ("selective_scan_backward", 0, "f32")]
+        ("selective_scan_backward", 0, "f32"),
+        ("selective_scan_fused", 7 * 2 * 70 * 6 * 4, "f32"),
+        ("selective_scan_fused_backward", 25 * 2 * 70 * 6 * 4, "f32")]
     # bytes: q, k, v read, o and lse written, never the scores
     qb, kb, ob, lb = 2 * 48 * 4 * 32 * 2, 2 * 64 * 2 * 32 * 2, \
         2 * 48 * 4 * 32 * 2, 2 * 4 * 48 * 4
     assert seen[0][3:] == (qb + 2 * kb, ob + lb)
     assert seen[1][3:] == (2 * qb + 2 * kb + ob + lb, qb + 2 * kb)
     assert seen[3][3:] == (2 * 2 * 8 * 24 * 4 + 2 * 24 * 4, 2 * 8 * 24 * 4)
+    # the fused scan: its operands read (u, Bc, Cc in bf16) and y and the
+    # chunk states written; backward, the states and dy read too and du,
+    # ddt, dA, dB and dC written in f32 (the kernel's; du, dB and dC are
+    # cast to bf16 after it), never a [B,S,DI,DS] tensor
+    ub, rb, fb = 2 * 70 * 6 * 2, 2 * 70 * 4 * 2, 2 * 70 * 6 * 4
+    sb, ab = 2 * 2 * 6 * 4 * 4, 6 * 4 * 4
+    assert seen[5][3:] == (ub + fb + ab + 2 * rb, fb + sb)
+    assert seen[6][3:] == (ub + 2 * fb + ab + 2 * rb + sb,
+                           2 * fb + ab + 4 * rb)
 
 
 def test_cpu_calls_are_unchanged(monkeypatch):

@@ -978,3 +978,159 @@ def test_bf16_backward_factor_order_meets_the_tolerance_of_the_other(case):
         _close_to_max(b.numpy(), w.numpy(), TOL["bf16"])
         scale = float(w.abs().max())
         assert float((a - b).abs().max()) <= 2e-3 * scale
+
+
+# The fused scan (``ref.selective_scan_fused_ref``: a and b built and h.C
+# taken per chunk of ``ref.FUSED_CHUNK`` steps), which ``ops`` runs for CPU
+# tensors on the fused route and the CUDA kernels of
+# ``csrc/selective_scan_fused.cu`` are held to on the card: S below, at and
+# past a chunk, ragged, S = 1, d_state from 3 to 16, f32 and bf16 operands.
+FUSED_CASES = [
+    # (B, S, DI, DS, dtype)
+    (2, 150, 12, 5, "f32"),
+    (1, 64, 16, 16, "f32"),
+    (2, 65, 8, 16, "f32"),
+    (1, 1, 4, 3, "f32"),
+    (2, 300, 24, 8, "bf16"),
+    (1, 129, 40, 16, "bf16"),
+]
+
+
+def _fused_inputs(case, seed=9):
+    """u, dt, A, Bc, Cc and dy as torch tensors (u, Bc, Cc in the case's
+    dtype): dt in (0, 0.5), A = -exp(normal), as the mixer makes them."""
+    B, S, DI, DS, dt_name = case
+    rng = np.random.default_rng(seed)
+    u, Bc, Cc = (torch.from_numpy(_np(rng, s)).to(TDT[dt_name])
+                 for s in ((B, S, DI), (B, S, DS), (B, S, DS)))
+    dt = torch.from_numpy(rng.uniform(0.0, 0.5, (B, S, DI)).astype(np.float32))
+    A = -torch.from_numpy(np.exp(_np(rng, (DI, DS))))
+    return u, dt, A, Bc, Cc, torch.from_numpy(_np(rng, (B, S, DI)))
+
+
+@pytest.mark.parametrize("case", FUSED_CASES)
+def test_selective_scan_fused_ref_matches_the_materialised_route(case):
+    """y against a and b built at [B,S,DI,DS], the plain scan and the h.C
+    einsum (the same products and the same loop: 1e-6), and against JAX's
+    oracle (its associative scan) with the same einsum (2e-5 of the largest
+    magnitude); each chunk's state is the materialised h before it, bit for
+    bit."""
+    u, dt, A, Bc, Cc, _ = _fused_inputs(case)
+    y, states = ref.selective_scan_fused_ref(u, dt, A, Bc, Cc, want_states=True)
+    B, S, DI, DS, _ = case
+    assert y.dtype == torch.float32 and y.shape == (B, S, DI)
+    assert states.shape == (B, ref.fused_chunks(S), DI, DS)
+    a = torch.exp(dt[..., None] * A)
+    b = (dt * u.float())[..., None] * Bc.float()[:, :, None, :]
+    h = ref.selective_scan_ref(a, b)
+    want = torch.einsum("bsin,bsn->bsi", h, Cc.float())
+    np.testing.assert_allclose(y.numpy(), want.numpy(), rtol=1e-6, atol=1e-6)
+    assert torch.equal(states[:, 0], torch.zeros_like(states[:, 0]))
+    for c in range(1, states.shape[1]):
+        assert torch.equal(states[:, c], h[:, c * ref.FUSED_CHUNK - 1])
+    hj = jref.selective_scan_ref(jnp.asarray(a.numpy()), jnp.asarray(b.numpy()))
+    _close_to_max(y.numpy(), jnp.einsum("bsin,bsn->bsi", hj,
+                                        jnp.asarray(Cc.float().numpy())))
+    assert torch.equal(ref.selective_scan_fused_ref(u, dt, A, Bc, Cc), y)
+    assert torch.equal(ops.selective_scan_fused(u, dt, A, Bc, Cc), y)
+
+
+@pytest.mark.parametrize("case", FUSED_CASES)
+def test_selective_scan_fused_backward_ref_matches_autograd(case):
+    """The written-out backward (each chunk recomputed from its saved
+    state) against autograd through the plain forward: within 1e-6 of each
+    gradient's largest magnitude in f32 (only the order of the sums over n
+    and the channels differ), 2e-2 in bf16 (du, dB, dC round to bf16)."""
+    u, dt, A, Bc, Cc, dy = _fused_inputs(case, seed=10)
+    _, states = ref.selective_scan_fused_ref(u, dt, A, Bc, Cc, want_states=True)
+    leaves = [t.clone().requires_grad_(True) for t in (u, dt, A, Bc, Cc)]
+    want = torch.autograd.grad(ref.selective_scan_fused_ref(*leaves), leaves, dy)
+    got = ref.selective_scan_fused_backward_ref(u, dt, A, Bc, Cc, states, dy)
+    tol = 1e-6 if case[4] == "f32" else TOL["bf16"]
+    for g, w, x in zip(got, want, (u, dt, A, Bc, Cc)):
+        assert g.dtype == x.dtype and g.shape == x.shape
+        _close_to_max(g.float().numpy(), w.float().numpy(), tol)
+
+
+@pytest.mark.parametrize("case", FUSED_CASES[:3])
+def test_selective_scan_fused_grad_on_cpu_takes_the_plain_backward(
+        case, monkeypatch):
+    """With grad on, ``ops.selective_scan_fused`` goes through
+    ``SelectiveScanFused``: its CPU forward keeps the plain forward's chunk
+    states, its backward is the plain written-out backward, called once,
+    launching nothing, giving its bits; an operand without grad gets
+    None. Without grad, no graph."""
+    u, dt, A, Bc, Cc, dy = _fused_inputs(case, seed=11)
+    calls = []
+    plain_bwd = ref.selective_scan_fused_backward_ref
+    monkeypatch.setattr(ref, "selective_scan_fused_backward_ref",
+                        lambda *x: calls.append(1) or plain_bwd(*x))
+    leaves = [t.clone().requires_grad_(i != 2)
+              for i, t in enumerate((u, dt, A, Bc, Cc))]
+    before = dict(ops.LAUNCHES)
+    out = ops.selective_scan_fused(*leaves)
+    assert "SelectiveScanFused" in type(out.grad_fn).__name__
+    need = [x for x in leaves if x.requires_grad]
+    got = torch.autograd.grad(out, need, dy)
+    assert calls == [1] and ops.LAUNCHES == before
+    _, states = ref.selective_scan_fused_ref(u, dt, A, Bc, Cc, want_states=True)
+    want = plain_bwd(u, dt, A, Bc, Cc, states, dy)
+    assert all(torch.equal(g, w)
+               for g, w in zip(got, [w for i, w in enumerate(want) if i != 2]))
+    with torch.no_grad():
+        assert ops.selective_scan_fused(*leaves).grad_fn is None
+
+
+@pytest.mark.parametrize("bad", ["u", "dt", "A", "rows", "dtype", "mixed",
+                                 "d_state"])
+def test_selective_scan_fused_rejects_bad_operands(bad):
+    B, S, DI, DS = 2, 8, 4, 3
+    u, dt = torch.zeros(B, S, DI), torch.zeros(B, S, DI)
+    A, Bc, Cc = torch.zeros(DI, DS), torch.zeros(B, S, DS), torch.zeros(B, S, DS)
+    if bad == "u":
+        u = torch.zeros(B, S + 1, DI)
+    elif bad == "dt":
+        dt = dt.to(torch.bfloat16)
+    elif bad == "A":
+        A = torch.zeros(DI + 1, DS)
+    elif bad == "rows":
+        Cc = torch.zeros(B, S, DS + 1)
+    elif bad == "dtype":
+        u, Bc, Cc = u.double(), Bc.double(), Cc.double()
+    elif bad == "mixed":
+        Bc = Bc.to(torch.bfloat16)
+    else:
+        A, Bc, Cc = torch.zeros(DI, 33), torch.zeros(B, S, 33), torch.zeros(B, S, 33)
+    with pytest.raises(ValueError):
+        ops.selective_scan_fused(u, dt, A, Bc, Cc)
+
+
+@pytest.mark.parametrize("bad", ["states", "dy_shape", "dy_dtype"])
+def test_selective_scan_fused_backward_rejects_bad_operands(bad):
+    B, S, DI, DS = 2, 70, 4, 3
+    u, dt, dy = (torch.zeros(B, S, DI) for _ in range(3))
+    A, Bc, Cc = torch.zeros(DI, DS), torch.zeros(B, S, DS), torch.zeros(B, S, DS)
+    states = torch.zeros(B, ref.fused_chunks(S), DI, DS)
+    if bad == "states":
+        states = torch.zeros(B, 1, DI, DS)
+    elif bad == "dy_shape":
+        dy = torch.zeros(B, S - 1, DI)
+    else:
+        dy = dy.double()
+    with pytest.raises(ValueError):
+        ops.selective_scan_fused_backward(u, dt, A, Bc, Cc, states, dy)
+
+
+@pytest.mark.parametrize("DS,lanes", [(1, 8), (3, 8), (8, 8), (9, 16),
+                                      (16, 16), (17, 32), (32, 32)])
+def test_fused_lanes_and_blocks(DS, lanes):
+    """A channel takes DS rounded up to 8, 16 or 32 lanes; a block of 256
+    threads 256 / lanes channels, so falcon-mamba's DI 8192 at DS 16 is 512
+    blocks; DS above 32 raises."""
+    assert ops.fused_lanes(DS) == lanes
+    per = ops.FUSED_THREADS // lanes
+    assert ops.fused_blocks(8192, DS) == 8192 // per
+    assert ops.fused_blocks(per + 1, DS) == 2
+    assert ops.fused_blocks(8192, 16) == 512
+    with pytest.raises(ValueError):
+        ops.fused_lanes(33)

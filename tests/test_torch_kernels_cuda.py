@@ -1175,3 +1175,129 @@ def test_attention_launches_record_their_built_head_dim(card, D, dt):
         want = ref.flash_attention_backward_ref(q, k, v, out, lse, dout)
         for a, b in zip(grads, want):
             assert_close_to_max(a, b, BWD_TOL)
+
+
+# The fused scan's kernels (csrc/selective_scan_fused.cu) against their plain
+# versions: falcon-mamba's train shape in f32 and bf16, a ragged S (not a
+# multiple of the kernels' 64-step chunks), a reduced width, d_state 8 (the
+# reduced configs'), 3 and 32 (the 8- and 32-lane instances) and a DI that
+# is not a multiple of a block's channels; y within 2e-5 (f32
+# accumulation in another order over n), the backward within 2e-5 of each
+# gradient's largest magnitude, every kernel bitwise repeatable.
+FUSED_CASES = [
+    # (B, S, DI, DS, dtype)
+    (2, 2048, 8192, 16, "f32"),
+    (2, 2048, 8192, 16, "bf16"),
+    (2, 1000, 512, 16, "f32"),
+    (1, 333, 256, 8, "bf16"),
+    (2, 130, 40, 3, "f32"),
+    (1, 200, 24, 32, "f32"),
+]
+
+
+def _fused_operands(card, B, S, DI, DS, dt_name, seed=0):
+    g = torch.Generator(device=card).manual_seed(seed)
+    u = torch.randn((B, S, DI), generator=g, device=card).to(TDT[dt_name])
+    rows = torch.randn((B, S, 2 * DS + 3), generator=g,
+                       device=card).to(TDT[dt_name])
+    Bc, Cc = rows[..., 3:3 + DS], rows[..., 3 + DS:]   # x_proj's split views
+    dt = torch.rand((B, S, DI), generator=g, device=card) * 0.1
+    A = -torch.exp(torch.randn((DI, DS), generator=g, device=card))
+    dy = torch.randn((B, S, DI), generator=g, device=card)
+    return u, dt, A, Bc, Cc, dy
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", FUSED_CASES)
+def test_selective_scan_fused_kernels_match_plain(card, case):
+    u, dt, A, Bc, Cc, dy = _fused_operands(card, *case)
+    n = dict(ops.LAUNCHES)
+    y, states = ops.selective_scan_fused_forward(u, dt, A, Bc, Cc,
+                                                 want_states=True)
+    got = ops.selective_scan_fused_backward(u, dt, A, Bc, Cc, states, dy)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["selective_scan_fused"] == n["selective_scan_fused"] + 1
+    assert (ops.LAUNCHES["selective_scan_fused_backward"]
+            == n["selective_scan_fused_backward"] + 1)
+    want_y, want_states = ref.selective_scan_fused_ref(u, dt, A, Bc, Cc,
+                                                       want_states=True)
+    torch.testing.assert_close(y, want_y, rtol=2e-5, atol=2e-5)
+    torch.testing.assert_close(states, want_states, rtol=2e-5, atol=2e-5)
+    want = ref.selective_scan_fused_backward_ref(u, dt, A, Bc, Cc, states, dy)
+    for name, x, w in zip(("du", "ddt", "dA", "dB", "dC"), got, want):
+        assert x.dtype == w.dtype and x.shape == w.shape, name
+        assert_close_to_max(x.float(), w.float(),
+                            2e-5 if case[4] == "f32" else TOL["bf16"], name)
+    y2, s2 = ops.selective_scan_fused_forward(u, dt, A, Bc, Cc,
+                                              want_states=True)
+    assert torch.equal(y, y2) and torch.equal(states, s2)
+    assert torch.equal(y, ops.selective_scan_fused(u, dt, A, Bc, Cc))
+    again = ops.selective_scan_fused_backward(u, dt, A, Bc, Cc, states, dy)
+    assert all(torch.equal(x, w) for x, w in zip(got, again))
+
+
+@pytest.mark.cuda
+def test_selective_scan_fused_autograd_on_card(card):
+    """ops.selective_scan_fused with grad: one counted launch of the forward
+    and of the backward, against autograd through the plain forward."""
+    u, dt, A, Bc, Cc, dy = _fused_operands(card, 2, 300, 64, 16, "f32", seed=1)
+    leaves = [t.clone().requires_grad_(True) for t in (u, dt, A, Bc, Cc)]
+    n = dict(ops.LAUNCHES)
+    got = torch.autograd.grad(ops.selective_scan_fused(*leaves), leaves, dy)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["selective_scan_fused"] == n["selective_scan_fused"] + 1
+    assert (ops.LAUNCHES["selective_scan_fused_backward"]
+            == n["selective_scan_fused_backward"] + 1)
+    want = torch.autograd.grad(ref.selective_scan_fused_ref(*leaves), leaves, dy)
+    for x, w in zip(got, want):
+        assert_close_to_max(x, w, 2e-5, "fused grad")
+
+
+@pytest.mark.cuda
+def test_bare_fused_scan_call_refuses_grad(card):
+    u, dt, A, Bc, Cc, _ = _fused_operands(card, 1, 8, 16, 4, "f32")
+    with pytest.raises(NotImplementedError, match="SelectiveScanFused"):
+        ops.selective_scan_fused_forward(u.requires_grad_(True), dt, A, Bc,
+                                         Cc, want_states=False)
+
+
+@pytest.mark.cuda
+def test_fused_blocks_match_the_kernels(card):
+    """``ops.fused_blocks`` (the backward's partials) is the C side's count."""
+    from repro_torch.kernels import build
+    lib = build.load()
+    for DI in (1, 24, 40, 256, 8192, 8193):
+        for DS in (1, 3, 8, 9, 16, 17, 32):
+            assert lib.repro_selective_scan_fused_blocks(DI, DS) == \
+                ops.fused_blocks(DI, DS)
+    assert lib.repro_selective_scan_fused_blocks(8192, 33) == 0
+
+
+@pytest.mark.cuda
+def test_mamba_layer_takes_the_fused_route_on_card(card):
+    """A reduced falcon-mamba at S = 512 (JAX's chunked branch): one fused
+    forward and backward launch a layer and no materialised scan, the loss
+    gradient against the plain path's."""
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.models import model as M
+    from repro_torch.training import loss_fn
+    cfg = reduced(get_config("falcon-mamba-7b"), n_layers=2)
+    p = M.init_params(torch.Generator(device=card).manual_seed(0), cfg,
+                      torch.float32, card).requires_grad_(True)
+    toks = torch.randint(0, cfg.vocab, (2, 513), device=card)
+    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:].to(torch.int32)}
+    leaves = list(p.parameters())
+    n = dict(ops.LAUNCHES)
+    got = torch.autograd.grad(
+        loss_fn(p, batch, cfg, M.Runtime(scan_impl="kernel", remat="none"))[0],
+        leaves)
+    torch.cuda.synchronize()
+    delta = {k: ops.LAUNCHES[k] - n[k] for k in n}
+    assert delta["selective_scan_fused"] == cfg.n_layers
+    assert delta["selective_scan_fused_backward"] == cfg.n_layers
+    assert delta["selective_scan"] == delta["selective_scan_backward"] == 0
+    want = torch.autograd.grad(
+        loss_fn(p, batch, cfg, M.Runtime(scan_impl="plain", remat="none"))[0],
+        leaves)
+    for (name, _), x, y in zip(p.named_parameters(), got, want):
+        assert_close_to_max(x, y, BWD_TOL, name)

@@ -69,7 +69,7 @@ def test_mamba_leaves_and_init():
 
 
 @pytest.mark.parametrize("S,jax_impl", [(16, "pallas"), (512, "pallas"),
-                                        (512, "chunked")])
+                                        (512, "chunked"), (1024, "chunked")])
 def test_apply_mamba_matches_jax(S, jax_impl):
     cfg, tcfg = _configs()
     p, tp = _mixer(cfg, tcfg)
@@ -81,13 +81,58 @@ def test_apply_mamba_matches_jax(S, jax_impl):
         _close(got.numpy(), want)
 
 
-@pytest.mark.parametrize("S", [16, 512])
+def test_apply_mamba_bf16_fused_matches_jax():
+    """bf16 weights and input at S = 512: the fused route (u, Bc and Cc in
+    bf16, converted in the scan) against JAX's chunked branch, 2e-2."""
+    cfg, tcfg = _configs()
+    p, _ = JL.init_mamba(KEY, cfg, jnp.bfloat16)
+    tp = TL.MambaParams(tcfg, torch.bfloat16, "cpu")
+    for name, leaf in jax.tree.map(np.asarray, p).items():
+        with torch.no_grad():
+            getattr(tp, name).copy_(bridge.to_torch(leaf, "cpu"))
+    x = np.random.default_rng(4).standard_normal((2, 512, cfg.d_model))
+    xj = jnp.asarray(x, jnp.bfloat16)
+    want = JL.apply_mamba(p, xj, cfg, scan_impl="chunked")
+    got = TL.apply_mamba(tp, bridge.to_torch(np.asarray(xj), "cpu"), tcfg)
+    assert got.dtype == torch.bfloat16
+    _close(got.float().numpy(), np.asarray(want, np.float32), TOL["bfloat16"])
+
+
+@pytest.mark.parametrize("S,route", [(256, "materialised"), (520, "materialised"),
+                                     (16, "materialised"), (512, "fused"),
+                                     (768, "fused")])
+def test_mamba_route_follows_jax_branch_rule(S, route, monkeypatch):
+    """JAX chunks where S > 256 and S % 256 == 0 (``MAMBA_CHUNK``); the port
+    takes the fused scan exactly there, the materialised scan elsewhere,
+    under either ``scan_impl``."""
+    assert TL.MAMBA_CHUNK == JL.MAMBA_CHUNK
+    assert TL.chunked(S) == (route == "fused")
+    _, tcfg = _configs()
+    tp = TL.MambaParams(tcfg, torch.float32, "cpu")
+    TL.init_mamba(tp, torch.Generator().manual_seed(0), tcfg)
+    x = torch.randn(1, S, tcfg.d_model, generator=torch.Generator().manual_seed(1))
+    seen = []
+    for name in ("selective_scan_fused_ref", "selective_scan_ref"):
+        fn = getattr(ref, name)
+        monkeypatch.setattr(ref, name, lambda *a, _f=fn, _n=name, **k:
+                            seen.append(_n) or _f(*a, **k))
+    want = {"fused": "selective_scan_fused_ref",
+            "materialised": "selective_scan_ref"}[route]
+    for impl in TL.SCAN_IMPLS:
+        seen.clear()
+        TL.apply_mamba(tp, x, tcfg, scan_impl=impl)
+        assert seen == [want], impl
+
+
+@pytest.mark.parametrize("S", [16, 512, 1024])
 def test_apply_mamba_grad_matches_jax(S, monkeypatch):
     """The mixer's gradient (every param leaf and the input) of a weighted
-    sum of its output, through the port's kernel route (``ops.SelectiveScan``
-    on the CPU: the plain reverse loop) against ``jax.grad`` of JAX's chunked
-    path (the associative scan at S <= 256), which JAX trains through:
-    within 2e-5 of each leaf's largest magnitude."""
+    sum of its output, through the port's kernel route (on the CPU the
+    plain backward of ``ops.SelectiveScan``, the reverse loop, at S = 16;
+    of ``ops.SelectiveScanFused``, the chunked reverse loop, at S = 512 and
+    1024) against ``jax.grad`` of JAX's chunked path (the associative scan
+    at S <= 256), which JAX trains through: within 2e-5 of each leaf's
+    largest magnitude. Exactly one backward of the route's scan ran."""
     cfg, tcfg = _configs()
     p, tp = _mixer(cfg, tcfg)
     rng = np.random.default_rng(3)
@@ -98,17 +143,22 @@ def test_apply_mamba_grad_matches_jax(S, monkeypatch):
         return jnp.sum(JL.apply_mamba(params, xx, cfg, scan_impl="chunked")
                        * jnp.asarray(w))
     want_p, want_x = jax.grad(jloss, argnums=(0, 1))(p, jnp.asarray(x))
-    calls = []
-    plain_bwd = ref.selective_scan_backward_ref
-    monkeypatch.setattr(ref, "selective_scan_backward_ref",
-                        lambda *a: calls.append(1) or plain_bwd(*a))
+    calls = {"selective_scan_backward_ref": [],
+             "selective_scan_fused_backward_ref": []}
+    for name, seen in calls.items():
+        plain_bwd = getattr(ref, name)
+        monkeypatch.setattr(ref, name, lambda *a, _f=plain_bwd, _s=seen:
+                            _s.append(1) or _f(*a))
     tp.requires_grad_(True)
     tx = torch.from_numpy(x).requires_grad_(True)
     out = TL.apply_mamba(tp, tx, tcfg, scan_impl="kernel")
     names = sorted(want_p)
     leaves = [getattr(tp, n) for n in names] + [tx]
     got = torch.autograd.grad((out * torch.from_numpy(w)).sum(), leaves)
-    assert calls == [1]      # the scan's gradient came from its backward
+    # the scan's gradient came from its route's backward
+    ran = ("selective_scan_fused_backward_ref" if TL.chunked(S)
+           else "selective_scan_backward_ref")
+    assert calls == {name: [1] if name == ran else [] for name in calls}
     for name, g, want in zip(names + ["x"], got,
                              [want_p[n] for n in names] + [want_x]):
         want = np.asarray(want, np.float32)

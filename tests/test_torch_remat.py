@@ -232,3 +232,34 @@ def test_runtime_rejects_unknown_remat():
     assert TM.Runtime().remat == JM.Runtime().remat == "block"
     with pytest.raises(ValueError, match="remat"):
         TM.Runtime(remat="bogus")
+
+
+@pytest.mark.parametrize("remat", ["block", "full"])
+def test_fused_mamba_remat_is_bitwise_none(remat):
+    """falcon-mamba at S = 512 takes JAX's chunked branch (the fused scan;
+    on the CPU its plain versions through ``ops.SelectiveScanFused``): one
+    microbatch's loss and grads under remat are bitwise those without, and
+    "block" keeps exactly the block's four projections there too (the
+    fused scan, like the materialised one, is recomputed)."""
+    _, cfg = _configs("falcon-mamba-7b")
+    params = TM.init_params(torch.Generator().manual_seed(0), cfg,
+                            torch.float32, "cpu").requires_grad_(True)
+    g = torch.Generator().manual_seed(1)
+    toks = torch.randint(0, cfg.vocab, (2, 513), generator=g)
+    mb = {"tokens": toks[:, :-1], "labels": toks[:, 1:].to(torch.int32)}
+    leaves = list(params.parameters())
+    with _deterministic():
+        out = {}
+        for r in ("none", remat):
+            loss = TLoss.loss_fn(params, mb, cfg, TM.Runtime(remat=r))[0]
+            out[r] = (loss, torch.autograd.grad(loss, leaves))
+    assert torch.equal(out["none"][0], out[remat][0])
+    assert all(torch.equal(a, b) for a, b in zip(out["none"][1], out[remat][1]))
+    if remat == "block":
+        nb = len(cfg.block)
+        x = torch.randn(2, 512, cfg.d_model, generator=g)
+        mode = _Saved()
+        with mode:
+            TM._block(params.layers[:nb], cfg.layer_kinds()[:nb], x,
+                      torch.arange(512)[None], None, None, cfg, TM.Runtime())
+        assert mode.saved == _projections(cfg, 2 * 512, 0)

@@ -29,7 +29,10 @@ Cases, on a (2, 2) ("data", "model") mesh unless said:
     token ties and picks the lowest ids, and the forward's blocks of 128
     overflow their capacity (96): the tie break and the pinned slot-0
     overflow rule hold sharded;
-  * falcon-mamba: d_inner on model ("inner");
+  * falcon-mamba: d_inner on model ("inner"); falcon-mamba-512 the same
+    at S = 512 (forward [2, 512], train [1, 2, 512]): JAX's chunked branch,
+    the fused scan on each rank's d_inner channels, whose dB and dC are
+    partial sums over them;
   * jamba: Mamba + attention + MoE in one block;
   * seamless: the encoder-decoder, its cross cache on ``kv_seq``;
   * internlm2-pad: 3 heads / 1 kv padded to 4 for model 2
@@ -95,6 +98,8 @@ CASES = {
     "grok-chunk-dp": ("grok-1-314b", {}, (4, 1), True, "float32",
                       dict(moe_chunk=16, train=(1, 4, 8), zero_router=True)),
     "falcon-mamba": ("falcon-mamba-7b", {}, (2, 2), True, "float32"),
+    "falcon-mamba-512": ("falcon-mamba-7b", {}, (2, 2), True, "float32",
+                         dict(fwd=(2, 512), train=(1, 2, 512))),
     "jamba": ("jamba-1.5-large-398b", dict(d_model=64, d_ff=128), (2, 2),
               True, "float32"),
     "seamless": ("seamless-m4t-large-v2", {}, (2, 2), True, "float32"),

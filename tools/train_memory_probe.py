@@ -64,7 +64,27 @@ ALLOCATIONS = {
     "selective_scan_backward_ref": lambda a, h, h0, dh: (
         torch.zeros_like(a), torch.zeros_like(a),
         None if h0 is None else torch.zeros_like(h0)),
+    "selective_scan_fused_ref": lambda u, dt, A, Bc, Cc, want_states=False: (
+        (torch.zeros(u.shape), torch.zeros(
+            u.shape[0], ref.fused_chunks(u.shape[1]), *A.shape))
+        if want_states else torch.zeros(u.shape)),
+    "selective_scan_fused_backward_ref": lambda u, dt, A, Bc, Cc, st, dy:
+        _fused_backward(u, A, Bc),
 }
+
+
+def _fused_backward(u, A, Bc):
+    """What ``ops.selective_scan_fused_backward`` allocates on the card: its
+    f32 outputs (du, ddt, dB, dC, dA), the scratch of the per-block partials
+    (freed at its return), then du, dB and dC in the operands' dtype."""
+    from repro_torch.kernels import ops
+    (B, S, DI), DS = u.shape, A.shape[1]
+    du, ddt = torch.zeros(B, S, DI), torch.zeros(B, S, DI)
+    dB, dC, dA = torch.zeros(B, S, DS), torch.zeros(B, S, DS), torch.zeros(A.shape)
+    scratch = [torch.zeros(ops.fused_blocks(DI, DS), B, S, DS)
+               for _ in range(2)] + [torch.zeros(B, DI, DS)]
+    del scratch
+    return du.to(u.dtype), ddt, dA, dB.to(Bc.dtype), dC.to(Bc.dtype)
 
 
 class LiveBytes(TorchDispatchMode):
@@ -135,7 +155,7 @@ def per_token(full, dtype, remat: str, s1: int, s2: int) -> tuple:
         return (got[units, s2][i] - got[units, s1][i]) / (s2 - s1)
     # the reckoning by the same difference (an MoE layer's capacity is a
     # step function of the tokens)
-    chain = {S: chip_smoke.train_units(cfg, nb, S, dtype, remat)
+    chain = {S: chip_smoke.train_units(cfg, nb, S, dtype, remat, seq=S)
              for S in (s1, s2)}
     r_kept = (sum(k for k, _, _ in chain[s2])
               - sum(k for k, _, _ in chain[s1])) / (s2 - s1)
