@@ -52,8 +52,9 @@ non-causal). Phases:
    (``ops.DECODE_ROUTES``), bitwise repeatable and the same bits with lse;
    the fused scan (``csrc/selective_scan_fused.cu``: a and b built and h.C
    taken in the kernel) at falcon-mamba's train shape [2, 2048, 8192, 16]
-   with u, Bc and Cc in f32 and in bf16, at a ragged S of 1000 and at a
-   reduced width [2, 512, 1024, 8]: y and the chunk states within 2e-5 of
+   with u, Bc and Cc in f32 and in bf16, at a ragged S of 1000, at a
+   reduced width [2, 512, 1024, 8], at d_state 12 over a DI of 200 (4
+   blocks, the last cut) and at d_state 32: y and the states within 2e-5 of
    the plain chunked loop, its backward's five gradients within 2e-5 of
    each one's largest magnitude (2e-2 for the bf16 ones), every output
    bitwise equal on a second call (``FUSED_CASES``);
@@ -1602,12 +1603,17 @@ def check_scan_backward(g, case) -> float:
 FUSED_CASES = [
     # (B, S, DI, DS, dtype of u, Bc and Cc): falcon-mamba's train shape in
     # f32 (phase 7's) and bf16 (phase 3b's), a ragged S (not a multiple of
-    # the kernels' 64-step chunks) and a reduced width (the reduced
-    # configs' d_state 8, the 8-lane instance)
+    # the kernels' 16-step intervals or the forward's 64-step stages), a
+    # reduced width (the reduced configs' d_state 8, the 2-state instance),
+    # d_state 12 (the 4-state instance with its last thread of a channel
+    # idle) over a DI of 200 (not a multiple of a block's 64 channels) and
+    # d_state 32 (32 channels a block)
     (2, 2048, 8192, 16, torch.float32),
     (2, 2048, 8192, 16, torch.bfloat16),
     (2, 1000, 8192, 16, torch.float32),
     (2, 512, 1024, 8, torch.bfloat16),
+    (2, 300, 200, 12, torch.bfloat16),
+    (2, 512, 1024, 32, torch.float32),
 ]
 
 
@@ -2755,8 +2761,8 @@ def time_fused(cfg) -> dict:
     the bytes the function moves (forward: u, dt, A, Bc, Cc read, y and the
     chunk states written; backward: those, the states and dy read, du, ddt,
     dA, dB and dC written) and its f32 operations (``ops.FUSED_FLOPS`` a
-    state element); the SFUs' exponentials (one an element forward, 1.75
-    backward) are printed beside it. No PyTorch call computes a linear
+    state element); the SFUs' exponentials (one an element in each) are
+    printed beside it. No PyTorch call computes a linear
     recurrence, so there is no library time. Also the bf16 forward (phase
     3b's operands)."""
     g = torch.Generator(device=DEVICE).manual_seed(SEED + 22)
@@ -2778,7 +2784,7 @@ def time_fused(cfg) -> dict:
                    + B * S * DI * (e + 4) + DI * DS * 4 + rows)
         kinds = [("forward", fwd, bytes_f, (SSF_FWD,), 1.0)]
         if dtype == torch.float32:
-            kinds.append(("backward", bwd, bytes_b, SSF_BWD, 1.75))
+            kinds.append(("backward", bwd, bytes_b, SSF_BWD, 1.0))
         for kind, fn, nbytes, names, exps in kinds:
             name = ("selective_scan_fused" if kind == "forward"
                     else "selective_scan_fused_backward")
@@ -3430,7 +3436,7 @@ def layer_memory(cfg, tokens: int, dtype, enc: bool = False,
     - mamba, at a sequence of ``seq`` (``layers.chunked``: JAX's chunked
       branch, the fused scan): eleven [N, DI] (seven f32, four in the
       activations' dtype), the input and the dt and B/C rows, and the
-      fused scan's chunk states ([N / 64, DI, DS] f32, saved by
+      fused scan's states ([N / 16, DI, DS] f32, saved by
       ``ops.SelectiveScanFused``); the backward adds nothing beside what
       its recompute rebuilds in f32 (the fused backward's outputs and its
       partials take the place of the forward tensors it frees), one and a

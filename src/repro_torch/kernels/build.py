@@ -164,10 +164,13 @@ def load() -> ctypes.CDLL:
     # the floats of a cluster's record in its scratch (not launches)
     lib.repro_decode_group_smem.argtypes = [_I] * 6
     lib.repro_decode_group_record.argtypes = [_I] * 2
-    # the fused scan's channel blocks (its backward's partials; not a launch)
+    # the fused scan's channel blocks (its backward's partials) and a block's
+    # dynamic shared memory (not launches)
     lib.repro_selective_scan_fused_blocks.argtypes = [_I] * 2
+    lib.repro_selective_scan_fused_smem.argtypes = [_I] * 3
     for name in ("repro_flash_tc_smem", "repro_flash_tc_bwd_smem",
                  "repro_selective_scan_fused_blocks",
+                 "repro_selective_scan_fused_smem",
                  "repro_flash_cluster_ranks", "repro_flash_cluster_occupancy",
                  "repro_decode_group_smem", "repro_decode_group_record"):
         getattr(lib, name).restype = ctypes.c_int

@@ -919,25 +919,29 @@ def _launch_selective_scan(a, b, h0, out, variant: str) -> None:
 FUSED_THREADS = 256   # a block of the fused kernels (kThreads)
 # the kernels' f32 operations a state element (b, t, i, n), the exponential
 # counted as one: forward a = exp(dt A), b = (dt u) B, h = a h + b, y += h C
-# (7); backward pass A and pass B's recompute (5 each, pass A over 3/4 of
-# the steps), g, dx, dA, the two sums over n and the two over the channels
-# (16)
-FUSED_FLOPS = {"selective_scan_fused": 7, "selective_scan_fused_backward": 25}
+# (7); backward the interval's recompute (5), g (3), dx (2), dA (2), the two
+# sums over n (4) and the two over the channels (4)
+FUSED_FLOPS = {"selective_scan_fused": 7, "selective_scan_fused_backward": 20}
+# the fused kernels' layout by the lanes a channel would take at one state a
+# lane (d_state up to 8, 16, 32): (states a thread, threads a channel)
+FUSED_LAYOUT = {8: (2, 4), 16: (4, 4), 32: (4, 8)}
 
 
 def fused_lanes(DS: int) -> int:
-    """Lanes the fused kernels give one channel: DS rounded up to 8, 16 or
-    32 (a lane a state element); DS outside 1..32 raises."""
-    for lanes in (8, 16, 32):
+    """The fused kernels' instance of d_state: DS rounded up to 8, 16 or 32
+    (a key of ``FUSED_LAYOUT``); DS outside 1..32 raises."""
+    for lanes in FUSED_LAYOUT:
         if 1 <= DS <= lanes:
             return lanes
     raise ValueError(f"selective_scan_fused: d_state {DS} not in 1..32")
 
 
 def fused_blocks(DI: int, DS: int) -> int:
-    """The fused kernels' channel blocks (``FUSED_THREADS`` / lanes channels
-    each): the first axis of the backward's partials of dB and dC."""
-    return -(-DI // (FUSED_THREADS // fused_lanes(DS)))
+    """The fused kernels' channel blocks (``FUSED_THREADS`` / threads a
+    channel each): the first axis of the backward's partials of dB and
+    dC."""
+    per = FUSED_THREADS // FUSED_LAYOUT[fused_lanes(DS)][1]
+    return -(-DI // per)
 
 
 def _check_fused(u, dt, A, Bc, Cc) -> tuple:

@@ -202,9 +202,11 @@ def selective_scan_backward_ref(a: torch.Tensor, h: torch.Tensor,
 
 
 # The fused scan's state interval: the kernels (``csrc/selective_scan_fused.cu``,
-# kChunk) save the state entering every FUSED_CHUNK-th step for the backward,
-# and the plain versions walk the sequence in chunks of this many steps.
-FUSED_CHUNK = 64
+# kInterval) save the state entering every FUSED_CHUNK-th step for the
+# backward, which walks each interval back from its state with one
+# exponential an element; the plain versions walk the sequence in chunks of
+# this many steps.
+FUSED_CHUNK = 16
 
 
 def fused_chunks(S: int) -> int:

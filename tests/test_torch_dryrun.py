@@ -214,7 +214,8 @@ def _calls(gen):
     kw = dict(causal=True, window=24, softcap=None)
     u, Bc, Cc = gen((B, 70, 6), bf), gen((B, 70, 4), bf), gen((B, 70, 4), bf)
     dt, dy = gen((B, 70, 6), torch.float32), gen((B, 70, 6), torch.float32)
-    A, st = gen((6, 4), torch.float32), gen((B, 2, 6, 4), torch.float32)
+    A = gen((6, 4), torch.float32)
+    st = gen((B, ref.fused_chunks(70), 6, 4), torch.float32)   # 5 states
     return [
         ("flash_attention", lambda: ops.flash_attention_forward(
             q, k, v, True, 24, None, want_lse=True)),
@@ -260,7 +261,7 @@ def test_meta_route_matches_the_kernel_outputs_and_reports_the_work(monkeypatch)
         ("selective_scan", 0, "f32"),
         ("selective_scan_backward", 0, "f32"),
         ("selective_scan_fused", 7 * 2 * 70 * 6 * 4, "f32"),
-        ("selective_scan_fused_backward", 25 * 2 * 70 * 6 * 4, "f32")]
+        ("selective_scan_fused_backward", 20 * 2 * 70 * 6 * 4, "f32")]
     # bytes: q, k, v read, o and lse written, never the scores
     qb, kb, ob, lb = 2 * 48 * 4 * 32 * 2, 2 * 64 * 2 * 32 * 2, \
         2 * 48 * 4 * 32 * 2, 2 * 4 * 48 * 4
@@ -268,11 +269,11 @@ def test_meta_route_matches_the_kernel_outputs_and_reports_the_work(monkeypatch)
     assert seen[1][3:] == (2 * qb + 2 * kb + ob + lb, qb + 2 * kb)
     assert seen[3][3:] == (2 * 2 * 8 * 24 * 4 + 2 * 24 * 4, 2 * 8 * 24 * 4)
     # the fused scan: its operands read (u, Bc, Cc in bf16) and y and the
-    # chunk states written; backward, the states and dy read too and du,
-    # ddt, dA, dB and dC written in f32 (the kernel's; du, dB and dC are
-    # cast to bf16 after it), never a [B,S,DI,DS] tensor
+    # states (one every 16 steps) written; backward, the states and dy read
+    # too and du, ddt, dA, dB and dC written in f32 (the kernel's; du, dB
+    # and dC are cast to bf16 after it), never a [B,S,DI,DS] tensor
     ub, rb, fb = 2 * 70 * 6 * 2, 2 * 70 * 4 * 2, 2 * 70 * 6 * 4
-    sb, ab = 2 * 2 * 6 * 4 * 4, 6 * 4 * 4
+    sb, ab = 2 * 5 * 6 * 4 * 4, 6 * 4 * 4
     assert seen[5][3:] == (ub + fb + ab + 2 * rb, fb + sb)
     assert seen[6][3:] == (ub + 2 * fb + ab + 2 * rb + sb,
                            2 * fb + ab + 4 * rb)

@@ -42,8 +42,11 @@ print(json.dumps(sorted(m for m in sys.modules
 
 
 def _script(name, *args, probe=True):
-    """stdout of ``examples/<name>`` run with ``args`` (PYTHONPATH=src)."""
-    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    """stdout of ``examples/<name>`` run with ``args`` (PYTHONPATH=src), on
+    one torch thread: beside other test processes a pool of intra-op
+    threads as wide as the machine spins against them (the train example's
+    12 steps then took minutes, past the limit below)."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), OMP_NUM_THREADS="1")
     cmd = ([sys.executable, "-c", _RUN, str(EXAMPLES / name), *args] if probe
            else [sys.executable, str(EXAMPLES / name), *args])
     out = subprocess.run(cmd, cwd=ROOT, env=env, capture_output=True,

@@ -981,10 +981,11 @@ def test_bf16_backward_factor_order_meets_the_tolerance_of_the_other(case):
 
 
 # The fused scan (``ref.selective_scan_fused_ref``: a and b built and h.C
-# taken per chunk of ``ref.FUSED_CHUNK`` steps), which ``ops`` runs for CPU
-# tensors on the fused route and the CUDA kernels of
-# ``csrc/selective_scan_fused.cu`` are held to on the card: S below, at and
-# past a chunk, ragged, S = 1, d_state from 3 to 16, f32 and bf16 operands.
+# taken per chunk of ``ref.FUSED_CHUNK`` steps, the kernels' state
+# interval), which ``ops`` runs for CPU tensors on the fused route and the
+# CUDA kernels of ``csrc/selective_scan_fused.cu`` are held to on the card:
+# S at and past a multiple of the interval, ragged, S = 1, d_state from 3
+# to 16, f32 and bf16 operands.
 FUSED_CASES = [
     # (B, S, DI, DS, dtype)
     (2, 150, 12, 5, "f32"),
@@ -1013,8 +1014,9 @@ def test_selective_scan_fused_ref_matches_the_materialised_route(case):
     """y against a and b built at [B,S,DI,DS], the plain scan and the h.C
     einsum (the same products and the same loop: 1e-6), and against JAX's
     oracle (its associative scan) with the same einsum (2e-5 of the largest
-    magnitude); each chunk's state is the materialised h before it, bit for
-    bit."""
+    magnitude); the state entering every 16th step is the materialised h
+    before it, bit for bit."""
+    assert ref.FUSED_CHUNK == 16   # csrc/selective_scan_fused.cu's kInterval
     u, dt, A, Bc, Cc, _ = _fused_inputs(case)
     y, states = ref.selective_scan_fused_ref(u, dt, A, Bc, Cc, want_states=True)
     B, S, DI, DS, _ = case
@@ -1124,13 +1126,19 @@ def test_selective_scan_fused_backward_rejects_bad_operands(bad):
 @pytest.mark.parametrize("DS,lanes", [(1, 8), (3, 8), (8, 8), (9, 16),
                                       (16, 16), (17, 32), (32, 32)])
 def test_fused_lanes_and_blocks(DS, lanes):
-    """A channel takes DS rounded up to 8, 16 or 32 lanes; a block of 256
-    threads 256 / lanes channels, so falcon-mamba's DI 8192 at DS 16 is 512
-    blocks; DS above 32 raises."""
+    """d_state takes the instance of DS rounded up to 8, 16 or 32; there a
+    thread owns 2, 4, 4 states of a channel and 4, 4, 8 threads share it,
+    so a block of 256 threads holds 64, 64, 32 channels and falcon-mamba's
+    DI 8192 at DS 16 is 128 blocks; DS above 32 raises."""
     assert ops.fused_lanes(DS) == lanes
-    per = ops.FUSED_THREADS // lanes
+    K, P = ops.FUSED_LAYOUT[lanes]
+    assert K * P == lanes and (K, P) == {8: (2, 4), 16: (4, 4),
+                                         32: (4, 8)}[lanes]
+    per = ops.FUSED_THREADS // P
+    assert per == (32 if lanes == 32 else 64)
     assert ops.fused_blocks(8192, DS) == 8192 // per
     assert ops.fused_blocks(per + 1, DS) == 2
-    assert ops.fused_blocks(8192, 16) == 512
+    assert ops.fused_blocks(per, DS) == 1
+    assert ops.fused_blocks(8192, 16) == 128
     with pytest.raises(ValueError):
         ops.fused_lanes(33)

@@ -1179,9 +1179,11 @@ def test_attention_launches_record_their_built_head_dim(card, D, dt):
 
 # The fused scan's kernels (csrc/selective_scan_fused.cu) against their plain
 # versions: falcon-mamba's train shape in f32 and bf16, a ragged S (not a
-# multiple of the kernels' 64-step chunks), a reduced width, d_state 8 (the
-# reduced configs'), 3 and 32 (the 8- and 32-lane instances) and a DI that
-# is not a multiple of a block's channels; y within 2e-5 (f32
+# multiple of the kernels' 16-step intervals or the forward's 64-step
+# stages), a reduced width, d_state 8 (the reduced configs'), 3 and 32 (the
+# 8- and 32-state instances), 12 (the 16-state instance with its last
+# thread of a channel idle) and a DI that is not a multiple of a block's
+# channels (24, 40; 200 over 4 blocks of 64); y within 2e-5 (f32
 # accumulation in another order over n), the backward within 2e-5 of each
 # gradient's largest magnitude, every kernel bitwise repeatable.
 FUSED_CASES = [
@@ -1192,6 +1194,7 @@ FUSED_CASES = [
     (1, 333, 256, 8, "bf16"),
     (2, 130, 40, 3, "f32"),
     (1, 200, 24, 32, "f32"),
+    (2, 300, 200, 12, "bf16"),
 ]
 
 
